@@ -1,0 +1,221 @@
+"""The port's kernel modules against the JAX package's, on the CPU.
+
+Each kernel module of framewright_tpu_torch.ops (fused_rrdb: the RDB;
+fused_tail3: K1; fused_tail: K2) runs its plain PyTorch version here,
+because its tensors lie on the CPU; the JAX functions run their Pallas
+kernels in interpret mode at the block size tests/conftest.py pins.
+The CUDA kernels are held against these plain versions on the card
+(chip_smoke.py, tests/test_torch_gpu.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import jax
+import jax.numpy as jnp
+
+from framewright_tpu.models import rrdb as jrrdb
+from framewright_tpu.ops import fused_rrdb as jfr
+from framewright_tpu.ops import fused_tail as jft
+from framewright_tpu.ops import fused_tail3 as jft3
+from framewright_tpu_torch.models import rrdb
+from framewright_tpu_torch.models.registry import from_jax_params, init_params
+from framewright_tpu_torch.ops import fused_rrdb, fused_tail, fused_tail3
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def nets():
+    # shared seeded weights, drawn with numpy (JAX's eager init is slow)
+    params = init_params(rrdb.RRDBConfig(num_block=2, scale=2), seed=1)
+    fast = jrrdb.make_fast_params(params)
+    model = rrdb.RRDBNet.from_state_dict(rrdb.RRDBConfig(num_block=2, scale=2),
+                                         from_jax_params(params, torch.float32),
+                                         torch.device("cpu"))
+    return params, fast, model
+
+
+def _feat(b, h, w, seed=0):
+    """Seeded (B, H, W, 64) features, rounded to bf16 for both sides."""
+    f = np.random.default_rng(seed).uniform(-1, 1, (b, h, w, 64)).astype(np.float32)
+    t = torch.from_numpy(f).to(torch.bfloat16)
+    return t, jnp.asarray(t.float().numpy(), jnp.bfloat16)
+
+
+def _err(got, want):
+    d = np.abs(np.asarray(got, np.float32) - np.asarray(want, np.float32))
+    return d.max(), d.mean()
+
+
+class TestRDB:
+    def test_body_matches_rrdb_body_merge(self, nets):
+        # a 2-block body over a 2x2 grid of interpret-mode blocks, B=2
+        _, fast, model = nets
+        feat_t, feat_j = _feat(2, 60, 70, seed=1)
+        want = np.asarray(jfr.rrdb_body_merge(feat_j, fast, interpret=True), np.float32)
+        ws = fused_rrdb.rrdb_body(feat_t, model.fast_weights().body)
+        got = ws[..., :64].float().numpy()
+        mx, mean = _err(got, want)
+        # same rounding points, summation order differs: a few bf16 ulps
+        assert mx < 0.05 and mean < 5e-4, (mx, mean)
+
+    def test_one_rdb_matches_rdb_forward(self, nets):
+        params, _, model = nets
+        feat_t, _ = _feat(1, 24, 40, seed=2)
+        x = feat_t.float().numpy()
+        want = np.asarray(jrrdb._rdb_forward(params["body"][0]["rdb2"], jnp.asarray(x)),
+                          np.float32)
+        ws = fused_rrdb.new_workspace(feat_t)
+        dst = torch.zeros_like(ws)
+        fused_rrdb.fused_rdb(ws, dst, model.fast_weights().body[0][1])
+        mx, mean = _err(dst[..., :64].float().numpy(), want)
+        assert mx < 0.05 and mean < 0.005, (mx, mean)
+
+    def test_residual_variant(self, nets):
+        _, _, model = nets
+        feat_t, _ = _feat(1, 16, 20, seed=3)
+        wts = model.fast_weights().body[0][2]
+        ws = fused_rrdb.new_workspace(feat_t)
+        plain = torch.empty_like(ws)
+        fused_rrdb.fused_rdb(ws, plain, wts)
+        carry = fused_rrdb.new_workspace(feat_t.flip(1).contiguous())
+        want = ((fused_rrdb.BF16_0P2 * plain[..., :64].float()).to(torch.bfloat16).float()
+                + carry[..., :64].float()).to(torch.bfloat16)
+        fused_rrdb.fused_rdb(ws, carry, wts, carry=carry)    # in place over carry
+        assert torch.equal(carry[..., :64], want)
+
+    def test_wrapper_contract(self, nets):
+        _, _, model = nets
+        wts = model.fast_weights().body[0][0]
+        feat_t, _ = _feat(1, 8, 8)
+        ws = fused_rrdb.new_workspace(feat_t)
+        before = fused_rrdb.fused_rdb.launches
+        fused_rrdb.fused_rdb(ws, torch.empty_like(ws), wts)
+        assert fused_rrdb.fused_rdb.launches == before      # CPU: plain version
+        with pytest.raises(ValueError, match="dst must not be ws"):
+            fused_rrdb.fused_rdb(ws, ws, wts)
+        with pytest.raises(ValueError, match="bf16"):
+            fused_rrdb.fused_rdb(ws.float(), torch.empty_like(ws).float(), wts)
+        with pytest.raises(ValueError, match="contiguous"):
+            t = ws.transpose(1, 2)
+            fused_rrdb.fused_rdb(t, torch.empty_like(t), wts)
+
+
+class TestTail:
+    @pytest.fixture(scope="class")
+    def body(self, nets):
+        """JAX merge-body blocks over a multi-block grid, and the same
+        body output assembled into an NHWC image for the port."""
+        params, fast, model = nets
+        x = np.random.default_rng(4).random((1, 120, 136, 3)).astype(np.float32)
+        feat = jrrdb._head(params, jnp.asarray(x, jnp.bfloat16), jrrdb.RRDBConfig(
+            num_block=2, scale=2))
+        out_blocks, feat_blocks, ext, (b, nh, nw) = jfr.rrdb_body_merge_blocks(
+            feat, fast, interpret=True)
+        h, w = int(feat.shape[1]), int(feat.shape[2])
+        body_img = jfr.assemble_blocks(out_blocks.reshape(b * nh * nw, 64, jfr.S, jfr.S),
+                                       b, h, w).transpose(0, 2, 3, 1)
+        to_t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+        return (fast, model, (out_blocks, feat_blocks, ext, b, nh, nw, h, w),
+                to_t(body_img).contiguous(), to_t(feat).contiguous())
+
+    def _jax_tail(self, fast, blocks, out_mode, full_range=False):
+        out_blocks, feat_blocks, ext, b, nh, nw, h, w = blocks
+        return jft3.tail3_image(out_blocks, feat_blocks, ext, b, nh, nw, h, w,
+                                fast["tail3_phase"], interpret=True,
+                                out_mode=out_mode, full_range=full_range)
+
+    def test_k1_k2_bf16_match_tail3_image(self, body):
+        fast, model, blocks, body_t, feat_t = body
+        want = np.asarray(self._jax_tail(fast, blocks, "bf16"), np.float32)
+        fw = model.fast_weights()
+        skip = fused_tail3.conv_body_skip(body_t, feat_t, fw.cbody)
+        got = fused_tail.fused_tail(skip, fw.tail, "bf16").float().numpy()
+        assert got.shape == want.shape == (1, 240, 272, 3)
+        mx, mean = _err(got, want)
+        assert mx < 0.02 and mean < 1e-3, (mx, mean)
+
+    @pytest.mark.parametrize("out_mode,full_range", [("rgb_u8", False),
+                                                      ("yuv420_u8", False),
+                                                      ("yuv420_u8", True)])
+    def test_k2_uint8_modes_match_tail3_image(self, body, out_mode, full_range):
+        fast, model, blocks, body_t, feat_t = body
+        want = self._jax_tail(fast, blocks, out_mode, full_range)
+        fw = model.fast_weights()
+        skip = fused_tail3.conv_body_skip(body_t, feat_t, fw.cbody)
+        got = fused_tail.fused_tail(skip, fw.tail, out_mode, full_range)
+        if out_mode == "rgb_u8":
+            got, want = (got,), (want,)
+        for g, w in zip(got, want):
+            w = np.asarray(w)
+            assert g.dtype == torch.uint8 and tuple(g.shape) == w.shape
+            d = np.abs(g.numpy().astype(np.float32) - w.astype(np.float32))
+            assert d.max() <= 1 and (d > 0).mean() < 0.02, (d.max(), (d > 0).mean())
+
+    def test_k1_matches_cbody_math(self, body):
+        # K1 = bf16(conv_body(x) + b + feat) in f32, one rounding
+        _, model, _, body_t, feat_t = body
+        fw = model.fast_weights()
+        got = fused_tail3.conv_body_skip(body_t, feat_t, fw.cbody)
+        conv = model.conv_body
+        acc = F.conv2d(body_t.permute(0, 3, 1, 2).float(),
+                       conv.weight.to(torch.bfloat16).float(), padding=1)
+        want = (acc + conv.bias.view(1, -1, 1, 1) + feat_t.permute(0, 3, 1, 2).float())
+        want = want.permute(0, 2, 3, 1).to(torch.bfloat16)
+        assert torch.equal(got, want)
+
+    def test_phase_conv_equals_conv_after_nearest_upsample(self, nets):
+        # f32 phase weights (before the bf16 cast) reproduce the 3x3 conv
+        # over the nearest-2x image at 4/9 of its MACs
+        _, _, model = nets
+        w = model.conv_up1.weight.float()
+        x = torch.from_numpy(np.random.default_rng(6).uniform(
+            -1, 1, (1, 64, 9, 11)).astype(np.float32))
+        want = F.conv2d(F.interpolate(x, scale_factor=2, mode="nearest"), w, padding=1)
+        wp = fused_tail.up2_phase_weights(w)
+        xp = F.pad(x, (1, 1, 1, 1))
+        for p in (0, 1):
+            for q in (0, 1):
+                k = wp[p * 2 + q].reshape(64, 2, 2, 64).permute(0, 3, 1, 2)
+                got = F.conv2d(xp[:, :, p:p + 10, q:q + 12], k)
+                torch.testing.assert_close(got, want[:, :, p::2, q::2],
+                                           atol=1e-5, rtol=1e-5)
+
+    def test_phase_weights_match_jax(self, nets):
+        params, fast, model = nets
+        for name, key in (("conv_up1", "Wa0"), ("conv_up2", "Wa")):
+            want = np.asarray(fast["tail2_phase"][key], np.float32)   # (4, 64, 256)
+            got = (fused_tail.up2_phase_weights(getattr(model, name).weight)
+                   .to(torch.bfloat16).float().reshape(4, 64, 256).numpy())
+            np.testing.assert_array_equal(got, want)
+
+    @pytest.mark.parametrize("full_range", [False, True])
+    def test_yuv_coefficients_match_yuv420_matrix(self, full_range):
+        m, b = jft.yuv420_matrix(full_range)
+        k = fused_tail.yuv420_coefficients(full_range)
+        np.testing.assert_array_equal(k[0:3], m[0, 0:3])
+        np.testing.assert_array_equal(k[3:6], m[16, 0:3])
+        np.testing.assert_array_equal(k[6:9], m[20, 0:3])
+        assert k[9] == b[0, 0] and k[10] == b[16, 0]
+
+    def test_wrapper_contract(self, body):
+        _, model, _, body_t, feat_t = body
+        fw = model.fast_weights()
+        before = (fused_tail3.conv_body_skip.launches, fused_tail.fused_tail.launches)
+        skip = fused_tail3.conv_body_skip(body_t, feat_t, fw.cbody)
+        fused_tail.fused_tail(skip[:, :8, :8].contiguous(), fw.tail, "rgb_u8")
+        assert (fused_tail3.conv_body_skip.launches,
+                fused_tail.fused_tail.launches) == before
+        with pytest.raises(ValueError, match="out_mode"):
+            fused_tail.fused_tail(skip, fw.tail, "rgb16")
+        with pytest.raises(ValueError, match="feat"):
+            fused_tail3.conv_body_skip(body_t, feat_t[:, 1:].contiguous(), fw.cbody)
