@@ -5,22 +5,30 @@
 
 Phases, one JSON object per line on stdout:
   1. device   the card (nvidia-smi name and power limit, torch's name)
-  2. build    the kernels from a clean build directory (one nvcc call)
+  2. build    the kernels from a clean build directory (one nvcc per
+              source, all at once, then one link)
   3. kernels  each kernel against its plain PyTorch version on the card,
               at the default model's main-path shapes (body 540x960x64,
-              tail out to 2160x3840): the RDB and its residual variant,
-              K1, and K2 in its three output modes
+              tail out to 2160x3840): the bf16 RDB and its residual
+              variant, both int8 RDBs (i32 and f32acc, codes x1..x4 and
+              bf16 output, with and without the residual), K1, and K2 in
+              its three output modes
   4. model    one 1080p frame through the kernel path of
               RealESRGAN_x2plus (23 blocks, seeded random weights) and of
               FW_fast6_x2 (trained weights) against the plain f32
               ``apply``; their uint8 outputs against the epilogue of their
-              own bf16 output
+              own bf16 output; the int8 kernel path (scales calibrated on
+              the frame's centre crop) of FW_fast6_x2 against its bf16
+              kernel path (PSNR) and of x2plus against its int8 plain path
   5. restore  the user's entry point, ``python -m framewright_tpu_torch.cli
-              restore``, on a seeded synthetic 1080p 4:2:0 clip, with the
-              kernels' launch counters set to 0 just before and read just
-              after; output size, frame count and every frame checked
+              restore``, on a seeded synthetic 1080p 4:2:0 clip: in bf16,
+              in int8 (default scheme i32) and in int8 with
+              FW_INT8_SCHEME=f32acc, each with every launch counter set to
+              0 just before and read just after; output size, frame count
+              and every frame checked against the kernel path
   6. times    each kernel by CUDA events beside its plain version, its
-              roofline bound and, for the RDB and K1, cuDNN's F.conv2d
+              roofline bound and, for the bf16 RDB and K1, cuDNN's
+              F.conv2d (PyTorch has no single int8 3x3 convolution call)
 Then nvidia-smi's line, the kernel summary line, and the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 the result line. Without a CUDA device, or without the package beside
@@ -33,6 +41,7 @@ import argparse
 import contextlib
 import io
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -45,7 +54,10 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 peak
+PEAK_INT8_OPS = 1979e12       # H100 SXM dense int8 peak
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
+INT8_PSNR_MIN = 38.0          # int8 vs bf16 kernel path (tests/test_int8_mode.py)
+CODE_MAX_STEP, CODE_MAX_FRAC = 1, 1e-4
 UINT8_MAX_LSB, UINT8_MAX_FRAC = 1, 0.02
 MODEL_MAX_ABS, MODEL_MEAN_ABS = 0.05, 0.005
 RDB_MAC_PER_PX = 9 * (64 * 32 + 96 * 32 + 128 * 32 + 160 * 32 + 192 * 64)
@@ -69,8 +81,8 @@ def require(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -146,6 +158,32 @@ def check_u8(name: str, got, want, phase: str = "kernels",
     return s
 
 
+def check_codes(name: str, got, want, phase: str = "kernels") -> dict:
+    """int8 codes of the kernel and its plain version: the same integer
+    sums and the same f32 operations in the same order, so they agree
+    except where a float operation genuinely differs; at most one step,
+    on fewer than ``CODE_MAX_FRAC`` of the codes."""
+    s = diff_stats(got, want)
+    s.update(name=name, tol={"max_step": CODE_MAX_STEP, "frac_differ": CODE_MAX_FRAC})
+    emit({"phase": phase, **s})
+    require(s["max_abs"] <= CODE_MAX_STEP and s["frac_differ"] < CODE_MAX_FRAC, f"{name}: {s}")
+    return s
+
+
+def psnr(a, b) -> float:
+    mse = (a.float() - b.float()).pow(2).mean().item()
+    return 10.0 * np.log10(1.0 / max(mse, 1e-12))
+
+
+def centre_crop(x_u8: np.ndarray) -> np.ndarray:
+    """The int8 calibration sample of the SR processor: the first frame's
+    centre crop, at most 256x256 with sides a multiple of 8, u8 / 255."""
+    _, h, w, _ = x_u8.shape
+    ch, cw = min(h, 256) & ~7, min(w, 256) & ~7
+    r0, c0 = (h - ch) // 2, (w - cw) // 2
+    return x_u8[:1, r0:r0 + ch, c0:c0 + cw].astype(np.float32) / 255.0
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     import torch
 
@@ -185,6 +223,7 @@ def main(argv=None) -> int:
     from framewright_tpu_torch.models import rrdb
     from framewright_tpu_torch.models.registry import (
         MODEL_SPECS,
+        bf16_masters,
         from_jax_params,
         init_params,
         packaged_weights_dir,
@@ -213,8 +252,9 @@ def main(argv=None) -> int:
 
     # 3. kernels vs plain at main-path shapes ---------------------------
     t0 = time.perf_counter()
+    # masters rounded to bf16 once, as the restore's SR processor loads them
     spec = MODEL_SPECS["RealESRGAN_x2plus"]
-    sd = from_jax_params(init_params(spec.arch_config, seed=0), torch.float32)
+    sd = bf16_masters(from_jax_params(init_params(spec.arch_config, seed=0), torch.float32))
     model = rrdb.RRDBNet.from_state_dict(spec.arch_config, sd, dev)
     fw = model.fast_weights()
     n_frames = max(1, args.frames)
@@ -237,6 +277,27 @@ def main(argv=None) -> int:
     fused_rrdb.fused_rdb_plain(d_k.clone(), c_p, fw.body[0][2], carry=c_p)
     torch.cuda.synchronize()
     errs["rdb"] = max(errs["rdb"], check_bf16("rdb_res", c_k[..., :64], c_p[..., :64])["max_abs"])
+    # both int8 RDBs, with scales calibrated on the frame's centre crop
+    amax = rrdb.calibrate_act_scales(model, torch.from_numpy(centre_crop(frames[:1])))
+    fw8 = {s: model.fast_weights_int8(amax, s) for s in fused_rrdb.INT8_SCHEMES}
+    for scheme, w8 in fw8.items():
+        wts = w8.body[0]
+        q_k = torch.zeros(*feat.shape[:3], 192, dtype=torch.int8, device=dev)
+        q_p = torch.zeros_like(q_k)
+        o_k, o_p = torch.empty_like(feat), torch.empty_like(feat)
+        fused_rrdb.fused_rdb_int8(feat, q_k, o_k, wts[0])
+        fused_rrdb.fused_rdb_int8_plain(feat, q_p, o_p, wts[0])
+        torch.cuda.synchronize()
+        e = [check_codes(f"rdb_int8_{scheme} q0..q4", q_k, q_p)["max_abs"],
+             check_bf16(f"rdb_int8_{scheme}", o_k, o_p)["max_abs"]]
+        r_k, r_p = feat.clone(), feat.clone()
+        fused_rrdb.fused_rdb_int8(o_k, q_k, r_k, wts[2], carry=r_k)
+        fused_rrdb.fused_rdb_int8_plain(o_k, q_p, r_p, wts[2], carry=r_p)
+        torch.cuda.synchronize()
+        e += [check_codes(f"rdb_int8_{scheme}_res q0..q4", q_k, q_p)["max_abs"],
+              check_bf16(f"rdb_int8_{scheme}_res", r_k, r_p)["max_abs"]]
+        errs[f"rdb_int8_{scheme}"] = max(e)
+        del q_k, q_p, o_k, o_p, r_k, r_p
     skip_k = fused_tail3.conv_body_skip(c_k, feat, fw.cbody)
     skip_p = fused_tail3.conv_body_skip_plain(c_k, feat, fw.cbody)
     torch.cuda.synchronize()
@@ -271,7 +332,7 @@ def main(argv=None) -> int:
     require(npz.is_file(), f"missing {npz}")
     fast6 = rrdb.RRDBNet.from_state_dict(
         MODEL_SPECS["FW_fast6_x2"].arch_config,
-        from_jax_params(read_npz(npz), torch.float32), dev)
+        bf16_masters(from_jax_params(read_npz(npz), torch.float32)), dev)
     xb = x32.to(torch.bfloat16)
     model_ms = {}
     with torch.no_grad():
@@ -285,8 +346,9 @@ def main(argv=None) -> int:
         for name, m, relative, frac in (("RealESRGAN_x2plus", model, True, UINT8_MAX_FRAC),
                                         ("FW_fast6_x2", fast6, False, None)):
             ref = m.apply(x32)                                     # plain f32
+            w16 = m.fast_weights()
             torch.cuda.reset_peak_memory_stats()
-            fast = m.apply_fast(xb, "bf16")
+            fast = m.apply_fast(xb, "bf16", weights=w16)
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated()
             s = diff_stats(fast, ref)
@@ -301,75 +363,151 @@ def main(argv=None) -> int:
             require(tuple(fast.shape) == (1, 2160, 3840, 3), f"{name}: shape {fast.shape}")
             require(s["max_scaled"] < MODEL_MAX_ABS and s["mean_scaled"] < MODEL_MEAN_ABS,
                     f"{name}: {s}")
-            rgb = m.apply_fast(xb, "rgb_u8")
+            rgb = m.apply_fast(xb, "rgb_u8", weights=w16)
             check_u8(f"{name} rgb_u8 vs epilogue", rgb,
                      rrdb._out_epilogue(fast, "rgb_u8", False), "model", frac)
             for full in (False, True):
-                planes = m.apply_fast(xb, "yuv420_u8", full)
+                planes = m.apply_fast(xb, "yuv420_u8", full, weights=w16)
                 want = rrdb._out_epilogue(fast, "yuv420_u8", full)
                 for g, w, plane in zip(planes, want, "YUV"):
                     check_u8(f"{name} yuv420_u8 full_range={full} {plane}", g, w,
                              "model", frac)
-            model_ms[name] = cuda_ms(lambda: m.apply_fast(xb, "yuv420_u8", True), 3, warmup=1)
+            model_ms[name] = cuda_ms(lambda: m.apply_fast(xb, "yuv420_u8", True, weights=w16),
+                                     3, warmup=1)
             emit({"phase": "model", "name": name, "ms_per_frame_yuv420": model_ms[name],
                   "peak_mem_bytes": peak})
-            del ref, fast, rgb, planes, want
+            del ref, rgb, planes, want
+
+            # int8 (default scheme i32), scales calibrated on the frame's
+            # centre crop as the SR processor takes them
+            a8 = rrdb.calibrate_act_scales(m, torch.from_numpy(centre_crop(frames[:1])))
+            w8 = m.fast_weights_int8(a8, "i32")
+            torch.cuda.reset_peak_memory_stats()
+            fast8 = m.apply_fast(xb, "bf16", weights=w8)
+            torch.cuda.synchronize()
+            peak8 = torch.cuda.max_memory_allocated()
+            require(bool(torch.isfinite(fast8.float()).all()), f"{name}: non-finite int8 output")
+            require(tuple(fast8.shape) == (1, 2160, 3840, 3), f"{name}: int8 shape {fast8.shape}")
+            rec = {"phase": "model", "name": f"{name} int8 i32 kernel path",
+                   "psnr_vs_bf16_kernel_path": psnr(fast8, fast), "peak_mem_bytes": peak8}
+            if name == "FW_fast6_x2":
+                # the trained model's image-like output: the JAX package's
+                # int8 quality bound against its own bf16 path
+                rec["tol"] = {"psnr_min": INT8_PSNR_MIN}
+                emit(rec)
+                require(rec["psnr_vs_bf16_kernel_path"] > INT8_PSNR_MIN, f"{name}: {rec}")
+            else:
+                # random weights: PSNR on a ±50 output is printed only; the
+                # kernels are held to the int8 plain path on the same
+                # frame, errors divided by its range as for bf16 above
+                feat8 = m._head(xb).contiguous()
+                body_p = fused_rrdb.rrdb_body_int8(feat8, w8.body, plain=True)
+                ref8 = fused_tail.fused_tail_plain(
+                    fused_tail3.conv_body_skip_plain(body_p, feat8, w8.cbody), w8.tail, "bf16")
+                del feat8, body_p
+                s8 = diff_stats(fast8, ref8)
+                lo, hi = ref8.float().min().item(), ref8.float().max().item()
+                s8.update(max_scaled=s8["max_abs"] / (hi - lo), mean_scaled=s8["mean_abs"] / (hi - lo))
+                rec.update(name=f"{name} int8 i32 kernel path vs int8 plain path", ref_min=lo,
+                           ref_max=hi, **s8,
+                           tol={"max_scaled": MODEL_MAX_ABS, "mean_scaled": MODEL_MEAN_ABS})
+                emit(rec)
+                require(s8["max_scaled"] < MODEL_MAX_ABS and s8["mean_scaled"] < MODEL_MEAN_ABS,
+                        f"{name} int8: {s8}")
+                del ref8
+            model_ms[f"{name} int8"] = cuda_ms(
+                lambda: m.apply_fast(xb, "yuv420_u8", True, weights=w8), 3, warmup=1)
+            emit({"phase": "model", "name": f"{name} int8", "ms_per_frame_yuv420":
+                  model_ms[f"{name} int8"]})
+            del fast, fast8
     del fast6
     emit({"phase": "model", "seconds": round(time.perf_counter() - t0, 3)})
 
-    # 5. the main path: cli restore on a synthetic clip -----------------
+    # 5. the main paths: cli restore on a synthetic clip ---------------
+    # Three runs of the user's entry point on the same clip: bf16, int8
+    # (default scheme i32) and int8 with FW_INT8_SCHEME=f32acc. Every
+    # counter is set to 0 just before each run and read just after it.
     t0 = time.perf_counter()
+    counters = (fused_rrdb.fused_rdb, fused_rrdb.fused_rdb_i32, fused_rrdb.fused_rdb_f32acc,
+                fused_tail3.conv_body_skip, fused_tail.fused_tail)
+    runs = (("bfloat16", None), ("int8", None), ("int8", "f32acc"))
+    launches_by_run = {}
     with tempfile.TemporaryDirectory(prefix="fw_smoke_") as tmp:
         tmp = Path(tmp)
-        src, out = tmp / "clip.y4m", tmp / "restored.y4m"
+        src = tmp / "clip.y4m"
         with Y4MWriter(src, 1920, 1080, fps=24) as writer:
             for f in frames:
                 writer.write_frame(f)
-        counters = (fused_rrdb.fused_rdb, fused_tail3.conv_body_skip,
-                    fused_tail.fused_tail)
-        for fn in counters:
-            fn.launches = 0
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            # an empty weights dir: the restore draws the same seeded
-            # random weights as ``model`` above
-            rc = cli.main(["restore", str(src), "-o", str(out), "--device", "cuda",
-                           "--weights-dir", str(tmp / "no_weights"),
-                           "--project-dir", str(tmp / "proj")])
-        launches = {fn.__name__: fn.launches for fn in counters}
-        require(rc == 0, f"cli restore exited {rc}")
-        summary = json.loads(buf.getvalue())
-        w, h, planes_out = read_y4m_planes(out)
-        batches = summary["batches"]
-        emit({"phase": "restore", "summary": summary, "out_width": w, "out_height": h,
-              "frames_out": len(planes_out), "launches": launches,
-              "seconds": round(time.perf_counter() - t0, 3)})
-        require((w, h) == (3840, 2160), f"restore output {w}x{h}")
-        require(len(planes_out) == n_frames == summary["frames"],
-                f"restore wrote {len(planes_out)} of {n_frames} frames")
-        require(launches["fused_rdb"] == 69 * batches > 0
-                and launches["conv_body_skip"] == batches
-                and launches["fused_tail"] == batches,
-                f"launch counts {launches} for {batches} batches")
-        # every written frame against the kernel path run directly on the
-        # same decoded frames in the same batches: the same deterministic
-        # kernels, so the planes must match exactly (phase 4 holds the
-        # kernel path against the plain f32 model)
         with Y4MReader(src) as reader:
             decoded = np.stack(list(reader))
-        bs = summary["batch_size"]
-        worst = 0.0
-        with torch.no_grad():
-            for i in range(0, n_frames, bs):
-                xs = torch.from_numpy(decoded[i:i + bs]).to(dev).to(torch.bfloat16) / 255.0
-                want = model.apply_fast(xs, "yuv420_u8", True)
-                for j in range(len(xs)):
-                    for g, w_ in zip(planes_out[i + j], want):
-                        worst = max(worst, diff_stats(torch.from_numpy(g.copy()),
-                                                      w_[j].cpu())["max_abs"])
-        emit({"phase": "restore", "name": "written planes vs kernel path on the decoded frames",
-              "max_abs": worst, "tol": {"max_abs": 0}})
-        require(worst == 0, f"restore output differs from the kernel path by {worst}")
+        for dtype, scheme in runs:
+            label = dtype if scheme is None else f"{dtype} FW_INT8_SCHEME={scheme}"
+            out = tmp / f"restored_{len(launches_by_run)}.y4m"
+            if scheme is not None:
+                os.environ["FW_INT8_SCHEME"] = scheme
+            for fn in counters:
+                fn.launches = 0
+            rrdb.calibrate_act_scales.calls = 0
+            buf = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    # an empty weights dir: the restore draws the same
+                    # seeded random weights as ``model`` above
+                    rc = cli.main(["restore", str(src), "-o", str(out), "--device", "cuda",
+                                   "--dtype", dtype, "--weights-dir", str(tmp / "no_weights"),
+                                   "--project-dir", str(tmp / "proj")])
+            finally:
+                os.environ.pop("FW_INT8_SCHEME", None)
+            launches = {fn.__name__: fn.launches for fn in counters}
+            launches["calibrations"] = rrdb.calibrate_act_scales.calls
+            require(rc == 0, f"cli restore --dtype {dtype} exited {rc}")
+            summary = json.loads(buf.getvalue())
+            w, h, planes_out = read_y4m_planes(out)
+            batches = summary["batches"]
+            emit({"phase": "restore", "run": label, "summary": summary, "out_width": w,
+                  "out_height": h, "frames_out": len(planes_out), "launches": launches})
+            require((w, h) == (3840, 2160), f"restore output {w}x{h}")
+            require(len(planes_out) == n_frames == summary["frames"],
+                    f"restore wrote {len(planes_out)} of {n_frames} frames")
+            body_fn = ("fused_rdb" if dtype == "bfloat16" else
+                       "fused_rdb_f32acc" if scheme == "f32acc" else "fused_rdb_i32")
+            want_counts = {fn.__name__: 0 for fn in counters[:3]}
+            want_counts.update({body_fn: 69 * batches, "conv_body_skip": batches,
+                                "fused_tail": batches,
+                                "calibrations": 1 if dtype == "int8" else 0})
+            require(batches > 0 and launches == want_counts,
+                    f"{label}: launch counts {launches}, expected {want_counts}")
+            launches_by_run[label] = launches
+            # every written frame against the kernel path run directly on
+            # the same decoded frames in the same batches, with the weights
+            # the run used (int8: calibrated on the same crop of the same
+            # first frame): the same deterministic kernels, so the planes
+            # must match exactly (phase 4 holds the kernel paths against
+            # their references)
+            if dtype == "bfloat16":
+                weights = fw
+            else:
+                a8 = rrdb.calibrate_act_scales(model, torch.from_numpy(centre_crop(decoded[:1])))
+                weights = model.fast_weights_int8(a8, scheme or "i32")
+            bs = summary["batch_size"]
+            worst = 0.0
+            with torch.no_grad():
+                for i in range(0, n_frames, bs):
+                    xs = (torch.from_numpy(decoded[i:i + bs]).to(dev).to(torch.bfloat16)
+                          / 255.0)
+                    want = model.apply_fast(xs, "yuv420_u8", True, weights=weights)
+                    for j in range(len(xs)):
+                        for g, w_ in zip(planes_out[i + j], want):
+                            worst = max(worst, diff_stats(torch.from_numpy(g.copy()),
+                                                          w_[j].cpu())["max_abs"])
+            emit({"phase": "restore", "run": label,
+                  "name": "written planes vs kernel path on the decoded frames",
+                  "max_abs": worst, "tol": {"max_abs": 0}})
+            require(worst == 0, f"{label}: restore output differs from the kernel path "
+                                f"by {worst}")
+            del planes_out
+    emit({"phase": "restore", "seconds": round(time.perf_counter() - t0, 3)})
+    launches = launches_by_run["bfloat16"]
 
     # 6. times -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -420,8 +558,29 @@ def main(argv=None) -> int:
                      replaces="framewright_tpu/ops/fused_tail.py:337",
                      launches=launches["fused_tail"], max_abs_err=errs["k2"], ms=k2_ms,
                      plain_ms=k2_plain, bound_ms=bms, bound_by=by, library_ms=None))
+    # int8 RDBs: the bf16 RDB's operations at the int8 peak; bytes: x read
+    # and the output written once (bf16), the int8 weights read once.
+    # PyTorch has no single int8 3x3 convolution call (library_ms null).
+    for scheme, run in (("i32", "int8"), ("f32acc", "int8 FW_INT8_SCHEME=f32acc")):
+        wts = fw8[scheme].body[0][0]
+        q8 = torch.empty(*feat.shape[:3], 192, dtype=torch.int8, device=dev)
+        o8 = torch.empty_like(feat)
+        ms8 = cuda_ms(lambda: fused_rrdb.fused_rdb_int8(feat, q8, o8, wts), it)
+        plain8 = cuda_ms(lambda: fused_rrdb.fused_rdb_int8_plain(feat, q8, o8, wts), 1, 1)
+        bms, by = bound_ms(2 * RDB_MAC_PER_PX * px, 2 * 128 * px + RDB_MAC_PER_PX,
+                           PEAK_INT8_OPS)
+        rows.append(dict(
+            name=f"rdb_int8_{scheme}", route="cuda",
+            source="framewright_tpu_torch/ops/csrc/rdb_int8.cu",
+            replaces=("framewright_tpu/ops/fused_rrdb.py:828" if scheme == "i32"
+                      else "framewright_tpu/ops/fused_rrdb.py:790"),
+            launches=launches_by_run[run][f"fused_rdb_{scheme}"],
+            max_abs_err=errs[f"rdb_int8_{scheme}"], ms=ms8, plain_ms=plain8, bound_ms=bms,
+            bound_by=by, library_ms=None))
+        del q8, o8
     emit({"phase": "times", "shape_body": [b, h, w, 64], "iters": it,
-          "rdb_cuda_launches_per_call": 5, "tail_cuda_launches_per_call": 4,
+          "rdb_cuda_launches_per_call": 5, "rdb_int8_cuda_launches_per_call": 6,
+          "tail_cuda_launches_per_call": 4,
           "seconds": round(time.perf_counter() - t0, 3)})
 
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_all, 3),

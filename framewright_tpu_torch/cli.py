@@ -1,8 +1,9 @@
 """Command line of the port.
 
     python -m framewright_tpu_torch.cli restore IN.y4m -o OUT.y4m \\
-        [--model RealESRGAN_x2plus] [--device cuda|cpu] [--weights-dir DIR] \\
-        [--max-frames N] [--project-dir DIR]
+        [--model RealESRGAN_x2plus] [--dtype bfloat16|int8] \\
+        [--device cuda|cpu] [--weights-dir DIR] [--max-frames N] \\
+        [--project-dir DIR]
 
 Runs on the card unless ``--device cpu`` is given. Prints a JSON
 summary on success; errors print ``error: ...`` and exit 1.
@@ -26,7 +27,7 @@ def cmd_restore(args: argparse.Namespace) -> int:
     try:
         cfg = Config(
             project_dir=args.project_dir, sr_model=args.model,
-            scale_factor=_model_scale(args.model),
+            scale_factor=_model_scale(args.model), compute_dtype=args.dtype,
             device_platform=args.device, weights_dir=args.weights_dir,
             max_frames=args.max_frames)
 
@@ -65,6 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("source")
     p.add_argument("-o", "--output", default=None)
     p.add_argument("--model", default="RealESRGAN_x2plus")
+    p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "int8"),
+                   help="compute dtype (int8: static scales calibrated on "
+                        "the first batch)")
     p.add_argument("--device", default="auto", choices=("auto", "cuda", "cpu"))
     p.add_argument("--weights-dir", default=None)
     p.add_argument("--max-frames", type=int, default=0)

@@ -10,9 +10,9 @@ from typing import Optional
 
 from framewright_tpu_torch.errors import ConfigError
 
-# what slice 1 runs: RRDB models in bf16 (int8 and the other families
-# are queued in ROADMAP.md)
-_VALID_DTYPES = ("bfloat16",)
+# what the port runs: RRDB models in bf16 and int8 (float32 and the other
+# families are queued in ROADMAP.md A1)
+_VALID_DTYPES = ("bfloat16", "int8")
 _VALID_DEVICES = ("auto", "cuda", "cpu")
 
 
@@ -30,7 +30,7 @@ class Config:
     max_frames: int = 0                   # 0 = the whole clip
 
     # --- Compute / device ------------------------------------------------------
-    compute_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"       # bfloat16 | int8 (static scales)
     device_platform: str = "auto"         # auto (= cuda) | cuda | cpu
     hbm_utilization: float = 0.85         # share of free card memory to plan for
 
@@ -54,7 +54,7 @@ class Config:
                               f"scale_factor is {self.scale_factor}")
         if self.compute_dtype not in _VALID_DTYPES:
             raise ConfigError(f"compute_dtype must be one of {_VALID_DTYPES} "
-                              "(int8 is not ported yet)")
+                              "(float32 is not ported yet: ROADMAP.md A1)")
         if self.device_platform not in _VALID_DEVICES:
             raise ConfigError(f"device_platform must be one of {_VALID_DEVICES}")
         if self.batch_size < 0 or self.max_frames < 0:

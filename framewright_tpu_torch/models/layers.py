@@ -31,11 +31,16 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
-def lrelu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+def mul_weak(x: torch.Tensor, s: float) -> torch.Tensor:
+    """x * s with JAX's weakly typed Python scalar: against a bf16 operand
+    the scalar is bf16(s) and the product rounds to bf16."""
     if x.dtype == torch.bfloat16:
-        # JAX's weakly typed scalar is bf16(0.2) against a bf16 operand
-        return torch.where(x >= 0, x, x * torch.tensor(slope, dtype=x.dtype))
-    return torch.where(x >= 0, x, x * slope)
+        return x * torch.tensor(s, dtype=x.dtype)
+    return x * s
+
+
+def lrelu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    return torch.where(x >= 0, x, mul_weak(x, slope))
 
 
 def pixel_unshuffle(x: torch.Tensor, r: int) -> torch.Tensor:

@@ -155,6 +155,15 @@ def from_jax_params(params: Dict[str, Any],
     return sd
 
 
+def bf16_masters(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Every weight and bias rounded to bf16 once, kept in f32 storage.
+    The JAX restore path casts its master parameters to bf16 on the host
+    before any weight transform, in bf16 and in int8 mode alike
+    (``registry.init_model(dtype=bf16)``); the kernel layouts, the int8
+    scales and the plain path all derive from these values."""
+    return {k: v.to(torch.bfloat16).float() for k, v in sd.items()}
+
+
 def load_weights(name: str, weights_dir: Optional[Path] = None,
                  allow_random: bool = True, seed: int = 0,
                  dtype: torch.dtype = torch.float32

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into a
-single shared library with a plain C interface (``extern "C"``
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc``
+process, all started together, and one more ``nvcc`` links the objects
+into a single shared library with a plain C interface (``extern "C"``
 launchers, no PyTorch headers), loaded with ``ctypes``. Built at first
-use into ``ops/_build/<hash of the sources>/``; the library is compiled
+use into ``ops/_build/<hash of the sources>/``; the library is linked
 under a temporary name and moved into place with ``os.replace``, so no
 step waits on a lock file and an interrupted build leaves nothing that
 the next one would trust.
@@ -30,10 +31,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 LIB_NAME = "libfw_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_L = ctypes.c_longlong
 # launcher name -> argtypes (every launcher returns its cudaError_t as int)
 _SIGNATURES = {
     "fw_rdb_dense": [_P, _I, _I, _I, _I, _P, _P, _P],
@@ -42,6 +45,9 @@ _SIGNATURES = {
     "fw_tail_up2": [_P, _I, _I, _I, _P, _P, _P, _P],
     "fw_tail_hr": [_P, _I, _I, _I, _P, _P, _P, _P],
     "fw_tail_last": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P],
+    "fw_rdb_i8_quant": [_P, _P, _L, _F, _P],
+    "fw_rdb_i8_dense": [_P, _I, _I, _I, _I, _P, _P, _P, _F, _I, _P],
+    "fw_rdb_i8_final": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P],
 }
 
 
@@ -78,28 +84,52 @@ def find_nvcc() -> str:
 
 
 def build(verbose: bool = True) -> BuildInfo:
-    """Compile the kernels unless a build of these sources exists."""
+    """Compile the kernels unless a build of these sources exists: one
+    ``nvcc -c`` per source, all running at once, then one link."""
     out_dir = BUILD_ROOT / source_hash()
     lib = out_dir / LIB_NAME
     if lib.is_file():
         return BuildInfo(lib, 0.0)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources()]]
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    obj_dir = out_dir / f"obj.{tag}"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
+    try:
+        jobs = []
+        for src in _sources():
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj_dir / f"{src.stem}.o")]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+        logs = []
+        for cmd, proc in jobs:
+            try:
+                out, _ = proc.communicate(timeout=900)
+            except subprocess.TimeoutExpired:
+                for _, p in jobs:
+                    p.kill()
+                raise
+            logs.append(out)
+            if proc.returncode != 0:
+                for _, p in jobs:
+                    p.kill()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *sorted(map(str, obj_dir.glob("*.o")))]
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+        os.replace(tmp, lib)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}) after {seconds:.1f} s:\n"
-            f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, lib)
-    ptxas = [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
+        shutil.rmtree(obj_dir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    ptxas = [ln.strip() for ln in "\n".join(logs).splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     if verbose:
-        print(f"[fw-build] nvcc {len(_sources())} sources in {seconds:.2f} s "
+        print(f"[fw-build] nvcc {len(jobs)} sources in parallel, {seconds:.2f} s "
               f"-> {lib}", file=sys.stderr)
         for ln in ptxas:
             print(f"[fw-build] {ln}", file=sys.stderr)

@@ -1,10 +1,15 @@
-"""The RRDB body: the ResidualDenseBlock kernel, its plain version, and
-the 69-sweep body loop.
+"""The RRDB body: the ResidualDenseBlock kernels (bf16 and int8), their
+plain versions, and the 69-sweep body loops.
 
 Replaces ``framewright_tpu/ops/fused_rrdb.py``: ``_rdb_kernel_merge`` and
-``_rdb_kernel_merge_res`` (via ``fused_rdb_blocks_merge``) and the body
-loop ``rrdb_body_merge_blocks``. The kernel is ``csrc/rdb.cu``; its
-note says what bounds it on the card and what the design does about it.
+``_rdb_kernel_merge_res`` (via ``fused_rdb_blocks_merge``), the int8
+``_rdb_kernel_int8_i32_merge``/``_res`` (via
+``fused_rdb_blocks_merge_int8_i32``) and ``_rdb_kernel_int8_static_merge``
+(via ``fused_rdb_blocks_merge_int8``) with their weight quantization
+(``rdb_wide_weights_int8_i32``, ``rdb_wide_weights_int8``), and the body
+loop ``rrdb_body_merge_blocks``. The kernels are ``csrc/rdb.cu`` and
+``csrc/rdb_int8.cu``; their notes say what bounds them on the card and
+what the design does about it.
 
 Activations live in NHWC bf16 workspaces of 192 channels: 0:64 hold the
 RDB input x, 64:192 receive x1..x4, so the dense concatenation is a
@@ -18,6 +23,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -141,4 +147,279 @@ def rrdb_body(feat: torch.Tensor,
         fused_rdb(w0, w1, rdb1)
         fused_rdb(w1, w2, rdb2)
         fused_rdb(w2, w0, rdb3, carry=w0)
+    return w0
+
+
+# --- int8 (static activation scales) -------------------------------------
+#
+# The int8 body keeps bf16 carries (B, H, W, 64) between RDBs and one int8
+# NHWC workspace Q (B, H, W, 192): channels 0:64 receive the codes of x,
+# 64:192 those of x1..x4. Two schemes, as in the JAX package:
+#   "i32"     int32 accumulation across all sources with one output scale
+#             per target row (rdb_wide_weights_int8_i32), the default;
+#   "f32acc"  per-(row, source) weight scales, each source's int32 sum
+#             dequantized into an f32 accumulator (rdb_wide_weights_int8,
+#             static branch): any other ``int8_scheme``.
+# The weight quantization below runs in numpy float32 with the JAX
+# functions' operations in their order, so its results equal theirs bit
+# for bit once rearranged to the wide (target-row x tap x channel) form.
+
+INT8_SCHEMES = ("i32", "f32acc")
+# (first channel, channels) of the sources x, x1..x4 in a conv's input
+_SOURCES = ((0, NF),) + tuple((NF + GC * s, GC) for s in range(4))
+
+
+@dataclass
+class RDBWeightsInt8:
+    """One RDB's five convs for the int8 kernels.
+
+    scheme    "i32" or "f32acc"
+    w[k]      (cout, 3, 3, cin) int8, OHWI
+    scale[k]  i32: ``oscale`` (cout,); f32acc: (cout, 5) f32 of
+              ws[row, src] * sa[src] per source (0 beyond conv k's)
+    bias[k]   i32: ``obias`` (cout,); f32acc: the conv bias (cout,)
+    wscale[k] f32acc: (cout, k + 1) per-(row, source) weight scales
+              (``sx, s1..s4`` of the wide form); i32: None
+    act_q     (10,) float32 numpy: [sa_x, sa_1..sa_4, 1/sa_x, .., 1/sa_4]
+    """
+    scheme: str
+    w: List[torch.Tensor]
+    scale: List[torch.Tensor]
+    bias: List[torch.Tensor]
+    wscale: List[Optional[torch.Tensor]]
+    act_q: np.ndarray
+
+
+def _conv_np(conv: torch.nn.Conv2d):
+    """-> OHWI float32 weights and the float32 bias, as numpy."""
+    w = conv.weight.detach().float().permute(0, 2, 3, 1).cpu().numpy()
+    return np.ascontiguousarray(w), conv.bias.detach().float().cpu().numpy()
+
+
+def _row_amax(w: np.ndarray, src: int) -> np.ndarray:
+    """max |w| over the taps and the channels of source ``src``, per row."""
+    off, n = _SOURCES[src]
+    return np.abs(w[..., off:off + n]).reshape(w.shape[0], -1).max(axis=1)
+
+
+def _act_scales(act_amax) -> tuple:
+    amax = np.maximum(np.asarray(act_amax, np.float32), 1e-8)
+    sa = amax / 127.0
+    return sa, np.concatenate([sa, 1.0 / sa]).astype(np.float32)
+
+
+def _quantize(w: np.ndarray, src: int, srow: np.ndarray, out: np.ndarray) -> None:
+    off, n = _SOURCES[src]
+    out[..., off:off + n] = np.clip(
+        np.round(w[..., off:off + n] / srow[:, None, None, None]), -127, 127)
+
+
+def rdb_weights_int8_i32(convs: Sequence[torch.nn.Conv2d],
+                         act_amax) -> RDBWeightsInt8:
+    """conv1..conv5 and the RDB's (5,) activation ranges -> the "i32"
+    weights (``rdb_wide_weights_int8_i32``): the target row of conv k
+    shares one scale s_t = max_src(sa_src max|w_src row| / 127) over its
+    sources, W_src is quantized at s_t / sa_src, and the requant folds
+    into oscale/obias (stage k < 5 in x_k's code domain)."""
+    sa, act_q = _act_scales(act_amax)
+    dev = convs[0].weight.device
+    out = RDBWeightsInt8("i32", [], [], [], [], act_q)
+    for k, conv in enumerate(convs):
+        w, b = _conv_np(conv)
+        s_t = np.zeros((w.shape[0],), np.float32)
+        for src in range(k + 1):
+            s_t = np.maximum(s_t, sa[src] * _row_amax(w, src) / 127.0)
+        s_t = np.maximum(s_t, 1e-12)
+        q = np.zeros(w.shape, np.float32)
+        for src in range(k + 1):
+            _quantize(w, src, s_t / sa[src], q)
+        osc, ob = (s_t / sa[k + 1], b / sa[k + 1]) if k < 4 else (s_t, b)
+        out.w.append(torch.from_numpy(q.astype(np.int8)).to(dev))
+        out.scale.append(torch.from_numpy(osc.astype(np.float32)).to(dev))
+        out.bias.append(torch.from_numpy(ob.astype(np.float32)).to(dev))
+        out.wscale.append(None)
+    return out
+
+
+def rdb_weights_int8(convs: Sequence[torch.nn.Conv2d],
+                     act_amax) -> RDBWeightsInt8:
+    """conv1..conv5 and the RDB's (5,) activation ranges -> the "f32acc"
+    weights (``rdb_wide_weights_int8`` with static scales): per target
+    row and source, ws = max(max|w_src row|, 1e-12) / 127 and
+    q = clip(round(w / ws)); the kernel dequantizes source src with
+    ws * sa_src, a product formed here in float32 as the TPU kernel
+    forms it."""
+    sa, act_q = _act_scales(act_amax)
+    dev = convs[0].weight.device
+    out = RDBWeightsInt8("f32acc", [], [], [], [], act_q)
+    for k, conv in enumerate(convs):
+        w, b = _conv_np(conv)
+        q = np.zeros(w.shape, np.float32)
+        ws = np.zeros((w.shape[0], k + 1), np.float32)
+        dq = np.zeros((w.shape[0], 5), np.float32)
+        for src in range(k + 1):
+            ws[:, src] = np.maximum(_row_amax(w, src), 1e-12) / 127.0
+            _quantize(w, src, ws[:, src], q)
+            dq[:, src] = ws[:, src] * sa[src]
+        out.w.append(torch.from_numpy(q.astype(np.int8)).to(dev))
+        out.scale.append(torch.from_numpy(dq).to(dev))
+        out.bias.append(torch.from_numpy(b.astype(np.float32)).to(dev))
+        out.wscale.append(torch.from_numpy(ws).to(dev))
+    return out
+
+
+def _check_int8(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
+                wts: RDBWeightsInt8, carry: Optional[torch.Tensor]) -> None:
+    for name, t in (("x", x), ("dst", dst), ("carry", carry)):
+        if t is None:
+            continue
+        if t.dtype != torch.bfloat16 or t.dim() != 4 or t.shape[-1] != NF:
+            raise ValueError(f"fused_rdb_int8: {name} must be (B, H, W, {NF}) "
+                             f"bf16, got {tuple(t.shape)} {t.dtype}")
+        if t.shape != x.shape or t.device != x.device:
+            raise ValueError(f"fused_rdb_int8: {name} shape/device differs from x")
+        if not t.is_contiguous():
+            raise ValueError(f"fused_rdb_int8: {name} must be contiguous")
+    if q.dtype != torch.int8 or tuple(q.shape) != (*x.shape[:3], WS_C) \
+            or q.device != x.device or not q.is_contiguous():
+        raise ValueError(f"fused_rdb_int8: q must be a contiguous (B, H, W, {WS_C}) "
+                         f"int8 workspace beside x, got {tuple(q.shape)} {q.dtype}")
+    if any(t.device != x.device for t in (*wts.w, *wts.scale, *wts.bias)):
+        raise ValueError("fused_rdb_int8: weights must lie on x's device")
+
+
+def _conv_codes(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact integer 3x3 SAME conv of NHWC int8 codes with OHWI int8
+    weights, NCHW, summed in float64 (sums reach ~2.8e7, past float32's
+    exact integers)."""
+    return F.conv2d(q.permute(0, 3, 1, 2).double(),
+                    w.permute(0, 3, 1, 2).double(), padding=1)
+
+
+def _int8_preact(q: torch.Tensor, k: int, wts: RDBWeightsInt8) -> torch.Tensor:
+    """Conv k's f32 pre-activation (NCHW) from the codes in q, with the
+    kernel's float operations in its order."""
+    w, sc, b = wts.w[k], wts.scale[k], wts.bias[k]
+    if wts.scheme == "i32":
+        acc = _conv_codes(q[..., :w.shape[-1]], w).float()
+        return acc * sc.view(1, -1, 1, 1) + b.view(1, -1, 1, 1)
+    acc = None
+    for src in range(k + 1):
+        off, n = _SOURCES[src]
+        part = _conv_codes(q[..., off:off + n], w[..., off:off + n]).float()
+        if acc is None:
+            acc = torch.zeros_like(part)
+        acc = acc + part * sc[:, src].view(1, -1, 1, 1)
+    return acc + b.view(1, -1, 1, 1)
+
+
+def _codes(v: torch.Tensor) -> torch.Tensor:
+    return torch.round(v).clamp(-127, 127).to(torch.int8)
+
+
+def fused_rdb_int8_plain(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
+                         wts: RDBWeightsInt8,
+                         carry: Optional[torch.Tensor] = None) -> None:
+    """Plain PyTorch version of the int8 kernels (either scheme):
+    q[..., :64] = clip(round(f32(x) inv_x)); stage k < 5 appends
+    clip(round(lrelu(acc osc + ob))) (i32) or
+    clip(round(lrelu(acc + b) inv_k)) (f32acc) to q; stage 5:
+    o = bf16(bf16(0.2 x5) + x) into dst, and with carry
+    o = bf16(bf16(bf16(0.2) o) + carry)."""
+    inv = [float(v) for v in wts.act_q[5:]]
+    q[..., :NF] = _codes(x.float() * inv[0])
+    for k in range(4):
+        v = _lrelu(_int8_preact(q, k, wts))
+        if wts.scheme != "i32":
+            v = v * inv[k + 1]
+        cin = NF + GC * k
+        q[..., cin:cin + GC] = _codes(v).permute(0, 2, 3, 1)
+    x5 = _int8_preact(q, 4, wts).permute(0, 2, 3, 1)
+    o = ((0.2 * x5).to(torch.bfloat16).float() + x.float()).to(torch.bfloat16)
+    if carry is not None:
+        o = ((BF16_0P2 * o.float()).to(torch.bfloat16).float()
+             + carry.float()).to(torch.bfloat16)
+    dst.copy_(o)
+
+
+def _int8_rdb(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
+              wts: RDBWeightsInt8, carry: Optional[torch.Tensor]) -> bool:
+    """One int8 RDB; True when it launched the CUDA kernels (a CUDA
+    tensor), False when it ran the plain version (a CPU tensor)."""
+    _check_int8(x, q, dst, wts, carry)
+    if x.device.type == "cpu":
+        fused_rdb_int8_plain(x, q, dst, wts, carry)
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_rdb_int8: unsupported device {x.device}")
+    lib = _build.library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    b, h, w, _ = x.shape
+    f32acc = int(wts.scheme != "i32")
+    inv = [float(v) for v in wts.act_q[5:]]
+    _build.check(lib.fw_rdb_i8_quant(x.data_ptr(), q.data_ptr(), b * h * w, inv[0],
+                                     stream), "fw_rdb_i8_quant")
+    for k in range(4):
+        _build.check(lib.fw_rdb_i8_dense(
+            q.data_ptr(), b, h, w, NF + GC * k, wts.w[k].data_ptr(),
+            wts.scale[k].data_ptr(), wts.bias[k].data_ptr(), inv[k + 1], f32acc,
+            stream), "fw_rdb_i8_dense")
+    _build.check(lib.fw_rdb_i8_final(
+        q.data_ptr(), b, h, w, wts.w[4].data_ptr(), wts.scale[4].data_ptr(),
+        wts.bias[4].data_ptr(), f32acc, x.data_ptr(), dst.data_ptr(),
+        None if carry is None else carry.data_ptr(), stream), "fw_rdb_i8_final")
+    return True
+
+
+def fused_rdb_i32(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
+                  wts: RDBWeightsInt8, carry: Optional[torch.Tensor] = None) -> None:
+    """The "i32" int8 RDB (see ``fused_rdb_int8``)."""
+    if wts.scheme != "i32":
+        raise ValueError(f"fused_rdb_i32: weights of scheme {wts.scheme!r}")
+    if _int8_rdb(x, q, dst, wts, carry):
+        fused_rdb_i32.launches += 1
+
+
+def fused_rdb_f32acc(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
+                     wts: RDBWeightsInt8, carry: Optional[torch.Tensor] = None) -> None:
+    """The "f32acc" int8 RDB (see ``fused_rdb_int8``)."""
+    if wts.scheme != "f32acc":
+        raise ValueError(f"fused_rdb_f32acc: weights of scheme {wts.scheme!r}")
+    if _int8_rdb(x, q, dst, wts, carry):
+        fused_rdb_f32acc.launches += 1
+
+
+fused_rdb_i32.launches = 0
+fused_rdb_f32acc.launches = 0
+
+
+def fused_rdb_int8(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
+                   wts: RDBWeightsInt8, carry: Optional[torch.Tensor] = None) -> None:
+    """One int8 ResidualDenseBlock: ``x`` (B, H, W, 64) bf16 in, the
+    workspace ``q`` (B, H, W, 192) int8 for the codes of x and x1..x4, the
+    output in ``dst`` (B, H, W, 64) bf16; with ``carry`` the RRDB residual
+    too. ``dst`` may be ``x`` or ``carry``. On a CPU tensor this runs the
+    plain version; on a CUDA tensor it launches the kernels of the
+    weights' scheme (six launches: the codes of x and the five stages)
+    and counts one call on ``fused_rdb_i32`` or ``fused_rdb_f32acc``."""
+    (fused_rdb_i32 if wts.scheme == "i32" else fused_rdb_f32acc)(x, q, dst, wts, carry)
+
+
+def rrdb_body_int8(feat: torch.Tensor, body: Sequence[Sequence[RDBWeightsInt8]],
+                   plain: bool = False) -> torch.Tensor:
+    """The int8 RRDB trunk (the counterpart of ``rrdb_body_merge_blocks``
+    on int8 fast params): 3 RDBs per block, the RRDB residual fused into
+    each block's third RDB for both schemes (the JAX package fuses it into
+    the "i32" kernel and applies it in XLA for "f32acc", with the same
+    rounding points). ``feat`` (B, H, W, 64) bf16 -> the body output,
+    (B, H, W, 64) bf16. ``plain`` runs the plain versions on any device
+    (a reference for the kernels on the card)."""
+    run = fused_rdb_int8_plain if plain else fused_rdb_int8
+    w0 = feat.contiguous().clone()
+    w1, w2 = torch.empty_like(w0), torch.empty_like(w0)
+    q = torch.empty(*w0.shape[:3], WS_C, dtype=torch.int8, device=w0.device)
+    for rdb1, rdb2, rdb3 in body:
+        run(w0, q, w1, rdb1)
+        run(w1, q, w2, rdb2)
+        run(w2, q, w0, rdb3, carry=w0)
     return w0

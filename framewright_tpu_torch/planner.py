@@ -16,10 +16,14 @@ from dataclasses import dataclass, replace
 from framewright_tpu_torch.errors import HBMError
 
 # Peak device bytes per body-resolution pixel of one frame on the kernel
-# path (bf16): three 192-channel RDB workspaces (1152), the head output
-# and K1's output (128 each), and the tail's intermediates at 2x and 4x
-# the body resolution (512 + 2 x 2048), with 10% headroom.
-_PEAK_BYTES_PER_BODY_PX = 6800
+# path, with 10% headroom:
+#   bfloat16: three 192-channel bf16 RDB workspaces (1152), the head
+#     output and K1's output (128 each), and the tail's intermediates at
+#     2x and 4x the body resolution (512 + 2 x 2048): 6016 -> 6800
+#   int8: three 64-channel bf16 carries (384) and one 192-channel int8
+#     code workspace (192) in place of the workspaces, the rest as
+#     bfloat16: 5440 -> 6000
+_PEAK_BYTES_PER_BODY_PX = {"bfloat16": 6800, "int8": 6000}
 _CPU_BUDGET = 8 * 2**30   # what to plan for when running on the CPU
 
 
@@ -49,19 +53,20 @@ def body_divisor(family: str, scale: int) -> int:
     return 1
 
 
-def frame_bytes(height: int, width: int, scale: int, family: str = "rrdb") -> int:
+def frame_bytes(height: int, width: int, scale: int, family: str = "rrdb",
+                dtype: str = "bfloat16") -> int:
     u = body_divisor(family, scale)
-    return -(-height // u) * -(-width // u) * _PEAK_BYTES_PER_BODY_PX
+    return -(-height // u) * -(-width // u) * _PEAK_BYTES_PER_BODY_PX[dtype]
 
 
 def plan(height: int, width: int, scale: int, family: str = "rrdb",
          free_bytes: int | None = None, utilization: float = 0.85,
-         max_batch: int = 16) -> Plan:
+         max_batch: int = 16, dtype: str = "bfloat16") -> Plan:
     """Largest whole-frame batch <= ``max_batch`` that fits
     ``free_bytes * utilization`` (the CPU budget when ``free_bytes`` is
-    None)."""
+    None) at the peak bytes of ``dtype``'s kernel path."""
     budget = int((_CPU_BUDGET if free_bytes is None else free_bytes) * utilization)
-    per_frame = frame_bytes(height, width, scale, family)
+    per_frame = frame_bytes(height, width, scale, family, dtype)
     batch = min(max_batch, budget // per_frame)
     if batch < 1:
         raise HBMError(

@@ -1,10 +1,16 @@
 """Super-resolution processor: the restore path's hot stage.
 
 The port of ``framewright_tpu/processors/super_resolution.py`` for the
-RRDB family in bf16: weights from the registry, a whole-frame batch from
-the planner, the model's kernel path (``RRDBNet.apply_fast``) with the
-output epilogue fused into the tail kernel (uint8 RGB, or YUV420 planes
-for a 4:2:0 writer).
+RRDB family in bf16 and int8: weights from the registry (every master
+rounded to bf16 once, as the JAX processor loads them), a whole-frame
+batch from the planner, the model's kernel path (``RRDBNet.apply_fast``)
+with the output epilogue fused into the tail kernel (uint8 RGB, or
+YUV420 planes for a 4:2:0 writer).
+
+int8 (``compute_dtype="int8"``, static scales): ``setup`` builds no
+int8 weights; the first ``dispatch`` calibrates the activation ranges on
+a centre crop of its first frame (``_calibrate_int8``) and quantizes the
+body once; later batches reuse those weights.
 
 ``dispatch`` enqueues a batch on the card and returns without
 synchronising; ``materialize`` waits on the batch's CUDA event and
@@ -31,6 +37,7 @@ from framewright_tpu_torch.hw import device_info, resolve_device
 logger = logging.getLogger(__name__)
 
 _OUT_COLORS = ("rgb", "yuv420")
+_DTYPES = ("bfloat16", "int8")
 # Frames per dispatch when the caller sets none: the batch chip_smoke.py
 # runs the restore at on the card; larger batches are not measured yet.
 _DEFAULT_MAX_BATCH = 4
@@ -47,6 +54,8 @@ class SRConfig:
     output_color: str = "rgb"         # rgb | yuv420 (planes from the tail kernel)
     yuv_full_range: bool = False      # BT.601 limited unless the writer says full
     device: str = "cuda"              # cuda | cpu
+    int8_scales: str = "static"       # static: calibrated on the first batch
+    int8_calib_margin: float = 1.25   # headroom over the observed ranges
 
 
 def _pad_mod(x: torch.Tensor, bottom: int, right: int) -> torch.Tensor:
@@ -69,29 +78,41 @@ class SuperResolution:
         self.weights_source = ""
         self.dispatches = 0
         self._plan: Optional[planner_mod.Plan] = None
+        self._int8_calibrate = False
 
     def setup(self, height: int, width: int) -> None:
-        from framewright_tpu_torch.models.registry import load_weights
+        from framewright_tpu_torch.models.registry import bf16_masters, load_weights
         from framewright_tpu_torch.models.rrdb import RRDBNet
 
         cfg = self.config
-        if cfg.compute_dtype != "bfloat16":
-            raise ConfigError("the port runs compute_dtype='bfloat16' only "
-                              "(int8 is not ported yet)")
+        if cfg.compute_dtype not in _DTYPES:
+            raise ConfigError(f"compute_dtype must be one of {_DTYPES} (float32 "
+                              "is not ported yet: ROADMAP.md A1)")
+        int8 = cfg.compute_dtype == "int8"
+        if int8 and cfg.int8_scales != "static":
+            raise ConfigError("int8_scales must be 'static' (dynamic per-block "
+                              "scales are not ported yet: ROADMAP.md B7/B9)")
         self.device = resolve_device(cfg.device)
-        # f32 master weights: the kernel layouts round to bf16 once from
-        # them (after the phase sums of the upsample convs), as the JAX
-        # fast params do
+        # every master weight and bias rounded to bf16 once, in f32
+        # storage, as the JAX processor loads them in bf16 and int8 mode;
+        # the kernel layouts and the int8 scales derive from these values
         spec, sd, self.weights_source = load_weights(
             cfg.model_name, cfg.weights_dir, dtype=torch.float32)
         self.scale = spec.scale
-        self.model = RRDBNet.from_state_dict(spec.arch_config, sd, self.device)
-        self.model.fast_weights()
+        self.model = RRDBNet.from_state_dict(spec.arch_config, bf16_masters(sd),
+                                             self.device)
+        if int8:
+            # static scales need activation ranges: calibrated on the
+            # first batch (dispatch), then the body is quantized once
+            self._int8_calibrate = True
+        else:
+            self.model.fast_weights()
         info = device_info(self.device)
         self._plan = planner_mod.plan(
             height, width, spec.scale, spec.family, free_bytes=info.free_bytes,
             utilization=cfg.hbm_utilization,
-            max_batch=cfg.batch_size or _DEFAULT_MAX_BATCH)
+            max_batch=cfg.batch_size or _DEFAULT_MAX_BATCH,
+            dtype=cfg.compute_dtype)
         logger.info("SR %s (%s) on %s (%s): %s", cfg.model_name,
                     self.weights_source, self.device, info.name, self._plan)
 
@@ -125,6 +146,26 @@ class SuperResolution:
                     vp[:, :h * s // 2, :w * s // 2])
         return torch.cat(chunks)[:, :h * s, :w * s]
 
+    def _calibrate_int8(self, x_u8: np.ndarray) -> None:
+        """Static int8 scales from the first batch: one bf16 pass over a
+        centre crop of its first frame (at most 256x256, sides a multiple
+        of 8, u8 / 255 in f32, as the JAX processor takes it), then the
+        body is quantized once (``RRDBNet.fast_weights_int8``)."""
+        from framewright_tpu_torch.models.rrdb import calibrate_act_scales
+
+        _, h, w, _ = x_u8.shape
+        ch, cw = min(h, 256) & ~7, min(w, 256) & ~7
+        r0, c0 = (h - ch) // 2, (w - cw) // 2
+        sample = torch.from_numpy(
+            x_u8[:1, r0:r0 + ch, c0:c0 + cw].astype(np.float32) / 255.0)
+        amax = calibrate_act_scales(self.model, sample,
+                                    margin=self.config.int8_calib_margin)
+        self.model.fast_weights_int8(amax)
+        self._int8_calibrate = False
+        logger.info("int8 static scales calibrated (margin %.2f, scheme %s)",
+                    self.config.int8_calib_margin,
+                    self.model.int8_weights.int8_scheme)
+
     def dispatch(self, frames: np.ndarray) -> dict:
         """Enqueue a uint8 (B, H, W, 3) batch; return a handle for
         ``materialize``. Does not wait for the card."""
@@ -132,6 +173,8 @@ class SuperResolution:
             raise InputError(f"{self.name}: expected uint8 (B, H, W, 3), got "
                              f"{frames.shape} {frames.dtype}")
         x = np.ascontiguousarray(frames)
+        if self._int8_calibrate:
+            self._calibrate_int8(x)
         xt = torch.from_numpy(x).to(self.device)
         out, exc, event = None, None, None
         try:

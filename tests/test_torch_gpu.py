@@ -115,3 +115,61 @@ def test_cli_restore_on_the_card(cuda, tmp_path, capsys):
     assert fused_rrdb.fused_rdb.launches - n == 18 * summary["batches"]
     with Y4MReader(tmp_path / "o.y4m") as r:
         assert (r.width, r.height, r.count_frames()) == (128, 96, 3)
+
+
+@pytest.fixture
+def int8_weights(model, cuda):
+    """Both schemes' int8 weights for the one-block model, calibrated on a
+    seeded 64x64 sample."""
+    sample = torch.from_numpy(np.random.default_rng(5).random((1, 64, 64, 3),
+                                                             dtype=np.float32))
+    amax = rrdb.calibrate_act_scales(model, sample)
+    return {s: model.fast_weights_int8(amax, s).body[0] for s in fused_rrdb.INT8_SCHEMES}
+
+
+@pytest.mark.parametrize("scheme", fused_rrdb.INT8_SCHEMES)
+@pytest.mark.parametrize("shape", [(1, 540, 960), (2, 37, 53)])
+def test_int8_rdb_kernel_matches_plain(int8_weights, cuda, scheme, shape):
+    """Kernel and plain version do the same integer sums and the same f32
+    operations in the same order: codes and outputs agree exactly."""
+    wts = int8_weights[scheme]
+    x = _feat(cuda, *shape)
+    q = torch.zeros(*shape, 192, dtype=torch.int8, device=cuda)
+    q_p = torch.zeros_like(q)
+    out, out_p = torch.empty_like(x), torch.empty_like(x)
+    counter = fused_rrdb.fused_rdb_i32 if scheme == "i32" else fused_rrdb.fused_rdb_f32acc
+    n = counter.launches
+    fused_rrdb.fused_rdb_int8(x, q, out, wts[0])
+    fused_rrdb.fused_rdb_int8_plain(x, q_p, out_p, wts[0])
+    torch.cuda.synchronize()
+    assert counter.launches == n + 1
+    assert torch.equal(q, q_p)
+    assert torch.equal(out, out_p)
+    carry = _feat(cuda, *shape, seed=7)
+    c_k, c_p = carry.clone(), carry.clone()
+    fused_rrdb.fused_rdb_int8(out, q, c_k, wts[2], carry=c_k)
+    fused_rrdb.fused_rdb_int8_plain(out, q_p, c_p, wts[2], carry=c_p)
+    torch.cuda.synchronize()
+    assert torch.equal(q, q_p)
+    assert torch.equal(c_k, c_p)
+
+
+def test_cli_restore_int8_on_the_card(cuda, tmp_path, capsys):
+    from framewright_tpu_torch import cli
+    from framewright_tpu_torch.io.y4m import Y4MReader, Y4MWriter
+
+    g = np.random.default_rng(0)
+    src = tmp_path / "clip.y4m"
+    with Y4MWriter(src, 64, 48, fps=24) as w:
+        for _ in range(3):
+            w.write_frame(g.integers(0, 256, (48, 64, 3), dtype=np.uint8))
+    before = (rrdb.calibrate_act_scales.calls, fused_rrdb.fused_rdb_i32.launches,
+              fused_rrdb.fused_rdb.launches)
+    assert cli.main(["restore", str(src), "-o", str(tmp_path / "o.y4m"), "--dtype", "int8",
+                     "--model", "FW_fast6_x2", "--project-dir", str(tmp_path)]) == 0
+    summary = json.loads(capsys.readouterr().out)
+    after = (rrdb.calibrate_act_scales.calls, fused_rrdb.fused_rdb_i32.launches,
+             fused_rrdb.fused_rdb.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 18 * summary["batches"], 0]
+    with Y4MReader(tmp_path / "o.y4m") as r:
+        assert (r.width, r.height, r.count_frames()) == (128, 96, 3)

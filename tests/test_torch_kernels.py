@@ -8,6 +8,8 @@ The CUDA kernels are held against these plain versions on the card
 (chip_smoke.py, tests/test_torch_gpu.py).
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -219,3 +221,62 @@ class TestTail:
             fused_tail.fused_tail(skip, fw.tail, "rgb16")
         with pytest.raises(ValueError, match="feat"):
             fused_tail3.conv_body_skip(body_t, feat_t[:, 1:].contiguous(), fw.cbody)
+
+
+class TestBuild:
+    """ops/_build.py without a CUDA toolkit: a stand-in nvcc records its
+    arguments and writes its output file, or fails for one source."""
+
+    @pytest.fixture
+    def fake_nvcc(self, tmp_path, monkeypatch):
+        import subprocess
+
+        from framewright_tpu_torch.ops import _build
+
+        log = tmp_path / "calls.txt"
+        nvcc = tmp_path / "nvcc.py"
+        nvcc.write_text(
+            "import os, sys\n"
+            "args = sys.argv[1:]\n"
+            "with open(os.environ['FAKE_NVCC_LOG'], 'a') as f:\n"
+            "    f.write(' '.join(args) + '\\n')\n"
+            "fail = os.environ.get('FAKE_NVCC_FAIL')\n"
+            "if fail and any(a.endswith(fail) for a in args):\n"
+            "    print('error: ' + fail)\n"
+            "    sys.exit(2)\n"
+            "open(args[args.index('-o') + 1], 'wb').write(b'lib')\n")
+        real_popen = subprocess.Popen
+
+        def popen(cmd, *args, **kwargs):     # run the stand-in with this Python
+            if cmd and cmd[0] == str(nvcc):
+                cmd = [sys.executable, *cmd]
+            return real_popen(cmd, *args, **kwargs)
+
+        monkeypatch.setattr(subprocess, "Popen", popen)
+        monkeypatch.setenv("FAKE_NVCC_LOG", str(log))
+        monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
+        monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "_build")
+        return _build, log
+
+    def test_one_compile_per_source_then_one_link(self, fake_nvcc):
+        _build, log = fake_nvcc
+        info = _build.build(verbose=False)
+        calls = log.read_text().splitlines()
+        sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+        compiles = sorted(c.split(" -c ")[1].split()[0].rsplit("/", 1)[1]
+                          for c in calls if " -c " in c)
+        assert compiles == sources and "rdb_int8.cu" in sources
+        links = [c for c in calls if c.startswith("-shared")]
+        assert len(links) == 1 and links[0].count(".o") == len(sources)
+        assert info.path.read_bytes() == b"lib"
+        assert [p.name for p in info.path.parent.iterdir()] == [_build.LIB_NAME]
+        assert _build.build(verbose=False).seconds == 0.0      # reused, no new call
+        assert len(log.read_text().splitlines()) == len(calls)
+
+    def test_a_failed_compile_raises_and_leaves_nothing(self, fake_nvcc, monkeypatch):
+        _build, _ = fake_nvcc
+        monkeypatch.setenv("FAKE_NVCC_FAIL", "rdb_int8.cu")
+        with pytest.raises(RuntimeError, match="rdb_int8.cu"):
+            _build.build(verbose=False)
+        out_dir = _build.BUILD_ROOT / _build.source_hash()
+        assert list(out_dir.iterdir()) == []

@@ -60,8 +60,9 @@ class TestRestoreParity:
         """FW_fast6_x2 (the repository's trained weights, the default
         model's RRDB code path at 6 blocks) on a 4:2:0 clip, and on an
         odd-sized mono clip that the SR stage pads to the body divisor and
-        crops back. Tolerance: the float tolerances (max 0.05, mean 0.005)
-        carried to uint8."""
+        crops back. Tolerance: max 4 LSB, mean 0.4 LSB, twice what the
+        port shows once it loads its masters rounded to bf16 as the JAX
+        processor does (max 2, mean <= 0.171 on these clips)."""
         src = tmp_path / "clip.y4m"
         with jy4m.Y4MWriter(src, w, h, fps=12, colorspace=cs) as wr:
             for t in range(3):
@@ -80,7 +81,7 @@ class TestRestoreParity:
         assert len(fj) == len(fp) == 3
         for a, b in zip(fj, fp):
             d = np.abs(a.astype(np.int32) - b.astype(np.int32))
-            assert d.max() <= 13 and d.mean() <= 1.3, (d.max(), d.mean())
+            assert d.max() <= 4 and d.mean() <= 0.4, (d.max(), d.mean())
 
     def test_max_frames_and_batches(self, tmp_path, gradient_frame, capsys):
         # 6 frames cut to 5: one batch of 4 (the default cap) and one of 1,
@@ -278,7 +279,7 @@ class TestConfig:
                      "project_dir", "output_path"):
             assert getattr(ours, name) == getattr(theirs, name), name
 
-    @pytest.mark.parametrize("kw", [dict(sr_model="nope"), dict(compute_dtype="int8"),
+    @pytest.mark.parametrize("kw", [dict(sr_model="nope"), dict(compute_dtype="float32"),
                                     dict(scale_factor=4), dict(max_frames=-1),
                                     dict(device_platform="tpu"), dict(hbm_utilization=0)])
     def test_rejects(self, kw):

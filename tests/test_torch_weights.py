@@ -145,3 +145,57 @@ class TestRandomInit:
         assert set(registry.MODEL_SPECS) == {
             "RealESRGAN_x2plus", "RealESRGAN_x4plus",
             "RealESRGAN_x4plus_anime_6B", "FW_fast6_x2"}
+
+
+class TestProcessorFastWeights:
+    """The SR processor loads every master weight and bias rounded to bf16
+    once, as the JAX processor does (``init_model(dtype=bf16)``), so the
+    kernels' weights equal those of ``rrdb.make_fast_params`` built from
+    the JAX processor's bf16 host params, bit for bit."""
+
+    def test_equal_to_make_fast_params_of_bf16_host_params(self, tmp_path):
+        from framewright_tpu.models.registry import init_model
+        from framewright_tpu_torch.ops import fused_rrdb
+        from framewright_tpu_torch.processors.super_resolution import (
+            SRConfig,
+            SuperResolution,
+        )
+
+        sr = SuperResolution(SRConfig(model_name="FW_fast6_x2", device="cpu",
+                                      weights_dir=str(tmp_path)))
+        sr.setup(24, 32)
+        fw = sr.model.fast_weights()
+        _, host = init_model("FW_fast6_x2", weights_dir=tmp_path, dtype=jnp.bfloat16,
+                             device=False)
+        fast = jrrdb.make_fast_params(host)
+
+        def same(got: torch.Tensor, want, name):
+            want = np.asarray(want, np.float32)
+            got = got.float().numpy().reshape(want.shape)
+            np.testing.assert_array_equal(got, want, err_msg=name)
+
+        bw = fast["body_wide"]
+        for i, blk in enumerate(fw.body):
+            for j, wts in enumerate(blk):
+                for src, key in enumerate(("Wx", "W1", "W2", "W3", "W4")):
+                    off, n = fused_rrdb._SOURCES[src]
+                    rows = torch.cat([wts.w[k][..., off:off + n].reshape(wts.w[k].shape[0], -1)
+                                      for k in range(src, 5)])
+                    same(rows, bw[key][i, j], f"body {i} {j} {key}")
+                same(torch.cat(wts.b), bw["b"][i, j], f"body {i} {j} b")
+        t3 = fast["tail3_phase"]
+        same(fw.cbody.w, t3["Ws"], "Ws")
+        same(fw.cbody.b, t3["bs"], "bs")
+        same(fw.tail.up1, t3["Wa0"], "Wa0")
+        same(fw.tail.up1_b, t3["ba0"], "ba0")
+        same(fw.tail.up2, t3["Wa"], "Wa")
+        same(fw.tail.up2_b, t3["ba"], "ba")
+        for ph in range(4):          # conv_hr and conv_last are the same in every phase
+            same(fw.tail.hr, t3["Wb"][ph], f"Wb {ph}")
+            same(fw.tail.last, t3["Wc"][ph], f"Wc {ph}")
+        same(fw.tail.hr_b, t3["bb"], "bb")
+        same(fw.tail.last_b, t3["bc"], "bc")
+        # the head, which stays in F.conv2d, reads the same rounded values
+        same(sr.model.conv_first.weight.permute(2, 3, 1, 0), host["conv_first"]["w"],
+             "conv_first")
+        same(sr.model.conv_first.bias, host["conv_first"]["b"], "conv_first b")
