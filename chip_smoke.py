@@ -8,27 +8,36 @@ Phases, one JSON object per line on stdout:
   2. build    the kernels from a clean build directory (one nvcc per
               source, all at once, then one link)
   3. kernels  each kernel against its plain PyTorch version on the card,
-              at the default model's main-path shapes (body 540x960x64,
-              tail out to 2160x3840): the bf16 RDB and its residual
+              at the main-path shapes (RRDB body 540x960x64, tail out to
+              2160x3840; SRVGG chain 540x960x64, g=8) and the chains also
+              at a ragged 2x37x53x64, g=2: the bf16 RDB and its residual
               variant, both int8 RDBs (i32 and f32acc, codes x1..x4 and
-              bf16 output, with and without the residual), K1, and K2 in
-              its three output modes
-  4. model    one 1080p frame through the kernel path of
-              RealESRGAN_x2plus (23 blocks, seeded random weights) and of
-              FW_fast6_x2 (trained weights) against the plain f32
-              ``apply``; their uint8 outputs against the epilogue of their
-              own bf16 output; the int8 kernel path (scales calibrated on
-              the frame's centre crop) of FW_fast6_x2 against its bf16
-              kernel path (PSNR) and of x2plus against its int8 plain path
+              bf16 output, with and without the residual), K1, K2 in its
+              three output modes, the bf16 SRVGG chain, and the int8 chain
+              (every code and the bf16 output)
+  4. model    one frame through each model's kernel path against the
+              plain f32 ``apply``: RealESRGAN_x2plus (23 blocks, seeded
+              random weights) and FW_fast6_x2 (trained) at 1080p,
+              realesr-animevideov3 (16 convs, x4, seeded random weights)
+              at 960x540 and FW_fastvgg_x2 (trained) at 1080p, all to 4K;
+              their uint8 outputs against the epilogue of their own
+              output; the int8 kernel paths (scales calibrated on the
+              frame's centre crop) of the trained models against their
+              bf16 kernel paths (PSNR) and of the random-weight models
+              against their int8 plain paths; the SRVGG peaks against
+              the planner's count
   5. restore  the user's entry point, ``python -m framewright_tpu_torch.cli
-              restore``, on a seeded synthetic 1080p 4:2:0 clip: in bf16,
-              in int8 (default scheme i32) and in int8 with
-              FW_INT8_SCHEME=f32acc, each with every launch counter set to
-              0 just before and read just after; output size, frame count
-              and every frame checked against the kernel path
+              restore``, on seeded synthetic 4:2:0 clips: 1080p with
+              RealESRGAN_x2plus in bf16, in int8 (default scheme i32) and
+              in int8 with FW_INT8_SCHEME=f32acc; 960x540 with
+              realesr-animevideov3 in bf16 and in int8; each with every
+              launch counter set to 0 just before and read just after;
+              output size, frame count and every frame checked against
+              the kernel path
   6. times    each kernel by CUDA events beside its plain version, its
-              roofline bound and, for the bf16 RDB and K1, cuDNN's
-              F.conv2d (PyTorch has no single int8 3x3 convolution call)
+              roofline bound and, for the bf16 RDB, K1 and the bf16
+              chain, cuDNN's F.conv2d (PyTorch has no single int8 3x3
+              convolution call)
 Then nvidia-smi's line, the kernel summary line, and the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 the result line. Without a CUDA device, or without the package beside
@@ -55,8 +64,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 peak
 PEAK_INT8_OPS = 1979e12       # H100 SXM dense int8 peak
+PEAK_F32_FLOPS = 67e12        # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 INT8_PSNR_MIN = 38.0          # int8 vs bf16 kernel path (tests/test_int8_mode.py)
+VGG_INT8_PSNR_MIN = 35.0      # SRVGG int8 vs bf16 (tests/test_fused_srvgg.py)
 CODE_MAX_STEP, CODE_MAX_FRAC = 1, 1e-4
 UINT8_MAX_LSB, UINT8_MAX_FRAC = 1, 0.02
 MODEL_MAX_ABS, MODEL_MEAN_ABS = 0.05, 0.005
@@ -66,6 +77,8 @@ K1_MAC_PER_PX = 9 * 64 * 64
 # conv_hr and conv_last at 16 output pixels
 K2_MAC_PER_PX = 4 * 4 * 64 * 64 * 5 + 16 * 9 * 64 * 64 + 16 * 9 * 64 * 3
 K2_WEIGHTS = 2 * (4 * 64 * 4 * 64) + 9 * 64 * 64 + 9 * 64 * 3
+VGG_GROUP = 8                  # convs per chain call (fused_srvgg.GROUP)
+VGG_MAC_PER_PX = VGG_GROUP * 9 * 64 * 64
 
 
 class SmokeFailure(Exception):
@@ -184,6 +197,56 @@ def centre_crop(x_u8: np.ndarray) -> np.ndarray:
     return x_u8[:1, r0:r0 + ch, c0:c0 + cw].astype(np.float32) / 255.0
 
 
+def part_peak(fn):
+    """-> (fn's result, peak device bytes allocated during fn above what
+    was allocated before it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def vgg_split_bounds(m, px: int, int8: bool) -> dict:
+    """Least times (ms) of the SRVGG frame's parts for px input pixels:
+    conv0 and PReLU, the chain (every group: the bf16 input read and the
+    output written once), conv_last in f32 (at the f32 peak outside the
+    tensor cores) with pixel_shuffle and the upsampled input, and the
+    yuv420 epilogue (the f32 image read once, the planes written once)."""
+    s2, nc = m.cfg.scale ** 2, m.cfg.num_conv
+    groups = -(-nc // VGG_GROUP)
+    return {
+        "head": bound_ms(2 * 27 * 64 * px, 6 * px + 128 * px)[0],
+        "chain": bound_ms(2 * 9 * 64 * 64 * nc * px, groups * 2 * 128 * px,
+                          PEAK_INT8_OPS if int8 else PEAK_BF16_FLOPS)[0],
+        "tail": bound_ms(2 * 9 * 64 * 3 * s2 * px, (128 + 6 + 12 * s2) * px, PEAK_F32_FLOPS)[0],
+        "epilogue": bound_ms(0, (12 + 1.5) * s2 * px)[0],
+    }
+
+
+def head_group(group, g: int):
+    """The first g convs of an SRVGG chain group (bf16 or int8 weights)."""
+    from framewright_tpu_torch.ops import fused_srvgg
+
+    if isinstance(group, fused_srvgg.ChainGroup):
+        return fused_srvgg.ChainGroup(group.w[:g], group.b[:g], group.alpha[:g])
+    n = len(group.alpha)
+    return fused_srvgg.ChainGroupInt8(
+        group.wq[:g], group.ws[:g], group.b[:g], group.alpha[:g],
+        np.concatenate([group.aq[:g + 1], group.aq[n + 1:n + 2 + g]]), group.dq[:g])
+
+
+def seeded_feat(dev, shape, seed: int):
+    import torch
+
+    g = np.random.default_rng(seed)
+    return torch.from_numpy(g.uniform(-1, 1, (*shape, 64)).astype(np.float32)).to(
+        dev).to(torch.bfloat16)
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     import torch
 
@@ -220,7 +283,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     from framewright_tpu_torch import cli
     from framewright_tpu_torch.io.y4m import Y4MReader, Y4MWriter
-    from framewright_tpu_torch.models import rrdb
+    from framewright_tpu_torch import planner
+    from framewright_tpu_torch.models import rrdb, srvgg
+    from framewright_tpu_torch.models.layers import conv2d, out_epilogue, prelu
     from framewright_tpu_torch.models.registry import (
         MODEL_SPECS,
         bf16_masters,
@@ -229,7 +294,13 @@ def main(argv=None) -> int:
         packaged_weights_dir,
         read_npz,
     )
-    from framewright_tpu_torch.ops import _build, fused_rrdb, fused_tail, fused_tail3
+    from framewright_tpu_torch.ops import (
+        _build,
+        fused_rrdb,
+        fused_srvgg,
+        fused_tail,
+        fused_tail3,
+    )
 
     # f32 references run in full f32 (cuDNN would use TF32 by default)
     torch.backends.cudnn.allow_tf32 = False
@@ -314,6 +385,41 @@ def main(argv=None) -> int:
             errs["k2"] = max(errs["k2"], s["max_abs"])
         del got, want
     kernel_inputs = (ws, feat, skip_p)
+    # the SRVGG chains: realesr-animevideov3 (seeded random weights) on a
+    # 960x540 frame, whose body runs at 540x960 like x2plus's; the chain's
+    # main-path input is conv0's PReLU output, a group of 8 convs
+    vspec = MODEL_SPECS["realesr-animevideov3"]
+    vgg = srvgg.SRVGGNet.from_state_dict(vspec.arch_config, bf16_masters(
+        from_jax_params(init_params(vspec.arch_config, seed=0), torch.float32)), dev)
+    vframes = synthetic_frames(n_frames, 540, 960, seed=11)
+    xv = torch.from_numpy(vframes[:1]).to(dev).to(torch.bfloat16) / 255.0
+    with torch.no_grad():
+        c0 = vgg.convs[0]
+        vfeat = prelu(conv2d(xv, c0.weight, c0.bias), vgg.acts[0].weight).contiguous()
+    vfw = vgg.fast_weights()
+    vfw8 = vgg.fast_weights_int8(srvgg.calibrate_act_scales(
+        vgg, torch.from_numpy(centre_crop(vframes[:1]))))
+    errs["vgg_chain"] = errs["vgg_chain_int8"] = 0.0
+    for label, x_c, g in (("main", vfeat, VGG_GROUP),
+                          ("ragged", seeded_feat(dev, (2, 37, 53), 3), 2)):
+        o_k, o_p = torch.empty_like(x_c), torch.empty_like(x_c)
+        wg = head_group(vfw.groups[0], g)
+        fused_srvgg.fused_conv_chain(x_c, o_k, wg)
+        fused_srvgg.fused_conv_chain_plain(x_c, o_p, wg)
+        torch.cuda.synchronize()
+        errs["vgg_chain"] = max(errs["vgg_chain"], check_bf16(
+            f"vgg_chain {label} {tuple(x_c.shape)} g={g}", o_k, o_p)["max_abs"])
+        wg8 = head_group(vfw8.groups[0], g)
+        q_k, q_p = [], []
+        fused_srvgg.fused_conv_chain_int8(x_c, o_k, wg8, q_k)
+        fused_srvgg.fused_conv_chain_int8_plain(x_c, o_p, wg8, q_p)
+        torch.cuda.synchronize()
+        require(len(q_k) == len(q_p) == g, f"vgg_chain_int8: {len(q_k)}/{len(q_p)} code tensors")
+        e = [check_codes(f"vgg_chain_int8 {label} codes", torch.stack(q_k), torch.stack(q_p))[
+                 "max_abs"],
+             check_bf16(f"vgg_chain_int8 {label} {tuple(x_c.shape)} g={g}", o_k, o_p)["max_abs"]]
+        errs["vgg_chain_int8"] = max(errs["vgg_chain_int8"], *e)
+        del o_k, o_p, q_k, q_p
     emit({"phase": "kernels", "seconds": round(time.perf_counter() - t0, 3)})
 
     # 4. one 1080p frame through the kernel path ------------------------
@@ -365,10 +471,10 @@ def main(argv=None) -> int:
                     f"{name}: {s}")
             rgb = m.apply_fast(xb, "rgb_u8", weights=w16)
             check_u8(f"{name} rgb_u8 vs epilogue", rgb,
-                     rrdb._out_epilogue(fast, "rgb_u8", False), "model", frac)
+                     out_epilogue(fast, "rgb_u8", False), "model", frac)
             for full in (False, True):
                 planes = m.apply_fast(xb, "yuv420_u8", full, weights=w16)
-                want = rrdb._out_epilogue(fast, "yuv420_u8", full)
+                want = out_epilogue(fast, "yuv420_u8", full)
                 for g, w, plane in zip(planes, want, "YUV"):
                     check_u8(f"{name} yuv420_u8 full_range={full} {plane}", g, w,
                              "model", frac)
@@ -421,46 +527,160 @@ def main(argv=None) -> int:
                   model_ms[f"{name} int8"]})
             del fast, fast8
     del fast6
+    plan_checks = []     # (name, peak, planner bytes), held after phase 6
+    # SRVGG: realesr-animevideov3 (seeded random weights, x4) on the 960x540
+    # frame, FW_fastvgg_x2 (trained weights, x2) on the 1080p frame, both
+    # to 4K; held like the RRDB pair above (the random-weight model's
+    # errors divided by its output's range). Their uint8 outputs come from
+    # the same f32 image through the same epilogue, so they must equal the
+    # epilogue of the f32 output (held to 1 LSB). The peak device memory
+    # of the restore's yuv420 call, above what was allocated before it, is
+    # held to the planner's count for the frame, once every phase has run.
+    fvgg = packaged_weights_dir() / "FW_fastvgg_x2.npz"
+    require(fvgg.is_file(), f"missing {fvgg}")
+    fastvgg = srvgg.SRVGGNet.from_state_dict(
+        MODEL_SPECS["FW_fastvgg_x2"].arch_config,
+        bf16_masters(from_jax_params(read_npz(fvgg), torch.float32)), dev)
+    with torch.no_grad():
+        for name, m, x_u8_np, relative in (
+                ("realesr-animevideov3", vgg, vframes[:1], True),
+                ("FW_fastvgg_x2", fastvgg, frames[:1], False)):
+            xf = torch.from_numpy(x_u8_np).to(dev).float() / 255.0
+            xh = xf.to(torch.bfloat16)
+            ref = m.apply(xf)
+            w16 = m.fast_weights()
+            fast = m.apply_fast(xh, "f32", weights=w16)
+            torch.cuda.synchronize()
+            s = diff_stats(fast, ref)
+            lo, hi = ref.min().item(), ref.max().item()
+            scale = (hi - lo) if relative else 1.0
+            s.update(max_scaled=s["max_abs"] / scale, mean_scaled=s["mean_abs"] / scale)
+            emit({"phase": "model", "name": f"{name} apply_fast bf16 vs apply f32",
+                  "shape": list(fast.shape), "ref_min": lo, "ref_max": hi,
+                  "divided_by": scale, **s,
+                  "tol": {"max_abs": MODEL_MAX_ABS, "mean_abs": MODEL_MEAN_ABS}})
+            require(bool(torch.isfinite(fast).all()), f"{name}: non-finite output")
+            require(tuple(fast.shape) == (1, 2160, 3840, 3), f"{name}: shape {fast.shape}")
+            require(s["max_scaled"] < MODEL_MAX_ABS and s["mean_scaled"] < MODEL_MEAN_ABS,
+                    f"{name}: {s}")
+            del ref
+            check_u8(f"{name} rgb_u8 vs epilogue", m.apply_fast(xh, "rgb_u8", weights=w16),
+                     out_epilogue(fast, "rgb_u8", False), "model", None)
+            for full in (False, True):
+                planes = m.apply_fast(xh, "yuv420_u8", full, weights=w16)
+                for g, w, plane in zip(planes, out_epilogue(fast, "yuv420_u8", full), "YUV"):
+                    check_u8(f"{name} yuv420_u8 full_range={full} {plane}", g, w, "model",
+                             None)
+                del planes
+            a8 = srvgg.calibrate_act_scales(m, torch.from_numpy(centre_crop(x_u8_np)))
+            w8 = m.fast_weights_int8(a8)
+            fast8 = m.apply_fast(xh, "f32", weights=w8)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(fast8).all()), f"{name}: non-finite int8 output")
+            rec = {"phase": "model", "name": f"{name} int8 kernel path",
+                   "psnr_vs_bf16_kernel_path": psnr(fast8, fast)}
+            if relative:
+                # random weights: held to the int8 plain chain on the frame
+                ref8 = m.tail(fused_srvgg.conv_chain(m.head(xh), w8.groups, plain=True), xh)
+                s8 = diff_stats(fast8, ref8)
+                lo, hi = ref8.min().item(), ref8.max().item()
+                s8.update(max_scaled=s8["max_abs"] / (hi - lo),
+                          mean_scaled=s8["mean_abs"] / (hi - lo))
+                rec.update(name=f"{name} int8 kernel path vs int8 plain chain", ref_min=lo,
+                           ref_max=hi, **s8,
+                           tol={"max_scaled": MODEL_MAX_ABS, "mean_scaled": MODEL_MEAN_ABS})
+                emit(rec)
+                require(s8["max_scaled"] < MODEL_MAX_ABS and s8["mean_scaled"] < MODEL_MEAN_ABS,
+                        f"{name} int8: {s8}")
+                del ref8
+            else:
+                rec["tol"] = {"psnr_min": VGG_INT8_PSNR_MIN}
+                emit(rec)
+                require(rec["psnr_vs_bf16_kernel_path"] > VGG_INT8_PSNR_MIN, f"{name}: {rec}")
+            del fast, fast8
+            _, h, w, _ = x_u8_np.shape
+            for dtype, wts in (("bfloat16", w16), ("int8", w8)):
+                key = name if dtype == "bfloat16" else f"{name} int8"
+                planes, peak = part_peak(
+                    lambda: m.apply_fast(xh, "yuv420_u8", True, weights=wts))
+                del planes
+                model_ms[key] = cuda_ms(
+                    lambda: m.apply_fast(xh, "yuv420_u8", True, weights=wts), 3, warmup=1)
+                # the frame's parts, each timed and its peak taken alone
+                head, p_head = part_peak(lambda: m.head(xh))
+                chain, p_chain = part_peak(lambda: fused_srvgg.conv_chain(head, wts.groups))
+                img, p_tail = part_peak(lambda: m.tail(chain, xh))
+                planes, p_epi = part_peak(lambda: out_epilogue(img, "yuv420_u8", True))
+                split_ms = {
+                    "head": cuda_ms(lambda: m.head(xh), 3, 1),
+                    "chain": cuda_ms(lambda: fused_srvgg.conv_chain(head, wts.groups), 3, 1),
+                    "tail": cuda_ms(lambda: m.tail(chain, xh), 3, 1),
+                    "epilogue": cuda_ms(lambda: out_epilogue(img, "yuv420_u8", True), 3, 1)}
+                del head, chain, img, planes
+                plan = planner.frame_bytes(h, w, m.cfg.scale, "srvgg", dtype)
+                emit({"phase": "model", "name": key, "ms_per_frame_yuv420": model_ms[key],
+                      "split_ms": split_ms,
+                      "split_bound_ms": vgg_split_bounds(m, h * w, dtype == "int8"),
+                      "peak_mem_bytes_above_base": peak,
+                      "split_peak_bytes_above_base": {"head": p_head, "chain": p_chain,
+                                                      "tail": p_tail, "epilogue": p_epi},
+                      "planner_bytes": plan})
+                plan_checks.append((key, peak, plan))
+    del fastvgg
     emit({"phase": "model", "seconds": round(time.perf_counter() - t0, 3)})
 
-    # 5. the main paths: cli restore on a synthetic clip ---------------
-    # Three runs of the user's entry point on the same clip: bf16, int8
-    # (default scheme i32) and int8 with FW_INT8_SCHEME=f32acc. Every
-    # counter is set to 0 just before each run and read just after it.
+    # 5. the main paths: cli restore on synthetic clips -----------------
+    # Five runs of the user's entry point: RealESRGAN_x2plus on the 1080p
+    # clip in bf16, int8 (default scheme i32) and int8 with
+    # FW_INT8_SCHEME=f32acc, and realesr-animevideov3 on the 960x540 clip
+    # in bf16 and int8. Every counter is set to 0 just before each run and
+    # read just after it.
     t0 = time.perf_counter()
     counters = (fused_rrdb.fused_rdb, fused_rrdb.fused_rdb_i32, fused_rrdb.fused_rdb_f32acc,
-                fused_tail3.conv_body_skip, fused_tail.fused_tail)
-    runs = (("bfloat16", None), ("int8", None), ("int8", "f32acc"))
+                fused_tail3.conv_body_skip, fused_tail.fused_tail,
+                fused_srvgg.fused_conv_chain, fused_srvgg.fused_conv_chain_int8)
+    calibrations = {"rrdb_calibrations": rrdb.calibrate_act_scales,
+                    "srvgg_calibrations": srvgg.calibrate_act_scales}
+    runs = (("RealESRGAN_x2plus", "bfloat16", None), ("RealESRGAN_x2plus", "int8", None),
+            ("RealESRGAN_x2plus", "int8", "f32acc"),
+            ("realesr-animevideov3", "bfloat16", None), ("realesr-animevideov3", "int8", None))
     launches_by_run = {}
     with tempfile.TemporaryDirectory(prefix="fw_smoke_") as tmp:
         tmp = Path(tmp)
-        src = tmp / "clip.y4m"
-        with Y4MWriter(src, 1920, 1080, fps=24) as writer:
-            for f in frames:
-                writer.write_frame(f)
-        with Y4MReader(src) as reader:
-            decoded = np.stack(list(reader))
-        for dtype, scheme in runs:
-            label = dtype if scheme is None else f"{dtype} FW_INT8_SCHEME={scheme}"
+        clips = {}
+        for model_name, clip in (("RealESRGAN_x2plus", frames), ("realesr-animevideov3", vframes)):
+            src = tmp / f"{model_name}.y4m"
+            with Y4MWriter(src, clip.shape[2], clip.shape[1], fps=24) as writer:
+                for f in clip:
+                    writer.write_frame(f)
+            with Y4MReader(src) as reader:
+                clips[model_name] = (src, np.stack(list(reader)))
+        for model_name, dtype, scheme in runs:
+            label = f"{model_name} {dtype}" + ("" if scheme is None
+                                               else f" FW_INT8_SCHEME={scheme}")
+            src, decoded = clips[model_name]
+            vgg_run = model_name == "realesr-animevideov3"
             out = tmp / f"restored_{len(launches_by_run)}.y4m"
             if scheme is not None:
                 os.environ["FW_INT8_SCHEME"] = scheme
             for fn in counters:
                 fn.launches = 0
-            rrdb.calibrate_act_scales.calls = 0
+            for fn in calibrations.values():
+                fn.calls = 0
             buf = io.StringIO()
             try:
                 with contextlib.redirect_stdout(buf):
                     # an empty weights dir: the restore draws the same
-                    # seeded random weights as ``model`` above
+                    # seeded random weights as ``model`` and ``vgg`` above
                     rc = cli.main(["restore", str(src), "-o", str(out), "--device", "cuda",
-                                   "--dtype", dtype, "--weights-dir", str(tmp / "no_weights"),
+                                   "--model", model_name, "--dtype", dtype,
+                                   "--weights-dir", str(tmp / "no_weights"),
                                    "--project-dir", str(tmp / "proj")])
             finally:
                 os.environ.pop("FW_INT8_SCHEME", None)
             launches = {fn.__name__: fn.launches for fn in counters}
-            launches["calibrations"] = rrdb.calibrate_act_scales.calls
-            require(rc == 0, f"cli restore --dtype {dtype} exited {rc}")
+            launches.update({k: fn.calls for k, fn in calibrations.items()})
+            require(rc == 0, f"cli restore {label} exited {rc}")
             summary = json.loads(buf.getvalue())
             w, h, planes_out = read_y4m_planes(out)
             batches = summary["batches"]
@@ -469,12 +689,18 @@ def main(argv=None) -> int:
             require((w, h) == (3840, 2160), f"restore output {w}x{h}")
             require(len(planes_out) == n_frames == summary["frames"],
                     f"restore wrote {len(planes_out)} of {n_frames} frames")
-            body_fn = ("fused_rdb" if dtype == "bfloat16" else
-                       "fused_rdb_f32acc" if scheme == "f32acc" else "fused_rdb_i32")
-            want_counts = {fn.__name__: 0 for fn in counters[:3]}
-            want_counts.update({body_fn: 69 * batches, "conv_body_skip": batches,
-                                "fused_tail": batches,
-                                "calibrations": 1 if dtype == "int8" else 0})
+            want_counts = {k: 0 for k in launches}
+            if vgg_run:
+                # 16 chain convs: two groups of 8 per batch
+                want_counts["fused_conv_chain" if dtype == "bfloat16"
+                            else "fused_conv_chain_int8"] = 2 * batches
+                want_counts["srvgg_calibrations"] = int(dtype == "int8")
+            else:
+                body_fn = ("fused_rdb" if dtype == "bfloat16" else
+                           "fused_rdb_f32acc" if scheme == "f32acc" else "fused_rdb_i32")
+                want_counts.update({body_fn: 69 * batches, "conv_body_skip": batches,
+                                    "fused_tail": batches,
+                                    "rrdb_calibrations": int(dtype == "int8")})
             require(batches > 0 and launches == want_counts,
                     f"{label}: launch counts {launches}, expected {want_counts}")
             launches_by_run[label] = launches
@@ -484,18 +710,22 @@ def main(argv=None) -> int:
             # first frame): the same deterministic kernels, so the planes
             # must match exactly (phase 4 holds the kernel paths against
             # their references)
+            m = vgg if vgg_run else model
             if dtype == "bfloat16":
-                weights = fw
+                weights = m.fast_weights()
+            elif vgg_run:
+                weights = m.fast_weights_int8(srvgg.calibrate_act_scales(
+                    m, torch.from_numpy(centre_crop(decoded[:1]))))
             else:
-                a8 = rrdb.calibrate_act_scales(model, torch.from_numpy(centre_crop(decoded[:1])))
-                weights = model.fast_weights_int8(a8, scheme or "i32")
+                a8 = rrdb.calibrate_act_scales(m, torch.from_numpy(centre_crop(decoded[:1])))
+                weights = m.fast_weights_int8(a8, scheme or "i32")
             bs = summary["batch_size"]
             worst = 0.0
             with torch.no_grad():
                 for i in range(0, n_frames, bs):
                     xs = (torch.from_numpy(decoded[i:i + bs]).to(dev).to(torch.bfloat16)
                           / 255.0)
-                    want = model.apply_fast(xs, "yuv420_u8", True, weights=weights)
+                    want = m.apply_fast(xs, "yuv420_u8", True, weights=weights)
                     for j in range(len(xs)):
                         for g, w_ in zip(planes_out[i + j], want):
                             worst = max(worst, diff_stats(torch.from_numpy(g.copy()),
@@ -507,7 +737,7 @@ def main(argv=None) -> int:
                                 f"by {worst}")
             del planes_out
     emit({"phase": "restore", "seconds": round(time.perf_counter() - t0, 3)})
-    launches = launches_by_run["bfloat16"]
+    launches = launches_by_run["RealESRGAN_x2plus bfloat16"]
 
     # 6. times -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -574,15 +804,54 @@ def main(argv=None) -> int:
             source="framewright_tpu_torch/ops/csrc/rdb_int8.cu",
             replaces=("framewright_tpu/ops/fused_rrdb.py:828" if scheme == "i32"
                       else "framewright_tpu/ops/fused_rrdb.py:790"),
-            launches=launches_by_run[run][f"fused_rdb_{scheme}"],
+            launches=launches_by_run[f"RealESRGAN_x2plus {run}"][f"fused_rdb_{scheme}"],
             max_abs_err=errs[f"rdb_int8_{scheme}"], ms=ms8, plain_ms=plain8, bound_ms=bms,
             bound_by=by, library_ms=None))
         del q8, o8
+    # SRVGG chains: a group of 8 convs on the 540x960 chain input; bytes:
+    # the bf16 input read and the output written once, the weights read
+    # once. Library: cuDNN's F.conv2d on the same eight bf16 convs
+    # (channels_last), summed; PyTorch has no int8 3x3 convolution call.
+    vg, vg8 = vfw.groups[0], vfw8.groups[0]
+    vpx = vfeat.shape[0] * vfeat.shape[1] * vfeat.shape[2]
+    vout = torch.empty_like(vfeat)
+    chain_ms = cuda_ms(lambda: fused_srvgg.fused_conv_chain(vfeat, vout, vg), it)
+    chain_plain = cuda_ms(lambda: fused_srvgg.fused_conv_chain_plain(vfeat, vout, vg), 3, 1)
+    lib_x = vfeat.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    lib_vw = [vg.w[i].view(64, 3, 3, 64).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last) for i in range(VGG_GROUP)]
+    lib_vb = [vg.b[i].view(64).to(torch.bfloat16) for i in range(VGG_GROUP)]
+    chain_lib = sum(cuda_ms(lambda i=i: F.conv2d(lib_x, lib_vw[i], lib_vb[i], padding=1), it)
+                    for i in range(VGG_GROUP))
+    bms, by = bound_ms(2 * VGG_MAC_PER_PX * vpx, 2 * 128 * vpx + 2 * VGG_MAC_PER_PX)
+    vgg_bf16_run, vgg_int8_run = ("realesr-animevideov3 bfloat16", "realesr-animevideov3 int8")
+    rows.append(dict(name="vgg_chain", route="cuda",
+                     source="framewright_tpu_torch/ops/csrc/srvgg.cu",
+                     replaces="framewright_tpu/ops/fused_srvgg.py:192",
+                     launches=launches_by_run[vgg_bf16_run]["fused_conv_chain"],
+                     max_abs_err=errs["vgg_chain"], ms=chain_ms, plain_ms=chain_plain,
+                     bound_ms=bms, bound_by=by, library_ms=chain_lib))
+    chain8_ms = cuda_ms(lambda: fused_srvgg.fused_conv_chain_int8(vfeat, vout, vg8), it)
+    chain8_plain = cuda_ms(
+        lambda: fused_srvgg.fused_conv_chain_int8_plain(vfeat, vout, vg8), 1, 1)
+    bms, by = bound_ms(2 * VGG_MAC_PER_PX * vpx, 2 * 128 * vpx + VGG_MAC_PER_PX,
+                       PEAK_INT8_OPS)
+    rows.append(dict(name="vgg_chain_int8", route="cuda",
+                     source="framewright_tpu_torch/ops/csrc/srvgg.cu",
+                     replaces="framewright_tpu/ops/fused_srvgg.py:221",
+                     launches=launches_by_run[vgg_int8_run]["fused_conv_chain_int8"],
+                     max_abs_err=errs["vgg_chain_int8"], ms=chain8_ms, plain_ms=chain8_plain,
+                     bound_ms=bms, bound_by=by, library_ms=None))
+    del vout, lib_x
     emit({"phase": "times", "shape_body": [b, h, w, 64], "iters": it,
+          "shape_chain": list(vfeat.shape), "chain_bf16_beside_int8_ms": chain_ms,
           "rdb_cuda_launches_per_call": 5, "rdb_int8_cuda_launches_per_call": 6,
-          "tail_cuda_launches_per_call": 4,
+          "tail_cuda_launches_per_call": 4, "vgg_chain_cuda_launches_per_call": VGG_GROUP,
+          "vgg_chain_int8_cuda_launches_per_call": VGG_GROUP + 1,
           "seconds": round(time.perf_counter() - t0, 3)})
 
+    for key, peak, plan in plan_checks:
+        require(peak <= plan, f"{key}: peak {peak} B above the planner's {plan} B")
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_all, 3),
           "model_ms_per_frame": model_ms})
     print(smi, flush=True)

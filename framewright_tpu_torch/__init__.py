@@ -5,8 +5,9 @@ imports neither ``jax`` nor anything of ``framewright_tpu`` and keeps its
 own copy of what it needs. Its module names follow the JAX package's so
 that each counterpart is easy to find.
 
-Slice 1 covers the default restore: Y4M in, RealESRGAN_x2plus (RRDBNet,
-23 blocks, bf16) through three hand-written Hopper kernels (``ops/csrc``),
+The restore is ported: Y4M in, an RRDB model (RealESRGAN_x2plus, 23
+blocks, by default) or an SRVGG model (realesr-animevideov3, ...), in
+bf16 or static int8, through hand-written Hopper kernels (``ops/csrc``),
 Y4M out. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; on the CPU every kernel wrapper runs its plain PyTorch
 version instead.

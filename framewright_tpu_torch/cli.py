@@ -1,7 +1,8 @@
 """Command line of the port.
 
     python -m framewright_tpu_torch.cli restore IN.y4m -o OUT.y4m \\
-        [--model RealESRGAN_x2plus] [--dtype bfloat16|int8] \\
+        [--model RealESRGAN_x2plus|realesr-animevideov3|...] \\
+        [--dtype bfloat16|int8] \\
         [--device cuda|cpu] [--weights-dir DIR] [--max-frames N] \\
         [--project-dir DIR]
 
@@ -65,7 +66,11 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("restore", help="restore a .y4m clip")
     p.add_argument("source")
     p.add_argument("-o", "--output", default=None)
-    p.add_argument("--model", default="RealESRGAN_x2plus")
+    p.add_argument("--model", default="RealESRGAN_x2plus",
+                   help="a model of the registry: RRDB (RealESRGAN_x2plus, "
+                        "RealESRGAN_x4plus, ...) or SRVGG (realesr-animevideov3, "
+                        "realesr-general-x4v3, FW_fastvgg_x2, ...); the scale "
+                        "is the model's")
     p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "int8"),
                    help="compute dtype (int8: static scales calibrated on "
                         "the first batch)")

@@ -10,8 +10,8 @@ from typing import Optional
 
 from framewright_tpu_torch.errors import ConfigError
 
-# what the port runs: RRDB models in bf16 and int8 (float32 and the other
-# families are queued in ROADMAP.md A1)
+# what the port runs: the RRDB and SRVGG models of the registry in bf16 and
+# int8 (float32 and the other families are queued in ROADMAP.md A)
 _VALID_DTYPES = ("bfloat16", "int8")
 _VALID_DEVICES = ("auto", "cuda", "cpu")
 

@@ -1,6 +1,9 @@
 """YUV4MPEG2 (.y4m) reader and writer: the port's own copy of
-``framewright_tpu.io.y4m`` with the BT.601 conversions of
-``framewright_tpu.io.color`` in numpy.
+``framewright_tpu.io.y4m``. Its 4:2:0 colour conversions are the
+integer arithmetic of the JAX package's native library
+(``native/fwcore.cpp``), which the JAX reader and writer call, in numpy;
+other subsamplings decode with the float math of
+``framewright_tpu.io.color``, as the JAX reader does.
 
 Format: ASCII stream header ``YUV4MPEG2 W<w> H<h> F<num>:<den> ...``
 followed by frames, each ``FRAME[params]\\n`` + raw planar YUV.
@@ -20,7 +23,6 @@ import numpy as np
 from framewright_tpu_torch.errors import MediaFormatError
 
 _MAGIC = b"YUV4MPEG2"
-_KR, _KG, _KB = 0.299, 0.587, 0.114
 
 
 def _plane_shapes(cs: str, w: int, h: int):
@@ -43,10 +45,10 @@ def _upsample_chroma(u: np.ndarray, h: int, w: int) -> np.ndarray:
     return np.repeat(np.repeat(u, ry, axis=0), rx, axis=1)[:h, :w]
 
 
-def yuv_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray,
-               full_range: bool = False) -> np.ndarray:
-    """Planar YUV uint8 (chroma at any integer subsampling) -> RGB uint8
-    (H, W, 3), BT.601."""
+def _yuv_to_rgb_float(y: np.ndarray, u: np.ndarray, v: np.ndarray,
+                      full_range: bool) -> np.ndarray:
+    """BT.601 in float32 numpy (``framewright_tpu.io.color.yuv420_to_rgb``):
+    the JAX reader's decode of chroma that is not 4:2:0 at even sizes."""
     h, w = y.shape
     yf = y.astype(np.float32)
     uf = _upsample_chroma(u, h, w).astype(np.float32) - 128.0
@@ -61,22 +63,62 @@ def yuv_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray,
     return np.clip(np.stack([r, g, b], axis=-1) + 0.5, 0, 255).astype(np.uint8)
 
 
+def _clamp_u8(v: np.ndarray) -> np.ndarray:
+    return np.clip(v, 0, 255).astype(np.uint8)
+
+
+def _is_420(y: np.ndarray, u: np.ndarray) -> bool:
+    h, w = y.shape
+    return h % 2 == 0 and w % 2 == 0 and u.shape == (h // 2, w // 2)
+
+
+def yuv_to_rgb(y: np.ndarray, u: np.ndarray, v: np.ndarray,
+               full_range: bool = False) -> np.ndarray:
+    """Planar YUV uint8 -> RGB uint8 (H, W, 3), BT.601, as the JAX reader
+    decodes it. 4:2:0 at even sizes: the 16.16 fixed-point arithmetic of
+    the JAX package's native decoder (``native/fwcore.cpp``,
+    ``yuv420_to_rgb``) in int32 numpy, ``>>`` a floor shift as there;
+    any other subsampling: the float math it falls back to."""
+    if not _is_420(y, u):
+        return _yuv_to_rgb_float(y, u, v, full_range)
+    h, w = y.shape
+    yi = y.astype(np.int32)
+    ui = _upsample_chroma(u, h, w).astype(np.int32) - 128
+    vi = _upsample_chroma(v, h, w).astype(np.int32) - 128
+    if full_range:
+        yf = yi << 16
+    else:
+        yf = (yi - 16) * 76309            # (Y - 16) * 255/219
+        ui = (ui * 74313) >> 16           # * 255/224
+        vi = (vi * 74313) >> 16
+    r = (yf + 91881 * vi + 32768) >> 16                   # 1.402
+    g = (yf - 22554 * ui - 46802 * vi + 32768) >> 16      # 0.344136, 0.714136
+    b = (yf + 116130 * ui + 32768) >> 16                  # 1.772
+    return _clamp_u8(np.stack([r, g, b], axis=-1))
+
+
 def rgb_to_yuv420(rgb: np.ndarray, full_range: bool = False):
-    """RGB uint8 (H, W, 3), H and W even -> planar YUV420 uint8, BT.601."""
+    """RGB uint8 (H, W, 3), H and W even -> planar YUV420 uint8, BT.601:
+    the 16.16 fixed-point arithmetic of the JAX package's native encoder
+    (``native/fwcore.cpp``, ``rgb_to_yuv420``), chroma from the 2x2
+    integer box mean ``s / 4``."""
     h, w = rgb.shape[:2]
-    rf, gf, bf = (rgb[..., i].astype(np.float32) for i in range(3))
-    yf = _KR * rf + _KG * gf + _KB * bf
-    uf = (bf - yf) / (2.0 * (1.0 - _KB))
-    vf = (rf - yf) / (2.0 * (1.0 - _KR))
+    r, g, b = (rgb[..., i].astype(np.int32) for i in range(3))
+    y = (19595 * r + 38470 * g + 7471 * b + 32768) >> 16   # 0.299, 0.587, 0.114
     if not full_range:
-        yf = yf * (219.0 / 255.0) + 16.0
-        uf = uf * (224.0 / 255.0)
-        vf = vf * (224.0 / 255.0)
-    y = np.clip(yf + 0.5, 0, 255).astype(np.uint8)
-    uf = uf.reshape(h // 2, 2, w // 2, 2).mean(axis=(1, 3))
-    vf = vf.reshape(h // 2, 2, w // 2, 2).mean(axis=(1, 3))
-    return (y, np.clip(uf + 128.5, 0, 255).astype(np.uint8),
-            np.clip(vf + 128.5, 0, 255).astype(np.uint8))
+        y = ((y * 56283 + 32768) >> 16) + 16               # * 219/255
+
+    def box(c: np.ndarray) -> np.ndarray:
+        return c.reshape(h // 2, 2, w // 2, 2).sum(axis=(1, 3)) // 4
+
+    rm, gm, bm = box(r), box(g), box(b)
+    ym = (19595 * rm + 38470 * gm + 7471 * bm) >> 16
+    u = ((bm - ym) * 36984) >> 16                           # / 1.772
+    v = ((rm - ym) * 46727) >> 16                           # / 1.402
+    if not full_range:
+        u = (u * 57475) >> 16                               # * 224/255
+        v = (v * 57475) >> 16
+    return _clamp_u8(y), _clamp_u8(u + 128), _clamp_u8(v + 128)
 
 
 @dataclass

@@ -1,5 +1,5 @@
-"""The RRDB rows of the model table, weight loading, and the bridge from
-the JAX package's parameter pytrees to the port's state dicts.
+"""The RRDB and SRVGG rows of the model table, weight loading, and the
+bridge from the JAX package's parameter pytrees to the port's state dicts.
 
 Weights resolve like ``framewright_tpu.models.registry.init_model``:
 ``<weights_dir>/<name>.npz`` (the JAX package's export format), a
@@ -7,7 +7,8 @@ basicsr ``<weights_dir>/<name>.pth``, the checkpoints trained in this
 repository (read as data from ``framewright_tpu/models/weights``), or a
 seeded random init. The state dict holds OIHW tensors named like the
 official basicsr RRDBNet (``conv_first.weight``,
-``body.0.rdb1.conv1.weight``, ...).
+``body.0.rdb1.conv1.weight``, ...) or SRVGGNetCompact (``body.0.weight``,
+``body.1.weight`` for the first PReLU, ...).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -23,14 +24,17 @@ import torch
 from framewright_tpu_torch.errors import ConfigError, InputError
 from framewright_tpu_torch.models.layers import conv_init
 from framewright_tpu_torch.models.rrdb import RRDBConfig
+from framewright_tpu_torch.models.srvgg import SRVGGConfig
+
+_SRVGG_URL = "https://github.com/xinntao/Real-ESRGAN/releases/download/v0.2.5.0/"
 
 
 @dataclass(frozen=True)
 class ModelSpec:
     name: str
-    family: str
+    family: str                              # rrdb | srvgg
     scale: int
-    arch_config: RRDBConfig
+    arch_config: Union[RRDBConfig, SRVGGConfig]
     url: str = ""
 
 
@@ -42,6 +46,12 @@ MODEL_SPECS: Dict[str, ModelSpec] = {s.name: s for s in (
     ModelSpec("RealESRGAN_x4plus_anime_6B", "rrdb", 4, RRDBConfig(num_block=6, scale=4),
               "https://github.com/xinntao/Real-ESRGAN/releases/download/v0.2.2.4/RealESRGAN_x4plus_anime_6B.pth"),
     ModelSpec("FW_fast6_x2", "rrdb", 2, RRDBConfig(num_block=6, scale=2)),
+    ModelSpec("FW_fastvgg_x2", "srvgg", 2, SRVGGConfig(num_conv=16, scale=2)),
+    ModelSpec("FW_fastvgg_x4", "srvgg", 4, SRVGGConfig(num_conv=32, scale=4)),
+    ModelSpec("realesr-animevideov3", "srvgg", 4, SRVGGConfig(num_conv=16, scale=4),
+              _SRVGG_URL + "realesr-animevideov3.pth"),
+    ModelSpec("realesr-general-x4v3", "srvgg", 4, SRVGGConfig(num_conv=32, scale=4),
+              _SRVGG_URL + "realesr-general-x4v3.pth"),
 )}
 
 _CONVS = ("conv_first", "conv_body", "conv_up1", "conv_up2", "conv_hr",
@@ -95,10 +105,20 @@ def read_npz(path: Path) -> Dict[str, Any]:
     return listify(root)
 
 
-def init_params(cfg: RRDBConfig, seed: int = 0) -> Dict[str, Any]:
-    """Seeded random RRDBNet parameters as a JAX-layout pytree (HWIO
-    numpy arrays, body as a list), drawn with numpy."""
+def init_params(cfg: Union[RRDBConfig, SRVGGConfig], seed: int = 0) -> Dict[str, Any]:
+    """Seeded random parameters as a JAX-layout pytree (HWIO numpy
+    arrays, body as a list), drawn with numpy, in the shapes of the JAX
+    package's ``rrdb.init`` or ``srvgg.init`` (PReLU alphas 0.25)."""
     rng = np.random.default_rng(seed)
+    if isinstance(cfg, SRVGGConfig):
+        nf = cfg.num_feat
+        return {
+            "body": [conv_init(rng, 3, cfg.num_in_ch, nf)]
+                    + [conv_init(rng, 3, nf, nf) for _ in range(cfg.num_conv)],
+            "act": [{"alpha": np.full((nf,), 0.25, np.float32)}
+                    for _ in range(cfg.num_conv + 1)],
+            "conv_last": conv_init(rng, 3, nf, cfg.num_out_ch * cfg.scale ** 2),
+        }
     nf, gc = cfg.num_feat, cfg.num_grow_ch
     in_ch = cfg.num_in_ch * {2: 4, 1: 16}.get(cfg.scale, 1)
 
@@ -137,14 +157,23 @@ def _body_blocks(body) -> List[Dict[str, Any]]:
 def from_jax_params(params: Dict[str, Any],
                     dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
     """JAX RRDBNet pytree (HWIO numpy arrays; body as a list of blocks or
-    stacked) -> the port's state dict (OIHW), cast to ``dtype``."""
+    stacked) or SRVGG pytree (``body`` convs, ``act`` alphas,
+    ``conv_last``) -> the port's state dict (OIHW), cast to ``dtype``."""
     sd: Dict[str, torch.Tensor] = {}
 
+    def tensor(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, np.float32, order="C")).to(dtype)
+
     def conv(prefix: str, p: Dict[str, Any]) -> None:
-        w = np.asarray(p["w"], np.float32).transpose(3, 2, 0, 1)
-        sd[prefix + ".weight"] = torch.from_numpy(np.ascontiguousarray(w)).to(dtype)
-        sd[prefix + ".bias"] = torch.from_numpy(
-            np.asarray(p["b"], np.float32).copy()).to(dtype)
+        sd[prefix + ".weight"] = tensor(np.asarray(p["w"], np.float32).transpose(3, 2, 0, 1))
+        sd[prefix + ".bias"] = tensor(p["b"])
+
+    if "act" in params:          # SRVGG: the official SRVGGNetCompact names
+        for i, (p, act) in enumerate(zip(params["body"], params["act"])):
+            conv(f"body.{2 * i}", p)
+            sd[f"body.{2 * i + 1}.weight"] = tensor(act["alpha"])
+        conv(f"body.{2 * len(params['act'])}", params["conv_last"])
+        return sd
 
     for name in _CONVS:
         conv(name, params[name])

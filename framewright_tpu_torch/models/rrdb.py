@@ -13,7 +13,6 @@ or uint8 planes Y (B, sH, sW), U and V (B, sH/2, sW/2).
               output epilogue
   calibrate_act_scales  the int8 activation ranges from one bf16 pass
               (counterpart of ``rrdb.calibrate_act_scales``)
-  _out_epilogue  the exact uint8/YUV contract of ``rrdb._out_epilogue``
 
 Parameter names follow the official basicsr state dict
 (``conv_first``, ``body.{i}.rdb{1,2,3}.conv{1..5}``, ``conv_body``,
@@ -252,26 +251,3 @@ def calibrate_act_scales(model: RRDBNet, sample: torch.Tensor,
 
 
 calibrate_act_scales.calls = 0
-
-
-def _out_epilogue(out: torch.Tensor, out_mode: str, full_range: bool):
-    """The uint8 output contract on a float RGB image (B, H, W, 3):
-    exactly ``framewright_tpu.models.rrdb._out_epilogue``."""
-    y = out.float().clamp(0.0, 1.0) * 255.0
-    if out_mode == "rgb_u8":
-        return torch.floor(y + 0.5).to(torch.uint8)
-    kr, kg, kb = 0.299, 0.587, 0.114
-    r, g, b = y[..., 0], y[..., 1], y[..., 2]
-    yy = kr * r + kg * g + kb * b
-    uu = (b - yy) / (2.0 * (1.0 - kb))
-    vv = (r - yy) / (2.0 * (1.0 - kr))
-    if not full_range:
-        yy = yy * (219.0 / 255.0) + 16.0
-        uu = uu * (224.0 / 255.0)
-        vv = vv * (224.0 / 255.0)
-    n, hh, ww = yy.shape
-    uu = uu.reshape(n, hh // 2, 2, ww // 2, 2).mean(dim=(2, 4))
-    vv = vv.reshape(n, hh // 2, 2, ww // 2, 2).mean(dim=(2, 4))
-    return (torch.floor(yy + 0.5).clamp(0, 255).to(torch.uint8),
-            torch.floor(uu + 128.5).clamp(0, 255).to(torch.uint8),
-            torch.floor(vv + 128.5).clamp(0, 255).to(torch.uint8))

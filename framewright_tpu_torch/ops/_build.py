@@ -48,6 +48,9 @@ _SIGNATURES = {
     "fw_rdb_i8_quant": [_P, _P, _L, _F, _P],
     "fw_rdb_i8_dense": [_P, _I, _I, _I, _I, _P, _P, _P, _F, _I, _P],
     "fw_rdb_i8_final": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P],
+    "fw_vgg_conv": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "fw_vgg_i8_quant": [_P, _P, _L, _F, _P],
+    "fw_vgg_i8_conv": [_P, _I, _I, _I, _P, _P, _P, _P, _F, _P, _P, _P],
 }
 
 

@@ -1,7 +1,8 @@
 """Batch planner for the card's free memory.
 
 The port's counterpart of ``framewright_tpu.planner``: the body runs at
-input resolution / ``body_divisor`` (pixel_unshuffle), and the batch is
+input resolution / ``body_divisor`` (pixel_unshuffle for RRDB at scale
+2 and 1; SRVGG always at input resolution), and the batch is
 the largest number of whole frames whose peak device memory fits the
 free card memory times the utilization. The TPU-only caps of the JAX
 planner (compiler limits, measured best batches on v5e) have no
@@ -16,14 +17,33 @@ from dataclasses import dataclass, replace
 from framewright_tpu_torch.errors import HBMError
 
 # Peak device bytes per body-resolution pixel of one frame on the kernel
-# path, with 10% headroom:
+# path, with 10% headroom.
+# RRDB (the output is always 16 pixels per body pixel):
 #   bfloat16: three 192-channel bf16 RDB workspaces (1152), the head
 #     output and K1's output (128 each), and the tail's intermediates at
 #     2x and 4x the body resolution (512 + 2 x 2048): 6016 -> 6800
 #   int8: three 64-channel bf16 carries (384) and one 192-channel int8
 #     code workspace (192) in place of the workspaces, the rest as
 #     bfloat16: 5440 -> 6000
-_PEAK_BYTES_PER_BODY_PX = {"bfloat16": 6800, "int8": 6000}
+_RRDB_PEAK_BYTES_PER_BODY_PX = {"bfloat16": 6800, "int8": 6000}
+# SRVGG, per input pixel (scale s), the largest of the four parts of
+# ``SRVGGNet.apply_fast``, each as measured alone on an H100 with
+# ``max_memory_allocated`` (chip_smoke.py phase 4, at x4 and x2):
+#   head: conv0's bf16 output (128), PReLU's mask (64), product (128) and
+#     result (128): 448;
+#   chain: a group's bf16 output (128) and two bf16 ping-pong buffers
+#     (256), beside its input (128), or in int8 two 64-channel code
+#     buffers (128) in place of the ping-pong buffers: 512 bfloat16, 384
+#     int8;
+#   tail: the chain's bf16 output (128), its f32 copy (256), and conv_last
+#     in f32: another 256 inside cuDNN's f32 convolution (measured, not a
+#     buffer of the port's), its f32 output and the pixel-shuffled copy
+#     (2 x 12 s^2): 640 + 24 s^2;
+#   epilogue: the f32 image (12 s^2), its clamped copy (12 s^2), and Y, U,
+#     V and two temporaries in f32 at s^2 (16 s^2): 40 s^2;
+# then + 10% for the frame's uint8 and bf16 input and the planes.
+_SRVGG_HEAD_BYTES = 448
+_SRVGG_CHAIN_BYTES = {"bfloat16": 512, "int8": 384}
 _CPU_BUDGET = 8 * 2**30   # what to plan for when running on the CPU
 
 
@@ -53,10 +73,21 @@ def body_divisor(family: str, scale: int) -> int:
     return 1
 
 
+def peak_bytes_per_body_px(family: str, scale: int, dtype: str = "bfloat16") -> int:
+    """Planned peak device bytes per body pixel for (family, dtype)."""
+    if family == "rrdb":
+        return _RRDB_PEAK_BYTES_PER_BODY_PX[dtype]
+    if family == "srvgg":
+        peak = max(_SRVGG_HEAD_BYTES, _SRVGG_CHAIN_BYTES[dtype],
+                   640 + 24 * scale ** 2, 40 * scale ** 2)
+        return peak * 11 // 10
+    raise ValueError(f"no memory plan for model family {family!r}")
+
+
 def frame_bytes(height: int, width: int, scale: int, family: str = "rrdb",
                 dtype: str = "bfloat16") -> int:
     u = body_divisor(family, scale)
-    return -(-height // u) * -(-width // u) * _PEAK_BYTES_PER_BODY_PX[dtype]
+    return -(-height // u) * -(-width // u) * peak_bytes_per_body_px(family, scale, dtype)
 
 
 def plan(height: int, width: int, scale: int, family: str = "rrdb",

@@ -1,16 +1,20 @@
 """Super-resolution processor: the restore path's hot stage.
 
 The port of ``framewright_tpu/processors/super_resolution.py`` for the
-RRDB family in bf16 and int8: weights from the registry (every master
-rounded to bf16 once, as the JAX processor loads them), a whole-frame
-batch from the planner, the model's kernel path (``RRDBNet.apply_fast``)
-with the output epilogue fused into the tail kernel (uint8 RGB, or
-YUV420 planes for a 4:2:0 writer).
+RRDB family (RealESRGAN_x2plus, x4plus, FW_fast6_x2, ...) and the SRVGG
+family (realesr-animevideov3, realesr-general-x4v3, FW_fastvgg_x2/x4)
+in bf16 and int8: weights from the registry (every master rounded to
+bf16 once, as the JAX processor loads them), a whole-frame batch from
+the planner, and the model's kernel path (``apply_fast``, the JAX
+processor's ``use_fused_kernel=True`` path) with the uint8 RGB or
+YUV420 output epilogue (fused into the tail kernel for RRDB, applied
+after conv_last for SRVGG, as the JAX package does in XLA).
 
 int8 (``compute_dtype="int8"``, static scales): ``setup`` builds no
 int8 weights; the first ``dispatch`` calibrates the activation ranges on
 a centre crop of its first frame (``_calibrate_int8``) and quantizes the
-body once; later batches reuse those weights.
+body or the conv chain once; later batches reuse those weights. For
+SRVGG ``int8_scales`` is ignored, as in the JAX processor.
 
 ``dispatch`` enqueues a batch on the card and returns without
 synchronising; ``materialize`` waits on the batch's CUDA event and
@@ -54,7 +58,7 @@ class SRConfig:
     output_color: str = "rgb"         # rgb | yuv420 (planes from the tail kernel)
     yuv_full_range: bool = False      # BT.601 limited unless the writer says full
     device: str = "cuda"              # cuda | cpu
-    int8_scales: str = "static"       # static: calibrated on the first batch
+    int8_scales: str = "static"       # static: calibrated on the first batch (rrdb)
     int8_calib_margin: float = 1.25   # headroom over the observed ranges
 
 
@@ -81,15 +85,17 @@ class SuperResolution:
         self._int8_calibrate = False
 
     def setup(self, height: int, width: int) -> None:
-        from framewright_tpu_torch.models.registry import bf16_masters, load_weights
+        from framewright_tpu_torch.models.registry import bf16_masters, get_model, load_weights
         from framewright_tpu_torch.models.rrdb import RRDBNet
+        from framewright_tpu_torch.models.srvgg import SRVGGNet
 
         cfg = self.config
         if cfg.compute_dtype not in _DTYPES:
             raise ConfigError(f"compute_dtype must be one of {_DTYPES} (float32 "
                               "is not ported yet: ROADMAP.md A1)")
         int8 = cfg.compute_dtype == "int8"
-        if int8 and cfg.int8_scales != "static":
+        family = get_model(cfg.model_name).family
+        if int8 and family == "rrdb" and cfg.int8_scales != "static":
             raise ConfigError("int8_scales must be 'static' (dynamic per-block "
                               "scales are not ported yet: ROADMAP.md B7/B9)")
         self.device = resolve_device(cfg.device)
@@ -99,8 +105,8 @@ class SuperResolution:
         spec, sd, self.weights_source = load_weights(
             cfg.model_name, cfg.weights_dir, dtype=torch.float32)
         self.scale = spec.scale
-        self.model = RRDBNet.from_state_dict(spec.arch_config, bf16_masters(sd),
-                                             self.device)
+        net = SRVGGNet if family == "srvgg" else RRDBNet
+        self.model = net.from_state_dict(spec.arch_config, bf16_masters(sd), self.device)
         if int8:
             # static scales need activation ranges: calibrated on the
             # first batch (dispatch), then the body is quantized once
@@ -150,9 +156,12 @@ class SuperResolution:
         """Static int8 scales from the first batch: one bf16 pass over a
         centre crop of its first frame (at most 256x256, sides a multiple
         of 8, u8 / 255 in f32, as the JAX processor takes it), then the
-        body is quantized once (``RRDBNet.fast_weights_int8``)."""
-        from framewright_tpu_torch.models.rrdb import calibrate_act_scales
+        RRDB body or the SRVGG chain is quantized once
+        (``fast_weights_int8``)."""
+        from framewright_tpu_torch.models import rrdb, srvgg
 
+        calibrate_act_scales = (srvgg if isinstance(self.model, srvgg.SRVGGNet)
+                                else rrdb).calibrate_act_scales
         _, h, w, _ = x_u8.shape
         ch, cw = min(h, 256) & ~7, min(w, 256) & ~7
         r0, c0 = (h - ch) // 2, (w - cw) // 2
@@ -162,9 +171,9 @@ class SuperResolution:
                                     margin=self.config.int8_calib_margin)
         self.model.fast_weights_int8(amax)
         self._int8_calibrate = False
-        logger.info("int8 static scales calibrated (margin %.2f, scheme %s)",
+        logger.info("int8 static scales calibrated (margin %.2f, %s)",
                     self.config.int8_calib_margin,
-                    self.model.int8_weights.int8_scheme)
+                    getattr(self.model.int8_weights, "int8_scheme", "srvgg chain"))
 
     def dispatch(self, frames: np.ndarray) -> dict:
         """Enqueue a uint8 (B, H, W, 3) batch; return a handle for

@@ -3,8 +3,9 @@
 The port of the ``framewright_tpu.restorer.VideoRestorer`` path that a
 default ``restore`` takes: probe, the enhance stage with ``PrefetchRing``
 and ``WriterDrain``, one batch in flight on the card, and the
-YUV-direct writer path (the SR tail emits 4:2:0 planes straight into a
-4:2:0 Y4M writer; any other writer gets uint8 RGB). Checkpoint/resume,
+YUV-direct writer path (the SR stage emits 4:2:0 planes straight into a
+4:2:0 Y4M writer whenever the output's width and height are even, for
+either model family; any other writer gets uint8 RGB). Checkpoint/resume,
 dedup and the other stages are not ported yet.
 """
 

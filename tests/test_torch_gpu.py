@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions,
+and the restore through them (RRDB and SRVGG, bf16 and int8).
 
 Marked ``gpu``; each test asks for the ``cuda`` fixture, which skips
 when no CUDA device is present (decided inside the fixture, never at
@@ -173,3 +174,82 @@ def test_cli_restore_int8_on_the_card(cuda, tmp_path, capsys):
     assert [a - b for a, b in zip(after, before)] == [1, 18 * summary["batches"], 0]
     with Y4MReader(tmp_path / "o.y4m") as r:
         assert (r.width, r.height, r.count_frames()) == (128, 96, 3)
+
+
+# --- the SRVGG conv chain ----------------------------------------------------
+
+@pytest.fixture
+def vgg(cuda):
+    """A 10-conv SRVGG model (groups of 8 and 2) with seeded weights and
+    both chains' weights, int8 calibrated on a seeded 64x64 sample."""
+    from framewright_tpu_torch.models import srvgg
+    from framewright_tpu_torch.models.registry import bf16_masters
+
+    cfg = srvgg.SRVGGConfig(num_conv=10, scale=4)
+    sd = bf16_masters(from_jax_params(init_params(cfg, seed=2), torch.float32))
+    m = srvgg.SRVGGNet.from_state_dict(cfg, sd, cuda)
+    sample = torch.from_numpy(np.random.default_rng(5).random((1, 64, 64, 3),
+                                                             dtype=np.float32))
+    return m, m.fast_weights(), m.fast_weights_int8(srvgg.calibrate_act_scales(m, sample))
+
+
+@pytest.mark.parametrize("shape,group", [((1, 540, 960), 0), ((2, 37, 53), 1)])
+def test_chain_kernel_matches_plain(vgg, cuda, shape, group):
+    from framewright_tpu_torch.ops import fused_srvgg
+
+    wts = vgg[1].groups[group]
+    x = _feat(cuda, *shape)
+    out, out_p = torch.empty_like(x), torch.empty_like(x)
+    n = fused_srvgg.fused_conv_chain.launches
+    fused_srvgg.fused_conv_chain(x, out, wts)
+    fused_srvgg.fused_conv_chain_plain(x, out_p, wts)
+    torch.cuda.synchronize()
+    assert fused_srvgg.fused_conv_chain.launches == n + 1
+    _close_bf16(out, out_p)
+
+
+@pytest.mark.parametrize("shape,group", [((1, 540, 960), 0), ((2, 37, 53), 1)])
+def test_int8_chain_kernel_matches_plain(vgg, cuda, shape, group):
+    """The same integer sums and f32 operations in the same order: every
+    code and every bf16 output agree exactly."""
+    from framewright_tpu_torch.ops import fused_srvgg
+
+    wts = vgg[2].groups[group]
+    x = _feat(cuda, *shape)
+    out, out_p = torch.empty_like(x), torch.empty_like(x)
+    codes, codes_p = [], []
+    n = fused_srvgg.fused_conv_chain_int8.launches
+    fused_srvgg.fused_conv_chain_int8(x, out, wts, codes)
+    fused_srvgg.fused_conv_chain_int8_plain(x, out_p, wts, codes_p)
+    torch.cuda.synchronize()
+    assert fused_srvgg.fused_conv_chain_int8.launches == n + 1
+    assert len(codes) == len(codes_p) == len(wts.alpha)
+    for c, c_p in zip(codes, codes_p):
+        assert torch.equal(c, c_p)
+    assert torch.equal(out, out_p)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_cli_restore_srvgg_on_the_card(cuda, tmp_path, capsys, dtype):
+    from framewright_tpu_torch import cli
+    from framewright_tpu_torch.io.y4m import Y4MReader, Y4MWriter
+    from framewright_tpu_torch.models import srvgg
+    from framewright_tpu_torch.ops import fused_srvgg
+
+    g = np.random.default_rng(0)
+    src = tmp_path / "clip.y4m"
+    with Y4MWriter(src, 64, 48, fps=24) as w:
+        for _ in range(3):
+            w.write_frame(g.integers(0, 256, (48, 64, 3), dtype=np.uint8))
+    counters = (fused_srvgg.fused_conv_chain, fused_srvgg.fused_conv_chain_int8,
+                fused_rrdb.fused_rdb, fused_rrdb.fused_rdb_i32)
+    before = [c.launches for c in counters] + [srvgg.calibrate_act_scales.calls]
+    assert cli.main(["restore", str(src), "-o", str(tmp_path / "o.y4m"), "--dtype", dtype,
+                     "--model", "realesr-animevideov3", "--project-dir", str(tmp_path)]) == 0
+    summary = json.loads(capsys.readouterr().out)
+    after = [c.launches for c in counters] + [srvgg.calibrate_act_scales.calls]
+    groups = 2 * summary["batches"]     # 16 convs: two groups of 8
+    want = [groups, 0, 0, 0, 0] if dtype == "bfloat16" else [0, groups, 0, 0, 1]
+    assert [a - b for a, b in zip(after, before)] == want
+    with Y4MReader(tmp_path / "o.y4m") as r:
+        assert (r.width, r.height, r.count_frames()) == (256, 192, 3)

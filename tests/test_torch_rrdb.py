@@ -22,6 +22,7 @@ import jax.numpy as jnp
 from framewright_tpu.models import rrdb as jrrdb
 from framewright_tpu.models.registry import packaged_weights_dir
 from framewright_tpu_torch.models import rrdb
+from framewright_tpu_torch.models.layers import out_epilogue
 from framewright_tpu_torch.models.registry import (
     from_jax_params,
     init_params,
@@ -115,7 +116,7 @@ def test_rgb_u8_matches_epilogue_of_own_bf16(nets, shape):
     x = torch.from_numpy(_frames(shape, seed=3))
     ref = model.apply_fast(x, "bf16")
     got = model.apply_fast(x, "rgb_u8")
-    want = rrdb._out_epilogue(ref, "rgb_u8", False)
+    want = out_epilogue(ref, "rgb_u8", False)
     assert got.dtype == torch.uint8 and got.shape == want.shape
     d = (got.float() - want.float()).abs()
     assert d.max() <= 1 and (d > 0).float().mean() < 0.02
@@ -129,7 +130,7 @@ def test_yuv420_u8_matches_epilogue_of_own_bf16(nets, shape, full_range):
     x = torch.from_numpy(_frames(shape, seed=4))
     ref = model.apply_fast(x, "bf16")
     got = model.apply_fast(x, "yuv420_u8", full_range)
-    want = rrdb._out_epilogue(ref, "yuv420_u8", full_range)
+    want = out_epilogue(ref, "yuv420_u8", full_range)
     assert [tuple(p.shape) for p in got] == [(b, 2 * h, 2 * w), (b, h, w), (b, h, w)]
     for g, wt in zip(got, want):
         assert g.dtype == torch.uint8
@@ -141,11 +142,11 @@ def test_out_epilogue_matches_jax(nets):
     y = np.random.default_rng(1).uniform(-0.2, 1.2, (2, 16, 24, 3)).astype(np.float32)
     for full in (False, True):
         want = jax.device_get(jrrdb._out_epilogue(jnp.asarray(y), "yuv420_u8", full))
-        got = rrdb._out_epilogue(torch.from_numpy(y), "yuv420_u8", full)
+        got = out_epilogue(torch.from_numpy(y), "yuv420_u8", full)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.numpy(), w)
     np.testing.assert_array_equal(
-        rrdb._out_epilogue(torch.from_numpy(y), "rgb_u8", False).numpy(),
+        out_epilogue(torch.from_numpy(y), "rgb_u8", False).numpy(),
         jax.device_get(jrrdb._out_epilogue(jnp.asarray(y), "rgb_u8", False)))
 
 

@@ -144,7 +144,8 @@ class TestRandomInit:
                 spec.arch_config.num_grow_ch) == (2, 23, 64, 32)
         assert set(registry.MODEL_SPECS) == {
             "RealESRGAN_x2plus", "RealESRGAN_x4plus",
-            "RealESRGAN_x4plus_anime_6B", "FW_fast6_x2"}
+            "RealESRGAN_x4plus_anime_6B", "FW_fast6_x2", "FW_fastvgg_x2",
+            "FW_fastvgg_x4", "realesr-animevideov3", "realesr-general-x4v3"}
 
 
 class TestProcessorFastWeights:
