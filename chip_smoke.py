@@ -9,35 +9,43 @@ Phases, one JSON object per line on stdout:
               source, all at once, then one link)
   3. kernels  each kernel against its plain PyTorch version on the card,
               at the main-path shapes (RRDB body 540x960x64, tail out to
-              2160x3840; SRVGG chain 540x960x64, g=8) and the chains also
-              at a ragged 2x37x53x64, g=2: the bf16 RDB and its residual
-              variant, both int8 RDBs (i32 and f32acc, codes x1..x4 and
-              bf16 output, with and without the residual), K1, K2 in its
-              three output modes, the bf16 SRVGG chain, and the int8 chain
-              (every code and the bf16 output)
+              2160x3840, tail1 in 1080x1920x64; SRVGG chain 540x960x64,
+              g=8) and the chains also at a ragged 2x37x53x64, g=2: the
+              bf16 RDB and its residual variant, the int8 RDBs (i32,
+              f32acc and dynamic: codes x1..x4 and bf16 output, with and
+              without the residual; dynamic: each frame's ranges too),
+              K1, K2 in its three output modes, tail1, the bf16 SRVGG
+              chain, and the int8 chain (every code and the bf16 output)
   4. model    one frame through each model's kernel path against the
               plain f32 ``apply``: RealESRGAN_x2plus (23 blocks, seeded
               random weights) and FW_fast6_x2 (trained) at 1080p,
               realesr-animevideov3 (16 convs, x4, seeded random weights)
               at 960x540 and FW_fastvgg_x2 (trained) at 1080p, all to 4K;
               their uint8 outputs against the epilogue of their own
-              output; the int8 kernel paths (scales calibrated on the
-              frame's centre crop) of the trained models against their
-              bf16 kernel paths (PSNR) and of the random-weight models
-              against their int8 plain paths; the SRVGG peaks against
-              the planner's count
-  5. restore  the user's entry point, ``python -m framewright_tpu_torch.cli
-              restore``, on seeded synthetic 4:2:0 clips: 1080p with
-              RealESRGAN_x2plus in bf16, in int8 (default scheme i32) and
-              in int8 with FW_INT8_SCHEME=f32acc; 960x540 with
-              realesr-animevideov3 in bf16 and in int8; each with every
-              launch counter set to 0 just before and read just after;
-              output size, frame count and every frame checked against
-              the kernel path
+              output; the int8 kernel paths (static scales calibrated on
+              the frame's centre crop, and dynamic scales) of the trained
+              models against their bf16 kernel paths (PSNR) and of the
+              random-weight models against their int8 plain paths; the
+              dynamic bodies against the bf16 bodies; FW_fast6_x2's
+              round-trip bf16 and f32acc bodies with tail1 against their
+              plain paths; the dynamic frame's split; the SRVGG and
+              dynamic peaks against the planner's count
+  5. restore  the user's entry points on seeded synthetic 4:2:0 clips:
+              ``python -m framewright_tpu_torch.cli restore`` at 1080p
+              with RealESRGAN_x2plus in bf16, in int8 (default scheme
+              i32) and in int8 with FW_INT8_SCHEME=f32acc, with
+              FW_fast6_x2 in bf16 and int8 f32acc with
+              FW_RDB_BODY=roundtrip FW_TAIL=1, and at
+              960x540 with realesr-animevideov3 in bf16 and in int8; then
+              the SR processor (``SuperResolution``) at 1080p with
+              RealESRGAN_x2plus in int8 with ``int8_scales="dynamic"``;
+              each with every launch counter set to 0 just before and
+              read just after; output size, frame count and every frame
+              checked against the kernel path
   6. times    each kernel by CUDA events beside its plain version, its
-              roofline bound and, for the bf16 RDB, K1 and the bf16
-              chain, cuDNN's F.conv2d (PyTorch has no single int8 3x3
-              convolution call)
+              roofline bound and, for the bf16 RDB, K1, tail1 and the
+              bf16 chain, cuDNN's F.conv2d (PyTorch has no single int8
+              3x3 convolution call)
 Then nvidia-smi's line, the kernel summary line, and the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 the result line. Without a CUDA device, or without the package beside
@@ -69,6 +77,9 @@ PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 INT8_PSNR_MIN = 38.0          # int8 vs bf16 kernel path (tests/test_int8_mode.py)
 VGG_INT8_PSNR_MIN = 35.0      # SRVGG int8 vs bf16 (tests/test_fused_srvgg.py)
 CODE_MAX_STEP, CODE_MAX_FRAC = 1, 1e-4
+AMAX_MAX_REL = 1e-6
+DYN_INT8_PSNR_MIN = 40.0      # dynamic int8 vs bf16 (tests/test_int8_mode.py:77-90)
+DYN_BODY_MAX_REL, DYN_BODY_MEAN_REL = 0.06, 0.008   # tests/test_int8_mode.py:57-75
 UINT8_MAX_LSB, UINT8_MAX_FRAC = 1, 0.02
 MODEL_MAX_ABS, MODEL_MEAN_ABS = 0.05, 0.005
 RDB_MAC_PER_PX = 9 * (64 * 32 + 96 * 32 + 128 * 32 + 160 * 32 + 192 * 64)
@@ -77,6 +88,10 @@ K1_MAC_PER_PX = 9 * 64 * 64
 # conv_hr and conv_last at 16 output pixels
 K2_MAC_PER_PX = 4 * 4 * 64 * 64 * 5 + 16 * 9 * 64 * 64 + 16 * 9 * 64 * 3
 K2_WEIGHTS = 2 * (4 * 64 * 4 * 64) + 9 * 64 * 64 + 9 * 64 * 3
+# tail1 per input pixel (conv_up1's output, 2x the body resolution):
+# conv_up2 (4 phases x 4 taps), then conv_hr and conv_last at 4 output pixels
+TAIL1_MAC_PER_PX = 4 * 4 * 64 * 64 + 4 * 9 * 64 * 64 + 4 * 9 * 64 * 3
+TAIL1_WEIGHTS = 4 * 64 * 4 * 64 + 9 * 64 * 64 + 9 * 64 * 3
 VGG_GROUP = 8                  # convs per chain call (fused_srvgg.GROUP)
 VGG_MAC_PER_PX = VGG_GROUP * 9 * 64 * 64
 
@@ -181,6 +196,16 @@ def check_codes(name: str, got, want, phase: str = "kernels") -> dict:
     emit({"phase": phase, **s})
     require(s["max_abs"] <= CODE_MAX_STEP and s["frac_differ"] < CODE_MAX_FRAC, f"{name}: {s}")
     return s
+
+
+def check_amax(name: str, got, want, phase: str = "kernels") -> float:
+    """Per-frame activation ranges (B, 5) of a dynamic kernel and its plain
+    version: maxima of the same f32 values, within 1e-6 relative."""
+    rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+    emit({"phase": phase, "name": name, "max_rel": rel, "got": got.tolist(),
+          "tol": {"max_rel": AMAX_MAX_REL}})
+    require(rel <= AMAX_MAX_REL, f"{name}: {rel}")
+    return rel
 
 
 def psnr(a, b) -> float:
@@ -301,6 +326,7 @@ def main(argv=None) -> int:
         fused_tail,
         fused_tail3,
     )
+    from framewright_tpu_torch.processors.super_resolution import SRConfig, SuperResolution
 
     # f32 references run in full f32 (cuDNN would use TF32 by default)
     torch.backends.cudnn.allow_tf32 = False
@@ -369,6 +395,26 @@ def main(argv=None) -> int:
               check_bf16(f"rdb_int8_{scheme}_res", r_k, r_p)["max_abs"]]
         errs[f"rdb_int8_{scheme}"] = max(e)
         del q_k, q_p, o_k, o_p, r_k, r_p
+    # the dynamic-scale RDB: codes, per-frame ranges and output, with and
+    # without the RRDB residual
+    fwd = model.fast_weights_int8(None)
+    e = []
+    for label, x_in, k, carry in (("", feat, 0, None), ("_res", None, 2, feat)):
+        x_in = o_k if x_in is None else x_in
+        q_k = torch.zeros(*feat.shape[:3], 192, dtype=torch.int8, device=dev)
+        q_p = torch.zeros_like(q_k)
+        o_k = torch.empty_like(feat) if carry is None else carry.clone()
+        o_p = torch.empty_like(feat) if carry is None else carry.clone()
+        a_k = fused_rrdb.fused_rdb_dynamic(x_in, q_k, o_k, fwd.body[0][k],
+                                           carry=None if carry is None else o_k)
+        a_p = fused_rrdb.fused_rdb_dynamic_plain(x_in, q_p, o_p, fwd.body[0][k],
+                                                 carry=None if carry is None else o_p)
+        torch.cuda.synchronize()
+        e += [check_codes(f"rdb_dynamic{label} q0..q4", q_k, q_p)["max_abs"],
+              check_amax(f"rdb_dynamic{label} amax", a_k, a_p),
+              check_bf16(f"rdb_dynamic{label}", o_k, o_p)["max_abs"]]
+    errs["rdb_dynamic"] = max(e)
+    del q_k, q_p, o_k, o_p
     skip_k = fused_tail3.conv_body_skip(c_k, feat, fw.cbody)
     skip_p = fused_tail3.conv_body_skip_plain(c_k, feat, fw.cbody)
     torch.cuda.synchronize()
@@ -384,7 +430,15 @@ def main(argv=None) -> int:
             s = check_bf16(name, g, w) if mode == "bf16" else check_u8(name, g, w)
             errs["k2"] = max(errs["k2"], s["max_abs"])
         del got, want
-    kernel_inputs = (ws, feat, skip_p)
+    # tail1 from conv_up1's output at the main-path shape (1080x1920 -> 4K)
+    with torch.no_grad():
+        a0 = model.tail1_input(feat, c_k[..., :64])
+    t_k = fused_tail.fused_tail1(a0, fw.tail)
+    t_p = fused_tail.fused_tail1_plain(a0, fw.tail)
+    torch.cuda.synchronize()
+    errs["tail1"] = check_bf16("tail1", t_k, t_p)["max_abs"]
+    del t_k, t_p
+    kernel_inputs = (ws, feat, skip_p, a0, fwd)
     # the SRVGG chains: realesr-animevideov3 (seeded random weights) on a
     # 960x540 frame, whose body runs at 540x960 like x2plus's; the chain's
     # main-path input is conv0's PReLU output, a group of 8 convs
@@ -441,6 +495,7 @@ def main(argv=None) -> int:
         bf16_masters(from_jax_params(read_npz(npz), torch.float32)), dev)
     xb = x32.to(torch.bfloat16)
     model_ms = {}
+    plan_checks = []     # (name, peak, planner bytes), held after phase 6
     with torch.no_grad():
         # The uint8 outputs (quantized from the f32 conv_last sums) are held
         # against the epilogue of the model's own bf16 output at 1 LSB. The
@@ -525,9 +580,91 @@ def main(argv=None) -> int:
                 lambda: m.apply_fast(xb, "yuv420_u8", True, weights=w8), 3, warmup=1)
             emit({"phase": "model", "name": f"{name} int8", "ms_per_frame_yuv420":
                   model_ms[f"{name} int8"]})
-            del fast, fast8
-    del fast6
-    plan_checks = []     # (name, peak, planner bytes), held after phase 6
+            del fast8
+
+            # int8 with dynamic scales: the round-trip body, then tail1
+            # and the epilogue in PyTorch
+            wd = m.fast_weights_int8(None)
+            fastd = m.apply_fast(xb, "bf16", weights=wd)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(fastd.float()).all()), f"{name}: non-finite dynamic output")
+            require(tuple(fastd.shape) == (1, 2160, 3840, 3), f"{name}: dynamic {fastd.shape}")
+            featd = m._head(xb).contiguous()
+            body_d = fused_rrdb.rrdb_body_fast(featd, wd.body)
+            body_16 = fused_rrdb.rrdb_body(featd, w16.body)[..., :64]
+            err = (body_d.float() - body_16.float()).abs()
+            scale = body_16.float().abs().max().item() + 1e-3
+            rec = {"phase": "model", "name": f"{name} int8 dynamic kernel path",
+                   "psnr_vs_bf16_kernel_path": psnr(fastd, fast),
+                   "body_vs_bf16_body": {"max_rel": err.max().item() / scale,
+                                         "mean_rel": err.mean().item() / scale},
+                   "tol": {"body_max_rel": DYN_BODY_MAX_REL,
+                           "body_mean_rel": DYN_BODY_MEAN_REL}}
+            del body_16, err
+            if name == "FW_fast6_x2":
+                rec["tol"]["psnr_min"] = DYN_INT8_PSNR_MIN
+                require(rec["psnr_vs_bf16_kernel_path"] > DYN_INT8_PSNR_MIN, f"{name}: {rec}")
+            else:
+                # random weights: the kernels held to the plain dynamic
+                # path on the same frame, errors divided by its range
+                refd = m.tail1(featd, fused_rrdb.rrdb_body_fast(featd, wd.body, plain=True),
+                               wd.tail, plain=True)
+                sd = diff_stats(fastd, refd)
+                lo, hi = refd.float().min().item(), refd.float().max().item()
+                sd.update(max_scaled=sd["max_abs"] / (hi - lo), mean_scaled=sd["mean_abs"] / (hi - lo))
+                rec["vs_plain_dynamic_path"] = {"ref_min": lo, "ref_max": hi, **sd}
+                rec["tol"].update(max_scaled=MODEL_MAX_ABS, mean_scaled=MODEL_MEAN_ABS)
+                require(sd["max_scaled"] < MODEL_MAX_ABS and sd["mean_scaled"] < MODEL_MEAN_ABS,
+                        f"{name} dynamic: {sd}")
+                del refd
+            emit(rec)
+            body_rel = rec["body_vs_bf16_body"]
+            require(body_rel["max_rel"] < DYN_BODY_MAX_REL
+                    and body_rel["mean_rel"] < DYN_BODY_MEAN_REL, f"{name} dynamic body: {rec}")
+            key = f"{name} int8 dynamic"
+            planes, peak = part_peak(lambda: m.apply_fast(xb, "yuv420_u8", True, weights=wd))
+            del planes
+            model_ms[key] = cuda_ms(lambda: m.apply_fast(xb, "yuv420_u8", True, weights=wd),
+                                    3, warmup=1)
+            # the frame's parts, each timed and its peak taken alone
+            a0, p_xla = part_peak(lambda: m.tail1_input(featd, body_d))
+            img, p_tail1 = part_peak(lambda: fused_tail.fused_tail1(a0, wd.tail))
+            split_ms = {
+                "body": cuda_ms(lambda: fused_rrdb.rrdb_body_fast(featd, wd.body), 1, 1),
+                "tail1_input": cuda_ms(lambda: m.tail1_input(featd, body_d), 3, 1),
+                "tail1": cuda_ms(lambda: fused_tail.fused_tail1(a0, wd.tail), 3, 1),
+                "epilogue": cuda_ms(lambda: out_epilogue(img, "yuv420_u8", True), 3, 1)}
+            plan = planner.frame_bytes(1080, 1920, 2, "rrdb", "int8-dynamic")
+            emit({"phase": "model", "name": key, "ms_per_frame_yuv420": model_ms[key],
+                  "split_ms": split_ms, "peak_mem_bytes_above_base": peak,
+                  "split_peak_bytes_above_base": {"tail1_input": p_xla, "tail1": p_tail1},
+                  "planner_bytes": plan})
+            plan_checks.append((key, peak, plan))
+            del a0, img, body_d
+
+            if name == "FW_fast6_x2":
+                # the round-trip bf16 and static f32acc bodies with tail1
+                # (FW_RDB_BODY=roundtrip, FW_TAIL=1) against their plain
+                # versions: the trained model, held to the absolute
+                # tolerances
+                os.environ.update(FW_RDB_BODY="roundtrip", FW_TAIL="1")
+                try:
+                    for label, w in (("bf16", w16), ("int8 f32acc",
+                                                     m.fast_weights_int8(a8, "f32acc"))):
+                        got = m.apply_fast(xb, "bf16", weights=w)
+                        want = m.tail1(featd, fused_rrdb.rrdb_body_fast(featd, w.body, plain=True),
+                                       w.tail, plain=True)
+                        s_rt = diff_stats(got, want)
+                        emit({"phase": "model", "name": f"{name} {label} round-trip + tail1 "
+                              "kernel path vs plain", **s_rt,
+                              "tol": {"max_abs": MODEL_MAX_ABS, "mean_abs": MODEL_MEAN_ABS}})
+                        require(s_rt["max_abs"] < MODEL_MAX_ABS and s_rt["mean_abs"] < MODEL_MEAN_ABS,
+                                f"{name} {label} round trip: {s_rt}")
+                        del got, want
+                finally:
+                    os.environ.pop("FW_RDB_BODY", None)
+                    os.environ.pop("FW_TAIL", None)
+            del fast, fastd, featd
     # SRVGG: realesr-animevideov3 (seeded random weights, x4) on the 960x540
     # frame, FW_fastvgg_x2 (trained weights, x2) on the 1080p frame, both
     # to 4K; held like the RRDB pair above (the random-weight model's
@@ -630,21 +767,65 @@ def main(argv=None) -> int:
     emit({"phase": "model", "seconds": round(time.perf_counter() - t0, 3)})
 
     # 5. the main paths: cli restore on synthetic clips -----------------
-    # Five runs of the user's entry point: RealESRGAN_x2plus on the 1080p
+    # Seven runs of the user's entry point: RealESRGAN_x2plus on the 1080p
     # clip in bf16, int8 (default scheme i32) and int8 with
-    # FW_INT8_SCHEME=f32acc, and realesr-animevideov3 on the 960x540 clip
-    # in bf16 and int8. Every counter is set to 0 just before each run and
-    # read just after it.
+    # FW_INT8_SCHEME=f32acc, then FW_fast6_x2 on the same clip in bf16 and
+    # int8 f32acc on the round-trip body with tail1 (FW_RDB_BODY=roundtrip
+    # FW_TAIL=1), and realesr-animevideov3 on the 960x540 clip in bf16 and
+    # int8; then the
+    # dynamic-scale int8 restore of the 1080p clip through the SR
+    # processor (SuperResolution with int8_scales="dynamic": setup,
+    # dispatch, materialize), which no CLI flag reaches, as in the JAX
+    # package. Every counter is set to 0 just before each run and read
+    # just after it.
     t0 = time.perf_counter()
     counters = (fused_rrdb.fused_rdb, fused_rrdb.fused_rdb_i32, fused_rrdb.fused_rdb_f32acc,
-                fused_tail3.conv_body_skip, fused_tail.fused_tail,
+                fused_rrdb.fused_rdb_dynamic, fused_tail3.conv_body_skip,
+                fused_tail.fused_tail, fused_tail.fused_tail1,
                 fused_srvgg.fused_conv_chain, fused_srvgg.fused_conv_chain_int8)
     calibrations = {"rrdb_calibrations": rrdb.calibrate_act_scales,
                     "srvgg_calibrations": srvgg.calibrate_act_scales}
-    runs = (("RealESRGAN_x2plus", "bfloat16", None), ("RealESRGAN_x2plus", "int8", None),
-            ("RealESRGAN_x2plus", "int8", "f32acc"),
-            ("realesr-animevideov3", "bfloat16", None), ("realesr-animevideov3", "int8", None))
+    roundtrip = {"FW_RDB_BODY": "roundtrip", "FW_TAIL": "1"}
+    f32acc = {"FW_INT8_SCHEME": "f32acc"}
+    runs = (("RealESRGAN_x2plus", "bfloat16", {}), ("RealESRGAN_x2plus", "int8", {}),
+            ("RealESRGAN_x2plus", "int8", f32acc),
+            ("FW_fast6_x2", "bfloat16", roundtrip),
+            ("FW_fast6_x2", "int8", {**f32acc, **roundtrip}),
+            ("realesr-animevideov3", "bfloat16", {}), ("realesr-animevideov3", "int8", {}))
     launches_by_run = {}
+
+    def reset_counters():
+        for fn in counters:
+            fn.launches = 0
+        for fn in calibrations.values():
+            fn.calls = 0
+
+    def read_counters() -> dict:
+        out = {fn.__name__: fn.launches for fn in counters}
+        out.update({k: fn.calls for k, fn in calibrations.items()})
+        return out
+
+    def planes_vs_kernel_path(label, m, weights, decoded, planes_out, bs) -> None:
+        """Every written frame against the kernel path run directly on the
+        same decoded frames in the same batches, with the weights the run
+        used: the same deterministic kernels, so the planes must match
+        exactly (phase 4 holds the kernel paths against their references)."""
+        worst = 0
+        with torch.no_grad():
+            for i in range(0, n_frames, bs):
+                xs = torch.from_numpy(decoded[i:i + bs]).to(dev).to(torch.bfloat16) / 255.0
+                want = [p.cpu().numpy() for p in m.apply_fast(xs, "yuv420_u8", True,
+                                                               weights=weights)]
+                for j in range(len(xs)):
+                    for g, w_ in zip(planes_out[i + j], want):
+                        if not np.array_equal(g, w_[j]):
+                            worst = max(worst, int(np.abs(g.astype(np.int16)
+                                                          - w_[j].astype(np.int16)).max()))
+        emit({"phase": "restore", "run": label,
+              "name": "written planes vs kernel path on the decoded frames",
+              "max_abs": worst, "tol": {"max_abs": 0}})
+        require(worst == 0, f"{label}: restore output differs from the kernel path by {worst}")
+
     with tempfile.TemporaryDirectory(prefix="fw_smoke_") as tmp:
         tmp = Path(tmp)
         clips = {}
@@ -655,93 +836,108 @@ def main(argv=None) -> int:
                     writer.write_frame(f)
             with Y4MReader(src) as reader:
                 clips[model_name] = (src, np.stack(list(reader)))
-        for model_name, dtype, scheme in runs:
-            label = f"{model_name} {dtype}" + ("" if scheme is None
-                                               else f" FW_INT8_SCHEME={scheme}")
+        clips["FW_fast6_x2"] = clips["RealESRGAN_x2plus"]
+        # the CLI draws x2plus's and animevideov3's seeded random weights
+        # from an empty weights dir and reads FW_fast6_x2's checkpoint
+        models = {"RealESRGAN_x2plus": model, "FW_fast6_x2": fast6, "realesr-animevideov3": vgg}
+        for model_name, dtype, env in runs:
+            t_run = time.perf_counter()
+            label = f"{model_name} {dtype}" + "".join(f" {k}={v}" for k, v in env.items())
             src, decoded = clips[model_name]
             vgg_run = model_name == "realesr-animevideov3"
             out = tmp / f"restored_{len(launches_by_run)}.y4m"
-            if scheme is not None:
-                os.environ["FW_INT8_SCHEME"] = scheme
-            for fn in counters:
-                fn.launches = 0
-            for fn in calibrations.values():
-                fn.calls = 0
-            buf = io.StringIO()
+            os.environ.update(env)
             try:
+                reset_counters()
+                buf = io.StringIO()
                 with contextlib.redirect_stdout(buf):
-                    # an empty weights dir: the restore draws the same
-                    # seeded random weights as ``model`` and ``vgg`` above
                     rc = cli.main(["restore", str(src), "-o", str(out), "--device", "cuda",
                                    "--model", model_name, "--dtype", dtype,
                                    "--weights-dir", str(tmp / "no_weights"),
                                    "--project-dir", str(tmp / "proj")])
+                launches = read_counters()
+                require(rc == 0, f"cli restore {label} exited {rc}")
+                summary = json.loads(buf.getvalue())
+                w, h, planes_out = read_y4m_planes(out)
+                batches = summary["batches"]
+                emit({"phase": "restore", "run": label, "summary": summary, "out_width": w,
+                      "out_height": h, "frames_out": len(planes_out), "launches": launches})
+                require((w, h) == (3840, 2160), f"restore output {w}x{h}")
+                require(len(planes_out) == n_frames == summary["frames"],
+                        f"restore wrote {len(planes_out)} of {n_frames} frames")
+                want_counts = {k: 0 for k in launches}
+                scheme = env.get("FW_INT8_SCHEME")
+                if vgg_run:
+                    # 16 chain convs: two groups of 8 per batch
+                    want_counts["fused_conv_chain" if dtype == "bfloat16"
+                                else "fused_conv_chain_int8"] = 2 * batches
+                    want_counts["srvgg_calibrations"] = int(dtype == "int8")
+                else:
+                    body_fn = ("fused_rdb" if dtype == "bfloat16" else
+                               "fused_rdb_f32acc" if scheme == "f32acc" else "fused_rdb_i32")
+                    want_counts.update({body_fn: 3 * models[model_name].cfg.num_block * batches,
+                                        "rrdb_calibrations": int(dtype == "int8")})
+                    if env.get("FW_TAIL") == "1":
+                        want_counts["fused_tail1"] = batches
+                    else:
+                        want_counts.update(conv_body_skip=batches, fused_tail=batches)
+                require(batches > 0 and launches == want_counts,
+                        f"{label}: launch counts {launches}, expected {want_counts}")
+                launches_by_run[label] = launches
+                # int8: calibrated on the same crop of the same first frame
+                m = models[model_name]
+                if dtype == "bfloat16":
+                    weights = m.fast_weights()
+                elif vgg_run:
+                    weights = m.fast_weights_int8(srvgg.calibrate_act_scales(
+                        m, torch.from_numpy(centre_crop(decoded[:1]))))
+                else:
+                    a8 = rrdb.calibrate_act_scales(m, torch.from_numpy(centre_crop(decoded[:1])))
+                    weights = m.fast_weights_int8(a8, scheme or "i32")
+                planes_vs_kernel_path(label, m, weights, decoded, planes_out,
+                                      summary["batch_size"])
+                del planes_out
+                emit({"phase": "restore", "run": label,
+                      "seconds": round(time.perf_counter() - t_run, 3)})
             finally:
-                os.environ.pop("FW_INT8_SCHEME", None)
-            launches = {fn.__name__: fn.launches for fn in counters}
-            launches.update({k: fn.calls for k, fn in calibrations.items()})
-            require(rc == 0, f"cli restore {label} exited {rc}")
-            summary = json.loads(buf.getvalue())
-            w, h, planes_out = read_y4m_planes(out)
-            batches = summary["batches"]
-            emit({"phase": "restore", "run": label, "summary": summary, "out_width": w,
-                  "out_height": h, "frames_out": len(planes_out), "launches": launches})
-            require((w, h) == (3840, 2160), f"restore output {w}x{h}")
-            require(len(planes_out) == n_frames == summary["frames"],
-                    f"restore wrote {len(planes_out)} of {n_frames} frames")
-            want_counts = {k: 0 for k in launches}
-            if vgg_run:
-                # 16 chain convs: two groups of 8 per batch
-                want_counts["fused_conv_chain" if dtype == "bfloat16"
-                            else "fused_conv_chain_int8"] = 2 * batches
-                want_counts["srvgg_calibrations"] = int(dtype == "int8")
-            else:
-                body_fn = ("fused_rdb" if dtype == "bfloat16" else
-                           "fused_rdb_f32acc" if scheme == "f32acc" else "fused_rdb_i32")
-                want_counts.update({body_fn: 69 * batches, "conv_body_skip": batches,
-                                    "fused_tail": batches,
-                                    "rrdb_calibrations": int(dtype == "int8")})
-            require(batches > 0 and launches == want_counts,
-                    f"{label}: launch counts {launches}, expected {want_counts}")
-            launches_by_run[label] = launches
-            # every written frame against the kernel path run directly on
-            # the same decoded frames in the same batches, with the weights
-            # the run used (int8: calibrated on the same crop of the same
-            # first frame): the same deterministic kernels, so the planes
-            # must match exactly (phase 4 holds the kernel paths against
-            # their references)
-            m = vgg if vgg_run else model
-            if dtype == "bfloat16":
-                weights = m.fast_weights()
-            elif vgg_run:
-                weights = m.fast_weights_int8(srvgg.calibrate_act_scales(
-                    m, torch.from_numpy(centre_crop(decoded[:1]))))
-            else:
-                a8 = rrdb.calibrate_act_scales(m, torch.from_numpy(centre_crop(decoded[:1])))
-                weights = m.fast_weights_int8(a8, scheme or "i32")
-            bs = summary["batch_size"]
-            worst = 0.0
-            with torch.no_grad():
-                for i in range(0, n_frames, bs):
-                    xs = (torch.from_numpy(decoded[i:i + bs]).to(dev).to(torch.bfloat16)
-                          / 255.0)
-                    want = m.apply_fast(xs, "yuv420_u8", True, weights=weights)
-                    for j in range(len(xs)):
-                        for g, w_ in zip(planes_out[i + j], want):
-                            worst = max(worst, diff_stats(torch.from_numpy(g.copy()),
-                                                          w_[j].cpu())["max_abs"])
-            emit({"phase": "restore", "run": label,
-                  "name": "written planes vs kernel path on the decoded frames",
-                  "max_abs": worst, "tol": {"max_abs": 0}})
-            require(worst == 0, f"{label}: restore output differs from the kernel path "
-                                f"by {worst}")
-            del planes_out
+                for k in env:
+                    os.environ.pop(k, None)
+
+        t_run = time.perf_counter()
+        label = "RealESRGAN_x2plus int8 int8_scales=dynamic"
+        _, decoded = clips["RealESRGAN_x2plus"]
+        reset_counters()
+        proc = SuperResolution(SRConfig(
+            model_name="RealESRGAN_x2plus", compute_dtype="int8", int8_scales="dynamic",
+            output_color="yuv420", yuv_full_range=True, weights_dir=str(tmp / "no_weights")))
+        proc.setup(1080, 1920)
+        planes = proc.materialize(proc.dispatch(decoded))
+        launches = read_counters()
+        bs = proc.plan.batch
+        batches = -(-n_frames // bs)
+        emit({"phase": "restore", "run": label, "batch_size": bs, "batches": batches,
+              "planes": [list(p.shape) for p in planes], "launches": launches})
+        want_counts = {k: 0 for k in launches}
+        want_counts.update(fused_rdb_dynamic=69 * batches, fused_tail1=batches)
+        require(launches == want_counts,
+                f"{label}: launch counts {launches}, expected {want_counts}")
+        require([p.shape for p in planes] == [(n_frames, 2160, 3840), (n_frames, 1080, 1920),
+                                              (n_frames, 1080, 1920)],
+                f"{label}: planes {[p.shape for p in planes]}")
+        launches_by_run[label] = launches
+        planes_vs_kernel_path(label, model, fwd, decoded,
+                              [tuple(p[i] for p in planes) for i in range(n_frames)], bs)
+        proc.teardown()
+        del planes, proc
+        emit({"phase": "restore", "run": label, "seconds": round(time.perf_counter() - t_run, 3)})
     emit({"phase": "restore", "seconds": round(time.perf_counter() - t0, 3)})
     launches = launches_by_run["RealESRGAN_x2plus bfloat16"]
 
     # 6. times -------------------------------------------------------------
     t0 = time.perf_counter()
-    ws, feat, skip = kernel_inputs
+    ws, feat, skip, a0, fwd = kernel_inputs
+    dyn_run = "RealESRGAN_x2plus int8 int8_scales=dynamic"
+    rt_run = "FW_fast6_x2 {} FW_RDB_BODY=roundtrip FW_TAIL=1"
     b, h, w, _ = feat.shape
     px = b * h * w
     dst = torch.empty_like(ws)
@@ -765,6 +961,11 @@ def main(argv=None) -> int:
                      replaces="framewright_tpu/ops/fused_rrdb.py:763",
                      launches=launches["fused_rdb"], max_abs_err=errs["rdb"], ms=rdb_ms,
                      plain_ms=rdb_plain, bound_ms=bms, bound_by=by, library_ms=rdb_lib))
+    # the round-trip body runs the same call (its rdb1/rdb2 launches carry
+    # no residual, as the one timed above): launches from its own run
+    rows.append(dict(rows[-1], name="rdb_roundtrip",
+                     replaces="framewright_tpu/ops/fused_rrdb.py:412",
+                     launches=launches_by_run[rt_run.format("bfloat16")]["fused_rdb"]))
 
     k1_lib_in = lib_in[0][:, :64]
     k1_w = fw.cbody.w.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
@@ -808,6 +1009,45 @@ def main(argv=None) -> int:
             max_abs_err=errs[f"rdb_int8_{scheme}"], ms=ms8, plain_ms=plain8, bound_ms=bms,
             bound_by=by, library_ms=None))
         del q8, o8
+    rows.append(dict(rows[-1], name="rdb_int8_f32acc_roundtrip",
+                     replaces="framewright_tpu/ops/fused_rrdb.py:552",
+                     launches=launches_by_run[rt_run.format("int8 FW_INT8_SCHEME=f32acc")][
+                         "fused_rdb_f32acc"]))
+    # the dynamic-scale RDB: the same function's operations and bytes (its
+    # f32 scratch and the reductions are the kernel's own traffic)
+    wts = fwd.body[0][0]
+    q8 = torch.empty(*feat.shape[:3], 192, dtype=torch.int8, device=dev)
+    o8 = torch.empty_like(feat)
+    ms_d = cuda_ms(lambda: fused_rrdb.fused_rdb_dynamic(feat, q8, o8, wts), it)
+    plain_d = cuda_ms(lambda: fused_rrdb.fused_rdb_dynamic_plain(feat, q8, o8, wts), 1, 1)
+    bms, by = bound_ms(2 * RDB_MAC_PER_PX * px, 2 * 128 * px + RDB_MAC_PER_PX, PEAK_INT8_OPS)
+    rows.append(dict(name="rdb_int8_dynamic", route="cuda",
+                     source="framewright_tpu_torch/ops/csrc/rdb_int8.cu",
+                     replaces="framewright_tpu/ops/fused_rrdb.py:502",
+                     launches=launches_by_run[dyn_run]["fused_rdb_dynamic"],
+                     max_abs_err=errs["rdb_dynamic"], ms=ms_d, plain_ms=plain_d, bound_ms=bms,
+                     bound_by=by, library_ms=None))
+    del q8, o8
+    # tail1 from conv_up1's output (1x1080x1920x64) to 4K bf16 RGB; bytes:
+    # the input read once, the output written once (4 pixels x 3 x 2 B per
+    # input pixel), the weights once. Library: cuDNN's F.conv2d (bf16,
+    # channels_last) for conv_up2 on the nearest-upsampled input, conv_hr
+    # and conv_last at 4K, summed (the upsample itself not counted).
+    apx = a0.shape[0] * a0.shape[1] * a0.shape[2]
+    t1_ms = cuda_ms(lambda: fused_tail.fused_tail1(a0, fw.tail), it)
+    t1_plain = cuda_ms(lambda: fused_tail.fused_tail1_plain(a0, fw.tail), 2, 1)
+    up = F.interpolate(a0.permute(0, 3, 1, 2), scale_factor=2, mode="nearest").contiguous(
+        memory_format=torch.channels_last)
+    lib_t = [(c.weight.to(torch.bfloat16).contiguous(memory_format=torch.channels_last),
+              c.bias.to(torch.bfloat16)) for c in (model.conv_up2, model.conv_hr, model.conv_last)]
+    t1_lib = sum(cuda_ms(lambda wk=wk, bk=bk: F.conv2d(up, wk, bk, padding=1), it)
+                 for wk, bk in lib_t)
+    del up
+    bms, by = bound_ms(2 * TAIL1_MAC_PER_PX * apx, 128 * apx + 24 * apx + 2 * TAIL1_WEIGHTS)
+    rows.append(dict(name="tail1", route="cuda", source="framewright_tpu_torch/ops/csrc/tail.cu",
+                     replaces="framewright_tpu/ops/fused_tail.py:161",
+                     launches=launches_by_run[dyn_run]["fused_tail1"], max_abs_err=errs["tail1"],
+                     ms=t1_ms, plain_ms=t1_plain, bound_ms=bms, bound_by=by, library_ms=t1_lib))
     # SRVGG chains: a group of 8 convs on the 540x960 chain input; bytes:
     # the bf16 input read and the output written once, the weights read
     # once. Library: cuDNN's F.conv2d on the same eight bf16 convs
@@ -846,7 +1086,8 @@ def main(argv=None) -> int:
     emit({"phase": "times", "shape_body": [b, h, w, 64], "iters": it,
           "shape_chain": list(vfeat.shape), "chain_bf16_beside_int8_ms": chain_ms,
           "rdb_cuda_launches_per_call": 5, "rdb_int8_cuda_launches_per_call": 6,
-          "tail_cuda_launches_per_call": 4, "vgg_chain_cuda_launches_per_call": VGG_GROUP,
+          "rdb_dynamic_cuda_launches_per_call": 11, "tail_cuda_launches_per_call": 4,
+          "tail1_cuda_launches_per_call": 3, "vgg_chain_cuda_launches_per_call": VGG_GROUP,
           "vgg_chain_int8_cuda_launches_per_call": VGG_GROUP + 1,
           "seconds": round(time.perf_counter() - t0, 3)})
 

@@ -6,11 +6,13 @@ or uint8 planes Y (B, sH, sW), U and V (B, sH/2, sW/2).
 
   apply       plain PyTorch forward (counterpart of ``rrdb.apply``),
               computed in the input's dtype like the JAX conv2d
-  apply_fast  the kernel path (counterpart of ``rrdb.apply_fast`` with
-              the merge body and the tail3 kernels): conv_first in
-              F.conv2d, then the RDB kernel 69 times (23 blocks), bf16
-              or int8 after the fast weights it holds, K1, K2 with the
-              output epilogue
+  apply_fast  the kernel path (counterpart of ``rrdb.apply_fast``):
+              conv_first, then the RDB kernel 69 times (23 blocks), bf16
+              or int8 after the fast weights it holds; then, by FW_TAIL,
+              K1 and K2 with the output epilogue (the tail3 path, the
+              default unless the scales are dynamic), or tail1:
+              conv_body + skip and conv_up1 in PyTorch, the tail1
+              kernels, the output epilogue in PyTorch
   calibrate_act_scales  the int8 activation ranges from one bf16 pass
               (counterpart of ``rrdb.calibrate_act_scales``)
 
@@ -29,10 +31,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from framewright_tpu_torch.errors import ConfigError
 from framewright_tpu_torch.models.layers import (
     conv2d,
     lrelu,
     mul_weak,
+    out_epilogue,
     pixel_unshuffle,
     upsample_nearest,
 )
@@ -94,7 +98,7 @@ class FastWeights:
     body: list     # [num_block][3] fused_rrdb.RDBWeights or RDBWeightsInt8
     cbody: object  # fused_tail3.ConvBodyWeights
     tail: object   # fused_tail.TailWeights
-    int8_scheme: Optional[str] = None   # None: the bf16 body
+    int8_scheme: Optional[str] = None   # None (bf16 body), i32, f32acc, dynamic
 
 
 class RRDBNet(nn.Module):
@@ -178,26 +182,37 @@ class RRDBNet(nn.Module):
         the body quantized with the static ranges ``act_amax``
         (num_block, 3, 5) from ``calibrate_act_scales``, in the scheme
         ``int8_scheme`` (default ``FW_INT8_SCHEME``, else "i32"; any
-        other name is "f32acc", as in the JAX package). K1 and K2 stay
+        other name is "f32acc", as in the JAX package). ``act_amax=None``
+        gives the "dynamic" weights, whose kernel takes the ranges from
+        each frame, whatever the scheme says. The tail weights stay
         bf16. The model holds them (``int8_weights``), and ``apply_fast``
         then runs the int8 body."""
         from framewright_tpu_torch.ops import fused_rrdb
 
-        scheme = int8_scheme or os.environ.get("FW_INT8_SCHEME", "i32")
-        make = (fused_rrdb.rdb_weights_int8_i32 if scheme == "i32"
-                else fused_rrdb.rdb_weights_int8)
-        amax = np.asarray(act_amax, np.float32)
-        if amax.shape != (len(self.body), 3, 5):
-            raise ValueError(f"act_amax must be ({len(self.body)}, 3, 5), "
-                             f"got {amax.shape}")
+        if act_amax is None:
+            scheme = "dynamic"
+        else:
+            scheme = int8_scheme or os.environ.get("FW_INT8_SCHEME", "i32")
+            scheme = "i32" if scheme == "i32" else "f32acc"
+            amax = np.asarray(act_amax, np.float32)
+            if amax.shape != (len(self.body), 3, 5):
+                raise ValueError(f"act_amax must be ({len(self.body)}, 3, 5), "
+                                 f"got {amax.shape}")
+
+        def make(convs, i, j):
+            if scheme == "dynamic":
+                return fused_rrdb.rdb_weights_int8(convs)
+            if scheme == "i32":
+                return fused_rrdb.rdb_weights_int8_i32(convs, amax[i, j])
+            return fused_rrdb.rdb_weights_int8(convs, amax[i, j])
+
         bf16 = self._fast
         cbody, tail = (bf16.cbody, bf16.tail) if bf16 is not None else self._tail_weights()
         self._fast_int8 = FastWeights(
-            body=[[make(r.convs(), amax[i, j])
+            body=[[make(r.convs(), i, j)
                    for j, r in enumerate((blk.rdb1, blk.rdb2, blk.rdb3))]
                   for i, blk in enumerate(self.body)],
-            cbody=cbody, tail=tail,
-            int8_scheme="i32" if scheme == "i32" else "f32acc")
+            cbody=cbody, tail=tail, int8_scheme=scheme)
         return self._fast_int8
 
     @property
@@ -205,24 +220,57 @@ class RRDBNet(nn.Module):
         """The int8 fast weights the model holds, or None."""
         return self._fast_int8
 
+    def tail1_input(self, feat: torch.Tensor, body: torch.Tensor) -> torch.Tensor:
+        """The part of ``rrdb._tail_pallas`` that the JAX package runs in
+        XLA, here in PyTorch with ``layers.conv2d`` in bf16: feat +
+        conv_body(body), then lrelu(conv_up1(nearest2(.))). feat, body
+        (B, h, w, 64) bf16 -> tail1's input (B, 2h, 2w, 64) bf16."""
+        f = feat + conv2d(body, self.conv_body.weight, self.conv_body.bias)
+        return lrelu(conv2d(upsample_nearest(f, 2), self.conv_up1.weight,
+                            self.conv_up1.bias)).contiguous()
+
+    def tail1(self, feat: torch.Tensor, body: torch.Tensor, tail,
+              plain: bool = False) -> torch.Tensor:
+        """The tail1 path's tail (counterpart of ``rrdb._tail_pallas``):
+        ``tail1_input``, then the tail1 kernels (``plain``: their plain
+        version). -> (B, 4h, 4w, 3) bf16 RGB."""
+        from framewright_tpu_torch.ops import fused_tail
+
+        run = fused_tail.fused_tail1_plain if plain else fused_tail.fused_tail1
+        return run(self.tail1_input(feat, body), tail)
+
     def apply_fast(self, x: torch.Tensor, out_mode: str = "bf16",
                    full_range: bool = False, weights: Optional[FastWeights] = None):
         """Kernel forward. x: (B, H, W, 3) in [0, 1]. The body is bf16 or
         int8 after ``weights`` (default: the int8 weights when the model
-        holds them, else the bf16 ones); the head, K1 and K2 are bf16.
+        holds them, else the bf16 ones); the head and the tail are bf16.
+        ``FW_TAIL`` picks the tail as the JAX package does: "auto" (the
+        default) or "3" run the merge body with K1 and K2 unless the
+        scales are dynamic; otherwise the body by ``FW_RDB_BODY``
+        (``fused_rrdb.rrdb_body_fast``) and tail1 (``tail1``) with the
+        epilogue in PyTorch; "2" (tail2) raises ``ConfigError``.
         Output per ``out_mode`` (see ops/fused_tail.py): bf16 RGB, rgb_u8,
         or the yuv420_u8 planes."""
         from framewright_tpu_torch.ops import fused_rrdb, fused_tail, fused_tail3
 
+        kind = os.environ.get("FW_TAIL", "auto")
+        if kind == "2":
+            raise ConfigError("FW_TAIL=2 (tail2: conv_up1 inside the tail kernel) is "
+                              "not ported yet: ROADMAP.md B13")
         fw = weights or self._fast_int8 or self.fast_weights()
         feat = self._head(x.to(torch.bfloat16)).contiguous()
-        if fw.int8_scheme is None:
-            body = fused_rrdb.rrdb_body(feat, fw.body)
-        else:
-            body = fused_rrdb.rrdb_body_int8(feat, fw.body)
-        skip = fused_tail3.conv_body_skip(body, feat, fw.cbody)
-        del body, feat   # the tail's 4K intermediates may reuse this memory
-        return fused_tail.fused_tail(skip, fw.tail, out_mode, full_range)
+        if kind in ("3", "auto") and fw.int8_scheme != "dynamic":
+            if fw.int8_scheme is None:
+                body = fused_rrdb.rrdb_body(feat, fw.body)
+            else:
+                body = fused_rrdb.rrdb_body_int8(feat, fw.body)
+            skip = fused_tail3.conv_body_skip(body, feat, fw.cbody)
+            del body, feat   # the tail's 4K intermediates may reuse this memory
+            return fused_tail.fused_tail(skip, fw.tail, out_mode, full_range)
+        body = fused_rrdb.rrdb_body_fast(feat, fw.body)
+        img = self.tail1(feat, body, fw.tail)
+        del body, feat
+        return img if out_mode == "bf16" else out_epilogue(img, out_mode, full_range)
 
 
 def calibrate_act_scales(model: RRDBNet, sample: torch.Tensor,

@@ -5,11 +5,14 @@ Replaces ``framewright_tpu/ops/fused_rrdb.py``: ``_rdb_kernel_merge`` and
 ``_rdb_kernel_merge_res`` (via ``fused_rdb_blocks_merge``), the int8
 ``_rdb_kernel_int8_i32_merge``/``_res`` (via
 ``fused_rdb_blocks_merge_int8_i32``) and ``_rdb_kernel_int8_static_merge``
-(via ``fused_rdb_blocks_merge_int8``) with their weight quantization
-(``rdb_wide_weights_int8_i32``, ``rdb_wide_weights_int8``), and the body
-loop ``rrdb_body_merge_blocks``. The kernels are ``csrc/rdb.cu`` and
-``csrc/rdb_int8.cu``; their notes say what bounds them on the card and
-what the design does about it.
+(via ``fused_rdb_blocks_merge_int8``), the round-trip ``_rdb_kernel`` (via
+``fused_rdb_blocks``), ``_rdb_kernel_int8_static`` and the dynamic-scale
+``_rdb_kernel_int8`` (via ``fused_rdb_blocks_int8``), with their weight
+quantization (``rdb_wide_weights_int8_i32``, ``rdb_wide_weights_int8``),
+and the body loops ``rrdb_body_merge_blocks``, ``rrdb_body_fast_roundtrip``
+and ``rrdb_body_fast``. The kernels are ``csrc/rdb.cu`` and
+``csrc/rdb_int8.cu`` and ``csrc/rdb_dyn.cu``; their notes say what bounds
+them on the card and what the design does about it.
 
 Activations live in NHWC bf16 workspaces of 192 channels: 0:64 hold the
 RDB input x, 64:192 receive x1..x4, so the dense concatenation is a
@@ -20,6 +23,7 @@ refresh and assembly have no counterpart here.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from framewright_tpu_torch.errors import ConfigError
 from framewright_tpu_torch.ops import _build
 
 NF, GC, WS_C = 64, 32, 192
@@ -135,36 +140,44 @@ def new_workspace(feat: torch.Tensor) -> torch.Tensor:
     return ws
 
 
-def rrdb_body(feat: torch.Tensor,
-              body: Sequence[Sequence[RDBWeights]]) -> torch.Tensor:
+def rrdb_body(feat: torch.Tensor, body: Sequence[Sequence[RDBWeights]],
+              plain: bool = False) -> torch.Tensor:
     """The RRDB trunk: 3 RDBs per block (69 sweeps for 23 blocks), with
     the RRDB residual fused into each block's third RDB. ``feat``
     (B, H, W, 64) bf16 -> a workspace (B, H, W, 192) whose channels 0:64
-    hold the body output (the counterpart of ``rrdb_body_merge``)."""
+    hold the body output (the counterpart of ``rrdb_body_merge``).
+    ``plain`` runs the plain version on any device."""
+    run = fused_rdb_plain if plain else fused_rdb
     w0 = new_workspace(feat)
     w1, w2 = torch.empty_like(w0), torch.empty_like(w0)
     for rdb1, rdb2, rdb3 in body:
-        fused_rdb(w0, w1, rdb1)
-        fused_rdb(w1, w2, rdb2)
-        fused_rdb(w2, w0, rdb3, carry=w0)
+        run(w0, w1, rdb1)
+        run(w1, w2, rdb2)
+        run(w2, w0, rdb3, carry=w0)
     return w0
 
 
-# --- int8 (static activation scales) -------------------------------------
+# --- int8 ------------------------------------------------------------------
 #
 # The int8 body keeps bf16 carries (B, H, W, 64) between RDBs and one int8
 # NHWC workspace Q (B, H, W, 192): channels 0:64 receive the codes of x,
-# 64:192 those of x1..x4. Two schemes, as in the JAX package:
-#   "i32"     int32 accumulation across all sources with one output scale
-#             per target row (rdb_wide_weights_int8_i32), the default;
-#   "f32acc"  per-(row, source) weight scales, each source's int32 sum
-#             dequantized into an f32 accumulator (rdb_wide_weights_int8,
-#             static branch): any other ``int8_scheme``.
+# 64:192 those of x1..x4. Three schemes, as in the JAX package:
+#   "i32"     static activation scales, int32 accumulation across all
+#             sources with one output scale per target row
+#             (rdb_wide_weights_int8_i32), the default;
+#   "f32acc"  static activation scales, per-(row, source) weight scales,
+#             each source's int32 sum dequantized into an f32 accumulator
+#             (rdb_wide_weights_int8 with act_amax): any other
+#             ``int8_scheme``;
+#   "dynamic" f32acc's weights without activation ranges
+#             (rdb_wide_weights_int8 without act_amax): the kernel takes
+#             each source's range from the frame.
 # The weight quantization below runs in numpy float32 with the JAX
 # functions' operations in their order, so its results equal theirs bit
 # for bit once rearranged to the wide (target-row x tap x channel) form.
 
-INT8_SCHEMES = ("i32", "f32acc")
+INT8_SCHEMES = ("i32", "f32acc")      # the static schemes
+_INV127 = float(np.float32(1.0 / 127.0))   # JAX's weakly typed 1.0 / 127.0 in f32
 # (first channel, channels) of the sources x, x1..x4 in a conv's input
 _SOURCES = ((0, NF),) + tuple((NF + GC * s, GC) for s in range(4))
 
@@ -173,21 +186,24 @@ _SOURCES = ((0, NF),) + tuple((NF + GC * s, GC) for s in range(4))
 class RDBWeightsInt8:
     """One RDB's five convs for the int8 kernels.
 
-    scheme    "i32" or "f32acc"
+    scheme    "i32", "f32acc" or "dynamic"
     w[k]      (cout, 3, 3, cin) int8, OHWI
     scale[k]  i32: ``oscale`` (cout,); f32acc: (cout, 5) f32 of
-              ws[row, src] * sa[src] per source (0 beyond conv k's)
-    bias[k]   i32: ``obias`` (cout,); f32acc: the conv bias (cout,)
-    wscale[k] f32acc: (cout, k + 1) per-(row, source) weight scales
-              (``sx, s1..s4`` of the wide form); i32: None
-    act_q     (10,) float32 numpy: [sa_x, sa_1..sa_4, 1/sa_x, .., 1/sa_4]
+              ws[row, src] * sa[src] per source (0 beyond conv k's);
+              dynamic: (cout, 5) f32 of ws[row, src] (the kernel
+              multiplies by the frame's sa[src])
+    bias[k]   i32: ``obias`` (cout,); otherwise the conv bias (cout,)
+    wscale[k] f32acc, dynamic: (cout, k + 1) per-(row, source) weight
+              scales (``sx, s1..s4`` of the wide form); i32: None
+    act_q     static: (10,) float32 numpy [sa_x, sa_1..sa_4, 1/sa_x, ..,
+              1/sa_4]; dynamic: None
     """
     scheme: str
     w: List[torch.Tensor]
     scale: List[torch.Tensor]
     bias: List[torch.Tensor]
     wscale: List[Optional[torch.Tensor]]
-    act_q: np.ndarray
+    act_q: Optional[np.ndarray]
 
 
 def _conv_np(conv: torch.nn.Conv2d):
@@ -242,16 +258,18 @@ def rdb_weights_int8_i32(convs: Sequence[torch.nn.Conv2d],
 
 
 def rdb_weights_int8(convs: Sequence[torch.nn.Conv2d],
-                     act_amax) -> RDBWeightsInt8:
+                     act_amax=None) -> RDBWeightsInt8:
     """conv1..conv5 and the RDB's (5,) activation ranges -> the "f32acc"
     weights (``rdb_wide_weights_int8`` with static scales): per target
     row and source, ws = max(max|w_src row|, 1e-12) / 127 and
     q = clip(round(w / ws)); the kernel dequantizes source src with
     ws * sa_src, a product formed here in float32 as the TPU kernel
-    forms it."""
-    sa, act_q = _act_scales(act_amax)
+    forms it. Without ``act_amax``: the "dynamic" weights (the same
+    codes and ws; the kernel forms ws * sa_src from the frame's range)."""
+    dynamic = act_amax is None
+    sa, act_q = (None, None) if dynamic else _act_scales(act_amax)
     dev = convs[0].weight.device
-    out = RDBWeightsInt8("f32acc", [], [], [], [], act_q)
+    out = RDBWeightsInt8("dynamic" if dynamic else "f32acc", [], [], [], [], act_q)
     for k, conv in enumerate(convs):
         w, b = _conv_np(conv)
         q = np.zeros(w.shape, np.float32)
@@ -260,7 +278,7 @@ def rdb_weights_int8(convs: Sequence[torch.nn.Conv2d],
         for src in range(k + 1):
             ws[:, src] = np.maximum(_row_amax(w, src), 1e-12) / 127.0
             _quantize(w, src, ws[:, src], q)
-            dq[:, src] = ws[:, src] * sa[src]
+            dq[:, src] = ws[:, src] if dynamic else ws[:, src] * sa[src]
         out.w.append(torch.from_numpy(q.astype(np.int8)).to(dev))
         out.scale.append(torch.from_numpy(dq).to(dev))
         out.bias.append(torch.from_numpy(b.astype(np.float32)).to(dev))
@@ -290,15 +308,22 @@ def _check_int8(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
 
 def _conv_codes(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Exact integer 3x3 SAME conv of NHWC int8 codes with OHWI int8
-    weights, NCHW, summed in float64 (sums reach ~2.8e7, past float32's
-    exact integers)."""
-    return F.conv2d(q.permute(0, 3, 1, 2).double(),
-                    w.permute(0, 3, 1, 2).double(), padding=1)
+    weights -> NCHW int32 (sums reach ~2.8e7, past float32's exact
+    integers): the nine shifted copies of the zero-padded codes side by
+    side, tap-major as the weights' layout, times the weights in one
+    int8 x int8 -> int32 product."""
+    b, h, wd, c = q.shape
+    qp = F.pad(q, (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([qp[:, u:u + h, v:v + wd] for u in range(3) for v in range(3)], dim=-1)
+    acc = torch._int_mm(cols.reshape(b * h * wd, 9 * c), w.reshape(w.shape[0], 9 * c).t())
+    return acc.view(b, h, wd, -1).permute(0, 3, 1, 2)
 
 
-def _int8_preact(q: torch.Tensor, k: int, wts: RDBWeightsInt8) -> torch.Tensor:
+def _int8_preact(q: torch.Tensor, k: int, wts: RDBWeightsInt8,
+                 sa: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Conv k's f32 pre-activation (NCHW) from the codes in q, with the
-    kernel's float operations in its order."""
+    kernel's float operations in its order. ``sa`` (B, 5): the dynamic
+    scheme's activation scales per frame and source."""
     w, sc, b = wts.w[k], wts.scale[k], wts.bias[k]
     if wts.scheme == "i32":
         acc = _conv_codes(q[..., :w.shape[-1]], w).float()
@@ -309,7 +334,8 @@ def _int8_preact(q: torch.Tensor, k: int, wts: RDBWeightsInt8) -> torch.Tensor:
         part = _conv_codes(q[..., off:off + n], w[..., off:off + n]).float()
         if acc is None:
             acc = torch.zeros_like(part)
-        acc = acc + part * sc[:, src].view(1, -1, 1, 1)
+        s = sc[:, src].view(1, -1) if sa is None else sc[:, src] * sa[:, src:src + 1]
+        acc = acc + part * s.view(s.shape[0], -1, 1, 1)
     return acc + b.view(1, -1, 1, 1)
 
 
@@ -325,7 +351,11 @@ def fused_rdb_int8_plain(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
     clip(round(lrelu(acc osc + ob))) (i32) or
     clip(round(lrelu(acc + b) inv_k)) (f32acc) to q; stage 5:
     o = bf16(bf16(0.2 x5) + x) into dst, and with carry
-    o = bf16(bf16(bf16(0.2) o) + carry)."""
+    o = bf16(bf16(bf16(0.2) o) + carry). Dynamic weights run
+    ``fused_rdb_dynamic_plain``."""
+    if wts.scheme == "dynamic":
+        fused_rdb_dynamic_plain(x, q, dst, wts, carry)
+        return
     inv = [float(v) for v in wts.act_q[5:]]
     q[..., :NF] = _codes(x.float() * inv[0])
     for k in range(4):
@@ -334,12 +364,47 @@ def fused_rdb_int8_plain(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
             v = v * inv[k + 1]
         cin = NF + GC * k
         q[..., cin:cin + GC] = _codes(v).permute(0, 2, 3, 1)
-    x5 = _int8_preact(q, 4, wts).permute(0, 2, 3, 1)
+    _int8_out(_int8_preact(q, 4, wts), x, dst, carry)
+
+
+def _int8_out(x5: torch.Tensor, x: torch.Tensor, dst: torch.Tensor,
+              carry: Optional[torch.Tensor]) -> None:
+    """dst = bf16(bf16(0.2 x5) + x) from the NCHW f32 x5, then with carry
+    bf16(bf16(bf16(0.2) dst) + carry)."""
+    x5 = x5.permute(0, 2, 3, 1)
     o = ((0.2 * x5).to(torch.bfloat16).float() + x.float()).to(torch.bfloat16)
     if carry is not None:
         o = ((BF16_0P2 * o.float()).to(torch.bfloat16).float()
              + carry.float()).to(torch.bfloat16)
     dst.copy_(o)
+
+
+def fused_rdb_dynamic_plain(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
+                            wts: RDBWeightsInt8,
+                            carry: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the dynamic-scale kernel, with the JAX
+    kernel's operations (``_rdb_kernel_int8``) and ranges per frame: for
+    each source s (a_0 = f32(x), a_k = lrelu(conv k + b) in f32) amax_s =
+    max|a_s| over the frame, the codes clip(rint(a_s f32(127 / max(amax_s,
+    1e-8)))) into q, and conv k dequantizes source s with f32(ws_row
+    sa_s), sa_s = max(amax_s, 1e-8) f32(1/127); the output as
+    ``fused_rdb_int8_plain``. -> amax (B, 5) f32."""
+    amax = torch.zeros(x.shape[0], 5, dtype=torch.float32, device=x.device)
+
+    def quantize(a: torch.Tensor, src: int) -> None:   # a: NHWC f32
+        amax[:, src] = a.abs().amax(dim=(1, 2, 3))
+        m = amax[:, src].clamp_min(1e-8)
+        inv = torch.full_like(m, 127.0) / m     # IEEE division, as 127.0 / amax
+        off, n = _SOURCES[src]
+        q[..., off:off + n] = _codes(a * inv.view(-1, 1, 1, 1))
+
+    quantize(x.float(), 0)
+    for k in range(4):
+        sa = amax.clamp_min(1e-8) * _INV127
+        quantize(_lrelu(_int8_preact(q, k, wts, sa)).permute(0, 2, 3, 1), k + 1)
+    sa = amax.clamp_min(1e-8) * _INV127
+    _int8_out(_int8_preact(q, 4, wts, sa), x, dst, carry)
+    return amax
 
 
 def _int8_rdb(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
@@ -389,8 +454,51 @@ def fused_rdb_f32acc(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
         fused_rdb_f32acc.launches += 1
 
 
+def fused_rdb_dynamic(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
+                      wts: RDBWeightsInt8,
+                      carry: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The dynamic-scale int8 RDB (see ``fused_rdb_int8``); returns the
+    frames' ranges amax (B, 5) f32 of [x, x1..x4], which its scales use
+    as max(amax, 1e-8). On a CUDA tensor: a reduction of max|x| per
+    frame, the codes of x, four dense stages (each writes its f32
+    activation to a scratch and folds its range into amax on the device,
+    then a launch quantizes the scratch) and stage 5: eleven launches."""
+    if wts.scheme != "dynamic":
+        raise ValueError(f"fused_rdb_dynamic: weights of scheme {wts.scheme!r}")
+    _check_int8(x, q, dst, wts, carry)
+    if x.device.type == "cpu":
+        return fused_rdb_dynamic_plain(x, q, dst, wts, carry)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_rdb_dynamic: unsupported device {x.device}")
+    lib = _build.library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    b, h, w, _ = x.shape
+    amax = torch.zeros(b, 5, dtype=torch.float32, device=x.device)
+    act = torch.empty(b, h, w, GC, dtype=torch.float32, device=x.device)
+    _build.check(lib.fw_rdb_dyn_absmax(x.data_ptr(), b, h * w, amax.data_ptr(), stream),
+                 "fw_rdb_dyn_absmax")
+    _build.check(lib.fw_rdb_dyn_quant(x.data_ptr(), 0, NF, q.data_ptr(), 0, b, h * w,
+                                      amax.data_ptr(), 0, stream), "fw_rdb_dyn_quant")
+    for k in range(4):
+        cin = NF + GC * k
+        _build.check(lib.fw_rdb_dyn_dense(
+            q.data_ptr(), b, h, w, cin, wts.w[k].data_ptr(), wts.scale[k].data_ptr(),
+            wts.bias[k].data_ptr(), amax.data_ptr(), act.data_ptr(), stream),
+            "fw_rdb_dyn_dense")
+        _build.check(lib.fw_rdb_dyn_quant(act.data_ptr(), 1, GC, q.data_ptr(), cin, b,
+                                          h * w, amax.data_ptr(), k + 1, stream),
+                     "fw_rdb_dyn_quant")
+    _build.check(lib.fw_rdb_dyn_final(
+        q.data_ptr(), b, h, w, wts.w[4].data_ptr(), wts.scale[4].data_ptr(),
+        wts.bias[4].data_ptr(), amax.data_ptr(), x.data_ptr(), dst.data_ptr(),
+        None if carry is None else carry.data_ptr(), stream), "fw_rdb_dyn_final")
+    fused_rdb_dynamic.launches += 1
+    return amax
+
+
 fused_rdb_i32.launches = 0
 fused_rdb_f32acc.launches = 0
+fused_rdb_dynamic.launches = 0
 
 
 def fused_rdb_int8(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
@@ -400,18 +508,21 @@ def fused_rdb_int8(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
     output in ``dst`` (B, H, W, 64) bf16; with ``carry`` the RRDB residual
     too. ``dst`` may be ``x`` or ``carry``. On a CPU tensor this runs the
     plain version; on a CUDA tensor it launches the kernels of the
-    weights' scheme (six launches: the codes of x and the five stages)
-    and counts one call on ``fused_rdb_i32`` or ``fused_rdb_f32acc``."""
-    (fused_rdb_i32 if wts.scheme == "i32" else fused_rdb_f32acc)(x, q, dst, wts, carry)
+    weights' scheme (static: six launches, the codes of x and the five
+    stages) and counts one call on ``fused_rdb_i32``, ``fused_rdb_f32acc``
+    or ``fused_rdb_dynamic``."""
+    {"i32": fused_rdb_i32, "f32acc": fused_rdb_f32acc,
+     "dynamic": fused_rdb_dynamic}[wts.scheme](x, q, dst, wts, carry)
 
 
 def rrdb_body_int8(feat: torch.Tensor, body: Sequence[Sequence[RDBWeightsInt8]],
                    plain: bool = False) -> torch.Tensor:
     """The int8 RRDB trunk (the counterpart of ``rrdb_body_merge_blocks``
-    on int8 fast params): 3 RDBs per block, the RRDB residual fused into
-    each block's third RDB for both schemes (the JAX package fuses it into
-    the "i32" kernel and applies it in XLA for "f32acc", with the same
-    rounding points). ``feat`` (B, H, W, 64) bf16 -> the body output,
+    on int8 fast params, and of ``rrdb_body_fast_roundtrip`` on f32acc
+    and dynamic ones): 3 RDBs per block, the RRDB residual fused into
+    each block's third RDB for every scheme (the JAX package fuses it
+    into the "i32" kernel and applies it in XLA for the others, with the
+    same rounding points). ``feat`` (B, H, W, 64) bf16 -> the body output,
     (B, H, W, 64) bf16. ``plain`` runs the plain versions on any device
     (a reference for the kernels on the card)."""
     run = fused_rdb_int8_plain if plain else fused_rdb_int8
@@ -423,3 +534,51 @@ def rrdb_body_int8(feat: torch.Tensor, body: Sequence[Sequence[RDBWeightsInt8]],
         run(w1, q, w2, rdb2)
         run(w2, q, w0, rdb3, carry=w0)
     return w0
+
+
+# --- body selection ------------------------------------------------------
+
+
+def rrdb_body_roundtrip(feat: torch.Tensor, body, plain: bool = False) -> torch.Tensor:
+    """The round-trip RRDB trunk (counterpart of ``rrdb_body_fast_roundtrip``)
+    for bf16, f32acc and dynamic weights: ``feat`` (B, H, W, 64) bf16 ->
+    the body output (B, H, W, 64) bf16.
+
+    On the card it is the merge body's loop: the TPU's two bodies differ
+    in how blocks reach VMEM (resident blocks with an in-kernel ring
+    merge, against an extraction and assembly around every RDB) and in
+    where the RRDB residual bf16(bf16(bf16(0.2) o) + carry) runs (in the
+    kernel, or in XLA), and neither changes a rounding point, since the
+    port's RDB reads its halo from device memory and its carry launch
+    rounds as XLA's residual does. The bf16 RDB here is ``_rdb_kernel``'s
+    math, the f32acc one ``_rdb_kernel_int8_static``'s, the dynamic one
+    ``_rdb_kernel_int8``'s."""
+    scheme = getattr(body[0][0], "scheme", None)
+    if scheme == "i32":
+        raise ValueError("rrdb_body_roundtrip: i32 weights run on the merge body only")
+    if scheme is None:
+        return rrdb_body(feat, body, plain)[..., :NF]
+    return rrdb_body_int8(feat, body, plain)
+
+
+def rrdb_body_fast(feat: torch.Tensor, body, plain: bool = False) -> torch.Tensor:
+    """The RRDB trunk by ``FW_RDB_BODY`` (counterpart of the JAX
+    ``rrdb_body_fast``): "merge" (the default) or "roundtrip" (any other
+    value but "resident", as in the JAX package); "i32" weights always
+    run the merge body and dynamic weights the round-trip body.
+    "resident" (or ``FW_RDB_RESIDENT=1``) raises ``ConfigError``: the
+    resident body loop is not ported. -> (B, H, W, 64) bf16."""
+    kind = os.environ.get("FW_RDB_BODY", "merge")
+    if os.environ.get("FW_RDB_RESIDENT", "0") == "1":
+        kind = "resident"
+    scheme = getattr(body[0][0], "scheme", None)
+    if scheme == "i32":
+        kind = "merge"
+    if kind == "resident":
+        raise ConfigError("FW_RDB_BODY=resident (the resident body loop) is not "
+                          "ported yet: ROADMAP.md B8")
+    if kind != "merge" or scheme == "dynamic":
+        return rrdb_body_roundtrip(feat, body, plain)
+    if scheme is None:
+        return rrdb_body(feat, body, plain)[..., :NF]
+    return rrdb_body_int8(feat, body, plain)

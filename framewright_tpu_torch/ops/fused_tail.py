@@ -1,13 +1,21 @@
-"""K2: the upsampling tail with the output epilogue, its plain version.
+"""K2 (the upsampling tail with the output epilogue) and tail1, with
+their plain versions.
 
 Replaces ``framewright_tpu/ops/fused_tail.py``: ``_make_tail2_kernel``
-(via ``fused_tail2_blocks``), with the host weight math of
-``_up2_phase_weights``/``tail2_phase_weights`` and the BT.601 4:2:0
-constants of ``yuv420_matrix`` copied here. The kernels are in
-``csrc/tail.cu``; its note says what bounds them on the card and what
-the design does about it. The interior crop and depth-to-space that
-follow the TPU kernel (``tail3_image``) are part of the last launch's
+(via ``fused_tail2_blocks``) and ``_tail_kernel`` (tail1, via
+``fused_tail_blocks`` and ``fused_tail_image``), with the host weight
+math of ``_up2_phase_weights``/``tail2_phase_weights``/
+``tail_phase_weights`` and the BT.601 4:2:0 constants of
+``yuv420_matrix`` copied here. The kernels are in ``csrc/tail.cu``; its
+note says what bounds them on the card and what the design does about
+it. The interior crop and depth-to-space that follow the TPU kernels
+(``tail3_image``, ``fused_tail_image``) are part of the last launch's
 store here.
+
+tail1 (``fused_tail1``) takes conv_up1's output a0 (B, 2h, 2w, 64) bf16,
+which the dynamic-int8 path computes in PyTorch as the JAX package does
+in XLA, and runs K2's last three launches on it: conv_up2, conv_hr and
+conv_last, to (B, 4h, 4w, 3) bf16 RGB.
 
 Output modes (``out_mode``), from the conv_body+skip features x
 (B, h, w, 64) bf16:
@@ -158,16 +166,61 @@ def epilogue_plain(y: torch.Tensor, out_mode: str, full_range: bool):
     return yy, chroma(k[3:6]), chroma(k[6:9])
 
 
+def _up2_hr_last_plain(a0: torch.Tensor, wts: TailWeights) -> torch.Tensor:
+    """conv_up2 (on the nearest 2x upsample), conv_hr, each rounded to
+    bf16 after bias and lrelu, then conv_last + bias in f32: a0
+    (B, H, W, 64) bf16 -> (B, 2H, 2W, 3) f32."""
+    a = _phase_conv_plain(a0, wts.up2, wts.up2_b)
+    c = _lrelu(_conv3x3_plain(a, wts.hr, wts.hr_b)).to(torch.bfloat16)
+    y = _conv3x3_plain(c.permute(0, 2, 3, 1), wts.last, wts.last_b)[:, :3]
+    return y.permute(0, 2, 3, 1)
+
+
 def fused_tail_plain(x: torch.Tensor, wts: TailWeights,
                      out_mode: str = "bf16", full_range: bool = False):
     """Plain PyTorch version of K2 with the kernel's rounding points:
     each of conv_up1, conv_up2 and conv_hr rounds to bf16 after bias and
     lrelu; conv_last stays f32 into the epilogue."""
-    a0 = _phase_conv_plain(x, wts.up1, wts.up1_b)
-    a = _phase_conv_plain(a0, wts.up2, wts.up2_b)
-    c = _lrelu(_conv3x3_plain(a, wts.hr, wts.hr_b)).to(torch.bfloat16)
-    y = _conv3x3_plain(c.permute(0, 2, 3, 1), wts.last, wts.last_b)[:, :3]
-    return epilogue_plain(y.permute(0, 2, 3, 1), out_mode, full_range)
+    y = _up2_hr_last_plain(_phase_conv_plain(x, wts.up1, wts.up1_b), wts)
+    return epilogue_plain(y, out_mode, full_range)
+
+
+def fused_tail1_plain(a0: torch.Tensor, wts: TailWeights) -> torch.Tensor:
+    """Plain PyTorch version of tail1 (``_tail_kernel``): conv_up2 and
+    conv_hr as in K2, conv_last + bias rounded once to bf16."""
+    return _up2_hr_last_plain(a0, wts).to(torch.bfloat16)
+
+
+def _check_x(name: str, x: torch.Tensor) -> None:
+    if x.dtype != torch.bfloat16 or x.dim() != 4 or x.shape[-1] != NF \
+            or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous (B, h, w, 64) bf16, "
+                         f"got {tuple(x.shape)} {x.dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+def _launch_up2_hr_last(a0: torch.Tensor, wts: TailWeights, out_mode: str,
+                        full_range: bool, outs) -> None:
+    """K2's last three launches from a0 (B, H, W, 64) bf16 into ``outs``
+    at (B, 2H, 2W): conv_up2, conv_hr, conv_last with the epilogue."""
+    b, h, w, _ = a0.shape
+    a = torch.empty(b, 2 * h, 2 * w, NF, dtype=torch.bfloat16, device=a0.device)
+    c = torch.empty_like(a)
+    ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
+    coef = (ctypes.c_float * 11)(*yuv420_coefficients(full_range).tolist())
+    lib = _build.library()
+    stream = torch.cuda.current_stream(a0.device).cuda_stream
+    _build.check(lib.fw_tail_up2(a0.data_ptr(), b, h, w, wts.up2.data_ptr(),
+                                 wts.up2_b.data_ptr(), a.data_ptr(), stream),
+                 "fw_tail_up2")
+    _build.check(lib.fw_tail_hr(a.data_ptr(), b, 2 * h, 2 * w, wts.hr.data_ptr(),
+                                wts.hr_b.data_ptr(), c.data_ptr(), stream),
+                 "fw_tail_hr")
+    _build.check(lib.fw_tail_last(c.data_ptr(), b, 2 * h, 2 * w, wts.last.data_ptr(),
+                                  wts.last_b.data_ptr(), OUT_MODES[out_mode],
+                                  ctypes.addressof(coef), *ptrs, stream),
+                 "fw_tail_last")
 
 
 def fused_tail(x: torch.Tensor, wts: TailWeights, out_mode: str = "bf16",
@@ -178,20 +231,13 @@ def fused_tail(x: torch.Tensor, wts: TailWeights, out_mode: str = "bf16",
     conv_up2, conv_hr, conv_last with the epilogue)."""
     if out_mode not in OUT_MODES:
         raise ValueError(f"fused_tail: out_mode must be one of {sorted(OUT_MODES)}")
-    if x.dtype != torch.bfloat16 or x.dim() != 4 or x.shape[-1] != NF \
-            or not x.is_contiguous():
-        raise ValueError(f"fused_tail: x must be contiguous (B, h, w, 64) bf16, "
-                         f"got {tuple(x.shape)} {x.dtype}")
+    _check_x("fused_tail", x)
     if x.device.type == "cpu":
         return fused_tail_plain(x, wts, out_mode, full_range)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_tail: unsupported device {x.device}")
     b, h, w, _ = x.shape
     h4, w4 = 4 * h, 4 * w
     dev = x.device
     a0 = torch.empty(b, 2 * h, 2 * w, NF, dtype=torch.bfloat16, device=dev)
-    a = torch.empty(b, h4, w4, NF, dtype=torch.bfloat16, device=dev)
-    c = torch.empty_like(a)
     if out_mode == "yuv420_u8":
         outs = (torch.empty(b, h4, w4, dtype=torch.uint8, device=dev),
                 torch.empty(b, 2 * h, 2 * w, dtype=torch.uint8, device=dev),
@@ -199,25 +245,27 @@ def fused_tail(x: torch.Tensor, wts: TailWeights, out_mode: str = "bf16",
     else:
         dtype = torch.bfloat16 if out_mode == "bf16" else torch.uint8
         outs = (torch.empty(b, h4, w4, 3, dtype=dtype, device=dev),)
-    ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
-    coef = (ctypes.c_float * 11)(*yuv420_coefficients(full_range).tolist())
-    lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    _build.check(lib.fw_tail_up2(x.data_ptr(), b, h, w, wts.up1.data_ptr(),
-                                 wts.up1_b.data_ptr(), a0.data_ptr(), stream),
-                 "fw_tail_up2")
-    _build.check(lib.fw_tail_up2(a0.data_ptr(), b, 2 * h, 2 * w,
-                                 wts.up2.data_ptr(), wts.up2_b.data_ptr(),
-                                 a.data_ptr(), stream), "fw_tail_up2")
-    _build.check(lib.fw_tail_hr(a.data_ptr(), b, h4, w4, wts.hr.data_ptr(),
-                                wts.hr_b.data_ptr(), c.data_ptr(), stream),
-                 "fw_tail_hr")
-    _build.check(lib.fw_tail_last(c.data_ptr(), b, h4, w4, wts.last.data_ptr(),
-                                  wts.last_b.data_ptr(), OUT_MODES[out_mode],
-                                  ctypes.addressof(coef), *ptrs, stream),
-                 "fw_tail_last")
+    _build.check(_build.library().fw_tail_up2(
+        x.data_ptr(), b, h, w, wts.up1.data_ptr(), wts.up1_b.data_ptr(), a0.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "fw_tail_up2")
+    _launch_up2_hr_last(a0, wts, out_mode, full_range, outs)
     fused_tail.launches += 1
     return outs if out_mode == "yuv420_u8" else outs[0]
 
 
+def fused_tail1(a0: torch.Tensor, wts: TailWeights) -> torch.Tensor:
+    """tail1 over conv_up1's output ``a0`` (B, H, W, 64) bf16 -> bf16 RGB
+    (B, 2H, 2W, 3). On a CPU tensor this runs the plain version; on a
+    CUDA tensor it launches conv_up2, conv_hr and conv_last (bf16 out)."""
+    _check_x("fused_tail1", a0)
+    if a0.device.type == "cpu":
+        return fused_tail1_plain(a0, wts)
+    b, h, w, _ = a0.shape
+    out = torch.empty(b, 2 * h, 2 * w, 3, dtype=torch.bfloat16, device=a0.device)
+    _launch_up2_hr_last(a0, wts, "bf16", False, (out,))
+    fused_tail1.launches += 1
+    return out
+
+
 fused_tail.launches = 0
+fused_tail1.launches = 0

@@ -25,7 +25,12 @@ from framewright_tpu_torch.errors import HBMError
 #   int8: three 64-channel bf16 carries (384) and one 192-channel int8
 #     code workspace (192) in place of the workspaces, the rest as
 #     bfloat16: 5440 -> 6000
-_RRDB_PEAK_BYTES_PER_BODY_PX = {"bfloat16": 6800, "int8": 6000}
+#   int8-dynamic (the tail1 path), measured on an H100 with
+#     ``max_memory_allocated`` (chip_smoke.py phase 4, x2plus at 1080p):
+#     tail1's 4K bf16 intermediates (2 x 2048) and RGB output (96) beside
+#     conv_up1's output (512), the features and the body output (256):
+#     4993 -> 5500
+_RRDB_PEAK_BYTES_PER_BODY_PX = {"bfloat16": 6800, "int8": 6000, "int8-dynamic": 5500}
 # SRVGG, per input pixel (scale s), the largest of the four parts of
 # ``SRVGGNet.apply_fast``, each as measured alone on an H100 with
 # ``max_memory_allocated`` (chip_smoke.py phase 4, at x4 and x2):

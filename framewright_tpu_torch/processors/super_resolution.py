@@ -8,13 +8,17 @@ bf16 once, as the JAX processor loads them), a whole-frame batch from
 the planner, and the model's kernel path (``apply_fast``, the JAX
 processor's ``use_fused_kernel=True`` path) with the uint8 RGB or
 YUV420 output epilogue (fused into the tail kernel for RRDB, applied
-after conv_last for SRVGG, as the JAX package does in XLA).
+after the tail for tail1 and SRVGG, as the JAX package does in XLA).
 
-int8 (``compute_dtype="int8"``, static scales): ``setup`` builds no
-int8 weights; the first ``dispatch`` calibrates the activation ranges on
-a centre crop of its first frame (``_calibrate_int8``) and quantizes the
-body or the conv chain once; later batches reuse those weights. For
-SRVGG ``int8_scales`` is ignored, as in the JAX processor.
+int8 (``compute_dtype="int8"``), static scales (``int8_scales=
+"static"``, the default): ``setup`` builds no int8 weights; the first
+``dispatch`` calibrates the activation ranges on a centre crop of its
+first frame (``_calibrate_int8``) and quantizes the body or the conv
+chain once; later batches reuse those weights. Dynamic scales
+(``int8_scales="dynamic"``, RRDB): ``setup`` quantizes the body's
+weights once and nothing is calibrated; the kernels take each frame's
+activation ranges, and the path runs tail1 (``RRDBNet.apply_fast``).
+For SRVGG ``int8_scales`` is ignored, as in the JAX processor.
 
 ``dispatch`` enqueues a batch on the card and returns without
 synchronising; ``materialize`` waits on the batch's CUDA event and
@@ -42,6 +46,7 @@ logger = logging.getLogger(__name__)
 
 _OUT_COLORS = ("rgb", "yuv420")
 _DTYPES = ("bfloat16", "int8")
+_INT8_SCALES = ("static", "dynamic")
 # Frames per dispatch when the caller sets none: the batch chip_smoke.py
 # runs the restore at on the card; larger batches are not measured yet.
 _DEFAULT_MAX_BATCH = 4
@@ -58,7 +63,8 @@ class SRConfig:
     output_color: str = "rgb"         # rgb | yuv420 (planes from the tail kernel)
     yuv_full_range: bool = False      # BT.601 limited unless the writer says full
     device: str = "cuda"              # cuda | cpu
-    int8_scales: str = "static"       # static: calibrated on the first batch (rrdb)
+    int8_scales: str = "static"       # static: calibrated on the first batch;
+                                      # dynamic: per frame, in the kernel (rrdb)
     int8_calib_margin: float = 1.25   # headroom over the observed ranges
 
 
@@ -95,9 +101,10 @@ class SuperResolution:
                               "is not ported yet: ROADMAP.md A1)")
         int8 = cfg.compute_dtype == "int8"
         family = get_model(cfg.model_name).family
-        if int8 and family == "rrdb" and cfg.int8_scales != "static":
-            raise ConfigError("int8_scales must be 'static' (dynamic per-block "
-                              "scales are not ported yet: ROADMAP.md B7/B9)")
+        if int8 and family == "rrdb" and cfg.int8_scales not in _INT8_SCALES:
+            raise ConfigError(f"int8_scales must be one of {_INT8_SCALES}, "
+                              f"got {cfg.int8_scales!r}")
+        dynamic = int8 and family == "rrdb" and cfg.int8_scales == "dynamic"
         self.device = resolve_device(cfg.device)
         # every master weight and bias rounded to bf16 once, in f32
         # storage, as the JAX processor loads them in bf16 and int8 mode;
@@ -107,7 +114,9 @@ class SuperResolution:
         self.scale = spec.scale
         net = SRVGGNet if family == "srvgg" else RRDBNet
         self.model = net.from_state_dict(spec.arch_config, bf16_masters(sd), self.device)
-        if int8:
+        if dynamic:
+            self.model.fast_weights_int8(None)
+        elif int8:
             # static scales need activation ranges: calibrated on the
             # first batch (dispatch), then the body is quantized once
             self._int8_calibrate = True
@@ -118,7 +127,7 @@ class SuperResolution:
             height, width, spec.scale, spec.family, free_bytes=info.free_bytes,
             utilization=cfg.hbm_utilization,
             max_batch=cfg.batch_size or _DEFAULT_MAX_BATCH,
-            dtype=cfg.compute_dtype)
+            dtype="int8-dynamic" if dynamic else cfg.compute_dtype)
         logger.info("SR %s (%s) on %s (%s): %s", cfg.model_name,
                     self.weights_source, self.device, info.name, self._plan)
 

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions,
-and the restore through them (RRDB and SRVGG, bf16 and int8).
+and the restore through them (RRDB and SRVGG, bf16 and int8; RRDB int8
+with dynamic scales through tail1).
 
 Marked ``gpu``; each test asks for the ``cuda`` fixture, which skips
 when no CUDA device is present (decided inside the fixture, never at
@@ -174,6 +175,70 @@ def test_cli_restore_int8_on_the_card(cuda, tmp_path, capsys):
     assert [a - b for a, b in zip(after, before)] == [1, 18 * summary["batches"], 0]
     with Y4MReader(tmp_path / "o.y4m") as r:
         assert (r.width, r.height, r.count_frames()) == (128, 96, 3)
+
+
+# --- dynamic-scale int8 RDB and tail1 ----------------------------------------
+
+@pytest.mark.parametrize("shape", [(1, 540, 960), (2, 37, 53)])
+def test_dynamic_rdb_kernel_matches_plain(model, cuda, shape):
+    """The same integer sums and f32 operations in the same order, and the
+    same per-frame maxima: codes within one step on < 0.01% (measured:
+    equal), amax within 1e-6 relative, bf16 outputs within one step."""
+    wts = model.fast_weights_int8(None).body[0]
+    x = _feat(cuda, *shape)
+    for k, carry in ((0, None), (2, _feat(cuda, *shape, seed=7))):
+        q = torch.zeros(*shape, 192, dtype=torch.int8, device=cuda)
+        q_p = torch.zeros_like(q)
+        out = torch.empty_like(x) if carry is None else carry.clone()
+        out_p = torch.empty_like(x) if carry is None else carry.clone()
+        n = fused_rrdb.fused_rdb_dynamic.launches
+        amax = fused_rrdb.fused_rdb_dynamic(x, q, out, wts[k],
+                                            carry=None if carry is None else out)
+        amax_p = fused_rrdb.fused_rdb_dynamic_plain(x, q_p, out_p, wts[k],
+                                                    carry=None if carry is None else out_p)
+        torch.cuda.synchronize()
+        assert fused_rrdb.fused_rdb_dynamic.launches == n + 1
+        d = (q.int() - q_p.int()).abs()
+        assert d.max().item() <= 1 and (d > 0).float().mean().item() < 1e-4
+        assert torch.allclose(amax, amax_p, rtol=1e-6, atol=0)
+        _close_bf16(out, out_p)
+
+
+@pytest.mark.parametrize("shape", [(1, 540, 960), (2, 37, 53)])
+def test_tail1_kernel_matches_plain(model, cuda, shape):
+    x = _feat(cuda, *shape, seed=4)
+    wts = model.fast_weights().tail
+    n = fused_tail.fused_tail1.launches
+    got = fused_tail.fused_tail1(x, wts)
+    want = fused_tail.fused_tail1_plain(x, wts)
+    torch.cuda.synchronize()
+    assert fused_tail.fused_tail1.launches == n + 1
+    assert got.shape == (shape[0], 2 * shape[1], 2 * shape[2], 3)
+    _close_bf16(got, want)
+
+
+def test_dynamic_restore_on_the_card(cuda):
+    """The SR processor with int8_scales="dynamic": the dynamic RDB 18
+    times and tail1 once per batch (FW_fast6_x2), no calibration, no K1,
+    K2 or static int8 kernel; planes equal the kernel path."""
+    from framewright_tpu_torch.processors.super_resolution import SRConfig, SuperResolution
+
+    frames = np.random.default_rng(0).integers(0, 256, (3, 48, 64, 3), dtype=np.uint8)
+    sr = SuperResolution(SRConfig(model_name="FW_fast6_x2", compute_dtype="int8",
+                                  int8_scales="dynamic", output_color="yuv420"))
+    sr.setup(48, 64)
+    counters = (fused_rrdb.fused_rdb_dynamic, fused_tail.fused_tail1, fused_rrdb.fused_rdb,
+                fused_rrdb.fused_rdb_i32, fused_rrdb.fused_rdb_f32acc, fused_tail.fused_tail,
+                fused_tail3.conv_body_skip)
+    before = [c.launches for c in counters] + [rrdb.calibrate_act_scales.calls]
+    got = sr.materialize(sr.dispatch(frames))
+    after = [c.launches for c in counters] + [rrdb.calibrate_act_scales.calls]
+    batches = -(-len(frames) // sr.plan.batch)
+    assert [a - b for a, b in zip(after, before)] == [18 * batches, batches, 0, 0, 0, 0, 0, 0]
+    want = sr.model.apply_fast(torch.from_numpy(frames).to(cuda).to(torch.bfloat16) / 255.0,
+                               "yuv420_u8", weights=sr.model.int8_weights)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.cpu().numpy())
 
 
 # --- the SRVGG conv chain ----------------------------------------------------

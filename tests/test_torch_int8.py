@@ -399,10 +399,18 @@ class TestSlice:
                             dtype="int8").batch == 5
         assert planner.plan(1080, 1920, 2, free_bytes=free, utilization=1.0).batch == 4
 
-    def test_dynamic_scales_refused(self):
+    def test_dynamic_scales_accepted(self):
+        """Dynamic scales quantize the body in ``setup`` and calibrate
+        nothing (tests/test_torch_dynamic.py holds the path to JAX)."""
+        sr = SuperResolution(SRConfig(model_name="FW_fast6_x2", device="cpu",
+                                      compute_dtype="int8", int8_scales="dynamic"))
+        sr.setup(24, 32)
+        assert sr.model.int8_weights.int8_scheme == "dynamic" and not sr._int8_calibrate
+
+    def test_unknown_int8_scales_refused(self):
         from framewright_tpu_torch.errors import ConfigError
 
         sr = SuperResolution(SRConfig(model_name="FW_fast6_x2", device="cpu",
-                                      compute_dtype="int8", int8_scales="dynamic"))
-        with pytest.raises(ConfigError, match="B7/B9"):
+                                      compute_dtype="int8", int8_scales="per_block"))
+        with pytest.raises(ConfigError, match="int8_scales"):
             sr.setup(24, 32)
