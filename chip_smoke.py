@@ -15,7 +15,12 @@ Phases, one JSON object per line on stdout:
               f32acc and dynamic: codes x1..x4 and bf16 output, with and
               without the residual; dynamic: each frame's ranges too),
               K1, K2 in its three output modes, tail1, the bf16 SRVGG
-              chain, and the int8 chain (every code and the bf16 output)
+              chain, and the int8 chain (every code and the bf16 output);
+              the resident body's halo refresh on poisoned rings (against
+              its plain version and a re-extraction, exactly) and the
+              three RDB kernels on the 60 halo blocks of the body with
+              their extents; the band conv at 2160x3840, 64->64 with
+              lrelu and 64->8
   4. model    one frame through each model's kernel path against the
               plain f32 ``apply``: RealESRGAN_x2plus (23 blocks, seeded
               random weights) and FW_fast6_x2 (trained) at 1080p,
@@ -28,24 +33,31 @@ Phases, one JSON object per line on stdout:
               random-weight models against their int8 plain paths; the
               dynamic bodies against the bf16 bodies; FW_fast6_x2's
               round-trip bf16 and f32acc bodies with tail1 against their
-              plain paths; the dynamic frame's split; the SRVGG and
-              dynamic peaks against the planner's count
+              plain paths; the dynamic frame's split; the resident body
+              against the merge body (x2plus, bf16) and the round-trip
+              bodies (FW_fast6_x2, f32acc and dynamic); the resident body
+              with tail2 and the band-conv tail (FastTail) against their
+              plain paths (x2plus) and the f32 ``apply`` (FW_fast6_x2),
+              with their splits; the SRVGG, dynamic and resident peaks
+              against the planner's count
   5. restore  the user's entry points on seeded synthetic 4:2:0 clips:
               ``python -m framewright_tpu_torch.cli restore`` at 1080p
               with RealESRGAN_x2plus in bf16, in int8 (default scheme
               i32) and in int8 with FW_INT8_SCHEME=f32acc, with
               FW_fast6_x2 in bf16 and int8 f32acc with
-              FW_RDB_BODY=roundtrip FW_TAIL=1, and at
+              FW_RDB_BODY=roundtrip FW_TAIL=1, RealESRGAN_x2plus in bf16
+              with FW_RDB_BODY=resident FW_TAIL=2, and at
               960x540 with realesr-animevideov3 in bf16 and in int8; then
               the SR processor (``SuperResolution``) at 1080p with
-              RealESRGAN_x2plus in int8 with ``int8_scales="dynamic"``;
+              RealESRGAN_x2plus in int8 with ``int8_scales="dynamic"``,
+              and with FW_fast6_x2 so under FW_RDB_BODY=resident;
               each with every launch counter set to 0 just before and
               read just after; output size, frame count and every frame
               checked against the kernel path
   6. times    each kernel by CUDA events beside its plain version, its
-              roofline bound and, for the bf16 RDB, K1, tail1 and the
-              bf16 chain, cuDNN's F.conv2d (PyTorch has no single int8
-              3x3 convolution call)
+              roofline bound and, for the bf16 RDB, K1, tail1, the bf16
+              chain and the band conv, cuDNN's F.conv2d (PyTorch has no
+              single int8 3x3 convolution call)
 Then nvidia-smi's line, the kernel summary line, and the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 the result line. Without a CUDA device, or without the package beside
@@ -94,6 +106,8 @@ TAIL1_MAC_PER_PX = 4 * 4 * 64 * 64 + 4 * 9 * 64 * 64 + 4 * 9 * 64 * 3
 TAIL1_WEIGHTS = 4 * 64 * 4 * 64 + 9 * 64 * 64 + 9 * 64 * 3
 VGG_GROUP = 8                  # convs per chain call (fused_srvgg.GROUP)
 VGG_MAC_PER_PX = VGG_GROUP * 9 * 64 * 64
+BAND_MAC_PER_PX = 9 * 64 * 64  # one 64->64 band conv
+STEP_FLOOR = 2.0 ** -6         # bf16 steps counted at max(|v|, 2^-6) (tests/test_torch_fast_tail.py)
 
 
 class SmokeFailure(Exception):
@@ -109,10 +123,47 @@ def require(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+@contextlib.contextmanager
+def with_env(env: dict):
+    """Set the environment variables ``env`` for the block, then restore
+    each to what it was."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple:
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def block_work(ext, h: int, w: int) -> tuple:
+    """(valid, ring_read) pixels of a batch of h x w frames cut into halo
+    blocks: ``valid`` lie inside the blocks' valid rectangles, the only
+    pixels where an RDB on blocks convolves (outside, x1..x4 are 0 and
+    its output is x); ``ring_read`` are the ring pixels whose frame
+    position lies in the grid of interiors, the only ones the refresh
+    reads from a neighbour (it writes zeros to the others)."""
+    from framewright_tpu_torch.ops import fused_rrdb
+
+    r = ext.rects.long()
+    valid = int(((r[:, 1] - r[:, 0]) * (r[:, 3] - r[:, 2])).sum())
+    s_blk, halo, bh = fused_rrdb.S, fused_rrdb.HALO, fused_rrdb.BH
+    nh, nw = fused_rrdb.grid_dims(h, w)
+
+    def span(n: int) -> int:      # in-grid rows (columns) summed over n blocks
+        return sum(min(s_blk, (n - i) * bh + halo) - max(0, halo - i * bh) for i in range(n))
+
+    frames = r.shape[0] // ext.per_frame
+    return valid, frames * (span(nh) * span(nw) - nh * nw * bh * bh)
 
 
 def nvidia_smi() -> str:
@@ -183,6 +234,27 @@ def check_u8(name: str, got, want, phase: str = "kernels",
     emit({"phase": phase, **s})
     require(s["max_abs"] <= UINT8_MAX_LSB
             and (max_frac is None or s["frac_differ"] < max_frac), f"{name}: {s}")
+    return s
+
+
+def bf16_steps_over_one(got, want) -> float:
+    """Share of values more than one bf16 step apart, the step of
+    max(|v|, 2^-6)."""
+    g, w = got.float(), want.float()
+    mag = g.abs().maximum(w.abs()).clamp_min(STEP_FLOOR)
+    return ((g - w).abs() > (mag.log2().floor() - 7).exp2()).float().mean().item()
+
+
+def check_equal(name: str, got, want, phase: str, within=None) -> dict:
+    """A pair expected bit-equal: prints whether it is, with the diff. A
+    pair that is not equal fails unless ``within(stats)`` holds (the
+    parity tolerance of that output); its record then shows the gap."""
+    import torch
+
+    s = diff_stats(got, want)
+    s.update(name=name, equal=torch.equal(got, want))
+    emit({"phase": phase, **s})
+    require(s["equal"] or (within is not None and within(s)), f"{name}: {s}")
     return s
 
 
@@ -325,6 +397,7 @@ def main(argv=None) -> int:
         fused_srvgg,
         fused_tail,
         fused_tail3,
+        pallas_conv,
     )
     from framewright_tpu_torch.processors.super_resolution import SRConfig, SuperResolution
 
@@ -438,7 +511,80 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     errs["tail1"] = check_bf16("tail1", t_k, t_p)["max_abs"]
     del t_k, t_p
-    kernel_inputs = (ws, feat, skip_p, a0, fwd)
+    # the resident body's kernels on the main-path body: 1x540x960 cut into
+    # 6x10 halo blocks of 112x112. The refresh rebuilds poisoned rings (every
+    # ring, also outside the grid) of a 192-channel workspace and of a
+    # 64-channel carry: equal to its plain version and to a re-extraction
+    # of the assembled frame
+    b1, h1, w1 = feat.shape[:3]
+    nh, nw = fused_rrdb.grid_dims(h1, w1)
+    ext = fused_rrdb.BlockExtents.of(b1, h1, w1, dev)
+    s_blk, halo = fused_rrdb.S, fused_rrdb.HALO
+    ring = torch.ones(s_blk, s_blk, dtype=torch.bool, device=dev)
+    ring[halo:s_blk - halo, halo:s_blk - halo] = False
+    errs["halo_refresh"] = 0.0
+    for ch in (fused_rrdb.WS_C, 64):
+        blk = fused_rrdb.extract_blocks(feat, ch)
+        blk[..., 64:] = 0
+        blk[:, ring, :64] = 7.0
+        want = fused_rrdb.halo_refresh_plain(blk.clone(), b1, nh, nw)
+        fused_rrdb.halo_refresh(blk, b1, nh, nw)
+        torch.cuda.synchronize()
+        again = fused_rrdb.extract_blocks(fused_rrdb.assemble_blocks(blk, b1, h1, w1), ch)
+        for label, ref in (("plain", want[..., :64]), ("re-extraction", again[..., :64])):
+            s_ = check_equal(f"halo_refresh {tuple(blk.shape)} vs {label}", blk[..., :64], ref,
+                             "kernels")
+            errs["halo_refresh"] = max(errs["halo_refresh"], s_["max_abs"])
+        del want, again
+    del blk
+    refresh_ws = fused_rrdb.extract_blocks(feat, fused_rrdb.WS_C)
+    # the three RDB kernels on the blocks with their extents, with the
+    # RRDB residual (x = the body input, carry = the first RDB's output)
+    x_blk = fused_rrdb.extract_blocks(feat)
+    c_blk = fused_rrdb.extract_blocks(d_k[..., :64].contiguous())
+    wsb, wsb_p = fused_rrdb.new_workspace(x_blk), fused_rrdb.new_workspace(x_blk)
+    cb_k, cb_p = fused_rrdb.new_workspace(c_blk), fused_rrdb.new_workspace(c_blk)
+    fused_rrdb.fused_rdb(wsb, cb_k, fw.body[0][2], carry=cb_k, ext=ext)
+    fused_rrdb.fused_rdb_plain(wsb_p, cb_p, fw.body[0][2], carry=cb_p, ext=ext)
+    torch.cuda.synchronize()
+    errs["rdb_blocks"] = max(check_bf16("rdb blocks x1..x4", wsb[..., 64:], wsb_p[..., 64:])[
+        "max_abs"], check_bf16("rdb_res blocks", cb_k[..., :64], cb_p[..., :64])["max_abs"])
+    del wsb_p, cb_k, cb_p
+    for label, wts in (("int8_f32acc", fw8["f32acc"].body[0][2]), ("dynamic", fwd.body[0][2])):
+        q_k = torch.zeros(*x_blk.shape[:3], 192, dtype=torch.int8, device=dev)
+        q_p = torch.zeros_like(q_k)
+        o_k, o_p = c_blk.clone(), c_blk.clone()
+        e = []
+        if label == "dynamic":
+            a_k = fused_rrdb.fused_rdb_dynamic(x_blk, q_k, o_k, wts, carry=o_k, ext=ext)
+            a_p = fused_rrdb.fused_rdb_dynamic_plain(x_blk, q_p, o_p, wts, carry=o_p, ext=ext)
+            torch.cuda.synchronize()
+            e.append(check_amax("rdb_dynamic_res blocks amax", a_k, a_p))
+        else:
+            fused_rrdb.fused_rdb_int8(x_blk, q_k, o_k, wts, carry=o_k, ext=ext)
+            fused_rrdb.fused_rdb_int8_plain(x_blk, q_p, o_p, wts, carry=o_p, ext=ext)
+            torch.cuda.synchronize()
+        e += [check_codes(f"rdb_{label}_res blocks q0..q4", q_k, q_p)["max_abs"],
+              check_bf16(f"rdb_{label}_res blocks", o_k, o_p)["max_abs"]]
+        errs[f"rdb_{label}_blocks"] = max(e)
+        del q_k, q_p, o_k, o_p
+    # the band conv at the FastTail's 4K shape: conv_hr's 64->64 with lrelu
+    # and conv_last's 64->3 padded to 8, on a seeded 1x2160x3840x64 input
+    x4k = seeded_feat(dev, (1, 2160, 3840), 13)
+    band_w = {"hr": pallas_conv.conv_wide_weights(model.conv_hr),
+              "last": pallas_conv.conv_wide_weights(model.conv_last)}
+    errs["band_conv"] = 0.0
+    for key, act in (("hr", True), ("last", False)):
+        got = pallas_conv.band_conv3x3(x4k, band_w[key], act)
+        want = pallas_conv.band_conv3x3_plain(x4k, band_w[key], act)
+        torch.cuda.synchronize()
+        s_ = check_bf16(f"band_conv3x3 {key} 64->{got.shape[-1]} act={act} "
+                        f"{tuple(x4k.shape)}", got, want)
+        emit({"phase": "kernels", "name": f"band_conv3x3 {key} share over one bf16 step",
+              "share": bf16_steps_over_one(got, want)})
+        errs["band_conv"] = max(errs["band_conv"], s_["max_abs"])
+        del got, want
+    kernel_inputs = (ws, feat, skip_p, a0, fwd, refresh_ws, wsb, x_blk, ext, x4k, band_w)
     # the SRVGG chains: realesr-animevideov3 (seeded random weights) on a
     # 960x540 frame, whose body runs at 540x960 like x2plus's; the chain's
     # main-path input is conv0's PReLU output, a group of 8 convs
@@ -475,6 +621,104 @@ def main(argv=None) -> int:
         errs["vgg_chain_int8"] = max(errs["vgg_chain_int8"], *e)
         del o_k, o_p, q_k, q_p
     emit({"phase": "kernels", "seconds": round(time.perf_counter() - t0, 3)})
+
+    resident_tail2 = {"FW_RDB_BODY": "resident", "FW_TAIL": "2"}
+
+    def resident_paths(name, m, relative, ref, featd, w16, a8, wd) -> None:
+        """The paths of the resident body, tail2 and the band-conv tail on
+        one 1080p frame. The resident body is expected bit-equal to the
+        merge body (bf16) and the round-trip bodies (f32acc, dynamic): the
+        kernels' arithmetic per pixel does not depend on the tile. The
+        kernel paths of resident + tail2 and of the band-conv tail are held
+        to their plain paths (x2plus, divided by the range) or to the f32
+        ``apply`` (FW_fast6_x2), and timed, split by part, with their peaks."""
+        if name == "RealESRGAN_x2plus":
+            pairs = (("bf16", w16, "merge", fused_rrdb.rrdb_body(featd, w16.body)[..., :64]),)
+        else:
+            w_f = m.fast_weights_int8(a8, "f32acc")
+            pairs = (("int8 f32acc", w_f, "round-trip",
+                      fused_rrdb.rrdb_body_roundtrip(featd, w_f.body)),
+                     ("int8 dynamic", wd, "round-trip",
+                      fused_rrdb.rrdb_body_roundtrip(featd, wd.body)))
+        for label, w, other, want in pairs:
+            got = fused_rrdb.rrdb_body_resident(featd, w.body)
+            scale = want.float().abs().max().item() + 1e-3
+            check_equal(f"{name} {label} resident body vs {other} body", got, want, "model",
+                        within=lambda st: st["max_abs"] / scale < MODEL_MAX_ABS
+                        and st["mean_abs"] / scale < 5e-4)
+            del got, want
+        tail_k = pallas_conv.FastTail(m)
+        with with_env(resident_tail2):
+            t2 = m.apply_fast(xb, "bf16", weights=w16)
+        pallas_conv.band_conv3x3.launches = 0
+        ft = m.apply_fast(xb, "bf16", weights=w16, fast_tail=tail_k)
+        fast_tail_launches[name] = pallas_conv.band_conv3x3.launches
+        require(fast_tail_launches[name] == 5,
+                f"{name} fast_tail: {fast_tail_launches[name]} band-conv launches, expected 5")
+        plain = {
+            "resident + tail2": lambda: m.tail2(featd, fused_rrdb.rrdb_body_resident(
+                featd, w16.body, plain=True), w16.tail, plain=True),
+            "fast_tail": lambda: pallas_conv.FastTail(m, plain=True)(
+                featd, fused_rrdb.rrdb_body(featd, w16.body, plain=True)[..., :64])}
+        for label, got in (("resident + tail2", t2), ("fast_tail", ft)):
+            require(bool(torch.isfinite(got.float()).all()), f"{name} {label}: non-finite")
+            require(tuple(got.shape) == (1, 2160, 3840, 3), f"{name} {label}: {got.shape}")
+            want = plain[label]() if relative else ref
+            s_ = diff_stats(got, want)
+            scale = (want.float().max() - want.float().min()).item() if relative else 1.0
+            s_.update(max_scaled=s_["max_abs"] / scale, mean_scaled=s_["mean_abs"] / scale)
+            emit({"phase": "model", "name": f"{name} {label} kernel path vs "
+                  + ("its plain path" if relative else "apply f32"), "divided_by": scale, **s_,
+                  "tol": {"max_abs": MODEL_MAX_ABS, "mean_abs": MODEL_MEAN_ABS}})
+            require(s_["max_scaled"] < MODEL_MAX_ABS and s_["mean_scaled"] < MODEL_MEAN_ABS,
+                    f"{name} {label}: {s_}")
+            del want
+        del t2, ft
+        # ms per frame (yuv420 out) and each part timed alone, with peaks
+        body_r = fused_rrdb.rrdb_body_resident(featd, w16.body)
+        skip2 = (featd + conv2d(body_r, m.conv_body.weight, m.conv_body.bias)).contiguous()
+        img = fused_tail.fused_tail(skip2, w16.tail, "bf16")
+        body_m = fused_rrdb.rrdb_body(featd, w16.body)[..., :64]
+        with with_env({"FW_RDB_BODY": "resident"}):
+            body_d = fused_rrdb.rrdb_body_fast(featd, wd.body)
+        a0 = m.tail1_input(featd, body_d)
+        runs = (
+            ("resident + tail2", resident_tail2, w16, None, "bfloat16", {
+                "body": lambda: fused_rrdb.rrdb_body_resident(featd, w16.body),
+                "conv_body + skip (PyTorch)": lambda: featd + conv2d(
+                    body_r, m.conv_body.weight, m.conv_body.bias),
+                "k2": lambda: fused_tail.fused_tail(skip2, w16.tail, "bf16"),
+                "epilogue": lambda: out_epilogue(img, "yuv420_u8", True)}),
+            ("fast_tail", {}, w16, tail_k, None, {
+                "body": lambda: fused_rrdb.rrdb_body(featd, w16.body),
+                "fast_tail": lambda: tail_k(featd, body_m),
+                "epilogue": lambda: out_epilogue(img, "yuv420_u8", True)}),
+            ("int8 dynamic resident + tail1", {"FW_RDB_BODY": "resident"}, wd, None,
+             "int8-dynamic", {
+                 "body": lambda: fused_rrdb.rrdb_body_resident(featd, wd.body),
+                 "tail1_input": lambda: m.tail1_input(featd, body_d),
+                 "tail1": lambda: fused_tail.fused_tail1(a0, wd.tail),
+                 "epilogue": lambda: out_epilogue(img, "yuv420_u8", True)}))
+        for label, env, w, tail, dtype, parts in runs:
+            key = f"{name} {label}"
+
+            def frame(w=w, tail=tail):
+                return m.apply_fast(xb, "yuv420_u8", True, weights=w, fast_tail=tail)
+
+            with with_env(env):
+                planes, peak = part_peak(frame)
+                del planes
+                model_ms[key] = cuda_ms(frame, 3, warmup=1)
+            split_ms = {k: cuda_ms(fn, 1 if k == "body" else 3, 1) for k, fn in parts.items()}
+            plan = planner.frame_bytes(1080, 1920, 2, "rrdb", dtype or "bfloat16")
+            emit({"phase": "model", "name": key, "ms_per_frame_yuv420": model_ms[key],
+                  "split_ms": split_ms, "peak_mem_bytes_above_base": peak,
+                  "planner_bytes": plan, "planner_checked": dtype is not None})
+            if dtype is not None:     # the paths a restore runs
+                plan_checks.append((key, peak, plan))
+        del body_r, skip2, img, body_m, body_d, a0
+
+    fast_tail_launches = {}
 
     # 4. one 1080p frame through the kernel path ------------------------
     # Two models on the same frame: the default RealESRGAN_x2plus with
@@ -537,7 +781,7 @@ def main(argv=None) -> int:
                                      3, warmup=1)
             emit({"phase": "model", "name": name, "ms_per_frame_yuv420": model_ms[name],
                   "peak_mem_bytes": peak})
-            del ref, rgb, planes, want
+            del rgb, planes, want
 
             # int8 (default scheme i32), scales calibrated on the frame's
             # centre crop as the SR processor takes them
@@ -647,8 +891,7 @@ def main(argv=None) -> int:
                 # (FW_RDB_BODY=roundtrip, FW_TAIL=1) against their plain
                 # versions: the trained model, held to the absolute
                 # tolerances
-                os.environ.update(FW_RDB_BODY="roundtrip", FW_TAIL="1")
-                try:
+                with with_env({"FW_RDB_BODY": "roundtrip", "FW_TAIL": "1"}):
                     for label, w in (("bf16", w16), ("int8 f32acc",
                                                      m.fast_weights_int8(a8, "f32acc"))):
                         got = m.apply_fast(xb, "bf16", weights=w)
@@ -661,10 +904,8 @@ def main(argv=None) -> int:
                         require(s_rt["max_abs"] < MODEL_MAX_ABS and s_rt["mean_abs"] < MODEL_MEAN_ABS,
                                 f"{name} {label} round trip: {s_rt}")
                         del got, want
-                finally:
-                    os.environ.pop("FW_RDB_BODY", None)
-                    os.environ.pop("FW_TAIL", None)
-            del fast, fastd, featd
+            resident_paths(name, m, relative, ref, featd, w16, a8, wd)
+            del fast, fastd, featd, ref
     # SRVGG: realesr-animevideov3 (seeded random weights, x4) on the 960x540
     # frame, FW_fastvgg_x2 (trained weights, x2) on the 1080p frame, both
     # to 4K; held like the RRDB pair above (the random-weight model's
@@ -767,21 +1008,24 @@ def main(argv=None) -> int:
     emit({"phase": "model", "seconds": round(time.perf_counter() - t0, 3)})
 
     # 5. the main paths: cli restore on synthetic clips -----------------
-    # Seven runs of the user's entry point: RealESRGAN_x2plus on the 1080p
+    # Eight runs of the user's entry point: RealESRGAN_x2plus on the 1080p
     # clip in bf16, int8 (default scheme i32) and int8 with
     # FW_INT8_SCHEME=f32acc, then FW_fast6_x2 on the same clip in bf16 and
     # int8 f32acc on the round-trip body with tail1 (FW_RDB_BODY=roundtrip
-    # FW_TAIL=1), and realesr-animevideov3 on the 960x540 clip in bf16 and
-    # int8; then the
-    # dynamic-scale int8 restore of the 1080p clip through the SR
-    # processor (SuperResolution with int8_scales="dynamic": setup,
-    # dispatch, materialize), which no CLI flag reaches, as in the JAX
-    # package. Every counter is set to 0 just before each run and read
-    # just after it.
+    # FW_TAIL=1), RealESRGAN_x2plus in bf16 on the resident body with tail2
+    # (FW_RDB_BODY=resident FW_TAIL=2), and realesr-animevideov3 on the
+    # 960x540 clip in bf16 and int8; then the dynamic-scale int8 restores
+    # of the 1080p clip through the SR processor (SuperResolution with
+    # int8_scales="dynamic": setup, dispatch, materialize), which no CLI
+    # flag reaches, as in the JAX package: RealESRGAN_x2plus on the
+    # round-trip body, and FW_fast6_x2 on the resident body
+    # (FW_RDB_BODY=resident). Every counter is set to 0 just before each
+    # run and read just after it.
     t0 = time.perf_counter()
     counters = (fused_rrdb.fused_rdb, fused_rrdb.fused_rdb_i32, fused_rrdb.fused_rdb_f32acc,
                 fused_rrdb.fused_rdb_dynamic, fused_tail3.conv_body_skip,
-                fused_tail.fused_tail, fused_tail.fused_tail1,
+                fused_tail.fused_tail, fused_tail.fused_tail1, fused_rrdb.halo_refresh,
+                pallas_conv.band_conv3x3,
                 fused_srvgg.fused_conv_chain, fused_srvgg.fused_conv_chain_int8)
     calibrations = {"rrdb_calibrations": rrdb.calibrate_act_scales,
                     "srvgg_calibrations": srvgg.calibrate_act_scales}
@@ -791,6 +1035,7 @@ def main(argv=None) -> int:
             ("RealESRGAN_x2plus", "int8", f32acc),
             ("FW_fast6_x2", "bfloat16", roundtrip),
             ("FW_fast6_x2", "int8", {**f32acc, **roundtrip}),
+            ("RealESRGAN_x2plus", "bfloat16", resident_tail2),
             ("realesr-animevideov3", "bfloat16", {}), ("realesr-animevideov3", "int8", {}))
     launches_by_run = {}
 
@@ -846,8 +1091,7 @@ def main(argv=None) -> int:
             src, decoded = clips[model_name]
             vgg_run = model_name == "realesr-animevideov3"
             out = tmp / f"restored_{len(launches_by_run)}.y4m"
-            os.environ.update(env)
-            try:
+            with with_env(env):
                 reset_counters()
                 buf = io.StringIO()
                 with contextlib.redirect_stdout(buf):
@@ -875,10 +1119,14 @@ def main(argv=None) -> int:
                 else:
                     body_fn = ("fused_rdb" if dtype == "bfloat16" else
                                "fused_rdb_f32acc" if scheme == "f32acc" else "fused_rdb_i32")
-                    want_counts.update({body_fn: 3 * models[model_name].cfg.num_block * batches,
-                                        "rrdb_calibrations": int(dtype == "int8")})
+                    rdbs = 3 * models[model_name].cfg.num_block * batches
+                    want_counts.update({body_fn: rdbs, "rrdb_calibrations": int(dtype == "int8")})
+                    if env.get("FW_RDB_BODY") == "resident":
+                        want_counts["halo_refresh"] = rdbs
                     if env.get("FW_TAIL") == "1":
                         want_counts["fused_tail1"] = batches
+                    elif env.get("FW_TAIL") == "2":
+                        want_counts["fused_tail"] = batches
                     else:
                         want_counts.update(conv_body_skip=batches, fused_tail=batches)
                 require(batches > 0 and launches == want_counts,
@@ -899,43 +1147,56 @@ def main(argv=None) -> int:
                 del planes_out
                 emit({"phase": "restore", "run": label,
                       "seconds": round(time.perf_counter() - t_run, 3)})
-            finally:
-                for k in env:
-                    os.environ.pop(k, None)
 
-        t_run = time.perf_counter()
-        label = "RealESRGAN_x2plus int8 int8_scales=dynamic"
-        _, decoded = clips["RealESRGAN_x2plus"]
-        reset_counters()
-        proc = SuperResolution(SRConfig(
-            model_name="RealESRGAN_x2plus", compute_dtype="int8", int8_scales="dynamic",
-            output_color="yuv420", yuv_full_range=True, weights_dir=str(tmp / "no_weights")))
-        proc.setup(1080, 1920)
-        planes = proc.materialize(proc.dispatch(decoded))
-        launches = read_counters()
-        bs = proc.plan.batch
-        batches = -(-n_frames // bs)
-        emit({"phase": "restore", "run": label, "batch_size": bs, "batches": batches,
-              "planes": [list(p.shape) for p in planes], "launches": launches})
-        want_counts = {k: 0 for k in launches}
-        want_counts.update(fused_rdb_dynamic=69 * batches, fused_tail1=batches)
-        require(launches == want_counts,
-                f"{label}: launch counts {launches}, expected {want_counts}")
-        require([p.shape for p in planes] == [(n_frames, 2160, 3840), (n_frames, 1080, 1920),
-                                              (n_frames, 1080, 1920)],
-                f"{label}: planes {[p.shape for p in planes]}")
-        launches_by_run[label] = launches
-        planes_vs_kernel_path(label, model, fwd, decoded,
-                              [tuple(p[i] for p in planes) for i in range(n_frames)], bs)
-        proc.teardown()
-        del planes, proc
-        emit({"phase": "restore", "run": label, "seconds": round(time.perf_counter() - t_run, 3)})
+        def processor_run(model_name: str, m, env: dict) -> None:
+            """The dynamic-scale int8 restore of the 1080p clip through the
+            SR processor: the dynamic RDB 3 x num_block times and tail1 once
+            per batch (and on the resident body as many refreshes), nothing
+            else; every plane equals the kernel path's."""
+            t_run = time.perf_counter()
+            label = f"{model_name} int8 int8_scales=dynamic" + "".join(
+                f" {k}={v}" for k, v in env.items())
+            _, decoded = clips["RealESRGAN_x2plus"]
+            with with_env(env):
+                reset_counters()
+                proc = SuperResolution(SRConfig(
+                    model_name=model_name, compute_dtype="int8", int8_scales="dynamic",
+                    output_color="yuv420", yuv_full_range=True,
+                    weights_dir=str(tmp / "no_weights")))
+                proc.setup(1080, 1920)
+                planes = proc.materialize(proc.dispatch(decoded))
+                launches = read_counters()
+                bs = proc.plan.batch
+                batches = -(-n_frames // bs)
+                emit({"phase": "restore", "run": label, "batch_size": bs, "batches": batches,
+                      "planes": [list(p.shape) for p in planes], "launches": launches})
+                want_counts = {k: 0 for k in launches}
+                rdbs = 3 * m.cfg.num_block * batches
+                want_counts.update(fused_rdb_dynamic=rdbs, fused_tail1=batches)
+                if env.get("FW_RDB_BODY") == "resident":
+                    want_counts["halo_refresh"] = rdbs
+                require(launches == want_counts,
+                        f"{label}: launch counts {launches}, expected {want_counts}")
+                require([p.shape for p in planes] == [(n_frames, 2160, 3840),
+                                                      (n_frames, 1080, 1920),
+                                                      (n_frames, 1080, 1920)],
+                        f"{label}: planes {[p.shape for p in planes]}")
+                launches_by_run[label] = launches
+                planes_vs_kernel_path(label, m, m.fast_weights_int8(None), decoded,
+                                      [tuple(p[i] for p in planes) for i in range(n_frames)], bs)
+                proc.teardown()
+                del planes, proc
+            emit({"phase": "restore", "run": label,
+                  "seconds": round(time.perf_counter() - t_run, 3)})
+
+        processor_run("RealESRGAN_x2plus", model, {})
+        processor_run("FW_fast6_x2", fast6, {"FW_RDB_BODY": "resident"})
     emit({"phase": "restore", "seconds": round(time.perf_counter() - t0, 3)})
     launches = launches_by_run["RealESRGAN_x2plus bfloat16"]
 
     # 6. times -------------------------------------------------------------
     t0 = time.perf_counter()
-    ws, feat, skip, a0, fwd = kernel_inputs
+    ws, feat, skip, a0, fwd, refresh_ws, wsb, x_blk, ext, x4k, band_w = kernel_inputs
     dyn_run = "RealESRGAN_x2plus int8 int8_scales=dynamic"
     rt_run = "FW_fast6_x2 {} FW_RDB_BODY=roundtrip FW_TAIL=1"
     b, h, w, _ = feat.shape
@@ -1083,6 +1344,76 @@ def main(argv=None) -> int:
                      max_abs_err=errs["vgg_chain_int8"], ms=chain8_ms, plain_ms=chain8_plain,
                      bound_ms=bms, bound_by=by, library_ms=None))
     del vout, lib_x
+    # the resident body: the halo refresh of the 60 blocks' 192-channel
+    # workspace (bytes: every ring pixel's 64 channels written once, and
+    # read once from its owner where it lies in the grid of interiors),
+    # and the bf16 and dynamic RDBs on the blocks (operations on the
+    # pixels inside the valid rectangles, 1.32x the frame's; bytes: x
+    # read and the output written at every block pixel)
+    res_run = "RealESRGAN_x2plus bfloat16 FW_RDB_BODY=resident FW_TAIL=2"
+    dres_run = "FW_fast6_x2 int8 int8_scales=dynamic FW_RDB_BODY=resident"
+    nb = refresh_ws.shape[0]
+    s_blk, halo = fused_rrdb.S, fused_rrdb.HALO
+    ring_px = s_blk * s_blk - (s_blk - 2 * halo) ** 2
+    bh, bw = fused_rrdb.grid_dims(h, w)
+    ref_ms = cuda_ms(lambda: fused_rrdb.halo_refresh(refresh_ws, b, bh, bw), it)
+    ref_plain = cuda_ms(lambda: fused_rrdb.halo_refresh_plain(refresh_ws, b, bh, bw), 3, 1)
+    valid_px, ring_read = block_work(ext, h, w)
+    bms, by = bound_ms(0, (nb * ring_px + ring_read) * 128)
+    rows.append(dict(name="halo_refresh", route="cuda",
+                     source="framewright_tpu_torch/ops/csrc/halo.cu",
+                     replaces="framewright_tpu/ops/fused_rrdb.py:1309",
+                     launches=launches_by_run[res_run]["halo_refresh"],
+                     max_abs_err=errs["halo_refresh"], ms=ref_ms, plain_ms=ref_plain,
+                     bound_ms=bms, bound_by=by, library_ms=None))
+    bpx = nb * s_blk * s_blk
+    dst_b = torch.empty_like(wsb)
+    rdbb_ms = cuda_ms(lambda: fused_rrdb.fused_rdb(wsb, dst_b, rdb_w, ext=ext), it)
+    rdbb_plain = cuda_ms(lambda: fused_rrdb.fused_rdb_plain(wsb, dst_b, rdb_w, ext=ext), 3, 1)
+    bms, by = bound_ms(2 * RDB_MAC_PER_PX * valid_px, 2 * 128 * bpx + 2 * RDB_MAC_PER_PX)
+    rows.append(dict(name="rdb_blocks", route="cuda", source="framewright_tpu_torch/ops/csrc/rdb.cu",
+                     replaces="framewright_tpu/ops/fused_rrdb.py:412",
+                     launches=launches_by_run[res_run]["fused_rdb"],
+                     max_abs_err=errs["rdb_blocks"], ms=rdbb_ms, plain_ms=rdbb_plain,
+                     bound_ms=bms, bound_by=by, library_ms=None))
+    del dst_b
+    q8 = torch.empty(*x_blk.shape[:3], 192, dtype=torch.int8, device=dev)
+    o8 = torch.empty_like(x_blk)
+    wts = fwd.body[0][0]
+    ms_db = cuda_ms(lambda: fused_rrdb.fused_rdb_dynamic(x_blk, q8, o8, wts, ext=ext), it)
+    plain_db = cuda_ms(lambda: fused_rrdb.fused_rdb_dynamic_plain(x_blk, q8, o8, wts, ext=ext),
+                       1, 1)
+    bms, by = bound_ms(2 * RDB_MAC_PER_PX * valid_px, 2 * 128 * bpx + RDB_MAC_PER_PX,
+                       PEAK_INT8_OPS)
+    rows.append(dict(name="rdb_int8_dynamic_blocks", route="cuda",
+                     source="framewright_tpu_torch/ops/csrc/rdb_dyn.cu",
+                     replaces="framewright_tpu/ops/fused_rrdb.py:502",
+                     launches=launches_by_run[dres_run]["fused_rdb_dynamic"],
+                     max_abs_err=errs["rdb_dynamic_blocks"], ms=ms_db, plain_ms=plain_db,
+                     bound_ms=bms, bound_by=by, library_ms=None))
+    del q8, o8
+    # the band conv: conv_hr's 64->64 with lrelu at 2160x3840 (bytes: the
+    # bf16 input read and output written once, the weights once); library:
+    # cuDNN's F.conv2d on the same bf16 input (channels_last) with the bias
+    px4 = x4k.shape[0] * x4k.shape[1] * x4k.shape[2]
+    band_ms = cuda_ms(lambda: pallas_conv.band_conv3x3(x4k, band_w["hr"]), it)
+    band_plain = cuda_ms(lambda: pallas_conv.band_conv3x3_plain(x4k, band_w["hr"]), 2, 1)
+    lib_x4 = x4k.permute(0, 3, 1, 2)           # NHWC memory: channels_last already
+    lib_w4 = band_w["hr"].w.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    lib_b4 = band_w["hr"].b.to(torch.bfloat16)
+    band_lib = cuda_ms(lambda: F.conv2d(lib_x4, lib_w4, lib_b4, padding=1), it)
+    bms, by = bound_ms(2 * BAND_MAC_PER_PX * px4, 2 * 128 * px4 + 2 * BAND_MAC_PER_PX)
+    rows.append(dict(name="band_conv3x3", route="cuda",
+                     source="framewright_tpu_torch/ops/csrc/band_conv.cu",
+                     replaces="framewright_tpu/ops/pallas_conv.py:45",
+                     launches=fast_tail_launches["RealESRGAN_x2plus"],
+                     max_abs_err=errs["band_conv"], ms=band_ms, plain_ms=band_plain,
+                     bound_ms=bms, bound_by=by, library_ms=band_lib))
+    emit({"phase": "times", "shape_blocks": list(wsb.shape), "shape_band_conv": list(x4k.shape),
+          "block_pixels": bpx, "valid_block_pixels": valid_px,
+          "ring_pixels": nb * ring_px, "ring_pixels_read": ring_read,
+          "rdb_blocks_over_rdb": rdbb_ms / rdb_ms,
+          "halo_refresh_cuda_launches_per_call": 1, "band_conv_cuda_launches_per_call": 1})
     emit({"phase": "times", "shape_body": [b, h, w, 64], "iters": it,
           "shape_chain": list(vfeat.shape), "chain_bf16_beside_int8_ms": chain_ms,
           "rdb_cuda_launches_per_call": 5, "rdb_int8_cuda_launches_per_call": 6,

@@ -10,9 +10,12 @@ or uint8 planes Y (B, sH, sW), U and V (B, sH/2, sW/2).
               conv_first, then the RDB kernel 69 times (23 blocks), bf16
               or int8 after the fast weights it holds; then, by FW_TAIL,
               K1 and K2 with the output epilogue (the tail3 path, the
-              default unless the scales are dynamic), or tail1:
-              conv_body + skip and conv_up1 in PyTorch, the tail1
-              kernels, the output epilogue in PyTorch
+              default unless the scales are dynamic), tail2 (conv_body +
+              skip in PyTorch, K2) or tail1 (conv_body + skip and
+              conv_up1 in PyTorch, the tail1 kernels), or with
+              ``fast_tail`` the band-conv tail (``ops.pallas_conv.
+              FastTail``); after the last three the output epilogue in
+              PyTorch
   calibrate_act_scales  the int8 activation ranges from one bf16 pass
               (counterpart of ``rrdb.calibrate_act_scales``)
 
@@ -31,7 +34,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from framewright_tpu_torch.errors import ConfigError
 from framewright_tpu_torch.models.layers import (
     conv2d,
     lrelu,
@@ -239,27 +241,39 @@ class RRDBNet(nn.Module):
         run = fused_tail.fused_tail1_plain if plain else fused_tail.fused_tail1
         return run(self.tail1_input(feat, body), tail)
 
+    def tail2(self, feat: torch.Tensor, body: torch.Tensor, tail,
+              plain: bool = False) -> torch.Tensor:
+        """The tail2 path's tail (counterpart of ``rrdb._tail_pallas2``):
+        feat + conv_body(body) in PyTorch bf16 (``tail1_input``'s first
+        line), then K2 (``fused_tail.fused_tail``, ``plain``: its plain
+        version) with bf16 output. -> (B, 4h, 4w, 3) bf16 RGB."""
+        from framewright_tpu_torch.ops import fused_tail
+
+        f = (feat + conv2d(body, self.conv_body.weight, self.conv_body.bias)).contiguous()
+        run = fused_tail.fused_tail_plain if plain else fused_tail.fused_tail
+        return run(f, tail, "bf16")
+
     def apply_fast(self, x: torch.Tensor, out_mode: str = "bf16",
-                   full_range: bool = False, weights: Optional[FastWeights] = None):
+                   full_range: bool = False, weights: Optional[FastWeights] = None,
+                   fast_tail=None):
         """Kernel forward. x: (B, H, W, 3) in [0, 1]. The body is bf16 or
         int8 after ``weights`` (default: the int8 weights when the model
         holds them, else the bf16 ones); the head and the tail are bf16.
         ``FW_TAIL`` picks the tail as the JAX package does: "auto" (the
         default) or "3" run the merge body with K1 and K2 unless the
-        scales are dynamic; otherwise the body by ``FW_RDB_BODY``
-        (``fused_rrdb.rrdb_body_fast``) and tail1 (``tail1``) with the
-        epilogue in PyTorch; "2" (tail2) raises ``ConfigError``.
+        scales are dynamic or ``fast_tail`` is given; otherwise the body
+        by ``FW_RDB_BODY`` (``fused_rrdb.rrdb_body_fast``), then
+        ``fast_tail(feat, body)`` when given (an ``ops.pallas_conv.
+        FastTail``), else tail2 (``tail2``) for "2" and tail1 (``tail1``)
+        for any other value, each with the epilogue in PyTorch.
         Output per ``out_mode`` (see ops/fused_tail.py): bf16 RGB, rgb_u8,
         or the yuv420_u8 planes."""
         from framewright_tpu_torch.ops import fused_rrdb, fused_tail, fused_tail3
 
         kind = os.environ.get("FW_TAIL", "auto")
-        if kind == "2":
-            raise ConfigError("FW_TAIL=2 (tail2: conv_up1 inside the tail kernel) is "
-                              "not ported yet: ROADMAP.md B13")
         fw = weights or self._fast_int8 or self.fast_weights()
         feat = self._head(x.to(torch.bfloat16)).contiguous()
-        if kind in ("3", "auto") and fw.int8_scheme != "dynamic":
+        if kind in ("3", "auto") and fw.int8_scheme != "dynamic" and fast_tail is None:
             if fw.int8_scheme is None:
                 body = fused_rrdb.rrdb_body(feat, fw.body)
             else:
@@ -268,7 +282,12 @@ class RRDBNet(nn.Module):
             del body, feat   # the tail's 4K intermediates may reuse this memory
             return fused_tail.fused_tail(skip, fw.tail, out_mode, full_range)
         body = fused_rrdb.rrdb_body_fast(feat, fw.body)
-        img = self.tail1(feat, body, fw.tail)
+        if fast_tail is not None:
+            img = fast_tail(feat, body)
+        elif kind == "2":
+            img = self.tail2(feat, body, fw.tail)
+        else:
+            img = self.tail1(feat, body, fw.tail)
         del body, feat
         return img if out_mode == "bf16" else out_epilogue(img, out_mode, full_range)
 

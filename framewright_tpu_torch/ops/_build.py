@@ -39,19 +39,21 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # launcher name -> argtypes (every launcher returns its cudaError_t as int)
 _SIGNATURES = {
-    "fw_rdb_dense": [_P, _I, _I, _I, _I, _P, _P, _P],
-    "fw_rdb_final": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "fw_rdb_dense": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "fw_rdb_final": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "fw_halo_refresh": [_P, _I, _I, _I, _I, _I, _I, _P],
+    "fw_band_conv": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P],
     "fw_conv_body_skip": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "fw_tail_up2": [_P, _I, _I, _I, _P, _P, _P, _P],
     "fw_tail_hr": [_P, _I, _I, _I, _P, _P, _P, _P],
     "fw_tail_last": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P],
     "fw_rdb_i8_quant": [_P, _P, _L, _F, _P],
-    "fw_rdb_i8_dense": [_P, _I, _I, _I, _I, _P, _P, _P, _F, _I, _P],
-    "fw_rdb_i8_final": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P],
+    "fw_rdb_i8_dense": [_P, _I, _I, _I, _I, _P, _P, _P, _F, _I, _P, _P],
+    "fw_rdb_i8_final": [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     "fw_rdb_dyn_absmax": [_P, _I, _L, _P, _P],
     "fw_rdb_dyn_quant": [_P, _I, _I, _P, _I, _I, _L, _P, _I, _P],
-    "fw_rdb_dyn_dense": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    "fw_rdb_dyn_final": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "fw_rdb_dyn_dense": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "fw_rdb_dyn_final": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "fw_vgg_conv": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
     "fw_vgg_i8_quant": [_P, _P, _L, _F, _P],
     "fw_vgg_i8_conv": [_P, _I, _I, _I, _P, _P, _P, _P, _F, _P, _P, _P],

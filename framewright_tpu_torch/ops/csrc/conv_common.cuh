@@ -1,5 +1,5 @@
 // Shared 3x3 implicit-GEMM convolution main loop for the port's Hopper
-// kernels (rdb.cu, conv_body.cu, tail.cu).
+// kernels (rdb.cu, conv_body.cu, tail.cu, band_conv.cu).
 //
 // Layout: activations NHWC bf16 with an explicit channel stride, weights
 // [cout][taps][cin] bf16 (tap-major, input channels contiguous), biases
@@ -65,6 +65,28 @@ __device__ __forceinline__ void st_bf16x2(bf16* p, float v0, float v1) {
   v.x = __float2bfloat16(v0);
   v.y = __float2bfloat16(v1);
   *reinterpret_cast<__nv_bfloat162*>(p) = v;
+}
+
+// The valid rectangle [r0, r1) x [c0, c1) of image (or block) b. The RDB
+// kernels run on whole images (ext == NULL: every pixel is valid) or on
+// the resident body's halo blocks, where ext (nb, 4) int32 holds each
+// block's rectangle of frame pixels, as the TPU kernels' ext_ref does
+// (fused_rrdb.py:412-444); outside it the stage outputs are zero. Each
+// kernel takes block mode as a template parameter BLOCKS (launch_tiles
+// picks the instance), so that the image path compiles to the code it had
+// before blocks existed: a run-time test of ext cost the int8 i32 RDB 5%
+// (PERF.md).
+struct Rect {
+  int r0, r1, c0, c1;
+  __device__ __forceinline__ bool has(int y, int x) const {
+    return y >= r0 && y < r1 && x >= c0 && x < c1;
+  }
+};
+
+__device__ __forceinline__ Rect valid_rect(const int* ext, int b, int H, int W) {
+  if (ext == nullptr) return Rect{0, H, 0, W};
+  const int4 e = reinterpret_cast<const int4*>(ext)[b];
+  return Rect{e.x, e.y, e.z, e.w};
 }
 
 // Accumulate one CTA tile of a convolution with NT x NT taps at offsets
@@ -147,6 +169,21 @@ __device__ __forceinline__ void conv_tile(float (&acc)[2][NFRAG][4],
 template <typename K>
 inline cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// Launch one RDB conv stage over B images (or halo blocks) of H x W
+// pixels, one CTA of NTHREADS per TH x TW output tile: the kernel's
+// BLOCKS = true instance when ext != NULL (halo blocks), else its
+// BLOCKS = false instance (the image path).
+template <typename K, typename... Args>
+inline cudaError_t launch_tiles(const void* ext, K on_blocks, K on_images, int smem, int B, int H,
+                                int W, cudaStream_t stream, Args... args) {
+  const K kernel = ext ? on_blocks : on_images;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+  kernel<<<grid, NTHREADS, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace fw

@@ -21,8 +21,16 @@
 // point, so the design spends its effort on the product: implicit GEMM
 // on mma.sync with bf16 operands and f32 accumulators, a 16x16-pixel
 // tile per CTA so that each weight chunk staged in shared memory serves
-// 256 pixels. Halo reads come straight from device memory; the TPU
-// kernel's resident blocks, ring refresh and packed words are not needed.
+// 256 pixels. Halo reads come straight from device memory, zero outside
+// the image; packed words are not needed.
+//
+// Blocks: the same launches run the resident body (FW_RDB_BODY=resident)
+// on halo blocks (nb, S, S, 192), the image of each block being the block
+// itself, with ext (nb, 4) int32 the valid rectangle of each block
+// (_rdb_kernel's ext_ref, fused_rrdb.py:412-444): x1..x4 are zero outside
+// it and stage 5 writes bf16(bf16(0.2 where(valid, x5, 0)) + x). The
+// halo rings are rebuilt between RDBs by halo.cu. ext == NULL is the
+// image path, unchanged.
 #include "conv_common.cuh"
 
 namespace fw {
@@ -31,15 +39,17 @@ constexpr int WS_C = 192;   // workspace channels: x (64) + x1..x4 (4 x 32)
 constexpr float BF16_0P2 = 0.2001953125f;   // bf16(0.2): JAX's weak-typed 0.2 * bf16
 
 // Stages 1-4: ws[..., cin:cin+32] = bf16(lrelu(conv(ws[..., :cin]) + b)).
+template <bool BLOCKS>
 __global__ void __launch_bounds__(NTHREADS, 2)
     rdb_dense_kernel(bf16* ws, int H, int W, int cin, const bf16* __restrict__ w,
-                     const float* __restrict__ bias) {
+                     const float* __restrict__ bias, const int* __restrict__ ext) {
   extern __shared__ uint4 smem_u4[];
   bf16* s_in = reinterpret_cast<bf16*>(smem_u4);
   bf16* s_w = s_in + HT * HW * KP;
   const int b = blockIdx.z, ty0 = blockIdx.y * TH, tx0 = blockIdx.x * TW;
   float acc[2][4][4];
   conv_tile<3, 4>(acc, ws, WS_C, cin, H, W, b, ty0, tx0, -1, -1, w, s_in, s_w);
+  const Rect valid = valid_rect(ext, b, H, W);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -51,29 +61,34 @@ __global__ void __launch_bounds__(NTHREADS, 2)
       const int x = tx0 + g + 8 * h;
       if (x >= W) continue;
       bf16* dst = ws + (((size_t)b * H + y) * W + x) * WS_C + cin;
+      const bool ok = !BLOCKS || valid.has(y, x);
 #pragma unroll
       for (int nf = 0; nf < 4; ++nf) {
         const int n = nf * 8 + 2 * t;
-        st_bf16x2(dst + n, lrelu(acc[mf][nf][2 * h] + bias[n]),
-                  lrelu(acc[mf][nf][2 * h + 1] + bias[n + 1]));
+        st_bf16x2(dst + n, ok ? lrelu(acc[mf][nf][2 * h] + bias[n]) : 0.f,
+                  ok ? lrelu(acc[mf][nf][2 * h + 1] + bias[n + 1]) : 0.f);
       }
     }
   }
 }
 
-// Stage 5: dst[..., :64] = bf16(bf16(0.2 (conv(ws) + b)) + ws[..., :64]),
+// Stage 5: dst[..., :64] = bf16(bf16(0.2 (conv(ws) + b)) + ws[..., :64])
+// (conv + b taken as 0 outside the valid rectangle),
 // then with carry: dst[..., :64] = bf16(bf16(0.2 * dst) + carry[..., :64]).
 // dst and carry may be the same workspace (each pixel reads its carry
 // before it writes), but neither may be ws.
+template <bool BLOCKS>
 __global__ void __launch_bounds__(NTHREADS, 2)
     rdb_final_kernel(const bf16* __restrict__ ws, int H, int W, const bf16* __restrict__ w,
-                     const float* __restrict__ bias, bf16* dst, const bf16* carry) {
+                     const float* __restrict__ bias, bf16* dst, const bf16* carry,
+                     const int* __restrict__ ext) {
   extern __shared__ uint4 smem_u4[];
   bf16* s_in = reinterpret_cast<bf16*>(smem_u4);
   bf16* s_w = s_in + HT * HW * KP;
   const int b = blockIdx.z, ty0 = blockIdx.y * TH, tx0 = blockIdx.x * TW;
   float acc[2][8][4];
   conv_tile<3, 8>(acc, ws, WS_C, WS_C, H, W, b, ty0, tx0, -1, -1, w, s_in, s_w);
+  const Rect valid = valid_rect(ext, b, H, W);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -85,13 +100,14 @@ __global__ void __launch_bounds__(NTHREADS, 2)
       const int x = tx0 + g + 8 * h;
       if (x >= W) continue;
       const size_t pix = (((size_t)b * H + y) * W + x) * WS_C;
+      const bool ok = !BLOCKS || valid.has(y, x);
 #pragma unroll
       for (int nf = 0; nf < 8; ++nf) {
         const int n = nf * 8 + 2 * t;
         float o[2];
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          const float x5 = acc[mf][nf][2 * h + j] + bias[n + j];
+          const float x5 = ok ? acc[mf][nf][2 * h + j] + bias[n + j] : 0.f;
           o[j] = bf(rb(bf(rb(0.2f * x5)) + bf(ws[pix + n + j])));
           if (carry != nullptr) o[j] = bf(rb(bf(rb(BF16_0P2 * o[j])) + bf(carry[pix + n + j])));
         }
@@ -107,28 +123,22 @@ using namespace fw;
 
 extern "C" {
 
-// One dense stage k in 1..4 (cin = 64 + 32 (k - 1)) over the workspace.
+// One dense stage k in 1..4 (cin = 64 + 32 (k - 1)) over the workspace;
+// ext: NULL (images) or (B, 4) int32 valid rectangles (halo blocks).
 int fw_rdb_dense(void* ws, int B, int H, int W, int cin, const void* w, const void* bias,
-                 void* stream) {
-  const int smem = conv_smem_bytes(9, 32);
-  cudaError_t err = allow_smem(rdb_dense_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  rdb_dense_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (bf16*)ws, H, W, cin, (const bf16*)w, (const float*)bias);
-  return (int)cudaGetLastError();
+                 const void* ext, void* stream) {
+  return (int)launch_tiles(ext, rdb_dense_kernel<true>, rdb_dense_kernel<false>,
+                           conv_smem_bytes(9, 32), B, H, W, (cudaStream_t)stream, (bf16*)ws, H,
+                           W, cin, (const bf16*)w, (const float*)bias, (const int*)ext);
 }
 
 // Stage 5 with the RDB residual, and the RRDB residual when carry != NULL.
 int fw_rdb_final(const void* ws, int B, int H, int W, const void* w, const void* bias, void* dst,
-                 const void* carry, void* stream) {
-  const int smem = conv_smem_bytes(9, 64);
-  cudaError_t err = allow_smem(rdb_final_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  rdb_final_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)ws, H, W, (const bf16*)w, (const float*)bias, (bf16*)dst, (const bf16*)carry);
-  return (int)cudaGetLastError();
+                 const void* carry, const void* ext, void* stream) {
+  return (int)launch_tiles(ext, rdb_final_kernel<true>, rdb_final_kernel<false>,
+                           conv_smem_bytes(9, 64), B, H, W, (cudaStream_t)stream,
+                           (const bf16*)ws, H, W, (const bf16*)w, (const float*)bias, (bf16*)dst,
+                           (const bf16*)carry, (const int*)ext);
 }
 
 }  // extern "C"

@@ -21,6 +21,15 @@
 // values >= 0); a quantization launch then turns the scratch into codes.
 // The scales never leave the device.
 //
+// Blocks (the resident body, ext != NULL): a frame is per_frame
+// consecutive halo blocks, and a dense stage folds into amax only the
+// pixels of the block interior [halo, S - halo)^2 inside the valid
+// rectangle. The interiors tile the frame once, so the ranges equal the
+// image path's; ring pixels, which hold values computed against the
+// block's zero edge, never reach them. The absmax pass over x takes
+// whole blocks: their rings hold copies of interior pixels (extraction,
+// halo.cu) or zeros, so its maximum is the frame's too.
+//
 // Bound: the static kernels' (rdb_int8.cu): 248 G int8 operations per
 // 540x960 RDB, 0.126 ms. This first version adds the f32 scratch (128 B a
 // pixel written and read per stage) and the reductions as device-memory
@@ -90,19 +99,27 @@ __global__ void rdb_dyn_quant_kernel(const T* __restrict__ src, int src_c, int8_
 }
 
 // Dynamic stages 1-4: act[..., 0:32] = lrelu(conv(Q[..., :cin]) + b) in
-// f32, and max|act| of the tile folded into amax[b][stage] (stage = the
-// source index of this stage's output). sc = ws_row (32 x 5), bias = b.
+// f32 (0 outside the valid rectangle), and max|act| of the tile folded
+// into amax[frame][stage] (stage = the source index of this stage's
+// output). sc = ws_row (32 x 5), bias = b.
+template <bool BLOCKS>
 __global__ void __launch_bounds__(NTHREADS, 2)
     rdb_dyn_dense_kernel(const int8_t* q, int H, int W, int cin, const int8_t* __restrict__ w,
                          const float* __restrict__ sc, const float* __restrict__ bias, float* amax,
-                         int stage, float* __restrict__ act) {
+                         int stage, float* __restrict__ act, const int* __restrict__ ext,
+                         int per_frame, int halo) {
   extern __shared__ uint4 smem_u4[];
   int8_t* s_in = reinterpret_cast<int8_t*>(smem_u4);
   int8_t* s_w = s_in + HT * HW * KP8;
   const int b = blockIdx.z, ty0 = blockIdx.y * TH, tx0 = blockIdx.x * TW;
   int acc[2][4][4];
   float facc[2][4][4];
-  accumulate<4, DYN>(acc, facc, q, cin, H, W, b, ty0, tx0, w, sc, amax, s_in, s_w);
+  float* amax_f = amax + (BLOCKS ? b / per_frame : b) * NSRC;
+  accumulate<4, DYN>(acc, facc, q, cin, H, W, b, ty0, tx0, w, sc, amax_f, s_in, s_w);
+  const Rect valid = valid_rect(ext, b, H, W);
+  // the pixels whose values enter the frame's range
+  const Rect inner{max(valid.r0, halo), min(valid.r1, H - halo), max(valid.c0, halo),
+                   min(valid.c1, W - halo)};
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   float m = 0.f;
@@ -115,13 +132,16 @@ __global__ void __launch_bounds__(NTHREADS, 2)
       const int x = tx0 + g + 8 * h;
       if (x >= W) continue;
       float* dst = act + (((size_t)b * H + y) * W + x) * A_C;
+      const bool ok = !BLOCKS || valid.has(y, x), counts = !BLOCKS || inner.has(y, x);
 #pragma unroll
       for (int nf = 0; nf < 4; ++nf) {
         const int n = nf * 8 + 2 * t;
-        float2 v;
-        v.x = lrelu_rn(__fadd_rn(facc[mf][nf][2 * h], bias[n]));
-        v.y = lrelu_rn(__fadd_rn(facc[mf][nf][2 * h + 1], bias[n + 1]));
-        m = fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y)));
+        float2 v = make_float2(0.f, 0.f);
+        if (ok) {
+          v.x = lrelu_rn(__fadd_rn(facc[mf][nf][2 * h], bias[n]));
+          v.y = lrelu_rn(__fadd_rn(facc[mf][nf][2 * h + 1], bias[n + 1]));
+        }
+        if (counts) m = fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y)));
         *reinterpret_cast<float2*>(dst + n) = v;
       }
     }
@@ -134,7 +154,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
   __syncthreads();
   if (threadIdx.x == 0) {
     for (int i = 1; i < NTHREADS / 32; ++i) m = fmaxf(m, s_red[i]);
-    atomicMax(reinterpret_cast<int*>(amax + b * NSRC + stage), __float_as_int(m));
+    atomicMax(reinterpret_cast<int*>(amax_f + stage), __float_as_int(m));
   }
 }
 
@@ -174,29 +194,31 @@ int fw_rdb_dyn_quant(const void* src, int src_f32, int src_c, void* q, int q_off
 }
 
 // Dynamic scheme, dense stage k in 1..4 (cin = 64 + 32 (k - 1)): the f32
-// activation into act (B, H, W, 32) and its range into amax[b][k].
+// activation into act (B, H, W, 32) and its range into amax[frame][k].
+// Images: ext = NULL, per_frame = 1, halo = 0. Halo blocks: ext (B, 4)
+// int32 valid rectangles, per_frame blocks to a frame, the ring width halo.
 int fw_rdb_dyn_dense(const void* q, int B, int H, int W, int cin, const void* w, const void* ws,
-                     const void* bias, void* amax, void* act, void* stream) {
-  const int smem = conv_s8_smem_bytes(32);
-  cudaError_t err = allow_smem(rdb_dyn_dense_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  rdb_dyn_dense_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (const int8_t*)q, H, W, cin, (const int8_t*)w, (const float*)ws, (const float*)bias,
-      (float*)amax, (cin - 64) / 32 + 1, (float*)act);
-  return (int)cudaGetLastError();
+                     const void* bias, void* amax, void* act, const void* ext, int per_frame,
+                     int halo, void* stream) {
+  return (int)launch_tiles(ext, rdb_dyn_dense_kernel<true>, rdb_dyn_dense_kernel<false>,
+                           conv_s8_smem_bytes(32), B, H, W, (cudaStream_t)stream,
+                           (const int8_t*)q, H, W, cin, (const int8_t*)w, (const float*)ws,
+                           (const float*)bias, (float*)amax, (cin - 64) / 32 + 1, (float*)act,
+                           (const int*)ext, per_frame, halo);
 }
 
-// Stage 5 with the frames' ranges amax (B, 5), the RDB residual, and the
-// RRDB residual when carry != NULL.
+// Stage 5 with the frames' ranges amax (frames, 5), the RDB residual, and
+// the RRDB residual when carry != NULL; ext and per_frame as for the
+// dense stages.
 int fw_rdb_dyn_final(const void* q, int B, int H, int W, const void* w, const void* ws,
                      const void* bias, const void* amax, const void* x, void* dst,
-                     const void* carry, void* stream) {
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  return (int)launch_final<DYN>(grid, conv_s8_smem_bytes(64), (cudaStream_t)stream,
-                                (const int8_t*)q, H, W, (const int8_t*)w, (const float*)ws,
-                                (const float*)bias, (const float*)amax, (const bf16*)x,
-                                (bf16*)dst, (const bf16*)carry);
+                     const void* carry, const void* ext, int per_frame, void* stream) {
+  return (int)launch_tiles(ext, rdb_i8_final_kernel<DYN, true>,
+                           rdb_i8_final_kernel<DYN, false>, conv_s8_smem_bytes(64), B, H, W,
+                           (cudaStream_t)stream, (const int8_t*)q, H, W, (const int8_t*)w,
+                           (const float*)ws, (const float*)bias, (const float*)amax,
+                           (const bf16*)x, (bf16*)dst, (const bf16*)carry, (const int*)ext,
+                           per_frame);
 }
 
 }  // extern "C"

@@ -16,9 +16,10 @@
 // int8 dense peak, against 133 MB of bf16 input and output (0.040 ms at
 // 3.35 TB/s). The design is the bf16 RDB's (rdb.cu) on the s8 tensor
 // cores: half the mma instructions and half the staged bytes per channel
-// (conv_s8.cuh), codes one byte a channel in Q. The TPU kernel's
-// resident blocks, ring merge and four codes per int32 word are Mosaic
-// workarounds and have no counterpart here.
+// (conv_s8.cuh), codes one byte a channel in Q. The TPU kernel's ring
+// merge and four codes per int32 word are Mosaic workarounds and have no
+// counterpart here; its resident blocks are the resident body's (ext,
+// rdb_int8.cuh; halo.cu).
 #include "rdb_int8.cuh"
 
 namespace fw {
@@ -44,11 +45,11 @@ __global__ void rdb_i8_quant_kernel(const bf16* __restrict__ x, int8_t* __restri
 // Stages 1-4: Q[..., cin:cin+32] = codes of lrelu(conv(Q[..., :cin]) + b).
 //   i32   : sc = oscale (32), bias = obias (32)
 //   f32acc: sc = ws_row * sa_src (32 x 5), bias = b (32), inv_next = 1 / sa_k
-template <int MODE>
+template <int MODE, bool BLOCKS>
 __global__ void __launch_bounds__(NTHREADS, 2)
     rdb_i8_dense_kernel(int8_t* q, int H, int W, int cin, const int8_t* __restrict__ w,
                         const float* __restrict__ sc, const float* __restrict__ bias,
-                        float inv_next) {
+                        float inv_next, const int* __restrict__ ext) {
   extern __shared__ uint4 smem_u4[];
   int8_t* s_in = reinterpret_cast<int8_t*>(smem_u4);
   int8_t* s_w = s_in + HT * HW * KP8;
@@ -56,6 +57,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
   int acc[2][4][4];
   float facc[2][4][4];
   accumulate<4, MODE>(acc, facc, q, cin, H, W, b, ty0, tx0, w, sc, nullptr, s_in, s_w);
+  const Rect valid = valid_rect(ext, b, H, W);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -67,6 +69,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
       const int x = tx0 + g + 8 * h;
       if (x >= W) continue;
       int8_t* dst = q + (((size_t)b * H + y) * W + x) * Q_C + cin;
+      const bool ok = !BLOCKS || valid.has(y, x);
 #pragma unroll
       for (int nf = 0; nf < 4; ++nf) {
         const int n = nf * 8 + 2 * t;
@@ -77,7 +80,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
           const int r = 2 * h + j;
           const float v = lrelu_rn(
               preact<MODE>(acc[mf][nf][r], facc[mf][nf][r], MODE == I32 ? sc[n + j] : 0.f, bias[n + j]));
-          c[j] = code(MODE == F32ACC ? __fmul_rn(v, inv_next) : v);
+          c[j] = ok ? code(MODE == F32ACC ? __fmul_rn(v, inv_next) : v) : 0;
         }
         out.x = c[0];
         out.y = c[1];
@@ -103,36 +106,30 @@ int fw_rdb_i8_quant(const void* x, void* q, long long npix, float inv0, void* st
   return (int)cudaGetLastError();
 }
 
-// One dense stage k in 1..4 (cin = 64 + 32 (k - 1)); f32acc selects the scheme.
+// One dense stage k in 1..4 (cin = 64 + 32 (k - 1)); f32acc selects the
+// scheme; ext: NULL (images) or (B, 4) int32 valid rectangles (blocks).
 int fw_rdb_i8_dense(void* q, int B, int H, int W, int cin, const void* w, const void* sc,
-                    const void* bias, float inv_next, int f32acc, void* stream) {
-  const int smem = conv_s8_smem_bytes(32);
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  cudaError_t err;
-  if (f32acc) {
-    err = allow_smem(rdb_i8_dense_kernel<F32ACC>, smem);
-    if (err != cudaSuccess) return (int)err;
-    rdb_i8_dense_kernel<F32ACC><<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-        (int8_t*)q, H, W, cin, (const int8_t*)w, (const float*)sc, (const float*)bias, inv_next);
-  } else {
-    err = allow_smem(rdb_i8_dense_kernel<I32>, smem);
-    if (err != cudaSuccess) return (int)err;
-    rdb_i8_dense_kernel<I32><<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-        (int8_t*)q, H, W, cin, (const int8_t*)w, (const float*)sc, (const float*)bias, inv_next);
-  }
-  return (int)cudaGetLastError();
+                    const void* bias, float inv_next, int f32acc, const void* ext,
+                    void* stream) {
+  const bool f = f32acc != 0;
+  return (int)launch_tiles(
+      ext, f ? rdb_i8_dense_kernel<F32ACC, true> : rdb_i8_dense_kernel<I32, true>,
+      f ? rdb_i8_dense_kernel<F32ACC, false> : rdb_i8_dense_kernel<I32, false>,
+      conv_s8_smem_bytes(32), B, H, W, (cudaStream_t)stream, (int8_t*)q, H, W, cin,
+      (const int8_t*)w, (const float*)sc, (const float*)bias, inv_next, (const int*)ext);
 }
 
 // Stage 5 with the RDB residual, and the RRDB residual when carry != NULL.
 int fw_rdb_i8_final(const void* q, int B, int H, int W, const void* w, const void* sc,
                     const void* bias, int f32acc, const void* x, void* dst, const void* carry,
-                    void* stream) {
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  const int smem = conv_s8_smem_bytes(64);
-  return (int)(f32acc ? launch_final<F32ACC> : launch_final<I32>)(
-      grid, smem, (cudaStream_t)stream, (const int8_t*)q, H, W, (const int8_t*)w,
-      (const float*)sc, (const float*)bias, nullptr, (const bf16*)x, (bf16*)dst,
-      (const bf16*)carry);
+                    const void* ext, void* stream) {
+  const bool f = f32acc != 0;
+  return (int)launch_tiles(
+      ext, f ? rdb_i8_final_kernel<F32ACC, true> : rdb_i8_final_kernel<I32, true>,
+      f ? rdb_i8_final_kernel<F32ACC, false> : rdb_i8_final_kernel<I32, false>,
+      conv_s8_smem_bytes(64), B, H, W, (cudaStream_t)stream, (const int8_t*)q, H, W,
+      (const int8_t*)w, (const float*)sc, (const float*)bias, (const float*)nullptr,
+      (const bf16*)x, (bf16*)dst, (const bf16*)carry, (const int*)ext, 1);
 }
 
 }  // extern "C"

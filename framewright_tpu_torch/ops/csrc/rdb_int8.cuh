@@ -25,6 +25,10 @@
 //          RRDB the residual bf16(bf16(bf16(0.2) out) + carry), as in
 //          rdb.cu. For f32acc and dynamic the JAX package applies that
 //          residual in XLA with the same rounding points.
+// Blocks (the resident body): every launch also takes ext, NULL for whole
+// images or (nb, 4) int32 valid rectangles of halo blocks (conv_common.cuh,
+// Rect); outside the rectangle the codes q1..q4 are 0 and x5 counts as 0,
+// as the TPU kernels mask them (fused_rrdb.py:502-597).
 // Every multiply and add is __fmul_rn/__fadd_rn: XLA rounds twice where
 // the requant reads "acc * osc + ob", so no FMA contraction; rintf rounds
 // half to even like jnp.round.
@@ -50,9 +54,16 @@ __device__ __forceinline__ int8_t code(float v) {
   return (int8_t)(int)fminf(fmaxf(rintf(v), -127.f), 127.f);
 }
 
-// Dynamic scheme: the activation scale of source s of frame b.
-__device__ __forceinline__ float dyn_sa(const float* amax, int b, int s) {
-  return __fmul_rn(fmaxf(amax[b * NSRC + s], 1e-8f), INV127);
+// Dynamic scheme: the activation scale of source s from the ranges
+// amax_f (5) of one frame.
+__device__ __forceinline__ float dyn_sa(const float* amax_f, int s) {
+  return __fmul_rn(fmaxf(amax_f[s], 1e-8f), INV127);
+}
+
+// The ranges (5 floats) of frame f (on halo blocks, a frame is per_frame
+// consecutive blocks). NULL for the static schemes.
+__device__ __forceinline__ const float* frame_amax(const float* amax, int f) {
+  return amax == nullptr ? nullptr : amax + f * NSRC;
 }
 
 // Source index of the chunk that ends at channel c_end, or -1 inside x.
@@ -62,13 +73,13 @@ __device__ __forceinline__ int source_ending_at(int c_end) {
 
 // Accumulate conv(Q[..., :cin]) for this CTA's tile: int32 in acc, and for
 // f32acc and dynamic also flushed per source into facc with the scale of
-// (row n, source s): sc[n*5 + s] (f32acc), or sc[n*5 + s] * sa_s of frame
-// b (dynamic: sc holds the weight scales, amax the frame's ranges).
+// (row n, source s): sc[n*5 + s] (f32acc), or sc[n*5 + s] * sa_s of the
+// frame (dynamic: sc holds the weight scales, amax_f the frame's ranges).
 template <int NFRAG, int MODE>
 __device__ __forceinline__ void accumulate(int (&acc)[2][NFRAG][4], float (&facc)[2][NFRAG][4],
                                            const int8_t* q, int cin, int H, int W, int b,
                                            int ty0, int tx0, const int8_t* w,
-                                           const float* __restrict__ sc, const float* amax,
+                                           const float* __restrict__ sc, const float* amax_f,
                                            int8_t* s_in,
                                            int8_t* s_w) {
   const int t = threadIdx.x & 3;
@@ -83,7 +94,7 @@ __device__ __forceinline__ void accumulate(int (&acc)[2][NFRAG][4], float (&facc
     if (MODE != I32) {
       const int s = source_ending_at(c0 + KC8);
       if (s < 0) continue;
-      const float sa = MODE == DYN ? dyn_sa(amax, b, s) : 1.f;
+      const float sa = MODE == DYN ? dyn_sa(amax_f, s) : 1.f;
 #pragma unroll
       for (int nf = 0; nf < NFRAG; ++nf) {
         const int n = nf * 8 + 2 * t;
@@ -109,22 +120,26 @@ __device__ __forceinline__ float preact(int acc, float facc, float sc, float bia
 }
 
 // Stage 5: dst = bf16(bf16(0.2 x5) + x), x5 = conv(Q) + bias in the
-// scheme's form; with carry dst = bf16(bf16(bf16(0.2) dst) + carry).
+// scheme's form (0 outside the valid rectangle); with carry dst =
+// bf16(bf16(bf16(0.2) dst) + carry).
 // x, dst and carry are (B, H, W, 64) bf16; each thread reads x and carry at
 // the pixels and channels it writes before writing them, so dst may be x
 // or carry.
-template <int MODE>
+template <int MODE, bool BLOCKS>
 __global__ void __launch_bounds__(NTHREADS, MODE == I32 ? 2 : 1)
     rdb_i8_final_kernel(const int8_t* __restrict__ q, int H, int W, const int8_t* __restrict__ w,
                         const float* __restrict__ sc, const float* __restrict__ bias,
-                        const float* amax, const bf16* x, bf16* dst, const bf16* carry) {
+                        const float* amax, const bf16* x, bf16* dst, const bf16* carry,
+                        const int* __restrict__ ext, int per_frame) {
   extern __shared__ uint4 smem_u4[];
   int8_t* s_in = reinterpret_cast<int8_t*>(smem_u4);
   int8_t* s_w = s_in + HT * HW * KP8;
   const int b = blockIdx.z, ty0 = blockIdx.y * TH, tx0 = blockIdx.x * TW;
   int acc[2][8][4];
   float facc[2][8][4];
-  accumulate<8, MODE>(acc, facc, q, Q_C, H, W, b, ty0, tx0, w, sc, amax, s_in, s_w);
+  accumulate<8, MODE>(acc, facc, q, Q_C, H, W, b, ty0, tx0, w, sc,
+                      frame_amax(amax, BLOCKS ? b / per_frame : b), s_in, s_w);
+  const Rect valid = valid_rect(ext, b, H, W);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -136,6 +151,7 @@ __global__ void __launch_bounds__(NTHREADS, MODE == I32 ? 2 : 1)
       const int xc = tx0 + g + 8 * h;
       if (xc >= W) continue;
       const size_t pix = (((size_t)b * H + y) * W + xc) * X_C;
+      const bool ok = !BLOCKS || valid.has(y, xc);
 #pragma unroll
       for (int nf = 0; nf < 8; ++nf) {
         const int n = nf * 8 + 2 * t;
@@ -143,8 +159,9 @@ __global__ void __launch_bounds__(NTHREADS, MODE == I32 ? 2 : 1)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int r = 2 * h + j;
-          const float x5 =
-              preact<MODE>(acc[mf][nf][r], facc[mf][nf][r], MODE == I32 ? sc[n + j] : 0.f, bias[n + j]);
+          const float x5 = ok ? preact<MODE>(acc[mf][nf][r], facc[mf][nf][r],
+                                             MODE == I32 ? sc[n + j] : 0.f, bias[n + j])
+                              : 0.f;
           o[j] = bf(rb(__fadd_rn(bf(rb(__fmul_rn(0.2f, x5))), bf(x[pix + n + j]))));
           if (carry != nullptr)
             o[j] = bf(rb(__fadd_rn(bf(rb(__fmul_rn(BF16_0P2_I8, o[j]))), bf(carry[pix + n + j]))));
@@ -153,17 +170,6 @@ __global__ void __launch_bounds__(NTHREADS, MODE == I32 ? 2 : 1)
       }
     }
   }
-}
-
-template <int MODE>
-cudaError_t launch_final(dim3 grid, int smem, cudaStream_t stream, const int8_t* q, int H, int W,
-                         const int8_t* w, const float* sc, const float* bias, const float* amax,
-                         const bf16* x, bf16* dst, const bf16* carry) {
-  cudaError_t err = allow_smem(rdb_i8_final_kernel<MODE>, smem);
-  if (err != cudaSuccess) return err;
-  rdb_i8_final_kernel<MODE><<<grid, NTHREADS, smem, stream>>>(q, H, W, w, sc, bias, amax, x, dst,
-                                                              carry);
-  return cudaGetLastError();
 }
 
 }  // namespace fw

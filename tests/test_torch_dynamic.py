@@ -29,7 +29,6 @@ import jax.numpy as jnp
 from framewright_tpu.models import rrdb as jrrdb
 from framewright_tpu.models.registry import packaged_weights_dir
 from framewright_tpu.ops import fused_rrdb as jfr
-from framewright_tpu_torch.errors import ConfigError
 from framewright_tpu_torch.models import rrdb
 from framewright_tpu_torch.models.registry import (
     bf16_masters,
@@ -270,10 +269,15 @@ class TestBody:
                            fused_rrdb.rrdb_body_int8(feat_t, i32))
         with pytest.raises(ValueError, match="i32"):
             fused_rrdb.rrdb_body_roundtrip(feat_t, i32)
+        # resident (either variable) runs the resident body, whose dynamic
+        # ranges are the frame's: equal to the round-trip body; i32 weights
+        # still run the merge body
+        want = fused_rrdb.rrdb_body_roundtrip(feat_t, nets["fw8"].body)
         for env in (("FW_RDB_BODY", "resident"), ("FW_RDB_RESIDENT", "1")):
             monkeypatch.setenv(*env)
-            with pytest.raises(ConfigError, match="B8"):
-                fused_rrdb.rrdb_body_fast(feat_t, nets["fw8"].body)
+            assert torch.equal(fused_rrdb.rrdb_body_fast(feat_t, nets["fw8"].body), want)
+            assert torch.equal(fused_rrdb.rrdb_body_fast(feat_t, i32),
+                               fused_rrdb.rrdb_body_int8(feat_t, i32))
 
 
 class TestModel:

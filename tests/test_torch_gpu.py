@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain versions,
 and the restore through them (RRDB and SRVGG, bf16 and int8; RRDB int8
-with dynamic scales through tail1).
+with dynamic scales through tail1; the resident body's halo refresh and
+RDBs on blocks; the band conv of the FastTail).
 
 Marked ``gpu``; each test asks for the ``cuda`` fixture, which skips
 when no CUDA device is present (decided inside the fixture, never at
@@ -239,6 +240,120 @@ def test_dynamic_restore_on_the_card(cuda):
                                "yuv420_u8", weights=sr.model.int8_weights)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w.cpu().numpy())
+
+
+# --- the resident body: halo refresh, RDBs on blocks; the band conv ----------
+
+@pytest.mark.parametrize("channels", [64, 192])
+def test_halo_refresh_kernel_matches_plain(cuda, channels):
+    """Poisoned rings (every ring pixel, also outside the grid) come back
+    equal to the plain version and to a re-extraction, exactly."""
+    b, h, w = 2, 150, 230
+    nh, nw = fused_rrdb.grid_dims(h, w)
+    blocks = fused_rrdb.extract_blocks(_feat(cuda, b, h, w, seed=3), channels)
+    blocks[..., 64:] = 1.0
+    want = blocks.clone()
+    s, halo = fused_rrdb.S, fused_rrdb.HALO
+    ring = torch.ones(s, s, dtype=torch.bool, device=cuda)
+    ring[halo:s - halo, halo:s - halo] = False
+    blocks[:, ring, :64] = 9.0
+    plain = fused_rrdb.halo_refresh_plain(blocks.clone(), b, nh, nw)
+    n = fused_rrdb.halo_refresh.launches
+    fused_rrdb.halo_refresh(blocks, b, nh, nw)
+    torch.cuda.synchronize()
+    assert fused_rrdb.halo_refresh.launches == n + 1
+    assert torch.equal(blocks, plain) and torch.equal(blocks, want)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32acc", "dynamic"])
+def test_blocked_rdb_kernels_match_plain(model, int8_weights, cuda, kind):
+    """The RDB kernels on halo blocks with their extents, with the RRDB
+    residual: bf16 within one step of the plain version, int8 codes and
+    outputs (and the dynamic ranges per frame) equal."""
+    b, h, w = 2, 150, 230
+    ext = fused_rrdb.BlockExtents.of(b, h, w, cuda)
+    x = fused_rrdb.extract_blocks(_feat(cuda, b, h, w, seed=5))
+    carry = fused_rrdb.extract_blocks(_feat(cuda, b, h, w, seed=6))
+    if kind == "bf16":
+        wts = model.fast_weights().body[0][2]
+        ws, ws_p = fused_rrdb.new_workspace(x), fused_rrdb.new_workspace(x)
+        c_k, c_p = fused_rrdb.new_workspace(carry), fused_rrdb.new_workspace(carry)
+        n = fused_rrdb.fused_rdb.launches
+        fused_rrdb.fused_rdb(ws, c_k, wts, carry=c_k, ext=ext)
+        fused_rrdb.fused_rdb_plain(ws_p, c_p, wts, carry=c_p, ext=ext)
+        torch.cuda.synchronize()
+        assert fused_rrdb.fused_rdb.launches == n + 1
+        _close_bf16(ws[..., 64:], ws_p[..., 64:])
+        _close_bf16(c_k[..., :64], c_p[..., :64])
+        return
+    wts = (int8_weights["f32acc"] if kind == "f32acc"
+           else model.fast_weights_int8(None).body[0])[2]
+    q = torch.zeros(*x.shape[:3], 192, dtype=torch.int8, device=cuda)
+    q_p = torch.zeros_like(q)
+    c_k, c_p = carry.clone(), carry.clone()
+    if kind == "dynamic":
+        amax = fused_rrdb.fused_rdb_dynamic(x, q, c_k, wts, carry=c_k, ext=ext)
+        amax_p = fused_rrdb.fused_rdb_dynamic_plain(x, q_p, c_p, wts, carry=c_p, ext=ext)
+        assert amax.shape == (b, 5) and torch.equal(amax, amax_p)
+    else:
+        fused_rrdb.fused_rdb_int8(x, q, c_k, wts, carry=c_k, ext=ext)
+        fused_rrdb.fused_rdb_int8_plain(x, q_p, c_p, wts, carry=c_p, ext=ext)
+    torch.cuda.synchronize()
+    assert torch.equal(q, q_p) and torch.equal(c_k, c_p)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "f32acc", "dynamic"])
+def test_resident_body_equals_merge_or_roundtrip_body(model, int8_weights, cuda, kind):
+    """The kernels' arithmetic per pixel does not depend on the tile, so
+    the resident body equals the merge body (bf16) or the round-trip body
+    (f32acc, dynamic) exactly; 3 refreshes per RRDB."""
+    feat = _feat(cuda, 2, 150, 230, seed=8)
+    body = {"bf16": model.fast_weights().body,
+            "f32acc": [int8_weights["f32acc"]],
+            "dynamic": model.fast_weights_int8(None).body}[kind]
+    n = fused_rrdb.halo_refresh.launches
+    got = fused_rrdb.rrdb_body_resident(feat, body)
+    torch.cuda.synchronize()
+    assert fused_rrdb.halo_refresh.launches == n + 3
+    want = (fused_rrdb.rrdb_body(feat, body)[..., :64] if kind == "bf16"
+            else fused_rrdb.rrdb_body_roundtrip(feat, body))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cout,act", [(64, True), (64, False), (3, False)])
+@pytest.mark.parametrize("shape", [(1, 540, 960), (2, 37, 53)])
+def test_band_conv_kernel_matches_plain(model, cuda, cout, act, shape):
+    from framewright_tpu_torch.ops import pallas_conv
+
+    conv = model.conv_hr if cout == 64 else model.conv_last
+    wts = pallas_conv.conv_wide_weights(conv)
+    x = _feat(cuda, *shape, seed=9)
+    n = pallas_conv.band_conv3x3.launches
+    got = pallas_conv.band_conv3x3(x, wts, act=act)
+    want = pallas_conv.band_conv3x3_plain(x, wts, act=act)
+    torch.cuda.synchronize()
+    assert pallas_conv.band_conv3x3.launches == n + 1
+    assert got.shape == (*shape, 64 if cout == 64 else 8)
+    _close_bf16(got, want)
+
+
+def test_fast_tail_and_tail2_on_the_card(model, cuda):
+    """FastTail (5 band-conv launches) and tail2 (one K2 call) against
+    their plain versions."""
+    from framewright_tpu_torch.ops import pallas_conv
+
+    feat, body = _feat(cuda, 1, 40, 56, seed=1), _feat(cuda, 1, 40, 56, seed=2)
+    n = pallas_conv.band_conv3x3.launches
+    got = pallas_conv.FastTail(model)(feat, body)
+    assert pallas_conv.band_conv3x3.launches == n + 5
+    want = pallas_conv.FastTail(model, plain=True)(feat, body)
+    d = (got.float() - want.float()).abs()
+    assert got.shape == (1, 160, 224, 3) and d.max().item() < 0.05 and d.mean().item() < 0.005
+    fw = model.fast_weights()
+    n = fused_tail.fused_tail.launches
+    got = model.tail2(feat, body, fw.tail)
+    assert fused_tail.fused_tail.launches == n + 1
+    _close_bf16(got, model.tail2(feat, body, fw.tail, plain=True))
 
 
 # --- the SRVGG conv chain ----------------------------------------------------

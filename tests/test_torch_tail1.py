@@ -28,11 +28,10 @@ import jax.numpy as jnp
 
 from framewright_tpu.models import rrdb as jrrdb
 from framewright_tpu.ops import fused_tail as jft
-from framewright_tpu_torch.errors import ConfigError
 from framewright_tpu_torch.models import rrdb
 from framewright_tpu_torch.models.layers import out_epilogue
 from framewright_tpu_torch.models.registry import from_jax_params, init_params
-from framewright_tpu_torch.ops import fused_tail
+from framewright_tpu_torch.ops import fused_rrdb, fused_tail
 
 
 @pytest.fixture(autouse=True)
@@ -157,7 +156,8 @@ class TestApplyFastTail1:
 
     def test_fw_tail_selection(self, nets, x, monkeypatch):
         """FW_TAIL=3 and auto run the tail3 path (K1, K2) for bf16 weights
-        and tail1 for dynamic ones, as in the JAX package; 2 raises."""
+        and tail1 for dynamic ones, as in the JAX package; 2 runs tail2
+        (conv_body + skip, then K2) for both."""
         _, model, _ = nets
         xt = torch.from_numpy(x[:1, :16, :24])
         fw16, fw8 = model.fast_weights(), model.fast_weights_int8(None)
@@ -170,5 +170,9 @@ class TestApplyFastTail1:
         assert torch.equal(outs["auto"][1], outs["1"][1]) and torch.equal(outs["3"][1],
                                                                           outs["1"][1])
         monkeypatch.setenv("FW_TAIL", "2")
-        with pytest.raises(ConfigError, match="B13"):
-            model.apply_fast(xt, weights=fw16)
+        for fw in (fw16, fw8):
+            got = model.apply_fast(xt, weights=fw)
+            feat = model._head(xt.to(torch.bfloat16)).contiguous()
+            want = model.tail2(feat, fused_rrdb.rrdb_body_fast(feat, fw.body), fw.tail)
+            assert torch.equal(got, want)
+            assert not torch.equal(got, outs["1"][fw is fw8])       # K2 against tail1
