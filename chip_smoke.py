@@ -166,6 +166,18 @@ def block_work(ext, h: int, w: int) -> tuple:
     return valid, frames * (span(nh) * span(nw) - nh * nw * bh * bh)
 
 
+def wgmma_ptxas(lines) -> list:
+    """ptxas's lines about the conv3x3_kernel instances: each entry's
+    register, stack and spill lines, and any note that names one."""
+    out, entry = [], False
+    for ln in lines:
+        if "Compiling entry" in ln:
+            entry = "conv3x3_kernel" in ln
+        if entry or "conv3x3_kernel" in ln:
+            out.append(ln)
+    return out
+
+
 def nvidia_smi() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -419,6 +431,11 @@ def main(argv=None) -> int:
     emit({"phase": "build", "nvcc_seconds": round(info.seconds, 3),
           "seconds": round(time.perf_counter() - t0, 3), "library": str(info.path),
           "ptxas": info.ptxas})
+    # the wgmma main loop's kernels (bf16 RDB stages, K1): registers,
+    # spills and ptxas's notes, and the dynamic shared memory they launch with
+    emit({"phase": "build", "conv3x3_wgmma": wgmma_ptxas(info.ptxas),
+          "dynamic_smem_bytes": {f"N={n}": _build.library().fw_wgmma_smem_bytes(n)
+                                 for n in (32, 64)}})
 
     # 3. kernels vs plain at main-path shapes ---------------------------
     t0 = time.perf_counter()
@@ -1371,11 +1388,18 @@ def main(argv=None) -> int:
     rdbb_ms = cuda_ms(lambda: fused_rrdb.fused_rdb(wsb, dst_b, rdb_w, ext=ext), it)
     rdbb_plain = cuda_ms(lambda: fused_rrdb.fused_rdb_plain(wsb, dst_b, rdb_w, ext=ext), 3, 1)
     bms, by = bound_ms(2 * RDB_MAC_PER_PX * valid_px, 2 * 128 * bpx + 2 * RDB_MAC_PER_PX)
+    # library: cuDNN's F.conv2d on the same five convs of the blocks'
+    # workspace (bf16, channels_last), summed as for the image RDB
+    libb_in = [wsb[..., :64 + 32 * k].permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last) for k in range(5)]
+    rdbb_lib = sum(cuda_ms(lambda k=k: F.conv2d(libb_in[k], lib_w[k], lib_b[k], padding=1), it)
+                   for k in range(5))
+    del libb_in
     rows.append(dict(name="rdb_blocks", route="cuda", source="framewright_tpu_torch/ops/csrc/rdb.cu",
                      replaces="framewright_tpu/ops/fused_rrdb.py:412",
                      launches=launches_by_run[res_run]["fused_rdb"],
                      max_abs_err=errs["rdb_blocks"], ms=rdbb_ms, plain_ms=rdbb_plain,
-                     bound_ms=bms, bound_by=by, library_ms=None))
+                     bound_ms=bms, bound_by=by, library_ms=rdbb_lib))
     del dst_b
     q8 = torch.empty(*x_blk.shape[:3], 192, dtype=torch.int8, device=dev)
     o8 = torch.empty_like(x_blk)
@@ -1411,6 +1435,7 @@ def main(argv=None) -> int:
                      bound_ms=bms, bound_by=by, library_ms=band_lib))
     emit({"phase": "times", "shape_blocks": list(wsb.shape), "shape_band_conv": list(x4k.shape),
           "block_pixels": bpx, "valid_block_pixels": valid_px,
+          "block_tiles": fused_rrdb.tile_count(ext), "live_block_tiles": fused_rrdb.tile_count(ext, True),
           "ring_pixels": nb * ring_px, "ring_pixels_read": ring_read,
           "rdb_blocks_over_rdb": rdbb_ms / rdb_ms,
           "halo_refresh_cuda_launches_per_call": 1, "band_conv_cuda_launches_per_call": 1})
@@ -1421,6 +1446,10 @@ def main(argv=None) -> int:
           "tail1_cuda_launches_per_call": 3, "vgg_chain_cuda_launches_per_call": VGG_GROUP,
           "vgg_chain_int8_cuda_launches_per_call": VGG_GROUP + 1,
           "seconds": round(time.perf_counter() - t0, 3)})
+
+    # each row's share of its bound: the least time the card could take
+    # over the time it took
+    emit({"phase": "times", "bound_share": {r["name"]: r["bound_ms"] / r["ms"] for r in rows}})
 
     for key, peak, plan in plan_checks:
         require(peak <= plan, f"{key}: peak {peak} B above the planner's {plan} B")

@@ -57,6 +57,7 @@ _SIGNATURES = {
     "fw_vgg_conv": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
     "fw_vgg_i8_quant": [_P, _P, _L, _F, _P],
     "fw_vgg_i8_conv": [_P, _I, _I, _I, _P, _P, _P, _P, _F, _P, _P, _P],
+    "fw_wgmma_smem_bytes": [_I],
 }
 
 
@@ -64,7 +65,7 @@ _SIGNATURES = {
 class BuildInfo:
     path: Path
     seconds: float            # 0.0 when an existing build was reused
-    ptxas: List[str] = field(default_factory=list)   # register/spill lines
+    ptxas: List[str] = field(default_factory=list)   # register/spill/wgmma lines
 
 
 def _sources() -> List[Path]:
@@ -136,7 +137,8 @@ def build(verbose: bool = True) -> BuildInfo:
         shutil.rmtree(obj_dir, ignore_errors=True)
     seconds = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in "\n".join(logs).splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln
+             or "wgmma" in ln]
     if verbose:
         print(f"[fw-build] nvcc {len(jobs)} sources in parallel, {seconds:.2f} s "
               f"-> {lib}", file=sys.stderr)

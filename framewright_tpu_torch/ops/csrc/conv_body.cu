@@ -7,58 +7,76 @@
 // Bound: bytes, narrowly. A 1080p frame does 19 GMAC (38 GFLOP, 38 us at
 // the bf16 peak) against 199 MB of reads and writes (body, feat, out:
 // 59 us at 3.35 TB/s), ~190 FLOP per byte, below the card's balance
-// point of ~295. The design reads each operand once: the body's 64
-// channels straight from the RDB workspace (channel stride 192, no
-// copy), and the skip folded into the store, so the add costs one read
-// of feat and no extra pass. The product is the RDB's implicit GEMM
-// (conv_common.cuh).
-#include "conv_common.cuh"
+// point of ~295. So the product must keep pace with the copies, which
+// conv_wgmma.cuh's main loop does (wgmma, a TMA-fed ring kept full by a
+// producer warpgroup, a persistent grid). Each operand is read once: the
+// body's 64 channels straight from the RDB workspace (channel stride 192,
+// no copy), and the skip folded into the store, so the add costs one
+// read of feat and no extra pass.
+#include "conv_wgmma.cuh"
 
 namespace fw {
 
-__global__ void __launch_bounds__(NTHREADS, 2)
-    conv_body_kernel(const bf16* __restrict__ body, int body_cs, int H, int W,
-                     const bf16* __restrict__ w, const float* __restrict__ bias,
-                     const bf16* __restrict__ feat, bf16* __restrict__ out) {
-  extern __shared__ uint4 smem_u4[];
-  bf16* s_in = reinterpret_cast<bf16*>(smem_u4);
-  bf16* s_w = s_in + HT * HW * KP;
-  const int b = blockIdx.z, ty0 = blockIdx.y * TH, tx0 = blockIdx.x * TW;
-  float acc[2][8][4];
-  conv_tile<3, 8>(acc, body, body_cs, 64, H, W, b, ty0, tx0, -1, -1, w, s_in, s_w);
+struct BodySkipEpi {
+  int H, W;
+  const float* __restrict__ bias;
+  const bf16* __restrict__ feat;
+  bf16* __restrict__ out;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  __device__ __forceinline__ bool live(int, int, int) const { return true; }
+
+  // Straight from the fragments: the f32 sum must meet feat before its
+  // one rounding, and staging 256 pixels x 64 channels of f32 through
+  // shared memory (in two halves) measured slower than this.
+  static constexpr int SLICES = 0;   // stage() stores the tile itself
+  static constexpr bool DEFER = false;
+  struct Slice {};
+  __device__ __forceinline__ void load(Slice&, int, int, int, int, const uint8_t*) const {}
+  __device__ __forceinline__ void finish(const Slice&, int, int, int, int, const uint8_t*) const {}
+
+  __device__ __forceinline__ void stage(const float (&acc)[4][32], int b, int y0, int x0, bool,
+                                        uint8_t*) const {
+    const wg::Frag f;
+    float bs[8][2];
 #pragma unroll
-  for (int mf = 0; mf < 2; ++mf) {
-    const int y = ty0 + 2 * warp + mf;
-    if (y >= H) continue;
+    for (int i = 0; i < 8; ++i) {
+      bs[i][0] = bias[8 * i + 2 * f.t];
+      bs[i][1] = bias[8 * i + 2 * f.t + 1];
+    }
+    // pixel s = (j, h) of this thread: j = s / 2, h = s % 2; its skip is
+    // loaded one pixel ahead, so the loads' latency overlaps the stores
+    __nv_bfloat162 sv[2][8];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int x = tx0 + g + 8 * h;
-      if (x >= W) continue;
-      const size_t pix = (((size_t)b * H + y) * W + x) * 64;
+    for (int s = 0; s < 9; ++s) {
+      if (s < 8) {
+        const int y = min(y0 + 4 * f.q + (s >> 1), H - 1), x = min(x0 + f.g + 8 * (s & 1), W - 1);
+        const size_t pix = (((size_t)b * H + y) * W + x) * 64 + 2 * f.t;
 #pragma unroll
-      for (int nf = 0; nf < 8; ++nf) {
-        const int n = nf * 8 + 2 * t;
-        st_bf16x2(out + pix + n, acc[mf][nf][2 * h] + bias[n] + bf(feat[pix + n]),
-                  acc[mf][nf][2 * h + 1] + bias[n + 1] + bf(feat[pix + n + 1]));
+        for (int i = 0; i < 8; ++i)
+          sv[s & 1][i] = *reinterpret_cast<const __nv_bfloat162*>(feat + pix + 8 * i);
       }
+      if (s == 0) continue;
+      const int p = s - 1, j = p >> 1, h = p & 1;
+      const int y = y0 + 4 * f.q + j, x = x0 + f.g + 8 * h;
+      if (y >= H || x >= W) continue;
+      const size_t pix = (((size_t)b * H + y) * W + x) * 64 + 2 * f.t;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        st_bf16x2(out + pix + 8 * i, acc[j][4 * i + 2 * h] + bs[i][0] + bf(sv[p & 1][i].x),
+                  acc[j][4 * i + 2 * h + 1] + bs[i][1] + bf(sv[p & 1][i].y));
     }
   }
-}
+};
 
 }  // namespace fw
 
 using namespace fw;
 
+// w: conv_body's weights in launch_conv3x3's chunked layout
+// (fused_rrdb.wgmma_weights).
 extern "C" int fw_conv_body_skip(const void* body, int body_cs, int B, int H, int W, const void* w,
                                  const void* bias, const void* feat, void* out, void* stream) {
-  const int smem = conv_smem_bytes(9, 64);
-  cudaError_t err = allow_smem(conv_body_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  conv_body_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)body, body_cs, H, W, (const bf16*)w, (const float*)bias, (const bf16*)feat,
-      (bf16*)out);
-  return (int)cudaGetLastError();
+  return (int)wg::launch_conv3x3<64>(
+      (const bf16*)body, body_cs, 64, B, H, W, (const bf16*)w,
+      BodySkipEpi{H, W, (const float*)bias, (const bf16*)feat, (bf16*)out}, (cudaStream_t)stream);
 }

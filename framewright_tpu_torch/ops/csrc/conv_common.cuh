@@ -1,5 +1,7 @@
-// Shared 3x3 implicit-GEMM convolution main loop for the port's Hopper
-// kernels (rdb.cu, conv_body.cu, tail.cu, band_conv.cu).
+// Shared 3x3 implicit-GEMM convolution main loop of the port's Hopper
+// kernels tail.cu, band_conv.cu and srvgg.cu; its tiling and launch_tiles
+// also serve the int8 RDBs (conv_s8.cuh, rdb_int8.cuh). The bf16 RDB and
+// K1 run on conv_wgmma.cuh instead.
 //
 // Layout: activations NHWC bf16 with an explicit channel stride, weights
 // [cout][taps][cin] bf16 (tap-major, input channels contiguous), biases

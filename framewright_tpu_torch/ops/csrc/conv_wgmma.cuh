@@ -1,0 +1,513 @@
+// Pipelined 3x3 implicit-GEMM convolution on wgmma, the main loop of the
+// bf16 RDB (rdb.cu) and K1 (conv_body.cu). The other kernels stay on
+// conv_common.cuh's conv_tile.
+//
+// Layout: activations NHWC bf16 with an explicit channel stride, biases
+// f32, weights in a chunk-major copy of their OHWI form made once on the
+// host (fused_rrdb.wgmma_weights; see launch_conv3x3).
+//
+// Work: a persistent grid, one CTA per SM of two consumer warpgroups and
+// one producer. The output is cut into 16x16-pixel tiles in row-major
+// (image, row, column) order; a CTA walks over pairs of consecutive
+// tiles, one tile per consumer, and the consumers share each weight chunk
+// it stages. Warp q of a consumer owns tile rows 4q..4q+3: M tile j (the
+// 64 rows of a wgmma) is rows {j, 4 + j, 8 + j, 12 + j}, so a warp's A
+// fragments for its six halo rows at one column shift serve all three row
+// taps of all four M tiles (6 ldmatrix.x4 for 12 wgmma).
+//
+// Pipeline: the input channels go through in chunks of KC = 16 (one k16
+// step). Stage s of a ring of NST holds one chunk: each tile's 18x18 halo
+// pixels x 16 channels, one TMA box (cp.async.bulk.tensor), and the
+// 9 taps x N x 16 weights, one contiguous bulk copy. TMA fills zeros
+// outside the image (SAME padding) and swizzles the 32-byte rows
+// (SWIZZLE_32B), which puts the eight row addresses of an ldmatrix phase
+// on distinct banks. One thread of the producer keeps the ring full,
+// across tile boundaries, so the next tile's loads overlap this tile's
+// last products and its epilogue: full[s] completes when a stage's bytes
+// have landed, empty[s] when every consumer warp is done with it. A
+// consumer releases a stage one step into the next chunk, when the last
+// wgmma group that read it has retired (each step waits for all but its
+// own group), so no step drains the tensor pipe except before an
+// epilogue. The producer gives its registers to the consumers
+// (setmaxnreg): N = 64 holds 128 accumulators a thread.
+//
+// Products: wgmma.mma_async m64nNk16, bf16 in, f32 accumulators in
+// registers, A from registers (ldmatrix from the halo tile: a tap's
+// shifted window is not a canonical wgmma shared-memory tile, while
+// ldmatrix takes one row address per lane), B from shared memory through
+// a matrix descriptor.
+//
+// Epilogue: each consumer has a staging buffer, so that the stores (and
+// the residual's reads) move whole 16-byte runs, neighbouring threads on
+// neighbouring runs, instead of the fragments' scattered 4-byte pieces;
+// an epilogue may write a tile out in slices while the next tile's
+// products run (Epi::DEFER).
+//
+// Order of the f32 sums: every output value accumulates (chunk, column
+// tap v, row tap u) in that order, whatever the tile, the image size or
+// block mode, so the merge, round-trip and resident bodies agree bit for
+// bit.
+//
+// Why TMA and bulk copies (PERF.md): 16-byte cp.async copies between CTA
+// barriers, one 32-byte sector per pixel and chunk, could not keep the
+// products fed; and a TMA box of 32-byte rows moves only a few bytes a
+// clock, so the weights, which would be such a box, come by one bulk copy.
+// scripts/torch_wgmma_rate.cu measures the rates of these wgmma shapes,
+// scripts/torch_rdb_stages.py times the RDB's stages.
+#pragma once
+
+#include <cuda.h>
+
+#include "conv_common.cuh"
+
+namespace fw {
+namespace wg {
+
+constexpr int TS = 16;                 // output tile side (one warpgroup)
+constexpr int HS = TS + 2;             // halo tile side
+constexpr int KC = 16;                 // input channels per chunk (32 bytes a pixel)
+// one tile's halo box, padded to the 256-byte period of the 32B swizzle
+constexpr int HALO_BYTES = (HS * HS * KC * 2 + 255) / 256 * 256;
+
+// Consumer warpgroups per CTA (one CTA per SM, plus the producer
+// warpgroup) and the registers a thread gets: a consumer 232 (N = 64 has
+// 128 accumulators a thread), the producer 40, so that 128 (2 x 232 + 40)
+// fit the SM's 65,536. (Three consumers of 160 registers at N = 32
+// measured no faster.)
+constexpr int NWG = 2;
+constexpr int CONSUMER_REGS = 232, PRODUCER_REGS = 40;
+static_assert(128 * (NWG * CONSUMER_REGS + PRODUCER_REGS) <= 65536, "registers");
+__host__ __device__ constexpr int wchunk_bytes(int n) { return 9 * n * KC * 2; }
+__host__ __device__ constexpr int stage_bytes(int n) {
+  return NWG * HALO_BYTES + wchunk_bytes(n);
+}
+__host__ __device__ constexpr int nstage(int n) { return n <= 32 ? 5 : 4; }
+// A warpgroup's epilogue staging: its 256 pixels x N bf16,
+// rows padded by 16 bytes so that the fragment-layout writes of eight
+// neighbouring pixels fall on distinct banks.
+constexpr int TPX = TS * TS;
+__host__ __device__ constexpr int epi_row(int n) { return 2 * n + 16; }
+__host__ __device__ constexpr int epi_bytes(int n) { return TPX * epi_row(n); }
+// + 256 to align the ring, + two mbarriers a stage
+__host__ __device__ constexpr int smem_bytes(int n) {
+  return nstage(n) * stage_bytes(n) + NWG * epi_bytes(n) + 256 + 16 * nstage(n);
+}
+
+static_assert(stage_bytes(32) % 256 == 0 && stage_bytes(64) % 256 == 0, "stage alignment");
+static_assert(smem_bytes(32) <= 232448 && smem_bytes(64) <= 232448, "shared memory");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// Contiguous bytes (a multiple of 16) into shared memory, completing on bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Barrier of the 128 threads of consumer warpgroup wgi (barrier 0 is
+// __syncthreads).
+__device__ __forceinline__ void wg_sync(int wgi) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wgi + 1) : "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+template <int K>
+__device__ __forceinline__ void fence_acc(float (&d)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Matrix descriptor of a K-major B tile without swizzle: core matrices of
+// 8 rows x 16 bytes, lbo bytes apart along K, 128 bytes apart along N.
+__device__ __forceinline__ uint64_t desc_b(uint32_t saddr, uint32_t lbo) {
+  return (uint64_t)((saddr >> 4) & 0x3FFF) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+// D (64 x N f32) += A (64 x 16 bf16, registers) * B (16 x N bf16, smem)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
+      "{%16,%17,%18,%19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "{%32,%33,%34,%35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// Tile t of B images of H x W: image, top row, left column.
+struct Tiles {
+  int tx, ty, count;
+  __device__ __forceinline__ Tiles(int B, int H, int W)
+      : tx((W + TS - 1) / TS), ty((H + TS - 1) / TS), count(B * tx * ty) {}
+  __device__ __forceinline__ void at(int t, int& b, int& y0, int& x0) const {
+    x0 = (t % tx) * TS;
+    const int r = t / tx;
+    y0 = (r % ty) * TS;
+    b = r / ty;
+  }
+};
+
+// The accumulators of one thread: acc[j][4 i + 2 h + e] is the output at
+// tile row 4 q + j (q = warp in the warpgroup), tile column g + 8 h
+// (g = lane / 4), channel 8 i + 2 (lane % 4) + e.
+//
+// in: the activations' tensor map (channels, W, H, B), box (16, 18, 18, 1);
+// w: the weights in launch_conv3x3's chunked layout. Epi (the caller's
+// epilogue) provides
+//   bool live(int b, int y0, int x0)  false: the tile needs no product
+//                                     (block mode: wholly outside the
+//                                     block's valid rectangle)
+//   void stage(acc, b, y0, x0, live, buf)
+//                                     after the tile's last product: put
+//                                     this thread's outputs in buf, the
+//                                     warpgroup's epi_bytes(N) of shared
+//                                     memory (see Frag), or store them
+//   SLICES, Slice, load(sl, k, b, y0, x0, buf), finish(sl, k, ...)
+//                                     then slice k = 0..SLICES-1: issue
+//                                     its loads into sl, write it out.
+//                                     With DEFER, one slice a chunk of the
+//                                     next tile, its loads behind the
+//                                     chunk's first wgmma group and its
+//                                     stores behind the last, so that the
+//                                     output's device-memory traffic
+//                                     overlaps the next tile's products;
+//                                     else all at once
+template <int N, class Epi>
+__device__ __forceinline__ void conv3x3(const CUtensorMap* in, const bf16* __restrict__ w, int cin,
+                                        int B, int H, int W, const Epi& epi) {
+  constexpr int NST = nstage(N);
+  extern __shared__ uint8_t wg_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, q = (tid >> 5) & 3;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);   // warp-uniform
+  const int wgi = warp >> 2;
+  const Tiles tiles(B, H, W);
+  const int ngroups = (tiles.count + NWG - 1) / NWG, nchunk = cin / KC;
+  const int my_groups =
+      (int)blockIdx.x < ngroups ? (ngroups - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+  const int total = my_groups * nchunk;
+  const uint32_t ring = (smem_u32(wg_smem) + 255u) & ~255u;
+  // full[s]: stage s loaded (the producer's arrival + the TMA bytes);
+  // empty[s]: every consumer warp is done with stage s
+  const uint32_t stage_end = ring + NST * stage_bytes(N);
+  const uint32_t full = stage_end + NWG * epi_bytes(N), empty = full + 8 * NST;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wgi == NWG) {
+    // the producer warpgroup gives its registers to the consumers; one
+    // thread keeps the ring full, iteration k (group k / nchunk, chunk
+    // k % nchunk) into stage k % NST once the consumers have released
+    // the iteration k - NST that the stage last held
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
+    for (int k = 0; tid == 128 * NWG && k < total; ++k) {
+      const int s = k % NST;
+      if (k >= NST) mbar_wait(empty + 8 * s, ((k / NST) & 1) ^ 1);
+      const int group = (int)blockIdx.x + (k / nchunk) * (int)gridDim.x;
+      const int c0 = (k % nchunk) * KC;
+      const uint32_t st = ring + s * stage_bytes(N), bar = full + 8 * s;
+      int b[NWG], y0[NWG], x0[NWG];
+      bool box[NWG];
+      int bytes = wchunk_bytes(N);
+#pragma unroll
+      for (int t = 0; t < NWG; ++t) {
+        tiles.at(group * NWG + t, b[t], y0[t], x0[t]);
+        box[t] = group * NWG + t < tiles.count && epi.live(b[t], y0[t], x0[t]);
+        if (box[t]) bytes += HS * HS * KC * 2;
+      }
+      mbar_expect_tx(bar, bytes);
+#pragma unroll
+      for (int t = 0; t < NWG; ++t)
+        if (box[t]) tma_load_4d(st + t * HALO_BYTES, in, bar, c0, x0[t] - 1, y0[t] - 1, b[t]);
+      bulk_load(st + NWG * HALO_BYTES, w + (size_t)(k % nchunk) * (wchunk_bytes(N) / 2),
+                wchunk_bytes(N), bar);
+    }
+  } else {
+    // the consumers: warpgroup wgi takes tile wgi of each group.
+    // Accumulators are written by other code only here and after an
+    // epilogue, each time behind a wait for every product in flight.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
+    float acc[4][N / 2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int r = 0; r < N / 2; ++r) acc[j][r] = 0.f;
+    }
+    // this lane's ldmatrix rows: pixel column lane % 16 (+ v) of halo row
+    // 4 q (+ r), channels 8 (lane / 16) .. +8; in the 32B swizzle the two
+    // 16-byte halves of a pixel swap in every other group of four pixels
+    const int p0 = 4 * q * HS + (lane & 15), half = lane >> 4;
+    // stage of iteration it - 1 released: its last products have retired
+    auto release = [&](int it) {
+      if (it > 0 && lane == 0) mbar_arrive(empty + 8 * ((it - 1) % NST));
+    };
+    uint8_t* buf = wg_smem + (stage_end + wgi * epi_bytes(N) - smem_u32(wg_smem));
+    // the staged tile still being written out: slices left, its place
+    int pend = 0, pb = 0, py0 = 0, px0 = 0;
+    typename Epi::Slice sl;
+
+    for (int it = 0; it < total; ++it) {
+      mbar_wait(full + 8 * (it % NST), (it / NST) & 1);
+      const int c = it % nchunk;
+      const int t = ((int)blockIdx.x + (it / nchunk) * (int)gridDim.x) * NWG + wgi;
+      int b, y0, x0;
+      tiles.at(t, b, y0, x0);
+      const bool has = t < tiles.count;
+      // warp-uniform by construction; the broadcast lets ptxas see it, so
+      // the products below sit on a convergent path and are not serialized
+      const bool live = __shfl_sync(0xffffffffu, has && epi.live(b, y0, x0), 0);
+      if (live) {
+        const uint32_t st = ring + (it % NST) * stage_bytes(N);
+        const uint32_t sh = st + wgi * HALO_BYTES, sw = st + NWG * HALO_BYTES;
+#pragma unroll
+        for (int v = 0; v < 3; ++v) {
+          uint32_t a[6][4];
+#pragma unroll
+          for (int r = 0; r < 6; ++r) {
+            const int p = p0 + r * HS + v;
+            ldmatrix_x4(a[r], sh + p * 32 + ((half ^ ((p >> 2) & 1)) << 4));
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int u = 0; u < 3; ++u) {
+            const uint64_t desc = desc_b(sw + (3 * u + v) * N * 32, N * 16);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) wgmma_rs(acc[j], a[j + u], desc);
+          }
+          wgmma_commit();
+          // one slice of the previous tile's output a chunk, its loads
+          // issued behind the first group and used behind the last
+          if (v == 0 && pend > 0) epi.load(sl, Epi::SLICES - pend, pb, py0, px0, buf);
+          wgmma_wait<1>();
+          if (v == 0) release(it);
+          if (v == 2 && pend > 0) epi.finish(sl, Epi::SLICES - pend--, pb, py0, px0, buf);
+        }
+      } else {
+        release(it);
+        if (pend > 0) {
+          epi.load(sl, Epi::SLICES - pend, pb, py0, px0, buf);
+          epi.finish(sl, Epi::SLICES - pend--, pb, py0, px0, buf);
+        }
+      }
+      if (c == nchunk - 1) {
+        wgmma_wait<0>();
+#pragma unroll
+        for (int j = 0; j < 4; ++j) fence_acc(acc[j]);
+        for (; pend > 0; --pend) {
+          epi.load(sl, Epi::SLICES - pend, pb, py0, px0, buf);
+          epi.finish(sl, Epi::SLICES - pend, pb, py0, px0, buf);
+        }
+        wg_sync(wgi);   // the warpgroup is done reading the buffer
+        if (has) epi.stage(acc, b, y0, x0, live, buf);
+        wg_sync(wgi);   // the staged tile is visible to the whole warpgroup
+        if (has) pend = Epi::SLICES, pb = b, py0 = y0, px0 = x0;
+        for (; !Epi::DEFER && pend > 0; --pend) {
+          epi.load(sl, Epi::SLICES - pend, pb, py0, px0, buf);
+          epi.finish(sl, Epi::SLICES - pend, pb, py0, px0, buf);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int r = 0; r < N / 2; ++r) acc[j][r] = 0.f;
+          fence_acc(acc[j]);
+        }
+      }
+    }
+    for (; pend > 0; --pend) {
+      epi.load(sl, Epi::SLICES - pend, pb, py0, px0, buf);
+      epi.finish(sl, Epi::SLICES - pend, pb, py0, px0, buf);
+    }
+  }
+}
+
+template <int N, class Epi>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+    conv3x3_kernel(const __grid_constant__ CUtensorMap in, const bf16* __restrict__ w, int cin,
+                   int B, int H, int W, Epi epi) {
+  conv3x3<N>(&in, w, cin, B, H, W, epi);
+}
+
+// --- host side ---------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime's entry
+// point query, so that the library needs no -lcuda.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+        cudaSuccess)
+      return nullptr;
+#endif
+    if (found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Tensor map of a conv's input: the activations (B, H, W, cs) bf16 read
+// in boxes of 16 channels x 18 x 18 pixels in the 32-byte swizzle; reads
+// outside the activations give zeros.
+inline cudaError_t input_map(CUtensorMap* map, const bf16* in, int cs, int B, int H, int W) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dim[4] = {(cuuint64_t)cs, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t stride[3] = {(cuuint64_t)cs * 2, (cuuint64_t)W * cs * 2,
+                                (cuuint64_t)H * W * cs * 2};
+  const cuuint32_t box[4] = {KC, HS, HS, 1}, ones[4] = {1, 1, 1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, (void*)in, dim, stride, box, ones,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// CTAs of the persistent grid: one per SM, at most one per tile group.
+inline cudaError_t grid_size(int B, int H, int W, int per_cta, int* grid) {
+  const long tiles = (long)B * ((H + TS - 1) / TS) * ((W + TS - 1) / TS);
+  const long groups = (tiles + per_cta - 1) / per_cta;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *grid = (int)(groups < sms ? groups : sms);
+  return err;
+}
+
+// Launch one 3x3 conv of in (B, H, W, cs) bf16, input channels [0, cin)
+// (cin % 16 == 0), with epilogue epi. The weights w are in the chunked
+// layout [cin / 16][9 taps][2][N][8] bf16 (fused_rrdb.wgmma_weights): one
+// chunk is one contiguous copy and lands as wgmma's canonical K-major B
+// without swizzle.
+template <int N, class Epi>
+inline cudaError_t launch_conv3x3(const bf16* in, int cs, int cin, int B, int H, int W,
+                                  const bf16* w, const Epi& epi, cudaStream_t stream) {
+  if (cin <= 0 || cin % KC != 0 || cin > cs || cs % 8 != 0) return cudaErrorInvalidValue;
+  int grid = 0;
+  cudaError_t err = grid_size(B, H, W, NWG, &grid);
+  if (err != cudaSuccess || grid == 0) return err;
+  CUtensorMap in_map;
+  err = input_map(&in_map, in, cs, B, H, W);
+  if (err != cudaSuccess) return err;
+  auto kernel = conv3x3_kernel<N, Epi>;
+  err = allow_smem(kernel, smem_bytes(N));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, 128 * (NWG + 1), smem_bytes(N), stream>>>(in_map, w, cin, B, H, W, epi);
+  return cudaGetLastError();
+}
+
+// This thread's place in the accumulators: warp q of its warpgroup,
+// g = lane / 4, t = lane % 4 (see conv3x3); wt its index in the
+// warpgroup. An epilogue stages a tile through its buffer in two steps:
+// each thread writes its fragments at pixel px(j, h) (tile row 4 q + j,
+// column g + 8 h); then (in slices, see conv3x3) each moves whole 16-byte
+// runs between the buffer and device memory, neighbouring threads on
+// neighbouring runs, so that the device-memory accesses are coalesced.
+struct Frag {
+  int q, g, t, wt;
+  __device__ __forceinline__ Frag()
+      : q((threadIdx.x >> 5) & 3), g((threadIdx.x & 31) >> 2), t(threadIdx.x & 3),
+        wt(threadIdx.x & 127) {}
+  __device__ __forceinline__ int px(int j, int h) const { return (4 * q + j) * TS + g + 8 * h; }
+};
+
+// Whether a 16x16 tile at (y0, x0) meets the rectangle r.
+__device__ __forceinline__ bool tile_meets(const Rect& r, int y0, int x0) {
+  return y0 < r.r1 && y0 + TS > r.r0 && x0 < r.c1 && x0 + TS > r.c0;
+}
+
+}  // namespace wg
+}  // namespace fw

@@ -112,6 +112,23 @@ class BlockExtents:
         return self.valid() & m
 
 
+RDB_TILE = 16   # output tile side of the bf16 RDB kernels (csrc/conv_wgmma.cuh, TS)
+
+
+def tile_count(ext: BlockExtents, live: bool = False) -> int:
+    """The 16x16 tiles the bf16 RDB kernels walk over on ``ext``'s blocks;
+    with ``live`` only those that meet their block's valid rectangle, the
+    tiles that run products (the others store zeros, or x at stage 5)."""
+    n = -(-S // RDB_TILE)
+    if not live:
+        return ext.rects.shape[0] * n * n
+    r = ext.rects.long().cpu()
+    t0 = torch.arange(n) * RDB_TILE
+    rows = (t0[None] < r[:, 1:2]) & (t0[None] + RDB_TILE > r[:, 0:1])
+    cols = (t0[None] < r[:, 3:4]) & (t0[None] + RDB_TILE > r[:, 2:3])
+    return int((rows.sum(1) * cols.sum(1)).sum())
+
+
 def _check_ext(ext: Optional[BlockExtents], t: torch.Tensor, name: str) -> None:
     if ext is None:
         return
@@ -198,20 +215,31 @@ def halo_refresh(blocks: torch.Tensor, b: int, nh: int, nw: int) -> torch.Tensor
 halo_refresh.launches = 0
 
 
+def wgmma_weights(w: torch.Tensor) -> torch.Tensor:
+    """OHWI conv weights (cout, 3, 3, cin) -> the bf16 RDB and K1 kernels'
+    chunk-major copy (cin / 16, 9, 2, cout, 8): a chunk of 16 input
+    channels is one contiguous copy that lands, tap by tap, as wgmma's
+    K-major B without swizzle (csrc/conv_wgmma.cuh, launch_conv3x3)."""
+    cout, kh, kw, cin = w.shape
+    return w.reshape(cout, kh * kw, cin // 16, 2, 8).permute(2, 1, 3, 0, 4).contiguous()
+
+
 @dataclass
 class RDBWeights:
     """One RDB's five convs: w[k] (cout, 3, 3, cin) bf16 (OHWI, input
-    channels contiguous), b[k] (cout,) f32."""
+    channels contiguous), b[k] (cout,) f32, and wk[k] = wgmma_weights(w[k])
+    for the kernels."""
     w: List[torch.Tensor]
     b: List[torch.Tensor]
+    wk: List[torch.Tensor]
 
 
 def rdb_weights(convs: Sequence[torch.nn.Conv2d]) -> RDBWeights:
     """conv1..conv5 of a ResidualDenseBlock -> the kernel's layout."""
-    return RDBWeights(
-        w=[c.weight.detach().float().permute(0, 2, 3, 1).contiguous()
-           .to(torch.bfloat16) for c in convs],
-        b=[c.bias.detach().float().contiguous() for c in convs])
+    w = [c.weight.detach().float().permute(0, 2, 3, 1).contiguous().to(torch.bfloat16)
+         for c in convs]
+    return RDBWeights(w=w, b=[c.bias.detach().float().contiguous() for c in convs],
+                      wk=[wgmma_weights(t) for t in w])
 
 
 def _check(ws: torch.Tensor, dst: torch.Tensor,
@@ -291,10 +319,10 @@ def fused_rdb(ws: torch.Tensor, dst: torch.Tensor, wts: RDBWeights,
     b, h, w, _ = ws.shape
     for k in range(4):
         _build.check(lib.fw_rdb_dense(ws.data_ptr(), b, h, w, NF + GC * k,
-                                      wts.w[k].data_ptr(), wts.b[k].data_ptr(),
+                                      wts.wk[k].data_ptr(), wts.b[k].data_ptr(),
                                       _ext_ptr(ext), stream), "fw_rdb_dense")
     _build.check(lib.fw_rdb_final(
-        ws.data_ptr(), b, h, w, wts.w[4].data_ptr(), wts.b[4].data_ptr(),
+        ws.data_ptr(), b, h, w, wts.wk[4].data_ptr(), wts.b[4].data_ptr(),
         dst.data_ptr(), None if carry is None else carry.data_ptr(), _ext_ptr(ext), stream),
         "fw_rdb_final")
     fused_rdb.launches += 1

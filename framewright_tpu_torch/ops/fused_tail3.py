@@ -14,22 +14,22 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from framewright_tpu_torch.ops import _build
+from framewright_tpu_torch.ops import _build, fused_rrdb
 
 NF = 64
 
 
 @dataclass
 class ConvBodyWeights:
-    w: torch.Tensor   # (64, 3, 3, 64) bf16, OHWI
-    b: torch.Tensor   # (64,) f32
+    w: torch.Tensor    # (64, 3, 3, 64) bf16, OHWI
+    b: torch.Tensor    # (64,) f32
+    wk: torch.Tensor   # fused_rrdb.wgmma_weights(w), for the kernel
 
 
 def conv_body_weights(conv: torch.nn.Conv2d) -> ConvBodyWeights:
-    return ConvBodyWeights(
-        conv.weight.detach().float().permute(0, 2, 3, 1).contiguous()
-        .to(torch.bfloat16),
-        conv.bias.detach().float().contiguous())
+    w = conv.weight.detach().float().permute(0, 2, 3, 1).contiguous().to(torch.bfloat16)
+    return ConvBodyWeights(w, conv.bias.detach().float().contiguous(),
+                           fused_rrdb.wgmma_weights(w))
 
 
 def _check(body: torch.Tensor, feat: torch.Tensor) -> None:
@@ -67,7 +67,7 @@ def conv_body_skip(body: torch.Tensor, feat: torch.Tensor,
     out = torch.empty(b, h, w, NF, dtype=torch.bfloat16, device=body.device)
     lib = _build.library()
     _build.check(lib.fw_conv_body_skip(
-        body.data_ptr(), c, b, h, w, wts.w.data_ptr(), wts.b.data_ptr(),
+        body.data_ptr(), c, b, h, w, wts.wk.data_ptr(), wts.b.data_ptr(),
         feat.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(body.device).cuda_stream),
         "fw_conv_body_skip")

@@ -51,7 +51,7 @@ def _close_bf16(a, b):
     assert d.max().item() <= 2.0 ** -4 and d.mean().item() <= 1e-4, (d.max(), d.mean())
 
 
-@pytest.mark.parametrize("shape", [(1, 20, 28), (2, 37, 45)])
+@pytest.mark.parametrize("shape", [(1, 20, 28), (2, 37, 45), (4, 540, 960)])
 def test_rdb_kernel_matches_plain(model, cuda, shape):
     feat = _feat(cuda, *shape)
     wts = model.fast_weights().body[0]
@@ -69,9 +69,10 @@ def test_rdb_kernel_matches_plain(model, cuda, shape):
     _close_bf16(carry[..., :64], carry_p[..., :64])
 
 
-def test_conv_body_skip_kernel_matches_plain(model, cuda):
-    feat = _feat(cuda, 2, 33, 50, seed=1)
-    ws = fused_rrdb.new_workspace(_feat(cuda, 2, 33, 50, seed=2))
+@pytest.mark.parametrize("shape", [(2, 33, 50), (1, 20, 28), (2, 37, 45), (4, 540, 960)])
+def test_conv_body_skip_kernel_matches_plain(model, cuda, shape):
+    feat = _feat(cuda, *shape, seed=1)
+    ws = fused_rrdb.new_workspace(_feat(cuda, *shape, seed=2))
     n = fused_tail3.conv_body_skip.launches
     got = fused_tail3.conv_body_skip(ws, feat, model.fast_weights().cbody)
     assert fused_tail3.conv_body_skip.launches == n + 1
@@ -300,6 +301,55 @@ def test_blocked_rdb_kernels_match_plain(model, int8_weights, cuda, kind):
         fused_rrdb.fused_rdb_int8_plain(x, q_p, c_p, wts, carry=c_p, ext=ext)
     torch.cuda.synchronize()
     assert torch.equal(q, q_p) and torch.equal(c_k, c_p)
+
+
+@pytest.mark.parametrize("with_carry", [False, True])
+def test_blocked_rdb_skips_dead_tiles(model, cuda, with_carry):
+    """The bf16 RDB on blocks whose grid has tiles wholly outside the valid
+    rectangles (no product runs there): within one step of the plain
+    version, and exactly x (or x with the RRDB residual) outside the
+    rectangles, with x1..x4 zero. The blocks hold seeded values
+    everywhere, rings and slack too."""
+    b, h, w = 2, 150, 230
+    ext = fused_rrdb.BlockExtents.of(b, h, w, cuda)
+    assert fused_rrdb.tile_count(ext, live=True) < fused_rrdb.tile_count(ext)
+    s = fused_rrdb.S
+    x = _feat(cuda, ext.rects.shape[0], s, s, seed=11)
+    carry = _feat(cuda, ext.rects.shape[0], s, s, seed=12)
+    wts = model.fast_weights().body[0][2]
+    ws, ws_p = fused_rrdb.new_workspace(x), fused_rrdb.new_workspace(x)
+    c_k, c_p = fused_rrdb.new_workspace(carry), fused_rrdb.new_workspace(carry)
+    fused_rrdb.fused_rdb(ws, c_k, wts, carry=c_k if with_carry else None, ext=ext)
+    fused_rrdb.fused_rdb_plain(ws_p, c_p, wts, carry=c_p if with_carry else None, ext=ext)
+    torch.cuda.synchronize()
+    _close_bf16(ws[..., 64:], ws_p[..., 64:])
+    _close_bf16(c_k[..., :64], c_p[..., :64])
+    out = ~ext.valid()
+    assert torch.equal(c_k[out][:, :64], c_p[out][:, :64])
+    assert bool((ws[out][:, 64:] == 0).all())
+
+
+@pytest.mark.parametrize("with_carry", [False, True])
+def test_image_and_block_rdb_agree_bit_for_bit(model, cuda, with_carry):
+    """One bf16 RDB on a batch of frames and on their halo blocks: equal
+    on every valid interior pixel, x1..x4 and the output (each value's
+    f32 sum runs in one order of taps and channels on both paths)."""
+    b, h, w = 2, 150, 230
+    s, halo, bh = fused_rrdb.S, fused_rrdb.HALO, fused_rrdb.BH
+    nh, nw = fused_rrdb.grid_dims(h, w)
+    feat, carry = _feat(cuda, b, h, w, seed=13), _feat(cuda, b, h, w, seed=14)
+    wts = model.fast_weights().body[0][2]
+    ws, cw = fused_rrdb.new_workspace(feat), fused_rrdb.new_workspace(carry)
+    fused_rrdb.fused_rdb(ws, cw, wts, carry=cw if with_carry else None)
+    ext = fused_rrdb.BlockExtents.of(b, h, w, cuda)
+    bws = fused_rrdb.extract_blocks(feat, fused_rrdb.WS_C)
+    bcw = fused_rrdb.extract_blocks(carry, fused_rrdb.WS_C)
+    fused_rrdb.fused_rdb(bws, bcw, wts, carry=bcw if with_carry else None, ext=ext)
+    torch.cuda.synchronize()
+    assert torch.equal(fused_rrdb.assemble_blocks(bcw, b, h, w), cw[..., :64])
+    dense = bws.view(b, nh, nw, s, s, -1)[:, :, :, halo:s - halo, halo:s - halo, 64:]
+    dense = dense.permute(0, 1, 3, 2, 4, 5).reshape(b, nh * bh, nw * bh, -1)[:, :h, :w]
+    assert torch.equal(dense, ws[..., 64:])
 
 
 @pytest.mark.parametrize("kind", ["bf16", "f32acc", "dynamic"])

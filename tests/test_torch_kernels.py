@@ -112,6 +112,28 @@ class TestRDB:
             fused_rrdb.fused_rdb(t, torch.empty_like(t), wts)
 
 
+    @pytest.mark.parametrize("cin,cout", [(64, 32), (160, 32), (192, 64)])
+    def test_wgmma_weights_layout(self, cin, cout):
+        """The kernels' chunk-major weight copy: element (chunk c, tap,
+        half k, row n, e) is OHWI w[n, tap // 3, tap % 3, 16 c + 8 k + e],
+        each chunk contiguous; the copies of fast_weights match theirs."""
+        w = torch.from_numpy(np.random.default_rng(cin).standard_normal(
+            (cout, 3, 3, cin)).astype(np.float32)).to(torch.bfloat16)
+        wk = fused_rrdb.wgmma_weights(w)
+        assert wk.shape == (cin // 16, 9, 2, cout, 8) and wk.is_contiguous()
+        c, tap, k, n, e = (np.random.default_rng(1).integers(0, d, 50) for d in wk.shape)
+        for i in range(50):
+            assert wk[c[i], tap[i], k[i], n[i], e[i]] == w[n[i], tap[i] // 3, tap[i] % 3,
+                                                           16 * c[i] + 8 * k[i] + e[i]]
+
+    def test_fast_weights_carry_the_kernel_copies(self, nets):
+        _, _, model = nets
+        fw = model.fast_weights()
+        for wts in fw.body[0]:
+            assert all(torch.equal(k, fused_rrdb.wgmma_weights(w)) for k, w in zip(wts.wk, wts.w))
+        assert torch.equal(fw.cbody.wk, fused_rrdb.wgmma_weights(fw.cbody.w))
+
+
 class TestTail:
     @pytest.fixture(scope="class")
     def body(self, nets):

@@ -243,6 +243,43 @@ class TestBlockedRDB:
                                  ext=fused_rrdb.BlockExtents.of(1, 40, 40, "cpu"))
 
 
+    @pytest.mark.parametrize("with_carry", [False, True])
+    def test_outside_the_valid_rectangle_the_output_is_x(self, nets, with_carry):
+        """What the bf16 RDB leaves outside each block's valid rectangle,
+        where its kernels run no product on a tile that lies wholly
+        outside: x1..x4 zero, x itself in dst[..., :64] without carry, and
+        bf16(bf16(bf16(0.2) x) + carry) with it. The blocks hold seeded
+        values everywhere, rings and slack too, so x is not zero there."""
+        b, h, w = 1, 54, 131
+        ext = fused_rrdb.BlockExtents.of(b, h, w, "cpu")
+        assert fused_rrdb.tile_count(ext, live=True) < fused_rrdb.tile_count(ext)
+        g = np.random.default_rng(9)
+        x, carry = (torch.from_numpy(g.standard_normal((ext.rects.shape[0], S, S, 64))
+                                     .astype(np.float32)).to(torch.bfloat16) for _ in range(2))
+        ws, dst = fused_rrdb.new_workspace(x), fused_rrdb.new_workspace(carry)
+        fused_rrdb.fused_rdb_plain(ws, dst, nets["port"]["bf16"].body[0][2],
+                                   carry=dst if with_carry else None, ext=ext)
+        out = ~ext.valid()
+        want = x
+        if with_carry:
+            want = ((fused_rrdb.BF16_0P2 * x.float()).to(torch.bfloat16).float()
+                    + carry.float()).to(torch.bfloat16)
+        assert torch.equal(dst[out][:, :64], want[out])
+        assert bool((ws[out][:, 64:] == 0).all())
+
+    @pytest.mark.parametrize("shape", SHAPES)
+    def test_tile_count_matches_the_valid_pixels(self, shape):
+        """tile_count: every 16x16 tile of every block, and the live ones,
+        those holding a valid pixel."""
+        ext = fused_rrdb.BlockExtents.of(*shape, "cpu")
+        t = fused_rrdb.RDB_TILE
+        n = -(-S // t)
+        valid = torch.nn.functional.pad(ext.valid(), (0, n * t - S, 0, n * t - S))
+        live = int(valid.view(-1, n, t, n, t).any(dim=4).any(dim=2).sum())
+        assert fused_rrdb.tile_count(ext) == ext.rects.shape[0] * n * n
+        assert fused_rrdb.tile_count(ext, live=True) == live
+
+
 class TestResidentBody:
     @pytest.mark.parametrize("shape", [(1, 70, 90), (2, 54, 131)])
     @pytest.mark.parametrize("kind", ["bf16", "f32acc", "dynamic"])
