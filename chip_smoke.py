@@ -6,7 +6,8 @@
 Phases, one JSON object per line on stdout:
   1. device   the card (nvidia-smi name and power limit, torch's name)
   2. build    the kernels from a clean build directory (one nvcc per
-              source, all at once, then one link)
+              source, all at once, then one link); ptxas's registers and
+              spills of every wgmma main-loop instance (bf16 and int8)
   3. kernels  each kernel against its plain PyTorch version on the card,
               at the main-path shapes (RRDB body 540x960x64, tail out to
               2160x3840, tail1 in 1080x1920x64; SRVGG chain 540x960x64,
@@ -57,7 +58,8 @@ Phases, one JSON object per line on stdout:
   6. times    each kernel by CUDA events beside its plain version, its
               roofline bound and, for the bf16 RDB, K1, tail1, the bf16
               chain and the band conv, cuDNN's F.conv2d (PyTorch has no
-              single int8 3x3 convolution call)
+              single int8 3x3 convolution call: the int8 RDBs are printed
+              beside the bf16 RDB instead)
 Then nvidia-smi's line, the kernel summary line, and the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 the result line. Without a CUDA device, or without the package beside
@@ -167,8 +169,9 @@ def block_work(ext, h: int, w: int) -> tuple:
 
 
 def wgmma_ptxas(lines) -> list:
-    """ptxas's lines about the conv3x3_kernel instances: each entry's
-    register, stack and spill lines, and any note that names one."""
+    """ptxas's lines about the conv3x3_kernel instances (the wgmma main
+    loop of the bf16 RDB, K1 and the int8 RDBs): each entry's register,
+    stack and spill lines, and any note that names one."""
     out, entry = [], False
     for ln in lines:
         if "Compiling entry" in ln:
@@ -431,9 +434,12 @@ def main(argv=None) -> int:
     emit({"phase": "build", "nvcc_seconds": round(info.seconds, 3),
           "seconds": round(time.perf_counter() - t0, 3), "library": str(info.path),
           "ptxas": info.ptxas})
-    # the wgmma main loop's kernels (bf16 RDB stages, K1): registers,
-    # spills and ptxas's notes, and the dynamic shared memory they launch with
-    emit({"phase": "build", "conv3x3_wgmma": wgmma_ptxas(info.ptxas),
+    # the wgmma main loop's kernels (bf16 and int8 RDB stages, K1):
+    # registers, spills and ptxas's notes, and the dynamic shared memory
+    # the bf16 ones launch with
+    wg_lines = wgmma_ptxas(info.ptxas)
+    emit({"phase": "build", "conv3x3_wgmma": wg_lines,
+          "spilling": [ln for ln in wg_lines if "spill" in ln and " 0 bytes spill stores" not in ln],
           "dynamic_smem_bytes": {f"N={n}": _build.library().fw_wgmma_smem_bytes(n)
                                  for n in (32, 64)}})
 
@@ -1300,7 +1306,7 @@ def main(argv=None) -> int:
     plain_d = cuda_ms(lambda: fused_rrdb.fused_rdb_dynamic_plain(feat, q8, o8, wts), 1, 1)
     bms, by = bound_ms(2 * RDB_MAC_PER_PX * px, 2 * 128 * px + RDB_MAC_PER_PX, PEAK_INT8_OPS)
     rows.append(dict(name="rdb_int8_dynamic", route="cuda",
-                     source="framewright_tpu_torch/ops/csrc/rdb_int8.cu",
+                     source="framewright_tpu_torch/ops/csrc/rdb_dyn.cu",
                      replaces="framewright_tpu/ops/fused_rrdb.py:502",
                      launches=launches_by_run[dyn_run]["fused_rdb_dynamic"],
                      max_abs_err=errs["rdb_dynamic"], ms=ms_d, plain_ms=plain_d, bound_ms=bms,
@@ -1439,6 +1445,11 @@ def main(argv=None) -> int:
           "ring_pixels": nb * ring_px, "ring_pixels_read": ring_read,
           "rdb_blocks_over_rdb": rdbb_ms / rdb_ms,
           "halo_refresh_cuda_launches_per_call": 1, "band_conv_cuda_launches_per_call": 1})
+    # the int8 RDBs have no library call; the yardstick they must beat is
+    # the bf16 RDB on the same input
+    int8_ms = {r["name"]: r["ms"] for r in rows if r["name"].startswith("rdb_int8")}
+    emit({"phase": "times", "int8_rdb_beside_bf16_rdb_ms": {
+        "rdb (bf16)": rdb_ms, "rdb_blocks (bf16)": rdbb_ms, **int8_ms}})
     emit({"phase": "times", "shape_body": [b, h, w, 64], "iters": it,
           "shape_chain": list(vfeat.shape), "chain_bf16_beside_int8_ms": chain_ms,
           "rdb_cuda_launches_per_call": 5, "rdb_int8_cuda_launches_per_call": 6,

@@ -29,13 +29,14 @@ struct BodySkipEpi {
   // one rounding, and staging 256 pixels x 64 channels of f32 through
   // shared memory (in two halves) measured slower than this.
   static constexpr int SLICES = 0;   // stage() stores the tile itself
+  static constexpr int BUF = wg::epi_bytes(64);   // unused
   static constexpr bool DEFER = false;
   struct Slice {};
   __device__ __forceinline__ void load(Slice&, int, int, int, int, const uint8_t*) const {}
   __device__ __forceinline__ void finish(const Slice&, int, int, int, int, const uint8_t*) const {}
 
-  __device__ __forceinline__ void stage(const float (&acc)[4][32], int b, int y0, int x0, bool,
-                                        uint8_t*) const {
+  __device__ __forceinline__ void stage(const float (&acc)[4][32], wg::NoPart&, int b, int y0,
+                                        int x0, bool, uint8_t*) const {
     const wg::Frag f;
     float bs[8][2];
 #pragma unroll

@@ -1,7 +1,7 @@
 // Shared 3x3 implicit-GEMM convolution main loop of the port's Hopper
-// kernels tail.cu, band_conv.cu and srvgg.cu; its tiling and launch_tiles
-// also serve the int8 RDBs (conv_s8.cuh, rdb_int8.cuh). The bf16 RDB and
-// K1 run on conv_wgmma.cuh instead.
+// kernels tail.cu, band_conv.cu and srvgg.cu; its tiling also serves the
+// int8 SRVGG chain (conv_s8.cuh). The RDBs (bf16 and int8) and K1 run on
+// conv_wgmma.cuh instead.
 //
 // Layout: activations NHWC bf16 with an explicit channel stride, weights
 // [cout][taps][cin] bf16 (tap-major, input channels contiguous), biases
@@ -74,7 +74,7 @@ __device__ __forceinline__ void st_bf16x2(bf16* p, float v0, float v1) {
 // the resident body's halo blocks, where ext (nb, 4) int32 holds each
 // block's rectangle of frame pixels, as the TPU kernels' ext_ref does
 // (fused_rrdb.py:412-444); outside it the stage outputs are zero. Each
-// kernel takes block mode as a template parameter BLOCKS (launch_tiles
+// kernel takes block mode as a template parameter BLOCKS (its launcher
 // picks the instance), so that the image path compiles to the code it had
 // before blocks existed: a run-time test of ext cost the int8 i32 RDB 5%
 // (PERF.md).
@@ -171,21 +171,6 @@ __device__ __forceinline__ void conv_tile(float (&acc)[2][NFRAG][4],
 template <typename K>
 inline cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-// Launch one RDB conv stage over B images (or halo blocks) of H x W
-// pixels, one CTA of NTHREADS per TH x TW output tile: the kernel's
-// BLOCKS = true instance when ext != NULL (halo blocks), else its
-// BLOCKS = false instance (the image path).
-template <typename K, typename... Args>
-inline cudaError_t launch_tiles(const void* ext, K on_blocks, K on_images, int smem, int B, int H,
-                                int W, cudaStream_t stream, Args... args) {
-  const K kernel = ext ? on_blocks : on_images;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  kernel<<<grid, NTHREADS, smem, stream>>>(args...);
-  return cudaGetLastError();
 }
 
 }  // namespace fw

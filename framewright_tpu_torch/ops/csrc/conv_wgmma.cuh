@@ -1,10 +1,20 @@
 // Pipelined 3x3 implicit-GEMM convolution on wgmma, the main loop of the
-// bf16 RDB (rdb.cu) and K1 (conv_body.cu). The other kernels stay on
-// conv_common.cuh's conv_tile.
+// bf16 RDB (rdb.cu), K1 (conv_body.cu) and the int8 RDBs (rdb_int8.cu,
+// rdb_dyn.cu). The other kernels stay on conv_common.cuh's conv_tile.
 //
-// Layout: activations NHWC bf16 with an explicit channel stride, biases
-// f32, weights in a chunk-major copy of their OHWI form made once on the
-// host (fused_rrdb.wgmma_weights; see launch_conv3x3).
+// Element kinds (Kind<T>): bf16 activations and weights with f32
+// accumulators (m64nNk16), or int8 codes with s32 accumulators
+// (m64nNk32). A chunk is 32 bytes a pixel either way, 16 bf16 or 32 int8
+// channels, so the halo boxes, the swizzle, the ldmatrix addressing and
+// the weight chunks below are the same bytes for both: the 8-bit k32
+// register fragment of A is the 16-bit k16 fragment in bytes (thread t of
+// row group g holds bytes 4t..4t+3 and 16+4t..16+4t+3 of rows g and g+8,
+// as for mma.sync m16n8k32.s8 and m16n8k16.bf16), and 8-bit B must be
+// K-major, which is the layout the bf16 loop already used.
+//
+// Layout: activations NHWC with an explicit channel stride, biases f32,
+// weights in a chunk-major copy of their OHWI form made once on the host
+// (fused_rrdb.wgmma_weights, wgmma_weights_s8; see launch_conv3x3).
 //
 // Work: a persistent grid, one CTA per SM of two consumer warpgroups and
 // one producer. The output is cut into 16x16-pixel tiles in row-major
@@ -15,10 +25,10 @@
 // fragments for its six halo rows at one column shift serve all three row
 // taps of all four M tiles (6 ldmatrix.x4 for 12 wgmma).
 //
-// Pipeline: the input channels go through in chunks of KC = 16 (one k16
-// step). Stage s of a ring of NST holds one chunk: each tile's 18x18 halo
-// pixels x 16 channels, one TMA box (cp.async.bulk.tensor), and the
-// 9 taps x N x 16 weights, one contiguous bulk copy. TMA fills zeros
+// Pipeline: the input channels go through in chunks of KC (one k step,
+// 32 bytes a pixel). Stage s of a ring of NST holds one chunk: each tile's
+// 18x18 halo pixels x KC channels, one TMA box (cp.async.bulk.tensor), and
+// the 9 taps x N x KC weights, one contiguous bulk copy. TMA fills zeros
 // outside the image (SAME padding) and swizzles the 32-byte rows
 // (SWIZZLE_32B), which puts the eight row addresses of an ldmatrix phase
 // on distinct banks. One thread of the producer keeps the ring full,
@@ -31,11 +41,11 @@
 // epilogue. The producer gives its registers to the consumers
 // (setmaxnreg): N = 64 holds 128 accumulators a thread.
 //
-// Products: wgmma.mma_async m64nNk16, bf16 in, f32 accumulators in
-// registers, A from registers (ldmatrix from the halo tile: a tap's
-// shifted window is not a canonical wgmma shared-memory tile, while
-// ldmatrix takes one row address per lane), B from shared memory through
-// a matrix descriptor.
+// Products: wgmma.mma_async m64nNk16 (bf16 in, f32 accumulators) or
+// m64nNk32 (s8 in, s32 accumulators) in registers, A from registers
+// (ldmatrix from the halo tile: a tap's shifted window is not a canonical
+// wgmma shared-memory tile, while ldmatrix takes one row address per
+// lane), B from shared memory through a matrix descriptor.
 //
 // Epilogue: each consumer has a staging buffer, so that the stores (and
 // the residual's reads) move whole 16-byte runs, neighbouring threads on
@@ -46,7 +56,21 @@
 // Order of the f32 sums: every output value accumulates (chunk, column
 // tap v, row tap u) in that order, whatever the tile, the image size or
 // block mode, so the merge, round-trip and resident bodies agree bit for
-// bit.
+// bit. s32 sums are exact in any order.
+//
+// Flushes (Epi::FLUSH, the int8 schemes f32acc and dynamic): after each
+// chunk that ends a source (Epi::flushes), the consumer waits for the
+// chunk's products, the epilogue folds the s32 partial into its f32 sums
+// (Epi::Part) and the accumulators restart from zero. That drains the
+// warpgroup's tensor pipe once a chunk; the other consumer's products
+// can run meanwhile.
+//
+// Split tiles (SPLIT, the f32acc and dynamic stage 5): both consumers
+// take the same tile, each N of the chunk's 2N output channels (its half
+// of each weight row block, through the B descriptor's start address),
+// so that the f32 sums of N = 64 (64 s32 + 64 f32 registers a thread
+// for each half, not 128 + 128) fit beside the accumulators; a stage
+// then holds one halo box and 2N weight rows.
 //
 // Why TMA and bulk copies (PERF.md): 16-byte cp.async copies between CTA
 // barriers, one 32-byte sector per pixel and chunk, could not keep the
@@ -58,6 +82,8 @@
 
 #include <cuda.h>
 
+#include <type_traits>
+
 #include "conv_common.cuh"
 
 namespace fw {
@@ -65,9 +91,26 @@ namespace wg {
 
 constexpr int TS = 16;                 // output tile side (one warpgroup)
 constexpr int HS = TS + 2;             // halo tile side
-constexpr int KC = 16;                 // input channels per chunk (32 bytes a pixel)
+constexpr int KB = 32;                 // bytes a pixel of one chunk (one k step)
 // one tile's halo box, padded to the 256-byte period of the 32B swizzle
-constexpr int HALO_BYTES = (HS * HS * KC * 2 + 255) / 256 * 256;
+constexpr int HALO_BYTES = (HS * HS * KB + 255) / 256 * 256;
+
+// The element kinds: input channels per chunk, accumulator type, the
+// tensor map's element type.
+template <typename T>
+struct Kind;
+template <>
+struct Kind<bf16> {
+  using Acc = float;
+  static constexpr int KC = 16;
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct Kind<int8_t> {
+  using Acc = int;
+  static constexpr int KC = 32;
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+};
 
 // Consumer warpgroups per CTA (one CTA per SM, plus the producer
 // warpgroup) and the registers a thread gets: a consumer 232 (N = 64 has
@@ -77,23 +120,33 @@ constexpr int HALO_BYTES = (HS * HS * KC * 2 + 255) / 256 * 256;
 constexpr int NWG = 2;
 constexpr int CONSUMER_REGS = 232, PRODUCER_REGS = 40;
 static_assert(128 * (NWG * CONSUMER_REGS + PRODUCER_REGS) <= 65536, "registers");
-__host__ __device__ constexpr int wchunk_bytes(int n) { return 9 * n * KC * 2; }
-__host__ __device__ constexpr int stage_bytes(int n) {
-  return NWG * HALO_BYTES + wchunk_bytes(n);
+__host__ __device__ constexpr int wchunk_bytes(int n) { return 9 * n * KB; }
+// A stage: the halo boxes of a tile group (one box a consumer, or one
+// for both when SPLIT) and the weight chunk of its NW = N (x 2 when SPLIT)
+// output channels.
+__host__ __device__ constexpr int nboxes(bool split) { return split ? 1 : NWG; }
+__host__ __device__ constexpr int nweights(int n, bool split) { return split ? NWG * n : n; }
+__host__ __device__ constexpr int stage_bytes(int n, bool split = false) {
+  return nboxes(split) * HALO_BYTES + wchunk_bytes(nweights(n, split));
 }
 __host__ __device__ constexpr int nstage(int n) { return n <= 32 ? 5 : 4; }
 // A warpgroup's epilogue staging: its 256 pixels x N bf16,
 // rows padded by 16 bytes so that the fragment-layout writes of eight
-// neighbouring pixels fall on distinct banks.
+// neighbouring pixels fall on distinct banks. An epilogue names its
+// staging bytes as BUF.
 constexpr int TPX = TS * TS;
 __host__ __device__ constexpr int epi_row(int n) { return 2 * n + 16; }
 __host__ __device__ constexpr int epi_bytes(int n) { return TPX * epi_row(n); }
 // + 256 to align the ring, + two mbarriers a stage
-__host__ __device__ constexpr int smem_bytes(int n) {
-  return nstage(n) * stage_bytes(n) + NWG * epi_bytes(n) + 256 + 16 * nstage(n);
+__host__ __device__ constexpr int smem_bytes(int n, bool split, int buf) {
+  return nstage(n) * stage_bytes(n, split) + NWG * buf + 256 + 16 * nstage(n);
 }
+// with the bf16 epilogues' staging of N channels
+__host__ __device__ constexpr int smem_bytes(int n) { return smem_bytes(n, false, epi_bytes(n)); }
 
-static_assert(stage_bytes(32) % 256 == 0 && stage_bytes(64) % 256 == 0, "stage alignment");
+static_assert(stage_bytes(32) % 256 == 0 && stage_bytes(64) % 256 == 0 &&
+                  stage_bytes(32, true) % 256 == 0,
+              "stage alignment");
 static_assert(smem_bytes(32) <= 232448 && smem_bytes(64) <= 232448, "shared memory");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -173,6 +226,12 @@ __device__ __forceinline__ void fence_acc(float (&d)[K]) {
   for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int K>
+__device__ __forceinline__ void fence_acc(int (&d)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // Matrix descriptor of a K-major B tile without swizzle: core matrices of
 // 8 rows x 16 bytes, lbo bytes apart along K, 128 bytes apart along N.
 __device__ __forceinline__ uint64_t desc_b(uint32_t saddr, uint32_t lbo) {
@@ -209,6 +268,50 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
+// D (64 x N s32) += A (64 x 32 s8, registers) * B (32 x N s8, smem). The
+// 8-bit forms take no scale or transpose immediates.
+__device__ __forceinline__ void wgmma_rs(int (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
+      "{%16,%17,%18,%19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(int (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "{%32,%33,%34,%35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
+        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// An epilogue's flushes and state (see conv3x3): Epi::FLUSH and
+// Epi::Part where it names a Part, else no flush and no state.
+struct NoPart {};
+template <class E, class = void>
+struct EpiTraits {
+  static constexpr bool FLUSH = false;
+  using Part = NoPart;
+};
+template <class E>
+struct EpiTraits<E, std::void_t<typename E::Part>> {
+  static constexpr bool FLUSH = E::FLUSH;
+  using Part = typename E::Part;
+};
+
 // Tile t of B images of H x W: image, top row, left column.
 struct Tiles {
   int tx, ty, count;
@@ -224,18 +327,28 @@ struct Tiles {
 
 // The accumulators of one thread: acc[j][4 i + 2 h + e] is the output at
 // tile row 4 q + j (q = warp in the warpgroup), tile column g + 8 h
-// (g = lane / 4), channel 8 i + 2 (lane % 4) + e.
+// (g = lane / 4), channel 8 i + 2 (lane % 4) + e (+ N for consumer 1 of a
+// SPLIT tile).
 //
-// in: the activations' tensor map (channels, W, H, B), box (16, 18, 18, 1);
-// w: the weights in launch_conv3x3's chunked layout. Epi (the caller's
-// epilogue) provides
+// in: the activations' tensor map (channels, W, H, B), box (KC, 18, 18,
+// 1), T the element type; w: the weights in launch_conv3x3's chunked
+// layout. Epi (the caller's epilogue) provides
+//   BUF                               its staging bytes a consumer
 //   bool live(int b, int y0, int x0)  false: the tile needs no product
 //                                     (block mode: wholly outside the
 //                                     block's valid rectangle)
-//   void stage(acc, b, y0, x0, live, buf)
+//   FLUSH, Part, flushes(c), flush(acc, part, c, b), drain(part)
+//                                     optional (EpiTraits); with FLUSH,
+//                                     after each chunk c with flushes(c)
+//                                     (and after the last), the retired
+//                                     accumulators go to flush, which
+//                                     folds them into part, this thread's
+//                                     state across the tile (and across
+//                                     tiles: drain(part) after the last)
+//   void stage(acc, part, b, y0, x0, live, buf)
 //                                     after the tile's last product: put
 //                                     this thread's outputs in buf, the
-//                                     warpgroup's epi_bytes(N) of shared
+//                                     warpgroup's BUF bytes of shared
 //                                     memory (see Frag), or store them
 //   SLICES, Slice, load(sl, k, b, y0, x0, buf), finish(sl, k, ...)
 //                                     then slice k = 0..SLICES-1: issue
@@ -247,24 +360,29 @@ struct Tiles {
 //                                     output's device-memory traffic
 //                                     overlaps the next tile's products;
 //                                     else all at once
-template <int N, class Epi>
-__device__ __forceinline__ void conv3x3(const CUtensorMap* in, const bf16* __restrict__ w, int cin,
+template <typename T, int N, bool SPLIT, class Epi>
+__device__ __forceinline__ void conv3x3(const CUtensorMap* in, const T* __restrict__ w, int cin,
                                         int B, int H, int W, const Epi& epi) {
-  constexpr int NST = nstage(N);
+  using Acc = typename Kind<T>::Acc;
+  constexpr bool FLUSH = EpiTraits<Epi>::FLUSH;
+  constexpr int NST = nstage(N), NW = nweights(N, SPLIT), NBOX = nboxes(SPLIT);
+  constexpr int SB = stage_bytes(N, SPLIT);
+  static_assert(SB % 256 == 0 && smem_bytes(N, SPLIT, Epi::BUF) <= 232448, "shared memory");
   extern __shared__ uint8_t wg_smem[];
   const int tid = threadIdx.x, lane = tid & 31, q = (tid >> 5) & 3;
   const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);   // warp-uniform
   const int wgi = warp >> 2;
   const Tiles tiles(B, H, W);
-  const int ngroups = (tiles.count + NWG - 1) / NWG, nchunk = cin / KC;
+  const int ngroups = SPLIT ? tiles.count : (tiles.count + NWG - 1) / NWG;
+  const int nchunk = cin / Kind<T>::KC;
   const int my_groups =
       (int)blockIdx.x < ngroups ? (ngroups - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
   const int total = my_groups * nchunk;
   const uint32_t ring = (smem_u32(wg_smem) + 255u) & ~255u;
   // full[s]: stage s loaded (the producer's arrival + the TMA bytes);
   // empty[s]: every consumer warp is done with stage s
-  const uint32_t stage_end = ring + NST * stage_bytes(N);
-  const uint32_t full = stage_end + NWG * epi_bytes(N), empty = full + 8 * NST;
+  const uint32_t stage_end = ring + NST * SB;
+  const uint32_t full = stage_end + NWG * Epi::BUF, empty = full + 8 * NST;
 
   if (tid == 0) {
 #pragma unroll
@@ -286,44 +404,48 @@ __device__ __forceinline__ void conv3x3(const CUtensorMap* in, const bf16* __res
       const int s = k % NST;
       if (k >= NST) mbar_wait(empty + 8 * s, ((k / NST) & 1) ^ 1);
       const int group = (int)blockIdx.x + (k / nchunk) * (int)gridDim.x;
-      const int c0 = (k % nchunk) * KC;
-      const uint32_t st = ring + s * stage_bytes(N), bar = full + 8 * s;
-      int b[NWG], y0[NWG], x0[NWG];
-      bool box[NWG];
-      int bytes = wchunk_bytes(N);
+      const int c0 = (k % nchunk) * Kind<T>::KC;
+      const uint32_t st = ring + s * SB, bar = full + 8 * s;
+      int b[NBOX], y0[NBOX], x0[NBOX];
+      bool box[NBOX];
+      int bytes = wchunk_bytes(NW);
 #pragma unroll
-      for (int t = 0; t < NWG; ++t) {
-        tiles.at(group * NWG + t, b[t], y0[t], x0[t]);
-        box[t] = group * NWG + t < tiles.count && epi.live(b[t], y0[t], x0[t]);
-        if (box[t]) bytes += HS * HS * KC * 2;
+      for (int t = 0; t < NBOX; ++t) {
+        tiles.at(group * NBOX + t, b[t], y0[t], x0[t]);
+        box[t] = group * NBOX + t < tiles.count && epi.live(b[t], y0[t], x0[t]);
+        if (box[t]) bytes += HS * HS * KB;
       }
       mbar_expect_tx(bar, bytes);
 #pragma unroll
-      for (int t = 0; t < NWG; ++t)
+      for (int t = 0; t < NBOX; ++t)
         if (box[t]) tma_load_4d(st + t * HALO_BYTES, in, bar, c0, x0[t] - 1, y0[t] - 1, b[t]);
-      bulk_load(st + NWG * HALO_BYTES, w + (size_t)(k % nchunk) * (wchunk_bytes(N) / 2),
-                wchunk_bytes(N), bar);
+      bulk_load(st + NBOX * HALO_BYTES,
+                reinterpret_cast<const uint8_t*>(w) + (size_t)(k % nchunk) * wchunk_bytes(NW),
+                wchunk_bytes(NW), bar);
     }
   } else {
-    // the consumers: warpgroup wgi takes tile wgi of each group.
-    // Accumulators are written by other code only here and after an
-    // epilogue, each time behind a wait for every product in flight.
+    // the consumers: warpgroup wgi takes tile wgi of each group (SPLIT:
+    // both take the group's tile, wgi its output channels wgi N .. + N).
+    // Accumulators are written by other code only here, after a flush and
+    // after an epilogue, each time behind a wait for every product in
+    // flight.
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
-    float acc[4][N / 2];
+    Acc acc[4][N / 2];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
 #pragma unroll
-      for (int r = 0; r < N / 2; ++r) acc[j][r] = 0.f;
+      for (int r = 0; r < N / 2; ++r) acc[j][r] = 0;
     }
+    typename EpiTraits<Epi>::Part part{};
     // this lane's ldmatrix rows: pixel column lane % 16 (+ v) of halo row
-    // 4 q (+ r), channels 8 (lane / 16) .. +8; in the 32B swizzle the two
+    // 4 q (+ r), bytes 16 (lane / 16) .. +16; in the 32B swizzle the two
     // 16-byte halves of a pixel swap in every other group of four pixels
     const int p0 = 4 * q * HS + (lane & 15), half = lane >> 4;
     // stage of iteration it - 1 released: its last products have retired
     auto release = [&](int it) {
       if (it > 0 && lane == 0) mbar_arrive(empty + 8 * ((it - 1) % NST));
     };
-    uint8_t* buf = wg_smem + (stage_end + wgi * epi_bytes(N) - smem_u32(wg_smem));
+    uint8_t* buf = wg_smem + (stage_end + wgi * Epi::BUF - smem_u32(wg_smem));
     // the staged tile still being written out: slices left, its place
     int pend = 0, pb = 0, py0 = 0, px0 = 0;
     typename Epi::Slice sl;
@@ -331,7 +453,8 @@ __device__ __forceinline__ void conv3x3(const CUtensorMap* in, const bf16* __res
     for (int it = 0; it < total; ++it) {
       mbar_wait(full + 8 * (it % NST), (it / NST) & 1);
       const int c = it % nchunk;
-      const int t = ((int)blockIdx.x + (it / nchunk) * (int)gridDim.x) * NWG + wgi;
+      const int group = (int)blockIdx.x + (it / nchunk) * (int)gridDim.x;
+      const int t = SPLIT ? group : group * NWG + wgi;
       int b, y0, x0;
       tiles.at(t, b, y0, x0);
       const bool has = t < tiles.count;
@@ -339,8 +462,9 @@ __device__ __forceinline__ void conv3x3(const CUtensorMap* in, const bf16* __res
       // the products below sit on a convergent path and are not serialized
       const bool live = __shfl_sync(0xffffffffu, has && epi.live(b, y0, x0), 0);
       if (live) {
-        const uint32_t st = ring + (it % NST) * stage_bytes(N);
-        const uint32_t sh = st + wgi * HALO_BYTES, sw = st + NWG * HALO_BYTES;
+        const uint32_t st = ring + (it % NST) * SB;
+        const uint32_t sh = st + (SPLIT ? 0 : wgi) * HALO_BYTES;
+        const uint32_t sw = st + NBOX * HALO_BYTES + (SPLIT ? wgi * N * 16 : 0);
 #pragma unroll
         for (int v = 0; v < 3; ++v) {
           uint32_t a[6][4];
@@ -352,7 +476,7 @@ __device__ __forceinline__ void conv3x3(const CUtensorMap* in, const bf16* __res
           wgmma_fence();
 #pragma unroll
           for (int u = 0; u < 3; ++u) {
-            const uint64_t desc = desc_b(sw + (3 * u + v) * N * 32, N * 16);
+            const uint64_t desc = desc_b(sw + (3 * u + v) * NW * 32, NW * 16);
 #pragma unroll
             for (int j = 0; j < 4; ++j) wgmma_rs(acc[j], a[j + u], desc);
           }
@@ -375,12 +499,15 @@ __device__ __forceinline__ void conv3x3(const CUtensorMap* in, const bf16* __res
         wgmma_wait<0>();
 #pragma unroll
         for (int j = 0; j < 4; ++j) fence_acc(acc[j]);
+        if constexpr (FLUSH) {
+          if (live) epi.flush(acc, part, c, b);   // the last source
+        }
         for (; pend > 0; --pend) {
           epi.load(sl, Epi::SLICES - pend, pb, py0, px0, buf);
           epi.finish(sl, Epi::SLICES - pend, pb, py0, px0, buf);
         }
         wg_sync(wgi);   // the warpgroup is done reading the buffer
-        if (has) epi.stage(acc, b, y0, x0, live, buf);
+        if (has) epi.stage(acc, part, b, y0, x0, live, buf);
         wg_sync(wgi);   // the staged tile is visible to the whole warpgroup
         if (has) pend = Epi::SLICES, pb = b, py0 = y0, px0 = x0;
         for (; !Epi::DEFER && pend > 0; --pend) {
@@ -390,8 +517,21 @@ __device__ __forceinline__ void conv3x3(const CUtensorMap* in, const bf16* __res
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
 #pragma unroll
-          for (int r = 0; r < N / 2; ++r) acc[j][r] = 0.f;
+          for (int r = 0; r < N / 2; ++r) acc[j][r] = 0;
           fence_acc(acc[j]);
+        }
+      } else if constexpr (FLUSH) {
+        if (live && epi.flushes(c)) {
+          wgmma_wait<0>();
+#pragma unroll
+          for (int j = 0; j < 4; ++j) fence_acc(acc[j]);
+          epi.flush(acc, part, c, b);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int r = 0; r < N / 2; ++r) acc[j][r] = 0;
+            fence_acc(acc[j]);
+          }
         }
       }
     }
@@ -399,14 +539,15 @@ __device__ __forceinline__ void conv3x3(const CUtensorMap* in, const bf16* __res
       epi.load(sl, Epi::SLICES - pend, pb, py0, px0, buf);
       epi.finish(sl, Epi::SLICES - pend, pb, py0, px0, buf);
     }
+    if constexpr (FLUSH) epi.drain(part);
   }
 }
 
-template <int N, class Epi>
+template <typename T, int N, bool SPLIT, class Epi>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
-    conv3x3_kernel(const __grid_constant__ CUtensorMap in, const bf16* __restrict__ w, int cin,
+    conv3x3_kernel(const __grid_constant__ CUtensorMap in, const T* __restrict__ w, int cin,
                    int B, int H, int W, Epi epi) {
-  conv3x3<N>(&in, w, cin, B, H, W, epi);
+  conv3x3<T, N, SPLIT>(&in, w, cin, B, H, W, epi);
 }
 
 // --- host side ---------------------------------------------------------
@@ -438,17 +579,20 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map of a conv's input: the activations (B, H, W, cs) bf16 read
-// in boxes of 16 channels x 18 x 18 pixels in the 32-byte swizzle; reads
-// outside the activations give zeros.
-inline cudaError_t input_map(CUtensorMap* map, const bf16* in, int cs, int B, int H, int W) {
+// Tensor map of a conv's input: the activations (B, H, W, cs) of T read
+// in boxes of one chunk's channels (32 bytes) x 18 x 18 pixels in the
+// 32-byte swizzle; reads outside the activations give zeros (the int8
+// code 0 is the value 0 at any scale).
+template <typename T>
+inline cudaError_t input_map(CUtensorMap* map, const T* in, int cs, int B, int H, int W) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t e = sizeof(T);
   const cuuint64_t dim[4] = {(cuuint64_t)cs, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t stride[3] = {(cuuint64_t)cs * 2, (cuuint64_t)W * cs * 2,
-                                (cuuint64_t)H * W * cs * 2};
-  const cuuint32_t box[4] = {KC, HS, HS, 1}, ones[4] = {1, 1, 1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, (void*)in, dim, stride, box, ones,
+  const cuuint64_t stride[3] = {(cuuint64_t)cs * e, (cuuint64_t)W * cs * e,
+                                (cuuint64_t)H * W * cs * e};
+  const cuuint32_t box[4] = {Kind<T>::KC, HS, HS, 1}, ones[4] = {1, 1, 1, 1};
+  if (encode(map, Kind<T>::MAP, 4, (void*)in, dim, stride, box, ones,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
@@ -467,25 +611,29 @@ inline cudaError_t grid_size(int B, int H, int W, int per_cta, int* grid) {
   return err;
 }
 
-// Launch one 3x3 conv of in (B, H, W, cs) bf16, input channels [0, cin)
-// (cin % 16 == 0), with epilogue epi. The weights w are in the chunked
-// layout [cin / 16][9 taps][2][N][8] bf16 (fused_rrdb.wgmma_weights): one
-// chunk is one contiguous copy and lands as wgmma's canonical K-major B
-// without swizzle.
-template <int N, class Epi>
-inline cudaError_t launch_conv3x3(const bf16* in, int cs, int cin, int B, int H, int W,
-                                  const bf16* w, const Epi& epi, cudaStream_t stream) {
-  if (cin <= 0 || cin % KC != 0 || cin > cs || cs % 8 != 0) return cudaErrorInvalidValue;
+// Launch one 3x3 conv of in (B, H, W, cs) of T (bf16 or int8), input
+// channels [0, cin) (cin a multiple of the chunk's channels, KC), with
+// epilogue epi: N output channels a consumer, 2N a tile when SPLIT. The
+// weights w are in the chunked layout [cin / KC][9 taps][2][NW][KC / 2]
+// (NW = N, or 2N when SPLIT; fused_rrdb.wgmma_weights for bf16,
+// wgmma_weights_s8 for int8): one chunk is one contiguous copy and lands
+// as wgmma's canonical K-major B without swizzle.
+template <int N, bool SPLIT = false, typename T, class Epi>
+inline cudaError_t launch_conv3x3(const T* in, int cs, int cin, int B, int H, int W, const T* w,
+                                  const Epi& epi, cudaStream_t stream) {
+  if (cin <= 0 || cin % Kind<T>::KC != 0 || cin > cs || (cs * sizeof(T)) % 16 != 0)
+    return cudaErrorInvalidValue;
   int grid = 0;
-  cudaError_t err = grid_size(B, H, W, NWG, &grid);
+  cudaError_t err = grid_size(B, H, W, nboxes(SPLIT), &grid);
   if (err != cudaSuccess || grid == 0) return err;
   CUtensorMap in_map;
   err = input_map(&in_map, in, cs, B, H, W);
   if (err != cudaSuccess) return err;
-  auto kernel = conv3x3_kernel<N, Epi>;
-  err = allow_smem(kernel, smem_bytes(N));
+  auto kernel = conv3x3_kernel<T, N, SPLIT, Epi>;
+  constexpr int smem = smem_bytes(N, SPLIT, Epi::BUF);
+  err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, 128 * (NWG + 1), smem_bytes(N), stream>>>(in_map, w, cin, B, H, W, epi);
+  kernel<<<grid, 128 * (NWG + 1), smem, stream>>>(in_map, w, cin, B, H, W, epi);
   return cudaGetLastError();
 }
 

@@ -55,15 +55,15 @@ struct DenseEpi {
     return !BLOCKS || wg::tile_meets(valid_rect(ext, b, H, W), y0, x0);
   }
 
-  static constexpr int ROW = wg::epi_row(32);
+  static constexpr int ROW = wg::epi_row(32), BUF = wg::epi_bytes(32);
   // 256 pixels x 4 runs of 8 channels: 8 runs a thread, 2 a slice,
   // written while the next tile's products run
   static constexpr int SLICES = 4;
   static constexpr bool DEFER = true;
   struct Slice {};
 
-  __device__ __forceinline__ void stage(const float (&acc)[4][16], int b, int y0, int x0,
-                                        bool lv, uint8_t* buf) const {
+  __device__ __forceinline__ void stage(const float (&acc)[4][16], wg::NoPart&, int b, int y0,
+                                        int x0, bool lv, uint8_t* buf) const {
     const wg::Frag f;
     const Rect valid = valid_rect(ext, b, H, W);
     float bs[4][2];
@@ -121,7 +121,7 @@ struct FinalEpi {
     return !BLOCKS || wg::tile_meets(valid_rect(ext, b, H, W), y0, x0);
   }
 
-  static constexpr int ROW = wg::epi_row(64);
+  static constexpr int ROW = wg::epi_row(64), BUF = wg::epi_bytes(64);
   // 256 pixels x 8 runs of 8 channels: 16 runs a thread, 4 a slice, all
   // written at once (one slice a chunk, the loads of x and carry slowed
   // the next tile's products more than they saved)
@@ -132,8 +132,8 @@ struct FinalEpi {
   };
 
   // the first rounding point, bf16(0.2 x5), staged in the fragment layout
-  __device__ __forceinline__ void stage(const float (&acc)[4][32], int b, int y0, int x0,
-                                        bool lv, uint8_t* buf) const {
+  __device__ __forceinline__ void stage(const float (&acc)[4][32], wg::NoPart&, int b, int y0,
+                                        int x0, bool lv, uint8_t* buf) const {
     const wg::Frag f;
     const Rect valid = valid_rect(ext, b, H, W);
 #pragma unroll

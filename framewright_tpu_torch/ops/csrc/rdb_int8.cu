@@ -14,11 +14,19 @@
 // Bound: tensor-core operations. A 540x960 body does 239,616 MAC per
 // pixel per RDB, 248 G operations, 0.126 ms at the card's 1,979 TOP/s
 // int8 dense peak, against 133 MB of bf16 input and output (0.040 ms at
-// 3.35 TB/s). The design is the bf16 RDB's (rdb.cu) on the s8 tensor
-// cores: half the mma instructions and half the staged bytes per channel
-// (conv_s8.cuh), codes one byte a channel in Q. The TPU kernel's ring
-// merge and four codes per int32 word are Mosaic workarounds and have no
-// counterpart here; its resident blocks are the resident body's (ext,
+// 3.35 TB/s). So the five convs run on conv_wgmma.cuh's main loop in its
+// int8 form, as the bf16 RDB (rdb.cu) does in bf16: wgmma m64nNk32 s8 x
+// s8 -> s32 with A by ldmatrix from TMA halo boxes of Q and B from the
+// chunk-major weights, a producer warpgroup keeping a ring of stages
+// full, a persistent grid; half the chunks per channel of the bf16 RDB at
+// twice the tensor-core rate. Stages 1-4 stage their 32 codes a pixel
+// through shared memory and write them as 16-byte runs while the next
+// tile's products run; stage 5 (rdb_int8.cuh, FinalEpi8) writes the bf16
+// output with both residuals. The f32acc scheme flushes each source's
+// partial into f32 sums (rdb_int8.cuh), so it drains a consumer's tensor
+// pipe once a chunk, and runs stage 5 on split tiles. The TPU kernel's
+// ring merge and four codes per int32 word are Mosaic workarounds and have
+// no counterpart here; its resident blocks are the resident body's (ext,
 // rdb_int8.cuh; halo.cu).
 #include "rdb_int8.cuh"
 
@@ -46,48 +54,98 @@ __global__ void rdb_i8_quant_kernel(const bf16* __restrict__ x, int8_t* __restri
 //   i32   : sc = oscale (32), bias = obias (32)
 //   f32acc: sc = ws_row * sa_src (32 x 5), bias = b (32), inv_next = 1 / sa_k
 template <int MODE, bool BLOCKS>
-__global__ void __launch_bounds__(NTHREADS, 2)
-    rdb_i8_dense_kernel(int8_t* q, int H, int W, int cin, const int8_t* __restrict__ w,
-                        const float* __restrict__ sc, const float* __restrict__ bias,
-                        float inv_next, const int* __restrict__ ext) {
-  extern __shared__ uint4 smem_u4[];
-  int8_t* s_in = reinterpret_cast<int8_t*>(smem_u4);
-  int8_t* s_w = s_in + HT * HW * KP8;
-  const int b = blockIdx.z, ty0 = blockIdx.y * TH, tx0 = blockIdx.x * TW;
-  int acc[2][4][4];
-  float facc[2][4][4];
-  accumulate<4, MODE>(acc, facc, q, cin, H, W, b, ty0, tx0, w, sc, nullptr, s_in, s_w);
-  const Rect valid = valid_rect(ext, b, H, W);
+struct DenseEpi8 {
+  int8_t* q;
+  int H, W, cin;
+  const float* __restrict__ sc;
+  const float* __restrict__ bias;
+  float inv_next;
+  const int* __restrict__ ext;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  static constexpr bool FLUSH = MODE != I32;
+  using Part = Sums<32, FLUSH>;
+  // 256 pixels x 32 codes, rows padded by 16 bytes (the fragments' 2-byte
+  // writes of eight neighbouring pixels on distinct banks): 2 runs of 16
+  // bytes a pixel, 4 a thread, 2 a slice, written while the next tile's
+  // products run
+  static constexpr int ROW = 48, BUF = wg::TPX * ROW;
+  static constexpr int SLICES = 2;
+  static constexpr bool DEFER = true;
+  struct Slice {};
+
+  __device__ __forceinline__ bool live(int b, int y0, int x0) const {
+    return !BLOCKS || wg::tile_meets(valid_rect(ext, b, H, W), y0, x0);
+  }
+
+  __device__ __forceinline__ bool flushes(int c) const { return c >= 1; }
+  __device__ __forceinline__ void drain(Part&) const {}
+
+  __device__ __forceinline__ void flush(const int (&acc)[4][16], Part& part, int c, int) const {
+    fold<MODE, 32>(acc, part.f, sc, nullptr, chunk_source(c), 0);
+  }
+
+  __device__ __forceinline__ void stage(const int (&acc)[4][16], Part& part, int b, int y0,
+                                        int x0, bool lv, uint8_t* buf) const {
+    const wg::Frag f;
+    const Rect valid = valid_rect(ext, b, H, W);
 #pragma unroll
-  for (int mf = 0; mf < 2; ++mf) {
-    const int y = ty0 + 2 * warp + mf;
-    if (y >= H) continue;
+    for (int i = 0; i < 4; ++i) {
+      const int n = 8 * i + 2 * f.t;
+      const float b0 = bias[n], b1 = bias[n + 1];
+      const float s0 = MODE == I32 ? sc[n] : 0.f, s1 = MODE == I32 ? sc[n + 1] : 0.f;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int x = tx0 + g + 8 * h;
-      if (x >= W) continue;
-      int8_t* dst = q + (((size_t)b * H + y) * W + x) * Q_C + cin;
-      const bool ok = !BLOCKS || valid.has(y, x);
+      for (int j = 0; j < 4; ++j) {
 #pragma unroll
-      for (int nf = 0; nf < 4; ++nf) {
-        const int n = nf * 8 + 2 * t;
-        char2 out;
-        int8_t c[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int r = 2 * h + j;
-          const float v = lrelu_rn(
-              preact<MODE>(acc[mf][nf][r], facc[mf][nf][r], MODE == I32 ? sc[n + j] : 0.f, bias[n + j]));
-          c[j] = ok ? code(MODE == F32ACC ? __fmul_rn(v, inv_next) : v) : 0;
+        for (int h = 0; h < 2; ++h) {
+          const bool ok = !BLOCKS || (lv && valid.has(y0 + 4 * f.q + j, x0 + f.g + 8 * h));
+          const int r = 4 * i + 2 * h;
+          float v[2];
+          if constexpr (MODE == I32) {
+            v[0] = __fadd_rn(__fmul_rn(__int2float_rn(acc[j][r]), s0), b0);
+            v[1] = __fadd_rn(__fmul_rn(__int2float_rn(acc[j][r + 1]), s1), b1);
+          } else {
+            v[0] = __fadd_rn(part.f[j][r], b0);
+            v[1] = __fadd_rn(part.f[j][r + 1], b1);
+          }
+          char2 out;
+          out.x = ok ? code(MODE == F32ACC ? __fmul_rn(lrelu_rn(v[0]), inv_next) : lrelu_rn(v[0]))
+                     : 0;
+          out.y = ok ? code(MODE == F32ACC ? __fmul_rn(lrelu_rn(v[1]), inv_next) : lrelu_rn(v[1]))
+                     : 0;
+          *reinterpret_cast<char2*>(buf + f.px(j, h) * ROW + n) = out;
         }
-        out.x = c[0];
-        out.y = c[1];
-        *reinterpret_cast<char2*>(dst + n) = out;
       }
     }
+    if constexpr (FLUSH) clear(part);
   }
+
+  __device__ __forceinline__ void load(Slice&, int, int, int, int, const uint8_t*) const {}
+
+  __device__ __forceinline__ void finish(const Slice&, int k, int b, int y0, int x0,
+                                         const uint8_t* buf) const {
+    const wg::Frag f;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = (2 * k + e) * 128 + f.wt, p = r >> 1, c16 = r & 1;
+      const int y = y0 + p / wg::TS, x = x0 + p % wg::TS;
+      if (y < H && x < W)
+        *reinterpret_cast<uint4*>(q + (((size_t)b * H + y) * W + x) * Q_C + cin + 16 * c16) =
+            *reinterpret_cast<const uint4*>(buf + p * ROW + 16 * c16);
+    }
+  }
+};
+
+template <int MODE>
+inline cudaError_t launch_dense8(int8_t* q, int B, int H, int W, int cin, const int8_t* w,
+                                 const float* sc, const float* bias, float inv_next,
+                                 const int* ext, cudaStream_t stream) {
+  if (ext != nullptr)
+    return wg::launch_conv3x3<32>(
+        (const int8_t*)q, Q_C, cin, B, H, W, w,
+        DenseEpi8<MODE, true>{q, H, W, cin, sc, bias, inv_next, ext}, stream);
+  return wg::launch_conv3x3<32>((const int8_t*)q, Q_C, cin, B, H, W, w,
+                                DenseEpi8<MODE, false>{q, H, W, cin, sc, bias, inv_next, nullptr},
+                                stream);
 }
 
 }  // namespace fw
@@ -107,29 +165,29 @@ int fw_rdb_i8_quant(const void* x, void* q, long long npix, float inv0, void* st
 }
 
 // One dense stage k in 1..4 (cin = 64 + 32 (k - 1)); f32acc selects the
-// scheme; ext: NULL (images) or (B, 4) int32 valid rectangles (blocks).
+// scheme; w: the conv's weights in the chunk-major int8 layout
+// (fused_rrdb.wgmma_weights_s8), here and in fw_rdb_i8_final; ext: NULL
+// (images) or (B, 4) int32 valid rectangles (blocks).
 int fw_rdb_i8_dense(void* q, int B, int H, int W, int cin, const void* w, const void* sc,
                     const void* bias, float inv_next, int f32acc, const void* ext,
                     void* stream) {
-  const bool f = f32acc != 0;
-  return (int)launch_tiles(
-      ext, f ? rdb_i8_dense_kernel<F32ACC, true> : rdb_i8_dense_kernel<I32, true>,
-      f ? rdb_i8_dense_kernel<F32ACC, false> : rdb_i8_dense_kernel<I32, false>,
-      conv_s8_smem_bytes(32), B, H, W, (cudaStream_t)stream, (int8_t*)q, H, W, cin,
-      (const int8_t*)w, (const float*)sc, (const float*)bias, inv_next, (const int*)ext);
+  auto go = [&](auto launch) {
+    return (int)launch((int8_t*)q, B, H, W, cin, (const int8_t*)w, (const float*)sc,
+                       (const float*)bias, inv_next, (const int*)ext, (cudaStream_t)stream);
+  };
+  return f32acc ? go(launch_dense8<F32ACC>) : go(launch_dense8<I32>);
 }
 
 // Stage 5 with the RDB residual, and the RRDB residual when carry != NULL.
 int fw_rdb_i8_final(const void* q, int B, int H, int W, const void* w, const void* sc,
                     const void* bias, int f32acc, const void* x, void* dst, const void* carry,
                     const void* ext, void* stream) {
-  const bool f = f32acc != 0;
-  return (int)launch_tiles(
-      ext, f ? rdb_i8_final_kernel<F32ACC, true> : rdb_i8_final_kernel<I32, true>,
-      f ? rdb_i8_final_kernel<F32ACC, false> : rdb_i8_final_kernel<I32, false>,
-      conv_s8_smem_bytes(64), B, H, W, (cudaStream_t)stream, (const int8_t*)q, H, W,
-      (const int8_t*)w, (const float*)sc, (const float*)bias, (const float*)nullptr,
-      (const bf16*)x, (bf16*)dst, (const bf16*)carry, (const int*)ext, 1);
+  auto go = [&](auto launch) {
+    return (int)launch((const int8_t*)q, B, H, W, (const int8_t*)w, (const float*)sc,
+                       (const float*)bias, nullptr, 1, (const bf16*)x, (bf16*)dst,
+                       (const bf16*)carry, (const int*)ext, (cudaStream_t)stream);
+  };
+  return f32acc ? go(launch_final8<F32ACC>) : go(launch_final8<I32>);
 }
 
 }  // extern "C"

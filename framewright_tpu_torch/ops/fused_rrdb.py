@@ -112,13 +112,14 @@ class BlockExtents:
         return self.valid() & m
 
 
-RDB_TILE = 16   # output tile side of the bf16 RDB kernels (csrc/conv_wgmma.cuh, TS)
+RDB_TILE = 16   # output tile side of the RDB kernels (csrc/conv_wgmma.cuh, TS)
 
 
 def tile_count(ext: BlockExtents, live: bool = False) -> int:
-    """The 16x16 tiles the bf16 RDB kernels walk over on ``ext``'s blocks;
-    with ``live`` only those that meet their block's valid rectangle, the
-    tiles that run products (the others store zeros, or x at stage 5)."""
+    """The 16x16 tiles the RDB kernels (bf16 and int8) walk over on
+    ``ext``'s blocks; with ``live`` only those that meet their block's
+    valid rectangle, the tiles that run products (the others store zeros,
+    or x at stage 5)."""
     n = -(-S // RDB_TILE)
     if not live:
         return ext.rects.shape[0] * n * n
@@ -222,6 +223,17 @@ def wgmma_weights(w: torch.Tensor) -> torch.Tensor:
     K-major B without swizzle (csrc/conv_wgmma.cuh, launch_conv3x3)."""
     cout, kh, kw, cin = w.shape
     return w.reshape(cout, kh * kw, cin // 16, 2, 8).permute(2, 1, 3, 0, 4).contiguous()
+
+
+def wgmma_weights_s8(w: torch.Tensor) -> torch.Tensor:
+    """OHWI int8 conv weights (cout, 3, 3, cin) -> the int8 RDB kernels'
+    chunk-major copy (cin / 32, 9, 2, cout, 16): element (c, tap, k, n, e)
+    is ``w[n, tap // 3, tap % 3, 32 c + 16 k + e]``. A chunk of 32 input
+    channels is one contiguous copy that lands, tap by tap, as wgmma's
+    K-major B without swizzle, the only layout 8-bit operands take; in
+    bytes it is ``wgmma_weights``'s (csrc/conv_wgmma.cuh)."""
+    cout, kh, kw, cin = w.shape
+    return w.reshape(cout, kh * kw, cin // 32, 2, 16).permute(2, 1, 3, 0, 4).contiguous()
 
 
 @dataclass
@@ -396,6 +408,8 @@ class RDBWeightsInt8:
               scales (``sx, s1..s4`` of the wide form); i32: None
     act_q     static: (10,) float32 numpy [sa_x, sa_1..sa_4, 1/sa_x, ..,
               1/sa_4]; dynamic: None
+    wk[k]     ``wgmma_weights_s8(w[k])``, the kernels' copy (made from w
+              unless given)
     """
     scheme: str
     w: List[torch.Tensor]
@@ -403,6 +417,11 @@ class RDBWeightsInt8:
     bias: List[torch.Tensor]
     wscale: List[Optional[torch.Tensor]]
     act_q: Optional[np.ndarray]
+    wk: Optional[List[torch.Tensor]] = None
+
+    def __post_init__(self) -> None:
+        if self.wk is None:
+            self.wk = [wgmma_weights_s8(t) for t in self.w]
 
 
 def _conv_np(conv: torch.nn.Conv2d):
@@ -438,7 +457,7 @@ def rdb_weights_int8_i32(convs: Sequence[torch.nn.Conv2d],
     into oscale/obias (stage k < 5 in x_k's code domain)."""
     sa, act_q = _act_scales(act_amax)
     dev = convs[0].weight.device
-    out = RDBWeightsInt8("i32", [], [], [], [], act_q)
+    wq, scale, bias = [], [], []
     for k, conv in enumerate(convs):
         w, b = _conv_np(conv)
         s_t = np.zeros((w.shape[0],), np.float32)
@@ -449,11 +468,10 @@ def rdb_weights_int8_i32(convs: Sequence[torch.nn.Conv2d],
         for src in range(k + 1):
             _quantize(w, src, s_t / sa[src], q)
         osc, ob = (s_t / sa[k + 1], b / sa[k + 1]) if k < 4 else (s_t, b)
-        out.w.append(torch.from_numpy(q.astype(np.int8)).to(dev))
-        out.scale.append(torch.from_numpy(osc.astype(np.float32)).to(dev))
-        out.bias.append(torch.from_numpy(ob.astype(np.float32)).to(dev))
-        out.wscale.append(None)
-    return out
+        wq.append(torch.from_numpy(q.astype(np.int8)).to(dev))
+        scale.append(torch.from_numpy(osc.astype(np.float32)).to(dev))
+        bias.append(torch.from_numpy(ob.astype(np.float32)).to(dev))
+    return RDBWeightsInt8("i32", wq, scale, bias, [None] * len(wq), act_q)
 
 
 def rdb_weights_int8(convs: Sequence[torch.nn.Conv2d],
@@ -468,7 +486,7 @@ def rdb_weights_int8(convs: Sequence[torch.nn.Conv2d],
     dynamic = act_amax is None
     sa, act_q = (None, None) if dynamic else _act_scales(act_amax)
     dev = convs[0].weight.device
-    out = RDBWeightsInt8("dynamic" if dynamic else "f32acc", [], [], [], [], act_q)
+    wq, scale, bias, wscale = [], [], [], []
     for k, conv in enumerate(convs):
         w, b = _conv_np(conv)
         q = np.zeros(w.shape, np.float32)
@@ -478,11 +496,11 @@ def rdb_weights_int8(convs: Sequence[torch.nn.Conv2d],
             ws[:, src] = np.maximum(_row_amax(w, src), 1e-12) / 127.0
             _quantize(w, src, ws[:, src], q)
             dq[:, src] = ws[:, src] if dynamic else ws[:, src] * sa[src]
-        out.w.append(torch.from_numpy(q.astype(np.int8)).to(dev))
-        out.scale.append(torch.from_numpy(dq).to(dev))
-        out.bias.append(torch.from_numpy(b.astype(np.float32)).to(dev))
-        out.wscale.append(torch.from_numpy(ws).to(dev))
-    return out
+        wq.append(torch.from_numpy(q.astype(np.int8)).to(dev))
+        scale.append(torch.from_numpy(dq).to(dev))
+        bias.append(torch.from_numpy(b.astype(np.float32)).to(dev))
+        wscale.append(torch.from_numpy(ws).to(dev))
+    return RDBWeightsInt8("dynamic" if dynamic else "f32acc", wq, scale, bias, wscale, act_q)
 
 
 def _check_int8(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
@@ -501,7 +519,7 @@ def _check_int8(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
             or q.device != x.device or not q.is_contiguous():
         raise ValueError(f"fused_rdb_int8: q must be a contiguous (B, H, W, {WS_C}) "
                          f"int8 workspace beside x, got {tuple(q.shape)} {q.dtype}")
-    if any(t.device != x.device for t in (*wts.w, *wts.scale, *wts.bias)):
+    if any(t.device != x.device for t in (*wts.w, *wts.wk, *wts.scale, *wts.bias)):
         raise ValueError("fused_rdb_int8: weights must lie on x's device")
 
 
@@ -639,11 +657,11 @@ def _int8_rdb(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
                                      stream), "fw_rdb_i8_quant")
     for k in range(4):
         _build.check(lib.fw_rdb_i8_dense(
-            q.data_ptr(), b, h, w, NF + GC * k, wts.w[k].data_ptr(),
+            q.data_ptr(), b, h, w, NF + GC * k, wts.wk[k].data_ptr(),
             wts.scale[k].data_ptr(), wts.bias[k].data_ptr(), inv[k + 1], f32acc,
             _ext_ptr(ext), stream), "fw_rdb_i8_dense")
     _build.check(lib.fw_rdb_i8_final(
-        q.data_ptr(), b, h, w, wts.w[4].data_ptr(), wts.scale[4].data_ptr(),
+        q.data_ptr(), b, h, w, wts.wk[4].data_ptr(), wts.scale[4].data_ptr(),
         wts.bias[4].data_ptr(), f32acc, x.data_ptr(), dst.data_ptr(),
         None if carry is None else carry.data_ptr(), _ext_ptr(ext), stream), "fw_rdb_i8_final")
     return True
@@ -702,14 +720,14 @@ def fused_rdb_dynamic(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
     for k in range(4):
         cin = NF + GC * k
         _build.check(lib.fw_rdb_dyn_dense(
-            q.data_ptr(), b, h, w, cin, wts.w[k].data_ptr(), wts.scale[k].data_ptr(),
+            q.data_ptr(), b, h, w, cin, wts.wk[k].data_ptr(), wts.scale[k].data_ptr(),
             wts.bias[k].data_ptr(), amax.data_ptr(), act.data_ptr(), _ext_ptr(ext), per,
             halo, stream), "fw_rdb_dyn_dense")
         _build.check(lib.fw_rdb_dyn_quant(act.data_ptr(), 1, GC, q.data_ptr(), cin, frames,
                                           pix_frame, amax.data_ptr(), k + 1, stream),
                      "fw_rdb_dyn_quant")
     _build.check(lib.fw_rdb_dyn_final(
-        q.data_ptr(), b, h, w, wts.w[4].data_ptr(), wts.scale[4].data_ptr(),
+        q.data_ptr(), b, h, w, wts.wk[4].data_ptr(), wts.scale[4].data_ptr(),
         wts.bias[4].data_ptr(), amax.data_ptr(), x.data_ptr(), dst.data_ptr(),
         None if carry is None else carry.data_ptr(), _ext_ptr(ext), per, stream),
         "fw_rdb_dyn_final")

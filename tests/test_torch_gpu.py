@@ -329,6 +329,70 @@ def test_blocked_rdb_skips_dead_tiles(model, cuda, with_carry):
     assert bool((ws[out][:, 64:] == 0).all())
 
 
+def _int8_wts(model, int8_weights, kind, k):
+    return (model.fast_weights_int8(None).body[0] if kind == "dynamic"
+            else int8_weights[kind])[k]
+
+
+def _int8_rdb_both(x, wts, dst, with_carry, ext=None):
+    """One int8 RDB through the kernels and through the plain version, into
+    copies of ``dst`` (the RRDB residual's carry too, ``with_carry``), on
+    workspaces of seeded codes: (codes, out, ranges) of each, the ranges
+    None for the static schemes."""
+    q = torch.from_numpy(np.random.default_rng(25).integers(
+        -127, 128, (*x.shape[:3], 192), dtype=np.int8)).to(x.device)
+    q_p = q.clone()
+    out, out_p = dst.clone(), dst.clone()
+    c_k, c_p = (out, out_p) if with_carry else (None, None)
+    if wts.scheme == "dynamic":
+        a_k = fused_rrdb.fused_rdb_dynamic(x, q, out, wts, carry=c_k, ext=ext)
+        a_p = fused_rrdb.fused_rdb_dynamic_plain(x, q_p, out_p, wts, carry=c_p, ext=ext)
+    else:
+        fused_rrdb.fused_rdb_int8(x, q, out, wts, carry=c_k, ext=ext)
+        fused_rrdb.fused_rdb_int8_plain(x, q_p, out_p, wts, carry=c_p, ext=ext)
+        a_k = a_p = None
+    torch.cuda.synchronize()
+    return (q, out, a_k), (q_p, out_p, a_p)
+
+
+@pytest.mark.parametrize("kind", ["i32", "f32acc", "dynamic"])
+@pytest.mark.parametrize("shape", [(2, 37, 53), (3, 33, 47), (1, 17, 100)])
+def test_int8_wgmma_rdb_equals_plain_on_ragged_tiles(model, int8_weights, cuda, kind, shape):
+    """The int8 RDBs on the s8 wgmma loop at sizes that cut partial tiles
+    (H, W not multiples of 16), several images, and tile pairs whose
+    second tile is missing (27 and 7 tiles): codes, outputs and the
+    dynamic ranges equal the plain version exactly, with and without the
+    RRDB residual."""
+    x = _feat(cuda, *shape, seed=21)
+    for k, with_carry in ((0, False), (2, True)):
+        (q, out, a_k), (q_p, out_p, a_p) = _int8_rdb_both(
+            x, _int8_wts(model, int8_weights, kind, k), _feat(cuda, *shape, seed=22),
+            with_carry)
+        assert torch.equal(q, q_p) and torch.equal(out, out_p), (kind, shape, k)
+        if kind == "dynamic":
+            assert torch.equal(a_k, a_p)
+
+
+@pytest.mark.parametrize("kind", ["i32", "f32acc", "dynamic"])
+def test_int8_wgmma_rdb_on_blocks_with_dead_tiles(model, int8_weights, cuda, kind):
+    """The int8 RDBs on halo blocks of two frames whose grid has tiles
+    wholly outside the valid rectangles (no product runs there), the
+    blocks holding seeded values everywhere, with the RRDB residual:
+    codes, outputs and the dynamic ranges equal the plain version
+    exactly."""
+    b, h, w = 2, 150, 230
+    ext = fused_rrdb.BlockExtents.of(b, h, w, cuda)
+    assert fused_rrdb.tile_count(ext, live=True) < fused_rrdb.tile_count(ext)
+    s = fused_rrdb.S
+    x = _feat(cuda, ext.rects.shape[0], s, s, seed=23)
+    carry = _feat(cuda, ext.rects.shape[0], s, s, seed=24)
+    (q, out, a_k), (q_p, out_p, a_p) = _int8_rdb_both(
+        x, _int8_wts(model, int8_weights, kind, 2), carry, True, ext)
+    assert torch.equal(q, q_p) and torch.equal(out, out_p)
+    if kind == "dynamic":
+        assert a_k.shape == (b, 5) and torch.equal(a_k, a_p)
+
+
 @pytest.mark.parametrize("with_carry", [False, True])
 def test_image_and_block_rdb_agree_bit_for_bit(model, cuda, with_carry):
     """One bf16 RDB on a batch of frames and on their halo blocks: equal
