@@ -7,7 +7,9 @@ Phases, one JSON object per line on stdout:
   1. device   the card (nvidia-smi name and power limit, torch's name)
   2. build    the kernels from a clean build directory (one nvcc per
               source, all at once, then one link); ptxas's registers and
-              spills of every wgmma main-loop instance (bf16 and int8)
+              spills of every wgmma main-loop instance (the bf16 and int8
+              RDBs, K1 and the four launches of K2), none of which may
+              spill
   3. kernels  each kernel against its plain PyTorch version on the card,
               at the main-path shapes (RRDB body 540x960x64, tail out to
               2160x3840, tail1 in 1080x1920x64; SRVGG chain 540x960x64,
@@ -59,7 +61,7 @@ Phases, one JSON object per line on stdout:
               roofline bound and, for the bf16 RDB, K1, tail1, the bf16
               chain and the band conv, cuDNN's F.conv2d (PyTorch has no
               single int8 3x3 convolution call: the int8 RDBs are printed
-              beside the bf16 RDB instead)
+              beside the bf16 RDB instead); K2's time split by launch
 Then nvidia-smi's line, the kernel summary line, and the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 the result line. Without a CUDA device, or without the package beside
@@ -170,8 +172,9 @@ def block_work(ext, h: int, w: int) -> tuple:
 
 def wgmma_ptxas(lines) -> list:
     """ptxas's lines about the conv3x3_kernel instances (the wgmma main
-    loop of the bf16 RDB, K1 and the int8 RDBs): each entry's register,
-    stack and spill lines, and any note that names one."""
+    loop of the bf16 RDB, K1, the int8 RDBs and K2's launches, whose
+    epilogues are LreluEpi and LastEpi): each entry's register, stack and
+    spill lines, and any note that names one."""
     out, entry = [], False
     for ln in lines:
         if "Compiling entry" in ln:
@@ -179,6 +182,42 @@ def wgmma_ptxas(lines) -> list:
         if entry or "conv3x3_kernel" in ln:
             out.append(ln)
     return out
+
+
+def tail_split(build, fused_tail, wts, x, iters: int) -> dict:
+    """K2's launches one by one through their C entry points, from x
+    (B, h, w, 64): conv_up1, conv_up2, conv_hr, conv_last with the
+    yuv420_u8 epilogue (full range), ms each by CUDA events."""
+    import ctypes
+
+    import torch
+
+    b, h, w, _ = x.shape
+    dev = x.device
+    a0 = torch.empty(b, 2 * h, 2 * w, 64, dtype=torch.bfloat16, device=dev)
+    a = torch.empty(b, 4 * h, 4 * w, 64, dtype=torch.bfloat16, device=dev)
+    c = torch.empty_like(a)
+    planes = [torch.empty(b, 4 * h, 4 * w, dtype=torch.uint8, device=dev)] + [
+        torch.empty(b, 2 * h, 2 * w, dtype=torch.uint8, device=dev) for _ in range(2)]
+    coef = (ctypes.c_float * 11)(*fused_tail.yuv420_coefficients(True).tolist())
+    lib = build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    calls = {
+        "conv_up1": lambda: build.check(lib.fw_tail_up2(
+            x.data_ptr(), b, h, w, wts.up1_k.data_ptr(), wts.up1_b.data_ptr(), a0.data_ptr(),
+            stream), "fw_tail_up2"),
+        "conv_up2": lambda: build.check(lib.fw_tail_up2(
+            a0.data_ptr(), b, 2 * h, 2 * w, wts.up2_k.data_ptr(), wts.up2_b.data_ptr(),
+            a.data_ptr(), stream), "fw_tail_up2"),
+        "conv_hr": lambda: build.check(lib.fw_tail_hr(
+            a.data_ptr(), b, 4 * h, 4 * w, wts.hr_k.data_ptr(), wts.hr_b.data_ptr(),
+            c.data_ptr(), stream), "fw_tail_hr"),
+        "conv_last_yuv420_u8": lambda: build.check(lib.fw_tail_last(
+            c.data_ptr(), b, 4 * h, 4 * w, wts.last_k.data_ptr(), wts.last_b.data_ptr(),
+            2, ctypes.addressof(coef), *[p.data_ptr() for p in planes], stream),
+            "fw_tail_last"),
+    }
+    return {name: cuda_ms(fn, iters) for name, fn in calls.items()}
 
 
 def nvidia_smi() -> str:
@@ -438,10 +477,14 @@ def main(argv=None) -> int:
     # registers, spills and ptxas's notes, and the dynamic shared memory
     # the bf16 ones launch with
     wg_lines = wgmma_ptxas(info.ptxas)
-    emit({"phase": "build", "conv3x3_wgmma": wg_lines,
-          "spilling": [ln for ln in wg_lines if "spill" in ln and " 0 bytes spill stores" not in ln],
+    spilling = [ln for ln in wg_lines if "spill" in ln and " 0 bytes spill stores" not in ln]
+    emit({"phase": "build", "conv3x3_wgmma": wg_lines, "spilling": spilling,
           "dynamic_smem_bytes": {f"N={n}": _build.library().fw_wgmma_smem_bytes(n)
                                  for n in (32, 64)}})
+    for epi in ("LreluEpiILb0", "LreluEpiILb1", "LastEpi"):
+        require(any("Compiling entry" in ln and epi in ln for ln in wg_lines),
+                f"no wgmma main-loop instance with {epi} in ptxas's output")
+    require(not spilling, f"wgmma main-loop instances spill: {spilling}")
 
     # 3. kernels vs plain at main-path shapes ---------------------------
     t0 = time.perf_counter()
@@ -1273,6 +1316,8 @@ def main(argv=None) -> int:
                      replaces="framewright_tpu/ops/fused_tail.py:337",
                      launches=launches["fused_tail"], max_abs_err=errs["k2"], ms=k2_ms,
                      plain_ms=k2_plain, bound_ms=bms, bound_by=by, library_ms=None))
+    emit({"phase": "times", "k2_ms": k2_ms,
+          "k2_split_ms": tail_split(_build, fused_tail, fw.tail, skip, it)})
     # int8 RDBs: the bf16 RDB's operations at the int8 peak; bytes: x read
     # and the output written once (bf16), the int8 weights read once.
     # PyTorch has no single int8 3x3 convolution call (library_ms null).

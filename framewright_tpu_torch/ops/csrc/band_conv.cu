@@ -35,7 +35,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
   bf16* s_w = s_in + HT * HW * KP;
   const int b = blockIdx.z, ty0 = blockIdx.y * TH, tx0 = blockIdx.x * TW;
   float acc[2][NFRAG][4];
-  conv_tile<3, NFRAG>(acc, in, cin, cin, H, W, b, ty0, tx0, -1, -1, w, s_in, s_w);
+  conv_tile<NFRAG>(acc, in, cin, cin, H, W, b, ty0, tx0, w, s_in, s_w);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -61,7 +61,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
 template <int NFRAG>
 cudaError_t launch_band_conv(const bf16* in, int B, int H, int W, int cin, const bf16* w,
                              const float* bias, int act, bf16* out, cudaStream_t stream) {
-  const int smem = conv_smem_bytes(9, NFRAG * 8);
+  const int smem = conv_smem_bytes(NFRAG * 8);
   cudaError_t err = allow_smem(band_conv_kernel<NFRAG>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);

@@ -1,7 +1,7 @@
 // Shared 3x3 implicit-GEMM convolution main loop of the port's Hopper
-// kernels tail.cu, band_conv.cu and srvgg.cu; its tiling also serves the
-// int8 SRVGG chain (conv_s8.cuh). The RDBs (bf16 and int8) and K1 run on
-// conv_wgmma.cuh instead.
+// kernels band_conv.cu and srvgg.cu; its tiling also serves the int8
+// SRVGG chain (conv_s8.cuh). The RDBs (bf16 and int8), K1 and the
+// upsampling tail run on conv_wgmma.cuh instead.
 //
 // Layout: activations NHWC bf16 with an explicit channel stride, weights
 // [cout][taps][cin] bf16 (tap-major, input channels contiguous), biases
@@ -38,9 +38,10 @@ constexpr int KC = 32;             // input channels staged per chunk
 constexpr int KP = 40;             // shared-memory row stride in bf16
 constexpr int NTHREADS = 256;      // 8 warps
 
-// Dynamic shared memory of one CTA: input halo tile + one chunk of weights.
-__host__ __device__ constexpr int conv_smem_bytes(int ntaps, int cout_pad) {
-  return (HT * HW + ntaps * cout_pad) * KP * 2;
+// Dynamic shared memory of one CTA: input halo tile + one chunk of the
+// nine taps' weights.
+__host__ __device__ constexpr int conv_smem_bytes(int cout_pad) {
+  return (HT * HW + 9 * cout_pad) * KP * 2;
 }
 
 __device__ __forceinline__ uint32_t ld_b32(const bf16* p) {
@@ -91,20 +92,18 @@ __device__ __forceinline__ Rect valid_rect(const int* ext, int b, int H, int W) 
   return Rect{e.x, e.y, e.z, e.w};
 }
 
-// Accumulate one CTA tile of a convolution with NT x NT taps at offsets
-// (y0 + u, x0 + v), u, v < NT, each in [-1, 1].
+// Accumulate one CTA tile of a 3x3 convolution (SAME padding).
 //   in   : (B, H, W, in_cs) bf16; channels [0, cin) are read, cin % 32 == 0
-//   w    : [NFRAG*8][NT*NT][cin] bf16 for this CTA's phase
+//   w    : [NFRAG*8][9 taps][cin] bf16
 //   acc  : acc[mf][nf][r] = output pixel (row 2*warp + mf, column g or
 //          g + 8), channels nf*8 + 2*t + {0, 1} (mma C fragment layout)
-// The output grid equals the input grid (H, W); the caller maps tile
-// pixels to its own output positions.
-template <int NT, int NFRAG>
+// The output grid equals the input grid (H, W).
+template <int NFRAG>
 __device__ __forceinline__ void conv_tile(float (&acc)[2][NFRAG][4],
                                           const bf16* __restrict__ in, int in_cs, int cin,
-                                          int H, int W, int b, int ty0, int tx0, int y0, int x0,
+                                          int H, int W, int b, int ty0, int tx0,
                                           const bf16* __restrict__ w, bf16* s_in, bf16* s_w) {
-  constexpr int NTAP = NT * NT;
+  constexpr int NTAP = 9;
   constexpr int COUT = NFRAG * 8;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
@@ -137,17 +136,16 @@ __device__ __forceinline__ void conv_tile(float (&acc)[2][NFRAG][4],
     __syncthreads();
 
 #pragma unroll
-    for (int u = 0; u < NT; ++u) {
+    for (int u = 0; u < 3; ++u) {
 #pragma unroll
-      for (int v = 0; v < NT; ++v) {
-        const int tap = u * NT + v;
-        const int sy = 1 + y0 + u, sx = 1 + x0 + v;   // shift inside the halo tile
+      for (int v = 0; v < 3; ++v) {
+        const int tap = u * 3 + v;   // (u, v): the shift inside the halo tile
 #pragma unroll
         for (int ks = 0; ks < KC / 16; ++ks) {
           uint32_t a[2][4];
 #pragma unroll
           for (int mf = 0; mf < 2; ++mf) {
-            const bf16* base = s_in + ((2 * warp + mf + sy) * HW + sx) * KP + ks * 16 + 2 * t;
+            const bf16* base = s_in + ((2 * warp + mf + u) * HW + v) * KP + ks * 16 + 2 * t;
             a[mf][0] = ld_b32(base + g * KP);
             a[mf][1] = ld_b32(base + (g + 8) * KP);
             a[mf][2] = ld_b32(base + g * KP + 8);

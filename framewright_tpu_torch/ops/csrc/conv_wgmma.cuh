@@ -1,6 +1,7 @@
 // Pipelined 3x3 implicit-GEMM convolution on wgmma, the main loop of the
-// bf16 RDB (rdb.cu), K1 (conv_body.cu) and the int8 RDBs (rdb_int8.cu,
-// rdb_dyn.cu). The other kernels stay on conv_common.cuh's conv_tile.
+// bf16 RDB (rdb.cu), K1 (conv_body.cu), the int8 RDBs (rdb_int8.cu,
+// rdb_dyn.cu) and the upsampling tail (tail.cu). The band conv and the
+// SRVGG chains stay on conv_common.cuh's conv_tile.
 //
 // Element kinds (Kind<T>): bf16 activations and weights with f32
 // accumulators (m64nNk16), or int8 codes with s32 accumulators
@@ -28,7 +29,7 @@
 // Pipeline: the input channels go through in chunks of KC (one k step,
 // 32 bytes a pixel). Stage s of a ring of NST holds one chunk: each tile's
 // 18x18 halo pixels x KC channels, one TMA box (cp.async.bulk.tensor), and
-// the 9 taps x N x KC weights, one contiguous bulk copy. TMA fills zeros
+// the taps x N x KC weights, one contiguous bulk copy. TMA fills zeros
 // outside the image (SAME padding) and swizzles the 32-byte rows
 // (SWIZZLE_32B), which puts the eight row addresses of an ldmatrix phase
 // on distinct banks. One thread of the producer keeps the ring full,
@@ -53,10 +54,21 @@
 // an epilogue may write a tile out in slices while the next tile's
 // products run (Epi::DEFER).
 //
+// Taps (a Taps class, see Taps3x3): a conv makes NPASS passes over each
+// tile group's input chunks, pass p reading the NU x NV taps of the 3x3
+// window whose top left tap is origin(p), with its own weights, and ending
+// in an epilogue. The 3x3 conv is one pass of all nine taps. A 3x3 conv
+// after a nearest 2x upsample is four passes of 2x2 taps (TapsUp2, the
+// phase convs of tail.cu): all four phases read the 3x3 window around an
+// input pixel, so one halo box serves them all, and when a pass's chunks
+// fill the ring exactly (nchunk == NST) each box stays in its stage from
+// the first pass to the last and only the weights are loaded again.
+//
 // Order of the f32 sums: every output value accumulates (chunk, column
 // tap v, row tap u) in that order, whatever the tile, the image size or
 // block mode, so the merge, round-trip and resident bodies agree bit for
-// bit. s32 sums are exact in any order.
+// bit, and K2 and tail1 give the same intermediates. s32 sums are exact
+// in any order.
 //
 // Flushes (Epi::FLUSH, the int8 schemes f32acc and dynamic): after each
 // chunk that ends a source (Epi::flushes), the consumer waits for the
@@ -120,14 +132,14 @@ struct Kind<int8_t> {
 constexpr int NWG = 2;
 constexpr int CONSUMER_REGS = 232, PRODUCER_REGS = 40;
 static_assert(128 * (NWG * CONSUMER_REGS + PRODUCER_REGS) <= 65536, "registers");
-__host__ __device__ constexpr int wchunk_bytes(int n) { return 9 * n * KB; }
+__host__ __device__ constexpr int wchunk_bytes(int n, int ntap = 9) { return ntap * n * KB; }
 // A stage: the halo boxes of a tile group (one box a consumer, or one
 // for both when SPLIT) and the weight chunk of its NW = N (x 2 when SPLIT)
-// output channels.
+// output channels for the pass's ntap taps.
 __host__ __device__ constexpr int nboxes(bool split) { return split ? 1 : NWG; }
 __host__ __device__ constexpr int nweights(int n, bool split) { return split ? NWG * n : n; }
-__host__ __device__ constexpr int stage_bytes(int n, bool split = false) {
-  return nboxes(split) * HALO_BYTES + wchunk_bytes(nweights(n, split));
+__host__ __device__ constexpr int stage_bytes(int n, bool split = false, int ntap = 9) {
+  return nboxes(split) * HALO_BYTES + wchunk_bytes(nweights(n, split), ntap);
 }
 __host__ __device__ constexpr int nstage(int n) { return n <= 32 ? 5 : 4; }
 // A warpgroup's epilogue staging: its 256 pixels x N bf16,
@@ -138,15 +150,34 @@ constexpr int TPX = TS * TS;
 __host__ __device__ constexpr int epi_row(int n) { return 2 * n + 16; }
 __host__ __device__ constexpr int epi_bytes(int n) { return TPX * epi_row(n); }
 // + 256 to align the ring, + two mbarriers a stage
-__host__ __device__ constexpr int smem_bytes(int n, bool split, int buf) {
-  return nstage(n) * stage_bytes(n, split) + NWG * buf + 256 + 16 * nstage(n);
+__host__ __device__ constexpr int smem_bytes(int n, bool split, int buf, int ntap = 9) {
+  return nstage(n) * stage_bytes(n, split, ntap) + NWG * buf + 256 + 16 * nstage(n);
 }
 // with the bf16 epilogues' staging of N channels
 __host__ __device__ constexpr int smem_bytes(int n) { return smem_bytes(n, false, epi_bytes(n)); }
 
 static_assert(stage_bytes(32) % 256 == 0 && stage_bytes(64) % 256 == 0 &&
-                  stage_bytes(32, true) % 256 == 0,
+                  stage_bytes(32, true) % 256 == 0 && stage_bytes(8) % 256 == 0 &&
+                  stage_bytes(64, false, 4) % 256 == 0,
               "stage alignment");
+
+// The taps of a conv (see the header): NPASS passes, pass p reading taps
+// (u, v) = origin + (0..NU-1, 0..NV-1) of the 3x3 window (u the row, v
+// the column shift inside the halo tile), origin(p) = u0 HS + v0; VG
+// columns of taps a wgmma group (NV / VG groups a chunk).
+struct Taps3x3 {
+  static constexpr int NPASS = 1, NU = 3, NV = 3, VG = 1;
+  static __device__ __forceinline__ int origin(int) { return 0; }
+};
+// A 3x3 conv after a nearest 2x upsample: phase p = 2 a + c gives output
+// pixel (2 y + a, 2 x + c) from input rows y + a - 1 + {0, 1} and columns
+// x + c - 1 + {0, 1}, taps (a + {0, 1}, c + {0, 1}) of the window. Both
+// columns in one group: 16 products a group, as many as a 3x3 column's
+// (two groups of 8 measured 5% slower, PERF.md).
+struct TapsUp2 {
+  static constexpr int NPASS = 4, NU = 2, NV = 2, VG = 2;
+  static __device__ __forceinline__ int origin(int p) { return (p >> 1) * HS + (p & 1); }
+};
 static_assert(smem_bytes(32) <= 232448 && smem_bytes(64) <= 232448, "shared memory");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -240,6 +271,15 @@ __device__ __forceinline__ uint64_t desc_b(uint32_t saddr, uint32_t lbo) {
 }
 
 // D (64 x N f32) += A (64 x 16 bf16, registers) * B (16 x N bf16, smem)
+__device__ __forceinline__ void wgmma_rs(float (&d)[4], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
@@ -332,7 +372,8 @@ struct Tiles {
 //
 // in: the activations' tensor map (channels, W, H, B), box (KC, 18, 18,
 // 1), T the element type; w: the weights in launch_conv3x3's chunked
-// layout. Epi (the caller's epilogue) provides
+// layout; Taps: the passes and their taps (Taps3x3: one pass). Epi (the
+// caller's epilogue) provides
 //   BUF                               its staging bytes a consumer
 //   bool live(int b, int y0, int x0)  false: the tile needs no product
 //                                     (block mode: wholly outside the
@@ -346,7 +387,9 @@ struct Tiles {
 //                                     state across the tile (and across
 //                                     tiles: drain(part) after the last)
 //   void stage(acc, part, b, y0, x0, live, buf)
-//                                     after the tile's last product: put
+//                                     after a pass's last product (b: the
+//                                     image, b NPASS + p for pass p of
+//                                     several, here and in load, finish): put
 //                                     this thread's outputs in buf, the
 //                                     warpgroup's BUF bytes of shared
 //                                     memory (see Frag), or store them
@@ -360,14 +403,17 @@ struct Tiles {
 //                                     output's device-memory traffic
 //                                     overlaps the next tile's products;
 //                                     else all at once
-template <typename T, int N, bool SPLIT, class Epi>
+template <typename T, int N, bool SPLIT, class Taps, class Epi>
 __device__ __forceinline__ void conv3x3(const CUtensorMap* in, const T* __restrict__ w, int cin,
                                         int B, int H, int W, const Epi& epi) {
   using Acc = typename Kind<T>::Acc;
   constexpr bool FLUSH = EpiTraits<Epi>::FLUSH;
   constexpr int NST = nstage(N), NW = nweights(N, SPLIT), NBOX = nboxes(SPLIT);
-  constexpr int SB = stage_bytes(N, SPLIT);
-  static_assert(SB % 256 == 0 && smem_bytes(N, SPLIT, Epi::BUF) <= 232448, "shared memory");
+  constexpr int NP = Taps::NPASS, NU = Taps::NU, NV = Taps::NV, VG = Taps::VG, NTAP = NU * NV;
+  static_assert(NV % VG == 0, "whole groups of columns");
+  constexpr int SB = stage_bytes(N, SPLIT, NTAP), WB = wchunk_bytes(NW, NTAP);
+  static_assert(SB % 256 == 0 && smem_bytes(N, SPLIT, Epi::BUF, NTAP) <= 232448,
+                "shared memory");
   extern __shared__ uint8_t wg_smem[];
   const int tid = threadIdx.x, lane = tid & 31, q = (tid >> 5) & 3;
   const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);   // warp-uniform
@@ -375,9 +421,11 @@ __device__ __forceinline__ void conv3x3(const CUtensorMap* in, const T* __restri
   const Tiles tiles(B, H, W);
   const int ngroups = SPLIT ? tiles.count : (tiles.count + NWG - 1) / NWG;
   const int nchunk = cin / Kind<T>::KC;
+  // iterations a tile group: (pass, chunk), the weight chunk's index
+  const int per_group = NP * nchunk;
   const int my_groups =
       (int)blockIdx.x < ngroups ? (ngroups - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
-  const int total = my_groups * nchunk;
+  const int total = my_groups * per_group;
   const uint32_t ring = (smem_u32(wg_smem) + 255u) & ~255u;
   // full[s]: stage s loaded (the producer's arrival + the TMA bytes);
   // empty[s]: every consumer warp is done with stage s
@@ -396,32 +444,35 @@ __device__ __forceinline__ void conv3x3(const CUtensorMap* in, const T* __restri
 
   if (wgi == NWG) {
     // the producer warpgroup gives its registers to the consumers; one
-    // thread keeps the ring full, iteration k (group k / nchunk, chunk
+    // thread keeps the ring full, iteration k (group k / per_group, chunk
     // k % nchunk) into stage k % NST once the consumers have released
-    // the iteration k - NST that the stage last held
+    // the iteration k - NST that the stage last held; with several passes
+    // and nchunk == NST that was the same chunk of the same group's last
+    // pass, whose boxes the stage keeps
+    const bool reuse = NP > 1 && nchunk == NST;
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
     for (int k = 0; tid == 128 * NWG && k < total; ++k) {
       const int s = k % NST;
       if (k >= NST) mbar_wait(empty + 8 * s, ((k / NST) & 1) ^ 1);
-      const int group = (int)blockIdx.x + (k / nchunk) * (int)gridDim.x;
-      const int c0 = (k % nchunk) * Kind<T>::KC;
+      const int group = (int)blockIdx.x + (k / per_group) * (int)gridDim.x;
+      const int kc = k % per_group, c0 = (k % nchunk) * Kind<T>::KC;
+      const bool boxes = !reuse || kc < nchunk;
       const uint32_t st = ring + s * SB, bar = full + 8 * s;
       int b[NBOX], y0[NBOX], x0[NBOX];
       bool box[NBOX];
-      int bytes = wchunk_bytes(NW);
+      int bytes = WB;
 #pragma unroll
       for (int t = 0; t < NBOX; ++t) {
         tiles.at(group * NBOX + t, b[t], y0[t], x0[t]);
-        box[t] = group * NBOX + t < tiles.count && epi.live(b[t], y0[t], x0[t]);
+        box[t] = boxes && group * NBOX + t < tiles.count && epi.live(b[t], y0[t], x0[t]);
         if (box[t]) bytes += HS * HS * KB;
       }
       mbar_expect_tx(bar, bytes);
 #pragma unroll
       for (int t = 0; t < NBOX; ++t)
         if (box[t]) tma_load_4d(st + t * HALO_BYTES, in, bar, c0, x0[t] - 1, y0[t] - 1, b[t]);
-      bulk_load(st + NBOX * HALO_BYTES,
-                reinterpret_cast<const uint8_t*>(w) + (size_t)(k % nchunk) * wchunk_bytes(NW),
-                wchunk_bytes(NW), bar);
+      bulk_load(st + NBOX * HALO_BYTES, reinterpret_cast<const uint8_t*>(w) + (size_t)kc * WB, WB,
+                bar);
     }
   } else {
     // the consumers: warpgroup wgi takes tile wgi of each group (SPLIT:
@@ -453,7 +504,8 @@ __device__ __forceinline__ void conv3x3(const CUtensorMap* in, const T* __restri
     for (int it = 0; it < total; ++it) {
       mbar_wait(full + 8 * (it % NST), (it / NST) & 1);
       const int c = it % nchunk;
-      const int group = (int)blockIdx.x + (it / nchunk) * (int)gridDim.x;
+      const int pass = NP == 1 ? 0 : it % per_group / nchunk;
+      const int group = (int)blockIdx.x + (it / per_group) * (int)gridDim.x;
       const int t = SPLIT ? group : group * NWG + wgi;
       int b, y0, x0;
       tiles.at(t, b, y0, x0);
@@ -465,20 +517,28 @@ __device__ __forceinline__ void conv3x3(const CUtensorMap* in, const T* __restri
         const uint32_t st = ring + (it % NST) * SB;
         const uint32_t sh = st + (SPLIT ? 0 : wgi) * HALO_BYTES;
         const uint32_t sw = st + NBOX * HALO_BYTES + (SPLIT ? wgi * N * 16 : 0);
+        const int org = Taps::origin(pass);
 #pragma unroll
-        for (int v = 0; v < 3; ++v) {
-          uint32_t a[6][4];
+        for (int v = 0; v < NV; v += VG) {
+          // columns v .. v + VG - 1: their A fragments, then their products
+          uint32_t a[VG][NU + 3][4];
 #pragma unroll
-          for (int r = 0; r < 6; ++r) {
-            const int p = p0 + r * HS + v;
-            ldmatrix_x4(a[r], sh + p * 32 + ((half ^ ((p >> 2) & 1)) << 4));
+          for (int e = 0; e < VG; ++e) {
+#pragma unroll
+            for (int r = 0; r < NU + 3; ++r) {
+              const int p = p0 + org + r * HS + v + e;
+              ldmatrix_x4(a[e][r], sh + p * 32 + ((half ^ ((p >> 2) & 1)) << 4));
+            }
           }
           wgmma_fence();
 #pragma unroll
-          for (int u = 0; u < 3; ++u) {
-            const uint64_t desc = desc_b(sw + (3 * u + v) * NW * 32, NW * 16);
+          for (int e = 0; e < VG; ++e) {
 #pragma unroll
-            for (int j = 0; j < 4; ++j) wgmma_rs(acc[j], a[j + u], desc);
+            for (int u = 0; u < NU; ++u) {
+              const uint64_t desc = desc_b(sw + (NV * u + v + e) * NW * 32, NW * 16);
+#pragma unroll
+              for (int j = 0; j < 4; ++j) wgmma_rs(acc[j], a[e][j + u], desc);
+            }
           }
           wgmma_commit();
           // one slice of the previous tile's output a chunk, its loads
@@ -486,7 +546,7 @@ __device__ __forceinline__ void conv3x3(const CUtensorMap* in, const T* __restri
           if (v == 0 && pend > 0) epi.load(sl, Epi::SLICES - pend, pb, py0, px0, buf);
           wgmma_wait<1>();
           if (v == 0) release(it);
-          if (v == 2 && pend > 0) epi.finish(sl, Epi::SLICES - pend--, pb, py0, px0, buf);
+          if (v == NV - VG && pend > 0) epi.finish(sl, Epi::SLICES - pend--, pb, py0, px0, buf);
         }
       } else {
         release(it);
@@ -506,6 +566,7 @@ __device__ __forceinline__ void conv3x3(const CUtensorMap* in, const T* __restri
           epi.load(sl, Epi::SLICES - pend, pb, py0, px0, buf);
           epi.finish(sl, Epi::SLICES - pend, pb, py0, px0, buf);
         }
+        if constexpr (NP > 1) b = b * NP + pass;   // the epilogue's image
         wg_sync(wgi);   // the warpgroup is done reading the buffer
         if (has) epi.stage(acc, part, b, y0, x0, live, buf);
         wg_sync(wgi);   // the staged tile is visible to the whole warpgroup
@@ -543,11 +604,11 @@ __device__ __forceinline__ void conv3x3(const CUtensorMap* in, const T* __restri
   }
 }
 
-template <typename T, int N, bool SPLIT, class Epi>
+template <typename T, int N, bool SPLIT, class Taps, class Epi>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
     conv3x3_kernel(const __grid_constant__ CUtensorMap in, const T* __restrict__ w, int cin,
                    int B, int H, int W, Epi epi) {
-  conv3x3<T, N, SPLIT>(&in, w, cin, B, H, W, epi);
+  conv3x3<T, N, SPLIT, Taps>(&in, w, cin, B, H, W, epi);
 }
 
 // --- host side ---------------------------------------------------------
@@ -617,8 +678,10 @@ inline cudaError_t grid_size(int B, int H, int W, int per_cta, int* grid) {
 // weights w are in the chunked layout [cin / KC][9 taps][2][NW][KC / 2]
 // (NW = N, or 2N when SPLIT; fused_rrdb.wgmma_weights for bf16,
 // wgmma_weights_s8 for int8): one chunk is one contiguous copy and lands
-// as wgmma's canonical K-major B without swizzle.
-template <int N, bool SPLIT = false, typename T, class Epi>
+// as wgmma's canonical K-major B without swizzle. With Taps of several
+// passes, [NPASS][cin / KC][NU NV taps][2][NW][KC / 2]
+// (fused_tail.tail_weights).
+template <int N, bool SPLIT = false, class Taps = Taps3x3, typename T, class Epi>
 inline cudaError_t launch_conv3x3(const T* in, int cs, int cin, int B, int H, int W, const T* w,
                                   const Epi& epi, cudaStream_t stream) {
   if (cin <= 0 || cin % Kind<T>::KC != 0 || cin > cs || (cs * sizeof(T)) % 16 != 0)
@@ -629,8 +692,8 @@ inline cudaError_t launch_conv3x3(const T* in, int cs, int cin, int B, int H, in
   CUtensorMap in_map;
   err = input_map(&in_map, in, cs, B, H, W);
   if (err != cudaSuccess) return err;
-  auto kernel = conv3x3_kernel<T, N, SPLIT, Epi>;
-  constexpr int smem = smem_bytes(N, SPLIT, Epi::BUF);
+  auto kernel = conv3x3_kernel<T, N, SPLIT, Taps, Epi>;
+  constexpr int smem = smem_bytes(N, SPLIT, Epi::BUF, Taps::NU * Taps::NV);
   err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, 128 * (NWG + 1), smem, stream>>>(in_map, w, cin, B, H, W, epi);

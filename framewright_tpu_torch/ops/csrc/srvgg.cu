@@ -60,7 +60,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
   bf16* s_w = s_in + HT * HW * KP;
   const int b = blockIdx.z, ty0 = blockIdx.y * TH, tx0 = blockIdx.x * TW;
   float acc[2][8][4];
-  conv_tile<3, 8>(acc, in, VC, VC, H, W, b, ty0, tx0, -1, -1, w, s_in, s_w);
+  conv_tile<8>(acc, in, VC, VC, H, W, b, ty0, tx0, w, s_in, s_w);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -224,7 +224,7 @@ extern "C" {
 // One bf16 chain conv: out = bf16(prelu(conv(in) + bias)), (B, H, W, 64).
 int fw_vgg_conv(const void* in, int B, int H, int W, const void* w, const void* bias,
                 const void* alpha, void* out, void* stream) {
-  const int smem = conv_smem_bytes(9, VC);
+  const int smem = conv_smem_bytes(VC);
   cudaError_t err = allow_smem(vgg_conv_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);

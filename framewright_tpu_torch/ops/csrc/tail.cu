@@ -2,8 +2,9 @@
 //
 // Replaces framewright_tpu/ops/fused_tail.py: _make_tail2_kernel (via
 // fused_tail2_blocks), with the weights of tail2_phase_weights and the
-// colour matrix of yuv420_matrix. From the conv_body+skip output x at
-// body resolution (B, h, w, 64) it computes
+// colour matrix of yuv420_matrix, and _tail_kernel (tail1, via
+// fused_tail_blocks: the last three launches). From the conv_body+skip
+// output x at body resolution (B, h, w, 64) it computes
 //   a0 = bf16(lrelu(conv_up1(nearest2(x))))      (B, 2h, 2w, 64)
 //   a  = bf16(lrelu(conv_up2(nearest2(a0))))     (B, 4h, 4w, 64)
 //   c  = bf16(lrelu(conv_hr(a)))                 (B, 4h, 4w, 64)
@@ -20,14 +21,28 @@
 // range; coefficients and the +0.5 rounding offsets come from the host
 // as yuv420_matrix builds them).
 //
-// Bound: tensor-core operations. A 1080p frame does 490 GMAC (0.98 TFLOP,
-// ~1 ms at the bf16 peak); the intermediates a and c are kept in device
-// memory in this version (1.06 GB each at 4K), about 4.5 GB of traffic,
-// ~1.3 ms at 3.35 TB/s, so at the roofline the bytes would bound it.
-// Fusing the four launches into one kernel that keeps them on chip, as
-// the TPU kernel does, removes that traffic; this first version keeps
-// the launches separate and simple.
-#include "conv_common.cuh"
+// Bound: by operations, 490 GMAC a 1080p frame (0.98 TFLOP, 0.99 ms at
+// the bf16 peak, 62% of it in conv_hr); by bytes, with a0, a and c in
+// device memory (a and c 1.06 GB each at 4K), 4.86 GB, 1.45 ms at 3.35
+// TB/s. So the launches are balanced between the two, and conv_hr alone
+// (611 GFLOP against 2.1 GB) sits at the card's balance point. Design:
+// all four launches run on conv_wgmma.cuh's main loop (wgmma, a TMA-fed
+// ring kept full by a producer warpgroup, a persistent grid): conv_hr as
+// a 3x3 conv; conv_up1 and conv_up2 as four passes of 2x2 taps over each
+// tile group's halo boxes (TapsUp2: the boxes stay in the ring across
+// the passes, only each phase's weights are loaded, one wgmma group of 16
+// products a chunk); conv_last at N = 8 (its 3 outputs padded). Each
+// 64-channel epilogue stages its bf16 tile in shared memory and writes
+// it as 16-byte runs while the next pass's products run. What holds it
+// now (PERF.md, the per-launch split on an H100): the traffic of a and c
+// and the epilogues. Built without products, the launches still take 75%
+// of their time (conv_hr 0.78 of 1.10 ms, reading a and writing c at
+// ~2.7 TB/s); without the epilogue's staging, 12-15% less. Keeping c on
+// chip, as the TPU kernel does, means conv_last inside conv_hr's tiles
+// with conv_hr recomputed on a one-pixel halo (18x18 of c for 16x16
+// outputs: 1.27x its MACs, and 324 rows are six 64-row wgmma tiles,
+// 1.5x) to save 2.1 GB of traffic.
+#include "conv_wgmma.cuh"
 
 namespace fw {
 
@@ -41,149 +56,149 @@ struct YuvCoef {
 
 enum OutMode { OUT_BF16 = 0, OUT_RGB_U8 = 1, OUT_YUV420_U8 = 2 };
 
-// Phase conv after a nearest 2x upsample, 64 -> 64, lrelu, bf16 out.
-// in (B, H, W, 64) -> out (B, 2H, 2W, 64); w: [4 phases][64][4 taps][64].
-__global__ void __launch_bounds__(NTHREADS, 2)
-    up2_phase_kernel(const bf16* __restrict__ in, int H, int W, const bf16* __restrict__ w,
-                     const float* __restrict__ bias, bf16* __restrict__ out) {
-  extern __shared__ uint4 smem_u4[];
-  bf16* s_in = reinterpret_cast<bf16*>(smem_u4);
-  bf16* s_w = s_in + HT * HW * KP;
-  const int b = blockIdx.z >> 2, ph = blockIdx.z & 3, pa = ph >> 1, pb = ph & 1;
-  const int ty0 = blockIdx.y * TH, tx0 = blockIdx.x * TW;
-  float acc[2][8][4];
-  conv_tile<2, 8>(acc, in, 64, 64, H, W, b, ty0, tx0, pa - 1, pb - 1,
-                  w + (size_t)ph * 64 * 4 * 64, s_in, s_w);
+// out = bf16(lrelu(conv + bias)), 64 channels, from an input of H x W:
+// conv_hr (UP2 false, out H x W) or a phase conv (UP2, TapsUp2: pass p of
+// image b arrives as image 4 b + p and lands at (2 y + p / 2, 2 x + p % 2)
+// of the 2H x 2W output).
+template <bool UP2>
+struct LreluEpi {
+  int H, W;
+  const float* __restrict__ bias;
+  bf16* __restrict__ out;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int H2 = 2 * H, W2 = 2 * W;
+  __device__ __forceinline__ bool live(int, int, int) const { return true; }
+
+  static constexpr int ROW = wg::epi_row(64), BUF = wg::epi_bytes(64);
+  // 256 pixels x 8 runs of 8 channels: 16 runs a thread, 4 a slice,
+  // written while the next pass's products run
+  static constexpr int SLICES = 4;
+  static constexpr bool DEFER = true;
+  struct Slice {};
+
+  __device__ __forceinline__ void stage(const float (&acc)[4][32], wg::NoPart&, int, int, int,
+                                        bool, uint8_t* buf) const {
+    const wg::Frag f;
 #pragma unroll
-  for (int mf = 0; mf < 2; ++mf) {
-    const int y = ty0 + 2 * warp + mf;
-    if (y >= H) continue;
+    for (int i = 0; i < 8; ++i) {
+      const float b0 = bias[8 * i + 2 * f.t], b1 = bias[8 * i + 2 * f.t + 1];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int x = tx0 + g + 8 * h;
-      if (x >= W) continue;
-      bf16* dst = out + (((size_t)b * H2 + 2 * y + pa) * W2 + 2 * x + pb) * 64;
+      for (int j = 0; j < 4; ++j) {
 #pragma unroll
-      for (int nf = 0; nf < 8; ++nf) {
-        const int n = nf * 8 + 2 * t;
-        st_bf16x2(dst + n, lrelu(acc[mf][nf][2 * h] + bias[n]),
-                  lrelu(acc[mf][nf][2 * h + 1] + bias[n + 1]));
+        for (int h = 0; h < 2; ++h)
+          st_bf16x2(reinterpret_cast<bf16*>(buf + f.px(j, h) * ROW) + 8 * i + 2 * f.t,
+                    lrelu(acc[j][4 * i + 2 * h] + b0), lrelu(acc[j][4 * i + 2 * h + 1] + b1));
       }
     }
   }
-}
 
-// 3x3 64 -> 64 conv + bias + lrelu, bf16 out (conv_hr at 4K).
-__global__ void __launch_bounds__(NTHREADS, 2)
-    conv3x3_lrelu_kernel(const bf16* __restrict__ in, int H, int W, const bf16* __restrict__ w,
-                         const float* __restrict__ bias, bf16* __restrict__ out) {
-  extern __shared__ uint4 smem_u4[];
-  bf16* s_in = reinterpret_cast<bf16*>(smem_u4);
-  bf16* s_w = s_in + HT * HW * KP;
-  const int b = blockIdx.z, ty0 = blockIdx.y * TH, tx0 = blockIdx.x * TW;
-  float acc[2][8][4];
-  conv_tile<3, 8>(acc, in, 64, 64, H, W, b, ty0, tx0, -1, -1, w, s_in, s_w);
+  __device__ __forceinline__ void load(Slice&, int, int, int, int, const uint8_t*) const {}
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  __device__ __forceinline__ void finish(const Slice&, int k, int b, int y0, int x0,
+                                         const uint8_t* buf) const {
+    const wg::Frag f;
 #pragma unroll
-  for (int mf = 0; mf < 2; ++mf) {
-    const int y = ty0 + 2 * warp + mf;
-    if (y >= H) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int x = tx0 + g + 8 * h;
-      if (x >= W) continue;
-      bf16* dst = out + (((size_t)b * H + y) * W + x) * 64;
-#pragma unroll
-      for (int nf = 0; nf < 8; ++nf) {
-        const int n = nf * 8 + 2 * t;
-        st_bf16x2(dst + n, lrelu(acc[mf][nf][2 * h] + bias[n]),
-                  lrelu(acc[mf][nf][2 * h + 1] + bias[n + 1]));
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int r = (4 * k + e) * 128 + f.wt, p = r >> 3, c8 = r & 7;
+      const int y = y0 + p / wg::TS, x = x0 + p % wg::TS;
+      if (y >= H || x >= W) continue;
+      const size_t o = UP2 ? ((size_t)(b >> 2) * 2 * H + 2 * y + ((b >> 1) & 1)) * 2 * W + 2 * x +
+                                 (b & 1)
+                           : ((size_t)b * H + y) * W + x;
+      *reinterpret_cast<uint4*>(out + o * 64 + 8 * c8) =
+          *reinterpret_cast<const uint4*>(buf + p * ROW + 16 * c8);
     }
   }
-}
+};
 
-// conv_last 3x3 64 -> 3 (padded to 8 output channels) + bias, then the
-// output epilogue. The f32 tile is staged in shared memory so that a 2x2
-// quad can be finished by one thread.
+// conv_last 3x3 64 -> 3 (padded to 8 output channels) + bias in f32, then
+// the output epilogue. The f32 tile is staged in shared memory so that a
+// 2x2 quad can be finished by one thread.
 //   OUT_BF16:      out0 (B, H, W, 3) bf16
 //   OUT_RGB_U8:    out0 (B, H, W, 3) uint8
 //   OUT_YUV420_U8: out0 Y (B, H, W), out1 U, out2 V (B, H/2, W/2) uint8
-__global__ void __launch_bounds__(NTHREADS, 2)
-    conv_last_kernel(const bf16* __restrict__ in, int H, int W, const bf16* __restrict__ w,
-                     const float* __restrict__ bias, int mode, YuvCoef k, void* out0, void* out1,
-                     void* out2) {
-  extern __shared__ uint4 smem_u4[];
-  bf16* s_in = reinterpret_cast<bf16*>(smem_u4);
-  bf16* s_w = s_in + HT * HW * KP;
-  const int b = blockIdx.z, ty0 = blockIdx.y * TH, tx0 = blockIdx.x * TW;
-  float acc[2][1][4];
-  conv_tile<3, 1>(acc, in, 64, 64, H, W, b, ty0, tx0, -1, -1, w, s_in, s_w);
+struct LastEpi {
+  int H, W;
+  const float* __restrict__ bias;
+  int mode;
+  YuvCoef k;
+  void *out0, *out1, *out2;
 
-  // conv_tile ends with a barrier, so the input tile's memory is free
-  float* s_c = reinterpret_cast<float*>(smem_u4);   // [TH*TW][3]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  if (t < 2) {
+  __device__ __forceinline__ bool live(int, int, int) const { return true; }
+
+  static constexpr int BUF = wg::TPX * 16;   // 256 pixels x 4 f32 (3 used)
+  static constexpr int SLICES = 1;
+  static constexpr bool DEFER = false;
+  struct Slice {};
+
+  // acc[j][2 h + e]: pixel px(j, h), channel 2 t + e (N = 8, one n8 block)
+  __device__ __forceinline__ void stage(const float (&acc)[4][4], wg::NoPart&, int, int, int,
+                                        bool, uint8_t* buf) const {
+    const wg::Frag f;
+    if (f.t >= 2) return;
+    float* s_c = reinterpret_cast<float*>(buf);
 #pragma unroll
-    for (int mf = 0; mf < 2; ++mf)
+    for (int e = 0; e < 2; ++e) {
+      const int n = 2 * f.t + e;
+      if (n >= 3) continue;
+      const float bn = bias[n];
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) s_c[f.px(j, h) * 4 + n] = acc[j][2 * h + e] + bn;
+    }
+  }
+
+  __device__ __forceinline__ void load(Slice&, int, int, int, int, const uint8_t*) const {}
+
+  __device__ __forceinline__ void finish(const Slice&, int, int b, int y0, int x0,
+                                         const uint8_t* buf) const {
+    const float* s_c = reinterpret_cast<const float*>(buf);
+    const int tid = wg::Frag().wt;
+    if (mode == OUT_YUV420_U8) {
+      if (tid >= (wg::TS / 2) * (wg::TS / 2)) return;
+      const int qy = tid / (wg::TS / 2), qx = tid % (wg::TS / 2);
+      const int y = y0 + 2 * qy, x = x0 + 2 * qx;   // H, W and tile origins are even
+      if (y >= H || x >= W) return;
+      uint8_t* yp = static_cast<uint8_t*>(out0);
+      float su = 0.f, sv = 0.f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          const int n = 2 * t + j;
-          if (n < 3) {
-            const int p = (2 * warp + mf) * TW + g + 8 * h;
-            s_c[p * 3 + n] = acc[mf][0][2 * h + j] + bias[n];
-          }
+          const float* c = s_c + ((2 * qy + i) * wg::TS + 2 * qx + j) * 4;
+          const float r = fminf(fmaxf(c[0], 0.f), 1.f);
+          const float gg = fminf(fmaxf(c[1], 0.f), 1.f);
+          const float bb = fminf(fmaxf(c[2], 0.f), 1.f);
+          const float yy = floorf(k.wy[0] * r + k.wy[1] * gg + k.wy[2] * bb + k.by);
+          yp[((size_t)b * H + y + i) * W + x + j] = (uint8_t)fminf(fmaxf(yy, 0.f), 255.f);
+          su += k.wu[0] * r + k.wu[1] * gg + k.wu[2] * bb;
+          sv += k.wv[0] * r + k.wv[1] * gg + k.wv[2] * bb;
         }
-  }
-  __syncthreads();
-
-  const int tid = threadIdx.x;
-  if (mode == OUT_YUV420_U8) {
-    if (tid >= (TH / 2) * (TW / 2)) return;
-    const int qy = tid / (TW / 2), qx = tid % (TW / 2);
-    const int y = ty0 + 2 * qy, x = tx0 + 2 * qx;   // H, W and tile origins are even
-    if (y >= H || x >= W) return;
-    uint8_t* yp = static_cast<uint8_t*>(out0);
-    float su = 0.f, sv = 0.f;
+      const size_t ci = ((size_t)b * (H / 2) + y / 2) * (W / 2) + x / 2;
+      static_cast<uint8_t*>(out1)[ci] = (uint8_t)fminf(fmaxf(floorf(su + k.bc), 0.f), 255.f);
+      static_cast<uint8_t*>(out2)[ci] = (uint8_t)fminf(fmaxf(floorf(sv + k.bc), 0.f), 255.f);
+      return;
+    }
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int s = 0; s < 2; ++s) {
+      const int p = s * 128 + tid;
+      const int y = y0 + p / wg::TS, x = x0 + p % wg::TS;
+      if (y >= H || x >= W) continue;
+      const float* c = s_c + p * 4;
+      const size_t o = (((size_t)b * H + y) * W + x) * 3;
+      if (mode == OUT_BF16) {
+        bf16* op = static_cast<bf16*>(out0);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float* c = s_c + ((2 * qy + i) * TW + 2 * qx + j) * 3;
-        const float r = fminf(fmaxf(c[0], 0.f), 1.f);
-        const float gg = fminf(fmaxf(c[1], 0.f), 1.f);
-        const float bb = fminf(fmaxf(c[2], 0.f), 1.f);
-        const float yy = floorf(k.wy[0] * r + k.wy[1] * gg + k.wy[2] * bb + k.by);
-        yp[((size_t)b * H + y + i) * W + x + j] = (uint8_t)fminf(fmaxf(yy, 0.f), 255.f);
-        su += k.wu[0] * r + k.wu[1] * gg + k.wu[2] * bb;
-        sv += k.wv[0] * r + k.wv[1] * gg + k.wv[2] * bb;
+        for (int n = 0; n < 3; ++n) op[o + n] = rb(c[n]);
+      } else {
+        uint8_t* op = static_cast<uint8_t*>(out0);
+#pragma unroll
+        for (int n = 0; n < 3; ++n)
+          op[o + n] = (uint8_t)floorf(fminf(fmaxf(c[n], 0.f), 1.f) * 255.f + 0.5f);
       }
-    const size_t ci = ((size_t)b * (H / 2) + y / 2) * (W / 2) + x / 2;
-    static_cast<uint8_t*>(out1)[ci] = (uint8_t)fminf(fmaxf(floorf(su + k.bc), 0.f), 255.f);
-    static_cast<uint8_t*>(out2)[ci] = (uint8_t)fminf(fmaxf(floorf(sv + k.bc), 0.f), 255.f);
-    return;
+    }
   }
-  const int y = ty0 + tid / TW, x = tx0 + tid % TW;
-  if (y >= H || x >= W) return;
-  const float* c = s_c + tid * 3;
-  const size_t o = (((size_t)b * H + y) * W + x) * 3;
-  if (mode == OUT_BF16) {
-    bf16* op = static_cast<bf16*>(out0);
-#pragma unroll
-    for (int n = 0; n < 3; ++n) op[o + n] = rb(c[n]);
-  } else {
-    uint8_t* op = static_cast<uint8_t*>(out0);
-#pragma unroll
-    for (int n = 0; n < 3; ++n)
-      op[o + n] = (uint8_t)floorf(fminf(fmaxf(c[n], 0.f), 1.f) * 255.f + 0.5f);
-  }
-}
+};
 
 }  // namespace fw
 
@@ -191,36 +206,29 @@ using namespace fw;
 
 extern "C" {
 
-// in (B, H, W, 64) -> out (B, 2H, 2W, 64): conv after nearest 2x, lrelu.
+// in (B, H, W, 64) -> out (B, 2H, 2W, 64): conv after nearest 2x, lrelu;
+// w: the four phases' weights in launch_conv3x3's layout of TapsUp2
+// (fused_tail.tail_weights).
 int fw_tail_up2(const void* in, int B, int H, int W, const void* w, const void* bias, void* out,
                 void* stream) {
-  const int smem = conv_smem_bytes(4, 64);
-  cudaError_t err = allow_smem(up2_phase_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B * 4);
-  up2_phase_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)in, H, W, (const bf16*)w, (const float*)bias, (bf16*)out);
-  return (int)cudaGetLastError();
+  return (int)wg::launch_conv3x3<64, false, wg::TapsUp2>(
+      (const bf16*)in, 64, 64, B, H, W, (const bf16*)w,
+      LreluEpi<true>{H, W, (const float*)bias, (bf16*)out}, (cudaStream_t)stream);
 }
 
-// in (B, H, W, 64) -> out (B, H, W, 64): 3x3 conv + bias + lrelu.
+// in (B, H, W, 64) -> out (B, H, W, 64): 3x3 conv + bias + lrelu; w in
+// launch_conv3x3's chunked layout (fused_rrdb.wgmma_weights).
 int fw_tail_hr(const void* in, int B, int H, int W, const void* w, const void* bias, void* out,
                void* stream) {
-  const int smem = conv_smem_bytes(9, 64);
-  cudaError_t err = allow_smem(conv3x3_lrelu_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  conv3x3_lrelu_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)in, H, W, (const bf16*)w, (const float*)bias, (bf16*)out);
-  return (int)cudaGetLastError();
+  return (int)wg::launch_conv3x3<64>((const bf16*)in, 64, 64, B, H, W, (const bf16*)w,
+                                     LreluEpi<false>{H, W, (const float*)bias, (bf16*)out},
+                                     (cudaStream_t)stream);
 }
 
-// conv_last + epilogue. coef: 11 floats (wy[3], wu[3], wv[3], by, bc).
+// conv_last + epilogue, w (8 output channels, 3 real) in launch_conv3x3's
+// chunked layout. coef: 11 floats (wy[3], wu[3], wv[3], by, bc).
 int fw_tail_last(const void* in, int B, int H, int W, const void* w, const void* bias, int mode,
                  const float* coef, void* out0, void* out1, void* out2, void* stream) {
-  const int smem = conv_smem_bytes(9, 8);
-  cudaError_t err = allow_smem(conv_last_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
   YuvCoef k;
   for (int i = 0; i < 3; ++i) {
     k.wy[i] = coef[i];
@@ -229,10 +237,9 @@ int fw_tail_last(const void* in, int B, int H, int W, const void* w, const void*
   }
   k.by = coef[9];
   k.bc = coef[10];
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  conv_last_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)in, H, W, (const bf16*)w, (const float*)bias, mode, k, out0, out1, out2);
-  return (int)cudaGetLastError();
+  return (int)wg::launch_conv3x3<8>(
+      (const bf16*)in, 64, 64, B, H, W, (const bf16*)w,
+      LastEpi{H, W, (const float*)bias, mode, k, out0, out1, out2}, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -35,14 +35,18 @@ import torch
 import torch.nn.functional as F
 
 from framewright_tpu_torch.ops import _build
+from framewright_tpu_torch.ops.fused_rrdb import wgmma_weights
 
 NF = 64
 OUT_MODES = {"bf16": 0, "rgb_u8": 1, "yuv420_u8": 2}
-_LAST_PAD = 8   # conv_last's 3 outputs padded to one n8 mma fragment
+_LAST_PAD = 8   # conv_last's 3 outputs padded to one n8 wgmma block
 
 
 @dataclass
 class TailWeights:
+    """The tail's convs as the plain versions take them, and ``*_k``, the
+    chunk-major copies the kernels take (``phase_wgmma_weights``,
+    ``fused_rrdb.wgmma_weights``)."""
     up1: torch.Tensor     # (4 phases, 64, 4 taps, 64) bf16
     up1_b: torch.Tensor   # (64,) f32
     up2: torch.Tensor
@@ -51,6 +55,10 @@ class TailWeights:
     hr_b: torch.Tensor
     last: torch.Tensor    # (8, 3, 3, 64) bf16, rows 3..7 zero
     last_b: torch.Tensor  # (8,) f32
+    up1_k: torch.Tensor   # (4 phases, 4 chunks, 4 taps, 2, 64, 8) bf16
+    up2_k: torch.Tensor
+    hr_k: torch.Tensor    # (4 chunks, 9 taps, 2, 64, 8) bf16
+    last_k: torch.Tensor  # (4 chunks, 9 taps, 2, 8, 8) bf16
 
 
 def up2_phase_weights(w: torch.Tensor) -> torch.Tensor:
@@ -76,6 +84,16 @@ def up2_phase_weights(w: torch.Tensor) -> torch.Tensor:
     return torch.stack(phases, dim=0)
 
 
+def phase_wgmma_weights(wp: torch.Tensor) -> torch.Tensor:
+    """Phase weights (4, cout, 4 taps, cin) -> the phase convs' chunk-major
+    copy (4 phases, cin / 16, 4 taps, 2, cout, 8): each phase's 2x2 taps
+    as ``fused_rrdb.wgmma_weights`` lays out a conv's, phase after phase,
+    so that pass p, chunk c of the kernel's loop is one contiguous copy
+    (csrc/conv_wgmma.cuh, TapsUp2)."""
+    ph, cout, _, cin = wp.shape
+    return torch.stack([wgmma_weights(wp[i].reshape(cout, 2, 2, cin)) for i in range(ph)])
+
+
 def _ohwi(conv: torch.nn.Conv2d) -> torch.Tensor:
     return (conv.weight.detach().float().permute(0, 2, 3, 1).contiguous()
             .to(torch.bfloat16))
@@ -93,13 +111,15 @@ def tail_weights(conv_up1: torch.nn.Conv2d, conv_up2: torch.nn.Conv2d,
     def bias(c):
         return c.bias.detach().float().contiguous()
 
+    up1 = up2_phase_weights(conv_up1.weight).to(torch.bfloat16).contiguous()
+    up2 = up2_phase_weights(conv_up2.weight).to(torch.bfloat16).contiguous()
+    hr = _ohwi(conv_hr)
+    last = last.to(torch.bfloat16).contiguous()
     return TailWeights(
-        up1=up2_phase_weights(conv_up1.weight).to(torch.bfloat16).contiguous(),
-        up1_b=bias(conv_up1),
-        up2=up2_phase_weights(conv_up2.weight).to(torch.bfloat16).contiguous(),
-        up2_b=bias(conv_up2),
-        hr=_ohwi(conv_hr), hr_b=bias(conv_hr),
-        last=last.to(torch.bfloat16).contiguous(), last_b=last_b.contiguous())
+        up1=up1, up1_b=bias(conv_up1), up2=up2, up2_b=bias(conv_up2),
+        hr=hr, hr_b=bias(conv_hr), last=last, last_b=last_b.contiguous(),
+        up1_k=phase_wgmma_weights(up1), up2_k=phase_wgmma_weights(up2),
+        hr_k=wgmma_weights(hr), last_k=wgmma_weights(last))
 
 
 def yuv420_coefficients(full_range: bool = False) -> np.ndarray:
@@ -211,13 +231,13 @@ def _launch_up2_hr_last(a0: torch.Tensor, wts: TailWeights, out_mode: str,
     coef = (ctypes.c_float * 11)(*yuv420_coefficients(full_range).tolist())
     lib = _build.library()
     stream = torch.cuda.current_stream(a0.device).cuda_stream
-    _build.check(lib.fw_tail_up2(a0.data_ptr(), b, h, w, wts.up2.data_ptr(),
+    _build.check(lib.fw_tail_up2(a0.data_ptr(), b, h, w, wts.up2_k.data_ptr(),
                                  wts.up2_b.data_ptr(), a.data_ptr(), stream),
                  "fw_tail_up2")
-    _build.check(lib.fw_tail_hr(a.data_ptr(), b, 2 * h, 2 * w, wts.hr.data_ptr(),
+    _build.check(lib.fw_tail_hr(a.data_ptr(), b, 2 * h, 2 * w, wts.hr_k.data_ptr(),
                                 wts.hr_b.data_ptr(), c.data_ptr(), stream),
                  "fw_tail_hr")
-    _build.check(lib.fw_tail_last(c.data_ptr(), b, 2 * h, 2 * w, wts.last.data_ptr(),
+    _build.check(lib.fw_tail_last(c.data_ptr(), b, 2 * h, 2 * w, wts.last_k.data_ptr(),
                                   wts.last_b.data_ptr(), OUT_MODES[out_mode],
                                   ctypes.addressof(coef), *ptrs, stream),
                  "fw_tail_last")
@@ -246,7 +266,7 @@ def fused_tail(x: torch.Tensor, wts: TailWeights, out_mode: str = "bf16",
         dtype = torch.bfloat16 if out_mode == "bf16" else torch.uint8
         outs = (torch.empty(b, h4, w4, 3, dtype=dtype, device=dev),)
     _build.check(_build.library().fw_tail_up2(
-        x.data_ptr(), b, h, w, wts.up1.data_ptr(), wts.up1_b.data_ptr(), a0.data_ptr(),
+        x.data_ptr(), b, h, w, wts.up1_k.data_ptr(), wts.up1_b.data_ptr(), a0.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream), "fw_tail_up2")
     _launch_up2_hr_last(a0, wts, out_mode, full_range, outs)
     fused_tail.launches += 1

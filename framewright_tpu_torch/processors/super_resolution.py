@@ -193,6 +193,12 @@ class SuperResolution:
         x = np.ascontiguousarray(frames)
         if self._int8_calibrate:
             self._calibrate_int8(x)
+        self.dispatches += 1
+        return self._enqueue(x)
+
+    def _enqueue(self, x: np.ndarray) -> dict:
+        """Run the model on ``x`` without waiting for the card. Counts
+        nothing: an OOM retry reruns a batch that was dispatched once."""
         xt = torch.from_numpy(x).to(self.device)
         out, exc, event = None, None, None
         try:
@@ -202,7 +208,6 @@ class SuperResolution:
         if out is not None and self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
-        self.dispatches += 1
         return {"out": out, "event": event, "exc": exc, "x": x, "n": len(x)}
 
     def materialize(self, handle: dict):
@@ -228,7 +233,7 @@ class SuperResolution:
                 frames = handle["x"]
                 handle = None                          # drop the failed outputs
                 torch.cuda.empty_cache()
-                handle = self.dispatch(frames)
+                handle = self._enqueue(frames)
 
     def output_size(self, height: int, width: int):
         return height * self.scale, width * self.scale

@@ -79,9 +79,12 @@ def test_conv_body_skip_kernel_matches_plain(model, cuda, shape):
     _close_bf16(got, fused_tail3.conv_body_skip_plain(ws, feat, model.fast_weights().cbody))
 
 
+@pytest.mark.parametrize("shape", [(2, 19, 30), (2, 21, 37)])
 @pytest.mark.parametrize("out_mode", ["bf16", "rgb_u8", "yuv420_u8"])
-def test_tail_kernel_matches_plain(model, cuda, out_mode):
-    x = _feat(cuda, 2, 19, 30, seed=3)
+def test_tail_kernel_matches_plain(model, cuda, out_mode, shape):
+    # batches of 2; no side of x, a0, a or c a multiple of the 16-pixel tile
+    # at (2, 21, 37) (84 x 148 out)
+    x = _feat(cuda, *shape, seed=3)
     n = fused_tail.fused_tail.launches
     got = fused_tail.fused_tail(x, model.fast_weights().tail, out_mode, True)
     want = fused_tail.fused_tail_plain(x, model.fast_weights().tail, out_mode, True)
@@ -92,6 +95,29 @@ def test_tail_kernel_matches_plain(model, cuda, out_mode):
     for g, w in (zip(got, want) if out_mode == "yuv420_u8" else [(got, want)]):
         d = (g.float() - w.float()).abs()
         assert d.max().item() <= 1 and (d > 0).float().mean().item() < 0.02
+
+
+@pytest.mark.parametrize("shape", [(2, 21, 37), (1, 68, 120)])
+def test_k2_and_tail1_agree_bit_for_bit(model, cuda, shape):
+    """tail1 on K2's own conv_up1 output (its first launch) equals K2's
+    bf16 output exactly: the two run the same conv_up2, conv_hr and
+    conv_last launches, and every sum has one order at any size."""
+    from framewright_tpu_torch.ops import _build
+
+    x = _feat(cuda, *shape, seed=5)
+    wts = model.fast_weights().tail
+    b, h, w, _ = x.shape
+    a0 = torch.empty(b, 2 * h, 2 * w, 64, dtype=torch.bfloat16, device=cuda)
+    _build.check(_build.library().fw_tail_up2(
+        x.data_ptr(), b, h, w, wts.up1_k.data_ptr(), wts.up1_b.data_ptr(), a0.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "fw_tail_up2")
+    a0_p = fused_tail._phase_conv_plain(x, wts.up1, wts.up1_b)
+    torch.cuda.synchronize()
+    _close_bf16(a0, a0_p)
+    k2 = fused_tail.fused_tail(x, wts, "bf16")
+    t1 = fused_tail.fused_tail1(a0, wts)
+    torch.cuda.synchronize()
+    assert torch.equal(k2, t1)
 
 
 def test_wrappers_refuse_bad_inputs_on_the_card(model, cuda):

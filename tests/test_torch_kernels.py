@@ -214,6 +214,47 @@ class TestTail:
                 torch.testing.assert_close(got, want[:, :, p::2, q::2],
                                            atol=1e-5, rtol=1e-5)
 
+    # conv -> (passes, taps a pass reads: rows NU, columns NV), as
+    # csrc/conv_wgmma.cuh's Taps3x3 and TapsUp2 walk them
+    KERNEL_TAPS = {"up1": (4, 2, 2), "up2": (4, 2, 2), "hr": (1, 3, 3), "last": (1, 3, 3)}
+
+    @pytest.mark.parametrize("conv", sorted(KERNEL_TAPS))
+    def test_kernel_weights_reexpand_to_the_plain_convs(self, nets, conv):
+        """The kernels' chunk-major copies ``<conv>_k``: element (pass p,
+        chunk c, tap NV u + v, half k, row n, e) is tap (u, v) of the 3x3
+        window whose top left is the pass's origin (phase p = 2 a + q:
+        (a, q); one pass: (0, 0)), output channel n, input channel
+        16 c + 8 k + e. Re-expanded so and summed over the padded input as
+        the kernels' loop reads it, they give the plain versions'
+        convolutions (float64: the sums agree to rounding)."""
+        _, _, model = nets
+        wts = model.fast_weights().tail
+        npass, nu, nv = self.KERNEL_TAPS[conv]
+        wk, plain = getattr(wts, f"{conv}_k"), getattr(wts, conv)
+        want_k = (fused_tail.phase_wgmma_weights(plain) if npass == 4
+                  else fused_rrdb.wgmma_weights(plain))
+        assert torch.equal(wk, want_k) and wk.is_contiguous()
+        cout = plain.shape[0] if npass == 1 else plain.shape[1]
+        assert wk.shape == ((npass,) if npass > 1 else ()) + (4, nu * nv, 2, cout, 8)
+        # (pass, tap, cout, cin)
+        we = wk.reshape(npass, 4, nu * nv, 2, cout, 8).permute(0, 2, 4, 1, 3, 5).reshape(
+            npass, nu * nv, cout, 64).double()
+        h, w = 9, 13
+        x = torch.from_numpy(np.random.default_rng(7).uniform(
+            -1, 1, (2, 64, h, w))).to(torch.bfloat16).double()
+        xp = F.pad(x, (1, 1, 1, 1))
+        for p in range(npass):
+            a, q = (p >> 1, p & 1) if npass == 4 else (0, 0)
+            got = sum(torch.einsum("nchw,oc->nohw", xp[:, :, a + u:a + u + h, q + v:q + v + w],
+                                   we[p, nv * u + v])
+                      for u in range(nu) for v in range(nv))
+            if npass == 4:   # the plain phase conv (_phase_conv_plain)
+                k = plain[p].double().reshape(cout, 2, 2, 64).permute(0, 3, 1, 2)
+                want = F.conv2d(xp[:, :, a:a + h + 1, q:q + w + 1], k)
+            else:
+                want = F.conv2d(x, plain.double().permute(0, 3, 1, 2), padding=1)
+            torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
     def test_phase_weights_match_jax(self, nets):
         params, fast, model = nets
         for name, key in (("conv_up1", "Wa0"), ("conv_up2", "Wa")):
