@@ -8,8 +8,9 @@ Phases, one JSON object per line on stdout:
   2. build    the kernels from a clean build directory (one nvcc per
               source, all at once, then one link); ptxas's registers and
               spills of every wgmma main-loop instance (the bf16 and int8
-              RDBs, K1 and the four launches of K2), none of which may
-              spill
+              RDBs, K1, the four launches of K2 and the bf16 SRVGG chain
+              conv) and of the int8 chain conv's own loop, none of which
+              may spill
   3. kernels  each kernel against its plain PyTorch version on the card,
               at the main-path shapes (RRDB body 540x960x64, tail out to
               2160x3840, tail1 in 1080x1920x64; SRVGG chain 540x960x64,
@@ -61,7 +62,10 @@ Phases, one JSON object per line on stdout:
               roofline bound and, for the bf16 RDB, K1, tail1, the bf16
               chain and the band conv, cuDNN's F.conv2d (PyTorch has no
               single int8 3x3 convolution call: the int8 RDBs are printed
-              beside the bf16 RDB instead); K2's time split by launch
+              beside the bf16 RDB instead); K2's time split by launch,
+              and one chain conv's: bf16, and int8 (the quantization of
+              the group input, a conv to codes, the group's last conv to
+              bf16), ms and TFLOP/s
 Then nvidia-smi's line, the kernel summary line, and the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 the result line. Without a CUDA device, or without the package beside
@@ -170,16 +174,15 @@ def block_work(ext, h: int, w: int) -> tuple:
     return valid, frames * (span(nh) * span(nw) - nh * nw * bh * bh)
 
 
-def wgmma_ptxas(lines) -> list:
-    """ptxas's lines about the conv3x3_kernel instances (the wgmma main
-    loop of the bf16 RDB, K1, the int8 RDBs and K2's launches, whose
-    epilogues are LreluEpi and LastEpi): each entry's register, stack and
-    spill lines, and any note that names one."""
+def ptxas_entries(lines, names) -> list:
+    """ptxas's lines about the kernels whose names hold one of ``names``:
+    each entry's register, stack and spill lines, and any note that names
+    one."""
     out, entry = [], False
     for ln in lines:
         if "Compiling entry" in ln:
-            entry = "conv3x3_kernel" in ln
-        if entry or "conv3x3_kernel" in ln:
+            entry = any(n in ln for n in names)
+        if entry or any(n in ln for n in names):
             out.append(ln)
     return out
 
@@ -218,6 +221,45 @@ def tail_split(build, fused_tail, wts, x, iters: int) -> dict:
             "fw_tail_last"),
     }
     return {name: cuda_ms(fn, iters) for name, fn in calls.items()}
+
+
+def chain_split(build, group, group8, x, iters: int) -> dict:
+    """One chain conv's launches through their C entry points, on x
+    (B, H, W, 64) with each group's first conv: the bf16 conv, and the
+    int8 quantization of x, a conv to the next codes and the group's last
+    conv to bf16; ms each by CUDA events, and the convs' TFLOP/s (TOP/s
+    for int8)."""
+    import torch
+
+    b, h, w, _ = x.shape
+    out = torch.empty_like(x)
+    q, q2 = (torch.empty(x.shape, dtype=torch.int8, device=x.device) for _ in range(2))
+    inv1 = float(group8.aq[len(group8.alpha) + 2])
+    lib = build.library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def i8_conv(qout, o):
+        return lambda: build.check(lib.fw_vgg_i8_conv(
+            q.data_ptr(), b, h, w, group8.wk[0].data_ptr(), group8.dq[0].data_ptr(),
+            group8.b[0].data_ptr(), group8.alpha[0].data_ptr(), inv1, qout, o, stream),
+            "fw_vgg_i8_conv")
+
+    calls = {
+        "bf16_conv": lambda: build.check(lib.fw_vgg_conv(
+            x.data_ptr(), b, h, w, group.wk[0].data_ptr(), group.b[0].data_ptr(),
+            group.alpha[0].data_ptr(), out.data_ptr(), stream), "fw_vgg_conv"),
+        "int8_quant": lambda: build.check(lib.fw_vgg_i8_quant(
+            x.data_ptr(), q.data_ptr(), b * h * w, float(group8.aq[len(group8.alpha) + 1]),
+            stream), "fw_vgg_i8_quant"),
+        "int8_conv_codes": i8_conv(q2.data_ptr(), None),
+        "int8_conv_last": i8_conv(None, out.data_ptr()),
+    }
+    gop = 2 * 9 * 64 * 64 * b * h * w / 1e9
+    res = {}
+    for name, fn in calls.items():
+        ms = cuda_ms(fn, iters)
+        res[name] = {"ms": ms} if name == "int8_quant" else {"ms": ms, "tflops": gop / ms}
+    return res
 
 
 def nvidia_smi() -> str:
@@ -378,18 +420,6 @@ def vgg_split_bounds(m, px: int, int8: bool) -> dict:
     }
 
 
-def head_group(group, g: int):
-    """The first g convs of an SRVGG chain group (bf16 or int8 weights)."""
-    from framewright_tpu_torch.ops import fused_srvgg
-
-    if isinstance(group, fused_srvgg.ChainGroup):
-        return fused_srvgg.ChainGroup(group.w[:g], group.b[:g], group.alpha[:g])
-    n = len(group.alpha)
-    return fused_srvgg.ChainGroupInt8(
-        group.wq[:g], group.ws[:g], group.b[:g], group.alpha[:g],
-        np.concatenate([group.aq[:g + 1], group.aq[n + 1:n + 2 + g]]), group.dq[:g])
-
-
 def seeded_feat(dev, shape, seed: int):
     import torch
 
@@ -476,7 +506,7 @@ def main(argv=None) -> int:
     # the wgmma main loop's kernels (bf16 and int8 RDB stages, K1):
     # registers, spills and ptxas's notes, and the dynamic shared memory
     # the bf16 ones launch with
-    wg_lines = wgmma_ptxas(info.ptxas)
+    wg_lines = ptxas_entries(info.ptxas, ("conv3x3_kernel",))
     spilling = [ln for ln in wg_lines if "spill" in ln and " 0 bytes spill stores" not in ln]
     emit({"phase": "build", "conv3x3_wgmma": wg_lines, "spilling": spilling,
           "dynamic_smem_bytes": {f"N={n}": _build.library().fw_wgmma_smem_bytes(n)
@@ -485,6 +515,16 @@ def main(argv=None) -> int:
         require(any("Compiling entry" in ln and epi in ln for ln in wg_lines),
                 f"no wgmma main-loop instance with {epi} in ptxas's output")
     require(not spilling, f"wgmma main-loop instances spill: {spilling}")
+    # the SRVGG chain convs on their own: the bf16 one (PreluEpi, a
+    # conv3x3_kernel instance) and the int8 one's own loop
+    # (vgg_i8_conv_kernel, to codes and to bf16), none of which may spill
+    vgg_lines = ptxas_entries(info.ptxas, ("PreluEpi", "vgg_i8_conv_kernel"))
+    for name in ("PreluEpi", "vgg_i8_conv_kernelILb0", "vgg_i8_conv_kernelILb1"):
+        require(any("Compiling entry" in ln and name in ln for ln in vgg_lines),
+                f"no SRVGG chain instance {name} in ptxas's output")
+    vgg_spills = [ln for ln in vgg_lines if "spill" in ln and " 0 bytes spill stores" not in ln]
+    emit({"phase": "build", "srvgg_chain_ptxas": vgg_lines, "spilling": vgg_spills})
+    require(not vgg_spills, f"SRVGG chain kernels spill: {vgg_spills}")
 
     # 3. kernels vs plain at main-path shapes ---------------------------
     t0 = time.perf_counter()
@@ -669,13 +709,13 @@ def main(argv=None) -> int:
     for label, x_c, g in (("main", vfeat, VGG_GROUP),
                           ("ragged", seeded_feat(dev, (2, 37, 53), 3), 2)):
         o_k, o_p = torch.empty_like(x_c), torch.empty_like(x_c)
-        wg = head_group(vfw.groups[0], g)
+        wg = vfw.groups[0].head(g)
         fused_srvgg.fused_conv_chain(x_c, o_k, wg)
         fused_srvgg.fused_conv_chain_plain(x_c, o_p, wg)
         torch.cuda.synchronize()
         errs["vgg_chain"] = max(errs["vgg_chain"], check_bf16(
             f"vgg_chain {label} {tuple(x_c.shape)} g={g}", o_k, o_p)["max_abs"])
-        wg8 = head_group(vfw8.groups[0], g)
+        wg8 = vfw8.groups[0].head(g)
         q_k, q_p = [], []
         fused_srvgg.fused_conv_chain_int8(x_c, o_k, wg8, q_k)
         fused_srvgg.fused_conv_chain_int8_plain(x_c, o_p, wg8, q_p)
@@ -1412,6 +1452,8 @@ def main(argv=None) -> int:
                      max_abs_err=errs["vgg_chain_int8"], ms=chain8_ms, plain_ms=chain8_plain,
                      bound_ms=bms, bound_by=by, library_ms=None))
     del vout, lib_x
+    emit({"phase": "times", "shape_chain_split": list(vfeat.shape),
+          "chain_split": chain_split(_build, vg, vg8, vfeat, it)})
     # the resident body: the halo refresh of the 60 blocks' 192-channel
     # workspace (bytes: every ring pixel's 64 channels written once, and
     # read once from its owner where it lies in the grid of interiors),

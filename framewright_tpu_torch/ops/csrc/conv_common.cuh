@@ -1,11 +1,13 @@
-// Shared 3x3 implicit-GEMM convolution main loop of the port's Hopper
-// kernels band_conv.cu and srvgg.cu; its tiling also serves the int8
-// SRVGG chain (conv_s8.cuh). The RDBs (bf16 and int8), K1 and the
-// upsampling tail run on conv_wgmma.cuh instead.
+// The port's shared device helpers (bf16 conversions and stores, int8
+// codes, the valid rectangles of halo blocks, the shared-memory limit),
+// which every kernel includes, directly or through conv_wgmma.cuh; and
+// conv_tile, a 3x3 implicit-GEMM convolution on mma.sync that only the
+// band conv (band_conv.cu) still runs. The RDBs (bf16 and int8), K1, the
+// upsampling tail and the SRVGG chains run on conv_wgmma.cuh instead.
 //
-// Layout: activations NHWC bf16 with an explicit channel stride, weights
-// [cout][taps][cin] bf16 (tap-major, input channels contiguous), biases
-// f32. One CTA of 8 warps computes a 16x16 tile of output pixels for all
+// conv_tile's layout: activations NHWC bf16 with an explicit channel
+// stride, weights [cout][taps][cin] bf16 (tap-major, input channels
+// contiguous), biases f32. One CTA of 8 warps computes a 16x16 tile of output pixels for all
 // of its output channels; warp w owns tile rows 2w and 2w+1, one m16
 // fragment per row (16 pixels). The input halo tile (18x18 pixels) and
 // the weights are staged through shared memory 32 input channels at a
@@ -68,6 +70,17 @@ __device__ __forceinline__ void st_bf16x2(bf16* p, float v0, float v1) {
   v.x = __float2bfloat16(v0);
   v.y = __float2bfloat16(v1);
   *reinterpret_cast<__nv_bfloat162*>(p) = v;
+}
+
+// The int8 code of v (the int8 RDBs, the int8 SRVGG chain):
+// clip(rint(v), -127, 127) with rint half to even, as jnp.round: clipped
+// first (the bounds are integers, so the order does not matter), then
+// rounded by adding 1.5 * 2^23, whose float has an ulp of 1, so that the
+// integer lands in the low mantissa bits. No conversion instruction: the
+// epilogues' conversions (a quarter of the FMA rate) otherwise bound them.
+__device__ __forceinline__ int8_t code(float v) {
+  const float m = __fadd_rn(fminf(fmaxf(v, -127.f), 127.f), 12582912.f);
+  return (int8_t)(__float_as_int(m) - 0x4B400000);
 }
 
 // The valid rectangle [r0, r1) x [c0, c1) of image (or block) b. The RDB

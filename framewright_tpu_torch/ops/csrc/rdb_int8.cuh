@@ -63,16 +63,6 @@ constexpr int I32 = 0, F32ACC = 1, DYN = 2;
 
 __device__ __forceinline__ float lrelu_rn(float v) { return v >= 0.f ? v : __fmul_rn(0.2f, v); }
 
-// clip(rint(v), -127, 127) with rint half to even, as jnp.round: clipped
-// first (the bounds are integers, so the order does not matter), then
-// rounded by adding 1.5 * 2^23, whose float has an ulp of 1, so that the
-// integer lands in the low mantissa bits. No conversion instruction: the
-// epilogues' conversions (a quarter of the FMA rate) otherwise bound them.
-__device__ __forceinline__ int8_t code(float v) {
-  const float m = __fadd_rn(fminf(fmaxf(v, -127.f), 127.f), 12582912.f);
-  return (int8_t)(__float_as_int(m) - 0x4B400000);
-}
-
 // Dynamic scheme: the activation scale of source s from the ranges
 // amax_f (5) of one frame.
 __device__ __forceinline__ float dyn_sa(const float* amax_f, int s) {

@@ -236,6 +236,22 @@ def wgmma_weights_s8(w: torch.Tensor) -> torch.Tensor:
     return w.reshape(cout, kh * kw, cin // 32, 2, 16).permute(2, 1, 3, 0, 4).contiguous()
 
 
+def wgmma_weights_s8_runs(w: torch.Tensor, run: int) -> torch.Tensor:
+    """OHWI int8 conv weights (cout, 3, 3, cin) -> the pass-major copy
+    (passes, cin / 32, run, 2, cout, 16) of a conv whose passes are runs of
+    ``run`` taps in row-major order (csrc/conv_wgmma.cuh, TapsRuns; the
+    int8 SRVGG chain's flush groups): element (p, c, s, k, n, e) is
+    ``w[n, t // 3, t % 3, 32 c + 16 k + e]`` for tap t = run p + s < 9,
+    else 0 (the last run's unused slots). Pass p, chunk c is one
+    contiguous copy, laid out as ``wgmma_weights_s8``'s chunks."""
+    cout, kh, kw, cin = w.shape
+    npass = -(-kh * kw // run)
+    slots = w.new_zeros(cout, npass * run, cin)
+    slots[:, :kh * kw] = w.reshape(cout, kh * kw, cin)
+    return (slots.reshape(cout, npass, run, cin // 32, 2, 16)
+            .permute(1, 3, 2, 4, 0, 5).contiguous())
+
+
 @dataclass
 class RDBWeights:
     """One RDB's five convs: w[k] (cout, 3, 3, cin) bf16 (OHWI, input

@@ -10,16 +10,21 @@ the design does about it.
 
 A group is up to ``GROUP`` consecutive 3x3 64->64 convs, each followed
 by its bias and PReLU, on whole NHWC frames (B, H, W, 64) bf16 in and
-out. The convs run one launch each, from one buffer to the other; a
-CTA reads its tile's halo straight from device memory (zero outside the
-frame = SAME padding), so the TPU path's 112x112 windows, halo 8,
-packed words and cyclic rolls (``_extract``, ``_assemble``,
+out. The convs run one launch each, from one buffer to the other, on
+wgmma (csrc/srvgg.cu: bf16 on conv_wgmma.cuh's main loop, int8 on a loop
+of its own, one pass per flush group of taps); their TMA halo boxes read
+zeros outside the frame (SAME padding), so the TPU path's 112x112 windows,
+halo 8, packed words and cyclic rolls (``_extract``, ``_assemble``,
 ``_block_extents``, ``_tap_roll``) have no counterpart here.
 
 Weights keep the JAX layout, ``_wide_conv``'s (cout, 9 taps x 64 cin)
-rows with taps first: the kernels' [cout][tap][cin] (OHWI), so the
-port's groups equal ``make_fast_params`` and ``make_fast_params_int8``
-bit for bit with no rearrangement.
+rows with taps first ([cout][tap][cin], OHWI), so the port's groups
+equal ``make_fast_params`` and ``make_fast_params_int8`` bit for bit;
+the plain versions read them. The kernels read copies made once with
+the group: ``ChainGroup.wk``, ``fused_rrdb.wgmma_weights`` of each
+conv, and ``ChainGroupInt8.wk``, ``fused_rrdb.wgmma_weights_s8_runs``
+of each conv with runs of ``TPC_I8`` taps, one pass of the kernel per
+flush group.
 
 int8 keeps every rounding point of ``_make_chain_kernel_int8``: the
 group input quantized at ``inv[0]``; each conv's int32 products flushed
@@ -41,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from framewright_tpu_torch.ops import _build
+from framewright_tpu_torch.ops.fused_rrdb import wgmma_weights, wgmma_weights_s8_runs
 
 NF = 64
 GROUP = 8          # convs per group: the JAX package's default FW_VGG_G
@@ -51,10 +57,17 @@ _TAP_CHUNKS = tuple((t, min(t + TPC_I8, 9)) for t in range(0, 9, TPC_I8))
 @dataclass
 class ChainGroup:
     """g convs for the bf16 chain (``make_fast_params``' group):
-    w (g, 64, 576) bf16, b and alpha (g, 64, 1) f32."""
+    w (g, 64, 576) bf16, b and alpha (g, 64, 1) f32; and wk (g, 4, 9, 2,
+    64, 8) bf16, the kernel's copy: wk[i] = ``wgmma_weights`` of
+    w[i].view(64, 3, 3, 64)."""
     w: torch.Tensor
     b: torch.Tensor
     alpha: torch.Tensor
+    wk: torch.Tensor
+
+    def head(self, g: int) -> "ChainGroup":
+        """The group of this one's first g convs."""
+        return ChainGroup(self.w[:g], self.b[:g], self.alpha[:g], self.wk[:g])
 
 
 @dataclass
@@ -62,14 +75,26 @@ class ChainGroupInt8:
     """g convs for the int8 chain (``make_fast_params_int8``' group):
     wq (g, 64, 576) int8, ws (g, 64, 1) f32 per-row weight scales, b and
     alpha (g, 64, 1) f32, aq (2g + 2,) float32 numpy [sa_0..sa_g,
-    inv_0..inv_g]; and dq (g, 64) f32 = ws * sa_i, the dequantization
-    scale of conv i, formed in float32 as the TPU kernel forms it."""
+    inv_0..inv_g]; dq (g, 64) f32 = ws * sa_i, the dequantization
+    scale of conv i, formed in float32 as the TPU kernel forms it; and
+    wk (g, 3, 2, 4, 2, 64, 16) int8, the kernel's pass-major copy:
+    wk[i] = ``wgmma_weights_s8_runs`` of wq[i].view(64, 3, 3, 64) with
+    runs of TPC_I8 taps."""
     wq: torch.Tensor
     ws: torch.Tensor
     b: torch.Tensor
     alpha: torch.Tensor
     aq: np.ndarray
     dq: torch.Tensor
+    wk: torch.Tensor
+
+    def head(self, g: int) -> "ChainGroupInt8":
+        """The group of this one's first g convs: their scales
+        sa_0..sa_g and inv_0..inv_g."""
+        n = len(self.alpha)
+        aq = np.concatenate([self.aq[:g + 1], self.aq[n + 1:n + g + 2]])
+        return ChainGroupInt8(self.wq[:g], self.ws[:g], self.b[:g], self.alpha[:g], aq,
+                              self.dq[:g], self.wk[:g])
 
 
 def _wide_conv(conv: torch.nn.Conv2d):
@@ -96,10 +121,11 @@ def chain_weights(convs: Sequence[torch.nn.Conv2d],
     groups = []
     for s, e in _chunks(len(convs)):
         wide = [_wide_conv(c) for c in convs[s:e]]
+        w = torch.from_numpy(np.stack([w for w, _ in wide])).to(dev).to(torch.bfloat16)
         groups.append(ChainGroup(
-            w=torch.from_numpy(np.stack([w for w, _ in wide])).to(dev).to(torch.bfloat16),
-            b=torch.from_numpy(np.stack([b for _, b in wide])).to(dev),
-            alpha=torch.from_numpy(np.stack([_alpha(a) for a in acts[s:e]])).to(dev)))
+            w=w, b=torch.from_numpy(np.stack([b for _, b in wide])).to(dev),
+            alpha=torch.from_numpy(np.stack([_alpha(a) for a in acts[s:e]])).to(dev),
+            wk=torch.stack([wgmma_weights(wi.view(NF, 3, 3, NF)) for wi in w])))
     return groups
 
 
@@ -126,14 +152,17 @@ def chain_weights_int8(convs: Sequence[torch.nn.Conv2d],
         sa = amax[s:e + 1] / 127.0
         inv = 1.0 / sa
         ws = np.stack(wss)
+        wq = torch.from_numpy(np.stack(wqs)).to(dev)
         groups.append(ChainGroupInt8(
-            wq=torch.from_numpy(np.stack(wqs)).to(dev),
+            wq=wq,
             ws=torch.from_numpy(ws).to(dev),
             b=torch.from_numpy(np.stack(bs)).to(dev),
             alpha=torch.from_numpy(np.stack([_alpha(a) for a in acts[s:e]])).to(dev),
             aq=np.concatenate([sa, inv]).astype(np.float32),
             dq=torch.from_numpy(np.ascontiguousarray(
-                ws[:, :, 0] * sa[:-1, None])).to(dev)))
+                ws[:, :, 0] * sa[:-1, None])).to(dev),
+            wk=torch.stack([wgmma_weights_s8_runs(wi.view(NF, 3, 3, NF), TPC_I8)
+                            for wi in wq])))
     return groups
 
 
@@ -152,8 +181,8 @@ def _check(x: torch.Tensor, out: torch.Tensor, wts, name: str) -> None:
     g = len(wts.alpha)
     if not 1 <= g <= GROUP:
         raise ValueError(f"{name}: a group holds 1..{GROUP} convs, got {g}")
-    tensors = ((wts.w, wts.b) if isinstance(wts, ChainGroup)
-               else (wts.wq, wts.ws, wts.b, wts.dq))
+    tensors = ((wts.w, wts.b, wts.wk) if isinstance(wts, ChainGroup)
+               else (wts.wq, wts.ws, wts.b, wts.dq, wts.wk))
     if any(t.device != x.device or not t.is_contiguous() for t in (*tensors, wts.alpha)):
         raise ValueError(f"{name}: weights must be contiguous on x's device")
 
@@ -190,7 +219,8 @@ def fused_conv_chain(x: torch.Tensor, out: torch.Tensor, group: ChainGroup) -> t
     """g conv + bias + PReLU steps of the bf16 chain, ``x`` (B, H, W, 64)
     bf16 -> ``out`` (same shape, not ``x``), which it returns. On a CPU
     tensor this runs the plain version; on a CUDA tensor it launches the
-    kernel (g launches, one per conv) and counts one call."""
+    kernel (g launches, one per conv, on ``group.wk``) and counts one
+    call."""
     _check(x, out, group, "fused_conv_chain")
     if x.device.type == "cpu":
         fused_conv_chain_plain(x, out, group)
@@ -202,7 +232,7 @@ def fused_conv_chain(x: torch.Tensor, out: torch.Tensor, group: ChainGroup) -> t
     b, h, w, _ = x.shape
     for i, (src, dst) in enumerate(_launch_buffers(x, out, len(group.alpha))):
         _build.check(lib.fw_vgg_conv(
-            src.data_ptr(), b, h, w, group.w[i].data_ptr(), group.b[i].data_ptr(),
+            src.data_ptr(), b, h, w, group.wk[i].data_ptr(), group.b[i].data_ptr(),
             group.alpha[i].data_ptr(), dst.data_ptr(), stream), "fw_vgg_conv")
     fused_conv_chain.launches += 1
     return out
@@ -258,8 +288,8 @@ def fused_conv_chain_int8(x: torch.Tensor, out: torch.Tensor, group: ChainGroupI
     """g conv steps of the int8 chain (static scales), ``x`` (B, H, W, 64)
     bf16 -> ``out`` bf16 (not ``x``), which it returns. On a CPU tensor
     this runs the plain version; on a CUDA tensor it launches the kernels
-    (g + 1 launches: the codes of x, then one per conv) and counts one
-    call. ``codes``, a list, receives the g code tensors (the input's and
+    (g + 1 launches: the codes of x, then one per conv, on ``group.wk``)
+    and counts one call. ``codes``, a list, receives the g code tensors (the input's and
     those of convs 0..g-2), each in a buffer of its own; without it two
     buffers alternate."""
     _check(x, out, group, "fused_conv_chain_int8")
@@ -281,7 +311,7 @@ def fused_conv_chain_int8(x: torch.Tensor, out: torch.Tensor, group: ChainGroupI
     for i in range(g):
         last = i == g - 1
         _build.check(lib.fw_vgg_i8_conv(
-            q[i].data_ptr(), b, h, w, group.wq[i].data_ptr(),
+            q[i].data_ptr(), b, h, w, group.wk[i].data_ptr(),
             group.dq[i].data_ptr(), group.b[i].data_ptr(), group.alpha[i].data_ptr(),
             0.0 if last else inv[i + 1], None if last else q[i + 1].data_ptr(),
             out.data_ptr() if last else None, stream), "fw_vgg_i8_conv")

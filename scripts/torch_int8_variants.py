@@ -26,9 +26,7 @@ non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import shutil
 import subprocess
 import sys
 import tempfile
@@ -44,6 +42,9 @@ from framewright_tpu_torch.models import rrdb  # noqa: E402
 from framewright_tpu_torch.models.registry import from_jax_params, init_params  # noqa: E402
 from framewright_tpu_torch.ops import _build, fused_rrdb  # noqa: E402
 
+sys.path.insert(0, str(ROOT / "scripts"))
+from torch_rdb_stages import patched_library  # noqa: E402
+
 _STAGE = "        if (has) epi.stage(acc, part, b, y0, x0, live, buf);"
 _PART = "    typename EpiTraits<Epi>::Part part{};"
 _FINAL = "  static constexpr int RUNS = NC / 8, SLICES = NC / 16;\n  static constexpr bool DEFER = false;"
@@ -56,29 +57,6 @@ VARIANTS = {
     "defer5": [("rdb_int8.cuh", _FINAL, _FINAL.replace("DEFER = false", "DEFER = true"))],
 }
 KEEP = {"rdb_int8.cu", "rdb_dyn.cu"}
-
-
-def build(name: str, tmp: Path):
-    """The int8 RDB sources with variant ``name``'s replacements: the
-    library and ptxas's lines about spills."""
-    csrc = tmp / name / "csrc"
-    shutil.copytree(ROOT / "framewright_tpu_torch" / "ops" / "csrc", csrc)
-    for f in csrc.glob("*.cu"):
-        if f.name not in KEEP:
-            f.unlink()
-    for fname, old, new in VARIANTS[name]:
-        f = csrc / fname
-        s = f.read_text()
-        if s.count(old) != 1:
-            raise SystemExit(f"torch_int8_variants: {fname} changed, no unique {old!r}")
-        f.write_text(s.replace(old, new))
-    _build.CSRC, _build.BUILD_ROOT = csrc, tmp / name / "build"
-    info = _build.build(verbose=False)
-    lib = ctypes.CDLL(str(info.path))
-    for k, v in _build._SIGNATURES.items():
-        if k.startswith(("fw_rdb_i8", "fw_rdb_dyn")):
-            getattr(lib, k).argtypes = v
-    return lib, [ln for ln in info.ptxas if "spill" in ln and " 0 bytes spill stores" not in ln]
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -167,7 +145,8 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         for name in args.variants:
-            lib, spills = build(name, Path(tmp))
+            lib, spills = patched_library(Path(tmp) / name, KEEP, VARIANTS[name],
+                                          ("fw_rdb_i8", "fw_rdb_dyn"))
             print(name, "spills:", spills)
             for s, calls in launches(lib).items():
                 q.zero_()

@@ -23,7 +23,9 @@ of milliseconds. Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -37,6 +39,32 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from framewright_tpu_torch.models import rrdb  # noqa: E402
 from framewright_tpu_torch.models.registry import from_jax_params, init_params  # noqa: E402
 from framewright_tpu_torch.ops import _build, fused_rrdb, fused_tail3  # noqa: E402
+
+
+def patched_library(tmp: Path, keep, patches, prefixes) -> tuple:
+    """The sources ``keep`` (file names of framewright_tpu_torch/ops/csrc)
+    built from a copy of csrc in ``tmp`` with ``patches`` applied, (file,
+    old, new) text replacements, each ``old`` found once (the package's
+    sources stay as they are): the loaded library, with the launchers whose
+    names start with ``prefixes`` typed, and ptxas's lines about spills."""
+    csrc = tmp / "csrc"
+    shutil.copytree(Path(_build.__file__).resolve().parent / "csrc", csrc)
+    for f in csrc.glob("*.cu"):
+        if f.name not in keep:
+            f.unlink()
+    for fname, old, new in patches:
+        f = csrc / fname
+        s = f.read_text()
+        if s.count(old) != 1:
+            raise SystemExit(f"{fname} changed, no unique {old!r}")
+        f.write_text(s.replace(old, new))
+    _build.CSRC, _build.BUILD_ROOT = csrc, tmp / "build"
+    info = _build.build(verbose=False)
+    lib = ctypes.CDLL(str(info.path))
+    for k, v in _build._SIGNATURES.items():
+        if k.startswith(tuple(prefixes)):
+            getattr(lib, k).argtypes = v
+    return lib, [ln for ln in info.ptxas if "spill" in ln and " 0 bytes spill stores" not in ln]
 
 
 def cuda_ms(fn, iters: int) -> float:

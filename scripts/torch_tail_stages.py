@@ -38,7 +38,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import shutil
 import subprocess
 import sys
 import tempfile
@@ -50,14 +49,13 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from torch_rdb_stages import cuda_ms, host_and_device_ms  # noqa: E402
+from torch_rdb_stages import cuda_ms, host_and_device_ms, patched_library  # noqa: E402
 
 from framewright_tpu_torch.models import rrdb  # noqa: E402
 from framewright_tpu_torch.models.registry import from_jax_params, init_params  # noqa: E402
 from framewright_tpu_torch.ops import _build, fused_tail  # noqa: E402
 
 
-ROOT = Path(__file__).resolve().parents[1]
 _PART = "    typename EpiTraits<Epi>::Part part{};"
 _STAGE = "        if (has) epi.stage(acc, part, b, y0, x0, live, buf);"
 _NSTAGE = "constexpr int nstage(int n) { return n <= 32 ? 5 : 4; }"
@@ -70,29 +68,6 @@ VARIANTS = {
     "group3": [("NPASS = 1, NU = 3, NV = 3, VG = 1", "NPASS = 1, NU = 3, NV = 3, VG = 3")],
     "noproducts": [("for (int j = 0; j < 4; ++j) wgmma_rs(acc[j], a[e][j + u], desc);", "")],
 }
-
-
-def variant_library(name: str, tmp: Path) -> ctypes.CDLL:
-    """tail.cu built from a copy of csrc with variant ``name``'s
-    replacements in conv_wgmma.cuh."""
-    csrc = tmp / name / "csrc"
-    shutil.copytree(ROOT / "framewright_tpu_torch" / "ops" / "csrc", csrc)
-    for f in csrc.glob("*.cu"):
-        if f.name != "tail.cu":
-            f.unlink()
-    head = csrc / "conv_wgmma.cuh"
-    s = head.read_text()
-    for old, new in VARIANTS[name]:
-        if s.count(old) != 1:
-            raise SystemExit(f"torch_tail_stages: conv_wgmma.cuh changed, no unique {old!r}")
-        s = s.replace(old, new)
-    head.write_text(s)
-    _build.CSRC, _build.BUILD_ROOT = csrc, tmp / name / "build"
-    lib = ctypes.CDLL(str(_build.build(verbose=False).path))
-    for k, v in _build._SIGNATURES.items():
-        if k.startswith("fw_tail"):
-            getattr(lib, k).argtypes = v
-    return lib
 
 
 def _kernel_w(wts, name: str) -> torch.Tensor:
@@ -184,7 +159,8 @@ def main() -> int:
                       "ms": ms, "per_launch": rates, "profile": prof}))
     with tempfile.TemporaryDirectory() as tmp:
         for name in args.variants:
-            libs.append(variant_library(name, Path(tmp)))
+            patches = [("conv_wgmma.cuh", old, new) for old, new in VARIANTS[name]]
+            libs.append(patched_library(Path(tmp) / name, {"tail.cu"}, patches, ("fw_tail",))[0])
             equal = all(torch.equal(g, w) for g, w in zip(outputs(), want))
             vms = {n: cuda_ms(fn, args.iters) for n, (fn, _, _) in launches.items()}
             print(json.dumps({"variant": name, "equal": equal, "ms": vms}))

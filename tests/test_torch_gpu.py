@@ -513,11 +513,18 @@ def vgg(cuda):
     return m, m.fast_weights(), m.fast_weights_int8(srvgg.calibrate_act_scales(m, sample))
 
 
-@pytest.mark.parametrize("shape,group", [((1, 540, 960), 0), ((2, 37, 53), 1)])
-def test_chain_kernel_matches_plain(vgg, cuda, shape, group):
+# (shape, group, g): the main shape with a whole group of 8, the ragged
+# batch-2 shape with the trailing group of 2, and one conv (for int8 the
+# group's last conv alone) at a width that is not a multiple of 16
+CHAIN_CASES = [((1, 540, 960), 0, 8), ((2, 37, 53), 1, 2), ((1, 19, 70), 0, 1)]
+
+
+@pytest.mark.parametrize("shape,group,g", CHAIN_CASES)
+def test_chain_kernel_matches_plain(vgg, cuda, shape, group, g):
     from framewright_tpu_torch.ops import fused_srvgg
 
-    wts = vgg[1].groups[group]
+    wts = vgg[1].groups[group].head(g)
+    assert len(wts.alpha) == g
     x = _feat(cuda, *shape)
     out, out_p = torch.empty_like(x), torch.empty_like(x)
     n = fused_srvgg.fused_conv_chain.launches
@@ -528,13 +535,14 @@ def test_chain_kernel_matches_plain(vgg, cuda, shape, group):
     _close_bf16(out, out_p)
 
 
-@pytest.mark.parametrize("shape,group", [((1, 540, 960), 0), ((2, 37, 53), 1)])
-def test_int8_chain_kernel_matches_plain(vgg, cuda, shape, group):
+@pytest.mark.parametrize("shape,group,g", CHAIN_CASES)
+def test_int8_chain_kernel_matches_plain(vgg, cuda, shape, group, g):
     """The same integer sums and f32 operations in the same order: every
     code and every bf16 output agree exactly."""
     from framewright_tpu_torch.ops import fused_srvgg
 
-    wts = vgg[2].groups[group]
+    wts = vgg[2].groups[group].head(g)
+    assert len(wts.alpha) == g
     x = _feat(cuda, *shape)
     out, out_p = torch.empty_like(x), torch.empty_like(x)
     codes, codes_p = [], []
