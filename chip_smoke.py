@@ -8,9 +8,10 @@ Phases, one JSON object per line on stdout:
   2. build    the kernels from a clean build directory (one nvcc per
               source, all at once, then one link); ptxas's registers and
               spills of every wgmma main-loop instance (the bf16 and int8
-              RDBs, K1, the four launches of K2 and the bf16 SRVGG chain
-              conv) and of the int8 chain conv's own loop, none of which
-              may spill
+              RDBs, K1, the four launches of K2, the band conv's four
+              instances and the bf16 SRVGG chain conv) and of the int8
+              chain conv's own loop, none of which may spill or pass 168
+              registers
   3. kernels  each kernel against its plain PyTorch version on the card,
               at the main-path shapes (RRDB body 540x960x64, tail out to
               2160x3840, tail1 in 1080x1920x64; SRVGG chain 540x960x64,
@@ -23,8 +24,11 @@ Phases, one JSON object per line on stdout:
               the resident body's halo refresh on poisoned rings (against
               its plain version and a re-extraction, exactly) and the
               three RDB kernels on the 60 halo blocks of the body with
-              their extents; the band conv at 2160x3840, 64->64 with
-              lrelu and 64->8
+              their extents; the band conv at its FastTail shapes
+              (64->64 without act at 540x960, with lrelu and 64->8 at
+              2160x3840), each value at most one bf16 step from the plain
+              version, and its lrelu instance bit-equal to K2's conv_hr
+              launch
   4. model    one frame through each model's kernel path against the
               plain f32 ``apply``: RealESRGAN_x2plus (23 blocks, seeded
               random weights) and FW_fast6_x2 (trained) at 1080p,
@@ -116,6 +120,11 @@ VGG_GROUP = 8                  # convs per chain call (fused_srvgg.GROUP)
 VGG_MAC_PER_PX = VGG_GROUP * 9 * 64 * 64
 BAND_MAC_PER_PX = 9 * 64 * 64  # one 64->64 band conv
 STEP_FLOOR = 2.0 ** -6         # bf16 steps counted at max(|v|, 2^-6) (tests/test_torch_fast_tail.py)
+STEP_FRAC = 1e-3               # share of values one bf16 step apart (same file)
+MAX_REGS = 168                 # a wgmma main-loop thread's registers (384 threads a CTA)
+# the band conv's conv3x3_kernel instances (band_conv.cu): 64 channels with
+# lrelu (fw_tail_hr's own) and without, 8 channels with and without
+BAND_EPIS = ("BiasActEpiILb0ELb1E", "BiasActEpiILb0ELb0E", "Bf16x8EpiILb0E", "Bf16x8EpiILb1E")
 
 
 class SmokeFailure(Exception):
@@ -184,6 +193,20 @@ def ptxas_entries(lines, names) -> list:
             entry = any(n in ln for n in names)
         if entry or any(n in ln for n in names):
             out.append(ln)
+    return out
+
+
+def entry_registers(lines) -> dict:
+    """ptxas's register count of each kernel entry in ``lines`` (as
+    ptxas_entries returns them), by mangled name."""
+    out, name = {}, None
+    for ln in lines:
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name] = int(m.group(1))
     return out
 
 
@@ -333,12 +356,19 @@ def check_u8(name: str, got, want, phase: str = "kernels",
     return s
 
 
-def bf16_steps_over_one(got, want) -> float:
-    """Share of values more than one bf16 step apart, the step of
-    max(|v|, 2^-6)."""
+def check_steps(name: str, got, want, phase: str = "kernels") -> dict:
+    """Kernel vs plain version in bf16 steps of max(|v|, 2^-6): at most
+    one step apart, on fewer than STEP_FRAC of the values (the band
+    conv's rule, tests/test_torch_fast_tail.py)."""
     g, w = got.float(), want.float()
     mag = g.abs().maximum(w.abs()).clamp_min(STEP_FLOOR)
-    return ((g - w).abs() > (mag.log2().floor() - 7).exp2()).float().mean().item()
+    st = (g - w).abs() / (mag.log2().floor() - 7).exp2()
+    s = {"name": f"{name} in bf16 steps", "max_steps": st.max().item(),
+         "share_one_step": (st > 0).float().mean().item(),
+         "tol": {"max_steps": 1, "share_one_step": STEP_FRAC}}
+    emit({"phase": phase, **s})
+    require(s["max_steps"] <= 1 and s["share_one_step"] < STEP_FRAC, f"{name}: {s}")
+    return s
 
 
 def check_equal(name: str, got, want, phase: str, within=None) -> dict:
@@ -508,13 +538,19 @@ def main(argv=None) -> int:
     # the bf16 ones launch with
     wg_lines = ptxas_entries(info.ptxas, ("conv3x3_kernel",))
     spilling = [ln for ln in wg_lines if "spill" in ln and " 0 bytes spill stores" not in ln]
+    over = {k: r for k, r in entry_registers(wg_lines).items() if r > MAX_REGS}
     emit({"phase": "build", "conv3x3_wgmma": wg_lines, "spilling": spilling,
+          "over_max_registers": over,
           "dynamic_smem_bytes": {f"N={n}": _build.library().fw_wgmma_smem_bytes(n)
                                  for n in (32, 64)}})
-    for epi in ("LreluEpiILb0", "LreluEpiILb1", "LastEpi"):
+    for epi in ("BiasActEpiILb1ELb1E", "LastEpi") + BAND_EPIS:
         require(any("Compiling entry" in ln and epi in ln for ln in wg_lines),
                 f"no wgmma main-loop instance with {epi} in ptxas's output")
     require(not spilling, f"wgmma main-loop instances spill: {spilling}")
+    require(not over, f"wgmma main-loop instances above {MAX_REGS} registers: {over}")
+    band_lines = ptxas_entries(wg_lines, BAND_EPIS)
+    emit({"phase": "build", "band_conv_ptxas": band_lines,
+          "band_conv_registers": entry_registers(band_lines)})
     # the SRVGG chain convs on their own: the bf16 one (PreluEpi, a
     # conv3x3_kernel instance) and the int8 one's own loop
     # (vgg_i8_conv_kernel, to codes and to bf16), none of which may spill
@@ -674,22 +710,37 @@ def main(argv=None) -> int:
               check_bf16(f"rdb_{label}_res blocks", o_k, o_p)["max_abs"]]
         errs[f"rdb_{label}_blocks"] = max(e)
         del q_k, q_p, o_k, o_p
-    # the band conv at the FastTail's 4K shape: conv_hr's 64->64 with lrelu
-    # and conv_last's 64->3 padded to 8, on a seeded 1x2160x3840x64 input
+    # the band conv at the FastTail's shapes: conv_body's 64->64 without
+    # act on a seeded 1x540x960x64 input, conv_hr's 64->64 with lrelu and
+    # conv_last's 64->3 padded to 8 on a seeded 1x2160x3840x64 input
     x4k = seeded_feat(dev, (1, 2160, 3840), 13)
-    band_w = {"hr": pallas_conv.conv_wide_weights(model.conv_hr),
+    band_w = {"body": pallas_conv.conv_wide_weights(model.conv_body),
+              "hr": pallas_conv.conv_wide_weights(model.conv_hr),
               "last": pallas_conv.conv_wide_weights(model.conv_last)}
     errs["band_conv"] = 0.0
-    for key, act in (("hr", True), ("last", False)):
-        got = pallas_conv.band_conv3x3(x4k, band_w[key], act)
-        want = pallas_conv.band_conv3x3_plain(x4k, band_w[key], act)
+    for key, act, x_b in (("body", False, seeded_feat(dev, (1, 540, 960), 14)),
+                          ("hr", True, x4k), ("last", False, x4k)):
+        got = pallas_conv.band_conv3x3(x_b, band_w[key], act)
+        want = pallas_conv.band_conv3x3_plain(x_b, band_w[key], act)
         torch.cuda.synchronize()
-        s_ = check_bf16(f"band_conv3x3 {key} 64->{got.shape[-1]} act={act} "
-                        f"{tuple(x4k.shape)}", got, want)
-        emit({"phase": "kernels", "name": f"band_conv3x3 {key} share over one bf16 step",
-              "share": bf16_steps_over_one(got, want)})
+        name = f"band_conv3x3 {key} 64->{got.shape[-1]} act={act} {tuple(x_b.shape)}"
+        s_ = check_bf16(name, got, want)
+        check_steps(name, got, want)
         errs["band_conv"] = max(errs["band_conv"], s_["max_abs"])
         del got, want
+    # its lrelu instance is K2's conv_hr launch: the same bits from the
+    # same input and weights (wk is TailWeights.hr_k)
+    tail_w = fw.tail
+    require(torch.equal(band_w["hr"].wk, tail_w.hr_k) and torch.equal(band_w["hr"].b, tail_w.hr_b),
+            "band conv hr weights differ from K2's conv_hr weights")
+    got = pallas_conv.band_conv3x3(x4k, band_w["hr"])
+    want = torch.empty_like(x4k)
+    _build.check(_build.library().fw_tail_hr(
+        x4k.data_ptr(), 1, 2160, 3840, tail_w.hr_k.data_ptr(), tail_w.hr_b.data_ptr(),
+        want.data_ptr(), torch.cuda.current_stream(dev).cuda_stream), "fw_tail_hr")
+    torch.cuda.synchronize()
+    check_equal(f"band_conv3x3 hr vs fw_tail_hr {tuple(x4k.shape)}", got, want, "kernels")
+    del got, want
     kernel_inputs = (ws, feat, skip_p, a0, fwd, refresh_ws, wsb, x_blk, ext, x4k, band_w)
     # the SRVGG chains: realesr-animevideov3 (seeded random weights) on a
     # 960x540 frame, whose body runs at 540x960 like x2plus's; the chain's
@@ -1509,9 +1560,10 @@ def main(argv=None) -> int:
                      max_abs_err=errs["rdb_dynamic_blocks"], ms=ms_db, plain_ms=plain_db,
                      bound_ms=bms, bound_by=by, library_ms=None))
     del q8, o8
-    # the band conv: conv_hr's 64->64 with lrelu at 2160x3840 (bytes: the
-    # bf16 input read and output written once, the weights once); library:
-    # cuDNN's F.conv2d on the same bf16 input (channels_last) with the bias
+    # the band conv (band_conv.cu on conv_wgmma.cuh's main loop): conv_hr's
+    # 64->64 with lrelu at 2160x3840 (bytes: the bf16 input read and output
+    # written once, the weights once); library: cuDNN's F.conv2d on the
+    # same bf16 input (channels_last) with the bias
     px4 = x4k.shape[0] * x4k.shape[1] * x4k.shape[2]
     band_ms = cuda_ms(lambda: pallas_conv.band_conv3x3(x4k, band_w["hr"]), it)
     band_plain = cuda_ms(lambda: pallas_conv.band_conv3x3_plain(x4k, band_w["hr"]), 2, 1)

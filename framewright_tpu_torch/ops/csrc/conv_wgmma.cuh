@@ -1,8 +1,8 @@
 // Pipelined 3x3 implicit-GEMM convolution on wgmma, the main loop of the
 // bf16 RDB (rdb.cu), K1 (conv_body.cu), the int8 RDBs (rdb_int8.cu,
-// rdb_dyn.cu), the upsampling tail (tail.cu) and the bf16 SRVGG chain
-// (srvgg.cu); the int8 SRVGG chain's loop (srvgg.cu) is built from its
-// pieces. The band conv stays on conv_common.cuh's conv_tile.
+// rdb_dyn.cu), the upsampling tail (tail.cu), the band conv (band_conv.cu)
+// and the bf16 SRVGG chain (srvgg.cu); the int8 SRVGG chain's loop
+// (srvgg.cu) is built from its pieces.
 //
 // Element kinds (Kind<T>): bf16 activations and weights with f32
 // accumulators (m64nNk16), or int8 codes with s32 accumulators

@@ -33,8 +33,8 @@
 //     from TMA halo boxes, B from the chunk-major weights, a ring kept
 //     full by a producer warpgroup, a persistent grid) with PreluEpi,
 //     which stages the bf16 tile in shared memory and writes it as
-//     16-byte runs while the next tile's products run (as tail.cu's
-//     LreluEpi). Weights: fused_rrdb.wgmma_weights of each conv
+//     16-byte runs while the next tile's products run (as epi_bf16.cuh's
+//     BiasActEpi). Weights: fused_rrdb.wgmma_weights of each conv
 //     (ChainGroup.wk).
 //   int8: the flush groups are the semantics. Each conv's int32 partial
 //     is flushed per group of taps, {0-3}, {4-7}, {8} of the row-major

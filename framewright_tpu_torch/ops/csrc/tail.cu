@@ -32,8 +32,9 @@
 // tile group's halo boxes (TapsUp2: the boxes stay in the ring across
 // the passes, only each phase's weights are loaded, one wgmma group of 16
 // products a chunk); conv_last at N = 8 (its 3 outputs padded). Each
-// 64-channel epilogue stages its bf16 tile in shared memory and writes
-// it as 16-byte runs while the next pass's products run. What holds it
+// 64-channel epilogue (BiasActEpi, epi_bf16.cuh, which the band conv
+// shares) stages its bf16 tile in shared memory and writes it as 16-byte
+// runs while the next pass's products run. What holds it
 // now (PERF.md, the per-launch split on an H100): the traffic of a and c
 // and the epilogues. Built without products, the launches still take 75%
 // of their time (conv_hr 0.78 of 1.10 ms, reading a and writing c at
@@ -42,7 +43,7 @@
 // with conv_hr recomputed on a one-pixel halo (18x18 of c for 16x16
 // outputs: 1.27x its MACs, and 324 rows are six 64-row wgmma tiles,
 // 1.5x) to save 2.1 GB of traffic.
-#include "conv_wgmma.cuh"
+#include "epi_bf16.cuh"
 
 namespace fw {
 
@@ -55,60 +56,6 @@ struct YuvCoef {
 };
 
 enum OutMode { OUT_BF16 = 0, OUT_RGB_U8 = 1, OUT_YUV420_U8 = 2 };
-
-// out = bf16(lrelu(conv + bias)), 64 channels, from an input of H x W:
-// conv_hr (UP2 false, out H x W) or a phase conv (UP2, TapsUp2: pass p of
-// image b arrives as image 4 b + p and lands at (2 y + p / 2, 2 x + p % 2)
-// of the 2H x 2W output).
-template <bool UP2>
-struct LreluEpi {
-  int H, W;
-  const float* __restrict__ bias;
-  bf16* __restrict__ out;
-
-  __device__ __forceinline__ bool live(int, int, int) const { return true; }
-
-  static constexpr int ROW = wg::epi_row(64), BUF = wg::epi_bytes(64);
-  // 256 pixels x 8 runs of 8 channels: 16 runs a thread, 4 a slice,
-  // written while the next pass's products run
-  static constexpr int SLICES = 4;
-  static constexpr bool DEFER = true;
-  struct Slice {};
-
-  __device__ __forceinline__ void stage(const float (&acc)[4][32], wg::NoPart&, int, int, int,
-                                        bool, uint8_t* buf) const {
-    const wg::Frag f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float b0 = bias[8 * i + 2 * f.t], b1 = bias[8 * i + 2 * f.t + 1];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          st_bf16x2(reinterpret_cast<bf16*>(buf + f.px(j, h) * ROW) + 8 * i + 2 * f.t,
-                    lrelu(acc[j][4 * i + 2 * h] + b0), lrelu(acc[j][4 * i + 2 * h + 1] + b1));
-      }
-    }
-  }
-
-  __device__ __forceinline__ void load(Slice&, int, int, int, int, const uint8_t*) const {}
-
-  __device__ __forceinline__ void finish(const Slice&, int k, int b, int y0, int x0,
-                                         const uint8_t* buf) const {
-    const wg::Frag f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = (4 * k + e) * 128 + f.wt, p = r >> 3, c8 = r & 7;
-      const int y = y0 + p / wg::TS, x = x0 + p % wg::TS;
-      if (y >= H || x >= W) continue;
-      const size_t o = UP2 ? ((size_t)(b >> 2) * 2 * H + 2 * y + ((b >> 1) & 1)) * 2 * W + 2 * x +
-                                 (b & 1)
-                           : ((size_t)b * H + y) * W + x;
-      *reinterpret_cast<uint4*>(out + o * 64 + 8 * c8) =
-          *reinterpret_cast<const uint4*>(buf + p * ROW + 16 * c8);
-    }
-  }
-};
 
 // conv_last 3x3 64 -> 3 (padded to 8 output channels) + bias in f32, then
 // the output epilogue. The f32 tile is staged in shared memory so that a
@@ -213,16 +160,16 @@ int fw_tail_up2(const void* in, int B, int H, int W, const void* w, const void* 
                 void* stream) {
   return (int)wg::launch_conv3x3<64, false, wg::TapsUp2>(
       (const bf16*)in, 64, 64, B, H, W, (const bf16*)w,
-      LreluEpi<true>{H, W, (const float*)bias, (bf16*)out}, (cudaStream_t)stream);
+      BiasActEpi<true, true>{H, W, (const float*)bias, (bf16*)out}, (cudaStream_t)stream);
 }
 
 // in (B, H, W, 64) -> out (B, H, W, 64): 3x3 conv + bias + lrelu; w in
 // launch_conv3x3's chunked layout (fused_rrdb.wgmma_weights).
 int fw_tail_hr(const void* in, int B, int H, int W, const void* w, const void* bias, void* out,
                void* stream) {
-  return (int)wg::launch_conv3x3<64>((const bf16*)in, 64, 64, B, H, W, (const bf16*)w,
-                                     LreluEpi<false>{H, W, (const float*)bias, (bf16*)out},
-                                     (cudaStream_t)stream);
+  return (int)wg::launch_conv3x3<64>(
+      (const bf16*)in, 64, 64, B, H, W, (const bf16*)w,
+      BiasActEpi<false, true>{H, W, (const float*)bias, (bf16*)out}, (cudaStream_t)stream);
 }
 
 // conv_last + epilogue, w (8 output channels, 3 real) in launch_conv3x3's

@@ -102,8 +102,8 @@ def host_and_device_ms(fns: dict, reps: int) -> dict:
         dev = {}
         for e in prof.key_averages():
             t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-            if t > 0:
-                dev[e.key[:90]] = t / reps / 1e3
+            if t > 0:   # names cut to 90 characters: instances that share them add up
+                dev[e.key[:90]] = dev.get(e.key[:90], 0.0) + t / reps / 1e3
         out[label] = {"host_ms": host, "device_ms": dev, "device_sum_ms": sum(dev.values())}
     return out
 

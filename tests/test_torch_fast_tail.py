@@ -101,6 +101,37 @@ class TestBandConv:
         st = _steps(got.float().numpy(), want)
         assert st.max() <= 1 and (st > 0).mean() < STEP_FRAC, (st.max(), (st > 0).mean())
 
+    @pytest.mark.parametrize("cout", [64, 3])
+    def test_kernel_weights_are_the_chunk_major_copy(self, cout):
+        """wk, the copy the kernel reads: fused_rrdb.wgmma_weights(w), and
+        element (c, tap, k, n, e) is w[n, tap // 3, tap % 3, 16 c + 8 k + e]."""
+        _, conv = _conv(64, cout, seed=cout + 1)
+        wts = pallas_conv.conv_wide_weights(conv)
+        cpad = wts.w.shape[0]
+        assert wts.wk.shape == (4, 9, 2, cpad, 8) and wts.wk.dtype == torch.bfloat16
+        assert torch.equal(wts.wk, fused_rrdb.wgmma_weights(wts.w))
+        c, tap, k, n, e = np.indices(wts.wk.shape)
+        w = wts.w.float().numpy()
+        np.testing.assert_array_equal(wts.wk.float().numpy(),
+                                      w[n, tap // 3, tap % 3, 16 * c + 8 * k + e])
+
+    @pytest.mark.parametrize("cin,cout", [(24, 64), (40, 8), (64, 16), (64, 128)])
+    def test_wrapper_refuses_what_the_kernel_does_not_take(self, cin, cout):
+        """Cin not a multiple of 16, or Cout' other than 64 or 8: ValueError
+        before any launch, on the CPU as on the card; conv_wide_weights
+        refuses such a Cin too."""
+        if cin % 16:
+            with pytest.raises(ValueError, match="multiple of 16"):
+                pallas_conv.conv_wide_weights(torch.nn.Conv2d(cin, cout, 3, padding=1))
+        w = torch.zeros(cout, 3, 3, cin, dtype=torch.bfloat16)
+        wts = pallas_conv.BandConvWeights(w, torch.zeros(cout), cout, w)
+        x = torch.zeros(1, 5, 7, cin, dtype=torch.bfloat16)
+        before = pallas_conv.band_conv3x3.launches
+        with pytest.raises(ValueError, match="the kernel takes"):
+            pallas_conv.band_conv3x3(x, wts)
+        assert pallas_conv.band_conv3x3.launches == before
+        assert pallas_conv.band_conv3x3_plain(x, wts).shape == (1, 5, 7, cout)
+
     def test_wrapper_runs_the_plain_version_on_the_cpu(self):
         _, conv = _conv(64, 64, seed=1)
         wts = pallas_conv.conv_wide_weights(conv)

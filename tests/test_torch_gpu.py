@@ -460,9 +460,20 @@ def test_resident_body_equals_merge_or_roundtrip_body(model, int8_weights, cuda,
     assert torch.equal(got, want)
 
 
+def _bf16_steps(got, want):
+    """|got - want| in bf16 steps of max(|got|, |want|, 2^-6) (the rule of
+    tests/test_torch_fast_tail.py)."""
+    g, w = got.float(), want.float()
+    mag = g.abs().maximum(w.abs()).clamp_min(2.0 ** -6)
+    return (g - w).abs() / (mag.log2().floor() - 7).exp2()
+
+
 @pytest.mark.parametrize("cout,act", [(64, True), (64, False), (3, False)])
-@pytest.mark.parametrize("shape", [(1, 540, 960), (2, 37, 53)])
+@pytest.mark.parametrize("shape", [(1, 540, 960), (2, 37, 53), (1, 19, 70)])
 def test_band_conv_kernel_matches_plain(model, cuda, cout, act, shape):
+    """Batch 2 and sides that are not multiples of the 16-pixel tile; the
+    sums run in another order than cuDNN's, so at most one bf16 step apart,
+    on < 0.1% of the values."""
     from framewright_tpu_torch.ops import pallas_conv
 
     conv = model.conv_hr if cout == 64 else model.conv_last
@@ -475,6 +486,47 @@ def test_band_conv_kernel_matches_plain(model, cuda, cout, act, shape):
     assert pallas_conv.band_conv3x3.launches == n + 1
     assert got.shape == (*shape, 64 if cout == 64 else 8)
     _close_bf16(got, want)
+    st = _bf16_steps(got, want)
+    assert st.max().item() <= 1 and (st > 0).float().mean().item() < 1e-3
+
+
+@pytest.mark.parametrize("shape", [(1, 540, 960), (2, 37, 53), (1, 19, 70)])
+def test_band_conv_equals_k2_conv_hr(model, cuda, shape):
+    """The 64-channel lrelu band conv is K2's conv_hr launch (fw_tail_hr),
+    the same kernel instance, on the same input and weights (wk = hr_k):
+    bit-equal."""
+    from framewright_tpu_torch.ops import _build, pallas_conv
+
+    wts = pallas_conv.conv_wide_weights(model.conv_hr)
+    tail = model.fast_weights().tail
+    assert torch.equal(wts.wk, tail.hr_k) and torch.equal(wts.b, tail.hr_b)
+    x = _feat(cuda, *shape, seed=10)
+    b, h, w, _ = x.shape
+    want = torch.empty_like(x)
+    _build.check(_build.library().fw_tail_hr(
+        x.data_ptr(), b, h, w, tail.hr_k.data_ptr(), tail.hr_b.data_ptr(), want.data_ptr(),
+        torch.cuda.current_stream().cuda_stream), "fw_tail_hr")
+    got = pallas_conv.band_conv3x3(x, wts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_band_conv_launcher_refuses_other_shapes(cuda):
+    """fw_band_conv returns an error code for Cin not a multiple of 16 or
+    Cout' other than 64 or 8, and _build.check raises on it."""
+    from framewright_tpu_torch.ops import _build
+
+    x = torch.zeros(1, 8, 8, 64, dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros(9 * 64 * 64, dtype=torch.bfloat16, device=cuda)
+    bias = torch.zeros(64, device=cuda)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    for cin, cout in ((24, 64), (64, 16)):
+        err = _build.library().fw_band_conv(x.data_ptr(), 1, 8, 8, cin, w.data_ptr(),
+                                            bias.data_ptr(), cout, 1, out.data_ptr(), stream)
+        assert err != 0
+        with pytest.raises(RuntimeError, match="fw_band_conv"):
+            _build.check(err, "fw_band_conv")
 
 
 def test_fast_tail_and_tail2_on_the_card(model, cuda):
