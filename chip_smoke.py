@@ -48,6 +48,12 @@ Phases, one JSON object per line on stdout:
               plain paths (x2plus) and the f32 ``apply`` (FW_fast6_x2),
               with their splits; the SRVGG, dynamic and resident peaks
               against the planner's count
+  stats       the SR processor's device pass on one frame without and
+              with the quality gate's stats (x2plus bf16, int8 and
+              float32 at 1080p, realesr-animevideov3 bf16 and float32 and
+              RealESRGAN_x4plus bf16 at 960x540, all to 4K): ms, peaks
+              against the planner's count, the planes unchanged by the
+              stats, the stats against their plain version on the CPU
   5. restore  the user's entry points on seeded synthetic 4:2:0 clips:
               ``python -m framewright_tpu_torch.cli restore`` at 1080p
               with RealESRGAN_x2plus in bf16, in int8 (default scheme
@@ -61,7 +67,18 @@ Phases, one JSON object per line on stdout:
               and with FW_fast6_x2 so under FW_RDB_BODY=resident;
               each with every launch counter set to 0 just before and
               read just after; output size, frame count and every frame
-              checked against the kernel path
+              checked against the kernel path. Every CLI run has the
+              default flags (checkpoint, per-frame stats, gate, QA
+              report) and must report errors == 0, every frame scored,
+              its peak within the planner's count; more CLI runs:
+              x2plus and realesr-animevideov3 in float32, and
+              RealESRGAN_x4plus in bf16 at 960x540; the default x2plus
+              run's QA report against the plain stats of its planes, the
+              same run with --no-validate (the same bytes), one stopped
+              after its first batch and resumed (the bytes of a straight
+              run), and two runs in a subprocess that never sets TF32
+              (the CLI with realesr-animevideov3, the processor with
+              x2plus dynamic int8), each equal to the kernel path
   6. times    each kernel by CUDA events beside its plain version, its
               roofline bound and, for the bf16 RDB, K1, tail1, the bf16
               chain and the band conv, cuDNN's F.conv2d (PyTorch has no
@@ -125,6 +142,26 @@ MAX_REGS = 168                 # a wgmma main-loop thread's registers (384 threa
 # the band conv's conv3x3_kernel instances (band_conv.cu): 64 channels with
 # lrelu (fw_tail_hr's own) and without, 8 channels with and without
 BAND_EPIS = ("BiasActEpiILb0ELb1E", "BiasActEpiILb0ELb0E", "Bf16x8EpiILb0E", "Bf16x8EpiILb1E")
+
+
+# The dynamic-scale int8 restore of a clip through the SR processor (no
+# CLI flag reaches it), run in a process of its own: argv = clip, .npz out,
+# weights dir.
+SUBPROCESS_DYNAMIC = """
+import sys
+import numpy as np
+from framewright_tpu_torch.io.y4m import Y4MReader
+from framewright_tpu_torch.processors.super_resolution import SRConfig, SuperResolution
+src, out, weights = sys.argv[1:4]
+with Y4MReader(src) as r:
+    frames = np.stack(list(r))
+sr = SuperResolution(SRConfig(model_name="RealESRGAN_x2plus", compute_dtype="int8",
+                              int8_scales="dynamic", output_color="yuv420",
+                              yuv_full_range=True, weights_dir=weights))
+sr.setup(*frames.shape[1:3])
+y, u, v = sr.materialize(sr.dispatch(frames))
+np.savez(out, y=y, u=u, v=v, batch=sr.plan.batch)
+"""
 
 
 class SmokeFailure(Exception):
@@ -513,7 +550,14 @@ def main(argv=None) -> int:
         fused_tail3,
         pallas_conv,
     )
-    from framewright_tpu_torch.processors.super_resolution import SRConfig, SuperResolution
+    from framewright_tpu_torch.config import Config
+    from framewright_tpu_torch.hw import full_f32
+    from framewright_tpu_torch.processors.super_resolution import (
+        SRConfig,
+        SuperResolution,
+        _frame_stats,
+    )
+    from framewright_tpu_torch.restorer import VideoRestorer
 
     # f32 references run in full f32 (cuDNN would use TF32 by default)
     torch.backends.cudnn.allow_tf32 = False
@@ -1164,6 +1208,82 @@ def main(argv=None) -> int:
     del fastvgg
     emit({"phase": "model", "seconds": round(time.perf_counter() - t0, 3)})
 
+    # 4b. the quality gate's stats in the SR pass -------------------------
+    # The SR processor's device pass (``SuperResolution._run``, what every
+    # restore batch runs) on one frame, without the gate's stats and with
+    # them: ms per frame by CUDA events, and the peak above what was
+    # allocated before it against the planner's count (held once every
+    # phase has run). The planes must not change with the stats, and the
+    # stats must match the plain stats of the same output computed on the
+    # CPU (RRDB: its Y plane; SRVGG: its f32 RGB image) within the gate's
+    # bounds (tests/test_torch_quality.py). Seeded random weights (seed 0),
+    # as the restores draw them.
+    t0 = time.perf_counter()
+    stats_runs = (("RealESRGAN_x2plus", "bfloat16", frames),
+                  ("RealESRGAN_x2plus", "int8", frames),
+                  ("realesr-animevideov3", "bfloat16", vframes),
+                  ("RealESRGAN_x2plus", "float32", frames),
+                  ("realesr-animevideov3", "float32", vframes),
+                  ("RealESRGAN_x4plus", "bfloat16", vframes))
+    stats_ms = {}
+    with tempfile.TemporaryDirectory(prefix="fw_smoke_w_") as nw, torch.no_grad():
+        for name, dtype, clip in stats_runs:
+            key = f"{name} {dtype}"
+            proc = SuperResolution(SRConfig(
+                model_name=name, compute_dtype=dtype, output_color="yuv420",
+                yuv_full_range=True, batch_size=1, weights_dir=nw))
+            _, h, w, _ = clip.shape
+            proc.setup(h, w)
+            if dtype == "int8":
+                proc.materialize(proc.dispatch(clip[:1]))     # calibrates
+            xt = torch.from_numpy(clip[:1]).to(dev)
+
+            def run():
+                with full_f32():
+                    return proc._run(xt)
+
+            (planes0, none), peak0 = part_peak(run)
+            require(none is None, f"{key}: stats without device_stats")
+            ms0 = cuda_ms(run, 3, warmup=1)
+            proc.enable_device_stats()
+            (planes1, st), peak1 = part_peak(run)
+            ms1 = cuda_ms(run, 3, warmup=1)
+            for a, b_, plane in zip(planes0, planes1, "YUV"):
+                require(torch.equal(a, b_), f"{key}: the stats changed plane {plane}")
+            # the plain stats of the same output, on the CPU
+            x_in = torch.from_numpy(clip[:1]).to(
+                torch.float32 if dtype == "float32" else torch.bfloat16) / 255.0
+            if proc.family == "rrdb":
+                yf = (planes1[0].cpu().float() / 255.0).clamp(0.0, 1.0)[..., None]
+            else:
+                with full_f32():
+                    img = (proc.model.apply(x_in.to(dev)) if dtype == "float32"
+                           else proc.model.apply_fast(x_in.to(dev), "f32"))
+                yf = img.cpu().float().clamp(0.0, 1.0)
+                del img
+            cpu = _frame_stats(yf, x_in).numpy()
+            dev_st = st[0].cpu().numpy()
+            diff = np.abs(cpu - dev_st)
+            plan0 = planner.frame_bytes(h, w, proc.scale, proc.family, dtype)
+            plan1 = planner.frame_bytes(h, w, proc.scale, proc.family, dtype, stats=True)
+            stats_ms[key] = {"without_stats": ms0, "with_stats": ms1, "stats_cost": ms1 - ms0}
+            rec = {"phase": "stats", "name": key, "shape": list(clip[:1].shape),
+                   "ms_per_frame": stats_ms[key],
+                   "stats": dict(zip(("psnr", "ssim", "luma", "std", "finite"),
+                                     dev_st.tolist())),
+                   "cpu_stats": cpu.tolist(), "abs_diff": diff.tolist(),
+                   "peak_mem_bytes_above_base": {"without_stats": peak0, "with_stats": peak1},
+                   "planner_bytes": {"without_stats": plan0, "with_stats": plan1},
+                   "tol": {"psnr": 0.05, "ssim": 2e-3, "luma": 0.05, "std": 0.05}}
+            emit(rec)
+            require(diff[0] <= 0.05 and diff[1] <= 2e-3 and diff[2] <= 0.05
+                    and diff[3] <= 0.05 and cpu[4] == dev_st[4] == 1.0, f"{key} stats: {rec}")
+            plan_checks += [(f"{key} SR pass", peak0, plan0),
+                            (f"{key} SR pass with stats", peak1, plan1)]
+            proc.teardown()
+            del proc, planes0, planes1, st, xt
+    emit({"phase": "stats", "seconds": round(time.perf_counter() - t0, 3)})
+
     # 5. the main paths: cli restore on synthetic clips -----------------
     # Eight runs of the user's entry point: RealESRGAN_x2plus on the 1080p
     # clip in bf16, int8 (default scheme i32) and int8 with
@@ -1177,7 +1297,20 @@ def main(argv=None) -> int:
     # flag reaches, as in the JAX package: RealESRGAN_x2plus on the
     # round-trip body, and FW_fast6_x2 on the resident body
     # (FW_RDB_BODY=resident). Every counter is set to 0 just before each
-    # run and read just after it.
+    # run and read just after it. Every CLI run has the default flags, so
+    # each checkpoints, scores every frame and writes the QA report, and
+    # must report errors == 0 (a bicubic copy means a batch ran the card
+    # out of memory; a kernel fault ends the restore); its peak device memory above what was allocated
+    # before it is held to the planner's count for its batch (with the
+    # stats). Then: float32 restores of x2plus (1080p) and
+    # realesr-animevideov3 (960x540), and RealESRGAN_x4plus in bf16
+    # (960x540); the default restore with --no-validate, whose planes must
+    # equal the default's; the default's per-frame PSNR and SSIM (its QA
+    # report) against the plain stats of its planes on the CPU; a restore
+    # stopped after its first batch and resumed, byte-equal to a straight
+    # one; and two restores in a subprocess that never touches the TF32
+    # flags (the CLI with realesr-animevideov3, the SR processor with
+    # x2plus dynamic int8), each equal to the in-process kernel path.
     t0 = time.perf_counter()
     counters = (fused_rrdb.fused_rdb, fused_rrdb.fused_rdb_i32, fused_rrdb.fused_rdb_f32acc,
                 fused_rrdb.fused_rdb_dynamic, fused_tail3.conv_body_skip,
@@ -1193,8 +1326,19 @@ def main(argv=None) -> int:
             ("FW_fast6_x2", "bfloat16", roundtrip),
             ("FW_fast6_x2", "int8", {**f32acc, **roundtrip}),
             ("RealESRGAN_x2plus", "bfloat16", resident_tail2),
-            ("realesr-animevideov3", "bfloat16", {}), ("realesr-animevideov3", "int8", {}))
+            ("realesr-animevideov3", "bfloat16", {}), ("realesr-animevideov3", "int8", {}),
+            ("RealESRGAN_x2plus", "float32", {}), ("realesr-animevideov3", "float32", {}),
+            ("RealESRGAN_x4plus", "bfloat16", {}))
     launches_by_run = {}
+
+    def seeded_model(name: str, dtype: str):
+        """The model a restore draws from an empty weights dir: seed 0,
+        masters rounded to bf16 unless float32."""
+        spec = MODEL_SPECS[name]
+        sd = from_jax_params(init_params(spec.arch_config, seed=0), torch.float32)
+        net = srvgg.SRVGGNet if spec.family == "srvgg" else rrdb.RRDBNet
+        return net.from_state_dict(spec.arch_config,
+                                   sd if dtype == "float32" else bf16_masters(sd), dev)
 
     def reset_counters():
         for fn in counters:
@@ -1207,17 +1351,30 @@ def main(argv=None) -> int:
         out.update({k: fn.calls for k, fn in calibrations.items()})
         return out
 
-    def planes_vs_kernel_path(label, m, weights, decoded, planes_out, bs) -> None:
-        """Every written frame against the kernel path run directly on the
-        same decoded frames in the same batches, with the weights the run
-        used: the same deterministic kernels, so the planes must match
-        exactly (phase 4 holds the kernel paths against their references)."""
+    def kernel_path(m, weights=None, dtype: str = "bfloat16"):
+        """-> the model's path on a uint8 batch on the card, as the SR
+        processor runs it: yuv420 planes, full range."""
+        def run(xs):
+            if dtype != "float32":
+                return m.apply_fast(xs.to(torch.bfloat16) / 255.0, "yuv420_u8", True,
+                                    weights=weights)
+            x = xs.float() / 255.0
+            if isinstance(m, srvgg.SRVGGNet):
+                return out_epilogue(m.apply(x), "yuv420_u8", True)
+            return m.apply_fast(x, "yuv420_u8", True, f32_head=True)
+        return run
+
+    def planes_vs_kernel_path(label, expect, decoded, planes_out, bs) -> None:
+        """Every written frame against ``expect`` (``kernel_path``) run
+        directly on the same decoded frames in the same batches, with the
+        weights the run used: the same deterministic kernels, so the
+        planes must match exactly (phase 4 holds the kernel paths against
+        their references)."""
         worst = 0
         with torch.no_grad():
             for i in range(0, n_frames, bs):
-                xs = torch.from_numpy(decoded[i:i + bs]).to(dev).to(torch.bfloat16) / 255.0
-                want = [p.cpu().numpy() for p in m.apply_fast(xs, "yuv420_u8", True,
-                                                               weights=weights)]
+                xs = torch.from_numpy(decoded[i:i + bs]).to(dev)
+                want = [p.cpu().numpy() for p in expect(xs)]
                 for j in range(len(xs)):
                     for g, w_ in zip(planes_out[i + j], want):
                         if not np.array_equal(g, w_[j]):
@@ -1239,71 +1396,240 @@ def main(argv=None) -> int:
             with Y4MReader(src) as reader:
                 clips[model_name] = (src, np.stack(list(reader)))
         clips["FW_fast6_x2"] = clips["RealESRGAN_x2plus"]
-        # the CLI draws x2plus's and animevideov3's seeded random weights
-        # from an empty weights dir and reads FW_fast6_x2's checkpoint
-        models = {"RealESRGAN_x2plus": model, "FW_fast6_x2": fast6, "realesr-animevideov3": vgg}
+        clips["RealESRGAN_x4plus"] = clips["realesr-animevideov3"]
+        # the CLI draws x2plus's, x4plus's and animevideov3's seeded random
+        # weights from an empty weights dir and reads FW_fast6_x2's checkpoint
+        models = {("RealESRGAN_x2plus", False): model, ("FW_fast6_x2", False): fast6,
+                  ("realesr-animevideov3", False): vgg}     # (name, f32 masters)
+        nw = str(tmp / "no_weights")
+        default_planes = None
+
+        def cli_run(argv, env=None):
+            """cli.main(argv) -> (rc, JSON summary, peak device bytes above
+            what was allocated before it)."""
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with with_env(env or {}), contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            return rc, (json.loads(buf.getvalue()) if rc == 0 else None), peak
+
+        def gate_ok(label, summary) -> None:
+            q = summary["quality"]
+            require(summary["errors"] == 0, f"{label}: {summary['errors']} frames were "
+                    "written as bicubic copies")
+            require(q is not None and q["samples"] == n_frames,
+                    f"{label}: quality {q}, expected {n_frames} scored frames")
+
         for model_name, dtype, env in runs:
             t_run = time.perf_counter()
             label = f"{model_name} {dtype}" + "".join(f" {k}={v}" for k, v in env.items())
             src, decoded = clips[model_name]
             vgg_run = model_name == "realesr-animevideov3"
+            mkey = (model_name, dtype == "float32")
+            if mkey not in models:
+                models[mkey] = seeded_model(model_name, dtype)
+            m = models[mkey]
             out = tmp / f"restored_{len(launches_by_run)}.y4m"
-            with with_env(env):
-                reset_counters()
-                buf = io.StringIO()
-                with contextlib.redirect_stdout(buf):
-                    rc = cli.main(["restore", str(src), "-o", str(out), "--device", "cuda",
-                                   "--model", model_name, "--dtype", dtype,
-                                   "--weights-dir", str(tmp / "no_weights"),
-                                   "--project-dir", str(tmp / "proj")])
-                launches = read_counters()
-                require(rc == 0, f"cli restore {label} exited {rc}")
-                summary = json.loads(buf.getvalue())
-                w, h, planes_out = read_y4m_planes(out)
-                batches = summary["batches"]
-                emit({"phase": "restore", "run": label, "summary": summary, "out_width": w,
-                      "out_height": h, "frames_out": len(planes_out), "launches": launches})
-                require((w, h) == (3840, 2160), f"restore output {w}x{h}")
-                require(len(planes_out) == n_frames == summary["frames"],
-                        f"restore wrote {len(planes_out)} of {n_frames} frames")
-                want_counts = {k: 0 for k in launches}
-                scheme = env.get("FW_INT8_SCHEME")
-                if vgg_run:
-                    # 16 chain convs: two groups of 8 per batch
+            reset_counters()
+            rc, summary, peak = cli_run(
+                ["restore", str(src), "-o", str(out), "--device", "cuda", "--model", model_name,
+                 "--dtype", dtype, "--weights-dir", nw, "--project-dir", str(tmp / "proj")], env)
+            launches = read_counters()
+            wall = time.perf_counter() - t_run
+            require(rc == 0, f"cli restore {label} exited {rc}")
+            w, h, planes_out = read_y4m_planes(out)
+            batches = summary["batches"]
+            _, ih, iw, _ = decoded.shape
+            spec = MODEL_SPECS[model_name]
+            plan = summary["batch_size"] * planner.frame_bytes(ih, iw, spec.scale, spec.family,
+                                                               dtype, stats=True)
+            emit({"phase": "restore", "run": label, "summary": summary, "out_width": w,
+                  "out_height": h, "frames_out": len(planes_out), "launches": launches,
+                  "wall_seconds": wall, "peak_mem_bytes_above_base": peak,
+                  "planner_bytes": plan})
+            plan_checks.append((f"restore {label}", peak, plan))
+            require((w, h) == (3840, 2160), f"restore output {w}x{h}")
+            require(len(planes_out) == n_frames == summary["frames"],
+                    f"restore wrote {len(planes_out)} of {n_frames} frames")
+            gate_ok(label, summary)
+            want_counts = {k: 0 for k in launches}
+            scheme = env.get("FW_INT8_SCHEME")
+            if vgg_run:
+                # 16 chain convs: two groups of 8 per batch; float32 runs
+                # the plain f32 forward, as the JAX package does
+                if dtype != "float32":
                     want_counts["fused_conv_chain" if dtype == "bfloat16"
                                 else "fused_conv_chain_int8"] = 2 * batches
-                    want_counts["srvgg_calibrations"] = int(dtype == "int8")
+                want_counts["srvgg_calibrations"] = int(dtype == "int8")
+            else:
+                body_fn = ("fused_rdb" if dtype in ("bfloat16", "float32") else
+                           "fused_rdb_f32acc" if scheme == "f32acc" else "fused_rdb_i32")
+                rdbs = 3 * m.cfg.num_block * batches
+                want_counts.update({body_fn: rdbs, "rrdb_calibrations": int(dtype == "int8")})
+                if env.get("FW_RDB_BODY") == "resident":
+                    want_counts["halo_refresh"] = rdbs
+                if env.get("FW_TAIL") == "1":
+                    want_counts["fused_tail1"] = batches
+                elif env.get("FW_TAIL") == "2":
+                    want_counts["fused_tail"] = batches
                 else:
-                    body_fn = ("fused_rdb" if dtype == "bfloat16" else
-                               "fused_rdb_f32acc" if scheme == "f32acc" else "fused_rdb_i32")
-                    rdbs = 3 * models[model_name].cfg.num_block * batches
-                    want_counts.update({body_fn: rdbs, "rrdb_calibrations": int(dtype == "int8")})
-                    if env.get("FW_RDB_BODY") == "resident":
-                        want_counts["halo_refresh"] = rdbs
-                    if env.get("FW_TAIL") == "1":
-                        want_counts["fused_tail1"] = batches
-                    elif env.get("FW_TAIL") == "2":
-                        want_counts["fused_tail"] = batches
-                    else:
-                        want_counts.update(conv_body_skip=batches, fused_tail=batches)
-                require(batches > 0 and launches == want_counts,
-                        f"{label}: launch counts {launches}, expected {want_counts}")
-                launches_by_run[label] = launches
-                # int8: calibrated on the same crop of the same first frame
-                m = models[model_name]
-                if dtype == "bfloat16":
-                    weights = m.fast_weights()
-                elif vgg_run:
-                    weights = m.fast_weights_int8(srvgg.calibrate_act_scales(
-                        m, torch.from_numpy(centre_crop(decoded[:1]))))
-                else:
-                    a8 = rrdb.calibrate_act_scales(m, torch.from_numpy(centre_crop(decoded[:1])))
-                    weights = m.fast_weights_int8(a8, scheme or "i32")
-                planes_vs_kernel_path(label, m, weights, decoded, planes_out,
-                                      summary["batch_size"])
-                del planes_out
-                emit({"phase": "restore", "run": label,
-                      "seconds": round(time.perf_counter() - t_run, 3)})
+                    want_counts.update(conv_body_skip=batches, fused_tail=batches)
+            require(batches > 0 and launches == want_counts,
+                    f"{label}: launch counts {launches}, expected {want_counts}")
+            launches_by_run[label] = launches
+            # int8: calibrated on the same crop of the same first frame
+            weights = None
+            if dtype == "bfloat16":
+                weights = m.fast_weights()
+            elif vgg_run and dtype == "int8":
+                weights = m.fast_weights_int8(srvgg.calibrate_act_scales(
+                    m, torch.from_numpy(centre_crop(decoded[:1]))))
+            elif dtype == "int8":
+                a8 = rrdb.calibrate_act_scales(m, torch.from_numpy(centre_crop(decoded[:1])))
+                weights = m.fast_weights_int8(a8, scheme or "i32")
+            with with_env(env):
+                planes_vs_kernel_path(label, kernel_path(m, weights, dtype), decoded,
+                                      planes_out, summary["batch_size"])
+            if label == "RealESRGAN_x2plus bfloat16":
+                default_planes = (out.read_bytes(), planes_out, summary, wall, json.loads(
+                    (tmp / "proj" / "qa_report.json").read_text()))
+            del planes_out
+            emit({"phase": "restore", "run": label,
+                  "seconds": round(time.perf_counter() - t_run, 3)})
+
+        # the default restore: its QA report's per-frame scores against the
+        # plain stats of its Y planes on the CPU (the reference from the
+        # decoded frames in bf16, as the SR pass takes them), and the same
+        # restore with --no-validate, whose planes must be the same
+        t_run = time.perf_counter()
+        out_bytes, planes_out, summary, wall, report = default_planes
+        _, decoded = clips["RealESRGAN_x2plus"]
+        worst = [0.0, 0.0]
+        for i, (yp, _, _) in enumerate(planes_out):
+            yf = torch.from_numpy(yp.astype(np.float32) / 255.0)[None, ..., None]
+            x_in = torch.from_numpy(decoded[i:i + 1]).to(torch.bfloat16) / 255.0
+            cpu = _frame_stats(yf, x_in).numpy()
+            worst[0] = max(worst[0], abs(float(cpu[0]) - report["per_frame"]["psnr"][i]))
+            worst[1] = max(worst[1], abs(float(cpu[1]) - report["per_frame"]["ssim"][i]))
+        rec = {"phase": "restore", "run": "RealESRGAN_x2plus bfloat16 (default config)",
+               "name": "QA report per-frame PSNR/SSIM vs plain stats of the planes on the CPU",
+               "quality": report["quality"], "per_frame": report["per_frame"],
+               "max_abs_diff": {"psnr": worst[0], "ssim": worst[1]},
+               "wall_seconds": wall, "restore_seconds": summary["seconds"],
+               "tol": {"psnr": 0.05, "ssim": 2e-3}}
+        emit(rec)
+        require(len(report["per_frame"]["psnr"]) == n_frames and worst[0] <= 0.05
+                and worst[1] <= 2e-3, f"default restore's stats: {rec}")
+        nv_out = tmp / "no_validate.y4m"
+        rc, nv_summary, _ = cli_run(["restore", str(clips["RealESRGAN_x2plus"][0]), "-o",
+                                     str(nv_out), "--model", "RealESRGAN_x2plus",
+                                     "--weights-dir", nw, "--project-dir", str(tmp / "nv"),
+                                     "--no-validate"])
+        require(rc == 0 and nv_summary["quality"] is None and nv_summary["errors"] == 0,
+                f"--no-validate restore: rc {rc}, {nv_summary}")
+        same = nv_out.read_bytes() == out_bytes
+        emit({"phase": "restore", "run": "RealESRGAN_x2plus bfloat16 --no-validate",
+              "summary": nv_summary, "equal_to_default_restore": same,
+              "seconds": round(time.perf_counter() - t_run, 3)})
+        require(same, "--no-validate restore differs from the default restore")
+
+        # stopped after its first batch (an exception from the progress
+        # callback), then rerun: byte-equal to a straight run
+        t_run = time.perf_counter()
+        src = clips["RealESRGAN_x2plus"][0]
+
+        def x2_config(proj: str) -> Config:
+            return Config(project_dir=tmp / proj, sr_model="RealESRGAN_x2plus",
+                          weights_dir=nw, batch_size=2)
+
+        class Stop(Exception):
+            pass
+
+        def stop_after_first(done, total):
+            if done >= 2:
+                raise Stop(done)
+
+        straight = VideoRestorer(x2_config("ks")).restore_video(src, tmp / "straight2.y4m")
+        resumed = tmp / "resumed.y4m"
+        try:
+            VideoRestorer(x2_config("kr"), stop_after_first).restore_video(src, resumed)
+            require(False, "the stopped restore ran to its end")
+        except Stop:
+            pass
+        ckpts = list((tmp / "kr" / "checkpoints").glob("ckpt_*.json"))
+        require(len(ckpts) == 1, f"checkpoints after the stop: {ckpts}")
+        at = json.loads(ckpts[0].read_text())["frames_done"]
+        res = VideoRestorer(x2_config("kr")).restore_video(src, resumed)
+        same = resumed.read_bytes() == (tmp / "straight2.y4m").read_bytes()
+        left = list((tmp / "kr" / "checkpoints").glob("ckpt_*.json"))
+        rec = {"phase": "restore", "run": "RealESRGAN_x2plus bfloat16 stopped and resumed",
+               "checkpoint_at_stop": at, "resumed_batches": res.batches,
+               "straight_batches": straight.batches, "errors": res.errors,
+               "resumed_from": res.resumed_from,
+               "scored_from": res.quality.first_frame if res.quality else None,
+               "scored": res.quality.samples if res.quality else None,
+               "byte_equal_to_straight": same, "checkpoints_left": len(left),
+               "seconds": round(time.perf_counter() - t_run, 3)}
+        emit(rec)
+        require(at == {"enhance": 2} and same and not left and res.errors == 0
+                and res.frames_out == n_frames and res.resumed_from == 2
+                and rec["scored_from"] == 2 and rec["scored"] == n_frames - 2
+                and res.batches == straight.batches - 1, f"resume: {rec}")
+
+        # a process that never touches the TF32 flags: the restore's f32
+        # convolutions (SRVGG's conv_last, the dynamic path's tail1_input)
+        # must still give the in-process kernel path's planes exactly
+        t_run = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        vsrc, vdecoded = clips["realesr-animevideov3"]
+        sub_out = tmp / "sub_vgg.y4m"
+        res = subprocess.run(
+            [sys.executable, "-m", "framewright_tpu_torch.cli", "restore", str(vsrc), "-o",
+             str(sub_out), "--model", "realesr-animevideov3", "--weights-dir", nw,
+             "--project-dir", str(tmp / "sub")], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=600)
+        require(res.returncode == 0, f"subprocess cli restore: {res.stderr[-2000:]}")
+        sub_summary = json.loads(res.stdout)
+        gate_ok("subprocess realesr-animevideov3", sub_summary)
+        _, _, planes_out = read_y4m_planes(sub_out)
+        planes_vs_kernel_path("subprocess cli realesr-animevideov3 bfloat16",
+                              kernel_path(vgg, vgg.fast_weights()), vdecoded, planes_out,
+                              sub_summary["batch_size"])
+        dyn_out = tmp / "sub_dynamic.npz"
+        res = subprocess.run(
+            [sys.executable, "-c", SUBPROCESS_DYNAMIC, str(src), str(dyn_out), nw],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        require(res.returncode == 0, f"subprocess dynamic restore: {res.stderr[-2000:]}")
+        with np.load(dyn_out) as z:
+            planes, bs = [z[k] for k in ("y", "u", "v")], int(z["batch"])
+        _, decoded = clips["RealESRGAN_x2plus"]
+        planes_vs_kernel_path("subprocess processor RealESRGAN_x2plus int8 dynamic",
+                              kernel_path(model, model.fast_weights_int8(None)), decoded,
+                              [tuple(p[i] for p in planes) for i in range(n_frames)], bs)
+        # what the repair guards against: the same kernel paths with cuDNN's
+        # TF32 on, as a process that never sets it runs them (printed)
+        tf32_differs = {}
+        with torch.no_grad():
+            for name, expect, clip in (
+                    ("realesr-animevideov3", kernel_path(vgg, vgg.fast_weights()), vdecoded),
+                    ("RealESRGAN_x2plus int8 dynamic",
+                     kernel_path(model, model.fast_weights_int8(None)), decoded)):
+                xs = torch.from_numpy(clip[:1]).to(dev)
+                off = expect(xs)
+                torch.backends.cudnn.allow_tf32 = True
+                try:
+                    on = expect(xs)
+                finally:
+                    torch.backends.cudnn.allow_tf32 = False
+                tf32_differs[name] = not all(torch.equal(a, b_) for a, b_ in zip(off, on))
+                del off, on
+        emit({"phase": "restore", "run": "subprocesses without TF32 settings",
+              "planes_differ_with_tf32_on_in_process": tf32_differs,
+              "seconds": round(time.perf_counter() - t_run, 3)})
 
         def processor_run(model_name: str, m, env: dict) -> None:
             """The dynamic-scale int8 restore of the 1080p clip through the
@@ -1319,7 +1645,7 @@ def main(argv=None) -> int:
                 proc = SuperResolution(SRConfig(
                     model_name=model_name, compute_dtype="int8", int8_scales="dynamic",
                     output_color="yuv420", yuv_full_range=True,
-                    weights_dir=str(tmp / "no_weights")))
+                    weights_dir=nw))
                 proc.setup(1080, 1920)
                 planes = proc.materialize(proc.dispatch(decoded))
                 launches = read_counters()
@@ -1339,7 +1665,7 @@ def main(argv=None) -> int:
                                                       (n_frames, 1080, 1920)],
                         f"{label}: planes {[p.shape for p in planes]}")
                 launches_by_run[label] = launches
-                planes_vs_kernel_path(label, m, m.fast_weights_int8(None), decoded,
+                planes_vs_kernel_path(label, kernel_path(m, m.fast_weights_int8(None)), decoded,
                                       [tuple(p[i] for p in planes) for i in range(n_frames)], bs)
                 proc.teardown()
                 del planes, proc
@@ -1604,7 +1930,7 @@ def main(argv=None) -> int:
     for key, peak, plan in plan_checks:
         require(peak <= plan, f"{key}: peak {peak} B above the planner's {plan} B")
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_all, 3),
-          "model_ms_per_frame": model_ms})
+          "model_ms_per_frame": model_ms, "sr_pass_ms_per_frame": stats_ms})
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

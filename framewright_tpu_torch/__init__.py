@@ -7,10 +7,12 @@ that each counterpart is easy to find.
 
 The restore is ported: Y4M in, an RRDB model (RealESRGAN_x2plus, 23
 blocks, by default) or an SRVGG model (realesr-animevideov3, ...), in
-bf16 or static int8, through hand-written Hopper kernels (``ops/csrc``),
-Y4M out. Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``; on the CPU every kernel wrapper runs its plain PyTorch
-version instead.
+bf16, float32 or int8, through hand-written Hopper kernels
+(``ops/csrc``), Y4M out, with the JAX default's checkpoint and resume
+(``engine.checkpoint``), quality gate (``ops.metrics``,
+``quality.validators``, ``reports``) and continue-on-error. Entry points
+run on ``cuda`` unless the caller passes ``device="cpu"``; on the CPU
+every kernel wrapper runs its plain PyTorch version instead.
 """
 
 __version__ = "0.1.0"

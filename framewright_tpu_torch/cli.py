@@ -2,12 +2,19 @@
 
     python -m framewright_tpu_torch.cli restore IN.y4m -o OUT.y4m \\
         [--model RealESRGAN_x2plus|realesr-animevideov3|...] \\
-        [--dtype bfloat16|int8] \\
+        [--dtype bfloat16|float32|int8] \\
         [--device cuda|cpu] [--weights-dir DIR] [--max-frames N] \\
-        [--project-dir DIR]
+        [--project-dir DIR] [--no-checkpoint] [--no-resume] [--no-validate]
 
-Runs on the card unless ``--device cpu`` is given. Prints a JSON
-summary on success; errors print ``error: ...`` and exit 1.
+Runs on the card unless ``--device cpu`` is given. By default, as the
+JAX package's default ``Config()``: the run checkpoints its progress in
+``<project-dir>/checkpoints`` and a rerun of the same command resumes a
+killed run; the quality gate scores every frame against the bicubic
+upscale of its input and writes ``<project-dir>/qa_report.json``; a batch
+that runs the card out of memory is written as bicubic copies and counted
+in ``errors`` (any other failure ends the run). After a resume,
+``quality`` and ``errors`` cover the frames from ``resumed_from`` on. Prints a JSON summary on success; errors print
+``error: ...`` and exit 1.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ def cmd_restore(args: argparse.Namespace) -> int:
             project_dir=args.project_dir, sr_model=args.model,
             scale_factor=_model_scale(args.model), compute_dtype=args.dtype,
             device_platform=args.device, weights_dir=args.weights_dir,
-            max_frames=args.max_frames)
+            max_frames=args.max_frames, checkpoint_enabled=args.checkpoint,
+            resume=args.resume, validate_output=args.validate)
 
         def progress(done: int, total: int) -> None:
             print(f"\r  {done}/{total} frames", end="", file=sys.stderr)
@@ -48,6 +56,9 @@ def cmd_restore(args: argparse.Namespace) -> int:
         "batch_size": result.batch_size,
         "seconds": round(result.duration_s, 3),
         "fps": round(result.fps, 3),
+        "quality": result.quality.to_dict() if result.quality is not None else None,
+        "errors": result.errors,
+        "resumed_from": result.resumed_from,
     }, indent=2))
     return 0
 
@@ -71,13 +82,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "RealESRGAN_x4plus, ...) or SRVGG (realesr-animevideov3, "
                         "realesr-general-x4v3, FW_fastvgg_x2, ...); the scale "
                         "is the model's")
-    p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "int8"),
-                   help="compute dtype (int8: static scales calibrated on "
-                        "the first batch)")
+    p.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32", "int8"),
+                   help="compute dtype (float32: f32 weights and head, the "
+                        "RRDB body and tail on the bf16 kernels, SRVGG's plain "
+                        "f32 forward; int8: static scales calibrated on the "
+                        "first batch)")
     p.add_argument("--device", default="auto", choices=("auto", "cuda", "cpu"))
     p.add_argument("--weights-dir", default=None)
     p.add_argument("--max-frames", type=int, default=0)
-    p.add_argument("--project-dir", default="./framewright_project")
+    p.add_argument("--project-dir", default="./framewright_project",
+                   help="checkpoints and the QA report go here")
+    p.add_argument("--no-checkpoint", dest="checkpoint", action="store_false",
+                   help="do not checkpoint (nor resume)")
+    p.add_argument("--no-resume", dest="resume", action="store_false",
+                   help="start over even if a checkpoint of this run exists")
+    p.add_argument("--no-validate", dest="validate", action="store_false",
+                   help="no quality gate, no per-frame stats, no QA report")
     p.set_defaults(func=cmd_restore)
     return parser
 

@@ -1,4 +1,5 @@
-"""Device selection and the card's name and free memory.
+"""Device selection, the card's name and free memory, and the f32
+precision of the card's library calls.
 
 The port runs on ``cuda`` unless the caller asks for ``cpu``. Asking
 for ``cuda`` on a machine without a card raises; nothing falls back to
@@ -7,8 +8,9 @@ the CPU quietly.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -42,3 +44,18 @@ def device_info(device: torch.device) -> DeviceInfo:
         return DeviceInfo("cpu", None)
     free, _ = torch.cuda.mem_get_info(device)
     return DeviceInfo(torch.cuda.get_device_name(device), int(free))
+
+
+@contextlib.contextmanager
+def full_f32() -> Iterator[None]:
+    """f32 convolutions (cuDNN) and matrix products (cuBLAS) in full f32
+    for the block, whatever the caller has set: PyTorch's default
+    ``torch.backends.cudnn.allow_tf32 = True`` would round their f32
+    operands to TF32. Both flags are restored after the block."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved

@@ -228,20 +228,35 @@ class Y4MReader:
                 return
             yield frame
 
-    def count_frames(self) -> int:
-        """Count frames without decoding (seekable streams only)."""
+    def _whole_frames(self, limit: Optional[int] = None):
+        """Scan the frames from the current position without decoding
+        (seekable streams only) -> (whole frames, the byte offset just
+        past the last of them). A frame cut short (a run killed mid-write)
+        ends the scan and is not counted: the JAX reader's
+        ``count_frames`` seeks past one and counts it whole. Stops after
+        ``limit`` frames when given. The position is restored."""
         pos = self._f.tell()
-        n = 0
-        while True:
+        size = self._f.seek(0, os.SEEK_END)
+        self._f.seek(pos)
+        n, end = 0, pos
+        while limit is None or n < limit:
             line = self._f.readline(256)
-            if not line:
+            if not line.endswith(b"\n"):
                 break
             if not line.startswith(b"FRAME"):
                 raise MediaFormatError("Corrupt Y4M stream while counting")
-            self._f.seek(self._frame_bytes, os.SEEK_CUR)
-            n += 1
+            nxt = self._f.tell() + self._frame_bytes
+            if nxt > size:
+                break
+            self._f.seek(nxt)
+            n, end = n + 1, nxt
         self._f.seek(pos)
-        return n
+        return n, end
+
+    def count_frames(self) -> int:
+        """Whole frames from the current position, without decoding
+        (seekable streams only); a frame cut short is not counted."""
+        return self._whole_frames()[0]
 
     def close(self) -> None:
         if self._owns:
@@ -256,11 +271,20 @@ class Y4MReader:
 
 class Y4MWriter:
     """Sequential frame writer taking RGB uint8 (H, W, 3) arrays, or
-    finished YUV420 planes through ``write_yuv_frame``."""
+    finished YUV420 planes through ``write_yuv_frame``.
+
+    ``append=True`` continues an existing file (checkpoint resume): its
+    header must give ``width`` x ``height``, and its colourspace and range
+    are kept (``colorspace``, ``full_range`` and ``fps`` are then
+    ignored). The file is cut after its last whole frame, or after
+    ``keep_frames`` whole frames when that is fewer, so no partial frame
+    stays between the old frames and the new ones; ``frames_written``
+    starts at the frames kept. A missing or empty file is written anew."""
 
     def __init__(self, dst: Union[str, Path, BinaryIO], width: int, height: int,
                  fps: Union[float, Fraction] = 25, colorspace: str = "420jpeg",
-                 full_range: Optional[bool] = None):
+                 full_range: Optional[bool] = None, append: bool = False,
+                 keep_frames: Optional[int] = None):
         if (width % 2 or height % 2) and colorspace.startswith("420"):
             raise MediaFormatError("4:2:0 requires even dimensions")
         self.frames_written = 0
@@ -270,6 +294,9 @@ class Y4MWriter:
         else:
             dst = Path(dst)
             dst.parent.mkdir(parents=True, exist_ok=True)
+            if append and dst.is_file() and dst.stat().st_size > 0:
+                self._open_append(dst, width, height, keep_frames)
+                return
             self._f = open(dst, "wb")
             self._owns = True
         fps = Fraction(fps).limit_denominator(65536)
@@ -278,6 +305,21 @@ class Y4MWriter:
             full_range = "jpeg" in colorspace
         self.full_range = full_range
         self._f.write(self.header.to_line())
+
+    def _open_append(self, dst: Path, width: int, height: int,
+                     keep_frames: Optional[int]) -> None:
+        with Y4MReader(dst) as existing:
+            if (existing.width, existing.height) != (width, height):
+                raise MediaFormatError(
+                    f"resume dims mismatch: existing {existing.width}x"
+                    f"{existing.height} vs {width}x{height}")
+            self.header = existing.header
+            self.full_range = existing.full_range
+            self.frames_written, end = existing._whole_frames(keep_frames)
+        self._f = open(dst, "r+b")
+        self._owns = True
+        self._f.truncate(end)
+        self._f.seek(end)
 
     def write_frame(self, rgb: np.ndarray) -> None:
         h, w = self.header.height, self.header.width

@@ -4,7 +4,8 @@ functions, OIHW weights inside, f32 accumulation in every conv."""
 
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -98,3 +99,46 @@ def out_epilogue(out: torch.Tensor, out_mode: str, full_range: bool):
     return (torch.floor(yy + 0.5).clamp(0, 255).to(torch.uint8),
             torch.floor(uu + 128.5).clamp(0, 255).to(torch.uint8),
             torch.floor(vv + 128.5).clamp(0, 255).to(torch.uint8))
+
+
+def cubic_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) f64 weights of ``jax.image.resize(method="cubic")``
+    along one axis (``jax._src.image.scale.compute_weight_mat``): Keys'
+    cubic with a = -0.5 at half-pixel centres, its support stretched by
+    n_in / n_out when downsampling (antialiasing); taps outside the
+    input are dropped and each output's weights renormalised to sum to
+    1."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(n_out, dtype=np.float64) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float64)[:, None]) / kernel_scale
+    w = ((1.5 * x - 2.5) * x) * x + 1.0
+    w = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, w)
+    w = np.where(x >= 2.0, 0.0, w)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0.0).T
+
+
+@functools.lru_cache(maxsize=8)
+def _cubic_matrix(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """``cubic_weights`` in f32 on ``device``, built once."""
+    return torch.from_numpy(cubic_weights(n_in, n_out).astype(np.float32)).to(device)
+
+
+def resize_bicubic(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """``framewright_tpu.models.layers.resize_bicubic``, which is
+    ``jax.image.resize(method="cubic")``: NHWC (N, h, w, C) -> (N, oh,
+    ow, C) in f32 (results not clipped). Not ``F.interpolate(mode=
+    "bicubic")``, whose a = -0.75 and clamped edges differ from it by up
+    to ~19 LSB. Separable, as JAX's: two f32 matrix products with the
+    ``cubic_weights`` matrices, width first (the caller sets the
+    precision: TF32 off on the card)."""
+    x = x.float()
+    n, h, w, c = x.shape
+    oh, ow = out_hw
+    y = x.transpose(2, 3).reshape(n * h * c, w) @ _cubic_matrix(w, ow, x.device).t()
+    y = _cubic_matrix(h, oh, x.device) @ y.view(n, h, c * ow)      # (n, oh, c ow)
+    return y.view(n, oh, c, ow).transpose(2, 3)

@@ -255,7 +255,7 @@ class RRDBNet(nn.Module):
 
     def apply_fast(self, x: torch.Tensor, out_mode: str = "bf16",
                    full_range: bool = False, weights: Optional[FastWeights] = None,
-                   fast_tail=None):
+                   fast_tail=None, f32_head: bool = False):
         """Kernel forward. x: (B, H, W, 3) in [0, 1]. The body is bf16 or
         int8 after ``weights`` (default: the int8 weights when the model
         holds them, else the bf16 ones); the head and the tail are bf16.
@@ -267,12 +267,18 @@ class RRDBNet(nn.Module):
         FastTail``), else tail2 (``tail2``) for "2" and tail1 (``tail1``)
         for any other value, each with the epilogue in PyTorch.
         Output per ``out_mode`` (see ops/fused_tail.py): bf16 RGB, rgb_u8,
-        or the yuv420_u8 planes."""
+        or the yuv420_u8 planes.
+        ``f32_head`` (the float32 restore) runs the head in f32 on x in f32
+        with the module's f32 weights, then rounds its output to bf16 where
+        the body and K1's skip take it, as the JAX package's float32 mode
+        does (``fused_rrdb.rrdb_body_merge_blocks``); otherwise x and the
+        head are bf16."""
         from framewright_tpu_torch.ops import fused_rrdb, fused_tail, fused_tail3
 
         kind = os.environ.get("FW_TAIL", "auto")
         fw = weights or self._fast_int8 or self.fast_weights()
-        feat = self._head(x.to(torch.bfloat16)).contiguous()
+        head_in = x.float() if f32_head else x.to(torch.bfloat16)
+        feat = self._head(head_in).to(torch.bfloat16).contiguous()
         if kind in ("3", "auto") and fw.int8_scheme != "dynamic" and fast_tail is None:
             if fw.int8_scheme is None:
                 body = fused_rrdb.rrdb_body(feat, fw.body)

@@ -302,12 +302,17 @@ class TestConfig:
         ours, theirs = Config(), JaxConfig()
         for name in ("scale_factor", "sr_model", "batch_size",
                      "compute_dtype", "device_platform", "hbm_utilization",
-                     "project_dir", "output_path"):
+                     "project_dir", "output_path", "checkpoint_enabled",
+                     "checkpoint_interval", "resume", "max_runtime_minutes",
+                     "validate_output", "min_ssim", "min_psnr", "min_vmaf",
+                     "continue_on_error", "quality_report_format", "checkpoint_dir"):
             assert getattr(ours, name) == getattr(theirs, name), name
 
-    @pytest.mark.parametrize("kw", [dict(sr_model="nope"), dict(compute_dtype="float32"),
+    @pytest.mark.parametrize("kw", [dict(sr_model="nope"), dict(compute_dtype="float16"),
                                     dict(scale_factor=4), dict(max_frames=-1),
-                                    dict(device_platform="tpu"), dict(hbm_utilization=0)])
+                                    dict(device_platform="tpu"), dict(hbm_utilization=0),
+                                    dict(checkpoint_interval=0), dict(min_vmaf=1.0),
+                                    dict(quality_report_format="xml")])
     def test_rejects(self, kw):
         with pytest.raises(ConfigError):
             Config(**kw)
