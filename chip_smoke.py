@@ -79,6 +79,33 @@ Phases, one JSON object per line on stdout:
               run), and two runs in a subprocess that never sets TF32
               (the CLI with realesr-animevideov3, the processor with
               x2plus dynamic int8), each equal to the kernel path
+  pre_sr      the quality preset's pre-SR modules on one 7-frame 1080p
+              window of seeded frames, each on the card against the same
+              module on the CPU (uint8 within 1 LSB on at most 0.1% of the
+              values): the temporal denoiser by method (temporal, nafnet,
+              bilateral), the alignment flow (max abs px), cross-frame
+              attention; ms by CUDA events of the flow net on 6 pairs,
+              warp and blend (with the median), the median, NAFNet, the
+              bilateral filter and the attention; host ms of the scene
+              score, the noise profile of the 8-frame head, the interlace
+              detector, yadif, the anchor pass, the drift correction and
+              the flicker reducer; each part's peak against the planner's
+              pre-SR row. The default restores of phase 5 deinterlace these
+              grainy clips (the detector reads them as combed, as the JAX
+              one does), so phase 5 holds their planes to the kernel path
+              on the frames after the default pre-SR stream.
+  pre_sr_restore  at 1080p -> 4K on seeded progressive clips (and one
+              1080i-style clip): ``--preset quality`` (12 frames, a cut at
+              frame 6), ``--denoise --denoise-method nafnet
+              --temporal-consistency --temporal-model ema``, the default
+              restore of the 1080i-style clip (yadif engaged), ``--preset
+              fast``, a long-form restore through the API (anchors every 4
+              frames), the quality preset stopped and resumed (byte-equal
+              to straight) and run in a subprocess that never sets TF32
+              (byte-equal to the in-process run); counters 69/1/1 a batch
+              (2 chain calls for fast), errors 0, every plane equal to the
+              pre-SR stream then the kernel path, peaks within the
+              planner's count with the pre-SR row; wall time and ms a frame
   6. times    each kernel by CUDA events beside its plain version, its
               roofline bound and, for the bf16 RDB, K1, tail1, the bf16
               chain and the band conv, cuDNN's F.conv2d (PyTorch has no
@@ -329,18 +356,24 @@ def nvidia_smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def synthetic_frames(n: int, h: int, w: int, seed: int) -> np.ndarray:
-    """Smooth seeded texture panning 4 px per frame, plus fine grain."""
+def synthetic_frames(n: int, h: int, w: int, seed: int, grain: float = 0.03,
+                     cell: int = 16) -> np.ndarray:
+    """Smooth seeded texture (a random grid every ``cell`` px, bilinear)
+    panning 4 px per frame, plus fine grain (std ``grain`` of the range).
+    By default the interlace detector reads the 1080p frames, once through
+    the 4:2:0 Y4M codec, as combed (score ~0.70 against its 0.55), so the
+    default restore deinterlaces them, as the JAX restore does;
+    ``PROGRESSIVE`` frames read as progressive (~0.44)."""
     import torch
     import torch.nn.functional as F
 
     rng = np.random.default_rng(seed)
-    coarse = torch.from_numpy(rng.random((1, 3, h // 16 + 2, w // 16 + 8),
+    coarse = torch.from_numpy(rng.random((1, 3, h // cell + 2, w // cell + 8),
                                          dtype=np.float32))
     big = F.interpolate(coarse, size=(h, w + 4 * n), mode="bilinear",
                         align_corners=False)[0].permute(1, 2, 0).numpy()
     frames = np.stack([big[:, 4 * t:4 * t + w] for t in range(n)])
-    frames = frames + rng.normal(0.0, 0.03, frames.shape).astype(np.float32)
+    frames = frames + rng.normal(0.0, grain, frames.shape).astype(np.float32)
     return np.clip(frames * 255.0 + 0.5, 0, 255).astype(np.uint8)
 
 
@@ -509,6 +542,374 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+PRE_SR_U8_FRAC = 1e-3         # uint8 within 1 LSB on at most 0.1% (tests/test_torch_denoise.py)
+FLOW_MAX_PX = 1e-3            # the alignment flow, card vs CPU, both f32 without TF32
+PRE_SR_H, PRE_SR_W = 1080, 1920
+# synthetic frames (grain, cell) the interlace detector reads as
+# progressive after the 4:2:0 codec, grainy enough that the quality
+# preset's noise profile picks the temporal denoiser
+PROGRESSIVE = {"grain": 0.02, "cell": 8}
+
+
+def clip_with_cut(n: int, cut: int, h: int, w: int, seed: int) -> np.ndarray:
+    """Seeded ``PROGRESSIVE`` frames, then from frame ``cut`` on a darker
+    shot of another texture (scene score ~0.73 at the cut, ~0.16 within a
+    shot, against the 0.30 threshold)."""
+    second = synthetic_frames(n - cut, h, w, seed + 1, **PROGRESSIVE).astype(np.float32)
+    return np.concatenate([synthetic_frames(cut, h, w, seed, **PROGRESSIVE),
+                           (second * 0.55 + 10.0).astype(np.uint8)])
+
+
+def interlaced_frames(n: int, h: int, w: int, seed: int) -> np.ndarray:
+    """1080i-style frames: the odd field taken one field later, when the
+    texture has panned 4 px further."""
+    f = synthetic_frames(n + 1, h, w, seed, **PROGRESSIVE)
+    out = f[:n].copy()
+    out[:, 1::2] = f[1:, 1::2]
+    return out
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Least host-clock ms of ``reps`` calls of a host-only ``fn``."""
+    best = float("inf")
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t)
+    return best * 1e3
+
+
+def planes_equal(label: str, expect, frames: np.ndarray, planes_out, bs: int, dev) -> None:
+    """Every written frame's planes equal to ``expect`` (a kernel path on
+    uint8 frames on the card) run on ``frames`` in the restore's batches."""
+    import torch
+
+    require(len(planes_out) == len(frames),
+            f"{label}: {len(planes_out)} frames written, {len(frames)} expected")
+    worst = 0
+    with torch.no_grad():
+        for i in range(0, len(frames), bs):
+            want = [p.cpu().numpy() for p in expect(torch.from_numpy(frames[i:i + bs]).to(dev))]
+            for j in range(len(want[0])):
+                for g, w_ in zip(planes_out[i + j], want):
+                    worst = max(worst, int(np.abs(g.astype(np.int16) - w_[j]).max()))
+    emit({"phase": "pre_sr_restore", "run": label,
+          "name": "written planes vs the pre-SR stream then the kernel path",
+          "max_abs": worst, "tol": {"max_abs": 0}})
+    require(worst == 0, f"{label}: restore output differs from its stages by {worst}")
+
+
+def pre_sr_stream_of(cfg, src: Path, frames: np.ndarray):
+    """The restore's pre-SR stream for ``cfg`` run alone on decoded
+    ``frames`` (in full f32, as the restore runs it) -> (frames, info)."""
+    from framewright_tpu_torch.hw import full_f32
+    from framewright_tpu_torch.restorer import VideoRestorer
+
+    info = {}
+    data = {"source": src, "frames_in": len(frames), "height": frames.shape[1],
+            "width": frames.shape[2]}
+    with full_f32():
+        stream, finish = VideoRestorer(cfg)._pre_sr_stream(data, iter(frames), info)
+        out = np.stack(list(stream))
+    finish()
+    return out, info
+
+
+def pre_sr_phase(dev, iters: int, plan_checks: list) -> dict:
+    """The pre-SR stream's modules on one 7-frame 1080p window, each on the
+    card against the same module on the CPU; each part's ms by CUDA
+    events, the host parts' ms, and each part's peak against the planner's
+    row. -> the times."""
+    import torch
+
+    from framewright_tpu_torch import planner
+    from framewright_tpu_torch.engine.temporal import ColorConsistencyEnforcer, GlobalAnchors
+    from framewright_tpu_torch.hw import full_f32
+    from framewright_tpu_torch.ops.warp import flow_warp
+    from framewright_tpu_torch.processors.format import InterlaceDetector, YadifDeinterlacer
+    from framewright_tpu_torch.processors.noise_profiler import NoiseProfiler
+    from framewright_tpu_torch.processors.scene_detection import frame_pair_scores
+    from framewright_tpu_torch.processors.temporal_attention import (
+        CFAConfig,
+        CrossFrameAttention,
+    )
+    from framewright_tpu_torch.processors.temporal_denoise import (
+        FlickerReducer,
+        TemporalDenoiseConfig,
+        TemporalDenoiser,
+        nanmedian,
+    )
+
+    t0 = time.perf_counter()
+    h, w = PRE_SR_H, PRE_SR_W
+    win = synthetic_frames(8, h, w, seed=31)
+    on_card = [torch.from_numpy(f).to(dev) for f in win[:7]]
+    on_cpu = [torch.from_numpy(f) for f in win[:7]]
+    card_ms, peaks, out = {}, {}, {}
+    nets = {}
+    with torch.no_grad(), full_f32():
+        for method in ("temporal", "nafnet", "bilateral"):
+            dn = TemporalDenoiser(TemporalDenoiseConfig(method=method))
+            dn.setup(h, w)
+            cpu = TemporalDenoiser(TemporalDenoiseConfig(method=method, device="cpu"))
+            cpu.setup(h, w)
+            nets[method] = (dn, cpu)
+            got, peak = part_peak(lambda: dn.denoise_window(on_card, 3))
+            # the same bytes on every run (a resumed restore relies on it)
+            require(np.array_equal(got, dn.denoise_window(on_card, 3)),
+                    f"denoise {method}: two runs on the card differ")
+            t_cpu = time.perf_counter()
+            want = cpu.denoise_window(on_cpu, 3)
+            t_cpu = time.perf_counter() - t_cpu
+            check_u8(f"denoise {method}, 7-frame 1080p window, card vs CPU",
+                     torch.from_numpy(got), torch.from_numpy(want), "pre_sr", PRE_SR_U8_FRAC)
+            plan = planner.pre_sr_bytes(h, w, method, None)
+            peaks[method] = (peak, plan)
+            plan_checks.append((f"pre_sr {method}", peak, plan))
+            card_ms[f"{method} (a centre, to uint8 on the host)"] = cuda_ms(
+                lambda: dn.denoise_window(on_card, 3), iters)
+            emit({"phase": "pre_sr", "name": f"denoise {method}", "peak_bytes": peak,
+                  "planner_bytes": plan, "cpu_seconds": round(t_cpu, 3)})
+        # the parts, on the card
+        dn, cpu = nets["nafnet"]
+        c, nbs, n_real = dn._slots(on_card, 3)
+        cc, nbs_c, _ = cpu._slots(on_cpu, 3)
+        flow = dn.flow_net.estimate_flow(c.expand_as(nbs), nbs)
+        flow_c = cpu.flow_net.estimate_flow(cc.expand_as(nbs_c), nbs_c)
+        flow_err = (flow.cpu() - flow_c).abs().max().item()
+        emit({"phase": "pre_sr", "name": "alignment flow (6 pairs at 1080p), card vs CPU",
+              "max_abs_px": flow_err, "max_abs_flow_px": flow_c.abs().max().item(),
+              "tol": {"max_abs_px": FLOW_MAX_PX}})
+        require(flow_err <= FLOW_MAX_PX, f"alignment flow differs by {flow_err} px")
+        warped = flow_warp(nbs, flow)
+        diff = ((warped - c) ** 2).mean(-1, keepdim=True)
+        card_ms["ifnet, 6 pairs"] = cuda_ms(
+            lambda: dn.flow_net.estimate_flow(c.expand_as(nbs), nbs), iters)
+        card_ms["warp and blend (with the median)"] = cuda_ms(
+            lambda: dn.blend(c, flow_warp(nbs, flow), n_real), iters)
+        card_ms["median of 6 x 1080 x 1920"] = cuda_ms(lambda: nanmedian(diff), iters)
+        card_ms["nafnet FW_nafnet_dn"] = cuda_ms(lambda: dn.naf.apply_padded(c[None]), iters)
+        card_ms["bilateral"] = cuda_ms(lambda: TemporalDenoiser.bilateral(c[None]), iters)
+        cfa = CrossFrameAttention(CFAConfig(radius=1))
+        cfa_cpu = CrossFrameAttention(CFAConfig(radius=1), device="cpu")
+        got, peak = part_peak(lambda: cfa._filter(on_card[2:5]))
+        require(np.array_equal(got, cfa._filter(on_card[2:5])),
+                "cross-frame attention: two runs on the card differ")
+        check_u8("cross-frame attention, 3-frame 1080p window, card vs CPU",
+                 torch.from_numpy(got), torch.from_numpy(cfa_cpu._filter(on_cpu[2:5])),
+                 "pre_sr", PRE_SR_U8_FRAC)
+        plan = planner.pre_sr_bytes(h, w, None, "attention")
+        peaks["attention"] = (peak, plan)
+        plan_checks.append(("pre_sr attention", peak, plan))
+        x3 = torch.stack(on_card[2:5])
+        card_ms["cfa (on the card)"] = cuda_ms(lambda: cfa.run(x3), iters)
+        card_ms["cfa (a frame, to uint8 on the host)"] = cuda_ms(
+            lambda: cfa._filter(on_card[2:5]), iters)
+        card_ms["upload of a uint8 frame"] = cuda_ms(lambda: torch.from_numpy(win[0]).to(dev),
+                                                      iters)
+    del nets, dn, cpu, flow, flow_c, warped, diff, x3
+    torch.cuda.empty_cache()
+    # the host parts (numpy)
+    enforcer = ColorConsistencyEnforcer(GlobalAnchors.extract(iter(win[:1]), 1), 0.5)
+    host = {
+        "frame_pair_scores, a 1080p pair": host_ms(
+            lambda: frame_pair_scores(win[0][None], win[1][None])),
+        "NoiseProfiler, the 8-frame head": host_ms(
+            lambda: NoiseProfiler(sample_frames=8).analyze_frames(list(win)), 1),
+        "interlace detector, a sampled frame": host_ms(
+            lambda: InterlaceDetector(sample_every=1).analyze(iter(win[:1]))),
+        "yadif, a frame": host_ms(
+            lambda: list(YadifDeinterlacer().process_stream(iter(win[:4]))), 1) / 4,
+        "anchor pass, a sampled frame": host_ms(
+            lambda: GlobalAnchors.extract(iter(win[:4]), sample_every=1), 1) / 4,
+        "drift correction, a frame": host_ms(
+            lambda: enforcer.correct(win[1], 3)),
+        "flicker reducer (ema), a frame": host_ms(
+            lambda: list(FlickerReducer().reduce_stream(iter(win))), 1) / len(win),
+    }
+    emit({"phase": "pre_sr", "card": torch.cuda.get_device_name(0), "card_ms": card_ms,
+          "host_ms": host, "peaks_vs_planner": peaks,
+          "seconds": round(time.perf_counter() - t0, 3)})
+    return {"card_ms": card_ms, "host_ms": host}
+
+
+def pre_sr_restores(tmp: Path, nw: str, dev, x: dict) -> dict:
+    """The restores of this slice: ``--preset quality`` on a 12-frame 1080p
+    clip with a cut at frame 6 (by default, on the card), ``--denoise
+    --denoise-method nafnet --temporal-consistency --temporal-model ema``,
+    the quality preset stopped and resumed, and in a subprocess that never
+    sets TF32; the default restore of a 1080i-style clip (yadif engaged),
+    a long-form restore through the API, and ``--preset fast``. Every
+    counter is set to 0 just before a run and read just after; every
+    written frame equals the pre-SR stream then the kernel path on the
+    decoded frames; peaks within the planner's count. -> wall seconds and
+    ms a frame of each run."""
+    import torch
+
+    from framewright_tpu_torch import planner
+    from framewright_tpu_torch.config import Config, build_config
+    from framewright_tpu_torch.io.y4m import Y4MReader, Y4MWriter
+    from framewright_tpu_torch.models.registry import MODEL_SPECS, bf16_masters, load_weights
+    from framewright_tpu_torch.models.srvgg import SRVGGNet
+    from framewright_tpu_torch.restorer import VideoRestorer, pre_sr_reserve
+
+    t0 = time.perf_counter()
+    cli_run, reset, read = x["cli_run"], x["reset_counters"], x["read_counters"]
+    model, kernel_path = x["model"], x["kernel_path"]
+    # --preset fast's model, as the restore loads it (the packaged checkpoint)
+    fastvgg = SRVGGNet.from_state_dict(MODEL_SPECS["FW_fastvgg_x2"].arch_config,
+                                       bf16_masters(load_weights("FW_fastvgg_x2")[1]), dev)
+    h, w = PRE_SR_H, PRE_SR_W
+    clips = {}
+    for name, frames in (("cut", clip_with_cut(12, 6, h, w, seed=41)),
+                         ("interlaced", interlaced_frames(8, h, w, seed=43)),
+                         ("long", synthetic_frames(8, h, w, 45, **PROGRESSIVE))):
+        src = tmp / f"pre_sr_{name}.y4m"
+        with Y4MWriter(src, w, h, fps=24) as writer:
+            for f in frames:
+                writer.write_frame(f)
+        with Y4MReader(src) as reader:
+            clips[name] = (src, np.stack(list(reader)))
+    walls = {}
+
+    def counts_ok(label, launches, batches, srvgg=False) -> None:
+        want = {k: 0 for k in launches}
+        if srvgg:
+            want["fused_conv_chain"] = 2 * batches
+        else:
+            want.update(fused_rdb=69 * batches, conv_body_skip=batches, fused_tail=batches)
+        require(batches > 0 and launches == want,
+                f"{label}: launch counts {launches}, expected {want}")
+
+    def cli_case(label, clip, argv, preset, overrides, expect, srvgg=False):
+        src, decoded = clips[clip]
+        out = tmp / f"pre_sr_{len(walls)}.y4m"
+        proj = tmp / f"pre_sr_proj_{len(walls)}"
+        t_run = time.perf_counter()
+        reset()
+        rc, summary, peak = cli_run(["restore", str(src), "-o", str(out), "--weights-dir", nw,
+                                     "--project-dir", str(proj), *argv])
+        launches = read()
+        wall = time.perf_counter() - t_run
+        require(rc == 0, f"{label}: exited {rc}")
+        cfg = build_config(preset, {"weights_dir": nw, **overrides})
+        plan = (summary["batch_size"] * planner.frame_bytes(
+            h, w, 2, "srvgg" if srvgg else "rrdb", "bfloat16", stats=True)
+            + pre_sr_reserve(cfg, h, w))
+        report = json.loads((proj / "qa_report.json").read_text())
+        walls[label] = {"wall_seconds": wall, "ms_per_frame": 1e3 * wall / len(decoded),
+                        "batch_size": summary["batch_size"]}
+        emit({"phase": "pre_sr_restore", "run": label, "summary": summary, "launches": launches,
+              "wall_seconds": wall, "ms_per_frame": 1e3 * wall / len(decoded),
+              "peak_mem_bytes_above_base": peak, "planner_bytes": plan,
+              "qa_report_pre_sr": report["pre_sr"]})
+        x["plan_checks"].append((f"pre_sr restore {label}", peak, plan))
+        require(summary["errors"] == 0 and summary["frames"] == len(decoded)
+                and summary["quality"]["samples"] == len(decoded), f"{label}: {summary}")
+        counts_ok(label, launches, summary["batches"], srvgg)
+        ow, oh, planes_out = read_y4m_planes(out)
+        require((ow, oh) == (2 * w, 2 * h), f"{label}: output {ow}x{oh}")
+        frames, info = pre_sr_stream_of(cfg, src, decoded)
+        require(report["pre_sr"] == json.loads(json.dumps(summary["pre_sr"])),
+                f"{label}: QA report's pre_sr {report['pre_sr']}")
+        planes_equal(label, expect, frames, planes_out, summary["batch_size"], dev)
+        return out, summary, info
+
+    x2 = kernel_path(model, model.fast_weights())
+    quality_out, summary, info = cli_case(
+        "--preset quality (12 frames, cut at 6)", "cut", ["--preset", "quality"], "quality",
+        {}, x2)
+    dn = summary["pre_sr"]["denoise"]
+    require(dn["frames"] == 12 and dn["scene_resets"] == 1 and dn["profile"] is not None
+            and summary["pre_sr"]["temporal_consistency"] == "attention"
+            and summary["pre_sr"]["deinterlace"]["mode"] == "off",
+            f"quality preset's pre-SR stream: {summary['pre_sr']}")
+    require(info["denoise"] == dn, f"the stream alone: {info['denoise']}, restore: {dn}")
+    cli_case("--denoise --denoise-method nafnet --temporal-consistency --temporal-model ema",
+             "cut", ["--denoise", "--denoise-method", "nafnet", "--temporal-consistency",
+                     "--temporal-model", "ema"], "",
+             {"denoise": True, "denoise_model": "nafnet", "temporal_consistency": True,
+              "temporal_model": "ema"}, x2)
+    _, summary, _ = cli_case("default restore of a 1080i-style clip", "interlaced", [], "",
+                             {}, x2)
+    require(summary["pre_sr"]["deinterlace"]["mode"] == "yadif",
+            f"interlaced clip: {summary['pre_sr']}")
+    _, summary, _ = cli_case("--preset fast", "long", ["--preset", "fast"], "fast", {},
+                             kernel_path(fastvgg, fastvgg.fast_weights()), srvgg=True)
+
+    # a long-form restore through the API, anchors every 4 frames
+    t_run = time.perf_counter()
+    src, decoded = clips["long"]
+    cfg = Config(project_dir=tmp / "lf", weights_dir=nw, long_form="on", anchor_interval=4)
+    reset()
+    res = VideoRestorer(cfg).restore_video(src, tmp / "lf.y4m")
+    launches = read()
+    wall = time.perf_counter() - t_run
+    walls["long-form (API, anchors every 4)"] = {"wall_seconds": wall,
+                                                 "ms_per_frame": 1e3 * wall / len(decoded)}
+    emit({"phase": "pre_sr_restore", "run": "long-form API", "pre_sr": res.pre_sr,
+          "launches": launches, "errors": res.errors, "wall_seconds": wall})
+    require(res.pre_sr["long_form"] == {"anchors": 2} and res.errors == 0
+            and res.frames_out == len(decoded), f"long-form restore: {res}")
+    counts_ok("long-form API", launches, res.batches)
+    frames, _ = pre_sr_stream_of(cfg, src, decoded)
+    require(not np.array_equal(frames, decoded), "drift correction left the frames as they were")
+    planes_equal("long-form API", x2, frames, read_y4m_planes(tmp / "lf.y4m")[2],
+                 res.batch_size, dev)
+
+    # the quality preset stopped after its first batch, then resumed
+    t_run = time.perf_counter()
+    src, decoded = clips["cut"]
+
+    def quality_cfg(proj: str) -> Config:
+        return build_config("quality", {"project_dir": tmp / proj, "weights_dir": nw,
+                                        "batch_size": 2})
+
+    class Stop(Exception):
+        pass
+
+    def stop_after_first(done, total):
+        if done >= 2:
+            raise Stop(done)
+
+    straight = VideoRestorer(quality_cfg("qs")).restore_video(src, tmp / "q_straight.y4m")
+    resumed = tmp / "q_resumed.y4m"
+    try:
+        VideoRestorer(quality_cfg("qr"), stop_after_first).restore_video(src, resumed)
+        require(False, "the stopped quality restore ran to its end")
+    except Stop:
+        pass
+    res = VideoRestorer(quality_cfg("qr")).restore_video(src, resumed)
+    same = resumed.read_bytes() == (tmp / "q_straight.y4m").read_bytes()
+    rec = {"phase": "pre_sr_restore", "run": "--preset quality stopped and resumed",
+           "resumed_from": res.resumed_from, "batches": res.batches,
+           "straight_batches": straight.batches, "denoise_frames": res.pre_sr["denoise"]["frames"],
+           "byte_equal_to_straight": same, "seconds": round(time.perf_counter() - t_run, 3)}
+    emit(rec)
+    require(same and res.resumed_from == 2 and res.errors == 0
+            and res.batches == straight.batches - 1, f"quality resume: {rec}")
+
+    # a process that never touches the TF32 flags: the same bytes
+    t_run = time.perf_counter()
+    sub_out = tmp / "q_sub.y4m"
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-m", "framewright_tpu_torch.cli", "restore", str(src), "-o",
+         str(sub_out), "--preset", "quality", "--weights-dir", nw, "--project-dir",
+         str(tmp / "q_sub")], cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0, f"subprocess quality restore: {proc.stderr[-2000:]}")
+    sub_summary = json.loads(proc.stdout)
+    same = sub_out.read_bytes() == quality_out.read_bytes()
+    emit({"phase": "pre_sr_restore", "run": "--preset quality in a subprocess without TF32 "
+          "settings", "summary": sub_summary, "byte_equal_to_in_process": same,
+          "seconds": round(time.perf_counter() - t_run, 3)})
+    require(same and sub_summary["errors"] == 0,
+            "the quality restore in a subprocess differs from the in-process one")
+    emit({"phase": "pre_sr_restore", "walls": walls,
+          "seconds": round(time.perf_counter() - t0, 3)})
+    return walls
 
 
 def main(argv=None) -> int:
@@ -1284,6 +1685,9 @@ def main(argv=None) -> int:
             del proc, planes0, planes1, st, xt
     emit({"phase": "stats", "seconds": round(time.perf_counter() - t0, 3)})
 
+    # pre_sr: the quality preset's pre-SR modules, card vs CPU, and times
+    pre_sr_times = pre_sr_phase(dev, max(1, args.iters // 2), plan_checks)
+
     # 5. the main paths: cli restore on synthetic clips -----------------
     # Eight runs of the user's entry point: RealESRGAN_x2plus on the 1080p
     # clip in bf16, int8 (default scheme i32) and int8 with
@@ -1366,7 +1770,8 @@ def main(argv=None) -> int:
 
     def planes_vs_kernel_path(label, expect, decoded, planes_out, bs) -> None:
         """Every written frame against ``expect`` (``kernel_path``) run
-        directly on the same decoded frames in the same batches, with the
+        directly on the same SR inputs (the decoded frames, after the
+        restore's pre-SR stream for a restore) in the same batches, with the
         weights the run used: the same deterministic kernels, so the
         planes must match exactly (phase 4 holds the kernel paths against
         their references)."""
@@ -1381,7 +1786,7 @@ def main(argv=None) -> int:
                             worst = max(worst, int(np.abs(g.astype(np.int16)
                                                           - w_[j].astype(np.int16)).max()))
         emit({"phase": "restore", "run": label,
-              "name": "written planes vs kernel path on the decoded frames",
+              "name": "written planes vs kernel path on the SR's input frames",
               "max_abs": worst, "tol": {"max_abs": 0}})
         require(worst == 0, f"{label}: restore output differs from the kernel path by {worst}")
 
@@ -1397,6 +1802,15 @@ def main(argv=None) -> int:
                 clips[model_name] = (src, np.stack(list(reader)))
         clips["FW_fast6_x2"] = clips["RealESRGAN_x2plus"]
         clips["RealESRGAN_x4plus"] = clips["realesr-animevideov3"]
+        # the SR's input in a default restore: the decoded frames after the
+        # default pre-SR stream (these grainy clips read as interlaced, so
+        # yadif, as in the JAX restore)
+        inputs = {}
+        for model_name in ("RealESRGAN_x2plus", "realesr-animevideov3"):
+            inputs[model_name], info = pre_sr_stream_of(Config(), *clips[model_name])
+            emit({"phase": "restore", "clip": model_name, "default_pre_sr": info})
+        inputs["FW_fast6_x2"] = inputs["RealESRGAN_x2plus"]
+        inputs["RealESRGAN_x4plus"] = inputs["realesr-animevideov3"]
         # the CLI draws x2plus's, x4plus's and animevideov3's seeded random
         # weights from an empty weights dir and reads FW_fast6_x2's checkpoint
         models = {("RealESRGAN_x2plus", False): model, ("FW_fast6_x2", False): fast6,
@@ -1428,6 +1842,7 @@ def main(argv=None) -> int:
             t_run = time.perf_counter()
             label = f"{model_name} {dtype}" + "".join(f" {k}={v}" for k, v in env.items())
             src, decoded = clips[model_name]
+            sr_in = inputs[model_name]
             vgg_run = model_name == "realesr-animevideov3"
             mkey = (model_name, dtype == "float32")
             if mkey not in models:
@@ -1487,12 +1902,12 @@ def main(argv=None) -> int:
                 weights = m.fast_weights()
             elif vgg_run and dtype == "int8":
                 weights = m.fast_weights_int8(srvgg.calibrate_act_scales(
-                    m, torch.from_numpy(centre_crop(decoded[:1]))))
+                    m, torch.from_numpy(centre_crop(sr_in[:1]))))
             elif dtype == "int8":
-                a8 = rrdb.calibrate_act_scales(m, torch.from_numpy(centre_crop(decoded[:1])))
+                a8 = rrdb.calibrate_act_scales(m, torch.from_numpy(centre_crop(sr_in[:1])))
                 weights = m.fast_weights_int8(a8, scheme or "i32")
             with with_env(env):
-                planes_vs_kernel_path(label, kernel_path(m, weights, dtype), decoded,
+                planes_vs_kernel_path(label, kernel_path(m, weights, dtype), sr_in,
                                       planes_out, summary["batch_size"])
             if label == "RealESRGAN_x2plus bfloat16":
                 default_planes = (out.read_bytes(), planes_out, summary, wall, json.loads(
@@ -1507,7 +1922,7 @@ def main(argv=None) -> int:
         # restore with --no-validate, whose planes must be the same
         t_run = time.perf_counter()
         out_bytes, planes_out, summary, wall, report = default_planes
-        _, decoded = clips["RealESRGAN_x2plus"]
+        decoded = inputs["RealESRGAN_x2plus"]
         worst = [0.0, 0.0]
         for i, (yp, _, _) in enumerate(planes_out):
             yf = torch.from_numpy(yp.astype(np.float32) / 255.0)[None, ..., None]
@@ -1597,7 +2012,8 @@ def main(argv=None) -> int:
         gate_ok("subprocess realesr-animevideov3", sub_summary)
         _, _, planes_out = read_y4m_planes(sub_out)
         planes_vs_kernel_path("subprocess cli realesr-animevideov3 bfloat16",
-                              kernel_path(vgg, vgg.fast_weights()), vdecoded, planes_out,
+                              kernel_path(vgg, vgg.fast_weights()),
+                              inputs["realesr-animevideov3"], planes_out,
                               sub_summary["batch_size"])
         dyn_out = tmp / "sub_dynamic.npz"
         res = subprocess.run(
@@ -1674,6 +2090,10 @@ def main(argv=None) -> int:
 
         processor_run("RealESRGAN_x2plus", model, {})
         processor_run("FW_fast6_x2", fast6, {"FW_RDB_BODY": "resident"})
+        pre_sr_walls = pre_sr_restores(tmp, nw, dev, {
+            "cli_run": cli_run, "reset_counters": reset_counters,
+            "read_counters": read_counters, "model": model, "kernel_path": kernel_path,
+            "plan_checks": plan_checks})
     emit({"phase": "restore", "seconds": round(time.perf_counter() - t0, 3)})
     launches = launches_by_run["RealESRGAN_x2plus bfloat16"]
 
@@ -1930,7 +2350,8 @@ def main(argv=None) -> int:
     for key, peak, plan in plan_checks:
         require(peak <= plan, f"{key}: peak {peak} B above the planner's {plan} B")
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_all, 3),
-          "model_ms_per_frame": model_ms, "sr_pass_ms_per_frame": stats_ms})
+          "model_ms_per_frame": model_ms, "sr_pass_ms_per_frame": stats_ms,
+          "pre_sr": pre_sr_times, "pre_sr_restores": pre_sr_walls})
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,9 @@ blocks, by default) or an SRVGG model (realesr-animevideov3, ...), in
 bf16, float32 or int8, through hand-written Hopper kernels
 (``ops/csrc``), Y4M out, with the JAX default's checkpoint and resume
 (``engine.checkpoint``), quality gate (``ops.metrics``,
-``quality.validators``, ``reports``) and continue-on-error. Entry points
+``quality.validators``, ``reports``), continue-on-error, deinterlacing
+and long-form drift correction, and the ``quality`` preset's temporal
+denoiser and cross-frame attention before SR. Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``; on the CPU
 every kernel wrapper runs its plain PyTorch version instead.
 """

@@ -1,1 +1,2 @@
-"""Restore bookkeeping: the checkpoint store (``checkpoint``)."""
+"""Restore bookkeeping: the checkpoint store (``checkpoint``) and the
+long-form anchors and drift correction (``temporal``)."""

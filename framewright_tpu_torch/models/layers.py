@@ -142,3 +142,31 @@ def resize_bicubic(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     y = x.transpose(2, 3).reshape(n * h * c, w) @ _cubic_matrix(w, ow, x.device).t()
     y = _cubic_matrix(h, oh, x.device) @ y.view(n, h, c * ow)      # (n, oh, c ow)
     return y.view(n, oh, c, ow).transpose(2, 3)
+
+
+def conv2d_transpose(x: torch.Tensor, w: torch.Tensor, b=None, stride: int = 2,
+                     pad: int = 1, out_pad: int = 0) -> torch.Tensor:
+    """Transposed conv with torch ``ConvTranspose2d`` semantics on NHWC x,
+    weight in torch's (in, out, kh, kw) layout: the JAX
+    ``conv2d_transpose`` with its HWIO kernel ``w.transpose(2, 3, 0, 1)``
+    (kernel 4, stride 2, padding 1 is IFNet's 2x head). f32 sums."""
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w.to(x.dtype), b, stride=stride,
+                           padding=pad, output_padding=out_pad)
+    return y.permute(0, 2, 3, 1)
+
+
+def resize_bilinear_nchw(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """``resize_bilinear`` on an NCHW tensor."""
+    if tuple(out_hw) == tuple(x.shape[-2:]):
+        return x
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False,
+                         antialias=False)
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """``framewright_tpu.models.layers.resize_bilinear`` (align_corners
+    False) on NHWC x: half-pixel source coordinates clamped at 0 and two
+    taps a side, without antialiasing, downward (the JAX gather, which is
+    torch's) and upward (``jax.image.resize(linear)``, whose dropped
+    outside taps give torch's clamp)."""
+    return resize_bilinear_nchw(x.permute(0, 3, 1, 2), out_hw).permute(0, 2, 3, 1)

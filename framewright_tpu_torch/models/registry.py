@@ -1,5 +1,6 @@
-"""The RRDB and SRVGG rows of the model table, weight loading, and the
-bridge from the JAX package's parameter pytrees to the port's state dicts.
+"""The RRDB and SRVGG rows of the model table, the temporal denoiser's
+NAFNet row, weight loading, and the bridge from the JAX package's
+parameter pytrees to the port's state dicts.
 
 Weights resolve like ``framewright_tpu.models.registry.init_model``:
 ``<weights_dir>/<name>.npz`` (the JAX package's export format), a
@@ -8,7 +9,13 @@ repository (read as data from ``framewright_tpu/models/weights``), or a
 seeded random init. The state dict holds OIHW tensors named like the
 official basicsr RRDBNet (``conv_first.weight``,
 ``body.0.rdb1.conv1.weight``, ...) or SRVGGNetCompact (``body.0.weight``,
-``body.1.weight`` for the first PReLU, ...).
+``body.1.weight`` for the first PReLU, ...), the official NAFNet or
+Practical-RIFE IFNet.
+
+The denoiser's ``FW_nafnet_dn`` (``AUX_SPECS``) and the alignment IFNet
+(``load_align_ifnet``) load from their checkpoints only: a missing or
+unreadable file raises ``InputError`` (the JAX denoiser falls back to a
+random NAFNet; ROADMAP.md, "JAX faults the port must not copy").
 """
 
 from __future__ import annotations
@@ -22,7 +29,9 @@ import numpy as np
 import torch
 
 from framewright_tpu_torch.errors import ConfigError, InputError
+from framewright_tpu_torch.models.ifnet import ALIGN_ARCH, IFNet
 from framewright_tpu_torch.models.layers import conv_init
+from framewright_tpu_torch.models.nafnet import NAFNetConfig
 from framewright_tpu_torch.models.rrdb import RRDBConfig
 from framewright_tpu_torch.models.srvgg import SRVGGConfig
 
@@ -32,9 +41,9 @@ _SRVGG_URL = "https://github.com/xinntao/Real-ESRGAN/releases/download/v0.2.5.0/
 @dataclass(frozen=True)
 class ModelSpec:
     name: str
-    family: str                              # rrdb | srvgg
+    family: str                              # rrdb | srvgg | nafnet
     scale: int
-    arch_config: Union[RRDBConfig, SRVGGConfig]
+    arch_config: Union[RRDBConfig, SRVGGConfig, NAFNetConfig]
     url: str = ""
 
 
@@ -53,6 +62,17 @@ MODEL_SPECS: Dict[str, ModelSpec] = {s.name: s for s in (
     ModelSpec("realesr-general-x4v3", "srvgg", 4, SRVGGConfig(num_conv=32, scale=4),
               _SRVGG_URL + "realesr-general-x4v3.pth"),
 )}
+
+# models that are not super-resolution: the temporal denoiser's NAFNet,
+# trained in this repository (framewright_tpu/models/registry.py:185-197)
+AUX_SPECS: Dict[str, ModelSpec] = {s.name: s for s in (
+    ModelSpec("FW_nafnet_dn", "nafnet", 1,
+              NAFNetConfig(width=16, enc_blocks=(1, 1, 2), middle_blocks=2,
+                           dec_blocks=(1, 1, 1))),
+)}
+# the alignment IFNet's weights: ifnet.init(PRNGKey(1), ALIGN_ARCH) of the
+# JAX package, written by scripts/export_align_ifnet.py
+ALIGN_IFNET_NPZ = Path(__file__).resolve().parent / "weights" / "align_ifnet_key1.npz"
 
 _CONVS = ("conv_first", "conv_body", "conv_up1", "conv_up2", "conv_hr",
           "conv_last")
@@ -77,6 +97,14 @@ def packaged_weights_dir() -> Path:
     package; the port reads them as data files and imports nothing."""
     return (Path(__file__).resolve().parents[2] / "framewright_tpu" / "models"
             / "weights")
+
+
+def _read_checkpoint(path: Path) -> Dict[str, Any]:
+    """``read_npz``, an unreadable file raised as ``InputError``."""
+    try:
+        return read_npz(path)
+    except Exception as exc:  # noqa: BLE001 - zip, header or dtype faults
+        raise InputError(f"unreadable checkpoint {path}: {exc}") from exc
 
 
 def read_npz(path: Path) -> Dict[str, Any]:
@@ -157,8 +185,10 @@ def _body_blocks(body) -> List[Dict[str, Any]]:
 def from_jax_params(params: Dict[str, Any],
                     dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
     """JAX RRDBNet pytree (HWIO numpy arrays; body as a list of blocks or
-    stacked) or SRVGG pytree (``body`` convs, ``act`` alphas,
-    ``conv_last``) -> the port's state dict (OIHW), cast to ``dtype``."""
+    stacked), SRVGG pytree (``body`` convs, ``act`` alphas,
+    ``conv_last``), NAFNet pytree (``intro``, ``encoders``, ...) or IFNet
+    pytree (``blocks``) -> the port's state dict (OIHW; a transposed
+    conv's weight (in, out, kh, kw)), cast to ``dtype``."""
     sd: Dict[str, torch.Tensor] = {}
 
     def tensor(a) -> torch.Tensor:
@@ -166,7 +196,49 @@ def from_jax_params(params: Dict[str, Any],
 
     def conv(prefix: str, p: Dict[str, Any]) -> None:
         sd[prefix + ".weight"] = tensor(np.asarray(p["w"], np.float32).transpose(3, 2, 0, 1))
-        sd[prefix + ".bias"] = tensor(p["b"])
+        if "b" in p:                 # NAFNet's ups convs have none
+            sd[prefix + ".bias"] = tensor(p["b"])
+
+    if "intro" in params:        # NAFNet: the official names
+        def block(prefix: str, p: Dict[str, Any]) -> None:
+            for k in ("conv1", "conv2", "conv3", "conv4", "conv5"):
+                conv(f"{prefix}.{k}", p[k])
+            conv(f"{prefix}.sca.1", p["sca"])
+            for k in ("norm1", "norm2"):
+                sd[f"{prefix}.{k}.weight"] = tensor(p[k]["gamma"])
+                sd[f"{prefix}.{k}.bias"] = tensor(p[k]["beta"])
+            for k in ("beta", "gamma"):       # (1, 1, 1, c) -> (1, c, 1, 1)
+                sd[f"{prefix}.{k}"] = tensor(np.asarray(p[k], np.float32).transpose(0, 3, 1, 2))
+
+        conv("intro", params["intro"])
+        conv("ending", params["ending"])
+        for i, p in enumerate(params["downs"]):
+            conv(f"downs.{i}", p)
+        for i, p in enumerate(params["ups"]):
+            conv(f"ups.{i}.0", p)
+        for stage in ("encoders", "decoders"):
+            for i, blocks in enumerate(params[stage]):
+                for j, p in enumerate(blocks):
+                    block(f"{stage}.{i}.{j}", p)
+        for j, p in enumerate(params["middles"]):
+            block(f"middle_blks.{j}", p)
+        return sd
+
+    if "blocks" in params:       # IFNet: the Practical-RIFE names
+        def conv_prelu(prefix: str, p: Dict[str, Any]) -> None:
+            conv(prefix + ".0", p)
+            sd[prefix + ".1.weight"] = tensor(p["alpha"])
+
+        for b, blk in enumerate(params["blocks"]):
+            for j, p in enumerate(blk["conv0"]):
+                conv_prelu(f"block{b}.conv0.{j}", p)
+            for i, p in enumerate(blk["convblock"]):
+                conv_prelu(f"block{b}.convblock.{i}", p)
+            # HWIO (kh, kw, in, out) -> ConvTranspose2d's (in, out, kh, kw)
+            sd[f"block{b}.lastconv.0.weight"] = tensor(
+                np.asarray(blk["head"]["w"], np.float32).transpose(2, 3, 0, 1))
+            sd[f"block{b}.lastconv.0.bias"] = tensor(blk["head"]["b"])
+        return sd
 
     if "act" in params:          # SRVGG: the official SRVGGNetCompact names
         for i, (p, act) in enumerate(zip(params["body"], params["act"])):
@@ -197,12 +269,14 @@ def load_weights(name: str, weights_dir: Optional[Path] = None,
                  allow_random: bool = True, seed: int = 0,
                  dtype: torch.dtype = torch.float32
                  ) -> Tuple[ModelSpec, Dict[str, torch.Tensor], str]:
-    """Resolve a model's weights -> (spec, state dict, source label)."""
-    spec = get_model(name)
+    """Resolve a model's weights -> (spec, state dict, source label). A
+    model of ``AUX_SPECS`` is never drawn at random."""
+    spec = AUX_SPECS[name] if name in AUX_SPECS else get_model(name)
+    allow_random = allow_random and name not in AUX_SPECS
     wdir = Path(weights_dir) if weights_dir else default_weights_dir()
     for npz in (wdir / f"{name}.npz", packaged_weights_dir() / f"{name}.npz"):
         if npz.is_file():
-            return spec, from_jax_params(read_npz(npz), dtype), str(npz)
+            return spec, from_jax_params(_read_checkpoint(npz), dtype), str(npz)
     pth = wdir / f"{name}.pth"
     if pth.is_file():
         sd = torch.load(pth, map_location="cpu", weights_only=True)
@@ -213,3 +287,15 @@ def load_weights(name: str, weights_dir: Optional[Path] = None,
                          f".npz/.pth). Download from {spec.url}")
     return (spec, from_jax_params(init_params(spec.arch_config, seed), dtype),
             f"random(seed={seed})")
+
+
+def load_align_ifnet(device) -> IFNet:
+    """The temporal denoiser's alignment IFNet (``ALIGN_ARCH``) with the
+    JAX package's ``ifnet.init(PRNGKey(1))`` weights, from
+    ``ALIGN_IFNET_NPZ``; raises ``InputError`` when the file is missing
+    or unreadable (the port never draws a flow net at random)."""
+    if not ALIGN_IFNET_NPZ.is_file():
+        raise InputError(f"the alignment flow net's weights are missing: {ALIGN_IFNET_NPZ} "
+                         "(python3 scripts/export_align_ifnet.py writes them)")
+    sd = from_jax_params(_read_checkpoint(ALIGN_IFNET_NPZ), torch.float32)
+    return IFNet.from_state_dict(ALIGN_ARCH, sd, device)

@@ -64,6 +64,26 @@ _SRVGG_CHAIN_BYTES = {"bfloat16": 512, "float32": 1280, "int8": 384}
 # beside the batch's f32 image (12 per output pixel a frame).
 _STATS_BYTES_PER_OUT_PX = {"luma": 64, "rgb": 96}
 _CPU_BUDGET = 8 * 2**30   # what to plan for when running on the CPU
+# The pre-SR stream (the restorer's denoise and temporal-consistency
+# stages, on the card in the ring's producer thread, beside the SR
+# batch): peak device bytes per input pixel of each part, which run in
+# turn, each alone with its uint8 window on the card. f32 frame = 12 B/px.
+#   temporal: the flow net on the 2r = 6 slots at sizes padded to 32 (the
+#     two padded images, the 12-channel level input, the 6-channel output
+#     resized to the frame, the flow, the two warps and their grid: ~136
+#     B/px a slot), then the warped slots, their differences and the
+#     sort for the median: 180 a slot, 120 for the rest;
+#   nafnet: the temporal blend, then FW_nafnet_dn (width 16, f32) on the
+#     centre, less than the blend's peak;
+#   bilateral: the centre, nine shifts and their weights, one at a time;
+#   attention (CFA, radius 1): 18 shifted neighbours (216), their
+#     products with the expanded weights (216) and the weights (76).
+# Measured on an H100 with ``max_memory_allocated`` (chip_smoke.py phase
+# pre_sr, one 1080p centre): temporal 1053 and nafnet 1052 B/px against
+# the 1200 planned; bilateral 156-174 (two runs), attention 803 (guessed
+# 100 and 700, now the larger reading + 12-15%).
+_PRE_SR_BYTES_PER_PX = {"temporal_fixed": 120, "temporal_slot": 180, "bilateral": 200,
+                        "attention": 900}
 
 
 @dataclass(frozen=True)
@@ -117,14 +137,34 @@ def frame_bytes(height: int, width: int, scale: int, family: str = "rrdb",
             * peak_bytes_per_body_px(family, scale, dtype, stats))
 
 
+def pre_sr_bytes(height: int, width: int, denoise: str | None = None,
+                 temporal: str | None = None, radius: int = 3) -> int:
+    """Planned peak device bytes of the pre-SR stream on (height, width)
+    frames: the largest of its parts. ``denoise``: the denoiser's method
+    (``auto`` plans for the largest it may pick) or None; ``temporal``:
+    ``attention`` or ``ema`` (on the host: nothing), or None."""
+    t = _PRE_SR_BYTES_PER_PX
+    per_px = 0
+    if denoise in ("temporal", "nafnet", "auto"):
+        per_px = t["temporal_fixed"] + 2 * radius * t["temporal_slot"]
+    if denoise in ("bilateral", "auto"):
+        per_px = max(per_px, t["bilateral"])
+    if temporal == "attention":
+        per_px = max(per_px, t["attention"])
+    return height * width * per_px
+
+
 def plan(height: int, width: int, scale: int, family: str = "rrdb",
          free_bytes: int | None = None, utilization: float = 0.85,
-         max_batch: int = 16, dtype: str = "bfloat16", stats: bool = False) -> Plan:
+         max_batch: int = 16, dtype: str = "bfloat16", stats: bool = False,
+         reserved_bytes: int = 0) -> Plan:
     """Largest whole-frame batch <= ``max_batch`` that fits
     ``free_bytes * utilization`` (the CPU budget when ``free_bytes`` is
-    None) at the peak bytes of ``dtype``'s kernel path (with the quality
-    gate's stats when ``stats``)."""
+    None) less ``reserved_bytes`` (the pre-SR stream's) at the peak bytes
+    of ``dtype``'s kernel path (with the quality gate's stats when
+    ``stats``)."""
     budget = int((_CPU_BUDGET if free_bytes is None else free_bytes) * utilization)
+    budget -= reserved_bytes
     per_frame = frame_bytes(height, width, scale, family, dtype, stats)
     batch = min(max_batch, budget // per_frame)
     if batch < 1:

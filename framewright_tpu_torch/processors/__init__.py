@@ -1,1 +1,3 @@
-"""Frame processors of the port (super-resolution in slice 1)."""
+"""Frame processors of the port: super-resolution, and the pre-SR
+stream's deinterlacer, temporal denoiser (with its noise profile and scene
+scores) and cross-frame attention."""

@@ -88,6 +88,8 @@ class SRConfig:
     device_stats: bool = False        # per-frame PSNR/SSIM/luma/std/finite
                                       # against the bicubic upscale, in the
                                       # same device pass (the quality gate)
+    reserved_bytes: int = 0           # card memory kept off the batch's plan
+                                      # (the restorer's pre-SR stream)
 
 
 def _pad_mod(x: torch.Tensor, bottom: int, right: int) -> torch.Tensor:
@@ -179,7 +181,9 @@ class SuperResolution:
         """The plan for the current free card memory and ``device_stats``."""
         info = device_info(self.device)
         self._plan = planner_mod.plan(free_bytes=info.free_bytes,
-                                      stats=self.config.device_stats, **self._plan_args)
+                                      stats=self.config.device_stats,
+                                      reserved_bytes=self.config.reserved_bytes,
+                                      **self._plan_args)
         logger.info("SR %s %s (%s) on %s (%s): %s", self.config.model_name,
                     self.config.compute_dtype, self.weights_source, self.device,
                     info.name, self._plan)

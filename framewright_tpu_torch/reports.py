@@ -24,6 +24,8 @@ class QAReport:
     per_frame: Dict[str, List[float]] = field(default_factory=dict)
     errors: int = 0
     resumed_from: int = 0          # quality and errors cover the frames from here on
+    pre_sr: Dict = field(default_factory=dict)   # the pre-SR stream: deinterlace,
+                                                 # long_form, denoise (its profile)
     duration_s: float = 0.0
 
     def to_json(self) -> str:
@@ -68,6 +70,7 @@ def build_qa_report(result, source: str) -> QAReport:
     rep.duration_s = result.duration_s
     rep.errors = result.errors
     rep.resumed_from = result.resumed_from
+    rep.pre_sr = result.pre_sr
     rep.stages = result.stage_summary.get("stages", [])
     if result.quality is not None:
         rep.quality = result.quality.to_dict()

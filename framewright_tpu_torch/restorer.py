@@ -15,6 +15,22 @@ SR pass); ``_stage_validate``
 (the gate); ``_stage_finalize`` (the checkpoint removed). The QA report
 is written to ``project_dir / "qa_report.<fmt>"``.
 
+In front of the ring, the pre-SR stream in the JAX order
+(``framewright_tpu/restorer.py:477-635``): long-form drift correction
+(``long_form``: the anchors from a second decode pass, each frame
+corrected at its global index), deinterlacing (``deinterlace="auto"``
+probes the first 60 frames with ``InterlaceDetector(sample_every=5)`` in
+a third pass and engages yadif on an interlaced source), the temporal
+denoiser (``denoise``) and temporal consistency (``temporal_consistency``:
+cross-frame attention or the EMA flicker reducer). The ring's producer
+thread runs it; the denoiser and the attention run on the restore's
+device, in full f32 (``hw.full_f32`` is held for the whole enhance
+stage), and the batch plan keeps their memory (``planner.pre_sr_bytes``)
+off the SR batch. On a resume the ring discards the frames before the
+resume point after the stream has made them, as the JAX ring does, so
+the denoiser profiles the same head frames, cuts at the same scenes and
+the enforcer's indices stay global.
+
 Resume cuts the output to R = min(the checkpoint's count, the whole
 frames in the file), rounded down to a whole batch, and restarts the
 input at frame R. The JAX
@@ -36,28 +52,39 @@ which would hide a broken kernel behind CPU copies and exit 0.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import logging
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 
+from framewright_tpu_torch import planner
 from framewright_tpu_torch.config import Config
 from framewright_tpu_torch.engine.checkpoint import CheckpointManager
+from framewright_tpu_torch.engine.temporal import ColorConsistencyEnforcer, GlobalAnchors
 from framewright_tpu_torch.errors import (
     FatalError,
     InputError,
     TransientError,
     ValidationError,
 )
+from framewright_tpu_torch.hw import full_f32
 from framewright_tpu_torch.io.ring import PrefetchRing, WriterDrain
 from framewright_tpu_torch.io.y4m import Y4MReader, Y4MWriter, rgb_to_yuv420
+from framewright_tpu_torch.processors.format import InterlaceDetector, YadifDeinterlacer
 from framewright_tpu_torch.processors.super_resolution import (
     SRConfig,
     SuperResolution,
+)
+from framewright_tpu_torch.processors.temporal_attention import CFAConfig, CrossFrameAttention
+from framewright_tpu_torch.processors.temporal_denoise import (
+    FlickerReducer,
+    TemporalDenoiseConfig,
+    TemporalDenoiser,
 )
 from framewright_tpu_torch.quality.validators import QualityReport, QualityValidator
 
@@ -79,20 +106,45 @@ class RestoreResult:
     resumed_from: int = 0     # first frame this run wrote; quality and
                               # errors cover the frames from it on
     stage_summary: Dict = field(default_factory=dict)
+    pre_sr: Dict = field(default_factory=dict)   # what the pre-SR stream did:
+                                                 # long_form, deinterlace,
+                                                 # denoise (the denoiser's result),
+                                                 # temporal_consistency
 
     @property
     def fps(self) -> float:
         return self.frames_out / self.duration_s if self.duration_s > 0 else 0.0
 
 
-def build_sr_config(cfg: Config) -> SRConfig:
+def _device(cfg: Config) -> str:
+    return "cuda" if cfg.device_platform == "auto" else cfg.device_platform
+
+
+def _denoise_method(cfg: Config) -> str:
+    """The JAX restorer's mapping of ``denoise_model`` to the denoiser's
+    method (``none`` becomes ``temporal`` there too)."""
+    return (cfg.denoise_model if cfg.denoise_model in ("auto", "temporal", "nafnet",
+                                                       "restormer", "bilateral")
+            else "temporal")
+
+
+def pre_sr_reserve(cfg: Config, height: int, width: int) -> int:
+    """Card bytes the pre-SR stream of ``cfg`` may hold at its peak."""
+    return planner.pre_sr_bytes(
+        height, width, _denoise_method(cfg) if cfg.denoise else None,
+        cfg.temporal_model if cfg.temporal_consistency else None,
+        (cfg.temporal_window - 1) // 2)
+
+
+def build_sr_config(cfg: Config, reserved_bytes: int = 0) -> SRConfig:
     return SRConfig(
         model_name=cfg.sr_model,
         compute_dtype=cfg.compute_dtype,
         batch_size=cfg.batch_size,
         hbm_utilization=cfg.hbm_utilization,
         weights_dir=str(cfg.weights_dir) if cfg.weights_dir else None,
-        device="cuda" if cfg.device_platform == "auto" else cfg.device_platform,
+        device=_device(cfg),
+        reserved_bytes=reserved_bytes,
     )
 
 
@@ -148,7 +200,8 @@ class VideoRestorer:
         result = RestoreResult(
             out_path, data["frames_in"], data["frames_out"], time.time() - t0,
             data["batches"], data["batch_size"], data.get("quality_report"),
-            data["frame_errors"], data["resumed_from"], {"stages": stages})
+            data["frame_errors"], data["resumed_from"], {"stages": stages},
+            data.get("pre_sr", {}))
         if cfg.quality_report_format != "none" and result.quality is not None:
             try:
                 from framewright_tpu_torch.reports import build_qa_report
@@ -183,10 +236,14 @@ class VideoRestorer:
         checkpointed = "checkpoint" in data
         resume_from = (self.checkpoints.resume_point(_ENHANCE)
                        if checkpointed and cfg.resume else 0)
-        sr = self.sr = SuperResolution(build_sr_config(cfg))
+        sr = self.sr = SuperResolution(build_sr_config(cfg, pre_sr_reserve(cfg, h, w)))
         written = frame_errors = batch_size = 0
         budget_hit = False
+        pre_sr: Dict = {}
         with contextlib.ExitStack() as stack:    # unwinds in reverse order
+            # f32 in full f32 in both threads (the pre-SR stream's convs run
+            # in the ring's producer thread): TF32 off until the stage ends
+            stack.enter_context(full_f32())
             if checkpointed:
                 @stack.callback
                 def _save_progress():
@@ -233,7 +290,11 @@ class VideoRestorer:
             else:
                 drain = WriterDrain(writer.write_frame, depth=4)
             stack.callback(drain.close)
-            ring = PrefetchRing(itertools.islice(iter(reader), total), batch_size=batch_size,
+            # the pre-SR stream from frame 0: the ring drops the frames
+            # before the resume point after the stream made them
+            stream, finish_pre_sr = self._pre_sr_stream(
+                data, itertools.islice(iter(reader), total), pre_sr)
+            ring = PrefetchRing(stream, batch_size=batch_size,
                                 skip_frames=resume_from, start_frame=resume_from)
             stack.callback(ring.close)
 
@@ -294,15 +355,79 @@ class VideoRestorer:
                 pending = (handle, ok, frames)
             if pending is not None:
                 finish(*pending)
+        finish_pre_sr()
         if budget_hit:
             raise FatalError(f"runtime budget reached after {written} frames; "
                              "rerun the same command to resume")
         if checkpointed:
             self.checkpoints.stage_completed(_ENHANCE)
         return {"frames_out": written, "frame_errors": frame_errors,
-                "resumed_from": resume_from,
+                "resumed_from": resume_from, "pre_sr": pre_sr,
                 "validator": validator, "batches": sr.dispatches,
                 "batch_size": batch_size}
+
+    def _longform_active(self, nb_frames: int) -> bool:
+        cfg = self.config
+        if cfg.long_form == "on":
+            return True
+        if cfg.long_form == "off":
+            return False
+        return nb_frames >= cfg.long_form_threshold
+
+    def _pre_sr_stream(self, data: Dict, frames: Iterator[np.ndarray], info: Dict):
+        """The frames of the source from 0 through the pre-SR stages, in
+        the JAX order -> (stream, finish): ``finish()`` adds the
+        denoiser's result to ``info`` once the stream has run."""
+        cfg = self.config
+        total = data["frames_in"]
+        if self._longform_active(total):
+            with Y4MReader(data["source"]) as ar:
+                anchors = GlobalAnchors.extract(itertools.islice(iter(ar), total),
+                                                sample_every=cfg.anchor_interval)
+            info["long_form"] = {"anchors": len(anchors.points)}
+            if anchors.points:
+                enforcer = ColorConsistencyEnforcer(anchors, cfg.long_form_strength)
+                frames = (enforcer.correct(f, i) for i, f in enumerate(frames))
+                logger.info("long-form consistency on: %d anchors", len(anchors.points))
+        deint = cfg.deinterlace
+        if deint == "auto":
+            # the head of the source probed for combing; yadif only on an
+            # interlaced source
+            with Y4MReader(data["source"]) as r:
+                rep = InterlaceDetector(sample_every=5).analyze(itertools.islice(iter(r), 60))
+            deint = "yadif" if rep.interlaced else "off"
+            info["deinterlace"] = {"mode": deint, **dataclasses.asdict(rep)}
+            if rep.interlaced:
+                logger.info("interlaced source detected (combing %.2f, %s): yadif engaged",
+                            rep.combing_score, rep.field_order)
+        else:
+            info["deinterlace"] = {"mode": deint}
+        if deint in ("yadif", "bwdif"):
+            frames = YadifDeinterlacer(mode=deint).process_stream(frames)
+        denoiser = None
+        if cfg.denoise:
+            denoiser = TemporalDenoiser(TemporalDenoiseConfig(
+                radius=(cfg.temporal_window - 1) // 2, strength=cfg.denoise_strength,
+                method=_denoise_method(cfg), scene_change_threshold=cfg.scene_threshold,
+                flow_model=cfg.flow_model,
+                weights_dir=str(cfg.weights_dir) if cfg.weights_dir else None,
+                device=_device(cfg)))
+            denoiser.setup(data["height"], data["width"])
+            frames = denoiser.denoise_stream(frames)
+        if cfg.temporal_consistency:
+            info["temporal_consistency"] = cfg.temporal_model
+            if cfg.temporal_model == "attention":
+                frames = CrossFrameAttention(CFAConfig(radius=1),
+                                             device=_device(cfg)).reduce_stream(frames)
+            else:
+                frames = FlickerReducer().reduce_stream(frames)
+
+        def finish() -> None:
+            if denoiser is not None:
+                info["denoise"] = {"method": denoiser.config.method,
+                                   **denoiser.result.to_dict()}
+
+        return frames, finish
 
     @staticmethod
     def _upscale_fallback(frames: np.ndarray, out_hw) -> np.ndarray:

@@ -1,0 +1,158 @@
+#!/usr/bin/env python3
+"""Where the time of a ``--preset quality`` restore goes, on one GPU.
+
+    python3 scripts/torch_presr_times.py [--frames 12 36] [--profile]
+
+Restores seeded 1080p clips to 4K through ``VideoRestorer`` (the CLI's
+code path; seeded random RealESRGAN_x2plus weights from an empty weights
+dir) with the default config and with the ``quality`` preset, at each
+clip length of ``--frames`` (progressive frames, a darker shot from the
+middle on: ``chip_smoke.clip_with_cut``). For each run: the wall time,
+and the host time spent in each part, summed over its calls, by wrapping
+the part's function with a clock: in the ring's producer thread the
+Y4M decode (``Y4MReader.read_frame``), the scene score
+(``frame_pair_scores``), the noise profile, the uploads, the denoiser's
+window (card work and its copy back, ``denoise_window``) and the
+attention's (``CrossFrameAttention._filter``); in the main thread the interlace
+probe's decode pass (``InterlaceDetector.analyze``), the SR's
+``dispatch`` (enqueue) and ``materialize`` (wait and copy back), and the
+writer's thread. The parts overlap across the threads, so they do not
+add up to the wall time. A 4-frame restore first builds the kernels and
+warms the card. Steady-state ms a frame is the difference of two
+lengths' walls over the difference of their frames. With ``--profile``
+one more quality restore at the longest length runs under
+torch.profiler (slower, and left out of the steady state): the device's
+busy time (the sum of its kernels' times) against that run's wall. Prints the card's name and power limit, then one JSON line.
+Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import contextlib
+import functools
+import json
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+
+class PartClock:
+    """Host ms and calls of wrapped functions, summed across threads."""
+
+    def __init__(self):
+        self.ms = collections.Counter()
+        self.calls = collections.Counter()
+        self._lock = threading.Lock()
+
+    def wrap(self, owner, name: str, label: str) -> None:
+        fn = getattr(owner, name)
+
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                with self._lock:
+                    self.ms[label] += (time.perf_counter() - t) * 1e3
+                    self.calls[label] += 1
+
+        setattr(owner, name, timed)
+
+    def reset(self) -> None:
+        self.ms.clear()
+        self.calls.clear()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, nargs=2, default=(12, 36))
+    ap.add_argument("--profile", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("torch_presr_times: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from framewright_tpu_torch.config import build_config
+    from framewright_tpu_torch.io import y4m
+    from framewright_tpu_torch.processors import noise_profiler, super_resolution
+    from framewright_tpu_torch.processors import temporal_attention, temporal_denoise
+    from framewright_tpu_torch.restorer import VideoRestorer
+
+    clock = PartClock()
+    from framewright_tpu_torch.processors import format as fmt
+
+    clock.wrap(y4m.Y4MReader, "read_frame", "producer: Y4M decode")
+    clock.wrap(fmt.InterlaceDetector, "analyze", "main: interlace probe (60-frame decode)")
+    clock.wrap(temporal_denoise, "frame_pair_scores", "producer: scene score")
+    clock.wrap(noise_profiler.NoiseProfiler, "analyze_frames", "producer: noise profile")
+    clock.wrap(temporal_denoise.TemporalDenoiser, "upload", "producer: denoiser upload")
+    clock.wrap(temporal_denoise.TemporalDenoiser, "denoise_window",
+               "producer: denoise a centre (card, copy back)")
+    clock.wrap(temporal_attention.CrossFrameAttention, "_filter",
+               "producer: attention a frame (card, copy back)")
+    clock.wrap(super_resolution.SuperResolution, "dispatch", "main: SR dispatch")
+    clock.wrap(super_resolution.SuperResolution, "materialize", "main: SR materialize")
+    clock.wrap(y4m.Y4MWriter, "write_yuv_frame", "writer: Y4M encode and write")
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    out = {"card": torch.cuda.get_device_name(0), "runs": {}}
+    with tempfile.TemporaryDirectory(prefix="fw_presr_") as tmp:
+        tmp = Path(tmp)
+        (tmp / "nw").mkdir()
+        runs = [("quality", 4, False)]                      # warm-up
+        runs += [(p, n, False) for n in args.frames for p in ("", "quality")]
+        if args.profile:
+            runs.append(("quality", max(args.frames), True))
+        for preset, n, profile in runs:
+            src = tmp / f"clip{n}.y4m"
+            if not src.exists():
+                frames = chip_smoke.clip_with_cut(n, n // 2, 1080, 1920, seed=41)
+                with y4m.Y4MWriter(src, 1920, 1080, fps=24) as w:
+                    for f in frames:
+                        w.write_frame(f)
+            label = f"{preset or 'default'} {n}" + (" profiled" if profile else "")
+            cfg = build_config(preset, {"project_dir": tmp / label.replace(" ", "_"),
+                                        "weights_dir": tmp / "nw",
+                                        "checkpoint_enabled": False})
+            prof = (torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+                if profile else contextlib.nullcontext())
+            clock.reset()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with prof:
+                res = VideoRestorer(cfg).restore_video(src, tmp / f"{label}.y4m")
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            run = {"frames": res.frames_out, "wall_s": wall,
+                   "parts_ms": dict(clock.ms), "calls": dict(clock.calls),
+                   "pre_sr": res.pre_sr.get("denoise", {}).get("method")}
+            if profile:
+                busy = sum(getattr(e, "self_device_time_total", 0)
+                           for e in prof.key_averages()) / 1e3
+                run["device_busy_ms"] = busy
+                run["device_busy_share"] = busy / (wall * 1e3)
+            out["runs"][label] = run
+        n1, n2 = args.frames
+        out["steady_ms_per_frame"] = {
+            p: 1e3 * (out["runs"][f"{p} {n2}"]["wall_s"] - out["runs"][f"{p} {n1}"]["wall_s"])
+            / (n2 - n1) for p in ("default", "quality")}
+    print(smi)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -158,6 +158,13 @@ def _imports(path: Path):
 def test_port_imports_no_jax_and_nothing_of_framewright_tpu():
     files = sorted((ROOT / "framewright_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    # the pre-SR stream's modules among them
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {f"framewright_tpu_torch/{m}.py" for m in (
+        "processors/base", "processors/scene_detection", "processors/noise_profiler",
+        "processors/format", "processors/film", "processors/temporal_denoise",
+        "processors/temporal_attention", "engine/temporal", "models/ifnet",
+        "models/nafnet", "ops/warp")} <= names
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
