@@ -12,6 +12,12 @@ Phases, one JSON object per line on stdout:
               instances and the bf16 SRVGG chain conv) and of the int8
               chain conv's own loop, none of which may spill or pass 168
               registers
+  native      the native host codec built by g++ from the port's copy of
+              fwcore.cpp into ops/_build (fails if it does not build or
+              load); its 4:2:0 decode and encode at 1080p and 4K against
+              the numpy copy (equal bytes) and both ms. Every restore
+              below decodes and encodes with it (each CLI run's
+              ``pre_sr.host_codec`` is checked)
   3. kernels  each kernel against its plain PyTorch version on the card,
               at the main-path shapes (RRDB body 540x960x64, tail out to
               2160x3840, tail1 in 1080x1920x64; SRVGG chain 540x960x64,
@@ -106,6 +112,18 @@ Phases, one JSON object per line on stdout:
               (2 chain calls for fast), errors 0, every plane equal to the
               pre-SR stream then the kernel path, peaks within the
               planner's count with the pre-SR row; wall time and ms a frame
+  film        ``--deduplicate --defect-repair --grain match`` through the
+              CLI: x2plus (random weights, 23 blocks, bf16) from 1080p to
+              4K on a 16-frame clip at 18 fps padded to 24 (every fourth
+              frame an exact repeat), with a bright scratch column and
+              dust: counters 69/1/1 a batch, SR on the unique frames only
+              (its mapping the CPU analysis'), every plane equal to the
+              pre-SR stream then the kernel path in ``rgb_u8`` on the
+              unique frames, repeated by the mapping, then the numpy grain
+              with the same seed; the same restore through the API,
+              straight and stopped after its first batch then resumed
+              (byte-equal); its peak against the planner's count; card and
+              host ms of its parts
   6. times    each kernel by CUDA events beside its plain version, its
               roofline bound and, for the bf16 RDB, K1, tail1, the bf16
               chain and the band conv, cuDNN's F.conv2d (PyTorch has no
@@ -114,6 +132,11 @@ Phases, one JSON object per line on stdout:
               and one chain conv's: bf16, and int8 (the quantization of
               the group input, a conv to codes, the group's last conv to
               bf16), ms and TFLOP/s
+  c5          ``scripts/torch_presr_times.py --frames 4 12 --profile`` in a
+              process of its own: dispatch's enqueue ms (pinned staging,
+              non-blocking upload), the quality restore's busy share and
+              peaks (allocated and reserved: the pre-SR stream runs on a
+              CUDA stream of its own), the film restore's parts
 Then nvidia-smi's line, the kernel summary line, and the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 the result line. Without a CUDA device, or without the package beside
@@ -804,6 +827,8 @@ def pre_sr_restores(tmp: Path, nw: str, dev, x: dict) -> dict:
         emit({"phase": "pre_sr_restore", "run": label, "summary": summary, "launches": launches,
               "wall_seconds": wall, "ms_per_frame": 1e3 * wall / len(decoded),
               "peak_mem_bytes_above_base": peak, "planner_bytes": plan,
+              "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
               "qa_report_pre_sr": report["pre_sr"]})
         x["plan_checks"].append((f"pre_sr restore {label}", peak, plan))
         require(summary["errors"] == 0 and summary["frames"] == len(decoded)
@@ -912,6 +937,292 @@ def pre_sr_restores(tmp: Path, nw: str, dev, x: dict) -> dict:
     return walls
 
 
+FILM_H, FILM_W, FILM_FRAMES = 1080, 1920, 16
+FILM_FLAGS = {"deduplicate": True, "defect_repair": True, "grain_mode": "match"}
+
+
+def film_clip(n: int, h: int, w: int, seed: int) -> np.ndarray:
+    """Film at 18 fps padded to 24: ``PROGRESSIVE`` texture panning 48 px
+    a unique frame, every fourth frame an exact repeat of the one before;
+    a bright scratch (+60) down column 3w/8 + 1 of every frame and a 6x6
+    dust speck (250) on every fourth frame from frame 1."""
+    m = n - n // 4
+    wide = synthetic_frames(1, h, w + 48 * (m - 1), seed, **PROGRESSIVE)[0]
+    frames = np.stack([wide[:, 48 * u:48 * u + w] for u in
+                       (t - (t + 1) // 4 for t in range(n))]).astype(np.int16)
+    frames[:, :, w * 3 // 8 + 1] += 60
+    for t in range(1, n, 4):
+        y0, x0 = (h // 3 + 37 * t) % (h - 8), (w // 5 + 101 * t) % (w - 8)
+        frames[t, y0:y0 + 6, x0:x0 + 6] = 250
+    return np.clip(frames, 0, 255).astype(np.uint8)
+
+
+def film_expect(rgb_path, frames: np.ndarray, mapping: dict, bs: int, seed: int,
+                strength: float, full_range: bool) -> list:
+    """A film restore's planes from its parts run alone on the pre-SR
+    frames: in ring batches of ``bs``, SR (``rgb_path``) on the frames of
+    a unique position not seen yet, each output repeated at every frame
+    mapped to it, then the numpy grain (``GrainManager`` match with one
+    ``default_rng(seed)``, the target measured once from the first
+    batch's unique frames), then the 4:2:0 encode."""
+    from framewright_tpu_torch import native
+    from framewright_tpu_torch.processors.film import GrainManager, estimate_grain_level
+
+    gm = GrainManager(mode="match", strength=strength, seed=seed)
+    target, last_u, last_out, planes = 0.0, -1, None, []
+    for i in range(0, len(frames), bs):
+        batch = frames[i:i + bs]
+        sel = []
+        for p in range(len(batch)):
+            if mapping[i + p] > last_u:
+                sel.append(p)
+                last_u = mapping[i + p]
+        outs = rgb_path(batch[sel]) if sel else []
+        tgt = target
+        if tgt <= 0:
+            tgt = 0.2               # a batch without a unique frame: not stored
+            if sel:
+                tgt = target = max(0.05, float(np.mean([estimate_grain_level(f)
+                                                        for f in batch[sel][:2]])))
+        k = 0
+        for p in range(len(batch)):
+            if k < len(sel) and sel[k] == p:
+                last_out = outs[k]
+                k += 1
+            planes.append(native.rgb_to_yuv420(gm.process(last_out, target_level=tgt),
+                                               full_range=full_range))
+    return planes
+
+
+def film_phase(tmp: Path, nw: str, dev, x: dict) -> dict:
+    """``--deduplicate --defect-repair --grain match`` (x2plus, bf16) on a
+    16-frame 1080p film clip through the CLI: counters 69/1/1 a batch
+    over unique frames only, the mapping of the CPU analysis, every plane
+    equal to ``film_expect`` on the pre-SR stream's frames with the kernel
+    path in ``rgb_u8``; the same restore through the API straight and
+    stopped after its first batch then resumed (byte-equal); its peak
+    against the planner's count; card and host ms of its parts. -> times."""
+    import torch
+
+    from framewright_tpu_torch import planner
+    from framewright_tpu_torch.config import build_config
+    from framewright_tpu_torch.io.y4m import Y4MReader, Y4MWriter
+    from framewright_tpu_torch.processors.deduplication import FrameDeduplicator
+    from framewright_tpu_torch import native
+    from framewright_tpu_torch.io import y4m as y4m_mod
+    from framewright_tpu_torch.processors.film import (
+        DefectRepairer,
+        GrainManager,
+        estimate_grain_level,
+    )
+    from framewright_tpu_torch.processors.super_resolution import HostStaging, SuperResolution
+    from framewright_tpu_torch.quality.validators import QualityValidator
+    from framewright_tpu_torch.restorer import VideoRestorer, pre_sr_reserve
+
+    t0 = time.perf_counter()
+    h, w, n = FILM_H, FILM_W, FILM_FRAMES
+    src = tmp / "film.y4m"
+    with Y4MWriter(src, w, h, fps=24) as writer:
+        for f in film_clip(n, h, w, seed=47):
+            writer.write_frame(f)
+    with Y4MReader(src) as reader:
+        decoded = np.stack(list(reader))
+    analysis = FrameDeduplicator().analyze(iter(decoded), target_fps=24.0)
+    model, fw = x["model"], x["model"].fast_weights()
+
+    def rgb_path(xs: np.ndarray) -> np.ndarray:
+        with torch.no_grad():
+            xt = torch.from_numpy(np.ascontiguousarray(xs)).to(dev).to(torch.bfloat16) / 255.0
+            return model.apply_fast(xt, "rgb_u8", True, weights=fw).cpu().numpy()
+
+    sr_frames = [0]
+    dispatch = SuperResolution.dispatch
+
+    def counted(self, frames):
+        sr_frames[0] += len(frames)
+        return dispatch(self, frames)
+
+    out = tmp / "film_cli.y4m"
+    SuperResolution.dispatch = counted
+    try:
+        x["reset_counters"]()
+        t_run = time.perf_counter()
+        rc, summary, peak = x["cli_run"](
+            ["restore", str(src), "-o", str(out), "--weights-dir", nw, "--project-dir",
+             str(tmp / "film_proj"), "--deduplicate", "--defect-repair", "--grain", "match"])
+        wall = time.perf_counter() - t_run
+        launches = x["read_counters"]()
+    finally:
+        SuperResolution.dispatch = dispatch
+    require(rc == 0, f"film restore exited {rc}")
+    bs, batches = summary["batch_size"], summary["batches"]
+    cfg = build_config("", {"weights_dir": nw, **FILM_FLAGS})
+    plan = (bs * planner.frame_bytes(h, w, 2, "rrdb", "bfloat16", stats=False)
+            + pre_sr_reserve(cfg, h, w))
+    x["plan_checks"].append(("film restore", peak, plan))
+    mapping = analysis.frame_mapping
+    ring_batches = sum(1 for i in range(0, n, bs)
+                       if any(mapping[j] > (mapping[i - 1] if i else -1)
+                              for j in range(i, min(i + bs, n))))
+    want = {k: 0 for k in launches}
+    want.update(fused_rdb=69 * batches, conv_body_skip=batches, fused_tail=batches)
+    emit({"phase": "film", "run": "cli --deduplicate --defect-repair --grain match",
+          "summary": summary, "launches": launches, "sr_frames": sr_frames[0],
+          "unique_frames": analysis.unique_frames, "wall_seconds": wall,
+          "ms_per_frame": 1e3 * wall / n, "peak_mem_bytes_above_base": peak,
+          "peak_reserved_bytes": torch.cuda.max_memory_reserved(), "planner_bytes": plan})
+    require(summary["errors"] == 0 and summary["frames"] == n
+            and summary["duplicates_removed"] == analysis.duplicates == n // 4,
+            f"film restore: {summary}")
+    require(summary["pre_sr"]["host_codec"] == {"decode": "native", "encode": "native"}
+            and summary["pre_sr"]["deinterlace"]["mode"] == "off"
+            and w * 3 // 8 + 1 in summary["pre_sr"]["defect_repair"]["scratch_columns"]
+            and summary["post_sr"]["grain"]["mode"] == "match", f"film restore: {summary}")
+    require(sr_frames[0] == analysis.unique_frames and batches == ring_batches
+            and launches == want, f"film restore: SR on {sr_frames[0]} frames in {batches} "
+            f"batches, launches {launches}; expected {analysis.unique_frames} frames, "
+            f"{ring_batches} batches, {want}")
+    # the planes from the parts run alone
+    pre, _ = pre_sr_stream_of(cfg, src, decoded)
+    with Y4MReader(out) as r:
+        full_range = r.full_range
+    expect = film_expect(rgb_path, pre, mapping, bs, cfg.seed, cfg.grain_strength, full_range)
+    ow, oh, planes_out = read_y4m_planes(out)
+    worst = max(int(np.abs(g.astype(np.int16) - e).max())
+                for got, exp in zip(planes_out, expect) for g, e in zip(got, exp))
+    emit({"phase": "film", "name": "written planes vs the pre-SR stream, the kernel path "
+          "(rgb_u8) on the unique frames repeated by the CPU analysis' mapping, the numpy "
+          "grain and the encode", "max_abs": worst, "tol": {"max_abs": 0}})
+    require((ow, oh) == (2 * w, 2 * h) and len(planes_out) == n and worst == 0,
+            f"film restore differs from its parts by {worst}")
+    # through the API: the mapping, and stopped after its first batch then resumed
+
+    class Stop(Exception):
+        pass
+
+    def stop_after_first(done, total):
+        if done >= bs:
+            raise Stop(done)
+
+    def api_cfg(proj: str):
+        return build_config("", {"project_dir": tmp / proj, "weights_dir": nw,
+                                 "batch_size": bs, **FILM_FLAGS})
+
+    straight = VideoRestorer(api_cfg("film_s")).restore_video(src, tmp / "film_s.y4m")
+    resumed = tmp / "film_r.y4m"
+    try:
+        VideoRestorer(api_cfg("film_r"), stop_after_first).restore_video(src, resumed)
+        require(False, "the stopped film restore ran to its end")
+    except Stop:
+        pass
+    res = VideoRestorer(api_cfg("film_r")).restore_video(src, resumed)
+    rec = {"phase": "film", "run": "API straight, and stopped after its first batch then "
+           "resumed", "mapping_equals_cpu_analysis": straight.dedup.frame_mapping == mapping,
+           "straight_equals_cli": (tmp / "film_s.y4m").read_bytes() == out.read_bytes(),
+           "resumed_from": res.resumed_from, "resumed_batches": res.batches,
+           "straight_batches": straight.batches, "post_sr": res.post_sr,
+           "byte_equal_to_straight": resumed.read_bytes() == (tmp / "film_s.y4m").read_bytes()}
+    emit(rec)
+    require(rec["mapping_equals_cpu_analysis"] and rec["straight_equals_cli"]
+            and rec["byte_equal_to_straight"] and res.resumed_from == bs
+            and res.post_sr == straight.post_sr and res.errors == 0, f"film resume: {rec}")
+    # the parts' times: card (CUDA events) and host (least of 3)
+    one = decoded[:1]
+    x1 = torch.from_numpy(one).to(dev).to(torch.bfloat16) / 255.0
+    staging = HostStaging()
+    with torch.no_grad():
+        out4k = model.apply_fast(x1, "rgb_u8", True, weights=fw)
+        card = {"SR rgb_u8 (a frame, kernel path)": cuda_ms(
+                    lambda: model.apply_fast(x1, "rgb_u8", True, weights=fw), 3, 1),
+                "D2H of a 4K RGB frame into a pinned output slot": cuda_ms(
+                    lambda: staging.release(staging.download([out4k])[0]), 10)}
+    frame4k = out4k[0].cpu().numpy()
+    gm = GrainManager(mode="match", strength=0.3, seed=0)
+
+    def gate_pair():
+        v = QualityValidator()
+        v.observe(one[0], frame4k)
+        v.validate()
+
+    host = {"dedup hash, a 1080p frame": host_ms(
+                lambda: FrameDeduplicator().analyze(iter(decoded[:4]))) / 4,
+            "defect repair, a 1080p frame (5-frame median)": host_ms(
+                lambda: list(DefectRepairer().process_stream(iter(decoded[:5]))), 1) / 5,
+            "grain match, a 4K frame (synthesize)": host_ms(
+                lambda: gm.process(frame4k, target_level=0.9)),
+            "grain level estimate, a 4K frame": host_ms(lambda: estimate_grain_level(frame4k)),
+            "gate: observe and score one RGB pair": host_ms(gate_pair),
+            "encode a 4K RGB frame (native)": host_ms(
+                lambda: native.rgb_to_yuv420(frame4k, True)),
+            "encode a 4K RGB frame (numpy)": host_ms(
+                lambda: y4m_mod.rgb_to_yuv420(frame4k, True), 2)}
+    del out4k, x1
+    emit({"phase": "film", "card_ms": card, "host_ms": host,
+          "seconds": round(time.perf_counter() - t0, 3)})
+    return {"wall_seconds": wall, "ms_per_frame": 1e3 * wall / n, "card_ms": card,
+            "host_ms": host}
+
+
+def native_phase() -> dict:
+    """The native host codec built from the port's source (never JAX's
+    ``native/libfwcore.so``), its 4:2:0 decode and encode at 1080p and 4K
+    against the numpy copy: equal bytes, ms (least of 5 native, 3 numpy)."""
+    from framewright_tpu_torch import native
+    from framewright_tpu_torch.io import y4m as y4m_mod
+
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    build_s = time.perf_counter() - t0
+    path = native.lib_path()
+    require(lib is not None and path.is_file() and lib._name == str(path)
+            and path.parent.parent == ROOT / "framewright_tpu_torch" / "ops" / "_build",
+            f"the native host codec did not build from the port's source ({path})")
+    rng = np.random.default_rng(5)
+    rec = {"phase": "native", "source": "framewright_tpu_torch/native/fwcore.cpp",
+           "library": str(path.relative_to(ROOT)), "build_seconds": build_s,
+           "version": lib.fwcore_version(), "ms": {}, "equal": {}}
+    for label, (h, w) in (("1080p", (1080, 1920)), ("4K", (2160, 3840))):
+        rgb = rng.integers(0, 256, (h, w, 3), np.uint8)
+        y, u, v = y4m_mod.rgb_to_yuv420(rgb, False)
+        enc = native.rgb_to_yuv420(rgb, False)
+        rec["equal"][label] = (all(np.array_equal(a, b) for a, b in zip(enc, (y, u, v)))
+                               and np.array_equal(native.yuv420_to_rgb(y, u, v, False),
+                                                  y4m_mod.yuv_to_rgb(y, u, v, False)))
+        rec["ms"][label] = {
+            "decode native": host_ms(lambda: native.yuv420_to_rgb(y, u, v, False), 5),
+            "decode numpy": host_ms(lambda: y4m_mod.yuv_to_rgb(y, u, v, False)),
+            "encode native": host_ms(lambda: native.rgb_to_yuv420(rgb, False), 5),
+            "encode numpy": host_ms(lambda: y4m_mod.rgb_to_yuv420(rgb, False))}
+    emit(rec)
+    require(all(rec["equal"].values()), f"native codec differs from the numpy copy: {rec}")
+    return rec["ms"]
+
+
+def c5_times() -> dict:
+    """``scripts/torch_presr_times.py --frames 4 12 --profile`` in a process
+    of its own: dispatch's enqueue ms, the quality restore's busy share
+    and peaks, and the film restore's parts."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "scripts" / "torch_presr_times.py"),
+                           "--frames", "4", "12", "--profile"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=900)
+    require(proc.returncode == 0, f"torch_presr_times.py: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    runs = out["runs"]
+    rec = {"phase": "c5", "card": out["card"],
+           "enqueue_ms_per_dispatch": {k: r["enqueue_ms_per_dispatch"] for k, r in runs.items()},
+           "quality_busy_share": runs["quality 12 profiled"]["device_busy_share"],
+           "quality_busy_share_unprofiled":
+               runs["quality 12 profiled"]["device_busy_share_unprofiled"],
+           "quality_peaks": {k: (r["peak_allocated_bytes"], r["peak_reserved_bytes"])
+                             for k, r in runs.items() if k.startswith("quality")},
+           "steady_ms_per_frame": out["steady_ms_per_frame"],
+           "film_parts_ms": runs["film 12"]["parts_ms"],
+           "seconds": round(time.perf_counter() - t0, 3)}
+    emit(rec)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=4, help="frames in the restore clip")
@@ -1006,6 +1317,9 @@ def main(argv=None) -> int:
     vgg_spills = [ln for ln in vgg_lines if "spill" in ln and " 0 bytes spill stores" not in ln]
     emit({"phase": "build", "srvgg_chain_ptxas": vgg_lines, "spilling": vgg_spills})
     require(not vgg_spills, f"SRVGG chain kernels spill: {vgg_spills}")
+
+    # native: the host codec from the port's source, against its numpy copy
+    native_ms = native_phase()
 
     # 3. kernels vs plain at main-path shapes ---------------------------
     t0 = time.perf_counter()
@@ -1870,6 +2184,8 @@ def main(argv=None) -> int:
             require((w, h) == (3840, 2160), f"restore output {w}x{h}")
             require(len(planes_out) == n_frames == summary["frames"],
                     f"restore wrote {len(planes_out)} of {n_frames} frames")
+            require(summary["pre_sr"]["host_codec"] == {"decode": "native", "encode": "native"},
+                    f"{label}: host codec {summary['pre_sr']['host_codec']}")
             gate_ok(label, summary)
             want_counts = {k: 0 for k in launches}
             scheme = env.get("FW_INT8_SCHEME")
@@ -2094,6 +2410,9 @@ def main(argv=None) -> int:
             "cli_run": cli_run, "reset_counters": reset_counters,
             "read_counters": read_counters, "model": model, "kernel_path": kernel_path,
             "plan_checks": plan_checks})
+        film_times = film_phase(tmp, nw, dev, {
+            "cli_run": cli_run, "reset_counters": reset_counters,
+            "read_counters": read_counters, "model": model, "plan_checks": plan_checks})
     emit({"phase": "restore", "seconds": round(time.perf_counter() - t0, 3)})
     launches = launches_by_run["RealESRGAN_x2plus bfloat16"]
 
@@ -2347,11 +2666,18 @@ def main(argv=None) -> int:
     # over the time it took
     emit({"phase": "times", "bound_share": {r["name"]: r["bound_ms"] / r["ms"] for r in rows}})
 
+    # c5: the uploads that do not block, in restores of their own
+    c5 = c5_times()
+
     for key, peak, plan in plan_checks:
         require(peak <= plan, f"{key}: peak {peak} B above the planner's {plan} B")
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_all, 3),
           "model_ms_per_frame": model_ms, "sr_pass_ms_per_frame": stats_ms,
-          "pre_sr": pre_sr_times, "pre_sr_restores": pre_sr_walls})
+          "pre_sr": pre_sr_times, "pre_sr_restores": pre_sr_walls, "native_ms": native_ms,
+          "film": film_times, "c5": {k: c5[k] for k in ("enqueue_ms_per_dispatch",
+                                                        "quality_busy_share",
+                                                        "quality_busy_share_unprofiled",
+                                                        "steady_ms_per_frame")}})
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,8 @@
         [--denoise] [--denoise-method auto|temporal|nafnet|bilateral] \\
         [--temporal-consistency] [--temporal-model attention|ema] \\
         [--flow-model ifnet] [--long-form auto|on|off] \\
+        [--deduplicate] [--defect-repair] \\
+        [--grain auto|off|preserve|remove|match] \\
         [--device cuda|cpu] [--weights-dir DIR] [--max-frames N] \\
         [--project-dir DIR] [--no-checkpoint] [--no-resume] [--no-validate]
 
@@ -20,9 +22,14 @@ in ``errors`` (any other failure ends the run). After a resume,
 ``quality`` and ``errors`` cover the frames from ``resumed_from`` on.
 ``--preset`` takes a JAX preset's fields (``quality``: RealESRGAN_x2plus
 after the auto-profiled temporal denoiser and cross-frame attention;
-``fast``: FW_fastvgg_x2); flags override it, as in the JAX CLI. Prints a
-JSON summary on success (``pre_sr`` says what the pre-SR stream did);
-errors print ``error: ...`` and exit 1.
+``fast``: FW_fastvgg_x2); flags override it, as in the JAX CLI.
+``--deduplicate`` runs SR on the unique frames only and repeats their
+outputs, ``--defect-repair`` repairs scratches and dust before SR,
+``--grain`` handles film grain after SR (match: the source's level,
+measured once, seeded by the config's ``seed``). Prints a JSON summary on
+success (``pre_sr`` says what the pre-SR stream did, ``post_sr`` the
+grain, ``duplicates_removed`` the frames SR did not run on); errors print
+``error: ...`` and exit 1.
 """
 
 from __future__ import annotations
@@ -51,7 +58,8 @@ def cmd_restore(args: argparse.Namespace) -> int:
             "denoise_model": args.denoise_model,
             "temporal_consistency": args.temporal_consistency,
             "temporal_model": args.temporal_model, "flow_model": args.flow_model,
-            "long_form": args.long_form})
+            "long_form": args.long_form, "deduplicate": args.deduplicate,
+            "defect_repair": args.defect_repair, "grain_mode": args.grain_mode})
 
         def progress(done: int, total: int) -> None:
             print(f"\r  {done}/{total} frames", end="", file=sys.stderr)
@@ -62,7 +70,7 @@ def cmd_restore(args: argparse.Namespace) -> int:
         print(f"\nerror: {exc}", file=sys.stderr)
         return 1
     print("", file=sys.stderr)
-    print(json.dumps({
+    summary = {
         "output": str(result.output_path),
         "frames": result.frames_out,
         "batches": result.batches,
@@ -73,7 +81,11 @@ def cmd_restore(args: argparse.Namespace) -> int:
         "errors": result.errors,
         "resumed_from": result.resumed_from,
         "pre_sr": result.pre_sr,
-    }, indent=2))
+        "post_sr": result.post_sr,
+    }
+    if result.dedup is not None:
+        summary["duplicates_removed"] = result.dedup.duplicates
+    print(json.dumps(summary, indent=2))
     return 0
 
 
@@ -116,6 +128,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the denoiser's alignment flow net (raft is not ported yet)")
     p.add_argument("--long-form", choices=("auto", "on", "off"),
                    help="global anchor drift correction for long videos")
+    p.add_argument("--deduplicate", action="store_true", default=None,
+                   help="SR on the unique frames only, their outputs repeated")
+    p.add_argument("--defect-repair", dest="defect_repair", action="store_true",
+                   default=None, help="film scratch and dust repair before SR")
+    p.add_argument("--grain", dest="grain_mode",
+                   choices=("auto", "off", "preserve", "remove", "match"),
+                   help="post-SR film-grain handling")
     p.add_argument("--device", default=None, choices=("auto", "cuda", "cpu"))
     p.add_argument("--weights-dir", default=None)
     p.add_argument("--max-frames", type=int, default=None)

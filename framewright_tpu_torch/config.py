@@ -27,6 +27,7 @@ _VALID_DEVICES = ("auto", "cuda", "cpu")
 _VALID_REPORTS = ("json", "html", "none")
 _VALID_DENOISERS = ("auto", "nafnet", "restormer", "temporal", "bilateral", "none")
 _VALID_DEINTERLACE = ("auto", "off", "yadif", "bwdif")
+_VALID_GRAIN = ("auto", "off", "preserve", "remove", "match")
 
 # framewright_tpu/config.py:28-87, the two presets the port runs
 PRESETS: Dict[str, Dict[str, Any]] = {
@@ -57,10 +58,8 @@ PRESETS: Dict[str, Dict[str, Any]] = {
 }
 # the JAX presets that need stages not ported yet
 _WAITING_PRESETS = {
-    "archive": "face restoration (ROADMAP.md A9), frame interpolation and "
-               "deduplication (A6), defect repair (A10, film)",
-    "ultimate": "face restoration (ROADMAP.md A9), frame interpolation and "
-                "deduplication (A6), defect repair and grain (A10, film)",
+    "archive": "frame interpolation (ROADMAP.md A6b) and face restoration (A9)",
+    "ultimate": "frame interpolation (ROADMAP.md A6b) and face restoration (A9)",
 }
 # fields that do not change the output's pixels: a checkpoint survives a
 # change of these (those of ``framewright_tpu.config.Config.get_hash``'s
@@ -101,6 +100,22 @@ class Config:
     scene_threshold: float = 0.30         # scene-change score that cuts windows
     temporal_consistency: bool = False
     temporal_model: str = "attention"     # attention (cross-frame) | ema
+    defect_repair: bool = False           # scratches and dust, after deinterlacing
+    defect_scratch_sensitivity: float = 12.0   # column-scratch detector threshold
+    defect_dust_sensitivity: float = 45.0      # dust / speck detector threshold
+
+    # --- Deduplication: SR on the unique frames only ---------------------------
+    deduplicate: bool = False
+    dedup_similarity: float = 0.98        # dHash Hamming similarity of a duplicate
+    dedup_hash_size: int = 8
+
+    # --- Post-SR grain (forces the RGB writer path) ----------------------------
+    grain_preserve: bool = False
+    grain_strength: float = 0.3
+    grain_mode: str = "auto"              # auto|off|preserve|remove|match (auto =
+                                          # match when grain_preserve, else off)
+    grain_target: float = 0.0             # match target level; 0 = measured once
+    seed: int = 0                         # the grain generator's seed
 
     # --- Stages of the presets that the port does not run (accepted off) ----
     face_restore: bool = False
@@ -183,6 +198,10 @@ class Config:
             raise ConfigError("temporal_model must be attention|ema|latent")
         if not (0 <= self.crf <= 51):
             raise ConfigError("crf must be in [0, 51]")
+        if not (0.0 <= self.dedup_similarity <= 1.0):
+            raise ConfigError("dedup_similarity must be in [0, 1]")
+        if self.grain_mode not in _VALID_GRAIN:
+            raise ConfigError("grain_mode must be auto|off|preserve|remove|match")
         if self.denoise and self.denoise_model == "restormer":
             raise ConfigError("denoise_model='restormer' needs models/restormer, not "
                               "ported yet: ROADMAP.md A6")
@@ -197,7 +216,7 @@ class Config:
                               "ROADMAP.md A9")
         if self.interpolation:
             raise ConfigError("interpolation needs processors/interpolation, not "
-                              "ported yet: ROADMAP.md A6")
+                              "ported yet: ROADMAP.md A6b")
         if self.preset and self.preset not in PRESETS:
             get_preset(self.preset)          # raises, naming what it waits for
 

@@ -4,10 +4,12 @@ content: the port's copy of ``framewright_tpu.engine.checkpoint``.
 A checkpoint is one JSON file per source, named after a SHA-256 of the
 source's first 10 MB, so the same clip resumes wherever it lies. It
 holds the config hash (a changed config discards it), the stages
-completed and, per stage, the count of output frames handed to the
-writer. It is saved atomically (a temporary file, then a rename) every
-``interval`` frames, on ``force_save`` and when a stage completes, and
-removed by ``complete`` when the job is done.
+completed, per stage, the count of output frames handed to the writer,
+and the state a resume carries across its resume point (``carry``: the
+post-SR grain generator's state and measured target at recent points a
+resume may start from). It is saved atomically (a temporary file, then
+a rename) every ``interval`` frames, on ``force_save`` and when a stage
+completes, and removed by ``complete`` when the job is done.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import os
 import time
 from dataclasses import asdict, dataclass, field
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 from framewright_tpu_torch.errors import CheckpointError
 
@@ -47,6 +49,7 @@ class PipelineCheckpoint:
     total_frames: int = 0
     completed_stages: List[str] = field(default_factory=list)
     frames_done: Dict[str, int] = field(default_factory=dict)  # stage -> contiguous count
+    carry: Dict[str, Any] = field(default_factory=dict)        # str(frame) -> state there
     created_at: float = field(default_factory=time.time)
     updated_at: float = field(default_factory=time.time)
 

@@ -38,18 +38,23 @@ class GlobalAnchors:
         i = 0
         for f in frames_iter:
             if i % sample_every == 0:
-                ff = f.astype(np.float32)
-                anchors.points.append(AnchorPoint(
-                    frame_index=i,
-                    mean_rgb=ff.mean(axis=(0, 1)),
-                    std_rgb=ff.std(axis=(0, 1)) + 1e-3,
-                    brightness=float(ff.mean()),
-                    contrast=float(ff.std()),
-                    grain=estimate_grain_level(f),
-                ))
+                anchors.points.append(cls.measure(f, i))
             i += 1
         anchors.total_frames = i
         return anchors
+
+    @staticmethod
+    def measure(frame: np.ndarray, index: int) -> AnchorPoint:
+        """The anchor statistics of one frame."""
+        ff = frame.astype(np.float32)
+        return AnchorPoint(
+            frame_index=index,
+            mean_rgb=ff.mean(axis=(0, 1)),
+            std_rgb=ff.std(axis=(0, 1)) + 1e-3,
+            brightness=float(ff.mean()),
+            contrast=float(ff.std()),
+            grain=estimate_grain_level(frame),
+        )
 
     def interpolate(self, frame_index: int) -> AnchorPoint:
         """Anchor statistics at any frame (linear in time, held at the

@@ -1,5 +1,6 @@
-"""Device selection, the card's name and free memory, and the f32
-precision of the card's library calls.
+"""Device selection, the card's name and free memory, the f32 precision
+of the card's library calls, and a CUDA stream of its own for work that
+another thread queues.
 
 The port runs on ``cuda`` unless the caller asks for ``cpu``. Asking
 for ``cuda`` on a machine without a card raises; nothing falls back to
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Iterator, Optional, Union
+from typing import Iterable, Iterator, Optional, TypeVar, Union
 
 import torch
 
@@ -59,3 +60,29 @@ def full_f32() -> Iterator[None]:
         yield
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+T = TypeVar("T")
+
+
+def side_stream(device: torch.device) -> Optional["torch.cuda.Stream"]:
+    """A CUDA stream of its own on ``device`` that starts after the work
+    queued so far on the current stream (weights uploaded there); None on
+    the CPU."""
+    if device.type != "cuda":
+        return None
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    return stream
+
+
+def on_stream(items: Iterable[T], stream: Optional["torch.cuda.Stream"]) -> Iterator[T]:
+    """``items`` iterated with ``stream`` current in the thread that
+    iterates them (PyTorch's current stream is per thread), so their card
+    work, uploads and copies back queue there and a copy back waits for
+    that stream only. ``stream`` None: ``items`` as they are."""
+    if stream is None:
+        yield from items
+        return
+    with torch.cuda.stream(stream):
+        yield from items

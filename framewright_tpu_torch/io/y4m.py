@@ -1,9 +1,12 @@
 """YUV4MPEG2 (.y4m) reader and writer: the port's own copy of
-``framewright_tpu.io.y4m``. Its 4:2:0 colour conversions are the
-integer arithmetic of the JAX package's native library
-(``native/fwcore.cpp``), which the JAX reader and writer call, in numpy;
-other subsamplings decode with the float math of
-``framewright_tpu.io.color``, as the JAX reader does.
+``framewright_tpu.io.y4m``. 4:2:0 at even sizes is converted by the
+port's native host codec (``framewright_tpu_torch.native``, its copy of
+the JAX package's ``native/fwcore.cpp``), as the JAX reader and writer
+call theirs; ``yuv_to_rgb`` and ``rgb_to_yuv420`` here are the same
+integer arithmetic in numpy, which runs where the library cannot be
+built. Other subsamplings decode with the float math of
+``framewright_tpu.io.color``, as the JAX reader does. ``codec`` on a
+reader or writer says which conversion its frames take.
 
 Format: ASCII stream header ``YUV4MPEG2 W<w> H<h> F<num>:<den> ...``
 followed by frames, each ``FRAME[params]\\n`` + raw planar YUV.
@@ -20,6 +23,7 @@ from typing import BinaryIO, Iterator, Optional, Union
 
 import numpy as np
 
+from framewright_tpu_torch import native
 from framewright_tpu_torch.errors import MediaFormatError
 
 _MAGIC = b"YUV4MPEG2"
@@ -185,6 +189,10 @@ class Y4MReader:
         self.full_range = full_range
         self._frame_bytes = sum(s[0] * s[1] for s in self._shapes if s)
         self.frames_read = 0
+        ys, us, _ = self._shapes
+        even_420 = us is not None and ys[0] % 2 == 0 and ys[1] % 2 == 0 \
+            and us == (ys[0] // 2, ys[1] // 2)
+        self.codec = "native" if even_420 and native.codec() == "native" else "numpy"
 
     @property
     def width(self) -> int:
@@ -217,7 +225,9 @@ class Y4MReader:
             u = np.frombuffer(raw, np.uint8, count=ulen, offset=off).reshape(us)
             v = np.frombuffer(raw, np.uint8, count=ulen,
                               offset=off + ulen).reshape(vs)
-            rgb = yuv_to_rgb(y, u, v, full_range=self.full_range)
+            rgb = (native.yuv420_to_rgb(y, u, v, full_range=self.full_range)
+                   if self.codec == "native" else
+                   yuv_to_rgb(y, u, v, full_range=self.full_range))
         self.frames_read += 1
         return rgb
 
@@ -305,6 +315,11 @@ class Y4MWriter:
             full_range = "jpeg" in colorspace
         self.full_range = full_range
         self._f.write(self.header.to_line())
+        self._set_codec()
+
+    def _set_codec(self) -> None:
+        self.codec = ("native" if self.header.colorspace.startswith("420")
+                      and native.codec() == "native" else "numpy")
 
     def _open_append(self, dst: Path, width: int, height: int,
                      keep_frames: Optional[int]) -> None:
@@ -320,6 +335,7 @@ class Y4MWriter:
         self._owns = True
         self._f.truncate(end)
         self._f.seek(end)
+        self._set_codec()
 
     def write_frame(self, rgb: np.ndarray) -> None:
         h, w = self.header.height, self.header.width
@@ -339,7 +355,8 @@ class Y4MWriter:
             for p in (y, u, v):
                 self._f.write(np.clip(p + 0.5, 0, 255).astype(np.uint8).tobytes())
         else:
-            for p in rgb_to_yuv420(rgb, full_range=self.full_range):
+            convert = native.rgb_to_yuv420 if self.codec == "native" else rgb_to_yuv420
+            for p in convert(rgb, full_range=self.full_range):
                 self._f.write(p.tobytes())
         self.frames_written += 1
 

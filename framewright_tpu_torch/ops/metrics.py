@@ -11,6 +11,8 @@ so the maps of a 4K frame stay a few plane sizes.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -20,9 +22,12 @@ from framewright_tpu_torch.hw import full_f32
 _WINDOW, _SIGMA = 11, 1.5
 
 
+@functools.lru_cache(maxsize=8)
 def _gaussian_1d(dev: torch.device) -> torch.Tensor:
     """The 1D factor of the JAX package's 2D window (outer(g, g) / its
-    sum equals outer(g / sum(g), g / sum(g)))."""
+    sum equals outer(g / sum(g), g / sum(g))), on ``dev``, built once:
+    an upload from pageable memory per frame would wait for the work
+    queued on the stream, the SR batch the stats follow."""
     ax = np.arange(_WINDOW, dtype=np.float64) - (_WINDOW - 1) / 2.0
     g = np.exp(-0.5 * (ax / _SIGMA) ** 2)
     return torch.from_numpy((g / g.sum()).astype(np.float32)).to(dev)

@@ -38,11 +38,19 @@ quantization (its plain path); one frame at a time, after the batch's
 output is complete.
 
 ``dispatch`` enqueues a batch on the card and returns without
-synchronising; ``materialize`` waits on the batch's CUDA event and
-copies to the host. The restorer dispatches batch N+1 before it
-materializes batch N, so the card computes while the host writes. A
-device out-of-memory (``torch.cuda.OutOfMemoryError``) halves the batch
-and reruns, down to batch 1.
+synchronising: the batch is copied into one of two pinned staging
+buffers (``HostStaging``; before a buffer is refilled the host waits on
+the event of the copy that last read it) and uploaded with
+``non_blocking=True``, then the model runs and its output and stats are
+copied back into a pinned output slot, also without blocking, on the same
+stream. ``materialize`` waits on the batch's CUDA event, the one place
+the host waits for the card, and copies the result out of the slot.
+Pinned memory is allocated once and reused (``HostStaging``): allocating
+it waits for the card. The restorer dispatches batch N+1 before it
+materializes batch N, so the card computes while the host writes. On the
+CPU the batch is used in place and nothing is staged. A device
+out-of-memory (``torch.cuda.OutOfMemoryError``) halves the batch and
+reruns, down to batch 1.
 """
 
 from __future__ import annotations
@@ -122,6 +130,69 @@ def _frame_stats(yf: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 _STAT_KEYS = ("psnr", "ssim", "luma", "std", "finite")
 
 
+def _pinned_empty(shape, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, pin_memory=True)
+
+
+class HostStaging:
+    """Pinned host buffers, allocated once and reused: an allocation of
+    page-locked memory waits for the card, which the upload and the copy
+    back must not. Batches are uploaded from two buffers used in turn (one
+    is refilled only after the copy that last read it has run, its event);
+    results come back into an output slot that stays taken until
+    ``release``, after the host has copied them out."""
+
+    def __init__(self, slots: int = 2):
+        self._bufs = [None] * slots
+        self._events = [None] * slots
+        self._next = 0
+        self._out = []                # pinned output buffers
+        self._out_free = []           # indices of the free ones
+
+    @staticmethod
+    def _fit(buf, nbytes: int):
+        """``buf``, or a new pinned buffer when it holds fewer than
+        ``nbytes`` (batches of unique frames vary in size: a buffer keeps
+        the largest and lends each a view of its head)."""
+        return buf if buf is not None and buf.shape[0] >= nbytes else \
+            _pinned_empty((nbytes,), torch.uint8)
+
+    def upload(self, x: np.ndarray, device: torch.device) -> torch.Tensor:
+        k = self._next
+        self._next = (k + 1) % len(self._bufs)
+        if self._events[k] is not None:
+            self._events[k].synchronize()
+        buf = self._bufs[k] = self._fit(self._bufs[k], x.nbytes)
+        view = buf.narrow(0, 0, x.nbytes).view(x.shape)
+        view.numpy()[...] = x
+        xt = view.to(device, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(device))
+        self._events[k] = event
+        return xt
+
+    def download(self, tensors):
+        """Copies of the device ``tensors`` into a free output slot,
+        enqueued on the current stream (complete once the stream reaches
+        them) -> (the slot, pinned views of the copies)."""
+        sizes = [-(-t.numel() * t.element_size() // 64) * 64 for t in tensors]
+        if not self._out_free:
+            self._out.append(None)
+            self._out_free.append(len(self._out) - 1)
+        k = self._out_free.pop()
+        buf = self._out[k] = self._fit(self._out[k], sum(sizes))
+        views, off = [], 0
+        for t, size in zip(tensors, sizes):
+            v = buf.narrow(0, off, t.numel() * t.element_size()).view(t.dtype).view(t.shape)
+            v.copy_(t, non_blocking=True)
+            views.append(v)
+            off += size
+        return k, views
+
+    def release(self, slot: int) -> None:
+        self._out_free.append(slot)
+
+
 class SuperResolution:
     name = "super_resolution"
 
@@ -136,6 +207,7 @@ class SuperResolution:
         self._plan: Optional[planner_mod.Plan] = None
         self._plan_args: Optional[dict] = None
         self._int8_calibrate = False
+        self._staging: Optional[HostStaging] = None
 
     def setup(self, height: int, width: int) -> None:
         from framewright_tpu_torch.models.registry import bf16_masters, get_model, load_weights
@@ -152,6 +224,7 @@ class SuperResolution:
                               f"got {cfg.int8_scales!r}")
         dynamic = int8 and family == "rrdb" and cfg.int8_scales == "dynamic"
         self.device = resolve_device(cfg.device)
+        self._staging = HostStaging() if self.device.type == "cuda" else None
         # bf16 and int8: every master weight and bias rounded to bf16 once,
         # in f32 storage, as the JAX processor loads them; the kernel
         # layouts and the int8 scales derive from these values. float32
@@ -295,20 +368,30 @@ class SuperResolution:
         return self._enqueue(x)
 
     def _enqueue(self, x: np.ndarray) -> dict:
-        """Run the model on ``x`` without waiting for the card. Counts
-        nothing: an OOM retry reruns a batch that was dispatched once."""
-        xt = torch.from_numpy(x).to(self.device)
+        """Run the model on ``x`` and copy its result back, without
+        waiting for the card. Counts nothing: an OOM retry reruns a batch
+        that was dispatched once."""
         out, stats, exc, event = None, None, None, None
         try:
+            xt = (torch.from_numpy(x) if self._staging is None
+                  else self._staging.upload(x, self.device))
             with full_f32():
                 out, stats = self._run(xt)
         except torch.cuda.OutOfMemoryError as e:   # surfaced at materialize
             exc = e
-        if out is not None and self.device.type == "cuda":
+        slot = None
+        if out is not None and self._staging is not None:
+            # the copies back follow the model on the stream; the device
+            # tensors may go now (the allocator orders their reuse after
+            # the copies)
+            parts = list(out) if isinstance(out, tuple) else [out]
+            slot, host = self._staging.download(parts + ([] if stats is None else [stats]))
+            out = tuple(host[:len(parts)]) if isinstance(out, tuple) else host[0]
+            stats = None if stats is None else host[-1]
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
-        return {"out": out, "stats": stats, "event": event, "exc": exc, "x": x,
-                "n": len(x)}
+        return {"out": out, "stats": stats, "event": event, "slot": slot, "exc": exc,
+                "x": x, "n": len(x)}
 
     def materialize(self, handle: dict):
         """Wait for a dispatched batch and copy it to the host: uint8 RGB
@@ -323,15 +406,20 @@ class SuperResolution:
                     raise handle["exc"]
                 if handle["event"] is not None:
                     handle["event"].synchronize()
+                # on the host now; out of a staging slot into arrays of
+                # their own, which the caller may keep
+                copy = np.array if handle["slot"] is not None else np.asarray
                 out = handle["out"]
                 if isinstance(out, tuple):
-                    out = tuple(p.cpu().numpy() for p in out)
+                    out = tuple(copy(p.numpy()) for p in out)
                 else:
-                    out = out.cpu().numpy()
+                    out = copy(out.numpy())
                 if handle["stats"] is not None:
-                    st = handle["stats"].cpu().numpy()
+                    st = copy(handle["stats"].numpy())
                     caller["stats_np"] = dict(zip(_STAT_KEYS, st.T))
                     caller["stats_np"]["finite"] = caller["stats_np"]["finite"] > 0.5
+                if handle["slot"] is not None:
+                    self._staging.release(handle["slot"])
                 return out
             except torch.cuda.OutOfMemoryError as exc:
                 if attempt == _MAX_OOM_RETRIES:
@@ -349,5 +437,6 @@ class SuperResolution:
 
     def teardown(self) -> None:
         self.model = None
+        self._staging = None
         if self.device is not None and self.device.type == "cuda":
             torch.cuda.empty_cache()

@@ -31,9 +31,31 @@ resume point after the stream has made them, as the JAX ring does, so
 the denoiser profiles the same head frames, cuts at the same scenes and
 the enforcer's indices stay global.
 
+Deduplication (``deduplicate``, ``_stage_dedup``): one decode pass of
+the first ``frames_in`` frames hashes every frame (and tees the
+long-form anchors off the same pass); the enhance stage then runs SR on
+the unique frames of each ring batch only and repeats their outputs.
+Film defect repair (``defect_repair``) runs in the pre-SR stream after
+deinterlacing and before the denoiser, and post-SR grain (``grain_mode``)
+on each output frame after the gate has observed it, with one seeded
+generator for the run. A mapping or grain turns off the YUV-direct path:
+the SR pass emits uint8 RGB, the gate scores sampled RGB pairs and the
+writer encodes 4:2:0 on the host (the native codec). As in the JAX
+restorer (``framewright_tpu/restorer.py:301-342, 470, 654-720, 823-895``).
+
+The ring's producer thread runs the pre-SR stream on a CUDA stream of
+its own (``hw.on_stream``), so its uploads and copies back wait for its
+own work, not for the SR batch queued on the main thread's stream.
+
 Resume cuts the output to R = min(the checkpoint's count, the whole
 frames in the file), rounded down to a whole batch, and restarts the
-input at frame R. The JAX
+input at frame R. With deduplication R moves back to a batch start that
+is a unique frame, so no SR output is carried across it and the last
+unique position is the mapping's at R - 1; with grain R moves back to a
+point the checkpoint holds the generator's state and measured target
+for (``carry``); R = 0 when there is none. The resumed output is the
+straight run's byte for byte: the JAX restorer restarts its last unique
+index and its generator on a resume (ROADMAP.md, "JAX faults"). The JAX
 restorer appends after min(checkpoint, frames counted), which duplicates
 the frames written after the last checkpoint save and counts a frame cut
 short by a kill as whole (ROADMAP.md, "JAX faults the port must not
@@ -72,9 +94,19 @@ from framewright_tpu_torch.errors import (
     TransientError,
     ValidationError,
 )
-from framewright_tpu_torch.hw import full_f32
+from framewright_tpu_torch.hw import full_f32, on_stream, side_stream
 from framewright_tpu_torch.io.ring import PrefetchRing, WriterDrain
 from framewright_tpu_torch.io.y4m import Y4MReader, Y4MWriter, rgb_to_yuv420
+from framewright_tpu_torch.processors.deduplication import (
+    DedupConfig,
+    DedupResult,
+    FrameDeduplicator,
+)
+from framewright_tpu_torch.processors.film import (
+    DefectRepairer,
+    GrainManager,
+    estimate_grain_level,
+)
 from framewright_tpu_torch.processors.format import InterlaceDetector, YadifDeinterlacer
 from framewright_tpu_torch.processors.super_resolution import (
     SRConfig,
@@ -91,6 +123,9 @@ from framewright_tpu_torch.quality.validators import QualityReport, QualityValid
 logger = logging.getLogger(__name__)
 
 _ENHANCE = "enhance"
+# resume points whose carried state the checkpoint keeps (the newest): a
+# killed run's file may lag its checkpoint by the writer's queue
+_CARRY_POINTS = 16
 
 
 @dataclass
@@ -108,8 +143,12 @@ class RestoreResult:
     stage_summary: Dict = field(default_factory=dict)
     pre_sr: Dict = field(default_factory=dict)   # what the pre-SR stream did:
                                                  # long_form, deinterlace,
-                                                 # denoise (the denoiser's result),
-                                                 # temporal_consistency
+                                                 # defect_repair, denoise (the
+                                                 # denoiser's result),
+                                                 # temporal_consistency,
+                                                 # host_codec
+    dedup: Optional[DedupResult] = None
+    post_sr: Dict = field(default_factory=dict)  # grain: mode and target
 
     @property
     def fps(self) -> float:
@@ -146,6 +185,36 @@ def build_sr_config(cfg: Config, reserved_bytes: int = 0) -> SRConfig:
         device=_device(cfg),
         reserved_bytes=reserved_bytes,
     )
+
+
+class _PostSRGrain:
+    """The restore's post-SR ``post_fx`` (``framewright_tpu/restorer.py:
+    654-720``): ``GrainManager.process`` on each output frame, with the
+    ``match`` target measured once from the first batch's unique frames
+    when ``grain_target`` is 0. ``state``/``restore`` carry the generator
+    and the target across a resume."""
+
+    def __init__(self, gm: GrainManager, target: float):
+        self.gm = gm
+        self.target = target
+
+    def state(self) -> Dict:
+        return {"rng": self.gm.rng.bit_generator.state, "target": self.target}
+
+    def restore(self, state: Dict) -> None:
+        self.gm.rng.bit_generator.state = state["rng"]
+        self.target = state["target"]
+
+    def __call__(self, out: np.ndarray, src_frames: Optional[np.ndarray]) -> np.ndarray:
+        tgt = self.target
+        if tgt <= 0:
+            if src_frames is not None and len(src_frames):
+                tgt = max(0.05, float(np.mean([estimate_grain_level(f)
+                                               for f in src_frames[:2]])))
+                self.target = tgt
+            else:
+                tgt = 0.2
+        return np.stack([self.gm.process(f, target_level=tgt) for f in out])
 
 
 class VideoRestorer:
@@ -190,6 +259,8 @@ class VideoRestorer:
         run("probe", self._stage_probe)
         if cfg.checkpoint_enabled:
             run("checkpoint", self._stage_checkpoint)
+        if cfg.deduplicate:
+            run("dedup", self._stage_dedup)
         run(_ENHANCE, self._stage_enhance)
         try:
             if cfg.validate_output:
@@ -201,7 +272,7 @@ class VideoRestorer:
             out_path, data["frames_in"], data["frames_out"], time.time() - t0,
             data["batches"], data["batch_size"], data.get("quality_report"),
             data["frame_errors"], data["resumed_from"], {"stages": stages},
-            data.get("pre_sr", {}))
+            data.get("pre_sr", {}), data.get("dedup_result"), data.get("post_sr", {}))
         if cfg.quality_report_format != "none" and result.quality is not None:
             try:
                 from framewright_tpu_torch.reports import build_qa_report
@@ -229,6 +300,62 @@ class VideoRestorer:
                                     total_frames=data["frames_in"])
         return {"checkpoint": ck}
 
+    def _stage_dedup(self, data: Dict) -> Dict:
+        """One decode pass of the first ``frames_in`` frames: the dedup
+        analysis, and the long-form anchors teed off the same frames."""
+        cfg = self.config
+        total = data["frames_in"]
+        dedup = FrameDeduplicator(DedupConfig(similarity_threshold=cfg.dedup_similarity,
+                                              hash_size=cfg.dedup_hash_size))
+        out: Dict = {}
+        with Y4MReader(data["source"]) as reader:
+            frames = itertools.islice(iter(reader), total)
+            if self._longform_active(total):
+                anchors = GlobalAnchors(total_frames=total)
+
+                def teed(it=frames, every=cfg.anchor_interval):
+                    for i, f in enumerate(it):
+                        if i % every == 0:
+                            anchors.points.append(GlobalAnchors.measure(f, i))
+                        yield f
+
+                frames = teed()
+                out["anchors"] = anchors
+            out["dedup_result"] = dedup.analyze(frames, target_fps=float(data["fps"]))
+        return out
+
+    def _grain(self) -> Optional["_PostSRGrain"]:
+        """The post-SR grain of the config (``grain_mode`` resolved as the
+        JAX restorer does), or None."""
+        cfg = self.config
+        mode = cfg.grain_mode
+        if mode == "auto":
+            mode = "match" if cfg.grain_preserve else "off"
+        elif mode == "preserve":
+            mode = "match"
+        if mode == "off":
+            return None
+        return _PostSRGrain(GrainManager(mode=mode, strength=cfg.grain_strength, seed=cfg.seed),
+                            cfg.grain_target)
+
+    def _resume_point(self, keep: int, batch: int, mapping: Optional[Dict[int, int]],
+                      grain: Optional["_PostSRGrain"]) -> int:
+        """The largest batch start <= ``keep`` a resume can start from
+        with the straight run's bytes: a unique frame under a mapping, and
+        one whose grain state the checkpoint carries under grain; else 0.
+        Restores the grain state there."""
+        carry = ({int(k): v for k, v in self.checkpoints.checkpoint.carry.items()}
+                 if grain is not None else {})
+        for r in range(keep - keep % batch, 0, -batch):
+            if mapping is not None and mapping.get(r) == mapping[r - 1]:
+                continue
+            if grain is not None:
+                if r not in carry:
+                    continue
+                grain.restore(carry[r])
+            return r
+        return 0
+
     def _stage_enhance(self, data: Dict) -> Dict:
         cfg = self.config
         total, h, w = data["frames_in"], data["height"], data["width"]
@@ -236,6 +363,9 @@ class VideoRestorer:
         checkpointed = "checkpoint" in data
         resume_from = (self.checkpoints.resume_point(_ENHANCE)
                        if checkpointed and cfg.resume else 0)
+        dedup: Optional[DedupResult] = data.get("dedup_result")
+        mapping = dedup.frame_mapping if dedup is not None else None
+        grain = self._grain()
         sr = self.sr = SuperResolution(build_sr_config(cfg, pre_sr_reserve(cfg, h, w)))
         written = frame_errors = batch_size = 0
         budget_hit = False
@@ -255,15 +385,17 @@ class VideoRestorer:
             batch_size = max(1, min(sr.plan.batch, total))
             if resume_from:
                 # cut the output to R = min(checkpoint, whole frames in it),
-                # rounded down to a whole batch: every frame then runs in
-                # the batch it had in a straight run, so the output is the
+                # rounded down to a whole batch (and back to a unique frame
+                # or a carried grain state): every frame then runs in the
+                # batch it had in a straight run, so the output is the
                 # straight run's (the CPU's plain convolutions may round a
                 # frame differently in another batch)
                 on_disk = 0
                 if out_path.is_file():
                     with Y4MReader(out_path) as r:
                         on_disk = r.count_frames()
-                keep = min(resume_from, on_disk) // batch_size * batch_size
+                keep = self._resume_point(min(resume_from, on_disk) // batch_size * batch_size,
+                                          batch_size, mapping, grain)
                 writer = Y4MWriter(out_path, ow, oh, fps=data["fps"], append=True,
                                    keep_frames=keep)
                 resume_from = writer.frames_written
@@ -276,8 +408,12 @@ class VideoRestorer:
                                           first_frame=resume_from)
                          if cfg.validate_output else None)
             reader = stack.enter_context(Y4MReader(data["source"]))
+            pre_sr["host_codec"] = {"decode": reader.codec, "encode": writer.codec}
+            # a mapping repeats RGB outputs and grain changes them on the
+            # host: both take the RGB path
             yuv_direct = (writer.header.colorspace.startswith("420")
-                          and oh % 2 == 0 and ow % 2 == 0)
+                          and oh % 2 == 0 and ow % 2 == 0
+                          and mapping is None and grain is None)
             if yuv_direct:
                 sr.config.yuv_full_range = writer.full_range
                 sr.set_output_color("yuv420")
@@ -290,13 +426,19 @@ class VideoRestorer:
             else:
                 drain = WriterDrain(writer.write_frame, depth=4)
             stack.callback(drain.close)
-            # the pre-SR stream from frame 0: the ring drops the frames
-            # before the resume point after the stream made them
+            # the pre-SR stream from frame 0, on a stream of its own on the
+            # card: the ring drops the frames before the resume point after
+            # the stream made them
             stream, finish_pre_sr = self._pre_sr_stream(
                 data, itertools.islice(iter(reader), total), pre_sr)
-            ring = PrefetchRing(stream, batch_size=batch_size,
-                                skip_frames=resume_from, start_frame=resume_from)
+            ring = PrefetchRing(on_stream(stream, side_stream(sr.device)),
+                                batch_size=batch_size, skip_frames=resume_from,
+                                start_frame=resume_from)
             stack.callback(ring.close)
+            # the unique position of the last frame SR ran on, and its output
+            last_unique = mapping[resume_from - 1] if mapping and resume_from else -1
+            last_out: Optional[np.ndarray] = None
+            carry: Dict[str, Dict] = {}
 
             def guarded(fn, frames: np.ndarray):
                 """(fn(), True), or (the frames' bicubic copies, False) when
@@ -311,12 +453,15 @@ class VideoRestorer:
                     frame_errors += len(frames)
                     return self._upscale_fallback(frames, (oh, ow)), False
 
-            def finish(handle, ok: bool, frames: np.ndarray) -> None:
-                nonlocal written
+            def finish(handle, ok: bool, frames: np.ndarray, start: int, unique_sel: List[int],
+                       work: np.ndarray) -> None:
+                nonlocal written, last_out
                 n = len(frames)
                 out = handle                            # bicubic copies if not ok
-                if ok:
-                    out, ok = guarded(lambda: sr.materialize(handle), frames)
+                if handle is None:                      # every frame a duplicate
+                    out = frames[:0]
+                elif ok:
+                    out, ok = guarded(lambda: sr.materialize(handle), work)
                 if yuv_direct:
                     if ok:                              # (Y, U, V) planes
                         st = handle.get("stats_np")
@@ -326,9 +471,29 @@ class VideoRestorer:
                         out = [tuple(p[i] for p in out) for i in range(n)]
                     else:                               # bicubic copies in RGB
                         out = [rgb_to_yuv420(f, full_range=writer.full_range) for f in out]
-                elif validator is not None and ok:
-                    for i in range(n):
-                        validator.observe(frames[i], out[i])
+                else:
+                    if mapping is not None:
+                        # the unique frames' outputs back at every position
+                        outs, k = [], 0
+                        for pos in range(n):
+                            if k < len(unique_sel) and unique_sel[k] == pos:
+                                last_out = out[k]
+                                k += 1
+                            outs.append(last_out)   # a resume starts at a unique frame
+                        out = np.stack(outs)
+                    if validator is not None and ok:
+                        for i in range(n):
+                            validator.observe(frames[i], out[i])
+                    if grain is not None:
+                        # after the gate: grain is an intended change
+                        out = grain(out, work if len(work) else None)
+                        nxt = start + n
+                        if nxt < total and (mapping is None or mapping[nxt] > mapping[nxt - 1]):
+                            carry[str(nxt)] = grain.state()
+                            for key in list(carry)[:-_CARRY_POINTS]:
+                                del carry[key]
+                            if checkpointed:
+                                self.checkpoints.checkpoint.carry = dict(carry)
                 drain.submit(out, n)
                 written += n
                 if checkpointed:
@@ -349,10 +514,23 @@ class VideoRestorer:
                                    written)
                     break
                 frames = batch.frames[: batch.valid]
-                handle, ok = guarded(lambda: sr.dispatch(frames), frames)
+                start = batch.start_frame
+                if mapping is not None:
+                    # SR on the frames of a unique position not seen yet
+                    unique_sel = []
+                    for pos in range(len(frames)):
+                        u = mapping[start + pos]
+                        if u > last_unique:
+                            unique_sel.append(pos)
+                            last_unique = u
+                    work = frames[unique_sel]
+                else:
+                    unique_sel, work = list(range(len(frames))), frames
+                handle, ok = (guarded(lambda: sr.dispatch(work), work) if len(work)
+                              else (None, True))
                 if pending is not None:
                     finish(*pending)
-                pending = (handle, ok, frames)
+                pending = (handle, ok, frames, start, unique_sel, work)
             if pending is not None:
                 finish(*pending)
         finish_pre_sr()
@@ -361,8 +539,10 @@ class VideoRestorer:
                              "rerun the same command to resume")
         if checkpointed:
             self.checkpoints.stage_completed(_ENHANCE)
+        post_sr = {} if grain is None else {"grain": {"mode": grain.gm.mode,
+                                                      "target": grain.target}}
         return {"frames_out": written, "frame_errors": frame_errors,
-                "resumed_from": resume_from, "pre_sr": pre_sr,
+                "resumed_from": resume_from, "pre_sr": pre_sr, "post_sr": post_sr,
                 "validator": validator, "batches": sr.dispatches,
                 "batch_size": batch_size}
 
@@ -376,14 +556,18 @@ class VideoRestorer:
 
     def _pre_sr_stream(self, data: Dict, frames: Iterator[np.ndarray], info: Dict):
         """The frames of the source from 0 through the pre-SR stages, in
-        the JAX order -> (stream, finish): ``finish()`` adds the
-        denoiser's result to ``info`` once the stream has run."""
+        the JAX order (drift correction, deinterlacing, defect repair,
+        denoising, temporal consistency) -> (stream, finish): ``finish()``
+        adds the defect repairer's and the denoiser's results to ``info``
+        once the stream has run."""
         cfg = self.config
         total = data["frames_in"]
         if self._longform_active(total):
-            with Y4MReader(data["source"]) as ar:
-                anchors = GlobalAnchors.extract(itertools.islice(iter(ar), total),
-                                                sample_every=cfg.anchor_interval)
+            anchors = data.get("anchors")             # teed off the dedup pass
+            if anchors is None:
+                with Y4MReader(data["source"]) as ar:
+                    anchors = GlobalAnchors.extract(itertools.islice(iter(ar), total),
+                                                    sample_every=cfg.anchor_interval)
             info["long_form"] = {"anchors": len(anchors.points)}
             if anchors.points:
                 enforcer = ColorConsistencyEnforcer(anchors, cfg.long_form_strength)
@@ -404,6 +588,11 @@ class VideoRestorer:
             info["deinterlace"] = {"mode": deint}
         if deint in ("yadif", "bwdif"):
             frames = YadifDeinterlacer(mode=deint).process_stream(frames)
+        repairer = None
+        if cfg.defect_repair:
+            repairer = DefectRepairer(scratch_threshold=cfg.defect_scratch_sensitivity,
+                                      dust_threshold=cfg.defect_dust_sensitivity)
+            frames = repairer.process_stream(frames)
         denoiser = None
         if cfg.denoise:
             denoiser = TemporalDenoiser(TemporalDenoiseConfig(
@@ -423,6 +612,8 @@ class VideoRestorer:
                 frames = FlickerReducer().reduce_stream(frames)
 
         def finish() -> None:
+            if repairer is not None:
+                info["defect_repair"] = dataclasses.asdict(repairer.report)
             if denoiser is not None:
                 info["denoise"] = {"method": denoiser.config.method,
                                    **denoiser.result.to_dict()}

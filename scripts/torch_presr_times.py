@@ -1,28 +1,38 @@
 #!/usr/bin/env python3
-"""Where the time of a ``--preset quality`` restore goes, on one GPU.
+"""Where the time of a ``--preset quality`` restore and a film restore
+goes, on one GPU.
 
     python3 scripts/torch_presr_times.py [--frames 12 36] [--profile]
 
 Restores seeded 1080p clips to 4K through ``VideoRestorer`` (the CLI's
 code path; seeded random RealESRGAN_x2plus weights from an empty weights
-dir) with the default config and with the ``quality`` preset, at each
-clip length of ``--frames`` (progressive frames, a darker shot from the
-middle on: ``chip_smoke.clip_with_cut``). For each run: the wall time,
+dir) with the default config, with the ``quality`` preset (progressive
+frames, a darker shot from the middle on: ``chip_smoke.clip_with_cut``)
+and as ``--deduplicate --defect-repair --grain match`` ("film": 18 fps
+padded to 24 with a scratch and dust, ``chip_smoke.film_clip``), at each
+clip length of ``--frames``. For each run: the wall time, the peak
+device memory allocated and reserved,
 and the host time spent in each part, summed over its calls, by wrapping
 the part's function with a clock: in the ring's producer thread the
 Y4M decode (``Y4MReader.read_frame``), the scene score
 (``frame_pair_scores``), the noise profile, the uploads, the denoiser's
 window (card work and its copy back, ``denoise_window``) and the
-attention's (``CrossFrameAttention._filter``); in the main thread the interlace
-probe's decode pass (``InterlaceDetector.analyze``), the SR's
-``dispatch`` (enqueue) and ``materialize`` (wait and copy back), and the
-writer's thread. The parts overlap across the threads, so they do not
-add up to the wall time. A 4-frame restore first builds the kernels and
+attention's (``CrossFrameAttention._filter``) and the defect repair's
+(``DefectRepairer._emit``); in the main thread the dedup pass
+(``_stage_dedup``), the interlace probe's decode pass
+(``InterlaceDetector.analyze``), the SR's ``dispatch`` (the enqueue:
+staging, upload and launches; also per call) and ``materialize`` (the
+wait for the card and the pinned copy back), the gate's RGB pairs
+(``QualityValidator.observe``, then their scoring in ``validate``) and
+the grain (``_PostSRGrain``); the writer's thread (4:2:0 planes, or RGB
+encoded on the host). The parts overlap across the threads, so they do
+not add up to the wall time. A 4-frame restore first builds the kernels and
 warms the card. Steady-state ms a frame is the difference of two
 lengths' walls over the difference of their frames. With ``--profile``
 one more quality restore at the longest length runs under
 torch.profiler (slower, and left out of the steady state): the device's
-busy time (the sum of its kernels' times) against that run's wall. Prints the card's name and power limit, then one JSON line.
+busy time (the sum of its kernels' times) against that run's wall and
+against the unprofiled run's. Prints the card's name and power limit, then one JSON line.
 Exits non-zero without a CUDA device.
 """
 
@@ -44,6 +54,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+FILM = {"deduplicate": True, "defect_repair": True, "grain_mode": "match"}
 
 
 class PartClock:
@@ -83,10 +94,12 @@ def main(argv=None) -> int:
         print("torch_presr_times: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke
+    from framewright_tpu_torch import restorer
     from framewright_tpu_torch.config import build_config
     from framewright_tpu_torch.io import y4m
-    from framewright_tpu_torch.processors import noise_profiler, super_resolution
+    from framewright_tpu_torch.processors import film, noise_profiler, super_resolution
     from framewright_tpu_torch.processors import temporal_attention, temporal_denoise
+    from framewright_tpu_torch.quality import validators
     from framewright_tpu_torch.restorer import VideoRestorer
 
     clock = PartClock()
@@ -101,9 +114,16 @@ def main(argv=None) -> int:
                "producer: denoise a centre (card, copy back)")
     clock.wrap(temporal_attention.CrossFrameAttention, "_filter",
                "producer: attention a frame (card, copy back)")
-    clock.wrap(super_resolution.SuperResolution, "dispatch", "main: SR dispatch")
-    clock.wrap(super_resolution.SuperResolution, "materialize", "main: SR materialize")
-    clock.wrap(y4m.Y4MWriter, "write_yuv_frame", "writer: Y4M encode and write")
+    clock.wrap(film.DefectRepairer, "_emit", "producer: defect repair a frame")
+    clock.wrap(VideoRestorer, "_stage_dedup", "main: dedup pass (decode and hash)")
+    clock.wrap(super_resolution.SuperResolution, "dispatch", "main: SR dispatch (enqueue)")
+    clock.wrap(super_resolution.SuperResolution, "materialize",
+               "main: SR materialize (wait, copy back)")
+    clock.wrap(validators.QualityValidator, "observe", "main: gate pair observe")
+    clock.wrap(validators.QualityValidator, "validate", "main: gate scoring")
+    clock.wrap(restorer._PostSRGrain, "__call__", "main: grain (post_fx)")
+    clock.wrap(y4m.Y4MWriter, "write_yuv_frame", "writer: Y4M write 4:2:0 planes")
+    clock.wrap(y4m.Y4MWriter, "write_frame", "writer: Y4M encode RGB and write")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -112,43 +132,56 @@ def main(argv=None) -> int:
         tmp = Path(tmp)
         (tmp / "nw").mkdir()
         runs = [("quality", 4, False)]                      # warm-up
-        runs += [(p, n, False) for n in args.frames for p in ("", "quality")]
+        runs += [(p, n, False) for n in args.frames for p in ("", "quality", "film")]
         if args.profile:
             runs.append(("quality", max(args.frames), True))
         for preset, n, profile in runs:
-            src = tmp / f"clip{n}.y4m"
+            kind = "film" if preset == "film" else "cut"
+            src = tmp / f"{kind}{n}.y4m"
             if not src.exists():
-                frames = chip_smoke.clip_with_cut(n, n // 2, 1080, 1920, seed=41)
+                frames = (chip_smoke.film_clip(n, 1080, 1920, seed=47) if kind == "film"
+                          else chip_smoke.clip_with_cut(n, n // 2, 1080, 1920, seed=41))
                 with y4m.Y4MWriter(src, 1920, 1080, fps=24) as w:
                     for f in frames:
                         w.write_frame(f)
             label = f"{preset or 'default'} {n}" + (" profiled" if profile else "")
-            cfg = build_config(preset, {"project_dir": tmp / label.replace(" ", "_"),
-                                        "weights_dir": tmp / "nw",
-                                        "checkpoint_enabled": False})
+            cfg = build_config("" if preset == "film" else preset, {
+                "project_dir": tmp / label.replace(" ", "_"), "weights_dir": tmp / "nw",
+                "checkpoint_enabled": False, **(FILM if preset == "film" else {})})
             prof = (torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
                 if profile else contextlib.nullcontext())
             clock.reset()
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             with prof:
                 res = VideoRestorer(cfg).restore_video(src, tmp / f"{label}.y4m")
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t
-            run = {"frames": res.frames_out, "wall_s": wall,
+            run = {"frames": res.frames_out, "wall_s": wall, "batches": res.batches,
                    "parts_ms": dict(clock.ms), "calls": dict(clock.calls),
-                   "pre_sr": res.pre_sr.get("denoise", {}).get("method")}
+                   "enqueue_ms_per_dispatch": (clock.ms["main: SR dispatch (enqueue)"]
+                                               / max(1, clock.calls["main: SR dispatch (enqueue)"])),
+                   "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                   "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
+                   "pre_sr": res.pre_sr.get("denoise", {}).get("method"),
+                   "host_codec": res.pre_sr.get("host_codec"),
+                   "duplicates": res.dedup.duplicates if res.dedup else None}
             if profile:
                 busy = sum(getattr(e, "self_device_time_total", 0)
                            for e in prof.key_averages()) / 1e3
                 run["device_busy_ms"] = busy
                 run["device_busy_share"] = busy / (wall * 1e3)
+                # the same device work against the wall of the same restore
+                # unprofiled (the profiler slows the host)
+                run["device_busy_share_unprofiled"] = busy / (
+                    out["runs"][f"{preset} {n}"]["wall_s"] * 1e3)
             out["runs"][label] = run
         n1, n2 = args.frames
         out["steady_ms_per_frame"] = {
             p: 1e3 * (out["runs"][f"{p} {n2}"]["wall_s"] - out["runs"][f"{p} {n1}"]["wall_s"])
-            / (n2 - n1) for p in ("default", "quality")}
+            / (n2 - n1) for p in ("default", "quality", "film")}
     print(smi)
     print(json.dumps(out))
     return 0
