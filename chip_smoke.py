@@ -114,7 +114,7 @@ Phases, one JSON object per line on stdout:
               planner's count with the pre-SR row; wall time and ms a frame
   film        ``--deduplicate --defect-repair --grain match`` through the
               CLI: x2plus (random weights, 23 blocks, bf16) from 1080p to
-              4K on a 16-frame clip at 18 fps padded to 24 (every fourth
+              4K on an 8-frame clip at 18 fps padded to 24 (every fourth
               frame an exact repeat), with a bright scratch column and
               dust: counters 69/1/1 a batch, SR on the unique frames only
               (its mapping the CPU analysis'), every plane equal to the
@@ -124,6 +124,30 @@ Phases, one JSON object per line on stdout:
               straight and stopped after its first batch then resumed
               (byte-equal); its peak against the planner's count; card and
               host ms of its parts
+  tools       whether Pillow and ffmpeg/ffprobe are there (and ffmpeg's
+              encoders): an absent one is printed, not a failure
+  formats     the default restore (x2plus) of 4 frames at 960x540 from and
+              to a PNG frame directory when Pillow is there (counters
+              69/1/1 a batch, every frame the kernel path's ``rgb_u8``),
+              and from an mkv to an mp4 when ffmpeg is there (frames, size
+              and rate through ffprobe)
+  archive     ``--preset archive`` through the CLI: RealESRGAN_x4plus
+              (random weights, bf16) from 960x540 to 4K on an 8-frame film
+              clip at 18 fps padded to 24 with a skin-coloured moving
+              patch, with seeded weights at the published widths written
+              for IFNet (rife-v4.6), GFPGANv1.4 and RetinaFace_mnet025:
+              counters 69/1/1 a batch of unique frames, K2 in ``rgb_u8``;
+              11 frames at 36 fps, as the CPU dedup analysis gives; faces
+              restored; a step of 4K IFNet pairs, a GFPGAN crop and
+              RetinaFace on a 4K frame on the card against the same
+              modules on the CPU (uint8 within 1 LSB on <= 0.1%, boxes
+              within 1 px); the same restore through the API killed inside
+              the interpolate stage and resumed there (no SR run again),
+              byte-equal to the CLI's; the peaks against the planner's
+              rows (enhance with the face row, the interpolation step);
+              card ms of IFNet, GFPGAN and RetinaFace, host ms of the skin
+              detector, a frame's face restore and the 4K scene score, the
+              stages' walls
   6. times    each kernel by CUDA events beside its plain version, its
               roofline bound and, for the bf16 RDB, K1, tail1, the bf16
               chain and the band conv, cuDNN's F.conv2d (PyTorch has no
@@ -937,7 +961,7 @@ def pre_sr_restores(tmp: Path, nw: str, dev, x: dict) -> dict:
     return walls
 
 
-FILM_H, FILM_W, FILM_FRAMES = 1080, 1920, 16
+FILM_H, FILM_W, FILM_FRAMES = 1080, 1920, 8
 FILM_FLAGS = {"deduplicate": True, "defect_repair": True, "grain_mode": "match"}
 
 
@@ -1161,6 +1185,359 @@ def film_phase(tmp: Path, nw: str, dev, x: dict) -> dict:
           "seconds": round(time.perf_counter() - t0, 3)})
     return {"wall_seconds": wall, "ms_per_frame": 1e3 * wall / n, "card_ms": card,
             "host_ms": host}
+
+
+
+ARCHIVE_H, ARCHIVE_W, ARCHIVE_FRAMES = 540, 960, 8
+SKIN = (205, 150, 125)
+FACE_LSB_SHARE = 1e-3         # uint8 card vs CPU: 1 LSB on <= 0.1% (tests/test_torch_faces.py)
+
+
+def tools_phase() -> dict:
+    """Which optional tools the machine has: Pillow (PNG frame
+    directories) and ffmpeg/ffprobe (mp4, mkv). An absent one is printed,
+    not a failure: neither is on the main path."""
+    from framewright_tpu_torch.io import ffmpeg as ff
+    from framewright_tpu_torch.io import png_seq
+
+    rec = {"phase": "tools", "pillow": png_seq.pillow_available(),
+           "ffmpeg": ff.ffmpeg_available(), "ffmpeg_path": shutil.which("ffmpeg"),
+           "ffprobe_path": shutil.which("ffprobe")}
+    if rec["pillow"]:
+        import PIL
+
+        rec["pillow_version"] = PIL.__version__
+    if rec["ffmpeg"]:
+        proc = subprocess.run(["ffmpeg", "-hide_banner", "-encoders"], capture_output=True,
+                              text=True, timeout=60)
+        rec["encoders"] = [e for e in ("libx264", "libx265", "mpeg4", "ffv1")
+                           if f" {e} " in proc.stdout]
+    emit(rec)
+    return rec
+
+
+def archive_clip(n: int, h: int, w: int, seed: int) -> np.ndarray:
+    """``film_clip`` (18 fps padded to 24, a scratch, dust) with a
+    textured skin-coloured patch (120x90 at 960x540) moving w / 60 px a
+    unique frame (a repeat stays an exact repeat)."""
+    frames = film_clip(n, h, w, seed).astype(np.int16)
+    ph, pw = h * 2 // 9, w * 3 // 32
+    patch = np.array(SKIN) + np.random.default_rng(seed + 1).integers(-10, 10, (ph, pw, 3))
+    for t in range(n):
+        u = t - (t + 1) // 4
+        y0, x0 = h // 4, w // 4 + w // 60 * u
+        frames[t, y0:y0 + ph, x0:x0 + pw] = patch
+    return np.clip(frames, 0, 255).astype(np.uint8)
+
+
+def write_archive_weights(wdir: Path) -> dict:
+    """Seeded numpy weights at the published widths, in the JAX package's
+    .npz layout: rife-v4.6 (IFNetConfig()), GFPGANv1.4 (GFPGANConfig(),
+    177.6 M parameters) and RetinaFace_mnet025 -> {file: MB}."""
+    from framewright_tpu_torch.models import gfpgan, ifnet, registry, retinaface
+
+    wdir.mkdir(parents=True, exist_ok=True)
+    registry.write_npz(ifnet.init_params(ifnet.IFNetConfig(), seed=11), wdir / "rife-v4.6.npz")
+    registry.write_npz(gfpgan.init_params(gfpgan.GFPGANConfig(), seed=12),
+                       wdir / "GFPGANv1.4.npz")
+    registry.write_npz(retinaface.init_params(seed=13), wdir / "RetinaFace_mnet025.npz")
+    return {p.name: p.stat().st_size / 1e6 for p in sorted(wdir.glob("*.npz"))}
+
+
+def within_one_lsb(label: str, got: np.ndarray, want: np.ndarray, phase: str = "archive") -> dict:
+    d = np.abs(np.asarray(got, np.int16) - np.asarray(want, np.int16))
+    rec = {"phase": phase, "name": label, "max_abs": int(d.max()),
+           "frac_differ": float((d > 0).mean()),
+           "tol": {"max_abs": 1, "frac_differ": FACE_LSB_SHARE}}
+    emit(rec)
+    require(got.shape == want.shape and rec["max_abs"] <= 1
+            and rec["frac_differ"] <= FACE_LSB_SHARE, f"{label}: {rec}")
+    return rec
+
+
+def archive_phase(tmp: Path, dev, x: dict) -> dict:
+    """``--preset archive`` (RealESRGAN_x4plus, seeded random weights)
+    through the CLI on an 8-frame 960x540 film clip at 18 fps padded to 24
+    with a skin-coloured moving patch, with seeded weights at the
+    published widths for IFNet, GFPGAN and RetinaFace: counters 69/1/1 a
+    batch of unique frames and K2 in ``rgb_u8``; the frames and rate the
+    CPU analysis gives (6 unique, factor 2: 11 frames at 36 fps); faces
+    restored; a 4K IFNet step of pairs, a GFPGAN crop and RetinaFace on a
+    4K frame on the card against the same modules on the CPU; the same
+    restore through the API killed inside the interpolate stage, then
+    resumed there (no SR run again), byte-equal to the CLI's; the peak
+    against the planner; card and host ms of the parts. -> times."""
+    import torch
+
+    from framewright_tpu_torch import planner
+    from framewright_tpu_torch.config import build_config
+    from framewright_tpu_torch.io.y4m import Y4MReader, Y4MWriter
+    from framewright_tpu_torch.models.gfpgan import GFPGAN
+    from framewright_tpu_torch.models.ifnet import IFNet
+    from framewright_tpu_torch.models.registry import load_aux
+    from framewright_tpu_torch.models.rrdb import RRDBNet
+    from framewright_tpu_torch.processors.deduplication import FrameDeduplicator
+    from framewright_tpu_torch.processors.faces import (
+        FaceDetector,
+        FaceRestoreConfig,
+        FaceRestorer,
+        RetinaFaceDetector,
+    )
+    from framewright_tpu_torch.processors.interpolation import interpolation_factor
+    from framewright_tpu_torch.processors.scene_detection import frame_pair_scores
+    from framewright_tpu_torch.restorer import VideoRestorer, face_reserve, pre_sr_reserve
+
+    t0 = time.perf_counter()
+    h, w, n = ARCHIVE_H, ARCHIVE_W, ARCHIVE_FRAMES
+    wdir = tmp / "archive_weights"
+    t_w = time.perf_counter()
+    sizes = write_archive_weights(wdir)
+    emit({"phase": "archive", "weights_mb": sizes,
+          "write_seconds": time.perf_counter() - t_w})
+    src = tmp / "archive.y4m"
+    with Y4MWriter(src, w, h, fps=24) as writer:
+        for f in archive_clip(n, h, w, seed=61):
+            writer.write_frame(f)
+    with Y4MReader(src) as reader:
+        decoded = np.stack(list(reader))
+    analysis = FrameDeduplicator().analyze(iter(decoded), target_fps=24.0)
+    factor = interpolation_factor(analysis.estimated_source_fps, 0.0)
+    want_frames = (analysis.unique_frames - 1) * factor + 1
+    want_fps = analysis.estimated_source_fps * factor
+    modes = []
+    apply_fast = RRDBNet.apply_fast
+
+    def recorded(self, x_in, out_mode="bf16", *a, **k):
+        modes.append(out_mode)            # K2's epilogue (its launch counts itself)
+        return apply_fast(self, x_in, out_mode, *a, **k)
+
+    out = tmp / "archive_cli.y4m"
+    proj = tmp / "archive_proj"
+    RRDBNet.apply_fast = recorded
+    try:
+        x["reset_counters"]()
+        t_run = time.perf_counter()
+        rc, summary, peak = x["cli_run"](
+            ["restore", str(src), "-o", str(out), "--preset", "archive", "--weights-dir",
+             str(wdir), "--project-dir", str(proj)])
+        wall = time.perf_counter() - t_run
+        launches = x["read_counters"]()
+    finally:
+        RRDBNet.apply_fast = apply_fast
+    require(rc == 0, f"archive restore exited {rc}")
+    batches, bs = summary["batches"], summary["batch_size"]
+    stages = {s["name"]: s["duration_s"]
+              for s in json.loads((proj / "qa_report.json").read_text())["stages"]}
+    pairs = summary["interpolation"]["pairs_per_step"]
+    cfg = build_config("archive", {"weights_dir": str(wdir)})
+    enhance_plan = (bs * planner.frame_bytes(h, w, 4, "rrdb", "bfloat16", stats=False)
+                    + pre_sr_reserve(cfg, h, w) + face_reserve(cfg, 4 * h, 4 * w))
+    interp_plan = planner.interpolation_bytes(4 * h, 4 * w, pairs)
+    x["plan_checks"].append(("archive restore", peak, max(enhance_plan, interp_plan)))
+    want = {k: 0 for k in launches}
+    want.update(fused_rdb=69 * batches, conv_body_skip=batches, fused_tail=batches)
+    emit({"phase": "archive", "run": "cli --preset archive", "summary": summary,
+          "launches": launches, "tail_modes": sorted(set(modes)),
+          "unique_frames": analysis.unique_frames,
+          "estimated_source_fps": analysis.estimated_source_fps, "wall_seconds": wall,
+          "stage_seconds": stages, "peak_mem_bytes_above_base": peak,
+          "planner_bytes": {"enhance": enhance_plan, "interpolate": interp_plan}})
+    require(summary["errors"] == 0 and summary["frames"] == want_frames
+            and summary["output_fps"] == want_fps and summary["interpolation"]["factor"] == 2
+            and summary["duplicates_removed"] == analysis.duplicates,
+            f"archive restore: {summary}; expected {want_frames} frames at {want_fps} fps")
+    require(summary["faces_restored"] > 0, f"archive restore restored no face: {summary}")
+    require(launches == want and set(modes) == {"rgb_u8"} and len(modes) == batches,
+            f"archive restore: launches {launches}, tail modes {modes}; expected {want}")
+    require(summary["pre_sr"]["host_codec"] == {"decode": "native", "encode": "native"}
+            and summary["pre_sr"]["denoise"]["method"]
+            and summary["pre_sr"]["temporal_consistency"] == "attention", f"archive: {summary}")
+    ow, oh, planes_out = read_y4m_planes(out)
+    require((ow, oh) == (4 * w, 4 * h) and len(planes_out) == want_frames,
+            f"archive output {ow}x{oh}, {len(planes_out)} frames")
+
+    # the new models on the card against their plain CPU forward
+    with Y4MReader(out) as r:
+        frames4k = [f for _, f in zip(range(3), r)]
+    a, b = frames4k[0], frames4k[2]          # two source frames of the output
+    spec, sd, _ = load_aux("rife-v4.6", wdir)
+    net_gpu = IFNet.from_state_dict(spec.arch_config, sd, dev)
+    net_cpu = IFNet.from_state_dict(spec.arch_config, sd, "cpu")
+    pa = torch.from_numpy(np.stack([a] * pairs)).to(dev).float() / 255.0
+    pb = torch.from_numpy(np.stack([b] * pairs)).to(dev).float() / 255.0
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mid = net_gpu.interpolate_padded(pa, pb, 0.5)
+        torch.cuda.synchronize()
+        ifnet_peak = torch.cuda.max_memory_allocated() - base
+        got = torch.clamp(mid[0] * 255.0 + 0.5, 0, 255).to(torch.uint8).cpu().numpy()
+        del mid
+        cpu_mid = net_cpu.interpolate_padded(pa[:1].cpu(), pb[:1].cpu(), 0.5)
+        want_mid = torch.clamp(cpu_mid[0] * 255.0 + 0.5, 0, 255).to(torch.uint8).numpy()
+        ifnet_ms = cuda_ms(lambda: net_gpu.interpolate_padded(pa, pb, 0.5), 3, 1)
+    within_one_lsb("IFNet 4K pair, card vs CPU (uint8)", got, want_mid)
+    x["plan_checks"].append(("IFNet 4K step", ifnet_peak, interp_plan))
+    del pa, pb, net_gpu
+    kw = dict(backend="gfpgan", weights_dir=str(wdir))
+    fr_gpu = FaceRestorer(FaceRestoreConfig(**kw, device="cuda"))
+    fr_gpu.setup(4 * h, 4 * w)
+    fr_cpu = FaceRestorer(FaceRestoreConfig(**kw, device="cpu"))
+    fr_cpu.setup(4 * h, 4 * w)
+    crop = a[4 * h // 4:4 * h // 4 + 480, 4 * w // 4:4 * w // 4 + 360]
+    within_one_lsb("GFPGAN crop 480x360 via 512x512, card vs CPU (uint8)",
+                   fr_gpu._enhance_crop(crop), fr_cpu._enhance_crop(crop))
+    det_gpu = RetinaFaceDetector(weights_dir=str(wdir), device="cuda")
+    det_cpu = RetinaFaceDetector(weights_dir=str(wdir), device="cpu")
+    boxes_gpu, boxes_cpu = det_gpu.detect(a), det_cpu.detect(a)
+    off = max([max(abs(p.x0 - q.x0), abs(p.y0 - q.y0), abs(p.x1 - q.x1), abs(p.y1 - q.y1))
+               for p, q in zip(boxes_gpu, boxes_cpu)], default=0)
+    emit({"phase": "archive", "name": "RetinaFace on a 4K frame, card vs CPU",
+          "boxes": [len(boxes_gpu), len(boxes_cpu)], "max_px_off": off,
+          "tol": {"max_px_off": 1}})
+    require(len(boxes_gpu) == len(boxes_cpu) and off <= 1, "RetinaFace card vs CPU differs")
+
+    # through the API: killed inside the interpolate stage, resumed there
+    class Stop(Exception):
+        pass
+
+    unit = factor * pairs
+    api = VideoRestorer(build_config("archive", {"weights_dir": str(wdir),
+                                                 "project_dir": tmp / "archive_api"}))
+
+    def stop_in_interpolate(done, total):
+        if api.stage == "interpolate" and done > unit:
+            raise Stop(done)
+
+    api.progress_callback = stop_in_interpolate
+    resumed = tmp / "archive_api.y4m"
+    try:
+        api.restore_video(src, resumed)
+        require(False, "the killed archive restore ran to its end")
+    except Stop:
+        pass
+    res = VideoRestorer(build_config("archive", {"weights_dir": str(wdir),
+                                                 "project_dir": tmp / "archive_api"}))\
+        .restore_video(src, resumed)
+    rec = {"phase": "archive", "run": "API killed inside the interpolate stage, then resumed",
+           "resumed_batches": res.batches, "interpolation": res.interpolation,
+           "stages": [s["name"] for s in res.stage_summary["stages"]],
+           "byte_equal_to_cli": resumed.read_bytes() == out.read_bytes(),
+           # the enhance stage's gate, errors and faces, kept in the checkpoint
+           "reports_equal_to_cli": (res.quality is not None
+                                    and res.quality.to_dict() == summary["quality"]
+                                    and res.errors == summary["errors"]
+                                    and res.faces_restored == summary["faces_restored"])}
+    emit(rec)
+    require(rec["byte_equal_to_cli"] and rec["reports_equal_to_cli"] and res.batches == 0
+            and "enhance" not in rec["stages"] and res.interpolation["resumed_from"] == unit,
+            f"archive resume: {rec}")
+
+    # the parts' times: card (CUDA events) and host (least of 3); the face
+    # models' own peaks (a crop, a 4K frame) beside the planner's face row
+    cs = fr_gpu.config.crop_size
+    xcrop = torch.rand(1, cs, cs, 3, device=dev)
+    x4k = torch.from_numpy(np.pad(a, ((0, -a.shape[0] % 32), (0, 0), (0, 0)))[None]).to(
+        dev).float() / 255.0
+    with torch.no_grad():
+        face_peaks = {"GFPGANv1.4 crop": part_peak(lambda: fr_gpu._run(xcrop))[1],
+                      "RetinaFace 4K frame": part_peak(lambda: det_gpu.model.apply(x4k))[1],
+                      "GFPGANv1.4 weights": sum(p.numel() * 4 for p in
+                                                fr_gpu.model.parameters())}
+        card = {f"IFNet, a step of {pairs} 4K pairs (f32)": ifnet_ms,
+                "IFNet, a synthesized 4K frame": ifnet_ms / pairs,
+                f"GFPGANv1.4, a {cs}x{cs} crop (f32)": cuda_ms(lambda: fr_gpu._run(xcrop), 5, 1),
+                "RetinaFace, a 4K frame (f32)": cuda_ms(lambda: det_gpu.model.apply(x4k), 5, 1)}
+    host = {"skin detector, a 4K frame": host_ms(lambda: FaceDetector().detect(a)),
+            "RetinaFace detect, a 4K frame (upload, card, NMS)": host_ms(
+                lambda: det_gpu.detect(a)),
+            "face restore, a 4K frame (detect, crops, paste)": host_ms(
+                lambda: fr_gpu.restore_frame(a), 2),
+            "scene score, a 4K pair": host_ms(lambda: frame_pair_scores(a[None], b[None]))}
+    del fr_gpu, fr_cpu, det_gpu, det_cpu, xcrop, x4k
+    rec = {"phase": "archive", "card_ms": card, "host_ms": host, "face_peak_bytes": face_peaks,
+           "face_planner_bytes": planner.face_bytes("gfpgan", 4 * h, 4 * w, retinaface=True),
+           "ifnet_peak_bytes_per_px_pair": ifnet_peak / pairs / (-(-4 * h // 32) * 32 * 4 * w),
+           "ms_per_output_frame": 1e3 * wall / want_frames,
+           "seconds": round(time.perf_counter() - t0, 3)}
+    emit(rec)
+    return {"wall_seconds": wall, "stage_seconds": stages, "card_ms": card, "host_ms": host,
+            "peak": peak, "ifnet_peak": ifnet_peak}
+
+
+def formats_phase(tmp: Path, nw: str, dev, x: dict, tools: dict) -> dict:
+    """The default restore from and to a PNG frame directory (when Pillow
+    is there): counters 69/1/1 a batch, every frame the kernel path's
+    ``rgb_u8`` on the pre-SR stream's frames; and from an ffmpeg mkv
+    (lossless ffv1) to an mp4 (when ffmpeg is there): frame count, size
+    and rate through ffprobe."""
+    import torch
+
+    from framewright_tpu_torch.config import Config
+    from framewright_tpu_torch.io import png_seq, video
+
+    out = {}
+    frames = synthetic_frames(4, ARCHIVE_H, ARCHIVE_W, seed=53, **PROGRESSIVE)
+    model = x["model"]
+    fw = model.fast_weights()
+    if tools["pillow"]:
+        src = tmp / "png_src"
+        with png_seq.FrameDirWriter(src) as wr:
+            for f in frames:
+                wr.write_frame(f)
+        x["reset_counters"]()
+        t = time.perf_counter()
+        rc, summary, peak = x["cli_run"](["restore", str(src), "-o", str(tmp / "png_out"),
+                                          "--weights-dir", nw, "--project-dir",
+                                          str(tmp / "png_proj")])
+        wall = time.perf_counter() - t
+        launches = x["read_counters"]()
+        require(rc == 0, f"PNG-directory restore exited {rc}")
+        batches = summary["batches"]
+        want = {k: 0 for k in launches}
+        want.update(fused_rdb=69 * batches, conv_body_skip=batches, fused_tail=batches)
+        got = np.stack(list(png_seq.FrameDirReader(tmp / "png_out")))
+        pre, _ = pre_sr_stream_of(Config(), src, frames)
+        bs, worst = summary["batch_size"], 0
+        with torch.no_grad():
+            for i in range(0, len(pre), bs):
+                xs = torch.from_numpy(pre[i:i + bs]).to(dev).to(torch.bfloat16) / 255.0
+                exp = model.apply_fast(xs, "rgb_u8", True, weights=fw).cpu().numpy()
+                worst = max(worst, int(np.abs(got[i:i + bs].astype(np.int16) - exp).max()))
+        out["png"] = {"summary": summary, "launches": launches, "wall_seconds": wall,
+                      "max_abs_vs_kernel_path": worst}
+        emit({"phase": "formats", "run": "PNG directory in and out (default preset)", **out["png"]})
+        require(launches == want and summary["errors"] == 0 and got.shape == (
+            4, 2 * ARCHIVE_H, 2 * ARCHIVE_W, 3) and worst == 0, f"PNG restore: {out['png']}")
+    else:
+        emit({"phase": "formats", "png": "Pillow is absent: not run"})
+    if tools["ffmpeg"] and tools.get("encoders"):
+        from framewright_tpu_torch.io.ffmpeg import FFmpegPipeWriter
+
+        src = tmp / "ff_src.mkv"
+        lossless = "ffv1" if "ffv1" in tools["encoders"] else tools["encoders"][0]
+        with FFmpegPipeWriter(src, ARCHIVE_W, ARCHIVE_H, fps=24, codec=lossless) as wr:
+            for f in frames:
+                wr.write_frame(f)
+        enc = next(e for e in ("libx264", "libx265", "mpeg4", "ffv1")
+                   if e in tools["encoders"])
+        t = time.perf_counter()
+        rc, summary, peak = x["cli_run"](["restore", str(src), "-o", str(tmp / "ff_out.mp4"),
+                                          "--codec", enc, "--weights-dir", nw,
+                                          "--project-dir", str(tmp / "ff_proj")])
+        wall = time.perf_counter() - t
+        require(rc == 0, f"ffmpeg restore exited {rc}")
+        meta = video.probe(tmp / "ff_out.mp4")
+        out["ffmpeg"] = {"summary": summary, "codec": enc, "wall_seconds": wall,
+                         "probe": meta.__dict__}
+        emit({"phase": "formats", "run": f"mkv ({lossless}) in, mp4 ({enc}) out", **out["ffmpeg"]})
+        require(summary["frames"] == 4 and summary["errors"] == 0
+                and (meta.width, meta.height) == (2 * ARCHIVE_W, 2 * ARCHIVE_H)
+                and meta.nb_frames == 4, f"ffmpeg restore: {out['ffmpeg']}")
+    else:
+        emit({"phase": "formats", "ffmpeg": "ffmpeg is absent: not run"})
+    return out
 
 
 def native_phase() -> dict:
@@ -2413,6 +2790,11 @@ def main(argv=None) -> int:
         film_times = film_phase(tmp, nw, dev, {
             "cli_run": cli_run, "reset_counters": reset_counters,
             "read_counters": read_counters, "model": model, "plan_checks": plan_checks})
+        tools = tools_phase()
+        x = {"cli_run": cli_run, "reset_counters": reset_counters,
+             "read_counters": read_counters, "model": model, "plan_checks": plan_checks}
+        formats = formats_phase(tmp, nw, dev, x, tools)
+        archive_times = archive_phase(tmp, dev, x)
     emit({"phase": "restore", "seconds": round(time.perf_counter() - t0, 3)})
     launches = launches_by_run["RealESRGAN_x2plus bfloat16"]
 
@@ -2674,7 +3056,9 @@ def main(argv=None) -> int:
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_all, 3),
           "model_ms_per_frame": model_ms, "sr_pass_ms_per_frame": stats_ms,
           "pre_sr": pre_sr_times, "pre_sr_restores": pre_sr_walls, "native_ms": native_ms,
-          "film": film_times, "c5": {k: c5[k] for k in ("enqueue_ms_per_dispatch",
+          "film": film_times, "tools": tools,
+          "formats": {k: v["wall_seconds"] for k, v in formats.items()},
+          "archive": archive_times, "c5": {k: c5[k] for k in ("enqueue_ms_per_dispatch",
                                                         "quality_busy_share",
                                                         "quality_busy_share_unprofiled",
                                                         "steady_ms_per_frame")}})

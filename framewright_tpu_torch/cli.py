@@ -1,7 +1,7 @@
 """Command line of the port.
 
-    python -m framewright_tpu_torch.cli restore IN.y4m -o OUT.y4m \\
-        [--preset fast|quality] \\
+    python -m framewright_tpu_torch.cli restore IN -o OUT \\
+        [--preset fast|quality|archive|ultimate] \\
         [--model RealESRGAN_x2plus|realesr-animevideov3|...] \\
         [--dtype bfloat16|float32|int8] \\
         [--denoise] [--denoise-method auto|temporal|nafnet|bilateral] \\
@@ -9,10 +9,18 @@
         [--flow-model ifnet] [--long-form auto|on|off] \\
         [--deduplicate] [--defect-repair] \\
         [--grain auto|off|preserve|remove|match] \\
+        [--interpolate] [--target-fps F] \\
+        [--face-restore] [--face-model gfpgan|codeformer|sr] [--face-fidelity W] \\
+        [--output-format auto|y4m|png|mp4|mkv] [--codec C] [--crf N] \\
+        [--encode-preset P] \\
         [--device cuda|cpu] [--weights-dir DIR] [--max-frames N] \\
         [--project-dir DIR] [--no-checkpoint] [--no-resume] [--no-validate]
 
-Runs on the card unless ``--device cpu`` is given. By default, as the
+IN and OUT are ``.y4m`` files, PNG frame directories (``frame_%06d.png``;
+an OUT without a suffix is one) or, with ffmpeg on ``PATH``, mp4, mkv
+and the other containers it reads and writes (``--codec``, ``--crf``,
+``--encode-preset`` reach its encoder). Runs on the card unless
+``--device cpu`` is given. By default, as the
 JAX package's default ``Config()``: the run checkpoints its progress in
 ``<project-dir>/checkpoints`` and a rerun of the same command resumes a
 killed run; the quality gate scores every frame against the bicubic
@@ -26,10 +34,18 @@ after the auto-profiled temporal denoiser and cross-frame attention;
 ``--deduplicate`` runs SR on the unique frames only and repeats their
 outputs, ``--defect-repair`` repairs scratches and dust before SR,
 ``--grain`` handles film grain after SR (match: the source's level,
-measured once, seeded by the config's ``seed``). Prints a JSON summary on
-success (``pre_sr`` says what the pre-SR stream did, ``post_sr`` the
-grain, ``duplicates_removed`` the frames SR did not run on); errors print
-``error: ...`` and exit 1.
+measured once, seeded by the config's ``seed``). ``--face-restore``
+restores faces after SR (``gfpgan``: ``<weights-dir>/GFPGANv1.4.npz``;
+``sr``: realesr-general-x4v3 on the crop; RetinaFace finds them when
+``RetinaFace_mnet025.npz`` is there, else the skin-chroma detector);
+``--interpolate`` raises the frame rate by a power of two with IFNet
+(``<weights-dir>/rife-v4.6.npz``), from the deduplicated cadence when
+``--deduplicate`` found one; ``--preset archive`` and ``ultimate`` run
+RealESRGAN_x4plus with all of these and need both checkpoints. Prints a
+JSON summary on success (``pre_sr`` says what the pre-SR stream did,
+``post_sr`` the grain, ``duplicates_removed`` the frames SR did not run
+on, ``faces_restored``, ``output_fps`` and ``interpolation``); errors
+print ``error: ...`` and exit 1.
 """
 
 from __future__ import annotations
@@ -59,7 +75,11 @@ def cmd_restore(args: argparse.Namespace) -> int:
             "temporal_consistency": args.temporal_consistency,
             "temporal_model": args.temporal_model, "flow_model": args.flow_model,
             "long_form": args.long_form, "deduplicate": args.deduplicate,
-            "defect_repair": args.defect_repair, "grain_mode": args.grain_mode})
+            "defect_repair": args.defect_repair, "grain_mode": args.grain_mode,
+            "interpolation": args.interpolation, "target_fps": args.target_fps,
+            "face_restore": args.face_restore, "face_model": args.face_model,
+            "face_fidelity": args.face_fidelity, "output_format": args.output_format,
+            "codec": args.codec, "crf": args.crf, "encode_preset": args.encode_preset})
 
         def progress(done: int, total: int) -> None:
             print(f"\r  {done}/{total} frames", end="", file=sys.stderr)
@@ -82,6 +102,9 @@ def cmd_restore(args: argparse.Namespace) -> int:
         "resumed_from": result.resumed_from,
         "pre_sr": result.pre_sr,
         "post_sr": result.post_sr,
+        "output_fps": result.output_fps,
+        "interpolation": result.interpolation,
+        "faces_restored": result.faces_restored,
     }
     if result.dedup is not None:
         summary["duplicates_removed"] = result.dedup.duplicates
@@ -100,7 +123,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="framewright-torch",
         description="Video restoration on an NVIDIA GPU (PyTorch/CUDA port)")
     sub = parser.add_subparsers(dest="verb", required=True)
-    p = sub.add_parser("restore", help="restore a .y4m clip")
+    p = sub.add_parser("restore", help="restore a clip (.y4m, a frame directory, or a "
+                                       "container ffmpeg reads)")
     p.add_argument("source")
     p.add_argument("-o", "--output", default=None)
     p.add_argument("--preset", choices=sorted(PRESETS), default="",
@@ -135,6 +159,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--grain", dest="grain_mode",
                    choices=("auto", "off", "preserve", "remove", "match"),
                    help="post-SR film-grain handling")
+    p.add_argument("--interpolate", dest="interpolation", action="store_true", default=None,
+                   help="frame interpolation after SR (IFNet, <weights-dir>/rife-v4.6.npz)")
+    p.add_argument("--target-fps", dest="target_fps", type=float,
+                   help="interpolation's target rate (0: twice the source's)")
+    p.add_argument("--face-restore", dest="face_restore", action="store_true", default=None,
+                   help="face restoration after SR")
+    p.add_argument("--face-model", dest="face_model", choices=("gfpgan", "codeformer", "sr"),
+                   help="gfpgan (<weights-dir>/GFPGANv1.4.npz) or sr (codeformer is "
+                        "not ported yet)")
+    p.add_argument("--face-fidelity", dest="face_fidelity", type=float,
+                   help="codeformer fidelity weight (0 quality .. 1 fidelity)")
+    p.add_argument("--output-format", dest="output_format",
+                   choices=("auto", "y4m", "png", "mp4", "mkv"),
+                   help="the output's format when -o is not given (png: a frame directory)")
+    p.add_argument("--codec", help="the ffmpeg encoder (libx265)")
+    p.add_argument("--crf", type=int, help="the ffmpeg encoder's CRF (18)")
+    p.add_argument("--encode-preset", dest="encode_preset",
+                   help="the ffmpeg encoder's preset (medium)")
     p.add_argument("--device", default=None, choices=("auto", "cuda", "cpu"))
     p.add_argument("--weights-dir", default=None)
     p.add_argument("--max-frames", type=int, default=None)

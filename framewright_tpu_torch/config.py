@@ -1,13 +1,15 @@
 """The fields of ``framewright_tpu.config.Config`` that the port's
 restore path reads, with the same names, defaults and validation, plus
-the two the port adds (``weights_dir``, ``max_frames``); the ``fast`` and
-``quality`` presets (``PRESETS``, ``get_preset``, ``build_config``: preset
-< the caller's values, as the JAX CLI resolves them).
+the two the port adds (``weights_dir``, ``max_frames``); the JAX presets
+``fast``, ``quality``, ``archive`` and ``ultimate`` (``PRESETS``,
+``get_preset``, ``build_config``: preset < the caller's values, as the
+JAX CLI resolves them).
 
 A stage the port does not run yet raises ``ConfigError`` naming its
-ROADMAP.md item when it is switched on; it never runs silently without
-it. ``face_restore`` and ``interpolation`` are accepted off, and ``crf``
-is accepted and ignored, as the JAX Y4M writer ignores it."""
+ROADMAP.md item when it is switched on (``face_model="codeformer"``:
+A9b); it never runs silently without it. ``colorize`` is accepted off.
+``codec``, ``crf``, ``encode_preset`` and ``pixel_format`` reach the
+ffmpeg writer; the Y4M and PNG writers ignore them, as the JAX ones do."""
 
 from __future__ import annotations
 
@@ -28,8 +30,10 @@ _VALID_REPORTS = ("json", "html", "none")
 _VALID_DENOISERS = ("auto", "nafnet", "restormer", "temporal", "bilateral", "none")
 _VALID_DEINTERLACE = ("auto", "off", "yadif", "bwdif")
 _VALID_GRAIN = ("auto", "off", "preserve", "remove", "match")
+_VALID_OUTPUT_FORMATS = ("auto", "y4m", "png", "mp4", "mkv")
+_VALID_FACE_MODELS = ("gfpgan", "codeformer", "sr")
 
-# framewright_tpu/config.py:28-87, the two presets the port runs
+# framewright_tpu/config.py:28-87
 PRESETS: Dict[str, Dict[str, Any]] = {
     "fast": {
         "description": "Quick processing - compact model (FW_fastvgg_x2, the "
@@ -55,17 +59,44 @@ PRESETS: Dict[str, Dict[str, Any]] = {
         "temporal_consistency": True,
         "crf": 18,
     },
-}
-# the JAX presets that need stages not ported yet
-_WAITING_PRESETS = {
-    "archive": "frame interpolation (ROADMAP.md A6b) and face restoration (A9)",
-    "ultimate": "frame interpolation (ROADMAP.md A6b) and face restoration (A9)",
+    "archive": {
+        "description": "Archival restoration - full restoration stack, fp32 accumulate",
+        "scale_factor": 4,
+        "sr_model": "RealESRGAN_x4plus",
+        "compute_dtype": "bfloat16",
+        "denoise": True,
+        "denoise_model": "auto",
+        "face_restore": True,
+        "interpolation": True,
+        "target_fps": 0.0,
+        "deduplicate": True,
+        "temporal_consistency": True,
+        "defect_repair": True,
+        "crf": 14,
+    },
+    "ultimate": {
+        "description": "Everything on - slowest, best possible output",
+        "scale_factor": 4,
+        "sr_model": "RealESRGAN_x4plus",
+        "compute_dtype": "bfloat16",
+        "denoise": True,
+        "denoise_model": "auto",
+        "face_restore": True,
+        "interpolation": True,
+        "deduplicate": True,
+        "temporal_consistency": True,
+        "defect_repair": True,
+        "colorize": False,
+        "grain_preserve": True,
+        "crf": 12,
+        "validate_output": True,
+    },
 }
 # fields that do not change the output's pixels: a checkpoint survives a
 # change of these (those of ``framewright_tpu.config.Config.get_hash``'s
 # list that the port has)
 _HASH_EXCLUDED = ("project_dir", "output_path", "checkpoint_interval",
-                  "checkpoint_enabled", "resume")
+                  "checkpoint_enabled", "resume", "keep_intermediates")
 
 
 @dataclass
@@ -73,6 +104,8 @@ class Config:
     # --- I/O ---------------------------------------------------------------
     project_dir: Path = field(default_factory=lambda: Path("./framewright_project"))
     output_path: Optional[Path] = None
+    output_format: str = "auto"          # auto|y4m|png|mp4|mkv (mp4/mkv need ffmpeg)
+    keep_intermediates: bool = False     # keep work_dir/enhanced.y4m
 
     # --- Super-resolution ----------------------------------------------------
     scale_factor: int = 2
@@ -117,10 +150,25 @@ class Config:
     grain_target: float = 0.0             # match target level; 0 = measured once
     seed: int = 0                         # the grain generator's seed
 
-    # --- Stages of the presets that the port does not run (accepted off) ----
-    face_restore: bool = False
+    # --- Interpolation (after SR, at the output size) --------------------------
     interpolation: bool = False
-    crf: int = 18                         # encoder quality; the Y4M writer ignores it
+    target_fps: float = 0.0               # 0 = 2x the (deduplicated) source fps
+    interpolation_model: str = "rife-v4.6"   # <weights_dir>/<name>.npz
+    interpolation_passes: int = 1
+    scene_change_skip: bool = True        # hold the left frame across a cut
+
+    # --- Faces (after SR, before the gate) --------------------------------------
+    face_restore: bool = False
+    face_model: str = "gfpgan"            # gfpgan | sr (codeformer: ROADMAP.md A9b)
+    face_strength: float = 0.8
+    face_fidelity: float = 0.5            # codeformer w: 0 quality..1 fidelity
+    colorize: bool = False                # not ported (ROADMAP.md A10b); accepted off
+
+    # --- Encoding (the ffmpeg writer; Y4M and PNG ignore them) ------------------
+    codec: str = "libx265"
+    crf: int = 18
+    encode_preset: str = "medium"
+    pixel_format: str = "yuv420p"
     preset: str = ""                      # the preset this config came from
 
     # --- Checkpoint / resume ---------------------------------------------------
@@ -140,9 +188,10 @@ class Config:
     quality_report_format: str = "json"   # json | html | none
 
     # Derived (set in __post_init__)
+    work_dir: Path = field(init=False, repr=False, default=None)        # type: ignore[assignment]
     checkpoint_dir: Path = field(init=False, repr=False, default=None)  # type: ignore[assignment]
 
-    _DERIVED = ("checkpoint_dir",)
+    _DERIVED = ("work_dir", "checkpoint_dir")
 
     def __post_init__(self) -> None:
         self.project_dir = Path(self.project_dir)
@@ -150,6 +199,7 @@ class Config:
             self.output_path = Path(self.output_path)
         if self.weights_dir is not None:
             self.weights_dir = Path(self.weights_dir)
+        self.work_dir = self.project_dir / "work"
         self.checkpoint_dir = self.project_dir / "checkpoints"
         self._validate()
 
@@ -180,6 +230,7 @@ class Config:
                               "pairs, quality/vmaf.py), not ported yet: "
                               "ROADMAP.md A3.4")
         self._validate_pre_sr()
+        self._validate_post_sr()
 
     def _validate_pre_sr(self) -> None:
         if self.long_form not in ("auto", "on", "off"):
@@ -211,14 +262,26 @@ class Config:
         if self.temporal_model == "latent":
             raise ConfigError("temporal_model='latent' needs processors/latent_temporal, "
                               "not ported yet: ROADMAP.md A10")
-        if self.face_restore:
-            raise ConfigError("face_restore needs processors/faces, not ported yet: "
-                              "ROADMAP.md A9")
-        if self.interpolation:
-            raise ConfigError("interpolation needs processors/interpolation, not "
-                              "ported yet: ROADMAP.md A6b")
         if self.preset and self.preset not in PRESETS:
-            get_preset(self.preset)          # raises, naming what it waits for
+            get_preset(self.preset)          # raises: an unknown preset
+
+    def _validate_post_sr(self) -> None:
+        if self.target_fps < 0:
+            raise ConfigError("target_fps must be >= 0")
+        if self.interpolation_passes not in (1, 2, 3):
+            raise ConfigError("interpolation_passes must be 1-3")
+        if self.interpolation_model != "rife-v4.6":
+            raise ConfigError("interpolation_model: the port runs rife-v4.6 (IFNet)")
+        if self.output_format not in _VALID_OUTPUT_FORMATS:
+            raise ConfigError(f"output_format must be one of {_VALID_OUTPUT_FORMATS}")
+        if self.face_model not in _VALID_FACE_MODELS:
+            raise ConfigError(f"face_model must be one of {_VALID_FACE_MODELS}")
+        if self.face_restore and self.face_model == "codeformer":
+            raise ConfigError("face_model='codeformer' needs models/codeformer, not ported "
+                              "yet: ROADMAP.md A9b (gfpgan and sr run)")
+        if self.colorize:
+            raise ConfigError("colorize needs processors/colorize, not ported yet: "
+                              "ROADMAP.md A10b")
 
     def to_dict(self) -> Dict[str, Any]:
         out = {}
@@ -243,10 +306,7 @@ class Config:
 
 def get_preset(name: str) -> Dict[str, Any]:
     """A preset's fields (without its description), as the JAX
-    ``get_preset``; ``archive`` and ``ultimate`` raise ``ConfigError``
-    naming the ROADMAP.md items they wait for."""
-    if name in _WAITING_PRESETS:
-        raise ConfigError(f"preset {name!r} needs {_WAITING_PRESETS[name]}, not ported yet")
+    ``get_preset``."""
     if name not in PRESETS:
         raise ConfigError(f"Unknown preset {name!r}. Available: {sorted(PRESETS)}")
     return {k: v for k, v in PRESETS[name].items() if k != "description"}

@@ -2,12 +2,17 @@
 content: the port's copy of ``framewright_tpu.engine.checkpoint``.
 
 A checkpoint is one JSON file per source, named after a SHA-256 of the
-source's first 10 MB, so the same clip resumes wherever it lies. It
+source's first 10 MB (of a frame directory: its frames' names and sizes,
+then their first 10 MB in order; the JAX hash cannot open a directory),
+so the same clip resumes wherever it lies. It
 holds the config hash (a changed config discards it), the stages
 completed, per stage, the count of output frames handed to the writer,
 and the state a resume carries across its resume point (``carry``: the
 post-SR grain generator's state and measured target at recent points a
-resume may start from). It is saved atomically (a temporary file, then
+resume may start from), and what a stage reads when a rerun resumes after
+or inside it (``stage_state``: the enhance stage's intermediate, its
+size, rate and frames; the interpolate stage's pair batch, so a resume
+steps through the same pairs). It is saved atomically (a temporary file, then
 a rename) every ``interval`` frames, on ``force_save`` and when a stage
 completes, and removed by ``complete`` when the job is done.
 """
@@ -31,11 +36,27 @@ _HASH_BYTES = 10 * 1024 * 1024
 
 
 def video_content_hash(path: Path) -> str:
-    """SHA-256 of the file's first 10 MB (32 hex digits)."""
+    """SHA-256 of the file's first 10 MB (32 hex digits); of a frame
+    directory, of its frames' names and sizes, then their first 10 MB."""
     h = hashlib.sha256()
     try:
-        with open(path, "rb") as f:
-            h.update(f.read(_HASH_BYTES))
+        if Path(path).is_dir():
+            from framewright_tpu_torch.io.png_seq import list_frames
+
+            frames = list_frames(Path(path))
+            for p in frames:
+                h.update(f"{p.name}:{p.stat().st_size};".encode())
+            left = _HASH_BYTES
+            for p in frames:
+                if left <= 0:
+                    break
+                with open(p, "rb") as f:
+                    chunk = f.read(left)
+                h.update(chunk)
+                left -= len(chunk)
+        else:
+            with open(path, "rb") as f:
+                h.update(f.read(_HASH_BYTES))
     except OSError as exc:
         raise CheckpointError(f"cannot hash {path}: {exc}") from exc
     return h.hexdigest()[:32]
@@ -50,6 +71,7 @@ class PipelineCheckpoint:
     completed_stages: List[str] = field(default_factory=list)
     frames_done: Dict[str, int] = field(default_factory=dict)  # stage -> contiguous count
     carry: Dict[str, Any] = field(default_factory=dict)        # str(frame) -> state there
+    stage_state: Dict[str, Any] = field(default_factory=dict)  # stage -> what a rerun reads
     created_at: float = field(default_factory=time.time)
     updated_at: float = field(default_factory=time.time)
 

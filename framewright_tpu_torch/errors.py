@@ -41,6 +41,10 @@ class MediaFormatError(InputError):
     """Could not parse a media container or frame."""
 
 
+class DependencyError(FatalError):
+    """A required optional dependency (the ffmpeg binary, Pillow) is missing."""
+
+
 class DeviceError(FramewrightError):
     """The requested device is missing or unusable."""
 

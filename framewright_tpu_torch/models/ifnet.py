@@ -14,7 +14,9 @@ back to the frame and its flow, times the scale, added to the flow.
 State-dict names follow Practical-RIFE (``block0.conv0.0.0.weight``,
 ``block0.lastconv.0.weight``, ...).
 
-The temporal denoiser aligns frames with ``estimate_flow`` on the
+Frame interpolation (``processors/interpolation``) runs the published
+``IFNetConfig()`` (rife-v4.6's widths) on user weights,
+``<weights_dir>/rife-v4.6.npz``. The temporal denoiser aligns frames with ``estimate_flow`` on the
 alignment arch (channels (96, 64), scales (4, 2), 4 chain convs) and the
 weights ``weights/align_ifnet_key1.npz``, written by
 ``scripts/export_align_ifnet.py``.
@@ -23,8 +25,9 @@ weights ``weights/align_ifnet_key1.npz``, written by
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -175,3 +178,23 @@ class IFNet(nn.Module):
         net = cls(cfg)
         net.load_state_dict({k: v.float() for k, v in sd.items()})
         return net.to(device).eval().requires_grad_(False)
+
+
+def init_params(cfg: IFNetConfig = IFNetConfig(), seed: int = 0) -> Dict:
+    """Seeded random parameters in the JAX module's tree (HWIO numpy
+    arrays) at ``cfg``'s widths, drawn with numpy in the shapes and
+    scales of ``ifnet.init``: Kaiming-uniform convs, PReLU alphas 0.25,
+    the head normal * 0.01. For smoke runs and benchmarks; interpolation
+    never draws its weights."""
+    from framewright_tpu_torch.models.layers import conv_init
+
+    rng = np.random.default_rng(seed)
+
+    def conv_prelu(cin, cout):
+        return {**conv_init(rng, 3, cin, cout), "alpha": np.full((cout,), 0.25, np.float32)}
+
+    return {"blocks": [{
+        "conv0": [conv_prelu(7 if b == 0 else 12, c // 2), conv_prelu(c // 2, c)],
+        "convblock": [conv_prelu(c, c) for _ in range(cfg.num_res_convs)],
+        "head": {"w": (rng.standard_normal((4, 4, c, 24)) * 0.01).astype(np.float32),
+                 "b": np.zeros((24,), np.float32)}} for b, c in enumerate(cfg.channels)]}

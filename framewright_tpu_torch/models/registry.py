@@ -12,14 +12,19 @@ official basicsr RRDBNet (``conv_first.weight``,
 ``body.1.weight`` for the first PReLU, ...), the official NAFNet or
 Practical-RIFE IFNet.
 
-The denoiser's ``FW_nafnet_dn`` (``AUX_SPECS``) and the alignment IFNet
-(``load_align_ifnet``) load from their checkpoints only: a missing or
-unreadable file raises ``InputError`` (the JAX denoiser falls back to a
-random NAFNet; ROADMAP.md, "JAX faults the port must not copy").
+The models that are not super-resolution (``AUX_SPECS``: the denoiser's
+``FW_nafnet_dn``, interpolation's ``rife-v4.6``, the face restorer's
+``GFPGANv1.4`` and its detector ``RetinaFace_mnet025``) and the
+alignment IFNet (``load_align_ifnet``) load from their checkpoints only:
+a missing or unreadable file raises ``InputError`` (the JAX package
+falls back to random NAFNet, IFNet and GFPGAN weights; ROADMAP.md, "JAX
+faults the port must not copy"). ``write_npz`` writes a parameter tree
+in the JAX package's ``.npz`` layout.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 from pathlib import Path
@@ -29,9 +34,12 @@ import numpy as np
 import torch
 
 from framewright_tpu_torch.errors import ConfigError, InputError
-from framewright_tpu_torch.models.ifnet import ALIGN_ARCH, IFNet
+from framewright_tpu_torch.models.gfpgan import GFPGANConfig
+from framewright_tpu_torch.models.gfpgan import config_from_params as gfpgan_config_from_params
+from framewright_tpu_torch.models.ifnet import ALIGN_ARCH, IFNet, IFNetConfig
 from framewright_tpu_torch.models.layers import conv_init
 from framewright_tpu_torch.models.nafnet import NAFNetConfig
+from framewright_tpu_torch.models.retinaface import RetinaFaceConfig
 from framewright_tpu_torch.models.rrdb import RRDBConfig
 from framewright_tpu_torch.models.srvgg import SRVGGConfig
 
@@ -41,9 +49,10 @@ _SRVGG_URL = "https://github.com/xinntao/Real-ESRGAN/releases/download/v0.2.5.0/
 @dataclass(frozen=True)
 class ModelSpec:
     name: str
-    family: str                              # rrdb | srvgg | nafnet
+    family: str                   # rrdb | srvgg | nafnet | ifnet | face | detector
     scale: int
-    arch_config: Union[RRDBConfig, SRVGGConfig, NAFNetConfig]
+    arch_config: Union[RRDBConfig, SRVGGConfig, NAFNetConfig, IFNetConfig, GFPGANConfig,
+                       RetinaFaceConfig]
     url: str = ""
 
 
@@ -63,12 +72,20 @@ MODEL_SPECS: Dict[str, ModelSpec] = {s.name: s for s in (
               _SRVGG_URL + "realesr-general-x4v3.pth"),
 )}
 
-# models that are not super-resolution: the temporal denoiser's NAFNet,
-# trained in this repository (framewright_tpu/models/registry.py:185-197)
+# models that are not super-resolution (framewright_tpu/models/registry.py:
+# 185-245): the temporal denoiser's NAFNet, trained in this repository;
+# interpolation's IFNet, the face restorer's GFPGAN and its detector, at
+# their published widths, from the user's checkpoints
 AUX_SPECS: Dict[str, ModelSpec] = {s.name: s for s in (
     ModelSpec("FW_nafnet_dn", "nafnet", 1,
               NAFNetConfig(width=16, enc_blocks=(1, 1, 2), middle_blocks=2,
                            dec_blocks=(1, 1, 1))),
+    ModelSpec("rife-v4.6", "ifnet", 1, IFNetConfig(),
+              "https://github.com/hzwer/Practical-RIFE (v4.6, flownet.pkl)"),
+    ModelSpec("GFPGANv1.4", "face", 1, GFPGANConfig(),
+              "https://github.com/TencentARC/GFPGAN/releases/download/v1.3.0/GFPGANv1.4.pth"),
+    ModelSpec("RetinaFace_mnet025", "detector", 1, RetinaFaceConfig(),
+              "https://github.com/biubug6/Pytorch_Retinaface (mobilenet0.25_Final.pth)"),
 )}
 # the alignment IFNet's weights: ifnet.init(PRNGKey(1), ALIGN_ARCH) of the
 # JAX package, written by scripts/export_align_ifnet.py
@@ -166,6 +183,72 @@ def init_params(cfg: Union[RRDBConfig, SRVGGConfig], seed: int = 0) -> Dict[str,
     }
 
 
+def write_npz(params: Dict[str, Any], path: Path) -> Path:
+    """A parameter tree (nested dicts and lists of numpy arrays) -> the
+    JAX package's ``.npz`` layout (``torch_port.export_npz``: dotted keys,
+    list indices as components), written to a temporary name, then
+    renamed."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}.{k}" if prefix else k)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}.{i}")
+        else:
+            flat[prefix] = np.asarray(node)
+
+    walk(params, "")
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(path.stem + f".tmp{os.getpid()}.npz")
+    np.savez(tmp, **flat)
+    os.replace(tmp, path)
+    return path
+
+
+def _tree_state_dict(params: Dict[str, Any], tensor) -> Dict[str, torch.Tensor]:
+    """A GFPGAN or RetinaFace JAX tree -> the port's module names (the
+    tree's own paths): a conv's HWIO ``w`` and ``b`` -> ``weight`` (OIHW;
+    a depthwise (k, k, C, 1) -> (C, 1, k, k)) and ``bias``, a linear's
+    (in, out) ``w`` -> ``weight`` (out, in), a modulated conv's HWIO
+    ``weight`` -> (out, in, k, k), ``constant_input`` NHWC -> NCHW, other
+    leaves as they are."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}.{i}")
+            return
+        if not isinstance(node, dict):
+            a = np.asarray(node, np.float32)
+            if prefix.endswith("modulated_conv.weight"):
+                a = a.transpose(3, 2, 0, 1)
+            elif prefix.endswith("constant_input"):
+                a = a.transpose(0, 3, 1, 2)
+            sd[prefix] = tensor(a)
+            return
+        if "w" in node and "b" in node and len(node) == 2:
+            w = np.asarray(node["w"], np.float32)
+            if w.ndim == 2:
+                w = w.T
+            elif prefix.endswith(".dw"):
+                w = w.transpose(2, 3, 0, 1)
+            else:
+                w = w.transpose(3, 2, 0, 1)
+            sd[prefix + ".weight"] = tensor(w)
+            sd[prefix + ".bias"] = tensor(node["b"])
+            return
+        for k, v in node.items():
+            walk(v, f"{prefix}.{k}" if prefix else k)
+
+    walk(params, "")
+    return sd
+
+
 def _body_blocks(body) -> List[Dict[str, Any]]:
     if isinstance(body, list):
         return body
@@ -188,11 +271,16 @@ def from_jax_params(params: Dict[str, Any],
     stacked), SRVGG pytree (``body`` convs, ``act`` alphas,
     ``conv_last``), NAFNet pytree (``intro``, ``encoders``, ...) or IFNet
     pytree (``blocks``) -> the port's state dict (OIHW; a transposed
-    conv's weight (in, out, kh, kw)), cast to ``dtype``."""
+    conv's weight (in, out, kh, kw)), cast to ``dtype``; a GFPGAN
+    (``stylegan_decoder``) or RetinaFace (``stage1``) pytree -> the names
+    of its tree (``_tree_state_dict``)."""
     sd: Dict[str, torch.Tensor] = {}
 
     def tensor(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a, np.float32, order="C")).to(dtype)
+
+    if "stylegan_decoder" in params or "stage1" in params:
+        return _tree_state_dict(params, tensor)
 
     def conv(prefix: str, p: Dict[str, Any]) -> None:
         sd[prefix + ".weight"] = tensor(np.asarray(p["w"], np.float32).transpose(3, 2, 0, 1))
@@ -287,6 +375,36 @@ def load_weights(name: str, weights_dir: Optional[Path] = None,
                          f".npz/.pth). Download from {spec.url}")
     return (spec, from_jax_params(init_params(spec.arch_config, seed), dtype),
             f"random(seed={seed})")
+
+
+def aux_path(name: str, weights_dir: Optional[Path] = None) -> Optional[Path]:
+    """Where ``load_aux`` finds ``name``'s checkpoint, or None."""
+    wdir = Path(weights_dir) if weights_dir else default_weights_dir()
+    for npz in (wdir / f"{name}.npz", packaged_weights_dir() / f"{name}.npz"):
+        if npz.is_file():
+            return npz
+    return None
+
+
+def load_aux(name: str, weights_dir: Optional[Path] = None,
+             dtype: torch.dtype = torch.float32
+             ) -> Tuple[ModelSpec, Dict[str, torch.Tensor], str]:
+    """An ``AUX_SPECS`` model's state dict from ``<weights_dir>/<name>.npz``
+    (the JAX package's layout; ``default_weights_dir()`` when
+    ``weights_dir`` is None), or from the weights trained in this
+    repository; a missing or unreadable file raises ``InputError`` naming
+    it. Never random."""
+    spec = AUX_SPECS[name]
+    wdir = Path(weights_dir) if weights_dir else default_weights_dir()
+    npz = aux_path(name, wdir)
+    if npz is not None:
+        params = _read_checkpoint(npz)
+        if spec.family == "face":       # the widths the checkpoint has
+            spec = dataclasses.replace(spec, arch_config=gfpgan_config_from_params(params))
+        return spec, from_jax_params(params, dtype), str(npz)
+    raise InputError(f"No weights for {name!r}: {wdir / (name + '.npz')} is missing (the "
+                     f"JAX package's .npz layout; the port never draws them at random). "
+                     f"Published weights: {spec.url}")
 
 
 def load_align_ifnet(device) -> IFNet:

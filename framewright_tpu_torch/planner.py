@@ -8,6 +8,12 @@ free card memory times the utilization. The TPU-only caps of the JAX
 planner (compiler limits, measured best batches on v5e) have no
 counterpart here. Tiling is not ported yet: a frame that does not fit
 at batch 1 raises ``HBMError``.
+
+Beside the SR batch: the pre-SR stream's row (``pre_sr_bytes``) and the
+face restorer's (``face_bytes``: its model's weights, one crop's
+activations, and RetinaFace on a whole output frame when it detects).
+The interpolate stage runs after the SR processor has released its
+memory and plans its own pair batch (``interpolation_pairs``).
 """
 
 from __future__ import annotations
@@ -84,6 +90,32 @@ _CPU_BUDGET = 8 * 2**30   # what to plan for when running on the CPU
 # 100 and 700, now the larger reading + 12-15%).
 _PRE_SR_BYTES_PER_PX = {"temporal_fixed": 120, "temporal_slot": 180, "bilateral": 200,
                         "attention": 900}
+
+
+# The face restorer, beside the SR batch (f32, one crop at a time):
+#   gfpgan: GFPGANv1.4's 177.6 M f32 parameters (710 MB) and one 512x512
+#     crop's activations (the encoder's 64-channel 512x512 maps, the U-Net
+#     skips and SFT conditions of every level, a 128-channel 512x512
+#     upsampled decoder input and its modulated conv); measured on an
+#     H100 with ``max_memory_allocated`` (chip_smoke.py phase archive):
+#     715 MB a crop, 1.43 GB with the weights: 1.6e9 planned;
+#   sr: realesr-general-x4v3 (1.2 M parameters) on a 128x128 crop to
+#     512x512: 0.1e9;
+# RetinaFace (when its weights are there) on a whole output frame padded
+# to multiples of 32: the f32 frame and its BGR copy (24 B/px) and the
+# backbone's first stages at 1/2 (8, then 16 channels); measured 501 MB
+# on a 4K frame (60 B a pixel): 70 planned.
+_FACE_MODEL_BYTES = {"gfpgan": 1_600_000_000, "sr": 100_000_000}
+_RETINAFACE_BYTES_PER_PX = 70
+# Frame interpolation (IFNet at IFNetConfig(), f32), per pixel of one
+# pair at the frame size padded to multiples of 32: the two frames and
+# the time map, the flow, mask and warps (17 channels), a level's
+# 12-channel input and its resize, the block's output and its resize
+# (6 + 6), the warp's grids, then the blend, and the full-resolution
+# block's half- and quarter-resolution maps; measured on an H100 with
+# ``max_memory_allocated`` (chip_smoke.py phase archive, a step of four
+# 4K pairs): 368 B: 410 planned.
+_IFNET_BYTES_PER_PX = 410
 
 
 @dataclass(frozen=True)
@@ -173,3 +205,31 @@ def plan(height: int, width: int, scale: int, family: str = "rrdb",
             f"frame, {budget / 2**30:.1f} GiB available (tiling is not ported yet)")
     return Plan(height, width, scale, batch, body_divisor(family, scale),
                 batch * per_frame)
+
+
+def face_bytes(backend: str, out_h: int, out_w: int, retinaface: bool = False) -> int:
+    """Planned card bytes of the face restorer on (out_h, out_w) frames:
+    its model and one crop, and RetinaFace's whole-frame pass when
+    ``retinaface``."""
+    det = 0
+    if retinaface:
+        det = -(-out_h // 32) * 32 * -(-out_w // 32) * 32 * _RETINAFACE_BYTES_PER_PX
+    return _FACE_MODEL_BYTES.get(backend, 0) + det
+
+
+def interpolation_bytes(height: int, width: int, pairs: int = 1) -> int:
+    """Planned card bytes of one interpolator step of ``pairs`` pairs."""
+    return pairs * -(-height // 32) * 32 * -(-width // 32) * 32 * _IFNET_BYTES_PER_PX
+
+
+def interpolation_pairs(height: int, width: int, free_bytes: int | None = None,
+                        utilization: float = 0.85, max_pairs: int = 4) -> int:
+    """Frame pairs a step of the interpolator fits in ``free_bytes *
+    utilization`` (the CPU budget when None), at most ``max_pairs``."""
+    budget = int((_CPU_BUDGET if free_bytes is None else free_bytes) * utilization)
+    per_pair = interpolation_bytes(height, width)
+    pairs = min(max_pairs, budget // per_pair)
+    if pairs < 1:
+        raise HBMError(f"one {width}x{height} interpolation pair needs "
+                       f"~{per_pair / 2**30:.1f} GiB, {budget / 2**30:.1f} GiB available")
+    return pairs

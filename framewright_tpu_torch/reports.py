@@ -9,7 +9,7 @@ import json
 import time
 from dataclasses import asdict, dataclass, field
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 
 @dataclass
@@ -26,6 +26,7 @@ class QAReport:
     resumed_from: int = 0          # quality and errors cover the frames from here on
     pre_sr: Dict = field(default_factory=dict)   # the pre-SR stream: deinterlace,
                                                  # long_form, denoise (its profile)
+    faces_restored: Optional[int] = None   # face_restore: faces pasted back
     duration_s: float = 0.0
 
     def to_json(self) -> str:
@@ -71,6 +72,7 @@ def build_qa_report(result, source: str) -> QAReport:
     rep.errors = result.errors
     rep.resumed_from = result.resumed_from
     rep.pre_sr = result.pre_sr
+    rep.faces_restored = result.faces_restored
     rep.stages = result.stage_summary.get("stages", [])
     if result.quality is not None:
         rep.quality = result.quality.to_dict()

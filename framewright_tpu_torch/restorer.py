@@ -1,5 +1,10 @@
-"""Restore a Y4M clip: decode -> super-resolution -> encode, with the
-work the JAX default ``Config()`` does on every restore.
+"""Restore a clip: decode -> super-resolution -> encode, with the work
+the JAX default ``Config()`` does on every restore.
+
+Sources and outputs are Y4M, PNG frame directories or, with ffmpeg on
+``PATH``, any container it reads or writes (``io.video``: ``probe``,
+``open_reader``, ``open_writer``; the output's format by its suffix, or
+``output_format`` when the restore names no output).
 
 The port of the ``framewright_tpu.restorer.VideoRestorer`` path that a
 default ``restore`` takes, as stage methods with the JAX names run in
@@ -14,6 +19,21 @@ bicubic copies of a batch that failed with a ``TransientError`` under
 SR pass); ``_stage_validate``
 (the gate); ``_stage_finalize`` (the checkpoint removed). The QA report
 is written to ``project_dir / "qa_report.<fmt>"``.
+
+After SR, in the JAX order (``framewright_tpu/restorer.py:344-355,
+395-416, 454-466, 723-736, 840-848, 964-1021``): face restoration
+(``face_restore``: ``processors/faces``, set up at the output size, on
+each output frame after the mapping's repeats and before the gate, which
+turns off the YUV-direct path) and frame interpolation
+(``interpolation``: the enhance stage writes ``work_dir/enhanced.y4m``,
+only the unique frames at the estimated source rate when dedup found a
+lower cadence, and ``_stage_interpolate`` streams it through
+``FrameInterpolator`` into the output at ``factor`` times that rate,
+then deletes it unless ``keep_intermediates``). The face restorer and
+the interpolator read ``weights_dir`` (the JAX restorer never passes its
+own to the face restorer), and a restore that needs a checkpoint the
+weights directory lacks (``rife-v4.6``, ``GFPGANv1.4``) raises
+``InputError`` naming it before any compute.
 
 In front of the ring, the pre-SR stream in the JAX order
 (``framewright_tpu/restorer.py:477-635``): long-form drift correction
@@ -48,10 +68,20 @@ its own (``hw.on_stream``), so its uploads and copies back wait for its
 own work, not for the SR batch queued on the main thread's stream.
 
 Resume cuts the output to R = min(the checkpoint's count, the whole
-frames in the file), rounded down to a whole batch, and restarts the
-input at frame R. With deduplication R moves back to a batch start that
-is a unique frame, so no SR output is carried across it and the last
-unique position is the mapping's at R - 1; with grain R moves back to a
+frames in the file, or the frame directory's files from frame 1 without
+a gap), rounded down to a whole batch, and restarts the input at frame
+R; an ffmpeg output cannot be appended to, so a rerun writes it from
+frame 0 (``resumed_from`` 0). With interpolation the enhance stage
+resumes in its intermediate, except when duplicates are dropped (as the
+JAX restorer, which skips resume then); a run killed in the interpolate
+stage resumes there, the intermediate intact and the enhance stage not
+run again (``stage_state`` in the checkpoint keeps what the stage needs,
+and the enhance stage's gate report, errors and results, so the rerun
+reports what a straight run does), at a whole step of pairs (the pair
+batch kept in the checkpoint). With
+deduplication R moves back to a batch start that is a unique frame, so
+no SR output is carried across it and the last unique position is the
+mapping's at R - 1; with grain R moves back to a
 point the checkpoint holds the generator's state and measured target
 for (``carry``); R = 0 when there is none. The resumed output is the
 straight run's byte for byte: the JAX restorer restarts its last unique
@@ -94,9 +124,18 @@ from framewright_tpu_torch.errors import (
     TransientError,
     ValidationError,
 )
-from framewright_tpu_torch.hw import full_f32, on_stream, side_stream
+from framewright_tpu_torch.hw import (
+    device_info,
+    full_f32,
+    on_stream,
+    resolve_device,
+    side_stream,
+)
+from framewright_tpu_torch.io.png_seq import FrameDirWriter, whole_frames
 from framewright_tpu_torch.io.ring import PrefetchRing, WriterDrain
+from framewright_tpu_torch.io.video import is_frame_dir, open_reader, open_writer, probe
 from framewright_tpu_torch.io.y4m import Y4MReader, Y4MWriter, rgb_to_yuv420
+from framewright_tpu_torch.models.registry import aux_path, default_weights_dir, get_model
 from framewright_tpu_torch.processors.deduplication import (
     DedupConfig,
     DedupResult,
@@ -107,7 +146,13 @@ from framewright_tpu_torch.processors.film import (
     GrainManager,
     estimate_grain_level,
 )
+from framewright_tpu_torch.processors.faces import FaceRestoreConfig, FaceRestorer
 from framewright_tpu_torch.processors.format import InterlaceDetector, YadifDeinterlacer
+from framewright_tpu_torch.processors.interpolation import (
+    FrameInterpolator,
+    InterpolationConfig,
+    interpolation_factor,
+)
 from framewright_tpu_torch.processors.super_resolution import (
     SRConfig,
     SuperResolution,
@@ -123,6 +168,7 @@ from framewright_tpu_torch.quality.validators import QualityReport, QualityValid
 logger = logging.getLogger(__name__)
 
 _ENHANCE = "enhance"
+_INTERPOLATE = "interpolate"
 # resume points whose carried state the checkpoint keeps (the newest): a
 # killed run's file may lag its checkpoint by the writer's queue
 _CARRY_POINTS = 16
@@ -138,8 +184,9 @@ class RestoreResult:
     batch_size: int = 0       # frames per dispatch (the last may hold fewer)
     quality: Optional[QualityReport] = None
     errors: int = 0           # frames written as bicubic copies
-    resumed_from: int = 0     # first frame this run wrote; quality and
-                              # errors cover the frames from it on
+    resumed_from: int = 0     # first frame the enhance stage wrote in the
+                              # run that completed it; quality and errors
+                              # cover the frames from it on
     stage_summary: Dict = field(default_factory=dict)
     pre_sr: Dict = field(default_factory=dict)   # what the pre-SR stream did:
                                                  # long_form, deinterlace,
@@ -149,6 +196,11 @@ class RestoreResult:
                                                  # host_codec
     dedup: Optional[DedupResult] = None
     post_sr: Dict = field(default_factory=dict)  # grain: mode and target
+    output_fps: float = 0.0
+    interpolation: Optional[Dict] = None  # frames in and out, factor, scene
+                                          # skips, output fps, resumed_from
+                                          # (the output frame it restarted at)
+    faces_restored: Optional[int] = None  # faces pasted back (face_restore)
 
     @property
     def fps(self) -> float:
@@ -173,6 +225,36 @@ def pre_sr_reserve(cfg: Config, height: int, width: int) -> int:
         height, width, _denoise_method(cfg) if cfg.denoise else None,
         cfg.temporal_model if cfg.temporal_consistency else None,
         (cfg.temporal_window - 1) // 2)
+
+
+def _free_bytes(device: str) -> Optional[int]:
+    """Free card bytes, counting what PyTorch's allocator holds in its
+    cache (None on the CPU)."""
+    import torch
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return None
+    return (device_info(dev).free_bytes + torch.cuda.memory_reserved(dev)
+            - torch.cuda.memory_allocated(dev))
+
+
+def face_reserve(cfg: Config, out_h: int, out_w: int) -> int:
+    """Card bytes the face restorer of ``cfg`` holds beside the SR batch."""
+    if not cfg.face_restore:
+        return 0
+    retina = aux_path("RetinaFace_mnet025", cfg.weights_dir) is not None
+    return planner.face_bytes(cfg.face_model, out_h, out_w, retinaface=retina)
+
+
+def required_weights(cfg: Config) -> List[str]:
+    """The user checkpoints a restore with ``cfg`` reads and never draws."""
+    names = []
+    if cfg.interpolation:
+        names.append(cfg.interpolation_model)
+    if cfg.face_restore and cfg.face_model == "gfpgan":
+        names.append("GFPGANv1.4")
+    return names
 
 
 def build_sr_config(cfg: Config, reserved_bytes: int = 0) -> SRConfig:
@@ -225,27 +307,43 @@ class VideoRestorer:
         self.checkpoints = CheckpointManager(self.config.checkpoint_dir,
                                              self.config.checkpoint_interval)
         self.sr: Optional[SuperResolution] = None
+        self.stage = ""           # the stage running (a progress callback may read it)
 
     def _resolve_output(self, source: Path) -> Path:
-        if self.config.output_path is not None:
-            return self.config.output_path
-        return self.config.project_dir / (source.stem + "_restored.y4m")
+        """``output_path``, else ``<project_dir>/<stem>_restored`` with the
+        source's suffix (``.y4m`` for a frame directory) or
+        ``output_format``'s (``png``: a frame directory)."""
+        cfg = self.config
+        if cfg.output_path is not None:
+            return cfg.output_path
+        suffix = source.suffix if source.suffix else ".y4m"
+        if cfg.output_format not in ("auto", ""):
+            suffix = "." + cfg.output_format if cfg.output_format != "png" else ""
+        return cfg.project_dir / (source.stem + "_restored" + suffix)
+
+    def _check_weights(self) -> None:
+        """``InputError`` naming every checkpoint the restore needs and
+        the weights directory lacks, before any compute."""
+        wdir = Path(self.config.weights_dir or default_weights_dir())
+        missing = [str(wdir / f"{n}.npz") for n in required_weights(self.config)
+                   if aux_path(n, wdir) is None]
+        if missing:
+            raise InputError(f"missing checkpoints: {', '.join(missing)} (the port reads "
+                             "user weights only, in the JAX package's .npz layout)")
 
     def restore_video(self, source, output=None) -> RestoreResult:
         cfg = self.config
         source = Path(source)
         if not source.exists():
             raise InputError(f"source not found: {source}")
-        if source.suffix.lower() != ".y4m":
-            raise InputError(f"the port reads .y4m only, got {source.name}")
         out_path = Path(output) if output else self._resolve_output(source)
-        if out_path.suffix.lower() != ".y4m":
-            raise InputError(f"the port writes .y4m only, got {out_path.name}")
+        self._check_weights()
         t0 = time.time()
         data: Dict = {"source": source, "output": out_path}
         stages: List[Dict] = []
 
         def run(name: str, fn) -> None:
+            self.stage = name
             t = time.time()
             try:
                 data.update(fn(data))
@@ -259,9 +357,18 @@ class VideoRestorer:
         run("probe", self._stage_probe)
         if cfg.checkpoint_enabled:
             run("checkpoint", self._stage_checkpoint)
-        if cfg.deduplicate:
-            run("dedup", self._stage_dedup)
-        run(_ENHANCE, self._stage_enhance)
+        enhanced = self._enhanced_intermediate(data)
+        if enhanced is not None:
+            # a rerun of a run killed in the interpolate stage: the
+            # intermediate is whole, the enhance stage is not run again
+            logger.info("enhance stage completed earlier: resuming at interpolation")
+            data.update(enhanced)
+        else:
+            if cfg.deduplicate:
+                run("dedup", self._stage_dedup)
+            run(_ENHANCE, self._stage_enhance)
+        if cfg.interpolation:
+            run(_INTERPOLATE, self._stage_interpolate)
         try:
             if cfg.validate_output:
                 run("validate", self._stage_validate)
@@ -272,7 +379,9 @@ class VideoRestorer:
             out_path, data["frames_in"], data["frames_out"], time.time() - t0,
             data["batches"], data["batch_size"], data.get("quality_report"),
             data["frame_errors"], data["resumed_from"], {"stages": stages},
-            data.get("pre_sr", {}), data.get("dedup_result"), data.get("post_sr", {}))
+            data.get("pre_sr", {}), data.get("dedup_result"), data.get("post_sr", {}),
+            data.get("output_fps", float(data["fps"])), data.get("interpolation_result"),
+            data.get("faces_restored"))
         if cfg.quality_report_format != "none" and result.quality is not None:
             try:
                 from framewright_tpu_torch.reports import build_qa_report
@@ -286,9 +395,8 @@ class VideoRestorer:
 
     # -- stages ----------------------------------------------------------
     def _stage_probe(self, data: Dict) -> Dict:
-        with Y4MReader(data["source"]) as probe:
-            total = probe.count_frames()
-            h, w, fps = probe.height, probe.width, probe.header.fps
+        meta = probe(data["source"])
+        total, h, w, fps = meta.nb_frames, meta.height, meta.width, meta.fps
         if w <= 0 or total <= 0:
             raise InputError(f"empty or unreadable video: {data['source']}")
         if self.config.max_frames:
@@ -308,7 +416,7 @@ class VideoRestorer:
         dedup = FrameDeduplicator(DedupConfig(similarity_threshold=cfg.dedup_similarity,
                                               hash_size=cfg.dedup_hash_size))
         out: Dict = {}
-        with Y4MReader(data["source"]) as reader:
+        with open_reader(data["source"]) as reader:
             frames = itertools.islice(iter(reader), total)
             if self._longform_active(total):
                 anchors = GlobalAnchors(total_frames=total)
@@ -356,20 +464,54 @@ class VideoRestorer:
             return r
         return 0
 
+    def _open_output(self, path: Path, ow: int, oh: int, fps, resume_from: int, unit: int,
+                     resume_point: Callable[[int], int] = lambda keep: keep):
+        """(writer, the frame the run starts at): ``path`` opened for the
+        format of its suffix (``open_writer``); on a resume a Y4M file is
+        cut to and a frame directory continued after R = ``resume_point``
+        of its whole frames on disk (at most ``resume_from``) rounded down
+        to ``unit``; an ffmpeg output is written anew (R = 0)."""
+        on_disk = None
+        if resume_from and is_frame_dir(path):
+            on_disk = whole_frames(path)
+        elif resume_from and path.suffix.lower() == ".y4m" and path.is_file():
+            with Y4MReader(path) as r:
+                on_disk = r.count_frames()
+        elif resume_from and path.suffix.lower() != ".y4m":
+            logger.info("%s cannot be appended to: writing it from frame 0", path.name)
+        keep = resume_point(min(resume_from, on_disk) // unit * unit) if on_disk else 0
+        if not keep:
+            cfg = self.config
+            return open_writer(path, ow, oh, fps=fps, codec=cfg.codec, crf=cfg.crf,
+                               preset=cfg.encode_preset, pix_fmt=cfg.pixel_format), 0
+        if is_frame_dir(path):
+            return FrameDirWriter(path, fps=fps, start_index=keep + 1), keep
+        writer = Y4MWriter(path, ow, oh, fps=fps, append=True, keep_frames=keep)
+        return writer, writer.frames_written
+
     def _stage_enhance(self, data: Dict) -> Dict:
         cfg = self.config
         total, h, w = data["frames_in"], data["height"], data["width"]
-        out_path = data["output"]
         checkpointed = "checkpoint" in data
-        resume_from = (self.checkpoints.resume_point(_ENHANCE)
-                       if checkpointed and cfg.resume else 0)
         dedup: Optional[DedupResult] = data.get("dedup_result")
         mapping = dedup.frame_mapping if dedup is not None else None
+        # interpolation after a lower cadence found by dedup: the duplicates
+        # are dropped and the intermediate holds the unique frames at the
+        # estimated source rate (the JAX restorer skips resume then)
+        drop = bool(cfg.interpolation and dedup is not None and dedup.duplicates > 0
+                    and 0 < dedup.estimated_source_fps < float(data["fps"]) - 1e-3)
+        write_fps = dedup.estimated_source_fps if drop else data["fps"]
+        out_path = cfg.work_dir / "enhanced.y4m" if cfg.interpolation else data["output"]
+        resume_from = (self.checkpoints.resume_point(_ENHANCE)
+                       if checkpointed and cfg.resume and not drop else 0)
         grain = self._grain()
-        sr = self.sr = SuperResolution(build_sr_config(cfg, pre_sr_reserve(cfg, h, w)))
+        scale = get_model(cfg.sr_model).scale
+        reserve = pre_sr_reserve(cfg, h, w) + face_reserve(cfg, h * scale, w * scale)
+        sr = self.sr = SuperResolution(build_sr_config(cfg, reserve))
         written = frame_errors = batch_size = 0
         budget_hit = False
         pre_sr: Dict = {}
+        faces: Optional[FaceRestorer] = None
         with contextlib.ExitStack() as stack:    # unwinds in reverse order
             # f32 in full f32 in both threads (the pre-SR stream's convs run
             # in the ring's producer thread): TF32 off until the stage ends
@@ -383,37 +525,40 @@ class VideoRestorer:
             sr.setup(h, w)
             oh, ow = sr.output_size(h, w)
             batch_size = max(1, min(sr.plan.batch, total))
+            if cfg.face_restore:
+                faces = FaceRestorer(FaceRestoreConfig(
+                    strength=cfg.face_strength, backend=cfg.face_model,
+                    weights_dir=str(cfg.weights_dir) if cfg.weights_dir else None,
+                    device=_device(cfg)))
+                faces.setup(oh, ow)
+                stack.callback(faces.teardown)
+            # cut the output to R = min(checkpoint, whole frames in it),
+            # rounded down to a whole batch (and back to a unique frame or a
+            # carried grain state): every frame then runs in the batch it had
+            # in a straight run, so the output is the straight run's (the
+            # CPU's plain convolutions may round a frame differently in
+            # another batch)
+            writer, resume_from = self._open_output(
+                out_path, ow, oh, write_fps, resume_from, batch_size,
+                lambda keep: self._resume_point(keep, batch_size, mapping, grain))
             if resume_from:
-                # cut the output to R = min(checkpoint, whole frames in it),
-                # rounded down to a whole batch (and back to a unique frame
-                # or a carried grain state): every frame then runs in the
-                # batch it had in a straight run, so the output is the
-                # straight run's (the CPU's plain convolutions may round a
-                # frame differently in another batch)
-                on_disk = 0
-                if out_path.is_file():
-                    with Y4MReader(out_path) as r:
-                        on_disk = r.count_frames()
-                keep = self._resume_point(min(resume_from, on_disk) // batch_size * batch_size,
-                                          batch_size, mapping, grain)
-                writer = Y4MWriter(out_path, ow, oh, fps=data["fps"], append=True,
-                                   keep_frames=keep)
-                resume_from = writer.frames_written
                 logger.info("resuming enhance at frame %d", resume_from)
-            else:
-                writer = Y4MWriter(out_path, ow, oh, fps=data["fps"])
+            # the writer's own exit: an ffmpeg encode is killed, not
+            # finalised, when the stage fails
             stack.enter_context(writer)
             written = resume_from
             validator = (QualityValidator(cfg.min_psnr, cfg.min_ssim, min_vmaf=cfg.min_vmaf,
                                           first_frame=resume_from)
                          if cfg.validate_output else None)
-            reader = stack.enter_context(Y4MReader(data["source"]))
-            pre_sr["host_codec"] = {"decode": reader.codec, "encode": writer.codec}
-            # a mapping repeats RGB outputs and grain changes them on the
-            # host: both take the RGB path
-            yuv_direct = (writer.header.colorspace.startswith("420")
+            reader = stack.enter_context(open_reader(data["source"]))
+            pre_sr["host_codec"] = {"decode": getattr(reader, "codec", type(reader).__name__),
+                                    "encode": getattr(writer, "codec", type(writer).__name__)}
+            # a mapping repeats RGB outputs, and grain and faces change them
+            # on the host: each takes the RGB path
+            yuv_direct = (hasattr(writer, "write_yuv_frame")
+                          and writer.header.colorspace.startswith("420")
                           and oh % 2 == 0 and ow % 2 == 0
-                          and mapping is None and grain is None)
+                          and mapping is None and grain is None and faces is None)
             if yuv_direct:
                 sr.config.yuv_full_range = writer.full_range
                 sr.set_output_color("yuv420")
@@ -457,6 +602,7 @@ class VideoRestorer:
                        work: np.ndarray) -> None:
                 nonlocal written, last_out
                 n = len(frames)
+                nxt = start + n
                 out = handle                            # bicubic copies if not ok
                 if handle is None:                      # every frame a duplicate
                     out = frames[:0]
@@ -472,7 +618,9 @@ class VideoRestorer:
                     else:                               # bicubic copies in RGB
                         out = [rgb_to_yuv420(f, full_range=writer.full_range) for f in out]
                 else:
-                    if mapping is not None:
+                    if drop:                            # the unique frames only
+                        frames, n = work, len(work)
+                    elif mapping is not None:
                         # the unique frames' outputs back at every position
                         outs, k = [], 0
                         for pos in range(n):
@@ -481,25 +629,27 @@ class VideoRestorer:
                                 k += 1
                             outs.append(last_out)   # a resume starts at a unique frame
                         out = np.stack(outs)
+                    if faces is not None and n:
+                        out = np.stack([faces.restore_frame(f) for f in out])
                     if validator is not None and ok:
                         for i in range(n):
                             validator.observe(frames[i], out[i])
-                    if grain is not None:
+                    if grain is not None and n:
                         # after the gate: grain is an intended change
                         out = grain(out, work if len(work) else None)
-                        nxt = start + n
                         if nxt < total and (mapping is None or mapping[nxt] > mapping[nxt - 1]):
                             carry[str(nxt)] = grain.state()
                             for key in list(carry)[:-_CARRY_POINTS]:
                                 del carry[key]
                             if checkpointed:
                                 self.checkpoints.checkpoint.carry = dict(carry)
-                drain.submit(out, n)
+                if n:
+                    drain.submit(out, n)
                 written += n
                 if checkpointed:
                     self.checkpoints.frames_completed(_ENHANCE, written)
                 if self.progress_callback is not None:
-                    self.progress_callback(written, total)
+                    self.progress_callback(written, dedup.unique_frames if drop else total)
 
             deadline = (time.time() + cfg.max_runtime_minutes * 60.0
                         if cfg.max_runtime_minutes > 0 else None)
@@ -537,14 +687,115 @@ class VideoRestorer:
         if budget_hit:
             raise FatalError(f"runtime budget reached after {written} frames; "
                              "rerun the same command to resume")
+        out = {"frames_out": written, "frame_errors": frame_errors,
+               "resumed_from": resume_from, "pre_sr": pre_sr, "validator": validator,
+               "batches": sr.dispatches, "batch_size": batch_size,
+               "post_sr": {} if grain is None else {"grain": {"mode": grain.gm.mode,
+                                                              "target": grain.target}},
+               "faces_restored": faces.result.faces_restored if faces is not None else None}
+        if cfg.interpolation:
+            # the gate is scored here, so that the checkpoint keeps its
+            # report and the errors with the intermediate: a rerun that
+            # resumes at interpolation reports what a straight run does
+            out.update(enhanced_path=str(out_path), out_size=[oh, ow],
+                       enhanced_fps=float(write_fps), enhanced_frames=written,
+                       validator=None,
+                       quality_report=validator.validate() if validator is not None else None)
         if checkpointed:
+            if cfg.interpolation:       # what the interpolate stage reads on a rerun
+                st = {k: out[k] for k in ("enhanced_path", "out_size", "enhanced_fps",
+                                          "enhanced_frames", "frame_errors", "resumed_from",
+                                          "faces_restored", "pre_sr", "post_sr")}
+                rep = out["quality_report"]
+                st["quality_report"] = dataclasses.asdict(rep) if rep is not None else None
+                # the dedup counts; the mapping, read by the enhance stage
+                # only, is left out
+                st["dedup_result"] = (None if dedup is None else dataclasses.asdict(
+                    dataclasses.replace(dedup, unique_indices=[], frame_mapping={})))
+                self.checkpoints.checkpoint.stage_state[_ENHANCE] = st
             self.checkpoints.stage_completed(_ENHANCE)
-        post_sr = {} if grain is None else {"grain": {"mode": grain.gm.mode,
-                                                      "target": grain.target}}
-        return {"frames_out": written, "frame_errors": frame_errors,
-                "resumed_from": resume_from, "pre_sr": pre_sr, "post_sr": post_sr,
-                "validator": validator, "batches": sr.dispatches,
-                "batch_size": batch_size}
+        return out
+
+    def _enhanced_intermediate(self, data: Dict) -> Optional[Dict]:
+        """On a rerun whose checkpoint says the enhance stage completed and
+        whose intermediate is whole: what the interpolate stage reads, and
+        the enhance stage's gate report, errors and resume point, for an
+        enhance stage with nothing left to do; else None."""
+        cfg = self.config
+        if not (cfg.interpolation and cfg.resume and "checkpoint" in data):
+            return None
+        ck = self.checkpoints.checkpoint
+        st = ck.stage_state.get(_ENHANCE)
+        if _ENHANCE not in ck.completed_stages or not st:
+            return None
+        path = Path(st["enhanced_path"])
+        if path != cfg.work_dir / "enhanced.y4m" or not path.is_file():
+            return None
+        with Y4MReader(path) as r:
+            if r.count_frames() != st["enhanced_frames"]:
+                return None
+        rep, dd = st["quality_report"], st["dedup_result"]
+        return {**st, "frames_out": st["enhanced_frames"], "batches": 0, "batch_size": 0,
+                "quality_report": QualityReport(**rep) if rep is not None else None,
+                "dedup_result": DedupResult(**dd) if dd is not None else None}
+
+    def _stage_interpolate(self, data: Dict) -> Dict:
+        """Stream the intermediate through the interpolator into the
+        output at ``factor`` times its rate; on a rerun, resume at a whole
+        step of pairs (the checkpoint's pair batch)."""
+        cfg = self.config
+        src = Path(data["enhanced_path"])
+        oh, ow = data["out_size"]
+        src_fps = data["enhanced_fps"]
+        factor = interpolation_factor(src_fps, cfg.target_fps)
+        out_fps = src_fps * factor
+        checkpointed = "checkpoint" in data
+        state = (self.checkpoints.checkpoint.stage_state.get(_INTERPOLATE)
+                 if checkpointed and cfg.resume else None)
+        pairs = (state["pairs"] if state else
+                 planner.interpolation_pairs(oh, ow, _free_bytes(_device(cfg)),
+                                             cfg.hbm_utilization, max_pairs=4))
+        if checkpointed:
+            self.checkpoints.checkpoint.stage_state[_INTERPOLATE] = {"pairs": pairs}
+        done = (self.checkpoints.resume_point(_INTERPOLATE)
+                if checkpointed and cfg.resume else 0)
+        writer, keep = self._open_output(data["output"], ow, oh, out_fps, done, factor * pairs)
+        if keep:
+            logger.info("resuming interpolation at output frame %d", keep)
+        interp = FrameInterpolator(InterpolationConfig(
+            model_name=cfg.interpolation_model, target_fps=cfg.target_fps,
+            scene_change_threshold=cfg.scene_threshold,
+            scene_change_skip=cfg.scene_change_skip, batch_pairs=pairs,
+            weights_dir=str(cfg.weights_dir) if cfg.weights_dir else None,
+            device=_device(cfg)))
+        n = keep
+        est_total = (data["enhanced_frames"] - 1) * factor + 1
+        try:
+            with writer, open_reader(src) as reader:
+                interp.setup(oh, ow)
+                frames = itertools.islice(iter(reader), keep // factor, None)
+                for frame in interp.interpolate_to_fps(frames, src_fps):
+                    writer.write_frame(frame)
+                    n += 1
+                    if checkpointed:
+                        self.checkpoints.frames_completed(_INTERPOLATE, n)
+                    if self.progress_callback is not None:
+                        self.progress_callback(n, est_total)
+        finally:
+            interp.teardown()
+            if checkpointed:
+                self.checkpoints.force_save()
+        if not cfg.keep_intermediates:
+            src.unlink(missing_ok=True)
+        if checkpointed:
+            self.checkpoints.stage_completed(_INTERPOLATE)
+        res = interp.result
+        return {"frames_out": n, "output_fps": out_fps,
+                "interpolation_result": {"frames_in": keep // factor + res.frames_in,
+                                         "frames_out": n, "factor": factor,
+                                         "scene_skips": res.scene_skips,
+                                         "output_fps": out_fps, "pairs_per_step": pairs,
+                                         "resumed_from": keep}}
 
     def _longform_active(self, nb_frames: int) -> bool:
         cfg = self.config
@@ -565,7 +816,7 @@ class VideoRestorer:
         if self._longform_active(total):
             anchors = data.get("anchors")             # teed off the dedup pass
             if anchors is None:
-                with Y4MReader(data["source"]) as ar:
+                with open_reader(data["source"]) as ar:
                     anchors = GlobalAnchors.extract(itertools.islice(iter(ar), total),
                                                     sample_every=cfg.anchor_interval)
             info["long_form"] = {"anchors": len(anchors.points)}
@@ -577,7 +828,7 @@ class VideoRestorer:
         if deint == "auto":
             # the head of the source probed for combing; yadif only on an
             # interlaced source
-            with Y4MReader(data["source"]) as r:
+            with open_reader(data["source"]) as r:
                 rep = InterlaceDetector(sample_every=5).analyze(itertools.islice(iter(r), 60))
             deint = "yadif" if rep.interlaced else "off"
             info["deinterlace"] = {"mode": deint, **dataclasses.asdict(rep)}
@@ -635,10 +886,12 @@ class VideoRestorer:
         return np.clip(y * 255.0 + 0.5, 0, 255).astype(np.uint8)
 
     def _stage_validate(self, data: Dict) -> Dict:
+        """Gate the validator's report (scored here, or by the enhance
+        stage when interpolation follows it)."""
         validator: Optional[QualityValidator] = data.get("validator")
-        if validator is None:
+        report = validator.validate() if validator is not None else data.get("quality_report")
+        if report is None:
             return {}
-        report = validator.validate()
         if not report.passed:
             logger.warning("quality gates failed: %s", report.to_dict())
             if not self.config.continue_on_error:

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Where the time of a ``--preset quality`` restore and a film restore
-goes, on one GPU.
+"""Where the time of a ``--preset quality`` restore, a film restore and
+an archive restore goes, on one GPU.
 
     python3 scripts/torch_presr_times.py [--frames 12 36] [--profile]
+        [--presets default quality film archive]
 
 Restores seeded 1080p clips to 4K through ``VideoRestorer`` (the CLI's
 code path; seeded random RealESRGAN_x2plus weights from an empty weights
 dir) with the default config, with the ``quality`` preset (progressive
 frames, a darker shot from the middle on: ``chip_smoke.clip_with_cut``)
 and as ``--deduplicate --defect-repair --grain match`` ("film": 18 fps
-padded to 24 with a scratch and dust, ``chip_smoke.film_clip``), at each
-clip length of ``--frames``. For each run: the wall time, the peak
+padded to 24 with a scratch and dust, ``chip_smoke.film_clip``), and
+with ``--preset archive`` ("archive": RealESRGAN_x4plus from 960x540 to
+4K on ``chip_smoke.archive_clip``, with the seeded weights at published
+widths that ``chip_smoke.write_archive_weights`` writes for IFNet,
+GFPGANv1.4 and RetinaFace), at each clip length of ``--frames``, for the
+``--presets`` asked for (default: all but archive). For each run: the wall time, the peak
 device memory allocated and reserved,
 and the host time spent in each part, summed over its calls, by wrapping
 the part's function with a clock: in the ring's producer thread the
@@ -24,8 +29,11 @@ attention's (``CrossFrameAttention._filter``) and the defect repair's
 staging, upload and launches; also per call) and ``materialize`` (the
 wait for the card and the pinned copy back), the gate's RGB pairs
 (``QualityValidator.observe``, then their scoring in ``validate``) and
-the grain (``_PostSRGrain``); the writer's thread (4:2:0 planes, or RGB
-encoded on the host). The parts overlap across the threads, so they do
+the grain (``_PostSRGrain``), the face restorer (a frame's
+``restore_frame``, its detector, each crop's ``_enhance_crop``); the
+interpolate stage's IFNet steps (``FrameInterpolator._mid``: upload,
+card, copy back) and scene scores; the writer's thread (4:2:0 planes, or
+RGB encoded on the host). The parts overlap across the threads, so they do
 not add up to the wall time. A 4-frame restore first builds the kernels and
 warms the card. Steady-state ms a frame is the difference of two
 lengths' walls over the difference of their frames. With ``--profile``
@@ -89,6 +97,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, nargs=2, default=(12, 36))
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--presets", nargs="+", default=["default", "quality", "film"],
+                    choices=["default", "quality", "film", "archive"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_presr_times: no CUDA device", file=sys.stderr)
@@ -98,6 +108,7 @@ def main(argv=None) -> int:
     from framewright_tpu_torch.config import build_config
     from framewright_tpu_torch.io import y4m
     from framewright_tpu_torch.processors import film, noise_profiler, super_resolution
+    from framewright_tpu_torch.processors import faces, interpolation
     from framewright_tpu_torch.processors import temporal_attention, temporal_denoise
     from framewright_tpu_torch.quality import validators
     from framewright_tpu_torch.restorer import VideoRestorer
@@ -122,6 +133,13 @@ def main(argv=None) -> int:
     clock.wrap(validators.QualityValidator, "observe", "main: gate pair observe")
     clock.wrap(validators.QualityValidator, "validate", "main: gate scoring")
     clock.wrap(restorer._PostSRGrain, "__call__", "main: grain (post_fx)")
+    clock.wrap(faces.FaceRestorer, "restore_frame", "main: face restore a frame")
+    clock.wrap(faces.FaceDetector, "detect", "main: skin detector a frame")
+    clock.wrap(faces.RetinaFaceDetector, "detect", "main: RetinaFace a frame (card, NMS)")
+    clock.wrap(faces.FaceRestorer, "_enhance_crop", "main: face crop (resize, model, resize)")
+    clock.wrap(interpolation.FrameInterpolator, "_mid",
+               "interpolate: IFNet step (upload, card, copy back)")
+    clock.wrap(interpolation, "frame_pair_scores", "interpolate: scene score a pair")
     clock.wrap(y4m.Y4MWriter, "write_yuv_frame", "writer: Y4M write 4:2:0 planes")
     clock.wrap(y4m.Y4MWriter, "write_frame", "writer: Y4M encode RGB and write")
 
@@ -131,22 +149,28 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="fw_presr_") as tmp:
         tmp = Path(tmp)
         (tmp / "nw").mkdir()
-        runs = [("quality", 4, False)]                      # warm-up
-        runs += [(p, n, False) for n in args.frames for p in ("", "quality", "film")]
-        if args.profile:
+        presets = ["" if p == "default" else p for p in args.presets]
+        runs = [(presets[0], 4, False)]                     # warm-up
+        runs += [(p, n, False) for n in args.frames for p in presets]
+        if args.profile and "quality" in presets:
             runs.append(("quality", max(args.frames), True))
+        if "archive" in presets:
+            chip_smoke.write_archive_weights(tmp / "aw")
         for preset, n, profile in runs:
-            kind = "film" if preset == "film" else "cut"
+            kind = preset if preset in ("film", "archive") else "cut"
             src = tmp / f"{kind}{n}.y4m"
+            h, w = (540, 960) if kind == "archive" else (1080, 1920)
             if not src.exists():
-                frames = (chip_smoke.film_clip(n, 1080, 1920, seed=47) if kind == "film"
-                          else chip_smoke.clip_with_cut(n, n // 2, 1080, 1920, seed=41))
-                with y4m.Y4MWriter(src, 1920, 1080, fps=24) as w:
+                frames = (chip_smoke.film_clip(n, h, w, seed=47) if kind == "film"
+                          else chip_smoke.archive_clip(n, h, w, seed=61) if kind == "archive"
+                          else chip_smoke.clip_with_cut(n, n // 2, h, w, seed=41))
+                with y4m.Y4MWriter(src, w, h, fps=24) as wr:
                     for f in frames:
-                        w.write_frame(f)
+                        wr.write_frame(f)
             label = f"{preset or 'default'} {n}" + (" profiled" if profile else "")
             cfg = build_config("" if preset == "film" else preset, {
-                "project_dir": tmp / label.replace(" ", "_"), "weights_dir": tmp / "nw",
+                "project_dir": tmp / label.replace(" ", "_"),
+                "weights_dir": tmp / ("aw" if kind == "archive" else "nw"),
                 "checkpoint_enabled": False, **(FILM if preset == "film" else {})})
             prof = (torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
@@ -167,7 +191,10 @@ def main(argv=None) -> int:
                    "peak_reserved_bytes": torch.cuda.max_memory_reserved(),
                    "pre_sr": res.pre_sr.get("denoise", {}).get("method"),
                    "host_codec": res.pre_sr.get("host_codec"),
-                   "duplicates": res.dedup.duplicates if res.dedup else None}
+                   "duplicates": res.dedup.duplicates if res.dedup else None,
+                   "stage_seconds": {st["name"]: st["duration_s"]
+                                     for st in res.stage_summary["stages"]},
+                   "faces_restored": res.faces_restored, "interpolation": res.interpolation}
             if profile:
                 busy = sum(getattr(e, "self_device_time_total", 0)
                            for e in prof.key_averages()) / 1e3
@@ -181,7 +208,7 @@ def main(argv=None) -> int:
         n1, n2 = args.frames
         out["steady_ms_per_frame"] = {
             p: 1e3 * (out["runs"][f"{p} {n2}"]["wall_s"] - out["runs"][f"{p} {n1}"]["wall_s"])
-            / (n2 - n1) for p in ("default", "quality", "film")}
+            / (n2 - n1) for p in args.presets}
     print(smi)
     print(json.dumps(out))
     return 0

@@ -299,9 +299,17 @@ def test_config_fields_defaults_and_validation():
 
 
 @pytest.mark.parametrize("preset", ["archive", "ultimate"])
-def test_waiting_presets_name_only_interpolation_and_faces(preset):
-    with pytest.raises(ConfigError) as err:
-        build_config(preset)
+def test_waiting_presets_name_only_interpolation_and_faces(preset, tmp_path):
+    """The presets build since slice 9; without checkpoints a restore
+    waits for the interpolation and face models' only, naming both."""
+    from framewright_tpu_torch.errors import InputError
+
+    cfg = build_config(preset, {"weights_dir": tmp_path, "device_platform": "cpu",
+                                "project_dir": tmp_path / "p"})
+    assert cfg.deduplicate and cfg.defect_repair
+    src = _write(tmp_path / "film.y4m", film_clip(4))
+    with pytest.raises(InputError) as err:
+        VideoRestorer(cfg).restore_video(src, tmp_path / "o.y4m")
     msg = str(err.value)
-    assert "A6b" in msg and "A9" in msg
+    assert "rife-v4.6.npz" in msg and "GFPGANv1.4.npz" in msg
     assert "A10" not in msg and "dedup" not in msg and "defect" not in msg

@@ -104,8 +104,9 @@ class TestRestoreParity:
         import functools
 
         from framewright_tpu_torch import restorer
+        from framewright_tpu_torch.io import video
 
-        monkeypatch.setattr(restorer, "Y4MWriter",
+        monkeypatch.setattr(video, "Y4MWriter",
                             functools.partial(y4m.Y4MWriter, colorspace="444"))
         src = _clip(tmp_path / "clip.y4m", gradient_frame, n=2, w=32, h=24)
         cfg = Config(sr_model="FW_fast6_x2", device_platform="cpu",
@@ -164,7 +165,9 @@ def test_port_imports_no_jax_and_nothing_of_framewright_tpu():
         "processors/base", "processors/scene_detection", "processors/noise_profiler",
         "processors/format", "processors/film", "processors/temporal_denoise",
         "processors/temporal_attention", "engine/temporal", "models/ifnet",
-        "models/nafnet", "ops/warp")} <= names
+        "models/nafnet", "ops/warp", "io/color", "io/png_seq", "io/ffmpeg", "io/video",
+        "processors/interpolation", "processors/faces", "models/gfpgan",
+        "models/retinaface")} <= names
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]

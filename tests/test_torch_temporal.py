@@ -105,11 +105,14 @@ def test_flags_override_the_preset():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"preset": "archive"}, "A9"), ({"preset": "ultimate"}, "A6"),
+    ({"preset": "archive", "face_restore": True, "face_model": "codeformer"}, "A9"),
+    ({"preset": "ultimate", "denoise": True, "flow_model": "raft"}, "A6"),
     ({"denoise": True, "denoise_model": "restormer"}, "A6"),
     ({"denoise": True, "flow_model": "raft"}, "A6"),
-    ({"temporal_model": "latent"}, "A10"), ({"face_restore": True}, "A9"),
-    ({"interpolation": True}, "A6"), ({"temporal_window": 4}, "odd"),
+    ({"temporal_model": "latent"}, "A10"),
+    ({"face_restore": True, "face_model": "codeformer"}, "A9"),
+    ({"interpolation": True, "denoise": True, "denoise_model": "restormer"}, "A6"),
+    ({"temporal_window": 4}, "odd"),
     ({"deinterlace": "weave"}, "deinterlace"), ({"long_form": "always"}, "long_form"),
 ])
 def test_refusals(kwargs, match):
@@ -118,9 +121,12 @@ def test_refusals(kwargs, match):
 
 
 def test_archive_preset_refused_by_name():
-    with pytest.raises(ConfigError, match="ROADMAP"):
-        get_preset("archive")
-    assert set(PRESETS) == {"fast", "quality"}
+    """The archive preset runs since slice 9; its CodeFormer face model
+    is still refused by its ROADMAP.md name."""
+    assert get_preset("archive")["face_restore"] is True
+    with pytest.raises(ConfigError, match="ROADMAP.md A9b"):
+        build_config("archive", {"face_model": "codeformer"})
+    assert set(PRESETS) == {"fast", "quality", "archive", "ultimate"}
 
 
 def test_hash_covers_the_new_fields():
