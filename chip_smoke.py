@@ -148,6 +148,19 @@ Phases, one JSON object per line on stdout:
               card ms of IFNet, GFPGAN and RetinaFace, host ms of the skin
               detector, a frame's face restore and the 4K scene score, the
               stages' walls
+  engine      the restore engine (slice 10) on x2plus 1080p, 4 progressive
+              frames: a restore tiled at 256 (counters 69/1/1 a tile batch,
+              K2 in bf16; planes equal to tiled_apply over the kernel path;
+              one tile batch against its plain path; peak against the
+              planner's tiled estimate), ms a frame tiled and whole; a
+              restore whose planner must tile and one whose OOM at batch 1
+              downshifts into tiles (errors 0); a writer's disk error retried
+              by the engine (2 attempts, byte-equal to a straight run); a
+              preflight blocker and --dry-run (no card bytes, nothing
+              written); --min-vmaf 1 (RGB path) and the VMAF proxy on two 4K
+              pairs, card vs CPU; CodeFormer at its published widths on a
+              512x512 crop, card vs CPU, its ms and peak, then --preset
+              archive --face-model codeformer on the archive clip
   6. times    each kernel by CUDA events beside its plain version, its
               roofline bound and, for the bf16 RDB, K1, tail1, the bf16
               chain and the band conv, cuDNN's F.conv2d (PyTorch has no
@@ -919,9 +932,9 @@ def pre_sr_restores(tmp: Path, nw: str, dev, x: dict) -> dict:
     class Stop(Exception):
         pass
 
-    def stop_after_first(done, total):
-        if done >= 2:
-            raise Stop(done)
+    def stop_after_first(info):
+        if info.frames_done >= 2:
+            raise Stop(info.frames_done)
 
     straight = VideoRestorer(quality_cfg("qs")).restore_video(src, tmp / "q_straight.y4m")
     resumed = tmp / "q_resumed.y4m"
@@ -1124,9 +1137,9 @@ def film_phase(tmp: Path, nw: str, dev, x: dict) -> dict:
     class Stop(Exception):
         pass
 
-    def stop_after_first(done, total):
-        if done >= bs:
-            raise Stop(done)
+    def stop_after_first(info):
+        if info.frames_done >= bs:
+            raise Stop(info.frames_done)
 
     def api_cfg(proj: str):
         return build_config("", {"project_dir": tmp / proj, "weights_dir": nw,
@@ -1202,7 +1215,10 @@ def tools_phase() -> dict:
 
     rec = {"phase": "tools", "pillow": png_seq.pillow_available(),
            "ffmpeg": ff.ffmpeg_available(), "ffmpeg_path": shutil.which("ffmpeg"),
-           "ffprobe_path": shutil.which("ffprobe")}
+           "ffprobe_path": shutil.which("ffprobe"),
+           # the restore's sleep inhibitor (safeguards.KeepAwake): none is a no-op
+           "systemd_inhibit_path": shutil.which("systemd-inhibit"),
+           "caffeinate_path": shutil.which("caffeinate")}
     if rec["pillow"]:
         import PIL
 
@@ -1406,9 +1422,9 @@ def archive_phase(tmp: Path, dev, x: dict) -> dict:
     api = VideoRestorer(build_config("archive", {"weights_dir": str(wdir),
                                                  "project_dir": tmp / "archive_api"}))
 
-    def stop_in_interpolate(done, total):
-        if api.stage == "interpolate" and done > unit:
-            raise Stop(done)
+    def stop_in_interpolate(info):
+        if info.stage == "interpolate" and info.frames_done > unit:
+            raise Stop(info.frames_done)
 
     api.progress_callback = stop_in_interpolate
     resumed = tmp / "archive_api.y4m"
@@ -1422,7 +1438,8 @@ def archive_phase(tmp: Path, dev, x: dict) -> dict:
         .restore_video(src, resumed)
     rec = {"phase": "archive", "run": "API killed inside the interpolate stage, then resumed",
            "resumed_batches": res.batches, "interpolation": res.interpolation,
-           "stages": [s["name"] for s in res.stage_summary["stages"]],
+           # the enhance stage restored as completed by the engine, not run
+           "enhance": [s for s in res.stage_summary["stages"] if s["name"] == "enhance"][0],
            "byte_equal_to_cli": resumed.read_bytes() == out.read_bytes(),
            # the enhance stage's gate, errors and faces, kept in the checkpoint
            "reports_equal_to_cli": (res.quality is not None
@@ -1431,8 +1448,8 @@ def archive_phase(tmp: Path, dev, x: dict) -> dict:
                                     and res.faces_restored == summary["faces_restored"])}
     emit(rec)
     require(rec["byte_equal_to_cli"] and rec["reports_equal_to_cli"] and res.batches == 0
-            and "enhance" not in rec["stages"] and res.interpolation["resumed_from"] == unit,
-            f"archive resume: {rec}")
+            and (rec["enhance"]["status"], rec["enhance"]["attempts"]) == ("completed", 0)
+            and res.interpolation["resumed_from"] == unit, f"archive resume: {rec}")
 
     # the parts' times: card (CUDA events) and host (least of 3); the face
     # models' own peaks (a crop, a 4K frame) beside the planner's face row
@@ -1464,6 +1481,424 @@ def archive_phase(tmp: Path, dev, x: dict) -> dict:
     emit(rec)
     return {"wall_seconds": wall, "stage_seconds": stages, "card_ms": card, "host_ms": host,
             "peak": peak, "ifnet_peak": ifnet_peak}
+
+
+ENGINE_H, ENGINE_W, ENGINE_FRAMES, ENGINE_TILE = 1080, 1920, 4, 256
+VMAF_MAX_DIFF = 0.01          # the VMAF proxy, card vs CPU (tests/test_torch_vmaf.py)
+
+
+def engine_phase(tmp: Path, dev, x: dict, archive_src: Path, archive_wdir: Path) -> dict:
+    """The restore engine of slice 10 on x2plus 1080p (seeded random
+    weights, an empty weights dir, 4 progressive frames) and the archive
+    clip. -> times.
+
+    - tiling: a restore with ``tile_size=256`` (YUV writer): counters
+      69/1/1 a tile batch, K2 in its bf16 mode; its planes equal
+      ``tiled_apply`` over the kernel path of the same frames, and are held
+      to ``tiled_apply`` over the plain path (the kernels' plain versions,
+      bf16); one tile batch's kernel path against its plain path at the
+      tile shape (divided by the range); its peak against the planner's
+      tiled estimate; ms a frame through the SR processor, tiled and whole;
+    - a planner that must tile (a utilization that leaves no room for a
+      whole frame) and a mocked out-of-memory at batch 1 that downshifts
+      into tiles: both restores with errors 0 and the kernel path's planes;
+    - a writer's disk error (a TransientError) once in the enhance stage:
+      the stage runs twice and the output equals a straight run's bytes;
+    - a preflight blocker (no free disk) and ``--dry-run``: no card memory
+      taken, nothing written;
+    - ``--min-vmaf 1`` through the CLI (RGB path, K2 in rgb_u8) and the
+      VMAF proxy on two 4K pairs, card against CPU;
+    - CodeFormer at its published widths on seeded weights: a 512x512
+      crop card against CPU, ms a crop and its peak; then ``--preset
+      archive --face-model codeformer`` on the archive clip."""
+    import torch
+
+    from framewright_tpu_torch import planner, safeguards
+    from framewright_tpu_torch.config import Config, build_config
+    from framewright_tpu_torch.errors import DiskSpaceError, InputError
+    from framewright_tpu_torch.events import EventBus
+    from framewright_tpu_torch.io.y4m import Y4MReader, Y4MWriter
+    from framewright_tpu_torch.models import codeformer
+    from framewright_tpu_torch.models.layers import out_epilogue
+    from framewright_tpu_torch.models.registry import write_npz
+    from framewright_tpu_torch.models.rrdb import RRDBNet
+    from framewright_tpu_torch.ops import fused_rrdb, fused_tail, fused_tail3, tiling
+    from framewright_tpu_torch.processors.deduplication import FrameDeduplicator
+    from framewright_tpu_torch.processors.faces import FaceRestoreConfig, FaceRestorer
+    from framewright_tpu_torch.processors.interpolation import interpolation_factor
+    from framewright_tpu_torch.processors.super_resolution import SRConfig, SuperResolution
+    from framewright_tpu_torch.quality.vmaf import VMAFProxy
+    from framewright_tpu_torch.restorer import VideoRestorer, face_reserve, pre_sr_reserve
+
+    t0 = time.perf_counter()
+    h, w, n = ENGINE_H, ENGINE_W, ENGINE_FRAMES
+    nw, model = x["nw"], x["model"]
+    fw = model.fast_weights()
+    times: dict = {}
+    src = tmp / "engine.y4m"
+    with Y4MWriter(src, w, h, fps=24) as writer:
+        for f in synthetic_frames(n, h, w, seed=71, **PROGRESSIVE):
+            writer.write_frame(f)
+    with Y4MReader(src) as reader:
+        decoded = np.stack(list(reader))
+    sr_in, info = pre_sr_stream_of(Config(), src, decoded)
+    emit({"phase": "engine", "clip": [n, h, w], "default_pre_sr": info})
+    modes = []
+    apply_fast = RRDBNet.apply_fast
+
+    def recorded(self, x_in, out_mode="bf16", *a, **k):
+        modes.append(out_mode)
+        return apply_fast(self, x_in, out_mode, *a, **k)
+
+    def api_restore(label: str, cfg_kw: dict, out: Path, events=None):
+        """An API restore of the engine clip with the counters set to 0
+        just before and read just after -> (result, restorer, launches,
+        peak bytes above base, wall seconds)."""
+        cfg = Config(weights_dir=nw, project_dir=tmp / f"engine_{label}", **cfg_kw)
+        r = VideoRestorer(cfg, events=events)
+        modes.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        x["reset_counters"]()
+        t_run = time.perf_counter()
+        RRDBNet.apply_fast = recorded
+        try:
+            res = r.restore_video(src, out)
+        finally:
+            RRDBNet.apply_fast = apply_fast
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        return res, r, x["read_counters"](), torch.cuda.max_memory_allocated() - base, wall
+
+    def tiled_expect(plan, fn=None):
+        """The planes of ``tiled_apply`` by ``plan`` over ``fn`` (the kernel
+        path's float output) on the SR's inputs, full range, frame by frame."""
+        fn = fn or (lambda t: model.apply_fast(t, "bf16", weights=fw))
+        planes = []
+        with torch.no_grad():
+            for i in range(0, n, plan.frames):
+                xs = torch.from_numpy(sr_in[i:i + plan.frames]).to(dev).to(torch.bfloat16) / 255.0
+                img = tiling.tiled_apply(fn, xs, plan)
+                for j in range(len(img)):
+                    planes.append([p[0].cpu().numpy()
+                                   for p in out_epilogue(img[j:j + 1], "yuv420_u8", True)])
+                del img
+        return planes
+
+    def planes_equal(label: str, out: Path, want) -> None:
+        _, _, got = read_y4m_planes(out)
+        worst = max(int(np.abs(g.astype(np.int16) - e.astype(np.int16)).max())
+                    for gf, wf in zip(got, want) for g, e in zip(gf, wf))
+        emit({"phase": "engine", "run": label, "name": "planes vs tiled_apply over the "
+              "kernel path", "frames": [len(got), len(want)], "max_abs": worst,
+              "tol": {"max_abs": 0}})
+        require(len(got) == len(want) == n and worst == 0, f"{label}: planes differ by {worst}")
+
+    def tile_counts(plan, launches, label: str) -> int:
+        batches = sum(-(-min(plan.frames, n - i) * plan.tiles_per_frame // plan.batch)
+                      for i in range(0, n, plan.frames))
+        want = {k: 0 for k in launches}
+        want.update(fused_rdb=69 * batches, conv_body_skip=batches, fused_tail=batches)
+        require(launches == want and set(modes) == {"bf16"},
+                f"{label}: launches {launches}, K2 modes {set(modes)}; expected {want} "
+                f"({batches} tile batches) in bf16")
+        return batches
+
+    # -- a tiled restore -------------------------------------------------------
+    out_t = tmp / "engine_tiled.y4m"
+    res, r, launches, peak, wall = api_restore("tiled", {"tile_size": ENGINE_TILE}, out_t)
+    plan = r.sr.plan
+    batches = tile_counts(plan, launches, "tiled restore")
+    emit({"phase": "engine", "run": "tiled restore (tile_size=256)", "plan": repr(plan),
+          "tile_extent": plan.tile_extent(), "tile_body": plan.tile_extent() // 2,
+          "tiles_per_frame": plan.tiles_per_frame, "tile_batches": batches,
+          "launches": launches, "k2_modes": sorted(set(modes)), "errors": res.errors,
+          "quality": res.quality.to_dict() if res.quality else None,
+          "peak_mem_bytes_above_base": peak, "planner_bytes": plan.est_bytes,
+          "wall_seconds": wall})
+    require(plan.tiled and res.errors == 0 and res.frames_out == n, f"tiled restore: {plan}")
+    x["plan_checks"].append(("engine tiled restore", peak, plan.est_bytes))
+    planes_equal("tiled restore", out_t, tiled_expect(plan))
+    # the plain path on frame 0's tiles: one tile batch against the kernel
+    # path at the tile shape, and the frame's planes against the restore's
+    xs0 = torch.from_numpy(sr_in[:1]).to(dev).to(torch.bfloat16) / 255.0
+    xs2 = torch.from_numpy(sr_in[:2]).to(dev).to(torch.bfloat16) / 255.0
+    tiles = tiling.windows(xs2, plan)         # 80: a whole batch of 64 from frames 0-1
+    del xs2
+
+    def plain_path(t):
+        feat = model._head(t.to(torch.bfloat16)).to(torch.bfloat16).contiguous()
+        body = fused_rrdb.rrdb_body(feat, fw.body, plain=True)
+        skip = fused_tail3.conv_body_skip_plain(body, feat, fw.cbody)
+        return fused_tail.fused_tail_plain(skip, fw.tail, "bf16")
+
+    with torch.no_grad():
+        tb = tiles[:plan.batch].contiguous()
+        x["reset_counters"]()
+        got = model.apply_fast(tb, "bf16", weights=fw)
+        one = x["read_counters"]()
+        want = plain_path(tb)
+        s_ = diff_stats(got, want)
+        scale = (want.float().max() - want.float().min()).item()
+        s_.update(max_scaled=s_["max_abs"] / scale, mean_scaled=s_["mean_abs"] / scale)
+        emit({"phase": "engine", "name": f"one tile batch {list(tb.shape)}: kernel path vs "
+              "its plain path (bf16 out)", "launches": one, "divided_by": scale, **s_,
+              "tol": {"max_abs": MODEL_MAX_ABS, "mean_abs": MODEL_MEAN_ABS}})
+        require(s_["max_scaled"] < MODEL_MAX_ABS and s_["mean_scaled"] < MODEL_MEAN_ABS
+                and (one["fused_rdb"], one["conv_body_skip"], one["fused_tail"]) == (69, 1, 1),
+                f"tile batch kernel vs plain: {s_}, launches {one}")
+        del got, want, tb
+        img = tiling.tiled_apply(plain_path, xs0, plan)
+        plain_planes = [p[0].cpu().numpy() for p in out_epilogue(img, "yuv420_u8", True)]
+        del img
+    _, _, got_planes = read_y4m_planes(out_t)
+    d = [np.abs(g.astype(np.int16) - e.astype(np.int16)) for g, e in zip(got_planes[0],
+                                                                          plain_planes)]
+    rec = {"phase": "engine", "name": "tiled restore frame 0 vs tiled_apply over the plain "
+           "path (uint8 planes)", "max_abs": max(int(v.max()) for v in d),
+           "frac_differ": [float((v > 0).mean()) for v in d],
+           "frac_over_1_lsb": [float((v > 1).mean()) for v in d],
+           "tol": {"max_lsb": UINT8_MAX_LSB, "frac_differ": UINT8_MAX_FRAC},
+           "note": "reported: with random weights the output spans ~100 units, so a "
+                   "bf16 step may exceed 1 LSB; the float check above holds the path"}
+    emit(rec)
+    del tiles, xs0
+    # ms a frame, tiled and whole, through the SR processor as the
+    # restore runs it (yuv420, full range, the gate's stats)
+    frames_dev = np.ascontiguousarray(sr_in)
+    for label, tile in (("whole", 0), ("tiled 256", ENGINE_TILE)):
+        sr = SuperResolution(SRConfig(model_name="RealESRGAN_x2plus", weights_dir=nw,
+                                      output_color="yuv420", yuv_full_range=True,
+                                      tile_size=tile, tile_overlap=8))
+        sr.setup(h, w)
+        sr.enable_device_stats()
+        sr.materialize(sr.dispatch(frames_dev))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(2):
+            sr.materialize(sr.dispatch(frames_dev))
+        torch.cuda.synchronize()
+        times[f"sr_ms_per_frame_{label}"] = 1e3 * (time.perf_counter() - t1) / (2 * n)
+        emit({"phase": "engine", "name": f"SR pass {label}", "plan": repr(sr.plan),
+              "ms_per_frame": times[f"sr_ms_per_frame_{label}"]})
+        sr.teardown()
+    # -- a planner that must tile, and an OOM at batch 1 ------------------------
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    util = round(3.0e9 / free, 6)
+    out_p = tmp / "engine_must_tile.y4m"
+    res, r, launches, peak, wall = api_restore("must_tile", {"hbm_utilization": util}, out_p)
+    plan = r.sr.plan
+    emit({"phase": "engine", "run": f"hbm_utilization={util} (3.0 GB of {free} free)",
+          "plan": repr(plan), "launches": launches, "errors": res.errors,
+          "peak_mem_bytes_above_base": peak, "planner_bytes": plan.est_bytes,
+          "whole_frame_bytes": planner.frame_bytes(h, w, 2, stats=True), "wall_seconds": wall})
+    require(plan.tiled and res.errors == 0 and res.frames_out == n, f"must tile: {plan}")
+    tile_counts(plan, launches, "must-tile restore")
+    x["plan_checks"].append(("engine must-tile restore", peak, plan.est_bytes))
+    planes_equal("must-tile restore", out_p, tiled_expect(plan))
+    real_run = SuperResolution._run
+    ooms = []
+
+    def oom_once(self, x_u8):
+        if not self._plan.tiled and not ooms:
+            ooms.append(self._plan.batch)
+            raise torch.cuda.OutOfMemoryError("injected: CUDA out of memory at batch 1")
+        return real_run(self, x_u8)
+
+    SuperResolution._run = oom_once
+    try:
+        out_o = tmp / "engine_oom.y4m"
+        res, r, launches, peak, wall = api_restore("oom", {"batch_size": 1}, out_o)
+    finally:
+        SuperResolution._run = real_run
+    plan = r.sr.plan
+    emit({"phase": "engine", "run": "an OOM at batch 1, downshifted into tiles",
+          "ooms_at_batch": ooms, "plan_after": repr(plan), "errors": res.errors,
+          "launches": launches, "wall_seconds": wall})
+    require(ooms == [1] and plan.tiled and res.errors == 0 and res.frames_out == n,
+            f"OOM downshift: {ooms}, {plan}, errors {res.errors}")
+    # frame 1 was dispatched whole while frame 0's OOM was still in flight
+    # (one batch ahead); frame 0 reran in tiles, and every frame after it
+    want = tiled_expect(plan)
+    with torch.no_grad():
+        x1 = torch.from_numpy(sr_in[1:2]).to(dev).to(torch.bfloat16) / 255.0
+        want[1] = [p_[0].cpu().numpy() for p_ in model.apply_fast(x1, "yuv420_u8", True,
+                                                                  weights=fw)]
+    planes_equal("OOM-downshifted restore", out_o, want)
+    # -- a TransientError once in the enhance stage ----------------------------
+    straight = tmp / "engine_straight.y4m"
+    api_restore("straight", {"batch_size": 2}, straight)
+    real_write, calls = Y4MWriter.write_yuv_frame, []
+
+    def disk_error_once(self, *planes):
+        calls.append(1)
+        if len(calls) == 3:
+            raise DiskSpaceError("injected: no space left on device")
+        return real_write(self, *planes)
+
+    bus = EventBus()
+    Y4MWriter.write_yuv_frame = disk_error_once
+    try:
+        out_r = tmp / "engine_retried.y4m"
+        res, r, launches, peak, wall = api_restore("retried", {"batch_size": 2}, out_r, bus)
+    finally:
+        Y4MWriter.write_yuv_frame = real_write
+    enh = [s_ for s_ in res.stage_summary["stages"] if s_["name"] == "enhance"][0]
+    rec = {"phase": "engine", "run": "a disk error once in the enhance stage, retried",
+           "enhance": enh, "resumed_from": res.resumed_from, "launches": launches,
+           "events": [e.type.value for e in bus.history()
+                      if e.type.value.startswith(("stage", "job"))],
+           "byte_equal_to_straight": out_r.read_bytes() == straight.read_bytes()}
+    emit(rec)
+    require(enh["attempts"] == 2 and enh["status"] == "completed" and res.errors == 0
+            and rec["byte_equal_to_straight"], f"retried enhance stage: {rec}")
+    # -- a preflight blocker and a dry run: no card memory, nothing written -----
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    real_usage = safeguards.shutil.disk_usage
+    safeguards.shutil.disk_usage = lambda p_: real_usage(p_)._replace(free=2**20)
+    try:
+        blocked_out = tmp / "engine_blocked.y4m"
+        try:
+            VideoRestorer(Config(weights_dir=nw, project_dir=tmp / "engine_blocked")
+                          ).restore_video(src, blocked_out)
+            blocked = None
+        except InputError as exc:
+            blocked = str(exc)
+    finally:
+        safeguards.shutil.disk_usage = real_usage
+    torch.cuda.synchronize()
+    blocked_peak = torch.cuda.max_memory_allocated() - base
+    rc, dry, dry_peak = x["cli_run"](["restore", str(src), "-o", str(tmp / "engine_dry.y4m"),
+                                      "--weights-dir", nw, "--project-dir",
+                                      str(tmp / "engine_dry"), "--dry-run"])
+    rec = {"phase": "engine", "name": "preflight blocker and dry run", "blocked": blocked,
+           "dry_run_rc": rc, "dry_run": dry,
+           "card_bytes_taken": max(blocked_peak, dry_peak),
+           "written": [str(p_) for p_ in (blocked_out, tmp / "engine_blocked",
+                                         tmp / "engine_dry.y4m", tmp / "engine_dry")
+                       if p_.exists()]}
+    emit(rec)
+    require(blocked is not None and blocked.startswith("preflight blocked: insufficient disk")
+            and rc == 0 and dry["dry_run"]["preflight"]["ok"]
+            and rec["card_bytes_taken"] == 0 and not rec["written"],
+            f"preflight / dry run: {rec}")
+    # -- the VMAF gate -----------------------------------------------------------
+    modes.clear()
+    x["reset_counters"]()
+    RRDBNet.apply_fast = recorded
+    try:
+        t_run = time.perf_counter()
+        rc, summary, peak = x["cli_run"](
+            ["restore", str(src), "-o", str(tmp / "engine_vmaf.y4m"), "--weights-dir", nw,
+             "--project-dir", str(tmp / "engine_vmaf"), "--min-vmaf", "1"])
+        wall = time.perf_counter() - t_run
+    finally:
+        RRDBNet.apply_fast = apply_fast
+    launches = x["read_counters"]()
+    require(rc == 0, f"--min-vmaf restore exited {rc}")
+    want = {k: 0 for k in launches}
+    b_ = summary["batches"]
+    want.update(fused_rdb=69 * b_, conv_body_skip=b_, fused_tail=b_)
+    emit({"phase": "engine", "run": "cli --min-vmaf 1", "summary": summary,
+          "launches": launches, "k2_modes": sorted(set(modes)), "wall_seconds": wall})
+    require(summary["errors"] == 0 and summary["quality"].get("vmaf_proxy", 0) > 0
+            and launches == want and set(modes) == {"rgb_u8"},
+            f"--min-vmaf restore: {summary}, launches {launches}, modes {set(modes)}")
+    refs = synthetic_frames(2, 2160, 3840, seed=73, **PROGRESSIVE)
+    dis = np.clip(refs.astype(np.int16) + np.random.default_rng(74).integers(
+        -12, 13, refs.shape), 0, 255).astype(np.uint8)
+    card, cpu = VMAFProxy("cuda"), VMAFProxy("cpu")
+    s_card, s_cpu = card.score(refs, dis), cpu.score(refs, dis)
+    t1 = time.perf_counter()
+    card.score(refs, dis)
+    host_pair_ms = 1e3 * (time.perf_counter() - t1) / 2
+    r_, d_ = (torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+              for v in (refs @ np.float32([0.299, 0.587, 0.114]),
+                        dis @ np.float32([0.299, 0.587, 0.114])))
+    with torch.no_grad():
+        times["vmaf_card_ms_per_4k_pair"] = cuda_ms(
+            lambda: card._features(r_, d_, r_), 5, 1) / 2
+    times["vmaf_score_ms_per_4k_pair"] = host_pair_ms
+    rec = {"phase": "engine", "name": "VMAF proxy, two 4K pairs, card vs CPU",
+           "card": s_card.to_dict(), "cpu": s_cpu.to_dict(),
+           "diff": abs(s_card.score - s_cpu.score),
+           "per_frame_diff": float(np.abs(np.subtract(s_card.per_frame, s_cpu.per_frame)).max()),
+           "card_ms_per_pair": times["vmaf_card_ms_per_4k_pair"],
+           "score_ms_per_pair_with_host": host_pair_ms, "tol": {"score": VMAF_MAX_DIFF}}
+    emit(rec)
+    require(rec["diff"] <= VMAF_MAX_DIFF and rec["per_frame_diff"] <= VMAF_MAX_DIFF,
+            f"VMAF card vs CPU: {rec}")
+    del r_, d_
+    # -- CodeFormer at its published widths ---------------------------------------
+    t_w = time.perf_counter()
+    write_npz(codeformer.init_params(codeformer.CodeFormerConfig(), seed=14),
+              archive_wdir / "CodeFormer.npz")
+    emit({"phase": "engine", "codeformer_npz_mb": (archive_wdir / "CodeFormer.npz").stat().st_size
+          / 1e6, "write_seconds": time.perf_counter() - t_w})
+    kw = dict(backend="codeformer", weights_dir=str(archive_wdir), fidelity_weight=0.5)
+    fr_gpu = FaceRestorer(FaceRestoreConfig(**kw, device="cuda"))
+    fr_gpu.setup(4 * ARCHIVE_H, 4 * ARCHIVE_W)
+    fr_cpu = FaceRestorer(FaceRestoreConfig(**kw, device="cpu"))
+    fr_cpu.setup(4 * ARCHIVE_H, 4 * ARCHIVE_W)
+    crop = synthetic_frames(1, 512, 512, seed=75)[0]
+    crop[128:384, 160:352] = np.clip(np.array(SKIN) + np.random.default_rng(76).integers(
+        -10, 10, (256, 192, 3)), 0, 255)
+    within_one_lsb("CodeFormer 512x512 crop, card vs CPU (uint8)",
+                   fr_gpu._enhance_crop(crop), fr_cpu._enhance_crop(crop), phase="engine")
+    xcrop = torch.from_numpy(crop[None]).to(dev).float() / 255.0
+    with torch.no_grad():
+        _, cf_peak = part_peak(lambda: fr_gpu._run(xcrop))
+        times["codeformer_ms_per_crop"] = cuda_ms(lambda: fr_gpu._run(xcrop), 5, 1)
+    cf_weights = sum(p_.numel() * 4 for p_ in fr_gpu.model.parameters())
+    emit({"phase": "engine", "name": "CodeFormer a 512x512 crop (f32)",
+          "ms": times["codeformer_ms_per_crop"], "peak_bytes": cf_peak,
+          "weights_bytes": cf_weights,
+          "planner_bytes": planner.face_bytes("codeformer", 4 * ARCHIVE_H, 4 * ARCHIVE_W)})
+    x["plan_checks"].append(("CodeFormer crop + weights", cf_peak + cf_weights,
+                             planner.face_bytes("codeformer", 4 * ARCHIVE_H, 4 * ARCHIVE_W)))
+    del fr_gpu, fr_cpu, xcrop
+    with Y4MReader(archive_src) as reader:
+        adecoded = np.stack(list(reader))
+    analysis = FrameDeduplicator().analyze(iter(adecoded), target_fps=24.0)
+    factor = interpolation_factor(analysis.estimated_source_fps, 0.0)
+    want_frames = (analysis.unique_frames - 1) * factor + 1
+    out_a = tmp / "engine_archive_codeformer.y4m"
+    proj = tmp / "engine_archive_proj"
+    x["reset_counters"]()
+    t_run = time.perf_counter()
+    rc, summary, peak = x["cli_run"](
+        ["restore", str(archive_src), "-o", str(out_a), "--preset", "archive",
+         "--face-model", "codeformer", "--weights-dir", str(archive_wdir),
+         "--project-dir", str(proj)])
+    wall = time.perf_counter() - t_run
+    launches = x["read_counters"]()
+    require(rc == 0, f"archive codeformer restore exited {rc}")
+    b_ = summary["batches"]
+    want = {k: 0 for k in launches}
+    want.update(fused_rdb=69 * b_, conv_body_skip=b_, fused_tail=b_)
+    cfg = build_config("archive", {"weights_dir": str(archive_wdir), "face_model": "codeformer"})
+    ah, aw = ARCHIVE_H, ARCHIVE_W
+    enhance_plan = (summary["batch_size"] * planner.frame_bytes(ah, aw, 4, "rrdb", "bfloat16")
+                    + pre_sr_reserve(cfg, ah, aw) + face_reserve(cfg, 4 * ah, 4 * aw))
+    interp_plan = planner.interpolation_bytes(4 * ah, 4 * aw,
+                                              summary["interpolation"]["pairs_per_step"])
+    x["plan_checks"].append(("archive codeformer restore", peak, max(enhance_plan, interp_plan)))
+    emit({"phase": "engine", "run": "cli --preset archive --face-model codeformer",
+          "summary": summary, "launches": launches, "wall_seconds": wall,
+          "ms_per_output_frame": 1e3 * wall / want_frames, "peak_mem_bytes_above_base": peak,
+          "planner_bytes": max(enhance_plan, interp_plan)})
+    require(summary["errors"] == 0 and summary["frames"] == want_frames
+            and summary["faces_restored"] > 0 and launches == want,
+            f"archive codeformer restore: {summary}, launches {launches}, expected {want}")
+    times["archive_codeformer_wall_seconds"] = wall
+    times["seconds"] = round(time.perf_counter() - t0, 3)
+    emit({"phase": "engine", **times})
+    return times
 
 
 def formats_phase(tmp: Path, nw: str, dev, x: dict, tools: dict) -> dict:
@@ -2657,9 +3092,9 @@ def main(argv=None) -> int:
         class Stop(Exception):
             pass
 
-        def stop_after_first(done, total):
-            if done >= 2:
-                raise Stop(done)
+        def stop_after_first(info):
+            if info.frames_done >= 2:
+                raise Stop(info.frames_done)
 
         straight = VideoRestorer(x2_config("ks")).restore_video(src, tmp / "straight2.y4m")
         resumed = tmp / "resumed.y4m"
@@ -2795,6 +3230,8 @@ def main(argv=None) -> int:
              "read_counters": read_counters, "model": model, "plan_checks": plan_checks}
         formats = formats_phase(tmp, nw, dev, x, tools)
         archive_times = archive_phase(tmp, dev, x)
+        engine_times = engine_phase(tmp, dev, {**x, "nw": nw}, tmp / "archive.y4m",
+                                    tmp / "archive_weights")
     emit({"phase": "restore", "seconds": round(time.perf_counter() - t0, 3)})
     launches = launches_by_run["RealESRGAN_x2plus bfloat16"]
 
@@ -3058,7 +3495,7 @@ def main(argv=None) -> int:
           "pre_sr": pre_sr_times, "pre_sr_restores": pre_sr_walls, "native_ms": native_ms,
           "film": film_times, "tools": tools,
           "formats": {k: v["wall_seconds"] for k, v in formats.items()},
-          "archive": archive_times, "c5": {k: c5[k] for k in ("enqueue_ms_per_dispatch",
+          "archive": archive_times, "engine": engine_times, "c5": {k: c5[k] for k in ("enqueue_ms_per_dispatch",
                                                         "quality_busy_share",
                                                         "quality_busy_share_unprofiled",
                                                         "steady_ms_per_frame")}})

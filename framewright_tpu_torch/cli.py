@@ -14,7 +14,8 @@
         [--output-format auto|y4m|png|mp4|mkv] [--codec C] [--crf N] \\
         [--encode-preset P] \\
         [--device cuda|cpu] [--weights-dir DIR] [--max-frames N] \\
-        [--project-dir DIR] [--no-checkpoint] [--no-resume] [--no-validate]
+        [--project-dir DIR] [--no-checkpoint] [--no-resume] [--no-validate] \\
+        [--min-vmaf V] [--dry-run]
 
 IN and OUT are ``.y4m`` files, PNG frame directories (``frame_%06d.png``;
 an OUT without a suffix is one) or, with ffmpeg on ``PATH``, mp4, mkv
@@ -38,6 +39,9 @@ measured once, seeded by the config's ``seed``). ``--face-restore``
 restores faces after SR (``gfpgan``: ``<weights-dir>/GFPGANv1.4.npz``;
 ``sr``: realesr-general-x4v3 on the crop; RetinaFace finds them when
 ``RetinaFace_mnet025.npz`` is there, else the skin-chroma detector);
+``--face-model codeformer`` restores them with CodeFormer
+(``<weights-dir>/CodeFormer.npz``, or sczhou's ``CodeFormer.pth``;
+``--face-fidelity`` is its w);
 ``--interpolate`` raises the frame rate by a power of two with IFNet
 (``<weights-dir>/rife-v4.6.npz``), from the deduplicated cadence when
 ``--deduplicate`` found one; ``--preset archive`` and ``ultimate`` run
@@ -45,7 +49,12 @@ RealESRGAN_x4plus with all of these and need both checkpoints. Prints a
 JSON summary on success (``pre_sr`` says what the pre-SR stream did,
 ``post_sr`` the grain, ``duplicates_removed`` the frames SR did not run
 on, ``faces_restored``, ``output_fps`` and ``interpolation``); errors
-print ``error: ...`` and exit 1.
+print ``error: ...`` and exit 1. Progress goes to stderr, a line a stage
+(frames, percent, fps, ETA), as the JAX CLI prints it. ``--min-vmaf``
+gates the sampled RGB pairs on the VMAF proxy as well (the RGB writer
+path, as in JAX); ``--dry-run`` prints the plan as JSON (the probe, the
+preflight's blockers and warnings, the stages that would run) and
+writes nothing.
 """
 
 from __future__ import annotations
@@ -61,7 +70,7 @@ from framewright_tpu_torch.errors import FramewrightError
 
 
 def cmd_restore(args: argparse.Namespace) -> int:
-    from framewright_tpu_torch.restorer import VideoRestorer
+    from framewright_tpu_torch.restorer import ProgressInfo, VideoRestorer
 
     try:
         cfg = build_config(args.preset, {
@@ -79,17 +88,27 @@ def cmd_restore(args: argparse.Namespace) -> int:
             "interpolation": args.interpolation, "target_fps": args.target_fps,
             "face_restore": args.face_restore, "face_model": args.face_model,
             "face_fidelity": args.face_fidelity, "output_format": args.output_format,
-            "codec": args.codec, "crf": args.crf, "encode_preset": args.encode_preset})
+            "codec": args.codec, "crf": args.crf, "encode_preset": args.encode_preset,
+            "min_vmaf": args.min_vmaf, "dry_run": args.dry_run})
+        last = {"stage": None}
 
-        def progress(done: int, total: int) -> None:
-            print(f"\r  {done}/{total} frames", end="", file=sys.stderr)
+        def on_progress(info: ProgressInfo) -> None:
+            if info.stage != last["stage"]:
+                print(f"\n[{info.stage}]", file=sys.stderr)
+                last["stage"] = info.stage
+            print(f"\r  {info.frames_done}/{info.total_frames} frames "
+                  f"({info.percent:.1f}%)  {info.fps:.2f} fps  ETA {info.eta_s:.0f}s ",
+                  end="", file=sys.stderr)
 
-        result = VideoRestorer(cfg, progress).restore_video(args.source,
-                                                           output=args.output)
+        result = VideoRestorer(cfg, on_progress).restore_video(args.source,
+                                                              output=args.output)
     except FramewrightError as exc:
         print(f"\nerror: {exc}", file=sys.stderr)
         return 1
     print("", file=sys.stderr)
+    if cfg.dry_run:
+        print(json.dumps(result.stage_summary, indent=2))
+        return 0
     summary = {
         "output": str(result.output_path),
         "frames": result.frames_out,
@@ -166,8 +185,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--face-restore", dest="face_restore", action="store_true", default=None,
                    help="face restoration after SR")
     p.add_argument("--face-model", dest="face_model", choices=("gfpgan", "codeformer", "sr"),
-                   help="gfpgan (<weights-dir>/GFPGANv1.4.npz) or sr (codeformer is "
-                        "not ported yet)")
+                   help="gfpgan (<weights-dir>/GFPGANv1.4.npz), codeformer "
+                        "(<weights-dir>/CodeFormer.npz or .pth) or sr")
     p.add_argument("--face-fidelity", dest="face_fidelity", type=float,
                    help="codeformer fidelity weight (0 quality .. 1 fidelity)")
     p.add_argument("--output-format", dest="output_format",
@@ -189,6 +208,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="start over even if a checkpoint of this run exists")
     p.add_argument("--no-validate", dest="validate", action="store_false", default=None,
                    help="no quality gate, no per-frame stats, no QA report")
+    p.add_argument("--min-vmaf", dest="min_vmaf", type=float,
+                   help="VMAF-proxy gate (0-100) on the sampled frame pairs; 0 = off")
+    p.add_argument("--dry-run", dest="dry_run", action="store_true", default=None,
+                   help="print the plan as JSON and exit: nothing is processed or written")
     p.set_defaults(func=cmd_restore)
     return parser
 

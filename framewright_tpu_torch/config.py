@@ -6,8 +6,9 @@ the two the port adds (``weights_dir``, ``max_frames``); the JAX presets
 JAX CLI resolves them).
 
 A stage the port does not run yet raises ``ConfigError`` naming its
-ROADMAP.md item when it is switched on (``face_model="codeformer"``:
-A9b); it never runs silently without it. ``colorize`` is accepted off.
+ROADMAP.md item when it is switched on (``denoise_model="restormer"``,
+``flow_model="raft"``: A6c); it never runs silently without it.
+``colorize`` is accepted off.
 ``codec``, ``crf``, ``encode_preset`` and ``pixel_format`` reach the
 ffmpeg writer; the Y4M and PNG writers ignore them, as the JAX ones do."""
 
@@ -95,7 +96,7 @@ PRESETS: Dict[str, Dict[str, Any]] = {
 # fields that do not change the output's pixels: a checkpoint survives a
 # change of these (those of ``framewright_tpu.config.Config.get_hash``'s
 # list that the port has)
-_HASH_EXCLUDED = ("project_dir", "output_path", "checkpoint_interval",
+_HASH_EXCLUDED = ("project_dir", "output_path", "dry_run", "checkpoint_interval",
                   "checkpoint_enabled", "resume", "keep_intermediates")
 
 
@@ -110,6 +111,10 @@ class Config:
     # --- Super-resolution ----------------------------------------------------
     scale_factor: int = 2
     sr_model: str = "RealESRGAN_x2plus"
+    tile_size: int = 0                    # 0 = the planner decides (tiles only a
+                                          # frame that does not fit at batch 1)
+    tile_overlap: int = 8                 # halo pixels a tile edge (0: the
+                                          # family's receptive overlap)
     batch_size: int = 0                   # frames per device step; 0 = auto
     weights_dir: Optional[Path] = None    # <name>.npz here, else packaged/random
     max_frames: int = 0                   # 0 = the whole clip
@@ -159,7 +164,7 @@ class Config:
 
     # --- Faces (after SR, before the gate) --------------------------------------
     face_restore: bool = False
-    face_model: str = "gfpgan"            # gfpgan | sr (codeformer: ROADMAP.md A9b)
+    face_model: str = "gfpgan"            # gfpgan | codeformer | sr
     face_strength: float = 0.8
     face_fidelity: float = 0.5            # codeformer w: 0 quality..1 fidelity
     colorize: bool = False                # not ported (ROADMAP.md A10b); accepted off
@@ -178,14 +183,18 @@ class Config:
     max_runtime_minutes: float = 0.0      # 0 = unlimited; else stop the
                                           # enhance loop at the budget (a
                                           # rerun resumes from the checkpoint)
+    stage_max_retries: int = 1            # retries of the enhance stage on a
+                                          # TransientError
 
     # --- Validation / quality gates --------------------------------------------
     validate_output: bool = True
     min_ssim: float = 0.85
     min_psnr: float = 25.0
-    min_vmaf: float = 0.0                 # > 0 is not ported (ROADMAP.md A)
+    min_vmaf: float = 0.0                 # vmaf_proxy gate on the sampled RGB
+                                          # pairs; 0 = off
     continue_on_error: bool = True        # bicubic copies of a batch that ran out of memory
     quality_report_format: str = "json"   # json | html | none
+    dry_run: bool = False                 # the plan only: nothing processed or written
 
     # Derived (set in __post_init__)
     work_dir: Path = field(init=False, repr=False, default=None)        # type: ignore[assignment]
@@ -225,10 +234,12 @@ class Config:
             raise ConfigError("checkpoint_interval must be >= 1")
         if self.quality_report_format not in _VALID_REPORTS:
             raise ConfigError(f"quality_report_format must be one of {_VALID_REPORTS}")
-        if self.min_vmaf > 0:
-            raise ConfigError("min_vmaf > 0 needs the VMAF gate (sampled RGB "
-                              "pairs, quality/vmaf.py), not ported yet: "
-                              "ROADMAP.md A3.4")
+        if self.tile_size < 0 or self.tile_size % 8:
+            raise ConfigError("tile_size must be 0 (auto) or a positive multiple of 8")
+        if self.tile_overlap < 0:
+            raise ConfigError("tile_overlap must be >= 0")
+        if self.stage_max_retries < 0:
+            raise ConfigError("stage_max_retries must be >= 0")
         self._validate_pre_sr()
         self._validate_post_sr()
 
@@ -276,9 +287,6 @@ class Config:
             raise ConfigError(f"output_format must be one of {_VALID_OUTPUT_FORMATS}")
         if self.face_model not in _VALID_FACE_MODELS:
             raise ConfigError(f"face_model must be one of {_VALID_FACE_MODELS}")
-        if self.face_restore and self.face_model == "codeformer":
-            raise ConfigError("face_model='codeformer' needs models/codeformer, not ported "
-                              "yet: ROADMAP.md A9b (gfpgan and sr run)")
         if self.colorize:
             raise ConfigError("colorize needs processors/colorize, not ported yet: "
                               "ROADMAP.md A10b")
@@ -296,7 +304,8 @@ class Config:
         """Identity of the output a restore with this config writes, which
         keys its checkpoint: every field but those that do not change the
         output's pixels (the JAX package's list). ``weights_dir`` changes
-        them and is hashed."""
+        them and is hashed; so are ``tile_size``, ``tile_overlap`` and
+        ``stage_max_retries``, as in the JAX package."""
         d = self.to_dict()
         for k in _HASH_EXCLUDED:
             d.pop(k, None)

@@ -119,6 +119,16 @@ class CheckpointManager:
                                         source=str(source), total_frames=total_frames)
         return self._ckpt
 
+    def peek(self, source: Path, config_hash: str) -> Optional[PipelineCheckpoint]:
+        """The source's checkpoint if its config hash matches, else None;
+        nothing is opened, changed or removed (``start`` does that)."""
+        path = self.path(video_content_hash(source))
+        try:
+            ckpt = PipelineCheckpoint.from_json(path.read_text())
+        except (json.JSONDecodeError, TypeError, OSError):
+            return None
+        return ckpt if ckpt.config_hash == config_hash else None
+
     @property
     def checkpoint(self) -> PipelineCheckpoint:
         if self._ckpt is None:

@@ -3,8 +3,11 @@ its hierarchy: a ``TransientError`` may succeed on a retry or with fewer
 resources, a ``FatalError`` will not).
 
 A device out-of-memory is ``torch.cuda.OutOfMemoryError`` and nothing
-else: the SR processor catches that type to downshift its plan. No rule
-maps error text to an error class.
+else: the SR processor catches that type to downshift its plan, and
+``classify_error`` maps it to ``HBMError``. No rule maps error text to
+an error class (the JAX ``classify_error`` does, so that any message
+with "http 500" in it becomes a compile error): anything that is not a
+``FramewrightError`` or a device out-of-memory is fatal.
 """
 
 from __future__ import annotations
@@ -69,3 +72,25 @@ class CheckpointError(TransientError):
 class ValidationError(FramewrightError):
     """The output failed the quality gates (PSNR/SSIM below thresholds,
     or a frame failed an integrity check)."""
+
+
+class DiskSpaceError(TransientError):
+    """Not enough free disk for the output or the intermediates."""
+
+
+class CancelledError(FramewrightError):
+    """The job was cancelled by the user."""
+
+
+def classify_error(exc: BaseException) -> FramewrightError:
+    """``exc`` in the port's taxonomy: a ``FramewrightError`` as it is, a
+    device out-of-memory as ``HBMError`` (transient: a retry with less
+    memory may succeed), anything else as a fatal ``FatalError`` naming
+    its type."""
+    if isinstance(exc, FramewrightError):
+        return exc
+    import torch
+
+    if isinstance(exc, torch.cuda.OutOfMemoryError):
+        return HBMError(str(exc), details={"original_type": type(exc).__name__})
+    return FatalError(str(exc), details={"original_type": type(exc).__name__})

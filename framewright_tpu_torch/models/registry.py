@@ -14,12 +14,14 @@ Practical-RIFE IFNet.
 
 The models that are not super-resolution (``AUX_SPECS``: the denoiser's
 ``FW_nafnet_dn``, interpolation's ``rife-v4.6``, the face restorer's
-``GFPGANv1.4`` and its detector ``RetinaFace_mnet025``) and the
-alignment IFNet (``load_align_ifnet``) load from their checkpoints only:
-a missing or unreadable file raises ``InputError`` (the JAX package
-falls back to random NAFNet, IFNet and GFPGAN weights; ROADMAP.md, "JAX
-faults the port must not copy"). ``write_npz`` writes a parameter tree
-in the JAX package's ``.npz`` layout.
+``GFPGANv1.4``, ``CodeFormer`` and its detector ``RetinaFace_mnet025``)
+and the alignment IFNet (``load_align_ifnet``) load from their
+checkpoints only: a missing or unreadable file raises ``InputError`` (the
+JAX package falls back to random NAFNet, IFNet, GFPGAN and CodeFormer
+weights; ROADMAP.md, "JAX faults the port must not copy"). CodeFormer
+also reads sczhou's released ``CodeFormer.pth``, whose names are its
+module's. ``write_npz`` writes a parameter tree in the JAX package's
+``.npz`` layout.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ import numpy as np
 import torch
 
 from framewright_tpu_torch.errors import ConfigError, InputError
+from framewright_tpu_torch.models import codeformer
+from framewright_tpu_torch.models.codeformer import CodeFormerConfig
 from framewright_tpu_torch.models.gfpgan import GFPGANConfig
 from framewright_tpu_torch.models.gfpgan import config_from_params as gfpgan_config_from_params
 from framewright_tpu_torch.models.ifnet import ALIGN_ARCH, IFNet, IFNetConfig
@@ -52,7 +56,7 @@ class ModelSpec:
     family: str                   # rrdb | srvgg | nafnet | ifnet | face | detector
     scale: int
     arch_config: Union[RRDBConfig, SRVGGConfig, NAFNetConfig, IFNetConfig, GFPGANConfig,
-                       RetinaFaceConfig]
+                       CodeFormerConfig, RetinaFaceConfig]
     url: str = ""
 
 
@@ -84,6 +88,8 @@ AUX_SPECS: Dict[str, ModelSpec] = {s.name: s for s in (
               "https://github.com/hzwer/Practical-RIFE (v4.6, flownet.pkl)"),
     ModelSpec("GFPGANv1.4", "face", 1, GFPGANConfig(),
               "https://github.com/TencentARC/GFPGAN/releases/download/v1.3.0/GFPGANv1.4.pth"),
+    ModelSpec("CodeFormer", "codeformer", 1, CodeFormerConfig(),
+              "https://github.com/sczhou/CodeFormer/releases/download/v0.1.0/codeformer.pth"),
     ModelSpec("RetinaFace_mnet025", "detector", 1, RetinaFaceConfig(),
               "https://github.com/biubug6/Pytorch_Retinaface (mobilenet0.25_Final.pth)"),
 )}
@@ -127,7 +133,10 @@ def _read_checkpoint(path: Path) -> Dict[str, Any]:
 def read_npz(path: Path) -> Dict[str, Any]:
     """The package's ``.npz`` format (``torch_port.export_npz``): dotted
     keys, digit components as list indices, stacked ``body.*`` leaves,
-    float16 storage -> a nested dict of numpy arrays."""
+    float16 storage -> a nested dict of numpy arrays. Digit keys that are
+    not 0..n-1 stay a dict (CodeFormer's ``fuse`` is keyed by resolution,
+    "32", "64", ...: the JAX ``import_npz`` takes them for list indices
+    and fails)."""
     root: Dict[str, Any] = {}
     with np.load(path) as data:
         for key in data.files:
@@ -143,7 +152,8 @@ def read_npz(path: Path) -> Dict[str, Any]:
         if not isinstance(node, dict):
             return node
         node = {k: listify(v) for k, v in node.items()}
-        if node and all(k.isdigit() for k in node):
+        if node and all(k.isdigit() for k in node) \
+                and sorted(int(k) for k in node) == list(range(len(node))):
             return [node[str(i)] for i in range(len(node))]
         return node
 
@@ -281,6 +291,9 @@ def from_jax_params(params: Dict[str, Any],
 
     if "stylegan_decoder" in params or "stage1" in params:
         return _tree_state_dict(params, tensor)
+    if "codebook" in params:     # CodeFormer: sczhou's names
+        return codeformer.state_dict_from_params(
+            params, codeformer.config_from_params(params), tensor)
 
     def conv(prefix: str, p: Dict[str, Any]) -> None:
         sd[prefix + ".weight"] = tensor(np.asarray(p["w"], np.float32).transpose(3, 2, 0, 1))
@@ -378,11 +391,16 @@ def load_weights(name: str, weights_dir: Optional[Path] = None,
 
 
 def aux_path(name: str, weights_dir: Optional[Path] = None) -> Optional[Path]:
-    """Where ``load_aux`` finds ``name``'s checkpoint, or None."""
+    """Where ``load_aux`` finds ``name``'s checkpoint, or None: its
+    ``.npz``, or for CodeFormer sczhou's ``.pth`` too."""
     wdir = Path(weights_dir) if weights_dir else default_weights_dir()
     for npz in (wdir / f"{name}.npz", packaged_weights_dir() / f"{name}.npz"):
         if npz.is_file():
             return npz
+    pth = wdir / f"{name}.pth"
+    if AUX_SPECS.get(name) is not None and AUX_SPECS[name].family == "codeformer" \
+            and pth.is_file():
+        return pth
     return None
 
 
@@ -397,10 +415,20 @@ def load_aux(name: str, weights_dir: Optional[Path] = None,
     spec = AUX_SPECS[name]
     wdir = Path(weights_dir) if weights_dir else default_weights_dir()
     npz = aux_path(name, wdir)
+    if npz is not None and npz.suffix == ".pth":    # sczhou's names: the module's
+        try:
+            sd = torch.load(npz, map_location="cpu", weights_only=True)
+        except Exception as exc:  # noqa: BLE001 - zip or pickle faults
+            raise InputError(f"unreadable checkpoint {npz}: {exc}") from exc
+        sd = sd.get("params_ema", sd.get("params", sd))
+        spec = dataclasses.replace(spec, arch_config=codeformer.config_from_state_dict(sd))
+        return spec, {k: v.to(dtype) for k, v in sd.items()}, str(npz)
     if npz is not None:
         params = _read_checkpoint(npz)
         if spec.family == "face":       # the widths the checkpoint has
             spec = dataclasses.replace(spec, arch_config=gfpgan_config_from_params(params))
+        elif spec.family == "codeformer":
+            spec = dataclasses.replace(spec, arch_config=codeformer.config_from_params(params))
         return spec, from_jax_params(params, dtype), str(npz)
     raise InputError(f"No weights for {name!r}: {wdir / (name + '.npz')} is missing (the "
                      f"JAX package's .npz layout; the port never draws them at random). "

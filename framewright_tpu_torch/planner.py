@@ -6,8 +6,20 @@ input resolution / ``body_divisor`` (pixel_unshuffle for RRDB at scale
 the largest number of whole frames whose peak device memory fits the
 free card memory times the utilization. The TPU-only caps of the JAX
 planner (compiler limits, measured best batches on v5e) have no
-counterpart here. Tiling is not ported yet: a frame that does not fit
-at batch 1 raises ``HBMError``.
+counterpart here.
+
+Tiling (``framewright_tpu/planner.py:75-220``): a frame that does not fit
+at batch 1 is cut into tiles (``ops.tiling``), the largest of JAX's
+candidate sizes whose batch of tiles fits; ``tile_size_override`` pins
+the size. A tile costs the model's bytes per body pixel at its padded
+extent (the tile, its halo on each side, aligned to the body divisor),
+times the batch of tiles, and each frame of a dispatch the stitched
+output and the epilogue outside the model. ``Plan.downshift`` after a
+device out-of-memory halves the batch, then moves a whole-frame plan to
+tiles, then to smaller tiles, as JAX's ``TilePlan.downshift``; below the
+smallest tile it raises ``HBMError``. A whole-frame plan keeps the halo
+its tiles would take (the JAX whole-frame plan has overlap 0, so its
+downshift into tiles runs them without a halo).
 
 Beside the SR batch: the pre-SR stream's row (``pre_sr_bytes``) and the
 face restorer's (``face_bytes``: its model's weights, one crop's
@@ -19,6 +31,7 @@ memory and plans its own pair batch (``interpolation_pairs``).
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Tuple
 
 from framewright_tpu_torch.errors import HBMError
 
@@ -99,13 +112,18 @@ _PRE_SR_BYTES_PER_PX = {"temporal_fixed": 120, "temporal_slot": 180, "bilateral"
 #     upsampled decoder input and its modulated conv); measured on an
 #     H100 with ``max_memory_allocated`` (chip_smoke.py phase archive):
 #     715 MB a crop, 1.43 GB with the weights: 1.6e9 planned;
+#   codeformer: CodeFormerConfig()'s 94 M f32 parameters (376 MB) and one
+#     512x512 crop's activations (the encoder's and the generator's
+#     64-channel 512x512 maps through GroupNorm and swish, ~6 of 64 MB,
+#     and the skips at 32-256): ~0.9 GB, 1.2e9 planned until measured;
 #   sr: realesr-general-x4v3 (1.2 M parameters) on a 128x128 crop to
 #     512x512: 0.1e9;
 # RetinaFace (when its weights are there) on a whole output frame padded
 # to multiples of 32: the f32 frame and its BGR copy (24 B/px) and the
 # backbone's first stages at 1/2 (8, then 16 channels); measured 501 MB
 # on a 4K frame (60 B a pixel): 70 planned.
-_FACE_MODEL_BYTES = {"gfpgan": 1_600_000_000, "sr": 100_000_000}
+_FACE_MODEL_BYTES = {"gfpgan": 1_600_000_000, "codeformer": 1_200_000_000,
+                     "sr": 100_000_000}
 _RETINAFACE_BYTES_PER_PX = 70
 # Frame interpolation (IFNet at IFNetConfig(), f32), per pixel of one
 # pair at the frame size padded to multiples of 32: the two frames and
@@ -117,24 +135,94 @@ _RETINAFACE_BYTES_PER_PX = 70
 # 4K pairs): 368 B: 410 planned.
 _IFNET_BYTES_PER_PX = 410
 
+# Candidate tile interiors (JAX's, divisible by 4 for pixel_unshuffle at
+# scale 1-2) and tile batches.
+_TILE_CANDIDATES = (1024, 768, 512, 384, 256, 192, 128, 96, 64)
+_TILE_BATCHES = (64, 32, 16, 8, 4, 2, 1)
+# A tiled dispatch outside the model, per output pixel: of each of its
+# frames, the windows' bf16 RGB outputs with their halos (~7 at a 256
+# tile) and the stitched bf16 image (6): 13 -> 14; of the one frame in its
+# epilogue at a time, its f32 clamped copy (12) and the epilogue's f32
+# temporaries (Y, U, V and two differences: 20): 32 -> 36.
+_TILED_HELD_BYTES_PER_OUT_PX = 14
+_TILED_EPILOGUE_BYTES_PER_OUT_PX = 36
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
 
 @dataclass(frozen=True)
 class Plan:
     height: int
     width: int
     scale: int
-    batch: int            # whole frames per device step
+    batch: int            # whole frames a device step, or tiles when tiled
     body_divisor: int     # input-res -> body-res factor
     est_bytes: int        # estimated peak device bytes at this batch
+    tile_size: int = 0    # 0 = whole frames, else the tile's interior edge
+    overlap: int = 0      # halo pixels each side (input resolution)
+    frame_batch: int = 0  # frames a dispatch of a tiled plan
+    px_bytes: int = 0     # the model's planned peak bytes per body pixel
+    stats_bytes: int = 0  # the quality gate's stats of one frame (tiled)
+
+    @property
+    def tiled(self) -> bool:
+        return self.tile_size > 0
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        if not self.tiled:
+            return (1, 1)
+        ts = self.tile_size
+        return (-(-self.height // ts), -(-self.width // ts))
+
+    @property
+    def tiles_per_frame(self) -> int:
+        g = self.grid
+        return g[0] * g[1]
+
+    @property
+    def frames(self) -> int:
+        """Frames a dispatch of this plan holds."""
+        return self.frame_batch if self.tiled else self.batch
+
+    def tile_extent(self) -> int:
+        """A tile's padded edge: the interior and its halo on each side,
+        aligned to the body divisor."""
+        return _ceil_to(self.tile_size + 2 * self.overlap, self.body_divisor)
 
     def downshift(self) -> "Plan":
-        """The next-smaller plan after a device OOM: halve the batch."""
-        if self.batch <= 1:
-            raise HBMError(
-                f"{self.width}x{self.height} x{self.scale} does not fit the "
-                "device at batch 1 (tiling is not ported yet)")
-        b = max(1, self.batch // 2)
-        return replace(self, batch=b, est_bytes=self.est_bytes // self.batch * b)
+        """The next-smaller plan after a device OOM: halve the batch, then
+        tile a whole frame, then shrink the tiles (JAX's order)."""
+        if self.batch > 1:
+            b = max(1, self.batch // 2)
+            if self.tiled:
+                return _with_tiled_est(replace(self, batch=b))
+            return replace(self, batch=b, est_bytes=self.est_bytes // self.batch * b)
+        if not self.tiled:
+            ts = min(_TILE_CANDIDATES[0], _round8(max(self.height, self.width) // 2))
+            return _with_tiled_est(replace(self, tile_size=max(64, ts), frame_batch=1))
+        smaller = [t for t in _TILE_CANDIDATES if t < self.tile_size]
+        if not smaller:
+            raise HBMError(f"Cannot shrink below tile_size={self.tile_size}; frame "
+                           f"{self.width}x{self.height} does not fit the device")
+        return _with_tiled_est(replace(self, tile_size=smaller[0]))
+
+
+def _round8(x: int) -> int:
+    return max(8, (x // 8) * 8)
+
+
+def _with_tiled_est(p: Plan) -> Plan:
+    """``p`` with its planned peak bytes: its batch of tiles through the
+    model, its frames' stitched outputs, and one frame's epilogue and
+    stats."""
+    tile_px = (p.tile_extent() // p.body_divisor) ** 2
+    out_px = p.height * p.width * p.scale ** 2
+    return replace(p, est_bytes=p.batch * tile_px * p.px_bytes
+                   + out_px * (p.frames * _TILED_HELD_BYTES_PER_OUT_PX
+                               + _TILED_EPILOGUE_BYTES_PER_OUT_PX) + p.stats_bytes)
 
 
 def body_divisor(family: str, scale: int) -> int:
@@ -189,22 +277,47 @@ def pre_sr_bytes(height: int, width: int, denoise: str | None = None,
 def plan(height: int, width: int, scale: int, family: str = "rrdb",
          free_bytes: int | None = None, utilization: float = 0.85,
          max_batch: int = 16, dtype: str = "bfloat16", stats: bool = False,
-         reserved_bytes: int = 0) -> Plan:
+         reserved_bytes: int = 0, tile_size_override: int = 0, overlap: int = 8) -> Plan:
     """Largest whole-frame batch <= ``max_batch`` that fits
     ``free_bytes * utilization`` (the CPU budget when ``free_bytes`` is
     None) less ``reserved_bytes`` (the pre-SR stream's) at the peak bytes
     of ``dtype``'s kernel path (with the quality gate's stats when
-    ``stats``)."""
+    ``stats``). When no whole frame fits, or ``tile_size_override`` pins
+    a tile: tiles of ``overlap`` halo pixels, the largest candidate (or
+    the pinned size) with the largest batch of at most 64 tiles that fits
+    beside one frame's output, and as many frames a dispatch (at most
+    ``max_batch``) as fit beside them."""
     budget = int((_CPU_BUDGET if free_bytes is None else free_bytes) * utilization)
     budget -= reserved_bytes
-    per_frame = frame_bytes(height, width, scale, family, dtype, stats)
-    batch = min(max_batch, budget // per_frame)
-    if batch < 1:
-        raise HBMError(
-            f"{width}x{height} x{scale} needs ~{per_frame / 2**30:.1f} GiB per "
-            f"frame, {budget / 2**30:.1f} GiB available (tiling is not ported yet)")
-    return Plan(height, width, scale, batch, body_divisor(family, scale),
-                batch * per_frame)
+    u = body_divisor(family, scale)
+    px_bytes = peak_bytes_per_body_px(family, scale, dtype)
+    if tile_size_override <= 0:
+        per_frame = frame_bytes(height, width, scale, family, dtype, stats)
+        batch = min(max_batch, budget // per_frame)
+        if batch >= 1:
+            return Plan(height, width, scale, batch, u, batch * per_frame, overlap=overlap,
+                        px_bytes=px_bytes)
+    out_px = height * width * scale ** 2
+    # the gate's stats of one frame from its float RGB image (as SRVGG's)
+    stats_bytes = out_px * (12 + _STATS_BYTES_PER_OUT_PX["rgb"]) * 11 // 10 if stats else 0
+    sizes = ((tile_size_override,) if tile_size_override > 0 else
+             tuple(t for t in _TILE_CANDIDATES if t <= max(height, width)))
+    for ts in sizes:
+        base = Plan(height, width, scale, 1, u, 0, tile_size=ts, overlap=overlap,
+                    frame_batch=1, px_bytes=px_bytes, stats_bytes=stats_bytes)
+        for b in _TILE_BATCHES:
+            p = _with_tiled_est(replace(base, batch=b))
+            if p.est_bytes <= budget:
+                frames = min(max_batch, 1 + (budget - p.est_bytes)
+                             // (out_px * _TILED_HELD_BYTES_PER_OUT_PX))
+                return _with_tiled_est(replace(p, frame_batch=frames))
+    if tile_size_override > 0:
+        # a pinned tile runs at batch 1 even when the estimate says no
+        # (as JAX's planner); an out-of-memory then downshifts it
+        return _with_tiled_est(base)
+    raise HBMError(
+        f"{width}x{height} x{scale} does not fit: no tile of {_TILE_CANDIDATES[-1]}-"
+        f"{_TILE_CANDIDATES[0]} px at batch 1 fits {budget / 2**30:.2f} GiB")
 
 
 def face_bytes(backend: str, out_h: int, out_w: int, retinaface: bool = False) -> int:

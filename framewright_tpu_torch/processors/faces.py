@@ -17,9 +17,13 @@ feathered mask times ``strength``. Backends: ``sr``
 weights or its seeded init as for every SR row), ``gfpgan`` (GFPGANv1.4
 from ``<weights_dir>/GFPGANv1.4.npz``, applied as ``clip((G(2x - 1) +
 1) / 2, 0, 1)``; ``InputError`` without it: the JAX restorer runs a tiny
-random stand-in instead) and ``codeformer`` (``ConfigError``: ROADMAP.md
-A9b). The weights directory is the caller's (the JAX restorer never
-passes its own to the face restorer; ROADMAP.md "JAX faults").
+random stand-in instead) and ``codeformer`` (``models/codeformer`` at the
+checkpoint's widths, from ``<weights_dir>/CodeFormer.npz`` or sczhou's
+``CodeFormer.pth``, on crops of its ``img_size`` in [0, 1] with
+``fidelity_weight`` as its w; ``InputError`` without it: the JAX
+restorer's is ``PRNGKey(7)``'s stand-in). The weights directory is the
+caller's (the JAX restorer never passes its own to the face restorer;
+ROADMAP.md "JAX faults").
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ logger = logging.getLogger(__name__)
 
 RETINAFACE_NAME = "RetinaFace_mnet025"
 GFPGAN_NAME = "GFPGANv1.4"
+CODEFORMER_NAME = "CodeFormer"
+_BACKENDS = ("sr", "gfpgan", "codeformer")
 
 
 @dataclass
@@ -169,13 +175,15 @@ def make_detector(kind: str = "auto", weights_dir: Optional[str] = None,
 @dataclass
 class FaceRestoreConfig:
     strength: float = 0.8
-    backend: str = "sr"           # sr | gfpgan (codeformer: ROADMAP.md A9b)
+    backend: str = "sr"           # sr | gfpgan | codeformer
     sr_model: str = "realesr-general-x4v3"
     detector: str = "auto"        # auto | retinaface | heuristic
     expand: float = 1.6
-    crop_size: int = 128          # the sr backend's input; gfpgan: its out_size
+    crop_size: int = 128          # the sr backend's input; gfpgan: its out_size;
+                                  # codeformer: its img_size
     weights_dir: Optional[str] = None
     device: str = "cuda"
+    fidelity_weight: float = 0.5  # codeformer w: 0 quality .. 1 fidelity
 
 
 @dataclass
@@ -187,11 +195,9 @@ class FaceRestoreResult:
 class FaceRestorer:
     def __init__(self, config: Optional[FaceRestoreConfig] = None):
         self.config = config or FaceRestoreConfig()
-        if self.config.backend == "codeformer":
-            raise ConfigError("the codeformer face backend needs models/codeformer, not "
-                              "ported yet: ROADMAP.md A9b (gfpgan and sr run)")
-        if self.config.backend not in ("sr", "gfpgan"):
-            raise ConfigError(f"unknown face backend {self.config.backend!r} (sr | gfpgan)")
+        if self.config.backend not in _BACKENDS:
+            raise ConfigError(f"unknown face backend {self.config.backend!r} "
+                              f"({' | '.join(_BACKENDS)})")
         self.device = resolve_device(self.config.device)
         self.detector = make_detector(self.config.detector, self.config.weights_dir,
                                       self.config.device)
@@ -199,11 +205,20 @@ class FaceRestorer:
         self.result = FaceRestoreResult()
 
     def setup(self, height: int, width: int) -> None:
-        """Load the backend's model (``InputError`` when gfpgan's weights
-        are missing)."""
+        """Load the backend's model (``InputError`` when gfpgan's or
+        codeformer's weights are missing)."""
         from framewright_tpu_torch.models import registry
 
         cfg = self.config
+        if cfg.backend == "codeformer":
+            from framewright_tpu_torch.models.codeformer import CodeFormer
+
+            spec, sd, src = registry.load_aux(CODEFORMER_NAME, cfg.weights_dir)
+            self.model = CodeFormer.from_state_dict(spec.arch_config, sd, self.device)
+            cfg.crop_size = spec.arch_config.img_size
+            logger.info("face restoration: %s (w=%.2f) from %s", CODEFORMER_NAME,
+                        cfg.fidelity_weight, src)
+            return
         if cfg.backend == "gfpgan":
             from framewright_tpu_torch.models.gfpgan import GFPGAN
 
@@ -223,6 +238,8 @@ class FaceRestorer:
 
     def _run(self, x: torch.Tensor) -> torch.Tensor:
         """The backend on (1, s, s, 3) in [0, 1]."""
+        if self.config.backend == "codeformer":
+            return self.model.apply(x, float(self.config.fidelity_weight))
         if self.config.backend == "gfpgan":
             return ((self.model.apply(x * 2.0 - 1.0) + 1.0) / 2.0).clamp(0.0, 1.0)
         return self.model.apply(x).clamp(0.0, 1.0)

@@ -49,8 +49,20 @@ Pinned memory is allocated once and reused (``HostStaging``): allocating
 it waits for the card. The restorer dispatches batch N+1 before it
 materializes batch N, so the card computes while the host writes. On the
 CPU the batch is used in place and nothing is staged. A device
-out-of-memory (``torch.cuda.OutOfMemoryError``) halves the batch and
-reruns, down to batch 1.
+out-of-memory (``torch.cuda.OutOfMemoryError``) downshifts the plan
+(``planner.Plan.downshift``: halve the batch, then tiles, then smaller
+tiles) and reruns the batch.
+
+Tiling (``plan.tiled``: ``tile_size`` pins the tile, or the planner
+tiles a frame that does not fit at batch 1, or a downshift does): JAX's
+tiled branch (``framewright_tpu/processors/super_resolution.py:263-265,
+365-430``). ``ops.tiling.tiled_apply`` runs the model on batches of
+``plan.batch`` tiles with its float output (RRDB: ``apply_fast(x,
+"bf16")``, the RDB, K1 and K2 in its bf16 mode on tiles; SRVGG: its chain
+path in f32), then each stitched frame is clipped and scaled in f32, its
+stats taken from the float RGB image, and quantized to uint8 RGB or
+converted to the BT.601 4:2:0 planes (``layers.out_epilogue``), on the
+card. The whole-frame path keeps its fused epilogue.
 """
 
 from __future__ import annotations
@@ -61,12 +73,12 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from framewright_tpu_torch import planner as planner_mod
 from framewright_tpu_torch.errors import ConfigError, HBMError, InputError
 from framewright_tpu_torch.hw import device_info, full_f32, resolve_device
 from framewright_tpu_torch.models.layers import out_epilogue, resize_bicubic
+from framewright_tpu_torch.ops import tiling
 from framewright_tpu_torch.ops.metrics import psnr_per_frame, ssim_per_frame
 
 logger = logging.getLogger(__name__)
@@ -84,6 +96,8 @@ _MAX_OOM_RETRIES = 3
 class SRConfig:
     model_name: str = "RealESRGAN_x2plus"
     compute_dtype: str = "bfloat16"
+    tile_size: int = 0                # 0 = planner decides
+    tile_overlap: int = 0             # 0 = the family's receptive overlap
     batch_size: int = 0               # 0 = planner decides
     hbm_utilization: float = 0.85
     weights_dir: Optional[str] = None
@@ -98,15 +112,6 @@ class SRConfig:
                                       # same device pass (the quality gate)
     reserved_bytes: int = 0           # card memory kept off the batch's plan
                                       # (the restorer's pre-SR stream)
-
-
-def _pad_mod(x: torch.Tensor, bottom: int, right: int) -> torch.Tensor:
-    """Bottom/right alignment padding of NHWC x, reflect mode (edge when
-    the pad exceeds the reflectable extent), as ``tiling.pad_mod``."""
-    h, w = x.shape[1], x.shape[2]
-    mode = "reflect" if bottom < h and right < w else "replicate"
-    y = F.pad(x.permute(0, 3, 1, 2).float(), (0, right, 0, bottom), mode=mode)
-    return y.to(x.dtype).permute(0, 2, 3, 1)
 
 
 def _frame_stats(yf: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -247,7 +252,9 @@ class SuperResolution:
             height=height, width=width, scale=spec.scale, family=family,
             utilization=cfg.hbm_utilization,
             max_batch=cfg.batch_size or _DEFAULT_MAX_BATCH,
-            dtype="int8-dynamic" if dynamic else cfg.compute_dtype)
+            dtype="int8-dynamic" if dynamic else cfg.compute_dtype,
+            tile_size_override=cfg.tile_size,
+            overlap=cfg.tile_overlap or tiling.receptive_overlap(family))
         self._replan()
 
     def _replan(self) -> None:
@@ -286,6 +293,28 @@ class SuperResolution:
     def plan(self) -> Optional[planner_mod.Plan]:
         return self._plan
 
+    def _model_float(self, x: torch.Tensor) -> torch.Tensor:
+        """The model's float RGB output on x (N, h, w, 3) in [0, 1] (the
+        JAX tiled branch's ``model_fn``): RRDB's kernel path with K2 in its
+        bf16 mode, SRVGG's chain path in f32 (its plain f32 forward in
+        float32)."""
+        if self.family == "srvgg":
+            return self.model.apply(x) if self._plain_f32 else self.model.apply_fast(x, "f32")
+        return self.model.apply_fast(x, "bf16",
+                                     f32_head=self.config.compute_dtype == "float32")
+
+    def _run_tiled(self, x: torch.Tensor, mode: str):
+        """The tiled branch on x (B, H, W, 3) in [0, 1] -> (per-frame
+        epilogue outputs, per-frame stats)."""
+        cfg = self.config
+        img = tiling.tiled_apply(self._model_float, x, self._plan)
+        outs, stats = [], []
+        for j in range(len(img)):
+            if cfg.device_stats:
+                stats.append(_frame_stats(img[j:j + 1].float().clamp(0.0, 1.0), x[j:j + 1]))
+            outs.append(out_epilogue(img[j:j + 1], mode, cfg.yuv_full_range))
+        return outs, stats
+
     def _run(self, x_u8: torch.Tensor):
         """uint8 (B, H, W, 3) on the device -> (uint8 RGB or YUV planes,
         (B, 5) f32 stats or None)."""
@@ -293,10 +322,17 @@ class SuperResolution:
         b, h, w, _ = x_u8.shape
         u, s = plan.body_divisor, plan.scale
         x = x_u8.to(torch.float32 if cfg.compute_dtype == "float32" else torch.bfloat16) / 255.0
-        hp, wp = -(-h // u) * u, -(-w // u) * u
-        xp = _pad_mod(x, hp - h, wp - w) if (hp, wp) != (h, w) else x
         yuv = cfg.output_color == "yuv420"
         mode = "yuv420_u8" if yuv else "rgb_u8"
+        if plan.tiled:
+            chunks, stats = self._run_tiled(x, mode)
+            if yuv:
+                out = tuple(torch.cat([c[k] for c in chunks]) for k in range(3))
+            else:
+                out = torch.cat(chunks)
+            return out, (torch.stack(stats) if stats else None)
+        hp, wp = -(-h // u) * u, -(-w // u) * u
+        xp = tiling.pad_mod(x, hp - h, wp - w)
         nb = max(plan.batch, 1)
         chunks, stats = [], []
         for i in range(0, b, nb):
@@ -436,6 +472,11 @@ class SuperResolution:
         return height * self.scale, width * self.scale
 
     def teardown(self) -> None:
+        """Release the model and the staging buffers, after the card has
+        finished every copy queued into them (a failed batch may leave one
+        in flight)."""
+        if self.device is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         self.model = None
         self._staging = None
         if self.device is not None and self.device.type == "cuda":

@@ -7,6 +7,11 @@ no dropped, black or non-finite frame. On the restore's YUV path the SR
 processor computes the per-frame scores in its device pass and the
 restorer feeds them to ``observe_scores``; on any other path sampled
 (input, output) pairs are kept by ``observe`` and scored at the end.
+With ``min_vmaf > 0`` the sampled pairs are also scored by
+``quality.vmaf.VMAFProxy`` on ``device`` against their references, the
+inputs resized bicubically on 0-255, clipped and truncated to uint8 (as
+JAX's), and the gate needs the score at ``min_vmaf`` or above; the
+restore keeps the RGB writer path for it.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ logger = logging.getLogger(__name__)
 class QualityReport:
     psnr: float = 0.0
     ssim: float = 0.0
-    vmaf: float = 0.0                      # not ported: always 0
+    vmaf: float = 0.0                      # vmaf_proxy; 0 = not computed
     min_psnr: float = 25.0
     min_ssim: float = 0.85
     min_vmaf: float = 0.0
@@ -67,12 +72,9 @@ class QualityValidator:
 
     def __init__(self, min_psnr: float = 25.0, min_ssim: float = 0.85,
                  sample_every: int = 25, max_samples: int = 24,
-                 min_vmaf: float = 0.0, first_frame: int = 0):
-        if min_vmaf > 0:
-            from framewright_tpu_torch.errors import ConfigError
-
-            raise ConfigError("min_vmaf > 0 is not ported yet (ROADMAP.md A3.4)")
+                 min_vmaf: float = 0.0, first_frame: int = 0, device: str = "cuda"):
         self.min_psnr = min_psnr
+        self.device = device          # where the VMAF features run
         self.min_ssim = min_ssim
         self.min_vmaf = min_vmaf
         self.sample_every = max(1, sample_every)
@@ -142,11 +144,32 @@ class QualityValidator:
         rep.per_sample_ssim = [round(s, 4) for s in ssims]
         rep.psnr = float(np.mean(psnrs))
         rep.ssim = float(np.mean(ssims))
+        if self.min_vmaf > 0:
+            rep.vmaf = self._score_vmaf()
+            rep.min_vmaf = self.min_vmaf
+            if rep.vmaf < self.min_vmaf:
+                rep.notes.append(f"vmaf_proxy {rep.vmaf:.1f} < gate {self.min_vmaf}")
         rep.temporal_ok = self._check_temporal()
         if not rep.temporal_ok:
             rep.notes.append("luma discontinuity: possible dropped/black frames")
-        rep.passed = rep.psnr >= self.min_psnr and rep.ssim >= self.min_ssim and rep.temporal_ok
+        rep.passed = (rep.psnr >= self.min_psnr and rep.ssim >= self.min_ssim
+                      and rep.temporal_ok
+                      and (self.min_vmaf <= 0 or rep.vmaf >= self.min_vmaf))
         return rep
+
+    def _score_vmaf(self) -> float:
+        """The VMAF proxy of the kept pairs against their references."""
+        import torch
+
+        from framewright_tpu_torch.models.layers import resize_bicubic
+        from framewright_tpu_torch.quality.vmaf import VMAFProxy
+
+        refs = np.stack([
+            np.clip(resize_bicubic(torch.from_numpy(i[None]).float(), o.shape[:2])[0].numpy(),
+                    0, 255).astype(np.uint8)
+            for i, o in self._pairs])
+        outs = np.stack([o for _, o in self._pairs])
+        return VMAFProxy(self.device).score(refs, outs).score
 
     def _score_pairs(self) -> Tuple[List[float], List[float]]:
         """PSNR and SSIM of each kept pair against the bicubic upscale of

@@ -7,18 +7,40 @@ Sources and outputs are Y4M, PNG frame directories or, with ffmpeg on
 ``output_format`` when the restore names no output).
 
 The port of the ``framewright_tpu.restorer.VideoRestorer`` path that a
-default ``restore`` takes, as stage methods with the JAX names run in
-order (the JAX package runs them under its DAG engine, which is not
-ported): ``_stage_probe``; ``_stage_checkpoint`` (the source's checkpoint,
-discarded when the config changed); ``_stage_enhance`` (``PrefetchRing``,
+default ``restore`` takes, as stage methods with the JAX names run under
+the DAG engine (``engine.pipeline``) with JAX's stages, dependencies and
+flags, an ``EventBus`` and a ``HookManager`` (the caller's, or new ones),
+inside a ``SafeguardLoop`` and ``KeepAwake``: ``_stage_probe`` (the probe
+and ``safeguards.preflight_check``, whose blockers raise ``InputError``
+before any card work); ``_stage_checkpoint`` (the source's checkpoint,
+discarded when the config changed); ``_stage_dedup``; ``_stage_enhance``
+(retried ``stage_max_retries`` times on a ``TransientError``; ``PrefetchRing``,
 one batch in flight on the card, ``WriterDrain``; the YUV-direct writer
 path whenever the output is 4:2:0 Y4M with even sides, for either model
 family, else uint8 RGB; resume, checkpoint progress, the runtime budget,
 bicubic copies of a batch that failed with a ``TransientError`` under
 ``continue_on_error``, and the quality gate's per-frame scores from the
-SR pass); ``_stage_validate``
-(the gate); ``_stage_finalize`` (the checkpoint removed). The QA report
-is written to ``project_dir / "qa_report.<fmt>"``.
+SR pass; ``cancel``, ``pause`` and ``resume`` act between batches);
+``_stage_interpolate``; ``_stage_validate`` (the gate, not critical, as in
+JAX); ``_stage_finalize`` (the checkpoint removed). The QA report is
+written to ``project_dir / "qa_report.<fmt>"``; ``RestoreResult.
+stage_summary`` is the engine's summary. ``dry_run`` returns the plan
+(the probe, the preflight, the stages that would run) and processes,
+writes and checkpoints nothing. ``progress_callback`` receives a
+``ProgressInfo`` (stage, frames done and total, fps, ETA, percent) after
+each batch of the enhance stage and each frame of the interpolate stage,
+as in JAX.
+
+A failed stage raises its own error to the caller (the JAX engine wraps
+it in ``StageError``; the stage summary records it). A failed gate under
+``continue_on_error=False`` raises ``ValidationError`` after the
+finalize stage: the JAX restorer's non-critical validate stage swallows
+it (ROADMAP.md, "JAX faults the port must not copy"). A retried enhance
+stage resumes from its checkpoint as a rerun of a killed run does: the
+failed attempt's writer, ring, producer thread, writer thread and
+staging buffers are shut down first (its ``ExitStack``), and the output
+is cut back to the resume point, so the output equals a straight
+run's.
 
 After SR, in the JAX order (``framewright_tpu/restorer.py:344-355,
 395-416, 454-466, 723-736, 840-848, 964-1021``): face restoration
@@ -117,13 +139,21 @@ import numpy as np
 from framewright_tpu_torch import planner
 from framewright_tpu_torch.config import Config
 from framewright_tpu_torch.engine.checkpoint import CheckpointManager
+from framewright_tpu_torch.engine.pipeline import (
+    Pipeline,
+    PipelineBuilder,
+    PipelineContext,
+    StageStatus,
+)
 from framewright_tpu_torch.engine.temporal import ColorConsistencyEnforcer, GlobalAnchors
 from framewright_tpu_torch.errors import (
     FatalError,
     InputError,
+    StageError,
     TransientError,
     ValidationError,
 )
+from framewright_tpu_torch.events import EventBus, EventType, HookManager
 from framewright_tpu_torch.hw import (
     device_info,
     full_f32,
@@ -164,6 +194,7 @@ from framewright_tpu_torch.processors.temporal_denoise import (
     TemporalDenoiser,
 )
 from framewright_tpu_torch.quality.validators import QualityReport, QualityValidator
+from framewright_tpu_torch.safeguards import KeepAwake, SafeguardLoop, preflight_check
 
 logger = logging.getLogger(__name__)
 
@@ -172,6 +203,42 @@ _INTERPOLATE = "interpolate"
 # resume points whose carried state the checkpoint keeps (the newest): a
 # killed run's file may lag its checkpoint by the writer's queue
 _CARRY_POINTS = 16
+
+
+@dataclass
+class ProgressInfo:
+    stage: str = ""
+    frames_done: int = 0
+    total_frames: int = 0
+    fps: float = 0.0
+    eta_s: float = 0.0
+    percent: float = 0.0
+
+
+class _EtaTracker:
+    """Rolling-window throughput and ETA over the last ``window`` frames
+    (the JAX restorer's)."""
+
+    def __init__(self, window: int = 100):
+        self.window = window
+        self.times: List[float] = []
+
+    def tick(self, n: int = 1) -> None:
+        now = time.time()
+        self.times.extend([now] * n)
+        if len(self.times) > self.window:
+            self.times = self.times[-self.window:]
+
+    @property
+    def fps(self) -> float:
+        if len(self.times) < 2:
+            return 0.0
+        dt = self.times[-1] - self.times[0]
+        return (len(self.times) - 1) / dt if dt > 0 else 0.0
+
+    def eta(self, remaining: int) -> float:
+        f = self.fps
+        return remaining / f if f > 0 else 0.0
 
 
 @dataclass
@@ -187,7 +254,8 @@ class RestoreResult:
     resumed_from: int = 0     # first frame the enhance stage wrote in the
                               # run that completed it; quality and errors
                               # cover the frames from it on
-    stage_summary: Dict = field(default_factory=dict)
+    stage_summary: Dict = field(default_factory=dict)   # Pipeline.summary(); a dry
+                                                        # run: {"dry_run": plan}
     pre_sr: Dict = field(default_factory=dict)   # what the pre-SR stream did:
                                                  # long_form, deinterlace,
                                                  # defect_repair, denoise (the
@@ -254,6 +322,8 @@ def required_weights(cfg: Config) -> List[str]:
         names.append(cfg.interpolation_model)
     if cfg.face_restore and cfg.face_model == "gfpgan":
         names.append("GFPGANv1.4")
+    if cfg.face_restore and cfg.face_model == "codeformer":
+        names.append("CodeFormer")
     return names
 
 
@@ -261,6 +331,8 @@ def build_sr_config(cfg: Config, reserved_bytes: int = 0) -> SRConfig:
     return SRConfig(
         model_name=cfg.sr_model,
         compute_dtype=cfg.compute_dtype,
+        tile_size=cfg.tile_size,
+        tile_overlap=cfg.tile_overlap,
         batch_size=cfg.batch_size,
         hbm_utilization=cfg.hbm_utilization,
         weights_dir=str(cfg.weights_dir) if cfg.weights_dir else None,
@@ -301,13 +373,26 @@ class _PostSRGrain:
 
 class VideoRestorer:
     def __init__(self, config: Optional[Config] = None,
-                 progress_callback: Optional[Callable[[int, int], None]] = None):
+                 progress_callback: Optional[Callable[[ProgressInfo], None]] = None,
+                 events: Optional[EventBus] = None, hooks: Optional[HookManager] = None):
         self.config = config or Config()
         self.progress_callback = progress_callback
+        self.events = events or EventBus()
+        self.hooks = hooks or HookManager()
         self.checkpoints = CheckpointManager(self.config.checkpoint_dir,
                                              self.config.checkpoint_interval)
+        self.context: Optional[PipelineContext] = None
         self.sr: Optional[SuperResolution] = None
         self.stage = ""           # the stage running (a progress callback may read it)
+
+    def _progress(self, stage: str, done: int, total: int, tracker: _EtaTracker) -> None:
+        if self.progress_callback is None:
+            return
+        self.progress_callback(ProgressInfo(
+            stage=stage, frames_done=done, total_frames=total,
+            fps=round(tracker.fps, 2),
+            eta_s=round(tracker.eta(max(total - done, 0)), 1),
+            percent=round(100.0 * done / total, 1) if total else 0.0))
 
     def _resolve_output(self, source: Path) -> Path:
         """``output_path``, else ``<project_dir>/<stem>_restored`` with the
@@ -321,15 +406,41 @@ class VideoRestorer:
             suffix = "." + cfg.output_format if cfg.output_format != "png" else ""
         return cfg.project_dir / (source.stem + "_restored" + suffix)
 
+    def _missing_weights(self) -> List[str]:
+        """The checkpoints the restore needs and the weights directory lacks."""
+        wdir = Path(self.config.weights_dir or default_weights_dir())
+        return [str(wdir / f"{n}.npz") for n in required_weights(self.config)
+                if aux_path(n, wdir) is None]
+
     def _check_weights(self) -> None:
         """``InputError`` naming every checkpoint the restore needs and
         the weights directory lacks, before any compute."""
-        wdir = Path(self.config.weights_dir or default_weights_dir())
-        missing = [str(wdir / f"{n}.npz") for n in required_weights(self.config)
-                   if aux_path(n, wdir) is None]
+        missing = self._missing_weights()
         if missing:
             raise InputError(f"missing checkpoints: {', '.join(missing)} (the port reads "
                              "user weights only, in the JAX package's .npz layout)")
+
+    def _build_pipeline(self, restored: List[str]) -> Pipeline:
+        """The JAX restorer's stages, dependencies and flags
+        (``framewright_tpu/restorer.py:164-186``)."""
+        cfg = self.config
+        return (PipelineBuilder("restore")
+                .events(self.events)
+                .hooks(self.hooks)
+                .stage("probe", self._stage_probe)
+                .stage("checkpoint", self._stage_checkpoint, depends_on=("probe",),
+                       enabled=cfg.checkpoint_enabled)
+                .stage("dedup", self._stage_dedup, depends_on=("probe",),
+                       enabled=cfg.deduplicate)
+                .stage(_ENHANCE, self._stage_enhance, depends_on=("probe",),
+                       max_retries=cfg.stage_max_retries)
+                .stage(_INTERPOLATE, self._stage_interpolate, depends_on=(_ENHANCE,),
+                       enabled=cfg.interpolation)
+                .stage("validate", self._stage_validate, depends_on=(_ENHANCE,),
+                       enabled=cfg.validate_output, critical=False)
+                .stage("finalize", self._stage_finalize, depends_on=(_ENHANCE,))
+                .restore_completed(restored)
+                .build())
 
     def restore_video(self, source, output=None) -> RestoreResult:
         cfg = self.config
@@ -337,48 +448,37 @@ class VideoRestorer:
         if not source.exists():
             raise InputError(f"source not found: {source}")
         out_path = Path(output) if output else self._resolve_output(source)
-        self._check_weights()
         t0 = time.time()
-        data: Dict = {"source": source, "output": out_path}
-        stages: List[Dict] = []
-
-        def run(name: str, fn) -> None:
-            self.stage = name
-            t = time.time()
-            try:
-                data.update(fn(data))
-            except BaseException:
-                stages.append({"name": name, "status": "failed",
-                               "duration_s": time.time() - t})
-                raise
-            stages.append({"name": name, "status": "completed",
-                           "duration_s": time.time() - t})
-
-        run("probe", self._stage_probe)
-        if cfg.checkpoint_enabled:
-            run("checkpoint", self._stage_checkpoint)
-        enhanced = self._enhanced_intermediate(data)
-        if enhanced is not None:
-            # a rerun of a run killed in the interpolate stage: the
-            # intermediate is whole, the enhance stage is not run again
-            logger.info("enhance stage completed earlier: resuming at interpolation")
-            data.update(enhanced)
-        else:
-            if cfg.deduplicate:
-                run("dedup", self._stage_dedup)
-            run(_ENHANCE, self._stage_enhance)
-        if cfg.interpolation:
-            run(_INTERPOLATE, self._stage_interpolate)
+        ctx = self.context = PipelineContext({"source": source, "output": out_path})
+        restored: List[str] = []
+        if not cfg.dry_run:
+            self._check_weights()
+            enhanced = self._enhanced_intermediate(source)
+            if enhanced is not None:
+                # a rerun of a run killed in the interpolate stage: the
+                # intermediate is whole, dedup and enhance are not run again
+                logger.info("enhance stage completed earlier: resuming at interpolation")
+                ctx.update(enhanced)
+                restored = [_ENHANCE] + (["dedup"] if cfg.deduplicate else [])
+        pipeline = self._build_pipeline(restored)
+        if cfg.dry_run:
+            return self._dry_run(ctx, pipeline, out_path)
+        guard = SafeguardLoop(cfg.project_dir, self.events)
+        guard.start()
         try:
-            if cfg.validate_output:
-                run("validate", self._stage_validate)
+            with KeepAwake():
+                pipeline.run(ctx)
+        except StageError as exc:
+            raise self._stage_exception(pipeline, exc)
         finally:
-            # the output is complete: a rerun must not resume into it
-            run("finalize", self._stage_finalize)
+            guard.stop()
+        # the gate's failure under continue_on_error=False, after finalize
+        self._raise_failed_gate(pipeline)
+        data = ctx.data
         result = RestoreResult(
             out_path, data["frames_in"], data["frames_out"], time.time() - t0,
             data["batches"], data["batch_size"], data.get("quality_report"),
-            data["frame_errors"], data["resumed_from"], {"stages": stages},
+            data["frame_errors"], data["resumed_from"], pipeline.summary(),
             data.get("pre_sr", {}), data.get("dedup_result"), data.get("post_sr", {}),
             data.get("output_fps", float(data["fps"])), data.get("interpolation_result"),
             data.get("faces_restored"))
@@ -393,24 +493,87 @@ class VideoRestorer:
                 logger.exception("QA report generation failed")
         return result
 
+    @staticmethod
+    def _stage_exception(pipeline: Pipeline, exc: StageError) -> BaseException:
+        """The failed stage's own error (the engine's ``StageError`` when it
+        has none)."""
+        for s in pipeline.stages:
+            if s.status is StageStatus.FAILED and s.exception is not None:
+                return s.exception
+        return exc
+
+    @staticmethod
+    def _raise_failed_gate(pipeline: Pipeline) -> None:
+        for s in pipeline.stages:
+            if s.name == "validate" and s.status is StageStatus.FAILED:
+                raise s.exception
+
+    def _dry_run(self, ctx: PipelineContext, pipeline: Pipeline, out_path: Path) -> RestoreResult:
+        """The plan without processing (the probe and the preflight, which
+        raises on a blocker): nothing is written, no checkpoint opened, no
+        card memory taken."""
+        cfg = self.config
+        ctx.update(self._stage_probe(ctx.data))
+        d = ctx.data
+        scale = get_model(cfg.sr_model).scale
+        plan = {
+            "stages": [s.name for s in pipeline.stages if s.enabled],
+            "input": f"{d['width']}x{d['height']}@{float(d['fps']):.2f} "
+                     f"({d['frames_in']} frames)",
+            "output": f"{d['width'] * scale}x{d['height'] * scale} -> {out_path}",
+            "model": cfg.sr_model,
+            "preflight": d["preflight"],
+            "missing_weights": self._missing_weights(),
+        }
+        logger.info("dry run: %s", plan)
+        return RestoreResult(out_path, d["frames_in"], 0, 0.0,
+                             stage_summary={"dry_run": plan})
+
+    def cancel(self) -> None:
+        if self.context:
+            self.context.cancel()
+
+    def pause(self) -> None:
+        if self.context:
+            self.context.pause()
+
+    def resume(self) -> None:
+        if self.context:
+            self.context.resume()
+
     # -- stages ----------------------------------------------------------
     def _stage_probe(self, data: Dict) -> Dict:
+        self.stage = "probe"
         meta = probe(data["source"])
         total, h, w, fps = meta.nb_frames, meta.height, meta.width, meta.fps
         if w <= 0 or total <= 0:
             raise InputError(f"empty or unreadable video: {data['source']}")
         if self.config.max_frames:
             total = min(total, self.config.max_frames)
-        return {"frames_in": total, "height": h, "width": w, "fps": fps}
+        # blockers stop the restore before any card work; warnings are
+        # logged and kept for the report
+        pf = preflight_check(self.config, data["source"],
+                             meta=dataclasses.replace(meta, nb_frames=total))
+        for warn in pf.warnings:
+            logger.warning("preflight: %s", warn)
+        if not pf.ok:
+            raise InputError("preflight blocked: " + "; ".join(pf.blockers))
+        return {"frames_in": total, "height": h, "width": w, "fps": fps,
+                "preflight": pf.to_dict()}
 
     def _stage_checkpoint(self, data: Dict) -> Dict:
+        self.stage = "checkpoint"
         ck = self.checkpoints.start(data["source"], self.config.get_hash(),
                                     total_frames=data["frames_in"])
+        if ck.frames_done:
+            self.events.emit(EventType.CHECKPOINT_RESTORED, stage=next(reversed(ck.frames_done)),
+                             frames=dict(ck.frames_done))
         return {"checkpoint": ck}
 
     def _stage_dedup(self, data: Dict) -> Dict:
         """One decode pass of the first ``frames_in`` frames: the dedup
         analysis, and the long-form anchors teed off the same frames."""
+        self.stage = "dedup"
         cfg = self.config
         total = data["frames_in"]
         dedup = FrameDeduplicator(DedupConfig(similarity_threshold=cfg.dedup_similarity,
@@ -490,6 +653,7 @@ class VideoRestorer:
         return writer, writer.frames_written
 
     def _stage_enhance(self, data: Dict) -> Dict:
+        self.stage = _ENHANCE
         cfg = self.config
         total, h, w = data["frames_in"], data["height"], data["width"]
         checkpointed = "checkpoint" in data
@@ -508,6 +672,7 @@ class VideoRestorer:
         scale = get_model(cfg.sr_model).scale
         reserve = pre_sr_reserve(cfg, h, w) + face_reserve(cfg, h * scale, w * scale)
         sr = self.sr = SuperResolution(build_sr_config(cfg, reserve))
+        tracker = _EtaTracker()
         written = frame_errors = batch_size = 0
         budget_hit = False
         pre_sr: Dict = {}
@@ -524,12 +689,12 @@ class VideoRestorer:
             stack.callback(sr.teardown)
             sr.setup(h, w)
             oh, ow = sr.output_size(h, w)
-            batch_size = max(1, min(sr.plan.batch, total))
+            batch_size = max(1, min(sr.plan.frames, total))
             if cfg.face_restore:
                 faces = FaceRestorer(FaceRestoreConfig(
                     strength=cfg.face_strength, backend=cfg.face_model,
                     weights_dir=str(cfg.weights_dir) if cfg.weights_dir else None,
-                    device=_device(cfg)))
+                    device=_device(cfg), fidelity_weight=cfg.face_fidelity))
                 faces.setup(oh, ow)
                 stack.callback(faces.teardown)
             # cut the output to R = min(checkpoint, whole frames in it),
@@ -548,17 +713,19 @@ class VideoRestorer:
             stack.enter_context(writer)
             written = resume_from
             validator = (QualityValidator(cfg.min_psnr, cfg.min_ssim, min_vmaf=cfg.min_vmaf,
-                                          first_frame=resume_from)
+                                          first_frame=resume_from, device=_device(cfg))
                          if cfg.validate_output else None)
             reader = stack.enter_context(open_reader(data["source"]))
             pre_sr["host_codec"] = {"decode": getattr(reader, "codec", type(reader).__name__),
                                     "encode": getattr(writer, "codec", type(writer).__name__)}
             # a mapping repeats RGB outputs, and grain and faces change them
-            # on the host: each takes the RGB path
+            # on the host: each takes the RGB path; so does the VMAF gate,
+            # which scores sampled RGB pairs
             yuv_direct = (hasattr(writer, "write_yuv_frame")
                           and writer.header.colorspace.startswith("420")
                           and oh % 2 == 0 and ow % 2 == 0
-                          and mapping is None and grain is None and faces is None)
+                          and mapping is None and grain is None and faces is None
+                          and (validator is None or cfg.min_vmaf <= 0))
             if yuv_direct:
                 sr.config.yuv_full_range = writer.full_range
                 sr.set_output_color("yuv420")
@@ -646,10 +813,12 @@ class VideoRestorer:
                 if n:
                     drain.submit(out, n)
                 written += n
+                tracker.tick(n)
                 if checkpointed:
                     self.checkpoints.frames_completed(_ENHANCE, written)
-                if self.progress_callback is not None:
-                    self.progress_callback(written, dedup.unique_frames if drop else total)
+                self.events.emit(EventType.FRAME_PROCESSED, frames=written)
+                self._progress(_ENHANCE, written, dedup.unique_frames if drop else total,
+                               tracker)
 
             deadline = (time.time() + cfg.max_runtime_minutes * 60.0
                         if cfg.max_runtime_minutes > 0 else None)
@@ -657,6 +826,7 @@ class VideoRestorer:
             # batch N is copied back and handed to the writer
             pending = None
             for batch in ring:
+                self.context.checkpoint_wait()      # pause / cancel between batches
                 if deadline is not None and time.time() > deadline:
                     budget_hit = True
                     logger.warning("runtime budget (%.1f min) reached at frame %d; "
@@ -716,17 +886,18 @@ class VideoRestorer:
             self.checkpoints.stage_completed(_ENHANCE)
         return out
 
-    def _enhanced_intermediate(self, data: Dict) -> Optional[Dict]:
-        """On a rerun whose checkpoint says the enhance stage completed and
+    def _enhanced_intermediate(self, source: Path) -> Optional[Dict]:
+        """On a rerun whose checkpoint (read, not opened:
+        ``CheckpointManager.peek``) says the enhance stage completed and
         whose intermediate is whole: what the interpolate stage reads, and
         the enhance stage's gate report, errors and resume point, for an
         enhance stage with nothing left to do; else None."""
         cfg = self.config
-        if not (cfg.interpolation and cfg.resume and "checkpoint" in data):
+        if not (cfg.interpolation and cfg.resume and cfg.checkpoint_enabled):
             return None
-        ck = self.checkpoints.checkpoint
-        st = ck.stage_state.get(_ENHANCE)
-        if _ENHANCE not in ck.completed_stages or not st:
+        ck = self.checkpoints.peek(source, cfg.get_hash())
+        st = ck.stage_state.get(_ENHANCE) if ck is not None else None
+        if not st or _ENHANCE not in ck.completed_stages:
             return None
         path = Path(st["enhanced_path"])
         if path != cfg.work_dir / "enhanced.y4m" or not path.is_file():
@@ -743,6 +914,7 @@ class VideoRestorer:
         """Stream the intermediate through the interpolator into the
         output at ``factor`` times its rate; on a rerun, resume at a whole
         step of pairs (the checkpoint's pair batch)."""
+        self.stage = _INTERPOLATE
         cfg = self.config
         src = Path(data["enhanced_path"])
         oh, ow = data["out_size"]
@@ -770,6 +942,7 @@ class VideoRestorer:
             device=_device(cfg)))
         n = keep
         est_total = (data["enhanced_frames"] - 1) * factor + 1
+        tracker = _EtaTracker()
         try:
             with writer, open_reader(src) as reader:
                 interp.setup(oh, ow)
@@ -777,10 +950,10 @@ class VideoRestorer:
                 for frame in interp.interpolate_to_fps(frames, src_fps):
                     writer.write_frame(frame)
                     n += 1
+                    tracker.tick()
                     if checkpointed:
                         self.checkpoints.frames_completed(_INTERPOLATE, n)
-                    if self.progress_callback is not None:
-                        self.progress_callback(n, est_total)
+                    self._progress(_INTERPOLATE, n, est_total, tracker)
         finally:
             interp.teardown()
             if checkpointed:
@@ -888,11 +1061,15 @@ class VideoRestorer:
     def _stage_validate(self, data: Dict) -> Dict:
         """Gate the validator's report (scored here, or by the enhance
         stage when interpolation follows it)."""
+        self.stage = "validate"
         validator: Optional[QualityValidator] = data.get("validator")
         report = validator.validate() if validator is not None else data.get("quality_report")
         if report is None:
             return {}
-        if not report.passed:
+        if report.passed:
+            self.events.emit(EventType.QUALITY_CHECK_PASSED, **report.to_dict())
+        else:
+            self.events.emit(EventType.QUALITY_CHECK_FAILED, **report.to_dict())
             logger.warning("quality gates failed: %s", report.to_dict())
             if not self.config.continue_on_error:
                 raise ValidationError(f"quality gates failed: {report.to_dict()}",
@@ -900,6 +1077,7 @@ class VideoRestorer:
         return {"quality_report": report}
 
     def _stage_finalize(self, data: Dict) -> Dict:
+        self.stage = "finalize"
         if "checkpoint" in data:
             self.checkpoints.complete()
         return {}

@@ -92,9 +92,9 @@ class _Stop(Exception):
 
 
 def _stop_after(frames):
-    def progress(done, total):
-        if done >= frames:
-            raise _Stop(done)
+    def progress(info):
+        if info.frames_done >= frames:
+            raise _Stop(info.frames_done)
     return progress
 
 
@@ -112,8 +112,11 @@ def test_default_config_writes_qa_report_and_removes_checkpoint(tmp_path, clip):
     rep = json.loads((tmp_path / "proj" / "qa_report.json").read_text())
     assert rep["quality"] == q.to_dict() and rep["errors"] == 0
     assert len(rep["per_frame"]["psnr"]) == N
-    assert [s["name"] for s in rep["stages"]] == ["probe", "checkpoint", "enhance",
-                                                 "validate", "finalize"]
+    # the engine's summary: every stage of the JAX restore, those not run skipped
+    assert [(s["name"], s["status"]) for s in rep["stages"]] == [
+        ("probe", "completed"), ("checkpoint", "completed"), ("dedup", "skipped"),
+        ("enhance", "completed"), ("interpolate", "skipped"), ("validate", "completed"),
+        ("finalize", "completed")]
     assert (tmp_path / "proj" / "checkpoints").is_dir() and not _ckpt_files(tmp_path)
 
 
@@ -269,9 +272,12 @@ def test_failed_batch_is_written_as_bicubic_copies(tmp_path, clip, straight, mon
 
 
 def test_failed_batch_raises_without_continue_on_error(tmp_path, clip, monkeypatch):
+    # without stage retries: a retry would resume past the failed batch
+    # (tests/test_torch_engine.py holds the retried restore)
     _fail_batch(monkeypatch, 2)
     with pytest.raises(HBMError, match="injected"):
-        _restore(_cfg(tmp_path, continue_on_error=False), clip, tmp_path / "o.y4m")
+        _restore(_cfg(tmp_path, continue_on_error=False, stage_max_retries=0), clip,
+                 tmp_path / "o.y4m")
     (ck,) = _ckpt_files(tmp_path)                        # kept for a resume
     assert json.loads(ck.read_text())["frames_done"] == {"enhance": 2}
 

@@ -148,9 +148,9 @@ def test_resumed_dedup_restore_equals_a_straight_one(tmp_path, stop_at):
         return Config(sr_model="FW_fast6_x2", device_platform="cpu", deduplicate=True,
                       batch_size=2, project_dir=tmp_path / proj)
 
-    def stop(done, total):
-        if done >= stop_at:
-            raise _Stop(done)
+    def stop(info):
+        if info.frames_done >= stop_at:
+            raise _Stop(info.frames_done)
 
     with contextlib.redirect_stdout(io.StringIO()):
         straight = VideoRestorer(cfg("s")).restore_video(src, tmp_path / "s.y4m")

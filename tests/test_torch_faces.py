@@ -215,14 +215,24 @@ def test_missing_gfpgan_checkpoint_raises_input_error(tmp_path):
 
 
 def test_codeformer_raises_naming_a9b(tmp_path, capsys):
-    with pytest.raises(ConfigError, match="A9b"):
-        Config(face_restore=True, face_model="codeformer")
-    with pytest.raises(ConfigError, match="A9b"):
-        faces.FaceRestorer(faces.FaceRestoreConfig(backend="codeformer", device="cpu"))
-    assert Config(face_model="codeformer").face_model == "codeformer"     # off: accepted
-    rc = cli.main(["restore", str(tmp_path / "a.y4m"), "--preset", "archive",
-                   "--face-model", "codeformer", "--device", "cpu"])
-    assert rc == 1 and "A9b" in capsys.readouterr().err
+    """A9b is done: ``face_model="codeformer"`` is accepted, and without
+    ``CodeFormer.npz`` (or its ``.pth``) in the weights directory the face
+    restorer and a restore raise ``InputError`` naming it before any
+    compute (the JAX restorer runs a random stand-in;
+    tests/test_torch_codeformer.py holds the backend to JAX's)."""
+    from test_torch_film import _write, film_clip
+
+    assert Config(face_restore=True, face_model="codeformer").face_model == "codeformer"
+    restorer = faces.FaceRestorer(faces.FaceRestoreConfig(backend="codeformer",
+                                                          weights_dir=str(tmp_path),
+                                                          device="cpu"))
+    with pytest.raises(InputError, match="CodeFormer"):
+        restorer.setup(64, 64)
+    src = _write(tmp_path / "a.y4m", film_clip(4))
+    rc = cli.main(["restore", str(src), "--preset", "archive", "--face-model", "codeformer",
+                   "--device", "cpu", "--weights-dir", str(tmp_path / "w"),
+                   "--project-dir", str(tmp_path / "p")])
+    assert rc == 1 and str(tmp_path / "w" / "CodeFormer.npz") in capsys.readouterr().err
 
 
 class _Captured(Exception):

@@ -240,9 +240,9 @@ def test_resumed_grain_restore_equals_a_straight_one(tmp_path, flags):
         return Config(sr_model="FW_fast6_x2", device_platform="cpu", batch_size=2,
                       project_dir=tmp_path / proj, **flags)
 
-    def stop(done, total):
-        if done >= 4:
-            raise _Stop(done)
+    def stop(info):
+        if info.frames_done >= 4:
+            raise _Stop(info.frames_done)
 
     with contextlib.redirect_stdout(io.StringIO()):
         straight = VideoRestorer(cfg("s")).restore_video(src, tmp_path / "s.y4m")
@@ -262,9 +262,9 @@ def test_resume_without_a_carried_state_starts_over(tmp_path):
     cfg = Config(sr_model="FW_fast6_x2", device_platform="cpu", batch_size=2,
                  grain_mode="match", project_dir=tmp_path / "p")
 
-    def stop(done, total):
-        if done >= 4:
-            raise _Stop(done)
+    def stop(info):
+        if info.frames_done >= 4:
+            raise _Stop(info.frames_done)
 
     with contextlib.redirect_stdout(io.StringIO()):
         VideoRestorer(Config(**{**cfg.to_dict(), "project_dir": tmp_path / "s"}))\

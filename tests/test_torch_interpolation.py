@@ -274,9 +274,9 @@ def test_resume_inside_the_interpolate_stage(tmp_path, rife):
             .restore_video(src, tmp_path / "s.y4m")
         r = VideoRestorer(_cfg(tmp_path, wdir, "r", deduplicate=True))
 
-        def stop(done, total):
-            if r.stage == "interpolate" and done >= 10:
-                raise _Stop(done)
+        def stop(info):
+            if info.stage == "interpolate" and info.frames_done >= 10:
+                raise _Stop(info.frames_done)
 
         r.progress_callback = stop
         with pytest.raises(_Stop):
@@ -287,7 +287,10 @@ def test_resume_inside_the_interpolate_stage(tmp_path, rife):
     assert straight.frames_out == res.frames_out == 17
     assert straight.interpolation["pairs_per_step"] == 4
     assert res.batches == 0 and res.interpolation["resumed_from"] == 8
-    assert "enhance" not in [s["name"] for s in res.stage_summary["stages"]]
+    # restored as completed by the engine (restore_completed), not run again
+    st = {s["name"]: s for s in res.stage_summary["stages"]}
+    assert (st["enhance"]["status"], st["enhance"]["attempts"]) == ("completed", 0)
+    assert (st["dedup"]["status"], st["dedup"]["attempts"]) == ("completed", 0)
     assert (tmp_path / "r.y4m").read_bytes() == (tmp_path / "s.y4m").read_bytes()
     assert not (tmp_path / "r" / "work" / "enhanced.y4m").exists()
     assert not list((tmp_path / "r" / "checkpoints").glob("*.json"))
@@ -296,9 +299,9 @@ def test_resume_inside_the_interpolate_stage(tmp_path, rife):
 def _killed_in_interpolate(cfg, src, out, at: int = 10):
     r = VideoRestorer(cfg)
 
-    def stop(done, total):
-        if r.stage == "interpolate" and done >= at:
-            raise _Stop(done)
+    def stop(info):
+        if info.stage == "interpolate" and info.frames_done >= at:
+            raise _Stop(info.frames_done)
 
     r.progress_callback = stop
     with pytest.raises(_Stop):
@@ -367,9 +370,9 @@ def test_resume_inside_the_enhance_stage_with_interpolation(tmp_path, rife):
     wdir, _ = rife
     src = _write(tmp_path / "a.y4m", pan_clip(8, pad=False))
 
-    def stop(done, total):
-        if done >= 4:
-            raise _Stop(done)
+    def stop(info):
+        if info.frames_done >= 4:
+            raise _Stop(info.frames_done)
 
     with contextlib.redirect_stdout(io.StringIO()):
         VideoRestorer(_cfg(tmp_path, wdir, "s")).restore_video(src, tmp_path / "s.y4m")

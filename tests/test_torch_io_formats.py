@@ -288,9 +288,9 @@ def _restore(src, out, proj, stop_at=0, **kw):
     cfg = Config(sr_model="FW_fast6_x2", device_platform="cpu", batch_size=2,
                  project_dir=proj, **kw)
 
-    def stop(done, total):
-        if stop_at and done >= stop_at:
-            raise _Stop(done)
+    def stop(info):
+        if stop_at and info.frames_done >= stop_at:
+            raise _Stop(info.frames_done)
 
     with contextlib.redirect_stdout(io.StringIO()):
         return VideoRestorer(cfg, stop if stop_at else None).restore_video(src, out)

@@ -297,10 +297,14 @@ class TestPlanner:
         assert planner.plan(1080, 1920, 2, free_bytes=per * 100, max_batch=4).batch == 4
 
     def test_downshift_and_refusal(self):
+        # batch 4 -> 2 -> 1, then tiles (64 px here), then HBMError below
+        # the smallest tile (tests/test_torch_tiling.py follows JAX's order)
         p = planner.plan(64, 64, 2, free_bytes=10**12, max_batch=4)
         assert p.downshift().batch == 2 and p.downshift().downshift().batch == 1
+        t = p.downshift().downshift().downshift()
+        assert t.tiled and t.tile_size == 64 and t.batch == 1
         with pytest.raises(HBMError):
-            p.downshift().downshift().downshift()
+            t.downshift()
         with pytest.raises(HBMError):
             planner.plan(2160, 3840, 2, free_bytes=2**20)
 
@@ -321,7 +325,7 @@ class TestConfig:
     @pytest.mark.parametrize("kw", [dict(sr_model="nope"), dict(compute_dtype="float16"),
                                     dict(scale_factor=4), dict(max_frames=-1),
                                     dict(device_platform="tpu"), dict(hbm_utilization=0),
-                                    dict(checkpoint_interval=0), dict(min_vmaf=1.0),
+                                    dict(checkpoint_interval=0), dict(tile_size=12),
                                     dict(quality_report_format="xml")])
     def test_rejects(self, kw):
         with pytest.raises(ConfigError):

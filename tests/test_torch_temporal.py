@@ -105,12 +105,15 @@ def test_flags_override_the_preset():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"preset": "archive", "face_restore": True, "face_model": "codeformer"}, "A9"),
+    # codeformer runs since A9b: an unknown face model is refused instead
+    pytest.param({"preset": "archive", "face_restore": True, "face_model": "codeformer2"},
+                 "face_model", id="kwargs0-A9"),
     ({"preset": "ultimate", "denoise": True, "flow_model": "raft"}, "A6"),
     ({"denoise": True, "denoise_model": "restormer"}, "A6"),
     ({"denoise": True, "flow_model": "raft"}, "A6"),
     ({"temporal_model": "latent"}, "A10"),
-    ({"face_restore": True, "face_model": "codeformer"}, "A9"),
+    pytest.param({"face_restore": True, "face_model": "restoreformer"}, "face_model",
+                 id="kwargs5-A9"),
     ({"interpolation": True, "denoise": True, "denoise_model": "restormer"}, "A6"),
     ({"temporal_window": 4}, "odd"),
     ({"deinterlace": "weave"}, "deinterlace"), ({"long_form": "always"}, "long_form"),
@@ -121,11 +124,15 @@ def test_refusals(kwargs, match):
 
 
 def test_archive_preset_refused_by_name():
-    """The archive preset runs since slice 9; its CodeFormer face model
-    is still refused by its ROADMAP.md name."""
+    """The archive preset runs since slice 9, and with its CodeFormer face
+    model since A9b (a missing CodeFormer.npz is an InputError at restore
+    time, tests/test_torch_faces.py); an unknown preset is refused by its
+    name."""
     assert get_preset("archive")["face_restore"] is True
-    with pytest.raises(ConfigError, match="ROADMAP.md A9b"):
-        build_config("archive", {"face_model": "codeformer"})
+    cfg = build_config("archive", {"face_model": "codeformer"})
+    assert (cfg.face_restore, cfg.face_model, cfg.preset) == (True, "codeformer", "archive")
+    with pytest.raises(ConfigError, match="'restore'"):
+        build_config("restore", {})
     assert set(PRESETS) == {"fast", "quality", "archive", "ultimate"}
 
 
@@ -199,9 +206,9 @@ class _Stop(Exception):
 
 
 def _stop_after(frames):
-    def progress(done, total):
-        if done >= frames:
-            raise _Stop(done)
+    def progress(info):
+        if info.frames_done >= frames:
+            raise _Stop(info.frames_done)
     return progress
 
 
