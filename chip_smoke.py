@@ -161,6 +161,25 @@ Phases, one JSON object per line on stdout:
               pairs, card vs CPU; CodeFormer at its published widths on a
               512x512 crop, card vs CPU, its ms and peak, then --preset
               archive --face-model codeformer on the archive clip
+  models      the other SR and flow models (slice 11) on seeded weights:
+              HAT_SRx4, BasicVSR, TVSR_x4 and RAFT at their published
+              widths, Restormer at the JAX denoiser's RestormerConfig()
+              (dim 16, blocks 1/1/1/2), each on the card against the port's
+              CPU run on a crop (uint8 within 1 LSB on at most 0.1%, the
+              flow within 1e-3 px); their ms (HAT 2 frames of 960x540 to
+              4K, BasicVSR and TVSR 10 frames of 960x540 in windows of
+              chunk 8 and overlap 2, Restormer on a 1080p frame, RAFT on a
+              1080p step of pairs) and peaks against the planner, with
+              HAT also tiled (4 tiles of 128, 400 attention windows) and
+              Restormer also at its published widths (dim 48, blocks
+              4/6/6/8, peak only); a BasicVSR
+              restore against the video SR processor alone, then stopped
+              after its first chunk and resumed (byte-equal); 1080p x2plus
+              restores with ``--denoise-method restormer`` and ``--flow-model
+              raft``, the ensemble ``--ensemble FW_fast6_x2,FW_fastvgg_x2``
+              in each strategy, ``outscale=3`` with ``max_enhancement_strength
+              =0.5`` through the API and ``--prompt``, each with its counters
+              and its planes against its parts run alone
   6. times    each kernel by CUDA events beside its plain version, its
               roofline bound and, for the bf16 RDB, K1, tail1, the bf16
               chain and the band conv, cuDNN's F.conv2d (PyTorch has no
@@ -184,6 +203,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -750,7 +770,7 @@ def pre_sr_phase(dev, iters: int, plan_checks: list) -> dict:
         card_ms["warp and blend (with the median)"] = cuda_ms(
             lambda: dn.blend(c, flow_warp(nbs, flow), n_real), iters)
         card_ms["median of 6 x 1080 x 1920"] = cuda_ms(lambda: nanmedian(diff), iters)
-        card_ms["nafnet FW_nafnet_dn"] = cuda_ms(lambda: dn.naf.apply_padded(c[None]), iters)
+        card_ms["nafnet FW_nafnet_dn"] = cuda_ms(lambda: dn.refiner(c[None]), iters)
         card_ms["bilateral"] = cuda_ms(lambda: TemporalDenoiser.bilateral(c[None]), iters)
         cfa = CrossFrameAttention(CFAConfig(radius=1))
         cfa_cpu = CrossFrameAttention(CFAConfig(radius=1), device="cpu")
@@ -1898,6 +1918,444 @@ def engine_phase(tmp: Path, dev, x: dict, archive_src: Path, archive_wdir: Path)
     times["archive_codeformer_wall_seconds"] = wall
     times["seconds"] = round(time.perf_counter() - t0, 3)
     emit({"phase": "engine", **times})
+    return times
+
+
+MODELS_H, MODELS_W = 540, 960  # the video SR and HAT inputs (to 4K)
+MODELS_X2_H, MODELS_X2_W = 1080, 1920  # the x2plus restores and the denoisers' inputs
+MODEL_U8_FRAC = 1e-3           # uint8 card vs CPU: 1 LSB on <= 0.1% (tests/test_torch_hat.py)
+ENSEMBLE = "FW_fast6_x2,FW_fastvgg_x2"
+GUIDED_PROMPT = "sharp warm cinematic grain"
+
+
+def write_model_weights(wdir: Path) -> dict:
+    """Seeded stand-ins: the denoiser's Restormer at JAX's
+    RestormerConfig() (dim 16, not the published 48) and RAFT
+    (raft-things) at its published widths, which read user weights only,
+    and BasicVSR: the registry's own seeded draw with its
+    residual blocks' convs scaled by 0.1, as mmediting initialises
+    ResidualBlockNoBN (the unscaled draw's recurrence grows to ~1e22 over
+    10 frames, in both packages, so its uint8 output says nothing).
+    HAT_SRx4 and TVSR_x4 take the registry's seeded draw."""
+    from framewright_tpu_torch.models import raft, restormer, vsr
+    from framewright_tpu_torch.models.registry import MODEL_SPECS, write_npz
+
+    write_npz(restormer.init_params(restormer.RestormerConfig(), 81), wdir / "restormer.npz")
+    write_npz(raft.init_params(raft.RAFTConfig(), 82), wdir / "raft-things.npz")
+    bv = vsr.init_params(MODEL_SPECS["BasicVSR"].arch_config, 0)
+    for direction in ("backward", "forward"):
+        for conv in ("conv1", "conv2"):
+            for k in ("w", "b"):
+                bv[direction][conv][k] *= np.float32(0.1)
+    write_npz(bv, wdir / "BasicVSR.npz")
+    return {"restormer": "init_params(RestormerConfig(), 81)",
+            "raft-things": "init_params(RAFTConfig(), 82)",
+            "BasicVSR": "init_params(BasicVSRConfig(), 0), residual convs x 0.1"}
+
+
+def models_phase(tmp: Path, dev, x: dict) -> dict:
+    """The other SR and flow models (slice 11) on seeded weights, at their
+    published widths but Restormer's (JAX's RestormerConfig()). -> times.
+
+    - each model on the card against the port's CPU run on a crop, both in
+      f32 without TF32: HAT_SRx4 (48x64), BasicVSR and TVSR_x4 (a window of
+      10 frames of 64x64), Restormer (128x128): uint8 within 1 LSB on at
+      most 0.1% of the values; RAFT (iters 8, a 128x128 pair): the flow
+      within 1e-3 px;
+    - their times on the card (CUDA events) and peaks against the
+      planner: HAT_SRx4 through the SR processor on 2 frames of 960x540 to
+      4K (bf16), and tiled at 128 on a 192x256 frame (4 tiles, 400
+      attention windows: below a full chunk of 512), BasicVSR and TVSR_x4
+      through the video SR processor on 10 frames of 960x540 (chunk 8,
+      overlap 2), Restormer on a 1080p frame at RestormerConfig() and at
+      the published widths (dim 48, blocks 4/6/6/8, refinement 4; peak
+      against the row its config plans) and RAFT on the pairs a 1080p step
+      holds (f32);
+    - restores, every counter set to 0 just before and read just after:
+      a BasicVSR restore of the 10 frames against the processor run alone
+      on the pre-SR stream, then stopped after its first chunk and resumed
+      (byte-equal to straight); ``--denoise --denoise-method restormer``
+      and ``--denoise --flow-model raft`` on 4 and 3 frames of 1080p x2plus
+      (69/1/1 a batch; planes equal to the pre-SR stream then the kernel
+      path); on 2 frames the ensemble ``--model RealESRGAN_x2plus --ensemble
+      FW_fast6_x2,FW_fastvgg_x2`` in each strategy (rows 1-3 for both RRDB
+      members, K2 in rgb_u8, row 10 for the chain; the output equal to the
+      vote of the members run alone); ``outscale=3`` with
+      ``max_enhancement_strength=0.5`` through the API (the float path, K2
+      in bf16; equal to the cap and the bicubic resize computed alone); and
+      ``--prompt`` (equal to the backend on the kernel path's frames)."""
+    import torch
+
+    from framewright_tpu_torch import planner
+    from framewright_tpu_torch.config import Config
+    from framewright_tpu_torch.hw import full_f32
+    from framewright_tpu_torch.io.y4m import Y4MReader, Y4MWriter
+    from framewright_tpu_torch.models import hat, raft, restormer, tvsr, vsr
+    from framewright_tpu_torch.models.layers import (
+        mul_weak,
+        out_epilogue,
+        resize_bicubic,
+        resize_bilinear,
+        tree_to_torch,
+    )
+    from framewright_tpu_torch.models.registry import MODEL_SPECS, load_aux, load_params
+    from framewright_tpu_torch.processors.base import to_uint8
+    from framewright_tpu_torch.processors.guided import GuidedConfig, make_backend
+    from framewright_tpu_torch.processors.super_resolution import SRConfig, SuperResolution
+    from framewright_tpu_torch.processors.video_sr import VideoSuperResolution, VSRConfig
+    from framewright_tpu_torch.restorer import VideoRestorer, pre_sr_reserve
+    from framewright_tpu_torch.testing import EnsembleSR
+
+    t_phase = time.perf_counter()
+    cli_run, reset, read, model = x["cli_run"], x["reset_counters"], x["read_counters"], x["model"]
+    cpu = torch.device("cpu")
+    wdir = tmp / "model_weights"
+    emit({"phase": "models", "weights": write_model_weights(wdir)})
+    times: dict = {}
+
+    def u8(t):
+        return to_uint8(t.float().clamp(0.0, 1.0))
+
+    def card_vs_cpu(label, fn, inputs, flow=False):
+        """fn(device, *inputs on it) in f32 on the card and on the CPU."""
+        with full_f32(), torch.no_grad():
+            got = fn(dev, *[t.to(dev) for t in inputs]).cpu()
+            want = fn(cpu, *inputs)
+        if flow:
+            d = (got - want).abs()
+            s = {"name": f"{label} flow, card vs CPU", "max_abs_px": d.max().item(),
+                 "mean_abs_px": d.mean().item(), "tol": {"max_abs_px": FLOW_MAX_PX}}
+            emit({"phase": "models", **s})
+            require(s["max_abs_px"] <= FLOW_MAX_PX, f"{label}: {s}")
+        else:
+            check_u8(f"{label} uint8, card vs CPU", u8(got), u8(want), "models", MODEL_U8_FRAC)
+
+    def crop(n, h, w, seed):
+        return torch.from_numpy(synthetic_frames(n, h, w, seed, **PROGRESSIVE)).float() / 255.0
+
+    # -- each model, card vs CPU on a crop ------------------------------------
+    t0 = time.perf_counter()
+    trees = {}
+    for name in ("HAT_SRx4", "BasicVSR", "TVSR_x4"):
+        spec, trees[name], src = load_params(name, wdir)
+        emit({"phase": "models", "model": name, "weights": src,
+              "arch": dataclasses.asdict(spec.arch_config)})
+    for name in ("restormer", "raft-things"):
+        spec, trees[name], src = load_aux(name, wdir)
+        emit({"phase": "models", "model": name, "weights": src,
+              "arch": dataclasses.asdict(spec.arch_config)})
+    rcfg = restormer.config_from_params(trees["restormer"])
+    fcfg = raft.RAFTConfig(iters=8)
+
+    def on(name, device):
+        return tree_to_torch(trees[name], device)
+
+    card_vs_cpu("HAT_SRx4", lambda d, v: hat.apply(on("HAT_SRx4", d), v,
+                                                   MODEL_SPECS["HAT_SRx4"].arch_config),
+                [crop(1, 48, 64, 71)])
+    for name, mod in (("BasicVSR", vsr), ("TVSR_x4", tvsr)):
+        card_vs_cpu(name, lambda d, v, name=name, mod=mod: mod.apply(
+            on(name, d), v[None], MODEL_SPECS[name].arch_config)[0], [crop(10, 64, 64, 72)])
+    card_vs_cpu("restormer", lambda d, v: restormer.apply_padded(on("restormer", d), v, rcfg),
+                [crop(1, 128, 128, 73)])
+    pair = crop(2, 128, 128, 74)
+    card_vs_cpu("raft", lambda d, a, b: raft.estimate_flow(on("raft-things", d), a, b, fcfg),
+                [pair[:1], pair[1:]], flow=True)
+    emit({"phase": "models", "name": "card vs CPU crops",
+          "seconds": round(time.perf_counter() - t0, 3)})
+
+    # -- times and peaks at the restore sizes ------------------------------------
+    h, w = MODELS_H, MODELS_W
+    frames540 = synthetic_frames(10, h, w, 75, **PROGRESSIVE)
+    sr = SuperResolution(SRConfig(model_name="HAT_SRx4", weights_dir=str(wdir)))
+    sr.setup(h, w)
+    with torch.no_grad():
+        out, peak = part_peak(lambda: sr.materialize(sr.dispatch(frames540[:2])))
+        ms = cuda_ms(lambda: sr.materialize(sr.dispatch(frames540[:2])), 1, 0) / 2
+    require(out.shape == (2, 4 * h, 4 * w, 3), f"HAT_SRx4 output {out.shape}")
+    plan = sr.plan.with_batch(2).est_bytes
+    times["HAT_SRx4"] = {"ms_per_frame": ms, "plan": dataclasses.asdict(sr.plan),
+                         "planner_bytes_2_frames": plan, "peak_mem_bytes": peak}
+    emit({"phase": "models", "model": "HAT_SRx4 bf16 960x540 -> 4K", **times["HAT_SRx4"]})
+    x["plan_checks"].append(("models HAT_SRx4", peak, plan))
+    sr.teardown()
+    del sr, out
+    # tiled below a full attention chunk: 4 tiles of 128 + 2 x 16 halo,
+    # 100 windows each
+    sr = SuperResolution(SRConfig(model_name="HAT_SRx4", weights_dir=str(wdir), tile_size=128))
+    sr.setup(192, 256)
+    with torch.no_grad():
+        out, peak = part_peak(lambda: sr.materialize(sr.dispatch(
+            np.ascontiguousarray(frames540[:1, :192, :256]))))
+    require(sr.plan.tiled and sr.plan.tiles_per_frame == 4 and out.shape == (1, 768, 1024, 3)
+            and np.isfinite(out).all(), f"tiled HAT_SRx4: {sr.plan}, {out.shape}")
+    plan = sr.plan.with_batch(4).est_bytes
+    times["HAT_SRx4 tiled"] = {"plan": dataclasses.asdict(sr.plan),
+                               "windows": 4 * (sr.plan.tile_extent() // 16) ** 2,
+                               "planner_bytes_4_tiles": plan, "peak_mem_bytes": peak}
+    emit({"phase": "models", "model": "HAT_SRx4 bf16 192x256 tiled at 128",
+          **times["HAT_SRx4 tiled"]})
+    x["plan_checks"].append(("models HAT_SRx4 tiled", peak, plan))
+    sr.teardown()
+    del sr, out
+    for name in ("BasicVSR", "TVSR_x4"):
+        proc = VideoSuperResolution(VSRConfig(model_name=name, weights_dir=str(wdir)))
+        proc.setup(h, w)
+
+        def run(proc=proc):
+            proc.reset_context()
+            return [proc.materialize(proc.dispatch(frames540[i:i + 8])) for i in (0, 8)]
+
+        outs, peak = part_peak(run)
+        ms = cuda_ms(run, 1, 0) / 10
+        require([o.shape for o in outs] == [(8, 4 * h, 4 * w, 3), (2, 4 * h, 4 * w, 3)],
+                f"{name} outputs {[o.shape for o in outs]}")
+        require(all(np.isfinite(o).all() for o in outs), f"{name}: non-finite output")
+        times[name] = {"ms_per_frame": ms, "planner_bytes": proc.plan.est_bytes,
+                       "peak_mem_bytes": peak}
+        emit({"phase": "models", "model": f"{name} bf16 10 frames 960x540 -> 4K",
+              **times[name]})
+        x["plan_checks"].append((f"models {name}", peak, proc.plan.est_bytes))
+        proc.teardown()
+        del proc, outs
+    hx, wx = MODELS_X2_H, MODELS_X2_W
+    big = torch.from_numpy(synthetic_frames(2, hx, wx, 76, **PROGRESSIVE)).to(dev).float() / 255
+    rp = on("restormer", dev)
+    with full_f32(), torch.no_grad():
+        _, peak = part_peak(lambda: restormer.apply_padded(rp, big[:1], rcfg))
+        ms = cuda_ms(lambda: restormer.apply_padded(rp, big[:1], rcfg), 1, 1)
+    plan = planner.pre_sr_bytes(hx, wx, "restormer", restormer=rcfg)
+    times["restormer"] = {"ms_per_frame": ms, "peak_mem_bytes": peak, "planner_bytes": plan}
+    emit({"phase": "models", "model": "restormer f32 1080p RestormerConfig()",
+          **times["restormer"]})
+    x["plan_checks"].append(("models restormer", peak, plan))
+    del rp
+    pub = restormer.RestormerConfig(dim=48, num_blocks=(4, 6, 6, 8), num_refinement=4)
+    rp = tree_to_torch(restormer.init_params(pub, 83), dev)
+    with full_f32(), torch.no_grad():
+        _, peak = part_peak(lambda: restormer.apply_padded(rp, big[:1], pub))
+        ms = cuda_ms(lambda: restormer.apply_padded(rp, big[:1], pub), 1, 0)
+    plan = planner.pre_sr_bytes(hx, wx, "restormer", restormer=pub)
+    times["restormer published"] = {"ms_per_frame": ms, "peak_mem_bytes": peak,
+                                    "planner_bytes": plan}
+    emit({"phase": "models", "model": "restormer f32 1080p dim 48 blocks 4/6/6/8",
+          **times["restormer published"]})
+    x["plan_checks"].append(("models restormer published", peak, plan))
+    fp = on("raft-things", dev)
+    torch.cuda.empty_cache()
+    pairs = planner.raft_pairs(hx, wx, torch.cuda.mem_get_info(dev)[0], max_pairs=6)
+    a, b = big[:1].expand(pairs, -1, -1, -1), big[1:].expand(pairs, -1, -1, -1)
+    with full_f32(), torch.no_grad():
+        raft.estimate_flow(fp, a[:1], b[:1], fcfg)              # warm-up, one pair
+        ms, peak = part_peak(lambda: cuda_ms(lambda: raft.estimate_flow(fp, a, b, fcfg), 1, 0))
+        ms /= pairs
+    plan = pairs * planner.raft_pair_bytes(hx, wx)
+    times["raft"] = {"ms_per_pair": ms, "pairs": pairs, "peak_mem_bytes": peak,
+                     "planner_bytes": plan}
+    emit({"phase": "models", "model": "raft f32 1080p", **times["raft"]})
+    x["plan_checks"].append(("models raft", peak, plan))
+    del big, rp, fp, a, b
+    torch.cuda.empty_cache()
+
+    # -- restores -------------------------------------------------------------------
+    def clip(name, frames):
+        src = tmp / f"models_{name}.y4m"
+        with Y4MWriter(src, frames.shape[2], frames.shape[1], fps=24) as writer:
+            for f in frames:
+                writer.write_frame(f)
+        with Y4MReader(src) as reader:
+            return src, np.stack(list(reader))
+
+    def planes_of(rgb_frames, path):
+        with Y4MWriter(path, rgb_frames.shape[2], rgb_frames.shape[1], fps=24) as writer:
+            for f in rgb_frames:
+                writer.write_frame(f)
+        return read_y4m_planes(path)[2]
+
+    def same_planes(label, got_path, want_planes):
+        got = read_y4m_planes(got_path)[2]
+        worst = max(int(np.abs(g.astype(np.int16) - w_).max())
+                    for a, b in zip(got, want_planes) for g, w_ in zip(a, b))
+        emit({"phase": "models", "run": label, "name": "written planes vs the parts alone",
+              "frames": [len(got), len(want_planes)], "max_abs": worst, "tol": {"max_abs": 0}})
+        require(len(got) == len(want_planes) and worst == 0,
+                f"{label}: output differs from its parts by {worst}")
+
+    def counts(label, launches, want_nonzero):
+        want = {k: 0 for k in launches}
+        want.update(want_nonzero)
+        require(launches == want, f"{label}: launch counts {launches}, expected {want}")
+
+    def run_cli(label, src, out, argv, n):
+        # the previous runs' cached blocks back to the card: the SR plans
+        # its batch from the card's free memory
+        torch.cuda.empty_cache()
+        reset()
+        t_run = time.perf_counter()
+        rc, summary, peak = cli_run(["restore", str(src), "-o", str(out),
+                                     "--project-dir", str(tmp / f"proj_{out.stem}"), *argv])
+        wall = time.perf_counter() - t_run
+        launches = read()
+        require(rc == 0, f"{label}: exited {rc}")
+        require(summary["errors"] == 0 and summary["frames"] == n,
+                f"{label}: {summary['errors']} errors, {summary['frames']} frames")
+        times[label] = {"wall_seconds": wall, "ms_per_frame": 1e3 * wall / n,
+                        "batch_size": summary["batch_size"], "peak_mem_bytes": peak}
+        emit({"phase": "models", "run": label, "summary": summary, "launches": launches,
+              **times[label]})
+        return summary, launches, peak
+
+    # BasicVSR: straight, against the processor alone, then stopped and resumed
+    src, decoded = clip("vsr", frames540)
+    cfg = Config(sr_model="BasicVSR", scale_factor=4, weights_dir=wdir,
+                 project_dir=tmp / "proj_vsr_api")
+    sr_in, _ = pre_sr_stream_of(cfg, src, decoded)
+    summary, launches, peak = run_cli("BasicVSR restore", src, tmp / "vsr_straight.y4m",
+                                      ["--model", "BasicVSR", "--weights-dir", str(wdir)], 10)
+    counts("BasicVSR restore", launches, {})
+    plan = planner.vsr_bytes(h, w, 10, "basicvsr")
+    x["plan_checks"].append(("models BasicVSR restore", peak, plan))
+    proc = VideoSuperResolution(VSRConfig(weights_dir=str(wdir)))
+    proc.setup(h, w)
+    want = np.concatenate([proc.process_batch(sr_in[i:i + 8]) for i in (0, 8)])
+    proc.teardown()
+    same_planes("BasicVSR restore", tmp / "vsr_straight.y4m",
+                planes_of(want, tmp / "vsr_want.y4m"))
+    del want
+
+    class Stop(Exception):
+        pass
+
+    def stop(info):
+        if info.frames_done >= 8:
+            raise Stop()
+
+    out = tmp / "vsr_resumed.y4m"
+    resumed_cfg = Config(sr_model="BasicVSR", scale_factor=4, weights_dir=wdir,
+                         project_dir=tmp / "proj_vsr_resumed")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            VideoRestorer(resumed_cfg, stop).restore_video(src, out)
+        require(False, "the BasicVSR restore was not stopped")
+    except Stop:
+        pass
+    summary, _, _ = run_cli("BasicVSR resumed", src, out,
+                            ["--model", "BasicVSR", "--weights-dir", str(wdir)], 10)
+    same = out.read_bytes() == (tmp / "vsr_straight.y4m").read_bytes()
+    emit({"phase": "models", "run": "BasicVSR resumed", "resumed_from": summary["resumed_from"],
+          "equal_to_straight": same})
+    require(summary["resumed_from"] == 8 and same,
+            f"BasicVSR resumed at {summary['resumed_from']}, equal to straight: {same}")
+
+    # x2plus 1080p: the denoisers (4 frames; RAFT's 3, 6 pairs), then the
+    # ensemble, the cap with outscale and guided on 2
+    h, w = hx, wx
+    frames1080 = synthetic_frames(4, h, w, 77, **PROGRESSIVE)
+    nw_args = ["--model", "RealESRGAN_x2plus", "--weights-dir", str(wdir)]
+    kernel = x["kernel_path"](model, model.fast_weights())
+    for label, argv, overrides, n in (
+            ("denoise restormer", ["--denoise", "--denoise-method", "restormer"],
+             {"denoise": True, "denoise_model": "restormer"}, 4),
+            ("denoise temporal raft", ["--denoise", "--denoise-method", "temporal",
+                                       "--flow-model", "raft"],
+             {"denoise": True, "denoise_model": "temporal", "flow_model": "raft"}, 3)):
+        src, decoded = clip(f"x2_{n}", frames1080[:n])
+        out = tmp / f"models_{label.replace(' ', '_')}.y4m"
+        summary, launches, peak = run_cli(label, src, out, nw_args + argv, n)
+        bs = summary["batch_size"]
+        batches = summary["batches"]
+        counts(label, launches, {"fused_rdb": 69 * batches, "conv_body_skip": batches,
+                                 "fused_tail": batches})
+        cfg = Config(weights_dir=wdir, **overrides)
+        pairs = summary["pre_sr"]["denoise"].get("flow_pairs", 0)
+        plan = bs * planner.frame_bytes(h, w, 2, "rrdb", "bfloat16", stats=True) \
+            + pre_sr_reserve(cfg, h, w, pairs)
+        x["plan_checks"].append((f"models {label}", peak, plan))
+        require(summary["pre_sr"]["denoise"]["method"] == overrides["denoise_model"],
+                f"{label}: {summary['pre_sr']['denoise']}")
+        sr_in, _ = pre_sr_stream_of(cfg, src, decoded)
+        planes_equal(label, kernel, sr_in, read_y4m_planes(out)[2], bs, dev)
+
+    n = 2
+    src, decoded = clip("x2_2", frames1080[:n])
+    sr_in, _ = pre_sr_stream_of(Config(), src, decoded)
+    for strategy in ("weighted", "median", "max_sharpness"):
+        label = f"ensemble {strategy}"
+        out = tmp / f"models_ens_{strategy}.y4m"
+        summary, launches, peak = run_cli(
+            label, src, out, nw_args + ["--ensemble", ENSEMBLE, "--ensemble-strategy", strategy],
+            n)
+        batches = summary["batches"]
+        counts(label, launches, {"fused_rdb": (69 + 18) * batches,
+                                 "conv_body_skip": 2 * batches, "fused_tail": 2 * batches,
+                                 "fused_conv_chain": 2 * batches})
+        ens = EnsembleSR(["RealESRGAN_x2plus"] + ENSEMBLE.split(","), strategy=strategy,
+                         weights_dir=str(wdir), compute_dtype="bfloat16")
+        ens.setup(h, w)
+        bs = summary["batch_size"]
+        x["plan_checks"].append((f"models {label}", peak, ens.plan.est_bytes))
+        members = [np.concatenate([m.materialize(m.dispatch(sr_in[i:i + bs]))
+                                   for i in range(0, n, bs)]) for m in ens.members]
+        ens.teardown()
+        want = ens.vote(np.stack(members).astype(np.float32))
+        same_planes(label, out, planes_of(want, tmp / "ens_want.y4m"))
+        del members, want, ens
+
+    label = "outscale 3 cap 0.5"
+    cfg = Config(sr_model="RealESRGAN_x2plus", outscale=3.0, max_enhancement_strength=0.5,
+                 weights_dir=wdir, project_dir=tmp / "proj_outscale")
+    out = tmp / "models_outscale.y4m"
+    torch.cuda.empty_cache()
+    reset()
+    t_run = time.perf_counter()
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = VideoRestorer(cfg).restore_video(src, out)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    wall = time.perf_counter() - t_run
+    launches = read()
+    counts(label, launches, {"fused_rdb": 69 * res.batches, "conv_body_skip": res.batches,
+                             "fused_tail": res.batches})
+    require(res.errors == 0 and res.frames_out == n, f"{label}: {res.errors} errors")
+    times[label] = {"wall_seconds": wall, "ms_per_frame": 1e3 * wall / n,
+                    "batch_size": res.batch_size, "peak_mem_bytes": peak}
+    emit({"phase": "models", "run": label, "launches": launches, **times[label]})
+    plan = res.batch_size * planner.frame_bytes(h, w, 2, "rrdb", "bfloat16")
+    x["plan_checks"].append((f"models {label}", peak, plan))
+    wants = []
+    with torch.no_grad():
+        for i in range(0, n, res.batch_size):
+            xs = torch.from_numpy(sr_in[i:i + res.batch_size]).to(dev).to(torch.bfloat16) / 255.0
+            img = model.apply_fast(xs, "bf16", weights=model.fast_weights())
+            base = resize_bilinear(xs.float(), img.shape[1:3]).to(img.dtype)
+            u = out_epilogue(base + mul_weak(img - base, 0.5), "rgb_u8", False)
+            wants.append(to_uint8(resize_bicubic(u.float() / 255.0, (3 * h, 3 * w))).cpu().numpy())
+    require(read_y4m_planes(out)[:2] == (3 * w, 3 * h), f"{label}: output size")
+    same_planes(label, out, planes_of(np.concatenate(wants), tmp / "outscale_want.y4m"))
+    del wants
+
+    label = "prompt"
+    out = tmp / "models_prompt.y4m"
+    summary, launches, peak = run_cli(label, src, out, nw_args + ["--prompt", GUIDED_PROMPT], n)
+    batches = summary["batches"]
+    counts(label, launches, {"fused_rdb": 69 * batches, "conv_body_skip": batches,
+                             "fused_tail": batches})
+    bs = summary["batch_size"]
+    x["plan_checks"].append((f"models {label}", peak,
+                             bs * planner.frame_bytes(h, w, 2, "rrdb", "bfloat16")))
+    backend = make_backend(GuidedConfig(prompt=GUIDED_PROMPT))
+    wants = []
+    with torch.no_grad():
+        for i in range(0, n, bs):
+            xs = torch.from_numpy(sr_in[i:i + bs]).to(dev).to(torch.bfloat16) / 255.0
+            u = model.apply_fast(xs, "rgb_u8", weights=model.fast_weights()).cpu().numpy()
+            wants += [backend.enhance(f) for f in u]
+    same_planes(label, out, planes_of(np.stack(wants), tmp / "prompt_want.y4m"))
+    times["seconds"] = round(time.perf_counter() - t_phase, 3)
+    emit({"phase": "models", "seconds": times["seconds"]})
     return times
 
 
@@ -3232,6 +3690,7 @@ def main(argv=None) -> int:
         archive_times = archive_phase(tmp, dev, x)
         engine_times = engine_phase(tmp, dev, {**x, "nw": nw}, tmp / "archive.y4m",
                                     tmp / "archive_weights")
+        models_times = models_phase(tmp, dev, {**x, "nw": nw, "kernel_path": kernel_path})
     emit({"phase": "restore", "seconds": round(time.perf_counter() - t0, 3)})
     launches = launches_by_run["RealESRGAN_x2plus bfloat16"]
 
@@ -3495,7 +3954,8 @@ def main(argv=None) -> int:
           "pre_sr": pre_sr_times, "pre_sr_restores": pre_sr_walls, "native_ms": native_ms,
           "film": film_times, "tools": tools,
           "formats": {k: v["wall_seconds"] for k, v in formats.items()},
-          "archive": archive_times, "engine": engine_times, "c5": {k: c5[k] for k in ("enqueue_ms_per_dispatch",
+          "archive": archive_times, "engine": engine_times,
+          "models": {k: v for k, v in models_times.items() if k != "seconds"}, "c5": {k: c5[k] for k in ("enqueue_ms_per_dispatch",
                                                         "quality_busy_share",
                                                         "quality_busy_share_unprofiled",
                                                         "steady_ms_per_frame")}})

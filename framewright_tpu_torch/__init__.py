@@ -15,7 +15,11 @@ bf16, float32 or int8, through hand-written Hopper kernels
 and long-form drift correction, the ``quality`` preset's temporal
 denoiser and cross-frame attention before SR, deduplication, film repair
 and grain, and the ``archive`` preset's face restoration (GFPGAN,
-RetinaFace) and frame interpolation (IFNet) after it. Entry points
+RetinaFace) and frame interpolation (IFNet) after it; HAT_SRx4, the
+video SR models BasicVSR and TVSR_x4, the SR ensemble, ``outscale``, the
+enhancement cap and guided enhancement, and the denoiser's Restormer and
+RAFT, in plain PyTorch (no kernel of their own, as they are XLA in
+JAX). Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``; on the CPU
 every kernel wrapper runs its plain PyTorch version instead.
 """

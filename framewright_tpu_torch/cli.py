@@ -2,11 +2,13 @@
 
     python -m framewright_tpu_torch.cli restore IN -o OUT \\
         [--preset fast|quality|archive|ultimate] \\
-        [--model RealESRGAN_x2plus|realesr-animevideov3|...] \\
+        [--model RealESRGAN_x2plus|realesr-animevideov3|HAT_SRx4|BasicVSR|...] \\
+        [--ensemble M1,M2] [--ensemble-strategy weighted|median|max_sharpness] \\
+        [--max-enhancement S] [--prompt P] [--style S] [--reference-dir DIR] \\
         [--dtype bfloat16|float32|int8] \\
-        [--denoise] [--denoise-method auto|temporal|nafnet|bilateral] \\
+        [--denoise] [--denoise-method auto|temporal|nafnet|restormer|bilateral] \\
         [--temporal-consistency] [--temporal-model attention|ema] \\
-        [--flow-model ifnet] [--long-form auto|on|off] \\
+        [--flow-model ifnet|raft] [--long-form auto|on|off] \\
         [--deduplicate] [--defect-repair] \\
         [--grain auto|off|preserve|remove|match] \\
         [--interpolate] [--target-fps F] \\
@@ -42,6 +44,15 @@ restores faces after SR (``gfpgan``: ``<weights-dir>/GFPGANv1.4.npz``;
 ``--face-model codeformer`` restores them with CodeFormer
 (``<weights-dir>/CodeFormer.npz``, or sczhou's ``CodeFormer.pth``;
 ``--face-fidelity`` is its w);
+``--model HAT_SRx4`` runs HAT (``<weights-dir>/HAT_SRx4.npz`` or the
+published ``.pth``, else seeded weights), ``BasicVSR`` and ``TVSR_x4``
+the chunked video SR (chunks of 8 frames and 2 of context, dedup's
+mapping bypassed); ``--ensemble`` votes extra SR models of the same scale
+with ``--model``; ``--max-enhancement`` lerps the SR output toward the
+bilinear upscale; ``--prompt``, ``--style`` and ``--reference-dir`` steer
+the guided enhancement after SR. ``--denoise-method restormer`` needs
+``<weights-dir>/restormer.npz`` and ``--flow-model raft``
+``raft-things.npz`` (or princeton-vl's ``.pth``).
 ``--interpolate`` raises the frame rate by a power of two with IFNet
 (``<weights-dir>/rife-v4.6.npz``), from the deduplicated cadence when
 ``--deduplicate`` found one; ``--preset archive`` and ``ultimate`` run
@@ -89,7 +100,11 @@ def cmd_restore(args: argparse.Namespace) -> int:
             "face_restore": args.face_restore, "face_model": args.face_model,
             "face_fidelity": args.face_fidelity, "output_format": args.output_format,
             "codec": args.codec, "crf": args.crf, "encode_preset": args.encode_preset,
-            "min_vmaf": args.min_vmaf, "dry_run": args.dry_run})
+            "min_vmaf": args.min_vmaf, "dry_run": args.dry_run,
+            "sr_ensemble": args.sr_ensemble, "ensemble_strategy": args.ensemble_strategy,
+            "max_enhancement_strength": args.max_enhancement_strength,
+            "sr_prompt": args.sr_prompt, "sr_style_preset": args.sr_style_preset,
+            "reference_images_dir": args.reference_images_dir})
         last = {"stage": None}
 
         def on_progress(info: ProgressInfo) -> None:
@@ -150,9 +165,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="a JAX preset's fields; the flags below override them")
     p.add_argument("--model", default=None,
                    help="a model of the registry: RRDB (RealESRGAN_x2plus, the "
-                        "default, RealESRGAN_x4plus, ...) or SRVGG "
+                        "default, RealESRGAN_x4plus, ...), SRVGG "
                         "(realesr-animevideov3, realesr-general-x4v3, "
-                        "FW_fastvgg_x2, ...); the scale is the model's")
+                        "FW_fastvgg_x2, ...), HAT_SRx4, or the video SR models "
+                        "BasicVSR and TVSR_x4; the scale is the model's")
+    p.add_argument("--ensemble", dest="sr_ensemble",
+                   help="comma list of extra SR models to ensemble with --model")
+    p.add_argument("--ensemble-strategy", dest="ensemble_strategy",
+                   choices=("weighted", "median", "max_sharpness"))
+    p.add_argument("--max-enhancement", dest="max_enhancement_strength", type=float,
+                   help="authenticity guard: cap enhancement blend (0-1)")
+    p.add_argument("--prompt", dest="sr_prompt",
+                   help="guided enhancement style prompt (e.g. 'sharp warm cinematic grain')")
+    p.add_argument("--style", dest="sr_style_preset",
+                   help="named style preset (natural, cinematic, anime, vintage, "
+                        "documentary, portrait)")
+    p.add_argument("--reference-dir", dest="reference_images_dir",
+                   help="match color/grain statistics to the *.png stills in this dir")
     p.add_argument("--dtype", default=None, choices=("bfloat16", "float32", "int8"),
                    help="compute dtype (float32: f32 weights and head, the "
                         "RRDB body and tail on the bf16 kernels, SRVGG's plain "
@@ -163,12 +192,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--denoise-method", dest="denoise_model",
                    choices=("auto", "temporal", "nafnet", "restormer", "bilateral"),
                    help="auto profiles the noise and picks the method and "
-                        "strength (restormer is not ported yet)")
+                        "strength; restormer needs <weights-dir>/restormer.npz")
     p.add_argument("--temporal-consistency", action="store_true", default=None,
                    help="flicker reduction before SR")
     p.add_argument("--temporal-model", choices=("attention", "ema"))
     p.add_argument("--flow-model", choices=("ifnet", "raft"),
-                   help="the denoiser's alignment flow net (raft is not ported yet)")
+                   help="the denoiser's alignment flow net (raft: "
+                        "<weights-dir>/raft-things.npz or .pth)")
     p.add_argument("--long-form", choices=("auto", "on", "off"),
                    help="global anchor drift correction for long videos")
     p.add_argument("--deduplicate", action="store_true", default=None,

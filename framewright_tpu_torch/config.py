@@ -6,9 +6,13 @@ the two the port adds (``weights_dir``, ``max_frames``); the JAX presets
 JAX CLI resolves them).
 
 A stage the port does not run yet raises ``ConfigError`` naming its
-ROADMAP.md item when it is switched on (``denoise_model="restormer"``,
-``flow_model="raft"``: A6c); it never runs silently without it.
-``colorize`` is accepted off.
+ROADMAP.md item when it is switched on (``temporal_model="latent"``:
+A10; ``colorize``: A10b); it never runs silently without it.
+``colorize`` is accepted off. The SR ensemble (``sr_ensemble``,
+``ensemble_strategy``), ``outscale``, the enhancement cap
+(``max_enhancement_strength``) and guided enhancement (``sr_prompt``,
+``sr_style_preset``, ``reference_images_dir``, ``reference_strength``,
+``guidance_scale``) have JAX's names, defaults and validation.
 ``codec``, ``crf``, ``encode_preset`` and ``pixel_format`` reach the
 ffmpeg writer; the Y4M and PNG writers ignore them, as the JAX ones do."""
 
@@ -19,7 +23,7 @@ import hashlib
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 from framewright_tpu_torch.errors import ConfigError
 
@@ -115,7 +119,13 @@ class Config:
                                           # frame that does not fit at batch 1)
     tile_overlap: int = 8                 # halo pixels a tile edge (0: the
                                           # family's receptive overlap)
-    batch_size: int = 0                   # frames per device step; 0 = auto
+    batch_size: int = 0                   # frames per device step; 0 = auto (a VSR
+                                          # model's chunk: 0 = 8)
+    outscale: float = 0.0                 # final bicubic resize factor; 0 = the model's
+    sr_ensemble: str = ""                 # comma list of SR models voted with sr_model
+    ensemble_strategy: str = "weighted"   # weighted|median|max_sharpness
+    max_enhancement_strength: float = 1.0  # < 1 lerps the SR output toward the
+                                           # plain upscale (authenticity guard)
     weights_dir: Optional[Path] = None    # <name>.npz here, else packaged/random
     max_frames: int = 0                   # 0 = the whole clip
 
@@ -161,6 +171,13 @@ class Config:
     interpolation_model: str = "rife-v4.6"   # <weights_dir>/<name>.npz
     interpolation_passes: int = 1
     scene_change_skip: bool = True        # hold the left frame across a cut
+
+    # --- Guided enhancement (after SR and the gate, before grain) ---------------
+    sr_prompt: str = ""                   # style prompt (a controlled vocabulary)
+    sr_style_preset: str = ""             # a processors/guided.py STYLE_PRESETS name
+    guidance_scale: float = 5.0           # the diffusion backend's (not ported: A8)
+    reference_images_dir: Optional[Path] = None  # *.png stills to match
+    reference_strength: float = 0.5       # statistics-transfer blend
 
     # --- Faces (after SR, before the gate) --------------------------------------
     face_restore: bool = False
@@ -208,6 +225,8 @@ class Config:
             self.output_path = Path(self.output_path)
         if self.weights_dir is not None:
             self.weights_dir = Path(self.weights_dir)
+        if self.reference_images_dir is not None:
+            self.reference_images_dir = Path(self.reference_images_dir)
         self.work_dir = self.project_dir / "work"
         self.checkpoint_dir = self.project_dir / "checkpoints"
         self._validate()
@@ -240,6 +259,16 @@ class Config:
             raise ConfigError("tile_overlap must be >= 0")
         if self.stage_max_retries < 0:
             raise ConfigError("stage_max_retries must be >= 0")
+        if self.ensemble_strategy not in ("weighted", "median", "max_sharpness"):
+            raise ConfigError("ensemble_strategy must be weighted|median|max_sharpness")
+        for name in self.ensemble_models():
+            if name not in MODEL_SPECS:
+                raise ConfigError(f"Unknown ensemble model {name!r}; the port runs "
+                                  f"{sorted(MODEL_SPECS)}")
+        if not (0.0 <= self.max_enhancement_strength <= 1.0):
+            raise ConfigError("max_enhancement_strength must be in [0, 1]")
+        if self.outscale < 0:
+            raise ConfigError("outscale must be >= 0")
         self._validate_pre_sr()
         self._validate_post_sr()
 
@@ -264,12 +293,6 @@ class Config:
             raise ConfigError("dedup_similarity must be in [0, 1]")
         if self.grain_mode not in _VALID_GRAIN:
             raise ConfigError("grain_mode must be auto|off|preserve|remove|match")
-        if self.denoise and self.denoise_model == "restormer":
-            raise ConfigError("denoise_model='restormer' needs models/restormer, not "
-                              "ported yet: ROADMAP.md A6")
-        if self.denoise and self.flow_model == "raft":
-            raise ConfigError("flow_model='raft' needs models/raft, not ported yet: "
-                              "ROADMAP.md A6")
         if self.temporal_model == "latent":
             raise ConfigError("temporal_model='latent' needs processors/latent_temporal, "
                               "not ported yet: ROADMAP.md A10")
@@ -290,6 +313,17 @@ class Config:
         if self.colorize:
             raise ConfigError("colorize needs processors/colorize, not ported yet: "
                               "ROADMAP.md A10b")
+        if self.sr_style_preset:
+            from framewright_tpu_torch.processors.guided import STYLE_PRESETS
+
+            if self.sr_style_preset not in STYLE_PRESETS:
+                raise ConfigError(f"sr_style_preset must be one of {sorted(STYLE_PRESETS)}")
+        if self.guidance_scale <= 0:
+            raise ConfigError("guidance_scale must be > 0")
+
+    def ensemble_models(self) -> List[str]:
+        """Extra SR models voted with ``sr_model`` (may be empty)."""
+        return [m.strip() for m in self.sr_ensemble.split(",") if m.strip()]
 
     def to_dict(self) -> Dict[str, Any]:
         out = {}

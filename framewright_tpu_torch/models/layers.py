@@ -170,3 +170,62 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     torch's) and upward (``jax.image.resize(linear)``, whose dropped
     outside taps give torch's clamp)."""
     return resize_bilinear_nchw(x.permute(0, 3, 1, 2), out_hw).permute(0, 2, 3, 1)
+
+
+def tree_to_torch(params, device, dtype: torch.dtype = torch.float32):
+    """A JAX-layout parameter tree (nested dicts and lists of numpy arrays,
+    None leaves kept) -> the same tree of tensors on ``device``: a conv's
+    HWIO ``w`` (4-D) becomes OIHW, a stack of them (5-D, leading axis the
+    stack) (n, O, I, kh, kw); floating leaves are cast to ``dtype``. Conv
+    weights are stored channels-last (each of a stack's too), as ``conv``
+    passes NHWC activations: cuDNN then runs NHWC implicit-GEMM kernels,
+    not its NCHW FFT algorithms with their large workspaces."""
+    def leaf(key, a):
+        a = np.asarray(a)
+        if key == "w" and a.ndim == 4:            # (kh, kw, I, O) -> (O, kh, kw, I)
+            t = torch.from_numpy(np.array(a.transpose(3, 0, 1, 2), order="C"))
+            t = t.permute(0, 3, 1, 2)
+        elif key == "w" and a.ndim == 5:          # (n, kh, kw, I, O) -> (n, O, kh, kw, I)
+            t = torch.from_numpy(np.array(a.transpose(0, 4, 1, 2, 3), order="C"))
+            t = t.permute(0, 1, 4, 2, 3)
+        else:
+            t = torch.from_numpy(np.array(a, order="C"))
+        return t.to(device=device, dtype=dtype if t.is_floating_point() else t.dtype)
+
+    def walk(node, key=""):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, key) for v in node]
+        return None if node is None else leaf(key, node)
+
+    return walk(params)
+
+
+def conv(p, x: torch.Tensor, stride: int = 1, padding=None, groups: int = 1) -> torch.Tensor:
+    """A convolution of NHWC ``x`` with ``p["w"]`` (OIHW, from
+    ``tree_to_torch``) and ``p["b"]`` when present, in x's dtype: JAX's
+    ``padding="SAME"`` at stride 1 (kh // 2, kw // 2) unless ``padding``
+    (an int or an (h, w) pair) is given."""
+    w = p["w"]
+    if padding is None:
+        padding = (w.shape[2] // 2, w.shape[3] // 2)
+    b = p.get("b")
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype), None if b is None else b.to(x.dtype),
+                 stride=stride, padding=padding, groups=groups)
+    return y.permute(0, 2, 3, 1)
+
+
+def linear(p, x: torch.Tensor) -> torch.Tensor:
+    """``x @ p["w"] + p["b"]`` (w (in, out), as the JAX trees hold it),
+    in x's dtype."""
+    return torch.matmul(x, p["w"].to(x.dtype)) + p["b"].to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """The JAX transformers' LayerNorm over the last axis, in x's dtype
+    (mean, the mean of squared deviations, ``rsqrt``), op for op."""
+    m = x.mean(-1, keepdim=True)
+    v = ((x - m) ** 2).mean(-1, keepdim=True)
+    return (x - m) * torch.rsqrt(v + eps) * g.to(x.dtype) + b.to(x.dtype)

@@ -1,6 +1,7 @@
-"""The RRDB and SRVGG rows of the model table, the temporal denoiser's
-NAFNet row, weight loading, and the bridge from the JAX package's
-parameter pytrees to the port's state dicts.
+"""The RRDB, SRVGG, HAT and video-SR rows of the model table, the
+temporal denoiser's NAFNet, Restormer and RAFT rows, weight loading, and
+the bridge from the JAX package's parameter pytrees to the port's state
+dicts.
 
 Weights resolve like ``framewright_tpu.models.registry.init_model``:
 ``<weights_dir>/<name>.npz`` (the JAX package's export format), a
@@ -22,6 +23,17 @@ weights; ROADMAP.md, "JAX faults the port must not copy"). CodeFormer
 also reads sczhou's released ``CodeFormer.pth``, whose names are its
 module's. ``write_npz`` writes a parameter tree in the JAX package's
 ``.npz`` layout.
+
+The models that run functionally over the JAX tree (``HAT_SRx4``,
+``BasicVSR``, ``TVSR_x4``; the denoiser's ``restormer`` and
+``raft-things``) load as that tree of numpy arrays (``load_params``,
+``load_aux``; ``from_jax_params`` passes such a tree through as f32
+numpy): the SR rows from ``<name>.npz``, a published ``.pth`` through the
+model module's ``port_state_dict`` (HAT, BasicVSR; RAFT's
+``raft-things.pth``), else a seeded numpy draw at the row's widths (the
+JAX package draws its own; ``TVSR_x4`` has no published checkpoint).
+Restormer and RAFT read user weights only: ``<weights_dir>/restormer.npz``
+and ``raft-things.npz`` or ``.pth``, else ``InputError``.
 """
 
 from __future__ import annotations
@@ -36,7 +48,7 @@ import numpy as np
 import torch
 
 from framewright_tpu_torch.errors import ConfigError, InputError
-from framewright_tpu_torch.models import codeformer
+from framewright_tpu_torch.models import codeformer, hat, raft, restormer, tvsr, vsr
 from framewright_tpu_torch.models.codeformer import CodeFormerConfig
 from framewright_tpu_torch.models.gfpgan import GFPGANConfig
 from framewright_tpu_torch.models.gfpgan import config_from_params as gfpgan_config_from_params
@@ -53,10 +65,12 @@ _SRVGG_URL = "https://github.com/xinntao/Real-ESRGAN/releases/download/v0.2.5.0/
 @dataclass(frozen=True)
 class ModelSpec:
     name: str
-    family: str                   # rrdb | srvgg | nafnet | ifnet | face | detector
+    family: str                   # rrdb | srvgg | hat | basicvsr | tvsr | nafnet |
+                                  # restormer | flow | ifnet | face | codeformer | detector
     scale: int
     arch_config: Union[RRDBConfig, SRVGGConfig, NAFNetConfig, IFNetConfig, GFPGANConfig,
-                       CodeFormerConfig, RetinaFaceConfig]
+                       CodeFormerConfig, RetinaFaceConfig, hat.HATConfig, vsr.BasicVSRConfig,
+                       tvsr.TVSRConfig, restormer.RestormerConfig, raft.RAFTConfig]
     url: str = ""
 
 
@@ -74,7 +88,18 @@ MODEL_SPECS: Dict[str, ModelSpec] = {s.name: s for s in (
               _SRVGG_URL + "realesr-animevideov3.pth"),
     ModelSpec("realesr-general-x4v3", "srvgg", 4, SRVGGConfig(num_conv=32, scale=4),
               _SRVGG_URL + "realesr-general-x4v3.pth"),
+    # framewright_tpu/models/registry.py:148-184
+    ModelSpec("HAT_SRx4", "hat", 4, hat.official_config(),
+              "https://github.com/XPixelGroup/HAT/releases/download/v0.1.0/HAT_SRx4.pth"),
+    ModelSpec("BasicVSR", "basicvsr", 4, vsr.BasicVSRConfig(),
+              "https://download.openmmlab.com/mmediting/restorers/basicvsr/"
+              "basicvsr_reds4_20120409-0e599677.pth"),
+    ModelSpec("TVSR_x4", "tvsr", 4, tvsr.TVSRConfig()),
 )}
+# the families that run on their JAX tree (``load_params``) and the module
+# of each; the video SR families run through ``processors.video_sr``
+TREE_MODULES = {"hat": hat, "basicvsr": vsr, "tvsr": tvsr}
+VSR_FAMILIES = ("basicvsr", "tvsr")
 
 # models that are not super-resolution (framewright_tpu/models/registry.py:
 # 185-245): the temporal denoiser's NAFNet, trained in this repository;
@@ -92,6 +117,13 @@ AUX_SPECS: Dict[str, ModelSpec] = {s.name: s for s in (
               "https://github.com/sczhou/CodeFormer/releases/download/v0.1.0/codeformer.pth"),
     ModelSpec("RetinaFace_mnet025", "detector", 1, RetinaFaceConfig(),
               "https://github.com/biubug6/Pytorch_Retinaface (mobilenet0.25_Final.pth)"),
+    # the temporal denoiser's restormer method (framewright_tpu/processors/
+    # temporal_denoise.py:170-209: RestormerConfig() once weighted) and its
+    # RAFT flow (registry.py:232-238)
+    ModelSpec("restormer", "restormer", 1, restormer.RestormerConfig(),
+              "https://github.com/swz30/Restormer (a denoising checkpoint, ported to .npz)"),
+    ModelSpec("raft-things", "flow", 1, raft.RAFTConfig(),
+              "https://dl.dropboxusercontent.com/s/4j4z58wuv8o0mfz/models.zip"),
 )}
 # the alignment IFNet's weights: ifnet.init(PRNGKey(1), ALIGN_ARCH) of the
 # JAX package, written by scripts/export_align_ifnet.py
@@ -194,10 +226,10 @@ def init_params(cfg: Union[RRDBConfig, SRVGGConfig], seed: int = 0) -> Dict[str,
 
 
 def write_npz(params: Dict[str, Any], path: Path) -> Path:
-    """A parameter tree (nested dicts and lists of numpy arrays) -> the
-    JAX package's ``.npz`` layout (``torch_port.export_npz``: dotted keys,
-    list indices as components), written to a temporary name, then
-    renamed."""
+    """A parameter tree (nested dicts and lists of numpy arrays, None
+    leaves) -> the JAX package's ``.npz`` layout (``torch_port.export_npz``:
+    dotted keys, list indices as components, ``.__none__`` markers),
+    written to a temporary name, then renamed."""
     flat: Dict[str, np.ndarray] = {}
 
     def walk(node, prefix):
@@ -207,6 +239,8 @@ def write_npz(params: Dict[str, Any], path: Path) -> Path:
         elif isinstance(node, (list, tuple)):
             for i, v in enumerate(node):
                 walk(v, f"{prefix}.{i}")
+        elif node is None:              # an optional leaf: a zero-size marker
+            flat[prefix + ".__none__"] = np.zeros((0,), np.int8)
         else:
             flat[prefix] = np.asarray(node)
 
@@ -289,6 +323,8 @@ def from_jax_params(params: Dict[str, Any],
     def tensor(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a, np.float32, order="C")).to(dtype)
 
+    if _runs_on_the_tree(params):
+        return _np_tree(params)
     if "stylegan_decoder" in params or "stage1" in params:
         return _tree_state_dict(params, tensor)
     if "codebook" in params:     # CodeFormer: sczhou's names
@@ -357,6 +393,54 @@ def from_jax_params(params: Dict[str, Any],
     return sd
 
 
+def _runs_on_the_tree(params: Dict[str, Any]) -> bool:
+    """Whether a JAX tree is one of the models that run functionally on it
+    (Restormer, RAFT, HAT, BasicVSR, TVSR), by its top-level names."""
+    return any(k in params for k in ("embed", "fnet", "patch_norm", "spynet", "pairs"))
+
+
+def _np_tree(node):
+    """A JAX tree with every leaf as an f32 numpy array (None kept)."""
+    if isinstance(node, dict):
+        return {k: _np_tree(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_np_tree(v) for v in node]
+    return None if node is None else np.array(node, np.float32)
+
+
+def load_params(name: str, weights_dir: Optional[Path] = None, seed: int = 0
+                ) -> Tuple[ModelSpec, Dict[str, Any], str]:
+    """An SR row that runs on its JAX tree (HAT, BasicVSR, TVSR) -> (spec,
+    the tree in f32 numpy, source label): ``<weights_dir>/<name>.npz``, the
+    published ``.pth`` through the model module's ``port_state_dict``, or a
+    seeded numpy draw at the row's widths."""
+    spec = get_model(name)
+    wdir = Path(weights_dir) if weights_dir else default_weights_dir()
+    npz, pth = wdir / f"{name}.npz", wdir / f"{name}.pth"
+    if npz.is_file():
+        return spec, _np_tree(_read_checkpoint(npz)), str(npz)
+    arch = spec.arch_config
+    if pth.is_file() and spec.family != "tvsr":
+        sd = _torch_load(pth)
+        tree = (hat.port_state_dict(sd, arch.depths, arch.scale) if spec.family == "hat"
+                else vsr.port_state_dict(sd, arch.num_blocks, arch.spynet_levels))
+        return spec, tree, str(pth)
+    return spec, TREE_MODULES[spec.family].init_params(arch, seed), f"random(seed={seed})"
+
+
+def _torch_load(path: Path) -> Dict[str, torch.Tensor]:
+    """A ``.pth`` state dict (``params_ema`` / ``params`` / ``state_dict``
+    unwrapped); an unreadable file raises ``InputError``."""
+    try:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception as exc:  # noqa: BLE001 - zip or pickle faults
+        raise InputError(f"unreadable checkpoint {path}: {exc}") from exc
+    for key in ("params_ema", "params", "state_dict"):
+        if isinstance(sd, dict) and key in sd and isinstance(sd[key], dict):
+            return sd[key]
+    return sd
+
+
 def bf16_masters(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Every weight and bias rounded to bf16 once, kept in f32 storage.
     The JAX restore path casts its master parameters to bf16 on the host
@@ -398,7 +482,7 @@ def aux_path(name: str, weights_dir: Optional[Path] = None) -> Optional[Path]:
         if npz.is_file():
             return npz
     pth = wdir / f"{name}.pth"
-    if AUX_SPECS.get(name) is not None and AUX_SPECS[name].family == "codeformer" \
+    if AUX_SPECS.get(name) is not None and AUX_SPECS[name].family in ("codeformer", "flow") \
             and pth.is_file():
         return pth
     return None
@@ -415,6 +499,8 @@ def load_aux(name: str, weights_dir: Optional[Path] = None,
     spec = AUX_SPECS[name]
     wdir = Path(weights_dir) if weights_dir else default_weights_dir()
     npz = aux_path(name, wdir)
+    if npz is not None and npz.suffix == ".pth" and spec.family == "flow":
+        return spec, raft.port_state_dict(_torch_load(npz)), str(npz)
     if npz is not None and npz.suffix == ".pth":    # sczhou's names: the module's
         try:
             sd = torch.load(npz, map_location="cpu", weights_only=True)
@@ -429,6 +515,8 @@ def load_aux(name: str, weights_dir: Optional[Path] = None,
             spec = dataclasses.replace(spec, arch_config=gfpgan_config_from_params(params))
         elif spec.family == "codeformer":
             spec = dataclasses.replace(spec, arch_config=codeformer.config_from_params(params))
+        elif spec.family == "restormer":     # the widths the checkpoint has
+            spec = dataclasses.replace(spec, arch_config=restormer.config_from_params(params))
         return spec, from_jax_params(params, dtype), str(npz)
     raise InputError(f"No weights for {name!r}: {wdir / (name + '.npz')} is missing (the "
                      f"JAX package's .npz layout; the port never draws them at random). "

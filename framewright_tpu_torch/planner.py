@@ -26,6 +26,16 @@ face restorer's (``face_bytes``: its model's weights, one crop's
 activations, and RetinaFace on a whole output frame when it detects).
 The interpolate stage runs after the SR processor has released its
 memory and plans its own pair batch (``interpolation_pairs``).
+
+The models without a kernel: HAT (``hat``: bytes per input pixel, and
+its attention chunk, which grows with the windows of a dispatch up to
+512 and then stays; ``Plan.chunk_bytes``), the video SR window
+(``vsr_bytes``: BasicVSR or TVSR over ``window`` frames, which the video
+SR processor holds against the free memory), the denoiser's Restormer (a
+pre-SR row at the checkpoint's widths, ``restormer_bytes_per_px``) and
+RAFT, whose correlation volume grows with the square of the pixels
+(``raft_pair_bytes``; ``raft_pairs`` is the number of pairs a denoiser
+step may hold, and ``pre_sr_bytes`` reserves them).
 """
 
 from __future__ import annotations
@@ -103,6 +113,59 @@ _CPU_BUDGET = 8 * 2**30   # what to plan for when running on the CPU
 # 100 and 700, now the larger reading + 12-15%).
 _PRE_SR_BYTES_PER_PX = {"temporal_fixed": 120, "temporal_slot": 180, "bilateral": 200,
                         "attention": 900}
+# Restormer (f32) on the blend, at the widths of the checkpoint
+# (``restormer_bytes_per_px``): its peak is GDFN in the full-resolution
+# blocks of 2 dim channels C (the decoder's level 0 and the refinement),
+# where the block's input and its norm (2C) sit beside ffn_in's 2h-channel
+# output, the depthwise pass and its NHWC copy (6h, h = int(C x
+# ffn_expansion)), and the frame itself (3): 4 (2C + 6h + 3) B, + 15%.
+# Measured on an H100 with ``max_memory_allocated`` (chip_smoke.py phase
+# models, a 1080p frame): JAX's RestormerConfig() (dim 16, the JAX
+# denoiser's widths once weighted) 2112 B a pixel, 2654 planned; the
+# published widths (dim 48, blocks 4/6/6/8) 6336, 7935 planned.
+#
+# RAFT (RAFTConfig(), f32) a pair, at the frame size padded to 8, n8 =
+# (H/8)(W/8) positions: the correlation volume (n8^2 f32) and its pooled
+# levels (1/4 + 1/16 + 1/64 of it), beside the encoders' 64-channel maps
+# at half resolution (two images: ~500 B an input pixel) and the update
+# block at 1/8 (its convolutions as matrix products, models/raft.py); the
+# largest is the volume: 4.2 GB a 1080p pair, 5.6 GB with the pyramid;
+# 6.82 GB planned, 6.33 measured on an H100 (chip_smoke.py phase models,
+# a step of 5 pairs: 31.6 GB).
+_RAFT_PX_BYTES = 600
+# HAT (HAT_SRx4 at hat.official_config(): 180 channels, 6 heads, window
+# 16, OCAB's 24x24 key windows), per input pixel: the activations of a
+# block (the input, the norm, the conv branch's 60- and 180-channel maps,
+# the rolled and windowed copies, the attention output, the MLP's
+# 360-channel hidden map), OCAB's projected k and v at full resolution,
+# padded and unfolded (2C x 2.25 a pixel, twice), then the 4x tail and
+# the epilogue; beside them the attention chunk (models/hat.py: at most
+# 512 windows of the dispatch at a time), whose OCAB logits, their
+# softmax (f32) and its bf16 cast are 6 x 256 x 576 x 10 B = 8.85 MB a
+# window. Measured on an H100 with ``max_memory_allocated``
+# (chip_smoke.py phase models, bf16): 2 frames of 960x540 (1,036,800
+# pixels, 4080 windows: a full chunk of 512) 9.99 GB; 4 tiles of 160
+# (128 and the 16-pixel halo: 102,400 pixels, 400 windows) 4.00 GB, 72 MB
+# of it the stitched output. Both readings give 5,473 B a pixel and 8.42
+# MB a window; planned + 15%: 6300 B a pixel in bf16 (float32 twice
+# that, not measured) and 9.7 MB a window.
+_HAT_BYTES_PER_PX = {"bfloat16": 6300, "float32": 12600}
+_HAT_WINDOW = 16
+_HAT_CHUNK_WINDOWS = 512
+_HAT_WINDOW_BYTES = 9_700_000
+# The video SR window (VideoSuperResolution), per input pixel:
+#   BasicVSR: a frame's share (the two directions' 64-channel features,
+#     their concatenation, the flows: ~560 B bf16) times the window, beside
+#     SpyNet's level-0 maps for the window's pairs (~1.7 KB a pair) and the
+#     4x tail of one frame (~6 KB);
+#   TVSR: a frame's share (its 64-channel features, their copy and the
+#     MLP's hidden map: ~1.5 KB bf16) times the window, the 4x tail of one
+#     frame (~8 KB), and a chunk's f32 logits (256 windows x 4 heads x
+#     (T 64)^2, a fixed 1.7 GB at T = 10, counted per pixel at 540p: 3.3 KB).
+# float32 doubles them. Measured on an H100 (chip_smoke.py phase models,
+# bf16, a window of 10 frames of 960x544): BasicVSR 5.17 GB (planned
+# 10.91), TVSR 8.63 GB (planned 13.73). Keyed by the registry's family.
+_VSR_BYTES_PER_PX = {"basicvsr": (560, 1700, 6000), "tvsr": (1500, 0, 11300)}
 
 
 # The face restorer, beside the SR batch (f32, one crop at a time):
@@ -165,6 +228,7 @@ class Plan:
     frame_batch: int = 0  # frames a dispatch of a tiled plan
     px_bytes: int = 0     # the model's planned peak bytes per body pixel
     stats_bytes: int = 0  # the quality gate's stats of one frame (tiled)
+    window_bytes: int = 0  # HAT's attention chunk a window (0: a kernel path)
 
     @property
     def tiled(self) -> bool:
@@ -187,19 +251,33 @@ class Plan:
         """Frames a dispatch of this plan holds."""
         return self.frame_batch if self.tiled else self.batch
 
+    def chunk_bytes(self, batch: int) -> int:
+        """HAT's attention chunk on ``batch`` frames (or tiles): its
+        windows, at most ``_HAT_CHUNK_WINDOWS``, times ``window_bytes``."""
+        if not self.window_bytes:
+            return 0
+        h, w = ((self.tile_extent(),) * 2 if self.tiled else (self.height, self.width))
+        windows = batch * -(-h // _HAT_WINDOW) * -(-w // _HAT_WINDOW)
+        return min(_HAT_CHUNK_WINDOWS, windows) * self.window_bytes
+
     def tile_extent(self) -> int:
         """A tile's padded edge: the interior and its halo on each side,
         aligned to the body divisor."""
         return _ceil_to(self.tile_size + 2 * self.overlap, self.body_divisor)
 
+    def with_batch(self, batch: int) -> "Plan":
+        """This plan at ``batch`` frames (or tiles) a step, with its
+        planned peak bytes."""
+        if self.tiled:
+            return _with_tiled_est(replace(self, batch=batch))
+        per_frame = (self.est_bytes - self.chunk_bytes(self.batch)) // self.batch
+        return replace(self, batch=batch, est_bytes=per_frame * batch + self.chunk_bytes(batch))
+
     def downshift(self) -> "Plan":
         """The next-smaller plan after a device OOM: halve the batch, then
         tile a whole frame, then shrink the tiles (JAX's order)."""
         if self.batch > 1:
-            b = max(1, self.batch // 2)
-            if self.tiled:
-                return _with_tiled_est(replace(self, batch=b))
-            return replace(self, batch=b, est_bytes=self.est_bytes // self.batch * b)
+            return self.with_batch(max(1, self.batch // 2))
         if not self.tiled:
             ts = min(_TILE_CANDIDATES[0], _round8(max(self.height, self.width) // 2))
             return _with_tiled_est(replace(self, tile_size=max(64, ts), frame_batch=1))
@@ -216,11 +294,11 @@ def _round8(x: int) -> int:
 
 def _with_tiled_est(p: Plan) -> Plan:
     """``p`` with its planned peak bytes: its batch of tiles through the
-    model, its frames' stitched outputs, and one frame's epilogue and
-    stats."""
+    model (and HAT's attention chunk), its frames' stitched outputs, and
+    one frame's epilogue and stats."""
     tile_px = (p.tile_extent() // p.body_divisor) ** 2
     out_px = p.height * p.width * p.scale ** 2
-    return replace(p, est_bytes=p.batch * tile_px * p.px_bytes
+    return replace(p, est_bytes=p.batch * tile_px * p.px_bytes + p.chunk_bytes(p.batch)
                    + out_px * (p.frames * _TILED_HELD_BYTES_PER_OUT_PX
                                + _TILED_EPILOGUE_BYTES_PER_OUT_PX) + p.stats_bytes)
 
@@ -241,6 +319,11 @@ def peak_bytes_per_body_px(family: str, scale: int, dtype: str = "bfloat16",
         if stats:   # 16 output pixels per body pixel
             peak = max(peak, 16 * _STATS_BYTES_PER_OUT_PX["luma"] * 11 // 10)
         return peak
+    if family == "hat":
+        peak = _HAT_BYTES_PER_PX["float32" if dtype == "float32" else "bfloat16"]
+        if stats:
+            peak = max(peak, (12 + _STATS_BYTES_PER_OUT_PX["rgb"]) * scale ** 2 * 11 // 10)
+        return peak
     if family == "srvgg":
         s2 = scale ** 2
         peak = max(_SRVGG_HEAD_BYTES, _SRVGG_CHAIN_BYTES[dtype], 640 + 24 * s2, 40 * s2)
@@ -258,20 +341,74 @@ def frame_bytes(height: int, width: int, scale: int, family: str = "rrdb",
 
 
 def pre_sr_bytes(height: int, width: int, denoise: str | None = None,
-                 temporal: str | None = None, radius: int = 3) -> int:
+                 temporal: str | None = None, radius: int = 3, raft_pairs: int = 0,
+                 restormer=None) -> int:
     """Planned peak device bytes of the pre-SR stream on (height, width)
     frames: the largest of its parts. ``denoise``: the denoiser's method
     (``auto`` plans for the largest it may pick) or None; ``temporal``:
-    ``attention`` or ``ema`` (on the host: nothing), or None."""
+    ``attention`` or ``ema`` (on the host: nothing), or None;
+    ``raft_pairs``: pairs a step of RAFT alignment holds (0: IFNet);
+    ``restormer``: the Restormer's config (its ``dim`` and
+    ``ffn_expansion``; None: JAX's ``RestormerConfig()`` widths)."""
     t = _PRE_SR_BYTES_PER_PX
     per_px = 0
-    if denoise in ("temporal", "nafnet", "auto"):
+    if denoise in ("temporal", "nafnet", "restormer", "auto"):
         per_px = t["temporal_fixed"] + 2 * radius * t["temporal_slot"]
+    if denoise == "restormer":
+        per_px = max(per_px, restormer_bytes_per_px(
+            *((restormer.dim, restormer.ffn_expansion) if restormer is not None else ())))
     if denoise in ("bilateral", "auto"):
         per_px = max(per_px, t["bilateral"])
     if temporal == "attention":
         per_px = max(per_px, t["attention"])
-    return height * width * per_px
+    flow = 0
+    if raft_pairs and denoise in ("temporal", "nafnet", "restormer", "auto"):
+        flow = raft_pairs * raft_pair_bytes(height, width)
+    return max(height * width * per_px, flow)
+
+
+def restormer_bytes_per_px(dim: int = 16, ffn_expansion: float = 2.66) -> int:
+    """Planned peak card bytes a pixel of Restormer (f32) at ``dim``
+    channels and ``ffn_expansion``."""
+    c = 2 * dim
+    return 4 * (2 * c + 6 * int(c * ffn_expansion) + 3) * 115 // 100
+
+
+def budget_bytes(free_bytes: int | None, utilization: float) -> int:
+    """``free_bytes * utilization`` (the CPU budget when None)."""
+    return int((_CPU_BUDGET if free_bytes is None else free_bytes) * utilization)
+
+
+def raft_pair_bytes(height: int, width: int) -> int:
+    """Planned card bytes of RAFT on one pair of (height, width) frames:
+    the correlation pyramid (quadratic in the pixels) and the encoders."""
+    n8 = -(-height // 8) * -(-width // 8)
+    return n8 * n8 * 4 * 85 // 64 + height * width * _RAFT_PX_BYTES
+
+
+def raft_pairs(height: int, width: int, free_bytes: int | None = None,
+               utilization: float = 0.85, max_pairs: int = 6) -> int:
+    """Pairs a step of RAFT alignment may hold: as many as half of
+    ``free_bytes * utilization`` (the CPU budget when None) fits, at most
+    ``max_pairs``; ``HBMError`` when not one does."""
+    budget = budget_bytes(free_bytes, utilization) // 2
+    per_pair = raft_pair_bytes(height, width)
+    pairs = min(max_pairs, budget // per_pair)
+    if pairs < 1:
+        raise HBMError(f"one {width}x{height} RAFT pair needs ~{per_pair / 2**30:.1f} GiB, "
+                       f"{budget / 2**30:.1f} GiB available to the pre-SR stream")
+    return pairs
+
+
+def vsr_bytes(height: int, width: int, window: int, family: str = "basicvsr",
+              dtype: str = "bfloat16") -> int:
+    """Planned peak card bytes of one video SR window of ``window`` frames
+    at (height, width) padded to multiples of 32, for the registry's
+    ``family`` (``basicvsr`` or ``tvsr``)."""
+    per_frame, per_pair, fixed = _VSR_BYTES_PER_PX[family]
+    px = -(-height // 32) * 32 * -(-width // 32) * 32
+    per_px = per_frame * window + max(per_pair * (window - 1), fixed)
+    return px * per_px * (2 if dtype == "float32" else 1)
 
 
 def plan(height: int, width: int, scale: int, family: str = "rrdb",
@@ -287,16 +424,20 @@ def plan(height: int, width: int, scale: int, family: str = "rrdb",
     the pinned size) with the largest batch of at most 64 tiles that fits
     beside one frame's output, and as many frames a dispatch (at most
     ``max_batch``) as fit beside them."""
-    budget = int((_CPU_BUDGET if free_bytes is None else free_bytes) * utilization)
-    budget -= reserved_bytes
+    budget = budget_bytes(free_bytes, utilization) - reserved_bytes
     u = body_divisor(family, scale)
     px_bytes = peak_bytes_per_body_px(family, scale, dtype)
+    window_bytes = _HAT_WINDOW_BYTES if family == "hat" else 0
     if tile_size_override <= 0:
         per_frame = frame_bytes(height, width, scale, family, dtype, stats)
+        whole = Plan(height, width, scale, 1, u, 0, overlap=overlap, px_bytes=px_bytes,
+                     window_bytes=window_bytes)
         batch = min(max_batch, budget // per_frame)
+        while batch >= 1 and batch * per_frame + whole.chunk_bytes(batch) > budget:
+            batch -= 1
         if batch >= 1:
-            return Plan(height, width, scale, batch, u, batch * per_frame, overlap=overlap,
-                        px_bytes=px_bytes)
+            return replace(whole, batch=batch,
+                           est_bytes=batch * per_frame + whole.chunk_bytes(batch))
     out_px = height * width * scale ** 2
     # the gate's stats of one frame from its float RGB image (as SRVGG's)
     stats_bytes = out_px * (12 + _STATS_BYTES_PER_OUT_PX["rgb"]) * 11 // 10 if stats else 0
@@ -304,7 +445,8 @@ def plan(height: int, width: int, scale: int, family: str = "rrdb",
              tuple(t for t in _TILE_CANDIDATES if t <= max(height, width)))
     for ts in sizes:
         base = Plan(height, width, scale, 1, u, 0, tile_size=ts, overlap=overlap,
-                    frame_batch=1, px_bytes=px_bytes, stats_bytes=stats_bytes)
+                    frame_batch=1, px_bytes=px_bytes, stats_bytes=stats_bytes,
+                    window_bytes=window_bytes)
         for b in _TILE_BATCHES:
             p = _with_tiled_est(replace(base, batch=b))
             if p.est_bytes <= budget:
@@ -339,7 +481,7 @@ def interpolation_pairs(height: int, width: int, free_bytes: int | None = None,
                         utilization: float = 0.85, max_pairs: int = 4) -> int:
     """Frame pairs a step of the interpolator fits in ``free_bytes *
     utilization`` (the CPU budget when None), at most ``max_pairs``."""
-    budget = int((_CPU_BUDGET if free_bytes is None else free_bytes) * utilization)
+    budget = budget_bytes(free_bytes, utilization)
     per_pair = interpolation_bytes(height, width)
     pairs = min(max_pairs, budget // per_pair)
     if pairs < 1:

@@ -63,10 +63,28 @@ path in f32), then each stitched frame is clipped and scaled in f32, its
 stats taken from the float RGB image, and quantized to uint8 RGB or
 converted to the BT.601 4:2:0 planes (``layers.out_epilogue``), on the
 card. The whole-frame path keeps its fused epilogue.
+
+HAT (``HAT_SRx4``, the ``hat`` family) has no kernel: its forward
+(``models.hat.apply``) runs in PyTorch at the compute dtype (bf16, int8
+as bf16 as in JAX, or float32) over the JAX parameter tree, on whole
+frames or the planner's tiles, its float output through the SRVGG-style
+epilogue (stats from the float image). ``enhancement_cap`` < 1 (the
+restore's ``max_enhancement_strength``) takes the float path for every
+family (RRDB: ``apply_fast(x, "bf16")``, no fused epilogue) and lerps the
+output toward the bilinear upscale of the input in the output's dtype
+(``base + cap * (y - base)``, JAX ``super_resolution.py:285-295``; JAX
+resizes with ``method="linear"`` there, not bicubic) before the clip.
+``outscale`` (RealESRGANer's) resizes the uint8 RGB output bicubically
+to round(input side x outscale) on the card (u8 / 255, ``resize_bicubic``,
+clip and round half up again, as JAX's ``_resize``); it needs the RGB
+output, so ``set_output_color("yuv420")`` refuses it, and the stats stay
+those of the model's output. As in JAX, outscale alone keeps RRDB's
+fused u8 epilogue (it resizes what the epilogue wrote).
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 from dataclasses import dataclass
 from typing import Optional
@@ -77,9 +95,15 @@ import torch
 from framewright_tpu_torch import planner as planner_mod
 from framewright_tpu_torch.errors import ConfigError, HBMError, InputError
 from framewright_tpu_torch.hw import device_info, full_f32, resolve_device
-from framewright_tpu_torch.models.layers import out_epilogue, resize_bicubic
+from framewright_tpu_torch.models.layers import (
+    mul_weak,
+    out_epilogue,
+    resize_bicubic,
+    resize_bilinear,
+)
 from framewright_tpu_torch.ops import tiling
 from framewright_tpu_torch.ops.metrics import psnr_per_frame, ssim_per_frame
+from framewright_tpu_torch.processors.base import to_uint8
 
 logger = logging.getLogger(__name__)
 
@@ -112,6 +136,9 @@ class SRConfig:
                                       # same device pass (the quality gate)
     reserved_bytes: int = 0           # card memory kept off the batch's plan
                                       # (the restorer's pre-SR stream)
+    outscale: float = 0.0             # final bicubic resize; 0 = the model's scale
+    enhancement_cap: float = 1.0      # < 1 lerps the output toward the bilinear
+                                      # upscale on the card
 
 
 def _frame_stats(yf: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -215,15 +242,28 @@ class SuperResolution:
         self._staging: Optional[HostStaging] = None
 
     def setup(self, height: int, width: int) -> None:
-        from framewright_tpu_torch.models.registry import bf16_masters, get_model, load_weights
+        from framewright_tpu_torch.models.registry import (
+            VSR_FAMILIES,
+            bf16_masters,
+            get_model,
+            load_weights,
+        )
         from framewright_tpu_torch.models.rrdb import RRDBNet
         from framewright_tpu_torch.models.srvgg import SRVGGNet
 
         cfg = self.config
         if cfg.compute_dtype not in _DTYPES:
             raise ConfigError(f"compute_dtype must be one of {_DTYPES}")
+        if not 0.0 <= cfg.enhancement_cap <= 1.0:
+            raise ConfigError("enhancement_cap must be in [0, 1]")
         int8 = cfg.compute_dtype == "int8"
         self.family = family = get_model(cfg.model_name).family
+        if family in VSR_FAMILIES:
+            raise ConfigError(f"{cfg.model_name} is a video SR model: "
+                              "processors.video_sr.VideoSuperResolution runs it")
+        if family == "hat":
+            self._setup_tree(height, width)
+            return
         if int8 and family == "rrdb" and cfg.int8_scales not in _INT8_SCALES:
             raise ConfigError(f"int8_scales must be one of {_INT8_SCALES}, "
                               f"got {cfg.int8_scales!r}")
@@ -257,6 +297,30 @@ class SuperResolution:
             overlap=cfg.tile_overlap or tiling.receptive_overlap(family))
         self._replan()
 
+    def _setup_tree(self, height: int, width: int) -> None:
+        """HAT: its JAX tree at the compute dtype (int8 runs bf16, as the
+        JAX processor does) and the planner's row for it."""
+        from framewright_tpu_torch.models import hat
+        from framewright_tpu_torch.models.layers import tree_to_torch
+        from framewright_tpu_torch.models.registry import load_params
+
+        cfg = self.config
+        self.device = resolve_device(cfg.device)
+        self._staging = HostStaging() if self.device.type == "cuda" else None
+        spec, tree, self.weights_source = load_params(cfg.model_name, cfg.weights_dir)
+        self.scale = spec.scale
+        dt = torch.float32 if cfg.compute_dtype == "float32" else torch.bfloat16
+        self.model = functools.partial(hat.apply, tree_to_torch(tree, self.device, dt),
+                                       cfg=spec.arch_config)
+        self._plan_args = dict(
+            height=height, width=width, scale=spec.scale, family=self.family,
+            utilization=cfg.hbm_utilization,
+            max_batch=cfg.batch_size or _DEFAULT_MAX_BATCH,
+            dtype="float32" if cfg.compute_dtype == "float32" else "bfloat16",
+            tile_size_override=cfg.tile_size,
+            overlap=cfg.tile_overlap or tiling.receptive_overlap(self.family))
+        self._replan()
+
     def _replan(self) -> None:
         """The plan for the current free card memory and ``device_stats``."""
         info = device_info(self.device)
@@ -277,7 +341,14 @@ class SuperResolution:
     def set_output_color(self, color: str) -> None:
         if color not in _OUT_COLORS:
             raise ConfigError(f"output_color must be one of {_OUT_COLORS}")
+        if color == "yuv420" and self._resizes:
+            raise ConfigError("outscale resizes the RGB output: no YUV420 output")
         self.config.output_color = color
+
+    @property
+    def _resizes(self) -> bool:
+        """Whether ``outscale`` resizes the model's output."""
+        return bool(self.config.outscale) and self.config.outscale != self.scale
 
     def enable_device_stats(self) -> None:
         """Compute the quality gate's per-frame stats in each batch's
@@ -298,16 +369,27 @@ class SuperResolution:
         JAX tiled branch's ``model_fn``): RRDB's kernel path with K2 in its
         bf16 mode, SRVGG's chain path in f32 (its plain f32 forward in
         float32)."""
+        if self.family == "hat":
+            return self.model(x)
         if self.family == "srvgg":
             return self.model.apply(x) if self._plain_f32 else self.model.apply_fast(x, "f32")
         return self.model.apply_fast(x, "bf16",
                                      f32_head=self.config.compute_dtype == "float32")
 
+    def _capped(self, img: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """``enhancement_cap`` < 1: img lerped toward the bilinear upscale
+        of its input x, in img's dtype."""
+        cap = float(self.config.enhancement_cap)
+        if cap >= 1.0:
+            return img
+        base = resize_bilinear(x.float(), img.shape[1:3]).to(img.dtype)
+        return base + mul_weak(img - base, cap)
+
     def _run_tiled(self, x: torch.Tensor, mode: str):
         """The tiled branch on x (B, H, W, 3) in [0, 1] -> (per-frame
         epilogue outputs, per-frame stats)."""
         cfg = self.config
-        img = tiling.tiled_apply(self._model_float, x, self._plan)
+        img = self._capped(tiling.tiled_apply(self._model_float, x, self._plan), x)
         outs, stats = [], []
         for j in range(len(img)):
             if cfg.device_stats:
@@ -317,7 +399,15 @@ class SuperResolution:
 
     def _run(self, x_u8: torch.Tensor):
         """uint8 (B, H, W, 3) on the device -> (uint8 RGB or YUV planes,
-        (B, 5) f32 stats or None)."""
+        (B, 5) f32 stats or None), resized by ``outscale``."""
+        out, stats = self._run_model(x_u8)
+        if self._resizes:
+            oh = int(round(x_u8.shape[1] * self.config.outscale))
+            ow = int(round(x_u8.shape[2] * self.config.outscale))
+            out = to_uint8(resize_bicubic(out.float() / 255.0, (oh, ow)))
+        return out, stats
+
+    def _run_model(self, x_u8: torch.Tensor):
         cfg, plan = self.config, self._plan
         b, h, w, _ = x_u8.shape
         u, s = plan.body_divisor, plan.scale
@@ -337,9 +427,9 @@ class SuperResolution:
         chunks, stats = [], []
         for i in range(0, b, nb):
             xc = xp[i:i + nb].contiguous()
-            if self.family == "srvgg":
+            if self.family != "rrdb" or cfg.enhancement_cap < 1.0:
                 # stats from the float RGB image before quantization
-                img = self.model.apply(xc) if self._plain_f32 else self.model.apply_fast(xc, "f32")
+                img = self._capped(self._model_float(xc)[:, :h * s, :w * s], x[i:i + nb])
                 if cfg.device_stats:
                     stats += [_frame_stats(img[j:j + 1].float().clamp(0.0, 1.0), x[i + j:i + j + 1])
                               for j in range(len(img))]
@@ -355,7 +445,7 @@ class SuperResolution:
         else:
             out = torch.cat(chunks)[:, :h * s, :w * s]
         del chunks
-        if cfg.device_stats and self.family == "rrdb":
+        if cfg.device_stats and self.family == "rrdb" and cfg.enhancement_cap >= 1.0:
             # stats from the quantized output: the dequantized Y plane (luma
             # domain, PSNR-Y) on the YUV path, the uint8 RGB otherwise
             y0, yr = (0.0, 255.0) if cfg.yuv_full_range else (16.0, 219.0)
@@ -469,6 +559,9 @@ class SuperResolution:
                 handle = self._enqueue(frames)
 
     def output_size(self, height: int, width: int):
+        if self.config.outscale:
+            return (int(round(height * self.config.outscale)),
+                    int(round(width * self.config.outscale)))
         return height * self.scale, width * self.scale
 
     def teardown(self) -> None:

@@ -21,13 +21,22 @@ restorer holds ``hw.full_f32`` for the whole restore), one centre per
 step as the JAX denoiser runs without a mesh, and the denoised frame
 comes back to the host as uint8. The scene-change score
 (``frame_pair_scores``) and the profile stay numpy on the host.
-``restormer`` and ``flow_model="raft"`` are not ported (ROADMAP.md A6);
-the JAX denoiser's random NAFNet when ``FW_nafnet_dn`` is missing is not
-copied: a missing checkpoint raises ``InputError``.
+``restormer`` runs Restormer (``models.restormer``, at the widths of
+``<weights_dir>/restormer.npz``: JAX's ``RestormerConfig()`` once
+weighted) on the blend, as ``nafnet`` runs NAFNet. ``flow_model="raft"``
+aligns with RAFT (``RAFTConfig(iters=8)``, ``<weights_dir>/raft-
+things.npz`` or princeton-vl's ``.pth``) instead of the alignment IFNet;
+its correlation volume grows with the square of the pixels, so a step
+runs at most ``flow_pairs`` of the 2r (centre, neighbour) pairs
+(``planner.raft_pairs`` of the free card memory when 0). The JAX
+denoiser's random NAFNet when ``FW_nafnet_dn`` is missing, and its random
+Restormer (``init(PRNGKey(2), dim=8)``) when ``restormer.npz`` is, are
+not copied: a missing checkpoint raises ``InputError`` naming the file.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import logging
 from dataclasses import asdict, dataclass
@@ -44,7 +53,9 @@ from framewright_tpu_torch.processors.scene_detection import frame_pair_scores
 
 logger = logging.getLogger(__name__)
 
-METHODS = ("auto", "temporal", "nafnet", "bilateral", "none")
+METHODS = ("auto", "temporal", "nafnet", "restormer", "bilateral", "none")
+# the methods that align the window before blending it
+_ALIGNED = ("temporal", "nafnet", "restormer")
 _BT601 = (0.299, 0.587, 0.114)
 
 
@@ -52,12 +63,14 @@ _BT601 = (0.299, 0.587, 0.114)
 class TemporalDenoiseConfig:
     radius: int = 3                 # window = 2r+1
     strength: float = 0.5           # blend of denoised vs original
-    method: str = "temporal"        # auto | temporal | nafnet | bilateral | none
-    flow_model: str = "ifnet"       # the alignment flow net
+    method: str = "temporal"        # auto | temporal | nafnet | restormer | bilateral | none
+    flow_model: str = "ifnet"       # the alignment flow net: ifnet | raft
+    flow_pairs: int = 0             # raft: pairs a step (0: from the free card memory)
     similarity_sigma: float = 0.08  # photometric rejection width ([0,1] units)
     scene_change_threshold: float = 0.30
     chroma_only: bool = False       # denoise chroma, keep luma
-    weights_dir: Optional[str] = None   # FW_nafnet_dn.npz here, else packaged
+    weights_dir: Optional[str] = None   # FW_nafnet_dn.npz (else packaged), restormer.npz,
+                                        # raft-things.npz here
     device: str = "cuda"            # cuda | cpu
 
 
@@ -72,15 +85,28 @@ class TemporalDenoiseResult:
 
 
 def check_method(method: str, flow_model: str = "ifnet") -> None:
-    """``ConfigError`` for a method or flow net the port does not run."""
-    if method == "restormer":
-        raise ConfigError("denoise method 'restormer' needs models/restormer, not ported "
-                          "yet: ROADMAP.md A6")
+    """``ConfigError`` for a method or flow net the port does not know."""
     if method not in METHODS:
         raise ConfigError(f"denoise method must be one of {METHODS}, got {method!r}")
-    if flow_model != "ifnet":
-        raise ConfigError(f"flow_model {flow_model!r} (RAFT) is not ported yet: "
-                          "ROADMAP.md A6; the port aligns with ifnet")
+    if flow_model not in ("ifnet", "raft"):
+        raise ConfigError(f"flow_model must be ifnet|raft, got {flow_model!r}")
+
+
+class RAFTFlow:
+    """RAFT as the denoiser's flow net: ``estimate_flow`` on at most
+    ``pairs`` pairs at a time."""
+
+    def __init__(self, params, pairs: int):
+        from framewright_tpu_torch.models.raft import RAFTConfig
+
+        self.params, self.pairs, self.cfg = params, max(1, pairs), RAFTConfig(iters=8)
+
+    def estimate_flow(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        from framewright_tpu_torch.models.raft import estimate_flow
+
+        return torch.cat([estimate_flow(self.params, a[i:i + self.pairs],
+                                        b[i:i + self.pairs], self.cfg)
+                          for i in range(0, len(a), self.pairs)])
 
 
 def nanmedian(v: torch.Tensor) -> torch.Tensor:
@@ -101,7 +127,7 @@ class TemporalDenoiser:
         check_method(self.config.method, self.config.flow_model)
         self.device = resolve_device(self.config.device)
         self.flow_net = None
-        self.naf = None
+        self.refiner = None       # nafnet | restormer: NHWC f32 in [0, 1] -> the same
         self._dims = (0, 0)
         self.result = TemporalDenoiseResult()
 
@@ -111,16 +137,37 @@ class TemporalDenoiser:
         self._dims = (height, width)
         if cfg.method in ("auto", "none"):
             return
-        from framewright_tpu_torch.models import registry
+        from framewright_tpu_torch.models import registry, restormer
+        from framewright_tpu_torch.models.layers import tree_to_torch
         from framewright_tpu_torch.models.nafnet import NAFNet
 
-        if cfg.method in ("temporal", "nafnet") and cfg.radius > 0 and self.flow_net is None:
-            self.flow_net = registry.load_align_ifnet(self.device)
-        if cfg.method == "nafnet" and self.naf is None:
+        if cfg.method in _ALIGNED and cfg.radius > 0 and self.flow_net is None:
+            if cfg.flow_model == "raft":
+                _, tree, src = registry.load_aux("raft-things", cfg.weights_dir)
+                pairs = cfg.flow_pairs or self._raft_pairs(height, width)
+                self.flow_net = RAFTFlow(tree_to_torch(tree, self.device), pairs)
+                logger.info("denoise RAFT: %s, %d pairs a step", src, pairs)
+            else:
+                self.flow_net = registry.load_align_ifnet(self.device)
+        if cfg.method == "nafnet" and self.refiner is None:
             spec, sd, src = registry.load_weights("FW_nafnet_dn", cfg.weights_dir,
                                                   allow_random=False)
-            self.naf = NAFNet.from_state_dict(spec.arch_config, sd, self.device)
+            self.refiner = NAFNet.from_state_dict(spec.arch_config, sd, self.device).apply_padded
             logger.info("denoise NAFNet: %s", src)
+        if cfg.method == "restormer" and self.refiner is None:
+            spec, tree, src = registry.load_aux("restormer", cfg.weights_dir)
+            self.refiner = functools.partial(restormer.apply_padded,
+                                             tree_to_torch(tree, self.device),
+                                             cfg=spec.arch_config)
+            logger.info("denoise Restormer %s: %s", spec.arch_config, src)
+
+    def _raft_pairs(self, height: int, width: int) -> int:
+        from framewright_tpu_torch import planner
+        from framewright_tpu_torch.hw import device_info
+
+        free = device_info(self.device).free_bytes if self.device.type == "cuda" else None
+        return planner.raft_pairs(height or 64, width or 64, free,
+                                  max_pairs=2 * self.config.radius)
 
     # -- the device step ------------------------------------------------------
     def upload(self, frame: np.ndarray) -> torch.Tensor:
@@ -178,10 +225,10 @@ class TemporalDenoiser:
         cfg = self.config
         c, nbs, n_real = self._slots(window, center_idx)
         out = c
-        if cfg.method in ("temporal", "nafnet") and len(nbs):
+        if cfg.method in _ALIGNED and len(nbs):
             out = self.blend(c, self.align(c, nbs), n_real)
-        if cfg.method == "nafnet":
-            out = self.naf.apply_padded(out[None])[0]
+        if cfg.method in ("nafnet", "restormer"):
+            out = self.refiner(out[None])[0]
         elif cfg.method == "bilateral":
             out = self.bilateral(c[None])[0]
         blended = cfg.strength * out + (1.0 - cfg.strength) * c

@@ -116,6 +116,21 @@ A resumed run's quality report and ``errors`` cover the frames from R
 on, which the report and ``RestoreResult.resumed_from`` state (the JAX
 restorer starts a fresh validator on resume too, and says nothing).
 
+The SR processor (``build_sr``, the JAX restorer's choice): a video SR
+row (BasicVSR, TVSR_x4) runs ``processors.video_sr`` in chunks of
+``batch_size`` (8 by default) with the dedup mapping bypassed, and a
+resume at a chunk start seeds its carry with the ``overlap`` frames before
+it (teed off the pre-SR stream), so the output is a straight run's;
+``sr_ensemble`` runs ``testing.EnsembleSR``; else ``SuperResolution``
+with ``outscale`` and the enhancement cap. The video SR, the ensemble and
+``outscale`` take the RGB writer path, as in JAX. Each SR processor
+plans beside the pre-SR and face reserves: the ensemble's members share
+them, and a video SR window that does not fit beside them raises
+``HBMError`` before its first frame. Guided enhancement
+(``sr_prompt``, ``sr_style_preset``, ``reference_images_dir``) runs on
+each output frame after the gate and before grain (``_PostSR``); the
+checkpoint carries its generators with grain's.
+
 Only a ``TransientError`` (``HBMError``: the card ran out of memory
 after the plan's downshifts) becomes bicubic copies. A kernel that fails
 to build or launch, or any other fault of the model path, ends the
@@ -165,7 +180,13 @@ from framewright_tpu_torch.io.png_seq import FrameDirWriter, whole_frames
 from framewright_tpu_torch.io.ring import PrefetchRing, WriterDrain
 from framewright_tpu_torch.io.video import is_frame_dir, open_reader, open_writer, probe
 from framewright_tpu_torch.io.y4m import Y4MReader, Y4MWriter, rgb_to_yuv420
-from framewright_tpu_torch.models.registry import aux_path, default_weights_dir, get_model
+from framewright_tpu_torch.models.registry import (
+    VSR_FAMILIES,
+    aux_path,
+    default_weights_dir,
+    get_model,
+    load_aux,
+)
 from framewright_tpu_torch.processors.deduplication import (
     DedupConfig,
     DedupResult,
@@ -183,13 +204,17 @@ from framewright_tpu_torch.processors.interpolation import (
     InterpolationConfig,
     interpolation_factor,
 )
+from framewright_tpu_torch.processors.guided import GuidedConfig, make_backend
 from framewright_tpu_torch.processors.super_resolution import (
     SRConfig,
     SuperResolution,
 )
+from framewright_tpu_torch.processors.video_sr import VideoSuperResolution, VSRConfig
+from framewright_tpu_torch.testing import EnsembleSR
 from framewright_tpu_torch.processors.temporal_attention import CFAConfig, CrossFrameAttention
 from framewright_tpu_torch.processors.temporal_denoise import (
     FlickerReducer,
+    RAFTFlow,
     TemporalDenoiseConfig,
     TemporalDenoiser,
 )
@@ -287,12 +312,29 @@ def _denoise_method(cfg: Config) -> str:
             else "temporal")
 
 
-def pre_sr_reserve(cfg: Config, height: int, width: int) -> int:
-    """Card bytes the pre-SR stream of ``cfg`` may hold at its peak."""
+def raft_pairs(cfg: Config, height: int, width: int) -> int:
+    """Pairs a step of the denoiser's RAFT alignment holds: as many of
+    the 2r as half the free card memory fits (0: it aligns with IFNet, or
+    does not align)."""
+    if not raft_needed(cfg):
+        return 0
+    return planner.raft_pairs(height, width, _free_bytes(_device(cfg)), cfg.hbm_utilization,
+                              max_pairs=max(1, cfg.temporal_window - 1))
+
+
+def pre_sr_reserve(cfg: Config, height: int, width: int,
+                   pairs: Optional[int] = None) -> int:
+    """Card bytes the pre-SR stream of ``cfg`` may hold at its peak, with
+    ``pairs`` RAFT pairs a step (``raft_pairs`` when None) and Restormer
+    at the widths of the user's checkpoint."""
+    method = _denoise_method(cfg) if cfg.denoise else None
     return planner.pre_sr_bytes(
-        height, width, _denoise_method(cfg) if cfg.denoise else None,
+        height, width, method,
         cfg.temporal_model if cfg.temporal_consistency else None,
-        (cfg.temporal_window - 1) // 2)
+        (cfg.temporal_window - 1) // 2,
+        raft_pairs(cfg, height, width) if pairs is None else pairs,
+        load_aux("restormer", cfg.weights_dir)[0].arch_config
+        if method == "restormer" else None)
 
 
 def _free_bytes(device: str) -> Optional[int]:
@@ -318,6 +360,10 @@ def face_reserve(cfg: Config, out_h: int, out_w: int) -> int:
 def required_weights(cfg: Config) -> List[str]:
     """The user checkpoints a restore with ``cfg`` reads and never draws."""
     names = []
+    if cfg.denoise and cfg.denoise_model == "restormer":
+        names.append("restormer")
+    if raft_needed(cfg):
+        names.append("raft-things")
     if cfg.interpolation:
         names.append(cfg.interpolation_model)
     if cfg.face_restore and cfg.face_model == "gfpgan":
@@ -325,6 +371,42 @@ def required_weights(cfg: Config) -> List[str]:
     if cfg.face_restore and cfg.face_model == "codeformer":
         names.append("CodeFormer")
     return names
+
+
+def raft_needed(cfg: Config) -> bool:
+    """Whether the restore's denoiser aligns with RAFT."""
+    return (cfg.denoise and cfg.flow_model == "raft"
+            and _denoise_method(cfg) in ("auto", "temporal", "nafnet", "restormer"))
+
+
+def output_size(cfg: Config, height: int, width: int):
+    """The enhance stage's output size: ``outscale`` or the model's scale."""
+    if cfg.outscale:
+        return int(round(height * cfg.outscale)), int(round(width * cfg.outscale))
+    scale = get_model(cfg.sr_model).scale
+    return height * scale, width * scale
+
+
+def build_sr(cfg: Config, reserved_bytes: int = 0):
+    """The enhance stage's SR processor (the JAX restorer's choice,
+    ``framewright_tpu/restorer.py:365-394``): a video SR row runs the
+    chunked video SR (with ``weights_dir``, which the JAX restorer leaves
+    out), ``sr_ensemble`` the ensemble, else ``SuperResolution``; each
+    plans beside ``reserved_bytes``."""
+    if get_model(cfg.sr_model).family in VSR_FAMILIES:
+        return VideoSuperResolution(VSRConfig(
+            model_name=cfg.sr_model, chunk=cfg.batch_size or 8,
+            compute_dtype=cfg.compute_dtype,
+            weights_dir=str(cfg.weights_dir) if cfg.weights_dir else None,
+            device=_device(cfg), hbm_utilization=cfg.hbm_utilization,
+            reserved_bytes=reserved_bytes))
+    if cfg.ensemble_models():
+        return EnsembleSR([cfg.sr_model] + cfg.ensemble_models(),
+                          strategy=cfg.ensemble_strategy,
+                          weights_dir=str(cfg.weights_dir) if cfg.weights_dir else None,
+                          compute_dtype=cfg.compute_dtype, device=_device(cfg),
+                          hbm_utilization=cfg.hbm_utilization, reserved_bytes=reserved_bytes)
+    return SuperResolution(build_sr_config(cfg, reserved_bytes))
 
 
 def build_sr_config(cfg: Config, reserved_bytes: int = 0) -> SRConfig:
@@ -338,7 +420,18 @@ def build_sr_config(cfg: Config, reserved_bytes: int = 0) -> SRConfig:
         weights_dir=str(cfg.weights_dir) if cfg.weights_dir else None,
         device=_device(cfg),
         reserved_bytes=reserved_bytes,
+        outscale=cfg.outscale,
+        enhancement_cap=cfg.max_enhancement_strength,
     )
+
+
+def _tee_range(frames: Iterator[np.ndarray], lo: int, hi: int,
+               into: List[np.ndarray]) -> Iterator[np.ndarray]:
+    """``frames`` unchanged, frames lo .. hi - 1 also appended to ``into``."""
+    for i, f in enumerate(frames):
+        if lo <= i < hi:
+            into.append(f)
+        yield f
 
 
 class _PostSRGrain:
@@ -371,6 +464,32 @@ class _PostSRGrain:
         return np.stack([self.gm.process(f, target_level=tgt) for f in out])
 
 
+class _PostSR:
+    """The restore's post-SR ``post_fx`` in JAX's order (``framewright_tpu/
+    restorer.py:671-720``): guided enhancement (``style``), then grain.
+    ``state``/``restore`` carry both generators across a resume."""
+
+    def __init__(self, style, grain: Optional[_PostSRGrain]):
+        self.style, self.grain = style, grain
+
+    def state(self) -> Dict:
+        return {"style": self.style.rng_states() if self.style is not None else None,
+                "grain": self.grain.state() if self.grain is not None else None}
+
+    def restore(self, state: Dict) -> None:
+        if self.style is not None:
+            self.style.set_rng_states(state["style"])
+        if self.grain is not None:
+            self.grain.restore(state["grain"])
+
+    def __call__(self, out: np.ndarray, src_frames: Optional[np.ndarray]) -> np.ndarray:
+        if self.style is not None:
+            out = np.stack([self.style.enhance(f) for f in out])
+        if self.grain is not None:
+            out = self.grain(out, src_frames)
+        return out
+
+
 class VideoRestorer:
     def __init__(self, config: Optional[Config] = None,
                  progress_callback: Optional[Callable[[ProgressInfo], None]] = None,
@@ -383,6 +502,7 @@ class VideoRestorer:
                                              self.config.checkpoint_interval)
         self.context: Optional[PipelineContext] = None
         self.sr: Optional[SuperResolution] = None
+        self._raft_pairs = 0      # RAFT pairs a denoiser step (the enhance stage's plan)
         self.stage = ""           # the stage running (a progress callback may read it)
 
     def _progress(self, stage: str, done: int, total: int, tracker: _EtaTracker) -> None:
@@ -595,35 +715,47 @@ class VideoRestorer:
             out["dedup_result"] = dedup.analyze(frames, target_fps=float(data["fps"]))
         return out
 
-    def _grain(self) -> Optional["_PostSRGrain"]:
-        """The post-SR grain of the config (``grain_mode`` resolved as the
-        JAX restorer does), or None."""
+    def _post_sr(self) -> Optional["_PostSR"]:
+        """The post-SR work of the config, or None: guided enhancement
+        (``sr_prompt``, ``sr_style_preset``, ``reference_images_dir``) and
+        grain (``grain_mode`` resolved as the JAX restorer does)."""
         cfg = self.config
         mode = cfg.grain_mode
         if mode == "auto":
             mode = "match" if cfg.grain_preserve else "off"
         elif mode == "preserve":
             mode = "match"
-        if mode == "off":
+        grain = None if mode == "off" else _PostSRGrain(
+            GrainManager(mode=mode, strength=cfg.grain_strength, seed=cfg.seed),
+            cfg.grain_target)
+        style = None
+        if cfg.sr_prompt or cfg.sr_style_preset or cfg.reference_images_dir:
+            style = make_backend(
+                GuidedConfig(prompt=cfg.sr_prompt, preset=cfg.sr_style_preset,
+                             strength=(cfg.reference_strength if cfg.reference_images_dir
+                                       else 0.8),
+                             seed=cfg.seed),
+                reference_dir=(str(cfg.reference_images_dir) if cfg.reference_images_dir
+                               else None))
+        if grain is None and style is None:
             return None
-        return _PostSRGrain(GrainManager(mode=mode, strength=cfg.grain_strength, seed=cfg.seed),
-                            cfg.grain_target)
+        return _PostSR(style, grain)
 
     def _resume_point(self, keep: int, batch: int, mapping: Optional[Dict[int, int]],
-                      grain: Optional["_PostSRGrain"]) -> int:
+                      post: Optional["_PostSR"]) -> int:
         """The largest batch start <= ``keep`` a resume can start from
         with the straight run's bytes: a unique frame under a mapping, and
-        one whose grain state the checkpoint carries under grain; else 0.
-        Restores the grain state there."""
+        one whose post-SR generators' state the checkpoint carries under grain
+        or guided enhancement; else 0. Restores that state there."""
         carry = ({int(k): v for k, v in self.checkpoints.checkpoint.carry.items()}
-                 if grain is not None else {})
+                 if post is not None else {})
         for r in range(keep - keep % batch, 0, -batch):
             if mapping is not None and mapping.get(r) == mapping[r - 1]:
                 continue
-            if grain is not None:
+            if post is not None:
                 if r not in carry:
                     continue
-                grain.restore(carry[r])
+                post.restore(carry[r])
             return r
         return 0
 
@@ -658,20 +790,25 @@ class VideoRestorer:
         total, h, w = data["frames_in"], data["height"], data["width"]
         checkpointed = "checkpoint" in data
         dedup: Optional[DedupResult] = data.get("dedup_result")
-        mapping = dedup.frame_mapping if dedup is not None else None
+        vsr = get_model(cfg.sr_model).family in VSR_FAMILIES
+        # a recurrent video SR model sees every frame in order: the dedup
+        # mapping is bypassed (JAX restorer.py:365-383)
+        mapping = dedup.frame_mapping if dedup is not None and not vsr else None
         # interpolation after a lower cadence found by dedup: the duplicates
         # are dropped and the intermediate holds the unique frames at the
         # estimated source rate (the JAX restorer skips resume then)
         drop = bool(cfg.interpolation and dedup is not None and dedup.duplicates > 0
+                    and not vsr
                     and 0 < dedup.estimated_source_fps < float(data["fps"]) - 1e-3)
         write_fps = dedup.estimated_source_fps if drop else data["fps"]
         out_path = cfg.work_dir / "enhanced.y4m" if cfg.interpolation else data["output"]
         resume_from = (self.checkpoints.resume_point(_ENHANCE)
                        if checkpointed and cfg.resume and not drop else 0)
-        grain = self._grain()
-        scale = get_model(cfg.sr_model).scale
-        reserve = pre_sr_reserve(cfg, h, w) + face_reserve(cfg, h * scale, w * scale)
-        sr = self.sr = SuperResolution(build_sr_config(cfg, reserve))
+        post = self._post_sr()
+        self._raft_pairs = raft_pairs(cfg, h, w)
+        reserve = (pre_sr_reserve(cfg, h, w, self._raft_pairs)
+                   + face_reserve(cfg, *output_size(cfg, h, w)))
+        sr = self.sr = build_sr(cfg, reserve)
         tracker = _EtaTracker()
         written = frame_errors = batch_size = 0
         budget_hit = False
@@ -705,7 +842,7 @@ class VideoRestorer:
             # another batch)
             writer, resume_from = self._open_output(
                 out_path, ow, oh, write_fps, resume_from, batch_size,
-                lambda keep: self._resume_point(keep, batch_size, mapping, grain))
+                lambda keep: self._resume_point(keep, batch_size, mapping, post))
             if resume_from:
                 logger.info("resuming enhance at frame %d", resume_from)
             # the writer's own exit: an ffmpeg encode is killed, not
@@ -721,10 +858,11 @@ class VideoRestorer:
             # a mapping repeats RGB outputs, and grain and faces change them
             # on the host: each takes the RGB path; so does the VMAF gate,
             # which scores sampled RGB pairs
-            yuv_direct = (hasattr(writer, "write_yuv_frame")
+            yuv_direct = (hasattr(writer, "write_yuv_frame") and hasattr(sr, "set_output_color")
+                          and not cfg.outscale
                           and writer.header.colorspace.startswith("420")
                           and oh % 2 == 0 and ow % 2 == 0
-                          and mapping is None and grain is None and faces is None
+                          and mapping is None and post is None and faces is None
                           and (validator is None or cfg.min_vmaf <= 0))
             if yuv_direct:
                 sr.config.yuv_full_range = writer.full_range
@@ -743,6 +881,12 @@ class VideoRestorer:
             # the stream made them
             stream, finish_pre_sr = self._pre_sr_stream(
                 data, itertools.islice(iter(reader), total), pre_sr)
+            context: List[np.ndarray] = []
+            if vsr and resume_from:
+                # the overlap frames before the resume point seed the
+                # video SR's carry, as a straight run carries them
+                stream = _tee_range(stream, max(0, resume_from - sr.config.overlap),
+                                    resume_from, context)
             ring = PrefetchRing(on_stream(stream, side_stream(sr.device)),
                                 batch_size=batch_size, skip_frames=resume_from,
                                 start_frame=resume_from)
@@ -801,11 +945,11 @@ class VideoRestorer:
                     if validator is not None and ok:
                         for i in range(n):
                             validator.observe(frames[i], out[i])
-                    if grain is not None and n:
-                        # after the gate: grain is an intended change
-                        out = grain(out, work if len(work) else None)
+                    if post is not None and n:
+                        # after the gate: guided style and grain are intended changes
+                        out = post(out, work if len(work) else None)
                         if nxt < total and (mapping is None or mapping[nxt] > mapping[nxt - 1]):
-                            carry[str(nxt)] = grain.state()
+                            carry[str(nxt)] = post.state()
                             for key in list(carry)[:-_CARRY_POINTS]:
                                 del carry[key]
                             if checkpointed:
@@ -835,6 +979,8 @@ class VideoRestorer:
                     break
                 frames = batch.frames[: batch.valid]
                 start = batch.start_frame
+                if vsr and resume_from and start == resume_from:
+                    sr.seed_context(context)
                 if mapping is not None:
                     # SR on the frames of a unique position not seen yet
                     unique_sel = []
@@ -860,8 +1006,7 @@ class VideoRestorer:
         out = {"frames_out": written, "frame_errors": frame_errors,
                "resumed_from": resume_from, "pre_sr": pre_sr, "validator": validator,
                "batches": sr.dispatches, "batch_size": batch_size,
-               "post_sr": {} if grain is None else {"grain": {"mode": grain.gm.mode,
-                                                              "target": grain.target}},
+               "post_sr": self._post_sr_info(post),
                "faces_restored": faces.result.faces_restored if faces is not None else None}
         if cfg.interpolation:
             # the gate is scored here, so that the checkpoint keeps its
@@ -885,6 +1030,19 @@ class VideoRestorer:
                 self.checkpoints.checkpoint.stage_state[_ENHANCE] = st
             self.checkpoints.stage_completed(_ENHANCE)
         return out
+
+    def _post_sr_info(self, post: Optional[_PostSR]) -> Dict:
+        """What the post-SR work did: grain's mode and target, the guided
+        style vector."""
+        info: Dict = {}
+        if post is not None and post.grain is not None:
+            info["grain"] = {"mode": post.grain.gm.mode, "target": post.grain.target}
+        if post is not None and post.style is not None:
+            cfg = self.config
+            info["guided"] = {"prompt": cfg.sr_prompt, "preset": cfg.sr_style_preset,
+                              "reference_dir": (str(cfg.reference_images_dir)
+                                                if cfg.reference_images_dir else None)}
+        return info
 
     def _enhanced_intermediate(self, source: Path) -> Optional[Dict]:
         """On a rerun whose checkpoint (read, not opened:
@@ -1022,7 +1180,7 @@ class VideoRestorer:
             denoiser = TemporalDenoiser(TemporalDenoiseConfig(
                 radius=(cfg.temporal_window - 1) // 2, strength=cfg.denoise_strength,
                 method=_denoise_method(cfg), scene_change_threshold=cfg.scene_threshold,
-                flow_model=cfg.flow_model,
+                flow_model=cfg.flow_model, flow_pairs=self._raft_pairs,
                 weights_dir=str(cfg.weights_dir) if cfg.weights_dir else None,
                 device=_device(cfg)))
             denoiser.setup(data["height"], data["width"])
@@ -1041,6 +1199,8 @@ class VideoRestorer:
             if denoiser is not None:
                 info["denoise"] = {"method": denoiser.config.method,
                                    **denoiser.result.to_dict()}
+                if isinstance(denoiser.flow_net, RAFTFlow):
+                    info["denoise"]["flow_pairs"] = denoiser.flow_net.pairs
 
         return frames, finish
 

@@ -364,10 +364,13 @@ def test_retried_enhance_stage_equals_a_straight_run(tmp_path, clip, straight, m
     assert res.frames_out == N and res.errors == 0 and res.resumed_from == 2
     types = [e.type.value for e in bus.history()]
     assert types.count("stage_retrying") == 1 and "job_completed" in types
-    # the failed attempt wrote 2 and 4 (the fault surfaced at the next
-    # submit), the retry 4 and 6 from its resume point
-    assert [e.data["frames"] for e in bus.history(events.EventType.FRAME_PROCESSED)] == \
-        [2, 4, 4, 6]
+    # FRAME_PROCESSED is emitted when a batch is submitted to the 4-frame
+    # writer drain, so the fault on frame 4 surfaces at one of the next
+    # submits: the failed attempt reports [2, 4] or, when the writer thread
+    # lags (a loaded machine), [2, 4, 6]; the retry 4 and 6 from its resume
+    # point either way
+    frames = [e.data["frames"] for e in bus.history(events.EventType.FRAME_PROCESSED)]
+    assert frames[-2:] == [4, 6] and frames[:-2] in ([2, 4], [2, 4, 6])
 
 
 def test_retry_without_checkpoints_rewrites_from_frame_0(tmp_path, clip, straight,

@@ -293,3 +293,79 @@ def test_qa_report_files(tmp_path):
     assert d["per_frame"] == {"psnr": [31.0, 32.0], "ssim": [0.9, 0.92]}
     html = rep.save(tmp_path / "qa_report.html").read_text()
     assert "PASSED" in html and "enhance" in html
+
+
+# -- outscale and the enhancement cap -------------------------------------
+
+@pytest.mark.parametrize("kw", [dict(enhancement_cap=0.5), dict(outscale=3.0),
+                                dict(enhancement_cap=0.25, outscale=2.5)])
+def test_outscale_and_cap_match_jax_processor(weights, kw):
+    """realesr-animevideov3 in float32 (the plain f32 path in both): the
+    cap lerps the float output toward the bilinear upscale before the
+    clip; outscale resizes the uint8 output bicubically to round(side x
+    outscale). uint8 within 1 LSB on at most 0.1% of the values."""
+    name = "realesr-animevideov3"
+    frames = _clip_frames(2, 20, 24, seed=11)
+    jsr = JaxSR(JaxSRConfig(model_name=name, compute_dtype="float32", sharding="none",
+                            weights_dir=str(weights), **kw))
+    jsr.setup(20, 24)
+    want = jsr.process_batch(frames)
+    sr = SuperResolution(SRConfig(model_name=name, compute_dtype="float32", device="cpu",
+                                  weights_dir=str(weights), **kw))
+    sr.setup(20, 24)
+    got = sr.materialize(sr.dispatch(frames))
+    oh, ow = sr.output_size(20, 24)
+    assert got.shape == want.shape == (2, oh, ow, 3) and (oh, ow) == jsr.output_size(20, 24)
+    d = np.abs(got.astype(np.int16) - want)
+    assert d.max() <= 1 and (d > 0).mean() <= 1e-3, (d.max(), (d > 0).mean())
+
+
+def test_cap_and_outscale_on_the_rrdb_kernel_path():
+    """FW_fast6_x2 in bf16: the cap takes the float path (the kernels' bf16
+    output, no fused epilogue) and lerps it in bf16; outscale alone keeps
+    the fused u8 epilogue and resizes what it wrote. Both equal the parts
+    computed alone, bit for bit; YUV output is refused with outscale."""
+    from framewright_tpu_torch.models.layers import mul_weak, out_epilogue, resize_bilinear
+    from framewright_tpu_torch.errors import ConfigError
+    from framewright_tpu_torch.processors.base import to_uint8
+
+    frames = _clip_frames(2, 24, 32, seed=12)
+    x = torch.from_numpy(frames).to(torch.bfloat16) / 255.0
+    plain = SuperResolution(SRConfig(model_name="FW_fast6_x2", device="cpu"))
+    plain.setup(24, 32)
+    capped = SuperResolution(SRConfig(model_name="FW_fast6_x2", device="cpu",
+                                      enhancement_cap=0.5))
+    capped.setup(24, 32)
+    img = plain.model.apply_fast(x, "bf16")
+    base = resize_bilinear(x.float(), img.shape[1:3]).to(img.dtype)
+    want = out_epilogue(base + mul_weak(img - base, 0.5), "rgb_u8", False).numpy()
+    np.testing.assert_array_equal(capped.materialize(capped.dispatch(frames)), want)
+    scaled = SuperResolution(SRConfig(model_name="FW_fast6_x2", device="cpu", outscale=3.0))
+    scaled.setup(24, 32)
+    u8 = torch.from_numpy(plain.materialize(plain.dispatch(frames)))
+    want = to_uint8(resize_bicubic(u8.float() / 255.0, (72, 96))).numpy()
+    np.testing.assert_array_equal(scaled.materialize(scaled.dispatch(frames)), want)
+    with pytest.raises(ConfigError, match="outscale"):
+        scaled.set_output_color("yuv420")
+
+
+def test_restore_with_outscale_and_cap(tmp_path):
+    """Through the API (the JAX CLI has no outscale flag): x2 FW_fastvgg_x2
+    to x3 with the cap at 0.5, on the RGB writer path."""
+    from framewright_tpu_torch.config import Config
+    from framewright_tpu_torch.io import y4m
+    from framewright_tpu_torch.restorer import VideoRestorer
+
+    src = tmp_path / "c.y4m"
+    with y4m.Y4MWriter(src, 24, 16, fps=12) as w:
+        for f in _clip_frames(3, 16, 24, seed=13):
+            w.write_frame(f)
+    cfg = Config(sr_model="FW_fastvgg_x2", device_platform="cpu", outscale=3.0,
+                 max_enhancement_strength=0.5, project_dir=tmp_path / "p")
+    r = VideoRestorer(cfg)
+    res = r.restore_video(src, tmp_path / "o.y4m")
+    assert res.frames_out == 3 and res.errors == 0
+    assert (r.sr.config.outscale, r.sr.config.enhancement_cap) == (3.0, 0.5)
+    assert r.sr.config.output_color == "rgb"
+    with y4m.Y4MReader(tmp_path / "o.y4m") as rd:
+        assert (rd.header.width, rd.header.height) == (72, 48)

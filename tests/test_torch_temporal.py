@@ -108,13 +108,19 @@ def test_flags_override_the_preset():
     # codeformer runs since A9b: an unknown face model is refused instead
     pytest.param({"preset": "archive", "face_restore": True, "face_model": "codeformer2"},
                  "face_model", id="kwargs0-A9"),
-    ({"preset": "ultimate", "denoise": True, "flow_model": "raft"}, "A6"),
-    ({"denoise": True, "denoise_model": "restormer"}, "A6"),
-    ({"denoise": True, "flow_model": "raft"}, "A6"),
+    # restormer and raft run since A6c, the ensemble, the cap and guided
+    # enhancement since A7: their unknown values are refused instead
+    pytest.param({"preset": "ultimate", "denoise": True, "flow_model": "farneback"},
+                 "flow_model", id="kwargs1-A6"),
+    pytest.param({"denoise": True, "denoise_model": "restormer2"}, "denoise_model",
+                 id="kwargs2-A6"),
+    pytest.param({"ensemble_strategy": "mean", "sr_ensemble": "FW_fast6_x2"},
+                 "ensemble_strategy", id="kwargs3-A6"),
     ({"temporal_model": "latent"}, "A10"),
     pytest.param({"face_restore": True, "face_model": "restoreformer"}, "face_model",
                  id="kwargs5-A9"),
-    ({"interpolation": True, "denoise": True, "denoise_model": "restormer"}, "A6"),
+    pytest.param({"interpolation": True, "max_enhancement_strength": 1.5},
+                 "max_enhancement_strength", id="kwargs6-A6"),
     ({"temporal_window": 4}, "odd"),
     ({"deinterlace": "weave"}, "deinterlace"), ({"long_form": "always"}, "long_form"),
 ])
