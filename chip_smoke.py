@@ -1053,7 +1053,7 @@ def film_expect(rgb_path, frames: np.ndarray, mapping: dict, bs: int, seed: int,
 
 def film_phase(tmp: Path, nw: str, dev, x: dict) -> dict:
     """``--deduplicate --defect-repair --grain match`` (x2plus, bf16) on a
-    16-frame 1080p film clip through the CLI: counters 69/1/1 a batch
+    ``FILM_FRAMES``-frame 1080p film clip through the CLI: counters 69/1/1 a batch
     over unique frames only, the mapping of the CPU analysis, every plane
     equal to ``film_expect`` on the pre-SR stream's frames with the kernel
     path in ``rgb_u8``; the same restore through the API straight and
@@ -1977,7 +1977,7 @@ def models_phase(tmp: Path, dev, x: dict) -> dict:
       (byte-equal to straight); ``--denoise --denoise-method restormer``
       and ``--denoise --flow-model raft`` on 4 and 3 frames of 1080p x2plus
       (69/1/1 a batch; planes equal to the pre-SR stream then the kernel
-      path); on 2 frames the ensemble ``--model RealESRGAN_x2plus --ensemble
+      path); on 1 frame the ensemble ``--model RealESRGAN_x2plus --ensemble
       FW_fast6_x2,FW_fastvgg_x2`` in each strategy (rows 1-3 for both RRDB
       members, K2 in rgb_u8, row 10 for the chain; the output equal to the
       vote of the members run alone); ``outscale=3`` with
@@ -2276,8 +2276,8 @@ def models_phase(tmp: Path, dev, x: dict) -> dict:
         sr_in, _ = pre_sr_stream_of(cfg, src, decoded)
         planes_equal(label, kernel, sr_in, read_y4m_planes(out)[2], bs, dev)
 
-    n = 2
-    src, decoded = clip("x2_2", frames1080[:n])
+    n = 1
+    src, decoded = clip("x2_1", frames1080[:n])
     sr_in, _ = pre_sr_stream_of(Config(), src, decoded)
     for strategy in ("weighted", "median", "max_sharpness"):
         label = f"ensemble {strategy}"
@@ -2356,6 +2356,517 @@ def models_phase(tmp: Path, dev, x: dict) -> dict:
     same_planes(label, out, planes_of(np.stack(wants), tmp / "prompt_want.y4m"))
     times["seconds"] = round(time.perf_counter() - t_phase, 3)
     emit({"phase": "models", "seconds": times["seconds"]})
+    return times
+
+
+# -- slice 12: the diffusion SR (A8) and the stream stages (A10b) ---------------
+
+DIFF_H, DIFF_W = 540, 960       # 960x540 -> 3840x2160
+DIFF_CROP = (96, 128)           # card vs CPU crop (f32, 8 steps -> 384x512)
+DIFF_TILED = (320, 480)         # the tiled run's input, tiles of 256
+STREAM_H, STREAM_W, STREAM_N = 1080, 1920, 4
+STREAM_CROP = (128, 192)        # LaMa and the heat fill, card vs CPU
+STREAM_OVERRIDES = {"vhs_restore": True, "stabilize": True, "qp_removal": True,
+                    "temporal_consistency": True, "temporal_model": "latent",
+                    "scene_adaptive": True, "hdr_output": "hdr10plus",
+                    "watermark_removal": True, "inpaint_model": "diffusion", "batch_size": 2}
+DIFF_MAC_PER_OUT_PX = 127_000   # the UNet's multiply-adds an output pixel (DiffusionSR_x4)
+# the bf16 forward, card vs CPU (uint8): set from two readings, the card
+# against the port's CPU (max 1, mean 0.089 on an H100) and the port's CPU
+# against JAX's (max 2, mean 0.14-0.19, tests/test_torch_diffusion.py)
+DIFF_BF16_MAX_LSB, DIFF_BF16_MEAN_LSB = 2, 0.2
+
+
+def _u8_stats(got: np.ndarray, want: np.ndarray) -> dict:
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    return {"max_abs": int(d.max()), "mean_abs": float(d.mean()),
+            "frac_differ": float((d > 0).mean())}
+
+
+def diffusion_phase(tmp: Path, dev, x: dict) -> dict:
+    """DiffusionSR_x4 from the packaged checkpoint (slice 12). -> times.
+
+    - the noise: ``jax.random.normal(PRNGKey(0), (1, 540, 960, 3))``'s
+      draw on the card against the CPU's: the threefry bits and the
+      uniforms equal, the normals within a few f32 ulps (XLA's erfinv
+      polynomial on each device's log1p);
+    - the forward on the card against the port's CPU forward on a 96x128
+      crop (8 steps, the same noise tensor passed in): f32 without TF32,
+      uint8 within 1 LSB on at most 0.1% of the values; bf16 (its bf16
+      roundings follow each device's f32 sums) within 2 LSB, mean under
+      0.2;
+    - the SR processor in bf16 on two 960x540 frames to 4K at the default 8
+      steps and at ``diffusion_steps=1`` (ms a frame, CUDA events; peak
+      against the planner's row), and tiled at 256 on a 320x480 frame;
+    - a CLI restore ``--model DiffusionSR_x4`` of 4 frames of 960x540: no
+      kernel launched (the family has none; counters 0), errors 0, its
+      planes equal to the processor run alone on the pre-SR stream's frames
+      in the restore's batches; stopped after its first batch and resumed,
+      byte-equal to the straight run;
+    - the guided diffusion backend on a 256x256 frame (x4 out, finite)."""
+    import torch
+
+    from framewright_tpu_torch.config import Config
+    from framewright_tpu_torch.hw import full_f32
+    from framewright_tpu_torch.io.y4m import Y4MReader, Y4MWriter
+    from framewright_tpu_torch.models import diffusion_sr
+    from framewright_tpu_torch.models.layers import tree_to_torch
+    from framewright_tpu_torch.models.registry import load_params
+    from framewright_tpu_torch.ops import jax_random
+    from framewright_tpu_torch.processors.guided import GuidedConfig, make_backend
+    from framewright_tpu_torch.processors.super_resolution import SRConfig, SuperResolution
+    from framewright_tpu_torch.restorer import VideoRestorer
+
+    t_phase = time.perf_counter()
+    cli_run, reset, read = x["cli_run"], x["reset_counters"], x["read_counters"]
+    cpu = torch.device("cpu")
+    times: dict = {}
+    spec, tree, src = load_params("DiffusionSR_x4")
+    emit({"phase": "diffusion", "weights": src, "arch": dataclasses.asdict(spec.arch_config)})
+
+    # -- the noise, card vs CPU ------------------------------------------------------
+    shape = (1, DIFF_H, DIFF_W, 3)
+    bits_card = jax_random.random_bits(0, shape, dev).cpu()
+    bits_cpu = jax_random.random_bits(0, shape, cpu)
+    u_card, u_cpu = jax_random.uniform(0, shape, dev).cpu(), jax_random.uniform(0, shape, cpu)
+    n_card, n_cpu = jax_random.normal(0, shape, dev).cpu(), jax_random.normal(0, shape, cpu)
+    ulp = (n_card.view(torch.int32).long() - n_cpu.view(torch.int32).long()).abs()
+    s = {"name": "PRNGKey(0) normal (1, 540, 960, 3), card vs CPU",
+         "bits_equal": bool(torch.equal(bits_card, bits_cpu)),
+         "uniform_equal": bool(torch.equal(u_card, u_cpu)),
+         "normal_max_ulp": int(ulp.max()), "normal_frac_differ": float((ulp > 0).float().mean())}
+    emit({"phase": "diffusion", **s, "tol": {"bits_equal": True, "uniform_equal": True,
+                                             "normal_max_ulp": 4}})
+    require(s["bits_equal"] and s["uniform_equal"] and s["normal_max_ulp"] <= 4, str(s))
+    times["noise_ms_two_4k_frames"] = cuda_ms(
+        lambda: jax_random.normal(0, (2, 4 * DIFF_H, 4 * DIFF_W, 3), dev), 3, 1)
+    emit({"phase": "diffusion", "run": "PRNGKey(0) normal (2, 2160, 3840, 3) on the card",
+          "ms": times["noise_ms_two_4k_frames"]})
+
+    # -- the forward, card vs CPU on a crop ------------------------------------------
+    ch, cw = DIFF_CROP
+    lr = torch.from_numpy(synthetic_frames(1, ch, cw, 91, **PROGRESSIVE)).float() / 255.0
+    noise = jax_random.normal(0, (1, 4 * ch, 4 * cw, 3), cpu)
+    arch8 = dataclasses.replace(spec.arch_config, steps=8)
+    for dt in (torch.float32, torch.bfloat16):
+        with full_f32(), torch.no_grad():
+            got = diffusion_sr.ddim_sample(tree_to_torch(tree, dev, dt), lr.to(dev).to(dt), arch8,
+                                           noise=noise.to(dev)).float().cpu()
+            want = diffusion_sr.ddim_sample(tree_to_torch(tree, cpu, dt), lr.to(dt), arch8,
+                                            noise=noise).float()
+        u = [np.clip(np.floor(t.numpy() * 255.0 + 0.5), 0, 255) for t in (got, want)]
+        st = _u8_stats(*u)
+        name = f"ddim 8 steps {str(dt)[6:]} {ch}x{cw}, card vs CPU (uint8)"
+        if dt == torch.float32:
+            tol = {"max_lsb": 1, "frac_differ": MODEL_U8_FRAC}
+            ok = st["max_abs"] <= 1 and st["frac_differ"] <= MODEL_U8_FRAC
+        else:
+            tol = {"max_lsb": DIFF_BF16_MAX_LSB, "mean_lsb": DIFF_BF16_MEAN_LSB}
+            ok = st["max_abs"] <= DIFF_BF16_MAX_LSB and st["mean_abs"] <= DIFF_BF16_MEAN_LSB
+        emit({"phase": "diffusion", "name": name, **st, "tol": tol})
+        require(ok, f"{name}: {st}")
+        require(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+
+    # -- the SR processor: 2 frames of 960x540 to 4K, 8 and 1 steps; tiled -------------
+    frames = synthetic_frames(2, DIFF_H, DIFF_W, 92, **PROGRESSIVE)
+    for steps in (8, 1):
+        torch.cuda.empty_cache()
+        proc = SuperResolution(SRConfig(model_name="DiffusionSR_x4", batch_size=2,
+                                        diffusion_steps=steps))
+        proc.setup(DIFF_H, DIFF_W)
+        with torch.no_grad():
+            out = proc.materialize(proc.dispatch(frames))          # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (out, peak) = part_peak(lambda: proc.materialize(proc.dispatch(frames)))
+            wall = time.perf_counter() - t0
+        require(out.shape == (2, 4 * DIFF_H, 4 * DIFF_W, 3), f"diffusion out {out.shape}")
+        macs = DIFF_MAC_PER_OUT_PX * 16 * DIFF_H * DIFF_W * steps
+        rec = {"ms_per_frame": 1e3 * wall / 2, "batch": proc.plan.batch,
+               "peak_mem_bytes": peak, "planner_bytes": proc.plan.est_bytes,
+               "tflop_per_frame": 2 * macs / 1e12,
+               "bound_ms_per_frame": bound_ms(2 * macs, 0, PEAK_BF16_FLOPS)[0]}
+        times[f"whole_{steps}_steps"] = rec
+        emit({"phase": "diffusion", "run": f"SR processor bf16 {steps} steps, 2 frames "
+              "960x540 -> 3840x2160", **rec})
+        x["plan_checks"].append((f"diffusion {steps} steps", peak, proc.plan.est_bytes))
+        proc.teardown()
+        del out
+    th, tw = DIFF_TILED
+    tiled_in = synthetic_frames(1, th, tw, 93, **PROGRESSIVE)
+    torch.cuda.empty_cache()
+    proc = SuperResolution(SRConfig(model_name="DiffusionSR_x4", tile_size=256, batch_size=4,
+                                    diffusion_steps=8))
+    proc.setup(th, tw)
+    require(proc.plan.tiled, f"diffusion tiled plan {proc.plan}")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out, peak = part_peak(lambda: proc.materialize(proc.dispatch(tiled_in)))
+        wall = time.perf_counter() - t0
+    require(out.shape == (1, 4 * th, 4 * tw, 3), f"tiled out {out.shape}")
+    times["tiled_256"] = {"ms_per_frame": 1e3 * wall, "tiles": proc.plan.tiles_per_frame,
+                          "tile_batch": proc.plan.batch, "peak_mem_bytes": peak,
+                          "planner_bytes": proc.plan.est_bytes}
+    emit({"phase": "diffusion", "run": f"SR processor bf16 8 steps tiled at 256, {th}x{tw}",
+          **times["tiled_256"]})
+    x["plan_checks"].append(("diffusion tiled 256", peak, proc.plan.est_bytes))
+    proc.teardown()
+
+    # -- the CLI restore, its parts alone, stopped and resumed ---------------------------
+    n = 4
+    src = tmp / "diffusion_src.y4m"
+    with Y4MWriter(src, DIFF_W, DIFF_H, fps=24) as writer:
+        for f in synthetic_frames(n, DIFF_H, DIFF_W, 94, **PROGRESSIVE):
+            writer.write_frame(f)
+    with Y4MReader(src) as reader:
+        decoded = np.stack(list(reader))
+    nw = x["nw"]
+    argv = ["--model", "DiffusionSR_x4", "--weights-dir", nw]
+    out = tmp / "diffusion_straight.y4m"
+    torch.cuda.empty_cache()
+    reset()
+    t0 = time.perf_counter()
+    rc, summary, peak = cli_run(["restore", str(src), "-o", str(out), "--project-dir",
+                                 str(tmp / "proj_diff"), *argv])
+    wall = time.perf_counter() - t0
+    launches = read()
+    require(rc == 0 and summary["errors"] == 0 and summary["frames"] == n,
+            f"diffusion restore: rc {rc} {summary}")
+    require(all(v == 0 for v in launches.values()), f"diffusion restore launched {launches}")
+    bs = summary["batch_size"]
+    times["restore"] = {"wall_seconds": wall, "ms_per_frame": 1e3 * wall / n,
+                        "batch_size": bs, "peak_mem_bytes": peak}
+    emit({"phase": "diffusion", "run": "cli --model DiffusionSR_x4", "summary": summary,
+          "launches": launches, **times["restore"]})
+    cfg = Config(sr_model="DiffusionSR_x4", scale_factor=4, weights_dir=nw,
+                 project_dir=tmp / "proj_diff_parts")
+    sr_in, _ = pre_sr_stream_of(cfg, src, decoded)
+    with Y4MReader(out) as r:
+        full_range = r.full_range
+    proc = SuperResolution(SRConfig(model_name="DiffusionSR_x4", batch_size=bs,
+                                    output_color="yuv420", yuv_full_range=full_range,
+                                    diffusion_steps=cfg.diffusion_steps))
+    proc.setup(DIFF_H, DIFF_W)
+    with full_f32(), torch.no_grad():
+        want = []
+        for i in range(0, n, bs):
+            planes = proc.materialize(proc.dispatch(sr_in[i:i + bs]))
+            want += [tuple(p[j] for p in planes) for j in range(len(planes[0]))]
+    proc.teardown()
+    got = read_y4m_planes(out)[2]
+    worst = max(int(np.abs(g.astype(np.int16) - w_).max())
+                for a, b in zip(got, want) for g, w_ in zip(a, b))
+    emit({"phase": "diffusion", "run": "cli --model DiffusionSR_x4",
+          "name": "written planes vs the parts alone", "max_abs": worst, "tol": {"max_abs": 0}})
+    require(len(got) == n and worst == 0, f"diffusion restore differs from its parts by {worst}")
+
+    # stopped after its first batch of 2 and resumed, against a straight run at
+    # batch 2 (a frame's noise is its slice of its batch's draw)
+    class Stop(Exception):
+        pass
+
+    def stop(info):
+        if info.frames_done >= 2:
+            raise Stop()
+
+    def api_restore(proj, path, callback=None):
+        c = Config(sr_model="DiffusionSR_x4", scale_factor=4, weights_dir=nw, batch_size=2,
+                   project_dir=proj)
+        with contextlib.redirect_stdout(io.StringIO()):
+            return VideoRestorer(c, callback).restore_video(src, path)
+
+    straight2 = tmp / "diffusion_straight_b2.y4m"
+    api_restore(tmp / "proj_diff_b2", straight2)
+    resumed = tmp / "diffusion_resumed.y4m"
+    try:
+        api_restore(tmp / "proj_diff_resumed", resumed, stop)
+        require(False, "the diffusion restore was not stopped")
+    except Stop:
+        pass
+    res = api_restore(tmp / "proj_diff_resumed", resumed)
+    same = resumed.read_bytes() == straight2.read_bytes()
+    emit({"phase": "diffusion", "run": "DiffusionSR_x4 batch 2 stopped and resumed",
+          "resumed_from": res.resumed_from, "equal_to_straight": same})
+    require(res.resumed_from == 2 and same and res.errors == 0,
+            f"diffusion resumed at {res.resumed_from}, equal to straight: {same}")
+
+    # -- the guided diffusion backend ------------------------------------------------
+    frame = synthetic_frames(1, 256, 256, 95, **PROGRESSIVE)[0]
+    backend = make_backend(GuidedConfig(prompt=GUIDED_PROMPT, backend="diffusion"))
+    backend.enhance(frame)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = backend.enhance(frame)
+    times["guided_ms"] = 1e3 * (time.perf_counter() - t0)
+    emit({"phase": "diffusion", "run": "guided diffusion backend 256x256",
+          "shape": list(g.shape), "ms": times["guided_ms"]})
+    require(g.shape == (1024, 1024, 3) and g.dtype == np.uint8, f"guided {g.shape}")
+    times["seconds"] = round(time.perf_counter() - t_phase, 3)
+    emit({"phase": "diffusion", "seconds": times["seconds"]})
+    return times
+
+
+def stream_phase(tmp: Path, dev, x: dict) -> dict:
+    """The stream stages of A10b on x2plus 1080p (slice 12). -> times.
+
+    - each card part against its CPU run (uint8 within 1 LSB on at most
+      0.1% of the values): LaMa (seeded ``big-lama.npz`` at Big-LaMa's
+      widths: ngf 64, 3 downs, 18 blocks, global ratio 0.75) and the heat
+      fill on a 128x192 crop with a hole, the DCT threshold on a batch of
+      4 1080p frames, the latent chunk (eigh) on 16 256x448 frames;
+    - each stage's ms a 1080p frame (host clock; the card parts with CUDA
+      events), the HDR expansion on a 4K output frame;
+    - each card part's peak at 1080p as the restore runs it (LaMa with its
+      weights; the DCT threshold on a batch of 8 frames, the latent chunk
+      on 16) against the planner's pre-SR row; LaMa's bytes equal on two
+      runs;
+    - a restore of 4 frames at batch 2 with the stages of ``--vhs --stabilize
+      --qp-removal --temporal-model latent --scene-adaptive --hdr
+      hdr10plus`` and the heat-fill watermark removal (``Config``; the
+      flags' parsing is the CPU tests'): counters 69/1/1 a batch, errors
+      0, every written plane equal to the pre-SR stream run alone, then the
+      kernel path in ``rgb_u8``, then the HDR expansion, its
+      ``.hdr10plus.json`` sidecar equal to the collector's; stopped after
+      its first batch and resumed, byte-equal with the same sidecar;
+    - a restore inpainting with LaMa from that ``big-lama.npz`` (4 frames
+      at batch 2): every written plane equal to its pre-SR stream run alone
+      (LaMa on the main thread) then the kernel path; stopped after its
+      first batch and resumed, byte-equal."""
+    import torch
+
+    from framewright_tpu_torch import planner
+    from framewright_tpu_torch.config import Config
+    from framewright_tpu_torch.hw import full_f32
+    from framewright_tpu_torch.io.y4m import Y4MReader, Y4MWriter
+    from framewright_tpu_torch.models import lama
+    from framewright_tpu_torch.models.registry import write_npz
+    from framewright_tpu_torch.processors import inpaint as inp
+    from framewright_tpu_torch.processors.hdr import HDRConfig, HDRConverter
+    from framewright_tpu_torch.processors.latent_temporal import (
+        LatentTemporalConfig,
+        LatentTemporalSmoother,
+        smooth_chunk,
+    )
+    from framewright_tpu_torch.processors.qp_removal import (
+        QPArtifactRemover,
+        QPRemovalConfig,
+        dct_filter,
+    )
+    from framewright_tpu_torch.processors.scene_intelligence import (
+        SceneAdaptiveFilter,
+        SceneIntelligence,
+    )
+    from framewright_tpu_torch.processors.stabilization import VideoStabilizer
+    from framewright_tpu_torch.processors.vhs import VHSProcessor
+    from framewright_tpu_torch.restorer import VideoRestorer
+
+    t_phase = time.perf_counter()
+    cli_run, reset, read, model = x["cli_run"], x["reset_counters"], x["read_counters"], x["model"]
+    cpu = torch.device("cpu")
+    times: dict = {}
+    wdir = tmp / "stream_weights"
+    lcfg = lama.LamaConfig(ngf=64, n_down=3, n_blocks=18, global_ratio=0.75)
+    write_npz(lama.init_params(lcfg, seed=31), wdir / inp.LAMA_NPZ)
+    emit({"phase": "stream", "weights": str(wdir / inp.LAMA_NPZ),
+          "arch": dataclasses.asdict(lcfg)})
+
+    def card_vs_cpu(name, got, want):
+        st = _u8_stats(got, want)
+        emit({"phase": "stream", "name": name + ", card vs CPU", **st,
+              "tol": {"max_lsb": 1, "frac_differ": MODEL_U8_FRAC}})
+        require(st["max_abs"] <= 1 and st["frac_differ"] <= MODEL_U8_FRAC, f"{name}: {st}")
+
+    # -- card parts against the CPU ------------------------------------------------------
+    ch, cw = STREAM_CROP
+    crop = synthetic_frames(1, ch, cw, 96, **PROGRESSIVE)[0]
+    hole = np.zeros((ch, cw), bool)
+    hole[40:70, 30:120] = True
+    on_card, on_cpu = (inp.WatermarkRemover(inp.InpaintConfig(weights_dir=str(wdir),
+                                                              device=str(d)))
+                       for d in (dev, cpu))
+    held = torch.cuda.memory_allocated()
+    on_card.setup()
+    lama_weights = torch.cuda.memory_allocated() - held
+    on_cpu.setup()
+    with full_f32():
+        card_vs_cpu("LaMa 128x192", on_card.lama_fill(crop, hole), on_cpu.lama_fill(crop, hole))
+        card_vs_cpu("heat fill 128x192", on_card.diffusion_fill(crop, hole),
+                    on_cpu.diffusion_fill(crop, hole))
+        qp_in = synthetic_frames(4, STREAM_H, STREAM_W, 97, **PROGRESSIVE)
+        card_vs_cpu("DCT threshold 4x1080p", dct_filter(torch.from_numpy(qp_in).to(dev), 3.0, 4)
+                    .cpu().numpy(), dct_filter(torch.from_numpy(qp_in), 3.0, 4).numpy())
+        lt = synthetic_frames(16, 256, 448, 98, **PROGRESSIVE)
+        lcfg_t = LatentTemporalConfig()
+        card_vs_cpu("latent chunk 16x256x448", smooth_chunk(torch.from_numpy(lt).to(dev), lcfg_t)
+                    .cpu().numpy(), smooth_chunk(torch.from_numpy(lt), lcfg_t).numpy())
+        # card times at 1080p
+        big_hole = np.zeros((STREAM_H, STREAM_W), bool)
+        big_hole[900:980, 200:1700] = True
+        f1080 = qp_in[0]
+        times["lama_ms"] = cuda_ms(lambda: on_card.lama_fill(f1080, big_hole), 2, 1)
+        times["heat_ms"] = cuda_ms(lambda: on_card.diffusion_fill(f1080, big_hole), 3, 1)
+        xq = torch.from_numpy(qp_in).to(dev)
+        times["dct_ms_per_frame"] = cuda_ms(lambda: dct_filter(xq, 3.0, 4), 3, 1) / len(qp_in)
+        l16 = synthetic_frames(16, STREAM_H, STREAM_W, 99, **PROGRESSIVE)
+        xl = torch.from_numpy(l16).to(dev)
+        times["latent_ms_per_frame"] = cuda_ms(lambda: smooth_chunk(xl, lcfg_t), 3, 1) / 16
+        del xq, xl
+        # peaks at 1080p against the planner's pre-SR rows; LaMa's with its
+        # weights, which the stage loads beside the SR batch
+        torch.cuda.empty_cache()
+        px = STREAM_H * STREAM_W
+        filled, lama_peak = part_peak(lambda: on_card.lama_fill(f1080, big_hole))
+        require(np.array_equal(filled, on_card.lama_fill(f1080, big_hole)),
+                "LaMa 1080p: two runs on the card differ")
+        qp8 = np.concatenate([qp_in, qp_in[::-1]])
+        qp_card = QPArtifactRemover(QPRemovalConfig(strength=3.0))
+        peaks = {"lama": lama_peak + lama_weights,
+                 "heat": part_peak(lambda: on_card.diffusion_fill(f1080, big_hole))[1],
+                 "qp": part_peak(lambda: qp_card.process_batch(qp8))[1],
+                 "latent": part_peak(lambda: LatentTemporalSmoother()._run(l16))[1]}
+        for part, peak in peaks.items():
+            plan = (planner.pre_sr_bytes(STREAM_H, STREAM_W, None, "latent") if part == "latent"
+                    else planner.pre_sr_bytes(STREAM_H, STREAM_W, None, None, stages=(part,)))
+            emit({"phase": "stream", "part": part, "peak_bytes": peak,
+                  "peak_bytes_per_px": peak / px, "planner_bytes": plan,
+                  **({"weights_bytes": lama_weights} if part == "lama" else {})})
+            x["plan_checks"].append((f"stream {part} 1080p", peak, plan))
+        times["peaks_bytes_per_px"] = {k: v / px for k, v in peaks.items()}
+    # host stages a 1080p frame (the VHS window of 5, the stabilizer's estimate
+    # and warp, the scene analysis and filter, the HDR expansion of a 4K frame)
+    frames8 = [f for f in synthetic_frames(STREAM_N, STREAM_H, STREAM_W, 100, **PROGRESSIVE)]
+    times["vhs_host_ms"] = host_ms(lambda: list(VHSProcessor().process_stream(iter(frames8))),
+                                   1) / STREAM_N
+    times["stabilize_host_ms"] = host_ms(
+        lambda: list(VideoStabilizer().process_stream(iter(frames8))), 1) / STREAM_N
+    si = SceneIntelligence(sample_every=1, device=str(dev))
+    times["scene_analysis_host_ms"] = host_ms(lambda: si.analyze_video(iter(frames8[:2])), 1) / 2
+    pmap = {0: si.get_adaptive_settings(si.analyze_frame(frames8[0]))}
+    pmap[0].sharpening = 0.6
+    times["scene_filter_host_ms"] = host_ms(
+        lambda: list(SceneAdaptiveFilter(pmap).process_stream(iter(frames8[:2]))), 1) / 2
+    up = np.repeat(np.repeat(frames8[0], 2, 0), 2, 1)
+    hdr = HDRConverter(HDRConfig(target="hdr10plus"))
+    times["hdr_host_ms_4k"] = host_ms(lambda: hdr.expand_frame(up), 1)
+    emit({"phase": "stream", "card": "ms a 1080p frame", **times})
+
+    # -- the restores ------------------------------------------------------------------
+    n = STREAM_N
+    src = tmp / "stream_src.y4m"
+    clip = synthetic_frames(n, STREAM_H, STREAM_W, 101, **PROGRESSIVE).astype(np.int16)
+    clip[:, 980:1010, 300:1600] = 235           # a static overlay for the mask
+    with Y4MWriter(src, STREAM_W, STREAM_H, fps=24) as writer:
+        for f in clip.astype(np.uint8):
+            writer.write_frame(f)
+    with Y4MReader(src) as reader:
+        decoded = np.stack(list(reader))
+    fw = model.fast_weights()
+
+    def restore(label, proj, out, overrides, callback=None):
+        cfg = Config(weights_dir=wdir, project_dir=proj, **overrides)
+        torch.cuda.empty_cache()
+        reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = VideoRestorer(cfg, callback).restore_video(src, out)
+        wall = time.perf_counter() - t0
+        launches = read()
+        rec = {"wall_seconds": wall, "ms_per_frame": 1e3 * wall / STREAM_N,
+               "batches": res.batches, "batch_size": res.batch_size, "errors": res.errors,
+               "resumed_from": res.resumed_from}
+        emit({"phase": "stream", "run": label, "pre_sr": res.pre_sr, "post_sr": res.post_sr,
+              "launches": launches, **rec})
+        require(res.errors == 0 and res.frames_out == STREAM_N, f"{label}: {rec}")
+        want = {k: 0 for k in launches}
+        want.update(fused_rdb=69 * res.batches, conv_body_skip=res.batches,
+                    fused_tail=res.batches)
+        require(launches == want, f"{label}: launch counts {launches}, expected {want}")
+        return cfg, res, rec
+
+    def parts(cfg, res, hdr_on):
+        sr_in, _ = pre_sr_stream_of(cfg, src, decoded)
+        bs, n = res.batch_size, len(decoded)
+        conv = HDRConverter(HDRConfig(mode="expand", target="hdr10plus")) if hdr_on else None
+        outs = []
+        with torch.no_grad():
+            for i in range(0, n, bs):
+                xs = torch.from_numpy(sr_in[i:i + bs]).to(dev).to(torch.bfloat16) / 255.0
+                u = model.apply_fast(xs, "rgb_u8", weights=fw).cpu().numpy()
+                outs += [conv.expand_frame(f) if conv is not None else f for f in u]
+        return np.stack(outs), conv
+
+    def same_planes(label, got_path, rgb):
+        want_path = tmp / f"{got_path.stem}_want.y4m"
+        with Y4MWriter(want_path, rgb.shape[2], rgb.shape[1], fps=24) as writer:
+            for f in rgb:
+                writer.write_frame(f)
+        got, want = read_y4m_planes(got_path)[2], read_y4m_planes(want_path)[2]
+        worst = max(int(np.abs(g.astype(np.int16) - w_).max())
+                    for a, b in zip(got, want) for g, w_ in zip(a, b))
+        emit({"phase": "stream", "run": label, "name": "written planes vs the parts alone",
+              "max_abs": worst, "tol": {"max_abs": 0}})
+        require(len(got) == len(want) == n and worst == 0,
+                f"{label}: output differs from its parts by {worst}")
+
+    out = tmp / "stream_straight.y4m"
+    label = "stages + heat-fill watermark removal"
+    cfg, res, times["stream_restore"] = restore(label, tmp / "proj_stream", out, STREAM_OVERRIDES)
+    rgb, conv = parts(cfg, res, True)
+    same_planes(label, out, rgb)
+    sidecar = Path(str(out) + ".hdr10plus.json")
+    require(sidecar.is_file() and sidecar.read_text() == conv.collector.to_json(),
+            f"{label}: the HDR10+ sidecar is missing or differs")
+    bs = res.batch_size
+
+    class Stop(Exception):
+        pass
+
+    def stop(info):
+        if info.frames_done >= bs:
+            raise Stop()
+
+    resumed = tmp / "stream_resumed.y4m"
+    try:
+        restore(label + " (stopped)", tmp / "proj_stream_resumed", resumed, STREAM_OVERRIDES,
+                stop)
+        require(False, "the stream restore was not stopped")
+    except Stop:
+        pass
+    _, res2, _ = restore(label + " resumed", tmp / "proj_stream_resumed", resumed,
+                         STREAM_OVERRIDES)
+    same = (resumed.read_bytes() == out.read_bytes()
+            and Path(str(resumed) + ".hdr10plus.json").read_text() == sidecar.read_text())
+    emit({"phase": "stream", "run": label + " resumed", "resumed_from": res2.resumed_from,
+          "equal_to_straight": same})
+    require(res2.resumed_from == bs and same,
+            f"stream resumed at {res2.resumed_from}, equal to straight: {same}")
+
+    # LaMa at batch 2: no post-SR work, so the YUV-direct writer path; the
+    # restore runs LaMa in the ring's producer thread on a stream of its
+    # own, its parts alone run it here
+    lama_over = {"watermark_removal": True, "inpaint_model": "lama", "batch_size": 2}
+    label = "LaMa watermark removal"
+    lama_out = tmp / "stream_lama.y4m"
+    cfg, res, times["lama_restore"] = restore(label, tmp / "proj_lama", lama_out, lama_over)
+    sr_in, info = pre_sr_stream_of(cfg, src, decoded)
+    require(info["inpaint"]["mask_fraction"] > 0, f"LaMa restore: no mask {info}")
+    planes_equal(label, x["kernel_path"](model, fw), sr_in, read_y4m_planes(lama_out)[2],
+                 res.batch_size, dev)
+    bs = res.batch_size
+    resumed = tmp / "stream_lama_resumed.y4m"
+    try:
+        restore(label + " (stopped)", tmp / "proj_lama_resumed", resumed, lama_over, stop)
+        require(False, "the LaMa restore was not stopped")
+    except Stop:
+        pass
+    _, res2, _ = restore(label + " resumed", tmp / "proj_lama_resumed", resumed, lama_over)
+    same = resumed.read_bytes() == lama_out.read_bytes()
+    emit({"phase": "stream", "run": label + " resumed", "resumed_from": res2.resumed_from,
+          "equal_to_straight": same})
+    require(res2.resumed_from == bs and same,
+            f"LaMa resumed at {res2.resumed_from}, equal to straight: {same}")
+    times["seconds"] = round(time.perf_counter() - t_phase, 3)
+    emit({"phase": "stream", "seconds": times["seconds"]})
     return times
 
 
@@ -2469,25 +2980,25 @@ def native_phase() -> dict:
 
 
 def c5_times() -> dict:
-    """``scripts/torch_presr_times.py --frames 4 12 --profile`` in a process
+    """``scripts/torch_presr_times.py --frames 2 4 --profile`` in a process
     of its own: dispatch's enqueue ms, the quality restore's busy share
     and peaks, and the film restore's parts."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, str(ROOT / "scripts" / "torch_presr_times.py"),
-                           "--frames", "4", "12", "--profile"], cwd=ROOT, capture_output=True,
+                           "--frames", "2", "4", "--profile"], cwd=ROOT, capture_output=True,
                           text=True, timeout=900)
     require(proc.returncode == 0, f"torch_presr_times.py: {proc.stderr[-2000:]}")
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     runs = out["runs"]
     rec = {"phase": "c5", "card": out["card"],
            "enqueue_ms_per_dispatch": {k: r["enqueue_ms_per_dispatch"] for k, r in runs.items()},
-           "quality_busy_share": runs["quality 12 profiled"]["device_busy_share"],
+           "quality_busy_share": runs["quality 4 profiled"]["device_busy_share"],
            "quality_busy_share_unprofiled":
-               runs["quality 12 profiled"]["device_busy_share_unprofiled"],
+               runs["quality 4 profiled"]["device_busy_share_unprofiled"],
            "quality_peaks": {k: (r["peak_allocated_bytes"], r["peak_reserved_bytes"])
                              for k, r in runs.items() if k.startswith("quality")},
            "steady_ms_per_frame": out["steady_ms_per_frame"],
-           "film_parts_ms": runs["film 12"]["parts_ms"],
+           "film_parts_ms": runs["film 4"]["parts_ms"],
            "seconds": round(time.perf_counter() - t0, 3)}
     emit(rec)
     return rec
@@ -3691,6 +4202,8 @@ def main(argv=None) -> int:
         engine_times = engine_phase(tmp, dev, {**x, "nw": nw}, tmp / "archive.y4m",
                                     tmp / "archive_weights")
         models_times = models_phase(tmp, dev, {**x, "nw": nw, "kernel_path": kernel_path})
+        diffusion_times = diffusion_phase(tmp, dev, {**x, "nw": nw})
+        stream_times = stream_phase(tmp, dev, {**x, "kernel_path": kernel_path})
     emit({"phase": "restore", "seconds": round(time.perf_counter() - t0, 3)})
     launches = launches_by_run["RealESRGAN_x2plus bfloat16"]
 

@@ -2,12 +2,15 @@
 
     python -m framewright_tpu_torch.cli restore IN -o OUT \\
         [--preset fast|quality|archive|ultimate] \\
-        [--model RealESRGAN_x2plus|realesr-animevideov3|HAT_SRx4|BasicVSR|...] \\
+        [--model RealESRGAN_x2plus|realesr-animevideov3|HAT_SRx4|DiffusionSR_x4|...] \\
         [--ensemble M1,M2] [--ensemble-strategy weighted|median|max_sharpness] \\
         [--max-enhancement S] [--prompt P] [--style S] [--reference-dir DIR] \\
         [--dtype bfloat16|float32|int8] \\
         [--denoise] [--denoise-method auto|temporal|nafnet|restormer|bilateral] \\
-        [--temporal-consistency] [--temporal-model attention|ema] \\
+        [--temporal-consistency] [--temporal-model attention|ema|latent] \\
+        [--vhs] [--stabilize] [--stabilize-smoothing N] [--stabilize-crop F] \\
+        [--qp-removal] [--qp-strength T] [--scene-adaptive] \\
+        [--hdr none|hdr10|hdr10plus|hlg] [--auto-enhance] \\
         [--flow-model ifnet|raft] [--long-form auto|on|off] \\
         [--deduplicate] [--defect-repair] \\
         [--grain auto|off|preserve|remove|match] \\
@@ -50,7 +53,12 @@ the chunked video SR (chunks of 8 frames and 2 of context, dedup's
 mapping bypassed); ``--ensemble`` votes extra SR models of the same scale
 with ``--model``; ``--max-enhancement`` lerps the SR output toward the
 bilinear upscale; ``--prompt``, ``--style`` and ``--reference-dir`` steer
-the guided enhancement after SR. ``--denoise-method restormer`` needs
+the guided enhancement after SR. ``--model DiffusionSR_x4`` runs the
+diffusion SR trained in this repository (8 DDIM steps). ``--vhs``, ``--stabilize``, ``--qp-removal``,
+``--temporal-model latent`` and ``--scene-adaptive`` add pre-SR stages,
+``--hdr`` expands the output to HDR last (``hdr10plus`` writes
+``<output>.hdr10plus.json``), ``--auto-enhance`` picks stages from an
+analysis of the source. ``--denoise-method restormer`` needs
 ``<weights-dir>/restormer.npz`` and ``--flow-model raft``
 ``raft-things.npz`` (or princeton-vl's ``.pth``).
 ``--interpolate`` raises the frame rate by a power of two with IFNet
@@ -104,7 +112,12 @@ def cmd_restore(args: argparse.Namespace) -> int:
             "sr_ensemble": args.sr_ensemble, "ensemble_strategy": args.ensemble_strategy,
             "max_enhancement_strength": args.max_enhancement_strength,
             "sr_prompt": args.sr_prompt, "sr_style_preset": args.sr_style_preset,
-            "reference_images_dir": args.reference_images_dir})
+            "reference_images_dir": args.reference_images_dir,
+            "vhs_restore": args.vhs_restore, "stabilize": args.stabilize,
+            "stabilize_smoothing": args.stabilize_smoothing,
+            "stabilize_crop": args.stabilize_crop, "qp_removal": args.qp_removal,
+            "qp_strength": args.qp_strength, "scene_adaptive": args.scene_adaptive,
+            "hdr_output": args.hdr_output, "auto_enhance": args.auto_enhance})
         last = {"stage": None}
 
         def on_progress(info: ProgressInfo) -> None:
@@ -167,8 +180,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="a model of the registry: RRDB (RealESRGAN_x2plus, the "
                         "default, RealESRGAN_x4plus, ...), SRVGG "
                         "(realesr-animevideov3, realesr-general-x4v3, "
-                        "FW_fastvgg_x2, ...), HAT_SRx4, or the video SR models "
-                        "BasicVSR and TVSR_x4; the scale is the model's")
+                        "FW_fastvgg_x2, ...), HAT_SRx4, DiffusionSR_x4, or the "
+                        "video SR models BasicVSR and TVSR_x4; the scale is the "
+                        "model's")
     p.add_argument("--ensemble", dest="sr_ensemble",
                    help="comma list of extra SR models to ensemble with --model")
     p.add_argument("--ensemble-strategy", dest="ensemble_strategy",
@@ -195,7 +209,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "strength; restormer needs <weights-dir>/restormer.npz")
     p.add_argument("--temporal-consistency", action="store_true", default=None,
                    help="flicker reduction before SR")
-    p.add_argument("--temporal-model", choices=("attention", "ema"))
+    p.add_argument("--temporal-model", choices=("attention", "ema", "latent"),
+                   help="latent: the clip-adaptive latent low-pass on the card")
     p.add_argument("--flow-model", choices=("ifnet", "raft"),
                    help="the denoiser's alignment flow net (raft: "
                         "<weights-dir>/raft-things.npz or .pth)")
@@ -208,6 +223,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--grain", dest="grain_mode",
                    choices=("auto", "off", "preserve", "remove", "match"),
                    help="post-SR film-grain handling")
+    p.add_argument("--vhs", dest="vhs_restore", action="store_true", default=None,
+                   help="VHS artifact repair (tracking/dropouts/chroma/dot crawl)")
+    p.add_argument("--stabilize", action="store_true", default=None,
+                   help="full-frame stabilization (camera shake removal)")
+    p.add_argument("--stabilize-smoothing", dest="stabilize_smoothing", type=int,
+                   help="trajectory smoothing radius, frames")
+    p.add_argument("--stabilize-crop", dest="stabilize_crop", type=float,
+                   help="retained frame fraction after crop-zoom")
+    p.add_argument("--qp-removal", dest="qp_removal", action="store_true", default=None,
+                   help="codec deblocking/deringing")
+    p.add_argument("--qp-strength", dest="qp_strength", type=float,
+                   help="DCT threshold; 0 = auto from blockiness")
+    p.add_argument("--scene-adaptive", dest="scene_adaptive", action="store_true",
+                   default=None, help="per-scene content-aware strength modulation")
+    p.add_argument("--hdr", dest="hdr_output", choices=("none", "hdr10", "hdr10plus", "hlg"),
+                   help="export expanded HDR (PQ/HLG-encoded; hdr10plus adds an ST "
+                        "2094-40 dynamic-metadata sidecar)")
+    p.add_argument("--auto-enhance", dest="auto_enhance", action="store_true", default=None,
+                   help="analyze content and toggle restoration stages")
     p.add_argument("--interpolate", dest="interpolation", action="store_true", default=None,
                    help="frame interpolation after SR (IFNet, <weights-dir>/rife-v4.6.npz)")
     p.add_argument("--target-fps", dest="target_fps", type=float,

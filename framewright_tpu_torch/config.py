@@ -6,9 +6,13 @@ the two the port adds (``weights_dir``, ``max_frames``); the JAX presets
 JAX CLI resolves them).
 
 A stage the port does not run yet raises ``ConfigError`` naming its
-ROADMAP.md item when it is switched on (``temporal_model="latent"``:
-A10; ``colorize``: A10b); it never runs silently without it.
-``colorize`` is accepted off. The SR ensemble (``sr_ensemble``,
+ROADMAP.md item when it is switched on (``colorize`` and
+``fill_missing_frames``: A10b); it never runs silently without it. Both
+are accepted off. The diffusion SR's ``diffusion_steps`` and
+``diffusion_strength``, and the pre-SR stream's VHS repair, stabilization,
+watermark and subtitle inpainting, QP removal, the latent temporal model
+and the scene-adaptive filter, HDR output after SR and ``auto_enhance``
+have JAX's names, defaults and validation. The SR ensemble (``sr_ensemble``,
 ``ensemble_strategy``), ``outscale``, the enhancement cap
 (``max_enhancement_strength``) and guided enhancement (``sr_prompt``,
 ``sr_style_preset``, ``reference_images_dir``, ``reference_strength``,
@@ -23,7 +27,7 @@ import hashlib
 import json
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from framewright_tpu_torch.errors import ConfigError
 
@@ -147,10 +151,29 @@ class Config:
     flow_model: str = "ifnet"             # the alignment flow net
     scene_threshold: float = 0.30         # scene-change score that cuts windows
     temporal_consistency: bool = False
-    temporal_model: str = "attention"     # attention (cross-frame) | ema
+    temporal_model: str = "attention"     # attention (cross-frame) | ema | latent
     defect_repair: bool = False           # scratches and dust, after deinterlacing
     defect_scratch_sensitivity: float = 12.0   # column-scratch detector threshold
     defect_dust_sensitivity: float = 45.0      # dust / speck detector threshold
+    vhs_restore: bool = False             # VHS repair, after deinterlacing
+    vhs_fix_tracking: bool = True
+    vhs_fix_dropouts: bool = True
+    vhs_fix_chroma: bool = True
+    vhs_fix_dot_crawl: bool = True
+    vhs_tracking_threshold: float = 30.0
+    fill_missing_frames: bool = False     # not ported (ROADMAP.md A10b); accepted off
+    stabilize: bool = False               # after defect repair
+    stabilize_smoothing: int = 15         # trajectory smoothing radius (frames)
+    stabilize_crop: float = 0.95          # retained frame fraction (crop-zoom)
+    stabilize_rotation: bool = True       # estimate roll as well as translation
+    inpaint_model: str = "lama"           # lama (<weights_dir>/big-lama.npz) | diffusion
+    watermark_removal: bool = False       # inpaint static overlays, after stabilization
+    watermark_auto_detect: bool = True
+    watermark_regions: Tuple[Tuple[int, int, int, int], ...] = ()   # (x0, y0, x1, y1)
+    subtitle_removal: bool = False        # the same in the bottom third
+    qp_removal: bool = False              # codec deblocking and deringing, before denoise
+    qp_strength: float = 0.0              # DCT threshold; 0 = auto from blockiness
+    scene_adaptive: bool = False          # per-scene sharpen / NR deltas, last pre-SR
 
     # --- Deduplication: SR on the unique frames only ---------------------------
     deduplicate: bool = False
@@ -164,6 +187,17 @@ class Config:
                                           # match when grain_preserve, else off)
     grain_target: float = 0.0             # match target level; 0 = measured once
     seed: int = 0                         # the grain generator's seed
+    hdr_output: str = "none"              # none|hdr10|hdr10plus|hlg: last after SR
+    hdr_peak_nits: float = 1000.0         # mastering peak of the SDR -> HDR expansion
+    hdr_highlight_boost: float = 0.6
+
+    # --- Diffusion SR (DiffusionSR_x4) -------------------------------------------
+    diffusion_steps: int = 8              # DDIM steps (replace the checkpoint's 1)
+    diffusion_strength: float = 0.35      # propagate_t (a restore does not read it)
+
+    # --- Auto-enhance: analyze the source, then toggle stages --------------------
+    auto_enhance: bool = False
+    auto_detect_content: bool = True
 
     # --- Interpolation (after SR, at the output size) --------------------------
     interpolation: bool = False
@@ -175,7 +209,7 @@ class Config:
     # --- Guided enhancement (after SR and the gate, before grain) ---------------
     sr_prompt: str = ""                   # style prompt (a controlled vocabulary)
     sr_style_preset: str = ""             # a processors/guided.py STYLE_PRESETS name
-    guidance_scale: float = 5.0           # the diffusion backend's (not ported: A8)
+    guidance_scale: float = 5.0           # the diffusion guided backend's
     reference_images_dir: Optional[Path] = None  # *.png stills to match
     reference_strength: float = 0.5       # statistics-transfer blend
 
@@ -227,6 +261,7 @@ class Config:
             self.weights_dir = Path(self.weights_dir)
         if self.reference_images_dir is not None:
             self.reference_images_dir = Path(self.reference_images_dir)
+        self.watermark_regions = tuple(tuple(int(v) for v in r) for r in self.watermark_regions)
         self.work_dir = self.project_dir / "work"
         self.checkpoint_dir = self.project_dir / "checkpoints"
         self._validate()
@@ -293,9 +328,13 @@ class Config:
             raise ConfigError("dedup_similarity must be in [0, 1]")
         if self.grain_mode not in _VALID_GRAIN:
             raise ConfigError("grain_mode must be auto|off|preserve|remove|match")
-        if self.temporal_model == "latent":
-            raise ConfigError("temporal_model='latent' needs processors/latent_temporal, "
-                              "not ported yet: ROADMAP.md A10")
+        if not (0.0 < self.stabilize_crop <= 1.0):
+            raise ConfigError("stabilize_crop must be in (0, 1]")
+        if self.stabilize_smoothing < 1:
+            raise ConfigError("stabilize_smoothing must be >= 1")
+        if self.fill_missing_frames:
+            raise ConfigError("fill_missing_frames needs processors/frame_generation, not "
+                              "ported yet: ROADMAP.md A10b")
         if self.preset and self.preset not in PRESETS:
             get_preset(self.preset)          # raises: an unknown preset
 
@@ -320,6 +359,18 @@ class Config:
                 raise ConfigError(f"sr_style_preset must be one of {sorted(STYLE_PRESETS)}")
         if self.guidance_scale <= 0:
             raise ConfigError("guidance_scale must be > 0")
+        if self.hdr_output not in ("none", "hdr10", "hdr10plus", "hlg"):
+            raise ConfigError("hdr_output must be none|hdr10|hdr10plus|hlg")
+        if self.diffusion_steps < 1 or self.diffusion_steps > 1000:
+            raise ConfigError("diffusion_steps must be in [1, 1000]")
+        if not (0.0 < self.diffusion_strength <= 1.0):
+            raise ConfigError("diffusion_strength must be in (0, 1]")
+
+    def with_overrides(self, **overrides: Any) -> "Config":
+        """This config with ``overrides`` (JAX's ``Config.with_overrides``)."""
+        d = self.to_dict()
+        d.update(overrides)
+        return Config(**d)
 
     def ensemble_models(self) -> List[str]:
         """Extra SR models voted with ``sr_model`` (may be empty)."""

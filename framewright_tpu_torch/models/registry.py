@@ -25,6 +25,7 @@ module's. ``write_npz`` writes a parameter tree in the JAX package's
 ``.npz`` layout.
 
 The models that run functionally over the JAX tree (``HAT_SRx4``,
+``DiffusionSR_x4`` from the checkpoint trained in this repository,
 ``BasicVSR``, ``TVSR_x4``; the denoiser's ``restormer`` and
 ``raft-things``) load as that tree of numpy arrays (``load_params``,
 ``load_aux``; ``from_jax_params`` passes such a tree through as f32
@@ -48,7 +49,7 @@ import numpy as np
 import torch
 
 from framewright_tpu_torch.errors import ConfigError, InputError
-from framewright_tpu_torch.models import codeformer, hat, raft, restormer, tvsr, vsr
+from framewright_tpu_torch.models import codeformer, diffusion_sr, hat, raft, restormer, tvsr, vsr
 from framewright_tpu_torch.models.codeformer import CodeFormerConfig
 from framewright_tpu_torch.models.gfpgan import GFPGANConfig
 from framewright_tpu_torch.models.gfpgan import config_from_params as gfpgan_config_from_params
@@ -65,12 +66,13 @@ _SRVGG_URL = "https://github.com/xinntao/Real-ESRGAN/releases/download/v0.2.5.0/
 @dataclass(frozen=True)
 class ModelSpec:
     name: str
-    family: str                   # rrdb | srvgg | hat | basicvsr | tvsr | nafnet |
+    family: str                   # rrdb | srvgg | hat | basicvsr | tvsr | diffusion | nafnet |
                                   # restormer | flow | ifnet | face | codeformer | detector
     scale: int
     arch_config: Union[RRDBConfig, SRVGGConfig, NAFNetConfig, IFNetConfig, GFPGANConfig,
                        CodeFormerConfig, RetinaFaceConfig, hat.HATConfig, vsr.BasicVSRConfig,
-                       tvsr.TVSRConfig, restormer.RestormerConfig, raft.RAFTConfig]
+                       tvsr.TVSRConfig, restormer.RestormerConfig, raft.RAFTConfig,
+                       diffusion_sr.DiffusionSRConfig]
     url: str = ""
 
 
@@ -95,10 +97,15 @@ MODEL_SPECS: Dict[str, ModelSpec] = {s.name: s for s in (
               "https://download.openmmlab.com/mmediting/restorers/basicvsr/"
               "basicvsr_reds4_20120409-0e599677.pth"),
     ModelSpec("TVSR_x4", "tvsr", 4, tvsr.TVSRConfig()),
+    # steps=1: the packaged checkpoint (framewright_tpu/models/weights/
+    # DiffusionSR_x4.npz) is distilled to a one-step sampler; no published
+    # checkpoint exists (the JAX row's port_fn is None)
+    ModelSpec("DiffusionSR_x4", "diffusion", 4,
+              dataclasses.replace(diffusion_sr.DiffusionSRConfig(), steps=1)),
 )}
 # the families that run on their JAX tree (``load_params``) and the module
 # of each; the video SR families run through ``processors.video_sr``
-TREE_MODULES = {"hat": hat, "basicvsr": vsr, "tvsr": tvsr}
+TREE_MODULES = {"hat": hat, "basicvsr": vsr, "tvsr": tvsr, "diffusion": diffusion_sr}
 VSR_FAMILIES = ("basicvsr", "tvsr")
 
 # models that are not super-resolution (framewright_tpu/models/registry.py:
@@ -410,17 +417,20 @@ def _np_tree(node):
 
 def load_params(name: str, weights_dir: Optional[Path] = None, seed: int = 0
                 ) -> Tuple[ModelSpec, Dict[str, Any], str]:
-    """An SR row that runs on its JAX tree (HAT, BasicVSR, TVSR) -> (spec,
-    the tree in f32 numpy, source label): ``<weights_dir>/<name>.npz``, the
-    published ``.pth`` through the model module's ``port_state_dict``, or a
-    seeded numpy draw at the row's widths."""
+    """An SR row that runs on its JAX tree (HAT, BasicVSR, TVSR,
+    DiffusionSR_x4) -> (spec, the tree in f32 numpy, source label):
+    ``<weights_dir>/<name>.npz``, the checkpoint trained in this repository
+    (DiffusionSR_x4's), the published ``.pth`` through the model module's
+    ``port_state_dict`` (HAT, BasicVSR), or a seeded numpy draw at the
+    row's widths."""
     spec = get_model(name)
     wdir = Path(weights_dir) if weights_dir else default_weights_dir()
     npz, pth = wdir / f"{name}.npz", wdir / f"{name}.pth"
-    if npz.is_file():
-        return spec, _np_tree(_read_checkpoint(npz)), str(npz)
+    for path in (npz, packaged_weights_dir() / f"{name}.npz"):
+        if path.is_file():
+            return spec, _np_tree(_read_checkpoint(path)), str(path)
     arch = spec.arch_config
-    if pth.is_file() and spec.family != "tvsr":
+    if pth.is_file() and spec.family in ("hat", "basicvsr"):
         sd = _torch_load(pth)
         tree = (hat.port_state_dict(sd, arch.depths, arch.scale) if spec.family == "hat"
                 else vsr.port_state_dict(sd, arch.num_blocks, arch.spynet_levels))

@@ -6,5 +6,6 @@ launch counter (``<wrapper>.launches``) and the weight layout the kernel
 reads. The CUDA sources are in ``csrc/``; ``_build`` compiles them at
 first use, one nvcc per source, all at once, then one link.
 ``metrics`` (PSNR, SSIM) is plain PyTorch, as the JAX package has it in
-XLA.
+XLA; so is ``jax_random`` (JAX's threefry normal draw, the diffusion SR's
+noise).
 """

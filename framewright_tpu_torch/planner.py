@@ -29,7 +29,9 @@ memory and plans its own pair batch (``interpolation_pairs``).
 
 The models without a kernel: HAT (``hat``: bytes per input pixel, and
 its attention chunk, which grows with the windows of a dispatch up to
-512 and then stays; ``Plan.chunk_bytes``), the video SR window
+512 and then stays; ``Plan.chunk_bytes``), the diffusion SR
+(``diffusion``: bytes per input pixel; its batch of tiles at most
+``max_batch``, as JAX's, since its noise is drawn per chunk), the video SR window
 (``vsr_bytes``: BasicVSR or TVSR over ``window`` frames, which the video
 SR processor holds against the free memory), the denoiser's Restormer (a
 pre-SR row at the checkpoint's widths, ``restormer_bytes_per_px``) and
@@ -112,7 +114,24 @@ _CPU_BUDGET = 8 * 2**30   # what to plan for when running on the CPU
 # the 1200 planned; bilateral 156-174 (two runs), attention 803 (guessed
 # 100 and 700, now the larger reading + 12-15%).
 _PRE_SR_BYTES_PER_PX = {"temporal_fixed": 120, "temporal_slot": 180, "bilateral": 200,
-                        "attention": 900}
+                        "attention": 900,
+                        # the A10b stages, f32 on the card: the latent chunk of
+                        # 16 frames (the centred frames, the basis and the
+                        # reconstruction), a QP batch of 8 frames (the frames,
+                        # the sum and one grid's rolled, blocked and
+                        # transformed copies), LaMa (its maps at full, half,
+                        # quarter and eighth resolution; its weights are
+                        # _LAMA_WEIGHTS_BYTES beside every part), the heat
+                        # fill (a frame's few f32 copies)
+                        "latent": 1394, "qp": 913, "lama": 1325, "heat": 102}
+# Measured on an H100 80GB HBM3 at 700 W with ``max_memory_allocated``
+# (chip_smoke.py phase stream, 1080p, each part as the restore runs it),
+# then + 15%: the
+# latent chunk 1212 B a pixel, the QP batch 794, LaMa at Big-LaMa's widths
+# 1151 (ngf 64, 3 downs, 18 blocks) beside its 206.8 MB of f32 weights,
+# the heat fill 88 (planned before: 1500, 1200, 2000 with the weights,
+# and 100).
+_LAMA_WEIGHTS_BYTES = 238_000_000
 # Restormer (f32) on the blend, at the widths of the checkpoint
 # (``restormer_bytes_per_px``): its peak is GDFN in the full-resolution
 # blocks of 2 dim channels C (the decoder's level 0 and the refinement),
@@ -150,6 +169,17 @@ _RAFT_PX_BYTES = 600
 # MB a window; planned + 15%: 6300 B a pixel in bf16 (float32 twice
 # that, not measured) and 9.7 MB a window.
 _HAT_BYTES_PER_PX = {"bfloat16": 6300, "float32": 12600}
+# The diffusion SR (DiffusionSR_x4: a 32/64/128-channel UNet at the x4
+# output resolution), per input pixel (16 output pixels): at the full
+# resolution the f32 copy of a 3x3 conv's input (up to 64 channels, the
+# last level's concatenation) and its f32 output, the bf16 skip, the
+# block's input and the norm's and SiLU's temporaries, and the f32 DDIM
+# state (x, the noise, the condition, x0, eps). Measured on an H100 with
+# ``max_memory_allocated`` (chip_smoke.py phase diffusion, bf16, 2 frames
+# of 960x540 to 4K): 22.79 GB, 21,977 B an input pixel; + 15%: 25,300.
+# float32 (its activations twice the bf16 ones, the conv copies the
+# same) planned at 35,000, not measured.
+_DIFFUSION_BYTES_PER_PX = {"bfloat16": 25300, "float32": 35000}
 _HAT_WINDOW = 16
 _HAT_CHUNK_WINDOWS = 512
 _HAT_WINDOW_BYTES = 9_700_000
@@ -319,8 +349,9 @@ def peak_bytes_per_body_px(family: str, scale: int, dtype: str = "bfloat16",
         if stats:   # 16 output pixels per body pixel
             peak = max(peak, 16 * _STATS_BYTES_PER_OUT_PX["luma"] * 11 // 10)
         return peak
-    if family == "hat":
-        peak = _HAT_BYTES_PER_PX["float32" if dtype == "float32" else "bfloat16"]
+    if family in ("hat", "diffusion"):
+        table = _HAT_BYTES_PER_PX if family == "hat" else _DIFFUSION_BYTES_PER_PX
+        peak = table["float32" if dtype == "float32" else "bfloat16"]
         if stats:
             peak = max(peak, (12 + _STATS_BYTES_PER_OUT_PX["rgb"]) * scale ** 2 * 11 // 10)
         return peak
@@ -342,14 +373,16 @@ def frame_bytes(height: int, width: int, scale: int, family: str = "rrdb",
 
 def pre_sr_bytes(height: int, width: int, denoise: str | None = None,
                  temporal: str | None = None, radius: int = 3, raft_pairs: int = 0,
-                 restormer=None) -> int:
+                 restormer=None, stages: Tuple[str, ...] = ()) -> int:
     """Planned peak device bytes of the pre-SR stream on (height, width)
     frames: the largest of its parts. ``denoise``: the denoiser's method
     (``auto`` plans for the largest it may pick) or None; ``temporal``:
     ``attention`` or ``ema`` (on the host: nothing), or None;
     ``raft_pairs``: pairs a step of RAFT alignment holds (0: IFNet);
     ``restormer``: the Restormer's config (its ``dim`` and
-    ``ffn_expansion``; None: JAX's ``RestormerConfig()`` widths)."""
+    ``ffn_expansion``; None: JAX's ``RestormerConfig()`` widths);
+    ``stages``: the other card stages that run (``qp``, ``lama``,
+    ``heat``; LaMa's weights stay on the card beside every part)."""
     t = _PRE_SR_BYTES_PER_PX
     per_px = 0
     if denoise in ("temporal", "nafnet", "restormer", "auto"):
@@ -359,12 +392,15 @@ def pre_sr_bytes(height: int, width: int, denoise: str | None = None,
             *((restormer.dim, restormer.ffn_expansion) if restormer is not None else ())))
     if denoise in ("bilateral", "auto"):
         per_px = max(per_px, t["bilateral"])
-    if temporal == "attention":
-        per_px = max(per_px, t["attention"])
+    if temporal in ("attention", "latent"):
+        per_px = max(per_px, t[temporal])
+    for stage in stages:
+        per_px = max(per_px, t[stage])
     flow = 0
     if raft_pairs and denoise in ("temporal", "nafnet", "restormer", "auto"):
         flow = raft_pairs * raft_pair_bytes(height, width)
-    return max(height * width * per_px, flow)
+    weights = _LAMA_WEIGHTS_BYTES if "lama" in stages else 0
+    return max(height * width * per_px, flow) + weights
 
 
 def restormer_bytes_per_px(dim: int = 16, ffn_expansion: float = 2.66) -> int:
@@ -421,9 +457,10 @@ def plan(height: int, width: int, scale: int, family: str = "rrdb",
     of ``dtype``'s kernel path (with the quality gate's stats when
     ``stats``). When no whole frame fits, or ``tile_size_override`` pins
     a tile: tiles of ``overlap`` halo pixels, the largest candidate (or
-    the pinned size) with the largest batch of at most 64 tiles that fits
-    beside one frame's output, and as many frames a dispatch (at most
-    ``max_batch``) as fit beside them."""
+    the pinned size) with the largest batch of at most 64 tiles (the
+    diffusion SR: ``max_batch``, as JAX) that fits beside one frame's
+    output, and as many frames a dispatch (at most ``max_batch``) as fit
+    beside them."""
     budget = budget_bytes(free_bytes, utilization) - reserved_bytes
     u = body_divisor(family, scale)
     px_bytes = peak_bytes_per_body_px(family, scale, dtype)
@@ -448,6 +485,10 @@ def plan(height: int, width: int, scale: int, family: str = "rrdb",
                     frame_batch=1, px_bytes=px_bytes, stats_bytes=stats_bytes,
                     window_bytes=window_bytes)
         for b in _TILE_BATCHES:
+            if family == "diffusion" and b > max_batch:
+                # its noise is drawn per chunk of tiles: JAX's cap, so a
+                # tile's draw is JAX's
+                continue
             p = _with_tiled_est(replace(base, batch=b))
             if p.est_bytes <= budget:
                 frames = min(max_batch, 1 + (budget - p.est_bytes)

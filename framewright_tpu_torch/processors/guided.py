@@ -19,9 +19,16 @@ each SR output frame after the quality gate (``post_fx``, JAX
 resumed restore continue the backends' generators where a straight run
 had them.
 
-``backend="diffusion"`` needs ``models/diffusion_sr``, which the port
-does not have yet (ROADMAP.md A8): it raises ``ConfigError``. A reference
-directory without stills raises ``InputError`` (JAX: FileNotFoundError).
+``backend="diffusion"`` (``DiffusionGuidedBackend``) runs DiffusionSR_x4
+(``models.diffusion_sr``, the registry's checkpoint: the weights
+directory's ``DiffusionSR_x4.npz``, else the one trained in this
+repository) on the card in f32, with the style vector in its time
+embedding and classifier-free guidance at ``guidance_scale``, from
+``PRNGKey(seed)``'s noise, at the registry row's one step (JAX's
+``steps`` field is not read there either); its output is the x4 frame,
+as JAX's (the restorer never selects it: it passes ``backend="auto"``).
+A reference directory without stills raises ``InputError`` (JAX:
+FileNotFoundError).
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from framewright_tpu_torch.errors import ConfigError, InputError
+from framewright_tpu_torch.errors import InputError
 
 logger = logging.getLogger(__name__)
 
@@ -89,8 +96,11 @@ class GuidedConfig:
     prompt: str = ""
     preset: str = ""                 # a STYLE_PRESETS name; the prompt follows it
     strength: float = 0.8
+    guidance_scale: float = 5.0      # classifier-free guidance (diffusion)
     backend: str = "auto"            # auto | classical | diffusion
     seed: int = 0
+    device: str = "cuda"             # the diffusion backend's
+    weights_dir: Optional[str] = None
 
     def style_vector(self) -> np.ndarray:
         return parse_style(STYLE_PRESETS.get(self.preset, "") + " " + self.prompt)
@@ -137,6 +147,44 @@ class ClassicalGuidedBackend:
 
     def set_rng_states(self, states: List[dict]) -> None:
         self._rng.bit_generator.state = states[0]
+
+
+class DiffusionGuidedBackend:
+    """Style-conditioned diffusion SR with classifier-free guidance
+    (JAX ``processors/guided.py:155-192``): uint8 (H, W, 3) -> uint8 (4H,
+    4W, 3)."""
+
+    def __init__(self, cfg: GuidedConfig):
+        import torch
+
+        from framewright_tpu_torch.hw import resolve_device
+        from framewright_tpu_torch.models.layers import tree_to_torch
+        from framewright_tpu_torch.models.registry import load_params
+
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        spec, tree, self.weights_source = load_params("DiffusionSR_x4", cfg.weights_dir)
+        self.arch = spec.arch_config
+        self.params = tree_to_torch(tree, self.device, torch.float32)
+        self.vec = torch.from_numpy(cfg.style_vector()[None]).to(self.device)
+
+    def enhance(self, frame: np.ndarray) -> np.ndarray:
+        import torch
+
+        from framewright_tpu_torch.hw import full_f32
+        from framewright_tpu_torch.models.diffusion_sr import ddim_sample
+
+        lr = torch.from_numpy(frame[None].astype(np.float32) / 255.0).to(self.device)
+        with torch.no_grad(), full_f32():
+            out = ddim_sample(self.params, lr, self.arch, seed=self.cfg.seed, style=self.vec,
+                              guidance_scale=self.cfg.guidance_scale)
+        return np.clip(out[0].cpu().numpy() * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+    def rng_states(self) -> List[dict]:
+        return []
+
+    def set_rng_states(self, states: List[dict]) -> None:
+        pass
 
 
 class ReferenceGuidedBackend:
@@ -205,18 +253,17 @@ class _Chain:
         return self.base.rng_states() + self.ref.rng_states()
 
     def set_rng_states(self, states: List[dict]) -> None:
-        self.base.set_rng_states(states[:1])
-        self.ref.set_rng_states(states[1:])
+        n = len(self.base.rng_states())
+        self.base.set_rng_states(states[:n])
+        self.ref.set_rng_states(states[n:])
 
 
 def make_backend(cfg: GuidedConfig, reference_dir: Optional[str] = None):
-    """The classical backend (any ``backend`` but ``diffusion``, as in
-    JAX), followed by the reference matching when ``reference_dir`` is
-    given; ``diffusion`` is not ported."""
-    if cfg.backend == "diffusion":
-        raise ConfigError("the diffusion guided backend needs models/diffusion_sr, not "
-                          "ported yet: ROADMAP.md A8")
-    base = ClassicalGuidedBackend(cfg)
+    """The diffusion backend for ``backend="diffusion"``, else the
+    classical one (as in JAX), followed by the reference matching when
+    ``reference_dir`` is given."""
+    base = (DiffusionGuidedBackend(cfg) if cfg.backend == "diffusion"
+            else ClassicalGuidedBackend(cfg))
     if reference_dir:
         return _Chain(base, ReferenceGuidedBackend(reference_dir, strength=cfg.strength,
                                                    seed=cfg.seed))

@@ -68,7 +68,12 @@ HAT (``HAT_SRx4``, the ``hat`` family) has no kernel: its forward
 (``models.hat.apply``) runs in PyTorch at the compute dtype (bf16, int8
 as bf16 as in JAX, or float32) over the JAX parameter tree, on whole
 frames or the planner's tiles, its float output through the SRVGG-style
-epilogue (stats from the float image). ``enhancement_cap`` < 1 (the
+epilogue (stats from the float image). So does the diffusion SR
+(``DiffusionSR_x4``, the ``diffusion`` family: ``models.diffusion_sr.apply``,
+DDIM from ``PRNGKey(0)``'s noise at ``diffusion_steps`` steps); its noise
+is drawn per dispatch chunk of ``plan.batch`` frames (or tiles), so a
+frame's bytes depend on its position in that chunk, as in JAX, whose
+``_chunked_map`` draws per chunk too. ``enhancement_cap`` < 1 (the
 restore's ``max_enhancement_strength``) takes the float path for every
 family (RRDB: ``apply_fast(x, "bf16")``, no fused epilogue) and lerps the
 output toward the bilinear upscale of the input in the output's dtype
@@ -84,6 +89,7 @@ fused u8 epilogue (it resizes what the epilogue wrote).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import logging
 from dataclasses import dataclass
@@ -139,6 +145,7 @@ class SRConfig:
     outscale: float = 0.0             # final bicubic resize; 0 = the model's scale
     enhancement_cap: float = 1.0      # < 1 lerps the output toward the bilinear
                                       # upscale on the card
+    diffusion_steps: int = 0          # diffusion family: DDIM steps (0 = the arch's)
 
 
 def _frame_stats(yf: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -261,7 +268,7 @@ class SuperResolution:
         if family in VSR_FAMILIES:
             raise ConfigError(f"{cfg.model_name} is a video SR model: "
                               "processors.video_sr.VideoSuperResolution runs it")
-        if family == "hat":
+        if family in ("hat", "diffusion"):
             self._setup_tree(height, width)
             return
         if int8 and family == "rrdb" and cfg.int8_scales not in _INT8_SCALES:
@@ -298,20 +305,27 @@ class SuperResolution:
         self._replan()
 
     def _setup_tree(self, height: int, width: int) -> None:
-        """HAT: its JAX tree at the compute dtype (int8 runs bf16, as the
-        JAX processor does) and the planner's row for it."""
-        from framewright_tpu_torch.models import hat
+        """HAT and the diffusion SR: the JAX tree at the compute dtype (int8
+        runs bf16, as the JAX processor does) and the planner's row for the
+        family. The diffusion arch takes ``diffusion_steps`` as its
+        ``steps`` when it is non-zero (JAX ``super_resolution.py:122-131``;
+        JAX's ``propagate_t`` replacement is left out: only
+        ``sample_video`` reads it, and no restore calls that)."""
         from framewright_tpu_torch.models.layers import tree_to_torch
-        from framewright_tpu_torch.models.registry import load_params
+        from framewright_tpu_torch.models.registry import TREE_MODULES, load_params
 
         cfg = self.config
         self.device = resolve_device(cfg.device)
         self._staging = HostStaging() if self.device.type == "cuda" else None
         spec, tree, self.weights_source = load_params(cfg.model_name, cfg.weights_dir)
         self.scale = spec.scale
+        arch = spec.arch_config
+        if self.family == "diffusion" and cfg.diffusion_steps:
+            arch = dataclasses.replace(arch, steps=cfg.diffusion_steps)
+        self.arch = arch
         dt = torch.float32 if cfg.compute_dtype == "float32" else torch.bfloat16
-        self.model = functools.partial(hat.apply, tree_to_torch(tree, self.device, dt),
-                                       cfg=spec.arch_config)
+        self.model = functools.partial(TREE_MODULES[self.family].apply,
+                                       tree_to_torch(tree, self.device, dt), cfg=arch)
         self._plan_args = dict(
             height=height, width=width, scale=spec.scale, family=self.family,
             utilization=cfg.hbm_utilization,
@@ -369,7 +383,7 @@ class SuperResolution:
         JAX tiled branch's ``model_fn``): RRDB's kernel path with K2 in its
         bf16 mode, SRVGG's chain path in f32 (its plain f32 forward in
         float32)."""
-        if self.family == "hat":
+        if self.family in ("hat", "diffusion"):
             return self.model(x)
         if self.family == "srvgg":
             return self.model.apply(x) if self._plain_f32 else self.model.apply_fast(x, "f32")

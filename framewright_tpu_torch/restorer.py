@@ -58,13 +58,23 @@ weights directory lacks (``rife-v4.6``, ``GFPGANv1.4``) raises
 ``InputError`` naming it before any compute.
 
 In front of the ring, the pre-SR stream in the JAX order
-(``framewright_tpu/restorer.py:477-635``): long-form drift correction
+(``framewright_tpu/restorer.py:477-670``): long-form drift correction
 (``long_form``: the anchors from a second decode pass, each frame
 corrected at its global index), deinterlacing (``deinterlace="auto"``
 probes the first 60 frames with ``InterlaceDetector(sample_every=5)`` in
-a third pass and engages yadif on an interlaced source), the temporal
-denoiser (``denoise``) and temporal consistency (``temporal_consistency``:
-cross-frame attention or the EMA flicker reducer). The ring's producer
+a third pass and engages yadif on an interlaced source), VHS repair
+(``vhs_restore``), defect repair, stabilization (``stabilize``),
+watermark or subtitle inpainting (``watermark_removal``,
+``subtitle_removal``: LaMa from ``<weights_dir>/big-lama.npz`` or the
+heat fill), QP removal (``qp_removal``), the temporal denoiser
+(``denoise``), temporal consistency (``temporal_consistency``:
+cross-frame attention, the EMA flicker reducer or the latent low-pass)
+and the scene-adaptive filter (``scene_adaptive``: its map from a
+sampled decode pass). After SR, HDR output (``hdr_output``) runs last in
+``_PostSR``; ``hdr10plus`` writes ``<output>.hdr10plus.json`` after the
+enhance stage, its collector carried across a resume with grain's state.
+``auto_enhance`` analyses the source first and applies
+``recommend_settings``' overrides (never the geometry), as JAX does. The ring's producer
 thread runs it; the denoiser and the attention run on the restore's
 device, in full f32 (``hw.full_f32`` is held for the whole enhance
 stage), and the batch plan keeps their memory (``planner.pre_sr_bytes``)
@@ -205,6 +215,20 @@ from framewright_tpu_torch.processors.interpolation import (
     interpolation_factor,
 )
 from framewright_tpu_torch.processors.guided import GuidedConfig, make_backend
+from framewright_tpu_torch.processors.hdr import HDRConfig, HDRConverter
+from framewright_tpu_torch.processors.inpaint import (
+    InpaintConfig,
+    SubtitleRemover,
+    WatermarkRemover,
+)
+from framewright_tpu_torch.processors.latent_temporal import LatentTemporalSmoother
+from framewright_tpu_torch.processors.qp_removal import QPArtifactRemover, QPRemovalConfig
+from framewright_tpu_torch.processors.scene_intelligence import (
+    SceneAdaptiveFilter,
+    SceneIntelligence,
+)
+from framewright_tpu_torch.processors.stabilization import StabilizeConfig, VideoStabilizer
+from framewright_tpu_torch.processors.vhs import VHSConfig, VHSProcessor
 from framewright_tpu_torch.processors.super_resolution import (
     SRConfig,
     SuperResolution,
@@ -334,7 +358,20 @@ def pre_sr_reserve(cfg: Config, height: int, width: int,
         (cfg.temporal_window - 1) // 2,
         raft_pairs(cfg, height, width) if pairs is None else pairs,
         load_aux("restormer", cfg.weights_dir)[0].arch_config
-        if method == "restormer" else None)
+        if method == "restormer" else None,
+        stages=tuple(st for st, on in (("qp", cfg.qp_removal),
+                                       (_inpaint_method(cfg), _inpaints(cfg))) if on))
+
+
+def _inpaints(cfg: Config) -> bool:
+    return cfg.watermark_removal or cfg.subtitle_removal
+
+
+def _inpaint_method(cfg: Config) -> str:
+    """The JAX restorer's mapping of ``inpaint_model`` (anything but
+    ``diffusion`` runs LaMa) to the stage's method: ``lama`` or ``heat``
+    (the ``diffusion`` fill)."""
+    return "heat" if cfg.inpaint_model == "diffusion" else "lama"
 
 
 def _free_bytes(device: str) -> Optional[int]:
@@ -370,6 +407,8 @@ def required_weights(cfg: Config) -> List[str]:
         names.append("GFPGANv1.4")
     if cfg.face_restore and cfg.face_model == "codeformer":
         names.append("CodeFormer")
+    if _inpaints(cfg) and _inpaint_method(cfg) == "lama":
+        names.append("big-lama")
     return names
 
 
@@ -422,6 +461,7 @@ def build_sr_config(cfg: Config, reserved_bytes: int = 0) -> SRConfig:
         reserved_bytes=reserved_bytes,
         outscale=cfg.outscale,
         enhancement_cap=cfg.max_enhancement_strength,
+        diffusion_steps=cfg.diffusion_steps,
     )
 
 
@@ -466,27 +506,39 @@ class _PostSRGrain:
 
 class _PostSR:
     """The restore's post-SR ``post_fx`` in JAX's order (``framewright_tpu/
-    restorer.py:671-720``): guided enhancement (``style``), then grain.
-    ``state``/``restore`` carry both generators across a resume."""
+    restorer.py:671-720``): guided enhancement (``style``), then grain,
+    then the HDR expansion. ``state``/``restore`` carry both generators
+    and the HDR10+ collector's frames across a resume."""
 
-    def __init__(self, style, grain: Optional[_PostSRGrain]):
-        self.style, self.grain = style, grain
+    def __init__(self, style, grain: Optional[_PostSRGrain],
+                 hdr: Optional[HDRConverter] = None):
+        self.style, self.grain, self.hdr = style, grain, hdr
 
     def state(self) -> Dict:
+        col = self.hdr.collector if self.hdr is not None else None
         return {"style": self.style.rng_states() if self.style is not None else None,
-                "grain": self.grain.state() if self.grain is not None else None}
+                "grain": self.grain.state() if self.grain is not None else None,
+                "hdr10plus": (None if col is None else
+                              {"frames": [dict(f) for f in col.frames],
+                               "last_avg": col._last_avg})}
 
     def restore(self, state: Dict) -> None:
         if self.style is not None:
             self.style.set_rng_states(state["style"])
         if self.grain is not None:
             self.grain.restore(state["grain"])
+        if self.hdr is not None and self.hdr.collector is not None:
+            col = self.hdr.collector
+            col.frames = [dict(f) for f in state["hdr10plus"]["frames"]]
+            col._last_avg = state["hdr10plus"]["last_avg"]
 
     def __call__(self, out: np.ndarray, src_frames: Optional[np.ndarray]) -> np.ndarray:
         if self.style is not None:
             out = np.stack([self.style.enhance(f) for f in out])
         if self.grain is not None:
             out = self.grain(out, src_frames)
+        if self.hdr is not None:
+            out = np.stack([self.hdr.expand_frame(f) for f in out])
         return out
 
 
@@ -503,6 +555,7 @@ class VideoRestorer:
         self.context: Optional[PipelineContext] = None
         self.sr: Optional[SuperResolution] = None
         self._raft_pairs = 0      # RAFT pairs a denoiser step (the enhance stage's plan)
+        self.auto_enhance: Optional[Dict] = None   # the auto-enhance overrides and analysis
         self.stage = ""           # the stage running (a progress callback may read it)
 
     def _progress(self, stage: str, done: int, total: int, tracker: _EtaTracker) -> None:
@@ -567,6 +620,8 @@ class VideoRestorer:
         source = Path(source)
         if not source.exists():
             raise InputError(f"source not found: {source}")
+        if cfg.auto_enhance:
+            cfg = self.config = self._apply_auto_enhance(source)
         out_path = Path(output) if output else self._resolve_output(source)
         t0 = time.time()
         ctx = self.context = PipelineContext({"source": source, "output": out_path})
@@ -612,6 +667,26 @@ class VideoRestorer:
             except Exception:  # noqa: BLE001 - reporting never fails a job
                 logger.exception("QA report generation failed")
         return result
+
+    def _apply_auto_enhance(self, source: Path) -> Config:
+        """The config with the stages the content analysis of the source
+        recommends (JAX ``restorer.py:270-292``): ``recommend_settings``
+        when ``auto_detect_content``, never the output's geometry
+        (``scale_factor``, ``sr_model``), ``grain_preserve`` when the grain
+        level passes 0.3. The checkpoint follows the new config's hash."""
+        from framewright_tpu_torch.processors.analysis import ContentAnalyzer, recommend_settings
+
+        cfg = self.config
+        with open_reader(source) as r:
+            rep = ContentAnalyzer().analyze(iter(r))
+        rec = recommend_settings(rep) if cfg.auto_detect_content else {}
+        rec.pop("scale_factor", None)
+        rec.pop("sr_model", None)
+        if rep.grain_level > 0.3:
+            rec.setdefault("grain_preserve", True)
+        logger.info("auto-enhance: %s (analysis: %s)", rec or "no changes", rep.to_dict())
+        self.auto_enhance = {"overrides": dict(rec), "analysis": rep.to_dict()}
+        return cfg.with_overrides(**rec) if rec else cfg
 
     @staticmethod
     def _stage_exception(pipeline: Pipeline, exc: StageError) -> BaseException:
@@ -717,8 +792,9 @@ class VideoRestorer:
 
     def _post_sr(self) -> Optional["_PostSR"]:
         """The post-SR work of the config, or None: guided enhancement
-        (``sr_prompt``, ``sr_style_preset``, ``reference_images_dir``) and
-        grain (``grain_mode`` resolved as the JAX restorer does)."""
+        (``sr_prompt``, ``sr_style_preset``, ``reference_images_dir``),
+        grain (``grain_mode`` resolved as the JAX restorer does) and the
+        HDR expansion (``hdr_output``)."""
         cfg = self.config
         mode = cfg.grain_mode
         if mode == "auto":
@@ -734,12 +810,19 @@ class VideoRestorer:
                 GuidedConfig(prompt=cfg.sr_prompt, preset=cfg.sr_style_preset,
                              strength=(cfg.reference_strength if cfg.reference_images_dir
                                        else 0.8),
-                             seed=cfg.seed),
+                             guidance_scale=cfg.guidance_scale, seed=cfg.seed,
+                             device=_device(cfg),
+                             weights_dir=str(cfg.weights_dir) if cfg.weights_dir else None),
                 reference_dir=(str(cfg.reference_images_dir) if cfg.reference_images_dir
                                else None))
-        if grain is None and style is None:
+        hdr = None
+        if cfg.hdr_output in ("hdr10", "hdr10plus", "hlg"):
+            hdr = HDRConverter(HDRConfig(mode="expand", target=cfg.hdr_output,
+                                         peak_nits=cfg.hdr_peak_nits,
+                                         highlight_boost=cfg.hdr_highlight_boost))
+        if grain is None and style is None and hdr is None:
             return None
-        return _PostSR(style, grain)
+        return _PostSR(style, grain, hdr)
 
     def _resume_point(self, keep: int, batch: int, mapping: Optional[Dict[int, int]],
                       post: Optional["_PostSR"]) -> int:
@@ -812,7 +895,7 @@ class VideoRestorer:
         tracker = _EtaTracker()
         written = frame_errors = batch_size = 0
         budget_hit = False
-        pre_sr: Dict = {}
+        pre_sr: Dict = {"auto_enhance": self.auto_enhance} if self.auto_enhance else {}
         faces: Optional[FaceRestorer] = None
         with contextlib.ExitStack() as stack:    # unwinds in reverse order
             # f32 in full f32 in both threads (the pre-SR stream's convs run
@@ -1000,6 +1083,7 @@ class VideoRestorer:
             if pending is not None:
                 finish(*pending)
         finish_pre_sr()
+        self._write_hdr10plus(post, out_path)
         if budget_hit:
             raise FatalError(f"runtime budget reached after {written} frames; "
                              "rerun the same command to resume")
@@ -1031,12 +1115,29 @@ class VideoRestorer:
             self.checkpoints.stage_completed(_ENHANCE)
         return out
 
+    @staticmethod
+    def _write_hdr10plus(post: Optional[_PostSR], out_path: Path) -> None:
+        """The HDR10+ (ST 2094-40) metadata sidecar beside the enhance
+        stage's output, ``<output>.hdr10plus.json`` (JAX
+        ``restorer.py:936-943``)."""
+        col = post.hdr.collector if post is not None and post.hdr is not None else None
+        if col is None or not col.frames:
+            return
+        sidecar = Path(str(out_path) + ".hdr10plus.json")
+        sidecar.write_text(col.to_json())
+        logger.info("HDR10+ metadata: %d scenes -> %s", len(col.scenes()), sidecar)
+
     def _post_sr_info(self, post: Optional[_PostSR]) -> Dict:
         """What the post-SR work did: grain's mode and target, the guided
         style vector."""
         info: Dict = {}
         if post is not None and post.grain is not None:
             info["grain"] = {"mode": post.grain.gm.mode, "target": post.grain.target}
+        if post is not None and post.hdr is not None:
+            col = post.hdr.collector
+            info["hdr"] = {"target": post.hdr.config.target,
+                           "peak_nits": post.hdr.config.peak_nits,
+                           "scenes": len(col.scenes()) if col is not None else None}
         if post is not None and post.style is not None:
             cfg = self.config
             info["guided"] = {"prompt": cfg.sr_prompt, "preset": cfg.sr_style_preset,
@@ -1138,10 +1239,11 @@ class VideoRestorer:
 
     def _pre_sr_stream(self, data: Dict, frames: Iterator[np.ndarray], info: Dict):
         """The frames of the source from 0 through the pre-SR stages, in
-        the JAX order (drift correction, deinterlacing, defect repair,
-        denoising, temporal consistency) -> (stream, finish): ``finish()``
-        adds the defect repairer's and the denoiser's results to ``info``
-        once the stream has run."""
+        the JAX order (drift correction, deinterlacing, VHS repair, defect
+        repair, stabilization, watermark or subtitle inpainting, QP
+        removal, denoising, temporal consistency, the scene-adaptive
+        filter) -> (stream, finish): ``finish()`` adds the stages' results
+        to ``info`` once the stream has run."""
         cfg = self.config
         total = data["frames_in"]
         if self._longform_active(total):
@@ -1170,11 +1272,39 @@ class VideoRestorer:
             info["deinterlace"] = {"mode": deint}
         if deint in ("yadif", "bwdif"):
             frames = YadifDeinterlacer(mode=deint).process_stream(frames)
+        dev = _device(cfg)
+        if cfg.vhs_restore:
+            info["vhs"] = {"tracking": cfg.vhs_fix_tracking, "dropouts": cfg.vhs_fix_dropouts,
+                           "chroma": cfg.vhs_fix_chroma, "dot_crawl": cfg.vhs_fix_dot_crawl}
+            frames = VHSProcessor(VHSConfig(
+                fix_tracking_lines=cfg.vhs_fix_tracking, fix_dropouts=cfg.vhs_fix_dropouts,
+                reduce_chroma_bleed=cfg.vhs_fix_chroma, reduce_dot_crawl=cfg.vhs_fix_dot_crawl,
+                tracking_threshold=cfg.vhs_tracking_threshold)).process_stream(frames)
         repairer = None
         if cfg.defect_repair:
             repairer = DefectRepairer(scratch_threshold=cfg.defect_scratch_sensitivity,
                                       dust_threshold=cfg.defect_dust_sensitivity)
             frames = repairer.process_stream(frames)
+        stabilizer = None
+        if cfg.stabilize:
+            stabilizer = VideoStabilizer(StabilizeConfig(
+                smoothing=cfg.stabilize_smoothing, crop_ratio=cfg.stabilize_crop,
+                estimate_rotation=cfg.stabilize_rotation))
+            frames = stabilizer.process_stream(frames)
+        remover = None
+        if _inpaints(cfg):
+            cls = SubtitleRemover if cfg.subtitle_removal else WatermarkRemover
+            remover = cls(InpaintConfig(
+                method="diffusion" if _inpaint_method(cfg) == "heat" else "lama",
+                auto_detect=cfg.watermark_auto_detect,
+                custom_masks=list(cfg.watermark_regions),
+                weights_dir=str(cfg.weights_dir) if cfg.weights_dir else None, device=dev))
+            remover.setup()                   # LaMa's checkpoint, before any frame
+            frames = remover.process_stream(frames)
+        if cfg.qp_removal:
+            info["qp_removal"] = {"strength": cfg.qp_strength}
+            frames = QPArtifactRemover(QPRemovalConfig(strength=cfg.qp_strength),
+                                       device=dev).process_stream(frames)
         denoiser = None
         if cfg.denoise:
             denoiser = TemporalDenoiser(TemporalDenoiseConfig(
@@ -1182,20 +1312,48 @@ class VideoRestorer:
                 method=_denoise_method(cfg), scene_change_threshold=cfg.scene_threshold,
                 flow_model=cfg.flow_model, flow_pairs=self._raft_pairs,
                 weights_dir=str(cfg.weights_dir) if cfg.weights_dir else None,
-                device=_device(cfg)))
+                device=dev))
             denoiser.setup(data["height"], data["width"])
             frames = denoiser.denoise_stream(frames)
         if cfg.temporal_consistency:
             info["temporal_consistency"] = cfg.temporal_model
             if cfg.temporal_model == "attention":
                 frames = CrossFrameAttention(CFAConfig(radius=1),
-                                             device=_device(cfg)).reduce_stream(frames)
+                                             device=dev).reduce_stream(frames)
+            elif cfg.temporal_model == "latent":
+                frames = LatentTemporalSmoother(device=dev).reduce_stream(frames)
             else:
                 frames = FlickerReducer().reduce_stream(frames)
+        adaptive = None
+        if cfg.scene_adaptive:
+            # one sampled decode pass over the source builds the content map
+            si = SceneIntelligence(sample_every=24,
+                                   weights_dir=str(cfg.weights_dir) if cfg.weights_dir else None,
+                                   device=dev)
+            with open_reader(data["source"]) as r:
+                pmap = si.generate_processing_map(
+                    si.analyze_video(itertools.islice(iter(r), total)))
+            info["scene_adaptive"] = {"segments": len(pmap)}
+            if pmap:
+                adaptive = SceneAdaptiveFilter(pmap)
+                frames = adaptive.process_stream(frames)
+                logger.info("scene-adaptive map: %d segments", len(pmap))
 
         def finish() -> None:
             if repairer is not None:
                 info["defect_repair"] = dataclasses.asdict(repairer.report)
+            if stabilizer is not None:
+                res = stabilizer.result
+                info["stabilize"] = {"frames": res.frames, "scene_cuts": res.scene_cuts,
+                                     "mean_correction_px": res.mean_correction_px,
+                                     "max_correction_px": res.max_correction_px}
+            if remover is not None:
+                mask = remover.mask
+                info["inpaint"] = {"method": remover.config.method,
+                                   "mask_fraction": float(mask.mean()) if mask is not None
+                                   else 0.0}
+            if adaptive is not None:
+                info["scene_adaptive"]["frames_adjusted"] = adaptive.frames_adjusted
             if denoiser is not None:
                 info["denoise"] = {"method": denoiser.config.method,
                                    **denoiser.result.to_dict()}

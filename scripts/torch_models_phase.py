@@ -27,11 +27,10 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 
-def main() -> int:
-    t_all = time.perf_counter()
-    if not torch.cuda.is_available():
-        print("torch_models_phase: no CUDA device", file=sys.stderr)
-        return 2
+def harness():
+    """Build the kernels -> (the card, the phases' ``x``: the launch
+    counters' reset and read, the CLI runner, the seeded x2plus model, the
+    kernel path and the plan checks), as ``chip_smoke.main`` builds them."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     from framewright_tpu_torch import cli
@@ -89,12 +88,20 @@ def main() -> int:
                                 weights=weights)
         return run
 
+    return dev, {"cli_run": cli_run, "reset_counters": reset, "read_counters": read,
+                 "model": model, "plan_checks": [], "kernel_path": kernel_path}
+
+
+def main() -> int:
+    t_all = time.perf_counter()
+    if not torch.cuda.is_available():
+        print("torch_models_phase: no CUDA device", file=sys.stderr)
+        return 2
+    dev, x = harness()
     ok = True
     with tempfile.TemporaryDirectory(prefix="fw_models_") as tmp:
         tmp = Path(tmp)
-        x = {"cli_run": cli_run, "reset_counters": reset, "read_counters": read,
-             "model": model, "plan_checks": [], "nw": str(tmp / "no_weights"),
-             "kernel_path": kernel_path}
+        x["nw"] = str(tmp / "no_weights")
         try:
             cs.models_phase(tmp, dev, x)
         except cs.SmokeFailure as exc:

@@ -1,0 +1,59 @@
+"""The diffusion and stream phases of chip_smoke.py alone on the card:
+
+    python3 scripts/torch_stream_phases.py [--only diffusion|stream]
+
+builds the kernels, then runs ``chip_smoke.diffusion_phase`` and
+``chip_smoke.stream_phase`` with the launch counters, the CLI runner and
+the kernel path as ``chip_smoke.main`` builds them; prints the phases'
+JSON lines, each peak against the planner's count, and ``{"ok": ...}``
+last (exit 1 when a check failed)."""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "scripts"))
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from torch_models_phase import harness  # noqa: E402
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", choices=("diffusion", "stream"), default=None)
+    args = ap.parse_args(argv)
+    t_all = time.perf_counter()
+    if not torch.cuda.is_available():
+        print("torch_stream_phases: no CUDA device", file=sys.stderr)
+        return 2
+    dev, x = harness()
+    ok = True
+    with tempfile.TemporaryDirectory(prefix="fw_stream_") as tmp:
+        tmp = Path(tmp)
+        x["nw"] = str(tmp / "no_weights")
+        try:
+            if args.only in (None, "diffusion"):
+                cs.diffusion_phase(tmp, dev, x)
+            if args.only in (None, "stream"):
+                cs.stream_phase(tmp, dev, x)
+        except cs.SmokeFailure as exc:
+            ok = False
+            print(f"torch_stream_phases: FAILED: {exc}", file=sys.stderr)
+        for key, peak, plan in x["plan_checks"]:
+            cs.emit({"plan_check": key, "peak": peak, "plan": plan, "ok": peak <= plan})
+            ok = ok and peak <= plan
+    print(json.dumps({"ok": ok, "seconds": time.perf_counter() - t_all}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -84,8 +84,10 @@ def test_reference_chain_equals_jax(stills):
 
 
 def test_refusals(tmp_path):
-    with pytest.raises(ConfigError, match="A8"):
-        pg.make_backend(pg.GuidedConfig(prompt="sharp", backend="diffusion"))
+    # the diffusion backend runs since A8 (tests/test_torch_diffusion.py);
+    # colorize still waits for A10b
+    with pytest.raises(ConfigError, match="A10b"):
+        Config(colorize=True)
     with pytest.raises(InputError, match="no reference images"):
         pg.ReferenceGuidedBackend(tmp_path)
     with pytest.raises(ConfigError, match="sr_style_preset"):

@@ -116,7 +116,9 @@ def test_flags_override_the_preset():
                  id="kwargs2-A6"),
     pytest.param({"ensemble_strategy": "mean", "sr_ensemble": "FW_fast6_x2"},
                  "ensemble_strategy", id="kwargs3-A6"),
-    ({"temporal_model": "latent"}, "A10"),
+    # the latent model runs since A10b (tests/test_torch_qp_latent.py): an
+    # unknown model is refused instead
+    pytest.param({"temporal_model": "vae"}, "temporal_model", id="kwargs4-A10"),
     pytest.param({"face_restore": True, "face_model": "restoreformer"}, "face_model",
                  id="kwargs5-A9"),
     pytest.param({"interpolation": True, "max_enhancement_strength": 1.5},

@@ -146,7 +146,7 @@ class TestRandomInit:
             "RealESRGAN_x2plus", "RealESRGAN_x4plus",
             "RealESRGAN_x4plus_anime_6B", "FW_fast6_x2", "FW_fastvgg_x2",
             "FW_fastvgg_x4", "realesr-animevideov3", "realesr-general-x4v3",
-            "HAT_SRx4", "BasicVSR", "TVSR_x4"}
+            "HAT_SRx4", "BasicVSR", "TVSR_x4", "DiffusionSR_x4"}
 
 
 class TestProcessorFastWeights:
