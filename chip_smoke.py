@@ -180,6 +180,18 @@ Phases, one JSON object per line on stdout:
               in each strategy, ``outscale=3`` with ``max_enhancement_strength
               =0.5`` through the API and ``--prompt``, each with its counters
               and its planes against its parts run alone
+  color_gap   colorization and gap filling (slice 13) on seeded DDColor
+              (large_config) and ECCV16 (width 1.0) checkpoints: each card
+              part against the CPU on a 128x192 crop (a DDColor and an
+              ECCV16 keyframe, the key-4 propagation flow and frame, the
+              key-5 midpoint), their card ms and peaks at 1080p against
+              the planner's rows, host ms of colorize's numpy; the CLI
+              restore ``--colorize --colorize-method ddcolor
+              --fill-missing-frames --batch 2`` of a grey 1080p clip with
+              a dropped frame (one frame more written, counters 69/1/1 a
+              batch, planes equal to the pre-SR stream alone then the
+              kernel path, its peak, stopped and resumed byte-equal), and
+              ``extend --direction both`` against ``FrameExtender`` alone
   6. times    each kernel by CUDA events beside its plain version, its
               roofline bound and, for the bf16 RDB, K1, tail1, the bf16
               chain and the band conv, cuDNN's F.conv2d (PyTorch has no
@@ -2364,7 +2376,7 @@ def models_phase(tmp: Path, dev, x: dict) -> dict:
 DIFF_H, DIFF_W = 540, 960       # 960x540 -> 3840x2160
 DIFF_CROP = (96, 128)           # card vs CPU crop (f32, 8 steps -> 384x512)
 DIFF_TILED = (320, 480)         # the tiled run's input, tiles of 256
-STREAM_H, STREAM_W, STREAM_N = 1080, 1920, 4
+STREAM_H, STREAM_W, STREAM_N = 1080, 1920, 3    # 4 before slice 13 (the smoke's budget)
 STREAM_CROP = (128, 192)        # LaMa and the heat fill, card vs CPU
 STREAM_OVERRIDES = {"vhs_restore": True, "stabilize": True, "qp_removal": True,
                     "temporal_consistency": True, "temporal_model": "latent",
@@ -2620,7 +2632,7 @@ def stream_phase(tmp: Path, dev, x: dict) -> dict:
       weights; the DCT threshold on a batch of 8 frames, the latent chunk
       on 16) against the planner's pre-SR row; LaMa's bytes equal on two
       runs;
-    - a restore of 4 frames at batch 2 with the stages of ``--vhs --stabilize
+    - a restore of 3 frames at batch 2 with the stages of ``--vhs --stabilize
       --qp-removal --temporal-model latent --scene-adaptive --hdr
       hdr10plus`` and the heat-fill watermark removal (``Config``; the
       flags' parsing is the CPU tests'): counters 69/1/1 a batch, errors
@@ -2628,7 +2640,7 @@ def stream_phase(tmp: Path, dev, x: dict) -> dict:
       kernel path in ``rgb_u8``, then the HDR expansion, its
       ``.hdr10plus.json`` sidecar equal to the collector's; stopped after
       its first batch and resumed, byte-equal with the same sidecar;
-    - a restore inpainting with LaMa from that ``big-lama.npz`` (4 frames
+    - a restore inpainting with LaMa from that ``big-lama.npz`` (3 frames
       at batch 2): every written plane equal to its pre-SR stream run alone
       (LaMa on the main thread) then the kernel path; stopped after its
       first batch and resumed, byte-equal."""
@@ -2867,6 +2879,283 @@ def stream_phase(tmp: Path, dev, x: dict) -> dict:
             f"LaMa resumed at {res2.resumed_from}, equal to straight: {same}")
     times["seconds"] = round(time.perf_counter() - t_phase, 3)
     emit({"phase": "stream", "seconds": times["seconds"]})
+    return times
+
+
+COLOR_H, COLOR_W = 1080, 1920
+COLOR_SOURCE = 5                 # source frames of the dropped-frame clip (one more written)
+COLOR_CROP = (128, 192)          # the colorize and gap-fill parts, card vs CPU
+COLOR_OVERRIDES = {"colorize": True, "colorize_model": "ddcolor",
+                   "fill_missing_frames": True, "batch_size": 2}
+
+
+def gap_clip(n: int, drop: int, h: int, w: int, seed: int) -> np.ndarray:
+    """Grey frames of a smooth seeded texture (a random grid every 32 px,
+    bilinear, no grain) panning 2 px a frame, frame ``drop`` left out: the
+    step across the drop scores ~1.96x its neighbours' (the gap filler's
+    ratio is 1.8), and the interlace detector reads the frames as
+    progressive."""
+    import torch
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(seed)
+    coarse = torch.from_numpy(rng.random((1, 1, h // 32 + 2, w // 32 + 8), dtype=np.float32))
+    big = F.interpolate(coarse, size=(h, w + 2 * n), mode="bilinear",
+                        align_corners=False)[0, 0].numpy()
+    grey = np.stack([big[:, 2 * t:2 * t + w] for t in range(n) if t != drop])
+    grey = np.clip(grey * 200.0 + 28.5, 0, 255).astype(np.uint8)
+    return np.repeat(grey[..., None], 3, -1)
+
+
+def color_gap_phase(tmp: Path, dev, x: dict) -> dict:
+    """Colorization and gap filling (slice 13, A10b-1) on x2plus 1080p, and
+    the ``extend`` verb. -> times.
+
+    - seeded checkpoints at the published widths, from the port's own
+      inits, in a weights directory of the phase: DDColor at
+      ``large_config()`` (``ddcolor.npz``) and ECCV16 at width 1.0
+      (``eccv16.npz``);
+    - each part on the card against the port's CPU run on a 128x192 crop
+      (uint8 within 1 LSB on at most 0.1%, the flow within 1e-3 px): a
+      DDColor and an ECCV16 keyframe, the key-4 propagation flow and the
+      propagated frame (a palette keyframe warped), the key-5 midpoint;
+    - card ms a 1080p frame (CUDA events) of a DDColor and an ECCV16
+      keyframe, the propagation (flow and warp) and the synthesis; host ms
+      of colorize's numpy a frame; each part's peak at 1080p against the
+      planner's pre-SR rows (a net keyframe with its weights);
+    - a CLI restore ``--colorize --colorize-method ddcolor
+      --fill-missing-frames --batch 2`` of a grey 1080p clip of
+      ``COLOR_SOURCE`` frames with one dropped: one frame more written,
+      counters 69/1/1 a batch, errors 0, every frame scored, every written
+      plane equal to the pre-SR stream run alone then the kernel path, its
+      peak within the planner's count with the new rows; stopped after its
+      first batch and resumed, byte-equal;
+    - ``extend --direction both --frames 2`` on 3 frames of that clip: 7
+      frames, byte-equal to ``FrameExtender`` run alone then the Y4M
+      writer."""
+    import torch
+
+    from framewright_tpu_torch import cli, planner
+    from framewright_tpu_torch.config import Config
+    from framewright_tpu_torch.hw import full_f32
+    from framewright_tpu_torch.io.video import probe
+    from framewright_tpu_torch.io.y4m import Y4MReader, Y4MWriter
+    from framewright_tpu_torch.models import colorizer_net, ddcolor
+    from framewright_tpu_torch.models.registry import write_npz
+    from framewright_tpu_torch.processors import colorize as col
+    from framewright_tpu_torch.processors.base import to_float
+    from framewright_tpu_torch.processors.frame_generation import FrameExtender, GapFiller
+    from framewright_tpu_torch.processors.scene_detection import frame_pair_scores
+    from framewright_tpu_torch.restorer import VideoRestorer, pre_sr_reserve
+
+    t_phase = time.perf_counter()
+    cli_run, reset, read, model = x["cli_run"], x["reset_counters"], x["read_counters"], x["model"]
+    cpu = torch.device("cpu")
+    times: dict = {}
+    wdir = tmp / "color_weights"
+    write_npz(ddcolor.init_params(ddcolor.large_config(), seed=41), wdir / "ddcolor.npz")
+    write_npz(colorizer_net.init_params(colorizer_net.ECCV16Config(), seed=42),
+              wdir / "eccv16.npz")
+    emit({"phase": "color_gap", "weights": sorted(p.name for p in wdir.iterdir()),
+          "ddcolor": dataclasses.asdict(ddcolor.large_config()), "eccv16_width": 1.0})
+
+    def card_vs_cpu(name, got, want):
+        st = _u8_stats(got, want)
+        emit({"phase": "color_gap", "name": name + ", card vs CPU", **st,
+              "tol": {"max_lsb": 1, "frac_differ": MODEL_U8_FRAC}})
+        require(st["max_abs"] <= 1 and st["frac_differ"] <= MODEL_U8_FRAC, f"{name}: {st}")
+
+    def colorizer(method, d):
+        c = col.Colorizer(col.ColorizeConfig(method=method, weights_dir=str(wdir), device=str(d)))
+        c.setup()
+        return c
+
+    # -- card parts against the CPU ------------------------------------------------------
+    n = COLOR_SOURCE
+    clip = gap_clip(n + 1, 3, COLOR_H, COLOR_W, seed=61)
+    ch, cw = COLOR_CROP
+    crop = clip[:2, :ch, :cw]
+    card, weights = {}, {}
+    for method in ("palette", "ddcolor", "eccv16"):     # the nets' bytes beside the flow net's
+        held = torch.cuda.memory_allocated()
+        card[method] = colorizer(method, dev)
+        weights[method] = torch.cuda.memory_allocated() - held
+    filler = {str(d): GapFiller(device=str(d)) for d in (dev, cpu)}
+    for f in filler.values():
+        f.setup()
+    for method in ("ddcolor", "eccv16"):
+        card_vs_cpu(f"{method} keyframe 128x192", card[method]._colorize_keyframe(crop[0]),
+                    colorizer(method, cpu)._colorize_keyframe(crop[0]))
+    on_cpu = colorizer("palette", cpu)
+    up = [torch.from_numpy(np.ascontiguousarray(f))[None] for f in crop]
+    with torch.no_grad(), full_f32():
+        flows = [c.flow_net.estimate_flow(to_float(up[1].to(d)), to_float(up[0].to(d))).cpu()
+                 for c, d in ((card["palette"], dev), (on_cpu, cpu))]
+    flow_err = float((flows[0] - flows[1]).abs().max())
+    emit({"phase": "color_gap", "name": "key-4 propagation flow 128x192, card vs CPU",
+          "max_abs_px": flow_err, "tol": {"max_abs_px": FLOW_MAX_PX}})
+    require(flow_err <= FLOW_MAX_PX, f"key-4 flow: {flow_err} px")
+    key = on_cpu._colorize_keyframe(crop[0])
+    card_vs_cpu("propagated frame 128x192", card["palette"]._propagate(key, crop[0], crop[1]),
+                on_cpu._propagate(key, crop[0], crop[1]))
+    card_vs_cpu("key-5 midpoint 128x192", filler[str(dev)]._synth(crop[0], crop[1]),
+                filler["cpu"]._synth(crop[0], crop[1]))
+
+    # -- card and host times, peaks at 1080p --------------------------------------------------
+    f0, f1 = clip[0], clip[1]
+    px = COLOR_H * COLOR_W
+    torch.cuda.empty_cache()
+    for method in ("ddcolor", "eccv16"):
+        times[f"{method}_keyframe_ms"] = cuda_ms(
+            lambda m=method: card[m]._colorize_keyframe(f0), 3, 1)
+    pal = card["palette"]
+    times["propagation_ms"] = cuda_ms(lambda: pal._warp_previous(f0, f0, f1), 3, 1)
+    times["synthesis_ms"] = cuda_ms(lambda: filler[str(dev)]._synth(f0, f1), 3, 1)
+    warped = pal._warp_previous(f0, f0, f1)
+
+    def ycbcr_host():
+        y, _, _ = col.rgb_to_ycbcr(f1.astype(np.float32))
+        _, cb, cr = col.rgb_to_ycbcr(warped)
+        return col.ycbcr_to_rgb(y, cb, cr).astype(np.uint8)
+
+    times["colorize_numpy_host_ms"] = host_ms(ycbcr_host)
+    times["palette_keyframe_host_ms"] = host_ms(lambda: pal._colorize_keyframe(f0))
+    times["gap_score_host_ms"] = host_ms(lambda: frame_pair_scores(f0[None], f1[None]))
+    peaks = {m: part_peak(lambda m=m: card[m]._colorize_keyframe(f0))[1] + weights[m]
+             for m in ("ddcolor", "eccv16")}
+    peaks.update({
+        "colorize": part_peak(lambda: pal._warp_previous(f0, f0, f1))[1] + weights["palette"],
+        "gapfill": part_peak(lambda: filler[str(dev)]._synth(f0, f1))[1]})
+    # the nets alone on a 256x256 L: their activations, which the planner
+    # keeps beside every part with their weights
+    l256 = torch.full((1, 256, 256, 1), 50.0, device=dev)
+    with torch.no_grad(), full_f32():
+        net_peaks = {m: part_peak(lambda m=m: card[m]._net(l256))[1] for m in ("ddcolor", "eccv16")}
+    emit({"phase": "color_gap", "name": "net activations at 256x256", "peak_bytes": net_peaks,
+          "weights_bytes": weights})
+    times["net_activation_bytes"] = net_peaks
+    for part, peak in peaks.items():
+        stages = ("colorize", part) if part in ("ddcolor", "eccv16") else (part,)
+        plan = planner.pre_sr_bytes(COLOR_H, COLOR_W, None, None, stages=stages)
+        emit({"phase": "color_gap", "part": part, "peak_bytes": peak,
+              "peak_bytes_per_px": peak / px, "planner_bytes": plan,
+              **({"weights_bytes": weights[part]} if part in weights else {})})
+        x["plan_checks"].append((f"color_gap {part} 1080p", peak, plan))
+    times["peaks_bytes_per_px"] = {k: v / px for k, v in peaks.items()}
+    times["weights_bytes"] = weights
+    emit({"phase": "color_gap", "card": "ms a 1080p frame", **times})
+    del card, filler, on_cpu
+    torch.cuda.empty_cache()
+
+    # -- the CLI restore ---------------------------------------------------------------------
+    src = tmp / "color_gap_src.y4m"
+    with Y4MWriter(src, COLOR_W, COLOR_H, fps=24) as writer:
+        for f in clip:
+            writer.write_frame(f)
+    with Y4MReader(src) as reader:
+        decoded = np.stack(list(reader))
+    flags = ["--colorize", "--colorize-method", "ddcolor", "--fill-missing-frames",
+             "--batch", str(COLOR_OVERRIDES["batch_size"])]
+    cfg = Config(weights_dir=wdir, **COLOR_OVERRIDES)
+    fw = model.fast_weights()
+
+    def restore(label, proj, out, callback=None):
+        reset()
+        t0 = time.perf_counter()
+        argv = ["restore", str(src), "-o", str(out), "--device", "cuda", "--weights-dir",
+                str(wdir), "--project-dir", str(proj)] + flags
+        if callback is None:
+            rc, summary, peak = cli_run(argv)
+        else:
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = VideoRestorer(Config(weights_dir=wdir, project_dir=proj,
+                                           **COLOR_OVERRIDES), callback).restore_video(src, out)
+            rc, summary, peak = 0, {"frames": res.frames_out, "batches": res.batches,
+                                    "batch_size": res.batch_size, "errors": res.errors,
+                                    "resumed_from": res.resumed_from, "pre_sr": res.pre_sr,
+                                    "quality": res.quality.to_dict()}, None
+        wall = time.perf_counter() - t0
+        launches = read()
+        require(rc == 0, f"{label}: exited {rc}")
+        rec = {"wall_seconds": wall, "ms_per_frame": 1e3 * wall / summary["frames"],
+               "frames": summary["frames"], "batches": summary["batches"],
+               "batch_size": summary["batch_size"], "errors": summary["errors"],
+               "resumed_from": summary["resumed_from"]}
+        emit({"phase": "color_gap", "run": label, "pre_sr": summary["pre_sr"],
+              "launches": launches, "peak_bytes": peak, **rec})
+        require(summary["errors"] == 0 and summary["frames"] == n + 1
+                and summary["pre_sr"].get("fill_missing_frames", {}).get("frames_inserted") == 1,
+                f"{label}: {rec}, {summary['pre_sr']}")
+        require(summary["quality"]["samples"] == n + 1 - summary["resumed_from"],
+                f"{label}: quality {summary['quality']}")
+        want = {k: 0 for k in launches}
+        want.update(fused_rdb=69 * summary["batches"], conv_body_skip=summary["batches"],
+                    fused_tail=summary["batches"])
+        require(launches == want, f"{label}: launch counts {launches}, expected {want}")
+        return summary, peak, rec
+
+    out = tmp / "color_gap_straight.y4m"
+    label = "cli " + " ".join(flags)
+    summary, peak, times["restore"] = restore(label, tmp / "proj_color", out)
+    bs = summary["batch_size"]
+    plan = (bs * planner.frame_bytes(COLOR_H, COLOR_W, 2, "rrdb", "bfloat16", stats=True)
+            + pre_sr_reserve(cfg, COLOR_H, COLOR_W))
+    x["plan_checks"].append(("color_gap restore", peak, plan))
+    emit({"phase": "color_gap", "run": label, "peak_bytes": peak, "planner_bytes": plan})
+    sr_in, info = pre_sr_stream_of(cfg, src, decoded)
+    require(len(sr_in) == n + 1 and info["fill_missing_frames"]["frames_inserted"] == 1,
+            f"the pre-SR stream alone: {len(sr_in)} frames, {info}")
+    planes_equal(label, x["kernel_path"](model, fw), sr_in, read_y4m_planes(out)[2], bs, dev)
+
+    class Stop(Exception):
+        pass
+
+    def stop(info):
+        if info.frames_done >= bs:
+            raise Stop()
+
+    resumed = tmp / "color_gap_resumed.y4m"
+    try:
+        restore(label + " (stopped)", tmp / "proj_color_resumed", resumed, stop)
+        require(False, "the colorize and gap-fill restore was not stopped")
+    except Stop:
+        pass
+    res2, _, _ = restore(label + " resumed", tmp / "proj_color_resumed", resumed, lambda i: None)
+    same = resumed.read_bytes() == out.read_bytes()
+    emit({"phase": "color_gap", "run": label + " resumed", "resumed_from": res2["resumed_from"],
+          "equal_to_straight": same})
+    require(res2["resumed_from"] == bs and same,
+            f"resumed at {res2['resumed_from']}, equal to straight: {same}")
+
+    # -- the extend verb --------------------------------------------------------------------------
+    short = tmp / "extend_src.y4m"
+    with Y4MWriter(short, COLOR_W, COLOR_H, fps=24) as writer:
+        for f in clip[:3]:
+            writer.write_frame(f)
+    with Y4MReader(short) as reader:
+        frames3 = list(reader)
+    ext_out = tmp / "extended.y4m"
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["extend", str(short), "-o", str(ext_out), "--frames", "2",
+                            "--direction", "both", "--device", "cuda"])
+    times["extend_wall_seconds"] = time.perf_counter() - t0
+    require(rc == 0, f"extend exited {rc}")
+    rep = json.loads(buf.getvalue())
+    ext = FrameExtender(device="cuda")
+    alone = [*ext.extend_backward(frames3, 2), *frames3, *ext.extend_forward(frames3, 2)]
+    want_path = tmp / "extended_want.y4m"
+    with Y4MWriter(want_path, COLOR_W, COLOR_H, fps=probe(short).fps) as writer:
+        for f in alone:
+            writer.write_frame(f)
+    same = ext_out.read_bytes() == want_path.read_bytes()
+    emit({"phase": "color_gap", "run": "extend --direction both --frames 2", "summary": rep,
+          "equal_to_frame_extender_alone": same, "wall_seconds": times["extend_wall_seconds"]})
+    require(rep["frames"] == 7 and rep["added_before"] == rep["added_after"] == 2 and same,
+            f"extend: {rep}, equal to FrameExtender alone: {same}")
+    times["seconds"] = round(time.perf_counter() - t_phase, 3)
+    emit({"phase": "color_gap", "seconds": times["seconds"]})
     return times
 
 
@@ -4204,6 +4493,7 @@ def main(argv=None) -> int:
         models_times = models_phase(tmp, dev, {**x, "nw": nw, "kernel_path": kernel_path})
         diffusion_times = diffusion_phase(tmp, dev, {**x, "nw": nw})
         stream_times = stream_phase(tmp, dev, {**x, "kernel_path": kernel_path})
+        color_gap_times = color_gap_phase(tmp, dev, {**x, "kernel_path": kernel_path})
     emit({"phase": "restore", "seconds": round(time.perf_counter() - t0, 3)})
     launches = launches_by_run["RealESRGAN_x2plus bfloat16"]
 
@@ -4468,6 +4758,7 @@ def main(argv=None) -> int:
           "film": film_times, "tools": tools,
           "formats": {k: v["wall_seconds"] for k, v in formats.items()},
           "archive": archive_times, "engine": engine_times,
+          "color_gap": {k: v for k, v in color_gap_times.items() if k != "seconds"},
           "models": {k: v for k, v in models_times.items() if k != "seconds"}, "c5": {k: c5[k] for k in ("enqueue_ms_per_dispatch",
                                                         "quality_busy_share",
                                                         "quality_busy_share_unprofiled",

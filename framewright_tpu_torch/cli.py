@@ -3,6 +3,7 @@
     python -m framewright_tpu_torch.cli restore IN -o OUT \\
         [--preset fast|quality|archive|ultimate] \\
         [--model RealESRGAN_x2plus|realesr-animevideov3|HAT_SRx4|DiffusionSR_x4|...] \\
+        [--scale 1|2|3|4] [--tile N] [--batch N] \\
         [--ensemble M1,M2] [--ensemble-strategy weighted|median|max_sharpness] \\
         [--max-enhancement S] [--prompt P] [--style S] [--reference-dir DIR] \\
         [--dtype bfloat16|float32|int8] \\
@@ -12,7 +13,8 @@
         [--qp-removal] [--qp-strength T] [--scene-adaptive] \\
         [--hdr none|hdr10|hdr10plus|hlg] [--auto-enhance] \\
         [--flow-model ifnet|raft] [--long-form auto|on|off] \\
-        [--deduplicate] [--defect-repair] \\
+        [--deduplicate] [--defect-repair] [--fill-missing-frames] \\
+        [--colorize] [--colorize-method palette|eccv16|ddcolor] \\
         [--grain auto|off|preserve|remove|match] \\
         [--interpolate] [--target-fps F] \\
         [--face-restore] [--face-model gfpgan|codeformer|sr] [--face-fidelity W] \\
@@ -20,7 +22,10 @@
         [--encode-preset P] \\
         [--device cuda|cpu] [--weights-dir DIR] [--max-frames N] \\
         [--project-dir DIR] [--no-checkpoint] [--no-resume] [--no-validate] \\
-        [--min-vmaf V] [--dry-run]
+        [--min-vmaf V] [--dry-run] [--verbose]
+    python -m framewright_tpu_torch.cli extend IN [-o OUT] [--frames N] \\
+        [--direction forward|backward|both] [--flow-model ifnet|raft] \\
+        [--device auto|cuda|cpu]
 
 IN and OUT are ``.y4m`` files, PNG frame directories (``frame_%06d.png``;
 an OUT without a suffix is one) or, with ffmpeg on ``PATH``, mp4, mkv
@@ -73,7 +78,21 @@ print ``error: ...`` and exit 1. Progress goes to stderr, a line a stage
 gates the sampled RGB pairs on the VMAF proxy as well (the RGB writer
 path, as in JAX); ``--dry-run`` prints the plan as JSON (the probe, the
 preflight's blockers and warnings, the stages that would run) and
-writes nothing.
+writes nothing. ``--scale`` must be the model's scale (the port refuses
+another with ``ConfigError``), ``--tile`` sets the tile side (0: the
+planner decides), ``--batch`` the frames a device step (0: the planner's),
+``--verbose`` logs at DEBUG. ``--fill-missing-frames`` detects dropped
+frames after defect repair and inserts an IFNet midpoint for each (the
+output then has more frames than the source); ``--colorize`` colourises
+after inpainting with ``--colorize-method`` (``ddcolor``, the default:
+``<weights-dir>/ddcolor.npz``; ``eccv16``: ``eccv16.npz``; ``palette``: no
+checkpoint), keyframes propagated along IFNet flow.
+
+``extend`` appends (``forward``), prepends (``backward``) or both
+``--frames`` frames extrapolated along the boundary flow
+(``FrameExtender``; ``--flow-model raft`` reads ``raft-things.npz`` from
+``$FRAMEWRIGHT_WEIGHTS_DIR``) and prints JAX's JSON (output, frames,
+added_before, added_after); OUT defaults to ``<stem>_extended.y4m``.
 """
 
 from __future__ import annotations
@@ -83,6 +102,8 @@ import json
 import logging
 import sys
 from typing import List, Optional
+
+from pathlib import Path
 
 from framewright_tpu_torch.config import PRESETS, build_config
 from framewright_tpu_torch.errors import FramewrightError
@@ -94,7 +115,12 @@ def cmd_restore(args: argparse.Namespace) -> int:
     try:
         cfg = build_config(args.preset, {
             "project_dir": args.project_dir, "sr_model": args.model,
-            "scale_factor": _model_scale(args.model) if args.model else None,
+            "scale_factor": (args.scale_factor if args.scale_factor is not None
+                             else _model_scale(args.model) if args.model else None),
+            "tile_size": args.tile_size, "batch_size": args.batch_size,
+            "verbose": args.verbose,
+            "colorize": args.colorize, "colorize_model": args.colorize_model,
+            "fill_missing_frames": args.fill_missing_frames,
             "compute_dtype": args.dtype, "device_platform": args.device,
             "weights_dir": args.weights_dir, "max_frames": args.max_frames,
             "checkpoint_enabled": args.checkpoint, "resume": args.resume,
@@ -118,6 +144,8 @@ def cmd_restore(args: argparse.Namespace) -> int:
             "stabilize_crop": args.stabilize_crop, "qp_removal": args.qp_removal,
             "qp_strength": args.qp_strength, "scene_adaptive": args.scene_adaptive,
             "hdr_output": args.hdr_output, "auto_enhance": args.auto_enhance})
+        if cfg.verbose:
+            logging.getLogger().setLevel(logging.DEBUG)
         last = {"stage": None}
 
         def on_progress(info: ProgressInfo) -> None:
@@ -159,6 +187,41 @@ def cmd_restore(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_extend(args: argparse.Namespace) -> int:
+    """Extend a clip with frames extrapolated along its boundary flow
+    (JAX ``cmd_extend``): the whole clip is read, the new frames written
+    before and after it."""
+    from framewright_tpu_torch.io.video import open_reader, open_writer, probe
+    from framewright_tpu_torch.processors.frame_generation import FrameExtender
+
+    try:
+        meta = probe(args.source)
+        with open_reader(args.source) as r:
+            frames = list(r)
+        if not frames:
+            print("error: empty input", file=sys.stderr)
+            return 1
+        ext = FrameExtender(flow_backend=args.flow_model,
+                            device="cuda" if args.device == "auto" else args.device)
+        before = (ext.extend_backward(frames, args.frames)
+                  if args.direction in ("backward", "both") else [])
+        after = (ext.extend_forward(frames, args.frames)
+                 if args.direction in ("forward", "both") else [])
+        out = args.output or Path(args.source).with_name(
+            Path(args.source).stem + "_extended.y4m")
+        with open_writer(out, meta.width, meta.height, fps=meta.fps) as writer:
+            for f in [*before, *frames, *after]:
+                writer.write_frame(f)
+    except FramewrightError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    print(json.dumps({"output": str(out),
+                      "frames": len(before) + len(frames) + len(after),
+                      "added_before": len(before),
+                      "added_after": len(after)}, indent=2))
+    return 0
+
+
 def _model_scale(name: str) -> int:
     from framewright_tpu_torch.models.registry import get_model
 
@@ -183,6 +246,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "FW_fastvgg_x2, ...), HAT_SRx4, DiffusionSR_x4, or the "
                         "video SR models BasicVSR and TVSR_x4; the scale is the "
                         "model's")
+    p.add_argument("--scale", dest="scale_factor", type=int, choices=[1, 2, 3, 4],
+                   help="the output scale (the model's; another raises ConfigError)")
+    p.add_argument("--tile", dest="tile_size", type=int,
+                   help="tile side in pixels, a multiple of 8 (0: the planner decides)")
+    p.add_argument("--batch", dest="batch_size", type=int,
+                   help="frames a device step (0: the planner's)")
     p.add_argument("--ensemble", dest="sr_ensemble",
                    help="comma list of extra SR models to ensemble with --model")
     p.add_argument("--ensemble-strategy", dest="ensemble_strategy",
@@ -223,6 +292,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--grain", dest="grain_mode",
                    choices=("auto", "off", "preserve", "remove", "match"),
                    help="post-SR film-grain handling")
+    p.add_argument("--fill-missing-frames", dest="fill_missing_frames", action="store_true",
+                   default=None, help="synthesize dropped frames (motion-gap detection, "
+                                      "IFNet midpoints)")
+    p.add_argument("--colorize", action="store_true", default=None,
+                   help="colourise before SR")
+    p.add_argument("--colorize-method", dest="colorize_model",
+                   choices=["palette", "exemplar", "eccv16", "ddcolor"],
+                   help="keyframe colouriser: ddcolor (<weights-dir>/ddcolor.npz), eccv16 "
+                        "(<weights-dir>/eccv16.npz) or palette; exemplar needs the "
+                        "processor API")
     p.add_argument("--vhs", dest="vhs_restore", action="store_true", default=None,
                    help="VHS artifact repair (tracking/dropouts/chroma/dot crawl)")
     p.add_argument("--stabilize", action="store_true", default=None,
@@ -276,7 +355,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="VMAF-proxy gate (0-100) on the sampled frame pairs; 0 = off")
     p.add_argument("--dry-run", dest="dry_run", action="store_true", default=None,
                    help="print the plan as JSON and exit: nothing is processed or written")
+    p.add_argument("--verbose", "-v", action="store_true", default=None)
     p.set_defaults(func=cmd_restore)
+
+    p = sub.add_parser("extend",
+                       help="extend a clip forward/backward by motion extrapolation")
+    p.add_argument("source")
+    p.add_argument("-o", "--output", type=Path, default=None)
+    p.add_argument("--frames", type=int, default=24,
+                   help="number of frames to synthesize")
+    p.add_argument("--direction", choices=["forward", "backward", "both"],
+                   default="forward")
+    p.add_argument("--flow-model", dest="flow_model", default="ifnet",
+                   choices=["ifnet", "raft"])
+    p.add_argument("--device", choices=["auto", "cuda", "cpu"], default="auto")
+    p.set_defaults(func=cmd_extend)
     return parser
 
 

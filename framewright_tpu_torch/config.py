@@ -5,10 +5,17 @@ the two the port adds (``weights_dir``, ``max_frames``); the JAX presets
 ``get_preset``, ``build_config``: preset < the caller's values, as the
 JAX CLI resolves them).
 
-A stage the port does not run yet raises ``ConfigError`` naming its
-ROADMAP.md item when it is switched on (``colorize`` and
-``fill_missing_frames``: A10b); it never runs silently without it. Both
-are accepted off. The diffusion SR's ``diffusion_steps`` and
+Colorization (``colorize``, ``colorize_model``, ``colorize_saturation``,
+``colorize_keyframe_interval``, ``colorize_strength``) and gap filling
+(``fill_missing_frames``, ``gap_jump_ratio``) have JAX's names and
+defaults. ``colorize_strength`` is read by nothing, in JAX as in the port:
+the field is kept and maps to nothing. A restore with
+``colorize_model="exemplar"`` raises ``ConfigError``: the restore has no
+way to hand over the reference image, and JAX silently runs the palette
+then (exemplar stays on the processor API, ``ColorizeConfig.
+reference_image``). ``verbose`` (the CLI's ``--verbose``: DEBUG logging)
+does not change the output and is left out of the hash, as in JAX. The
+diffusion SR's ``diffusion_steps`` and
 ``diffusion_strength``, and the pre-SR stream's VHS repair, stabilization,
 watermark and subtitle inpainting, QP removal, the latent temporal model
 and the scene-adaptive filter, HDR output after SR and ``auto_enhance``
@@ -41,6 +48,7 @@ _VALID_DEINTERLACE = ("auto", "off", "yadif", "bwdif")
 _VALID_GRAIN = ("auto", "off", "preserve", "remove", "match")
 _VALID_OUTPUT_FORMATS = ("auto", "y4m", "png", "mp4", "mkv")
 _VALID_FACE_MODELS = ("gfpgan", "codeformer", "sr")
+_VALID_COLORIZE = ("palette", "eccv16", "ddcolor")    # a restore's; exemplar: the processor
 
 # framewright_tpu/config.py:28-87
 PRESETS: Dict[str, Dict[str, Any]] = {
@@ -104,7 +112,7 @@ PRESETS: Dict[str, Dict[str, Any]] = {
 # fields that do not change the output's pixels: a checkpoint survives a
 # change of these (those of ``framewright_tpu.config.Config.get_hash``'s
 # list that the port has)
-_HASH_EXCLUDED = ("project_dir", "output_path", "dry_run", "checkpoint_interval",
+_HASH_EXCLUDED = ("project_dir", "output_path", "verbose", "dry_run", "checkpoint_interval",
                   "checkpoint_enabled", "resume", "keep_intermediates")
 
 
@@ -161,7 +169,9 @@ class Config:
     vhs_fix_chroma: bool = True
     vhs_fix_dot_crawl: bool = True
     vhs_tracking_threshold: float = 30.0
-    fill_missing_frames: bool = False     # not ported (ROADMAP.md A10b); accepted off
+    fill_missing_frames: bool = False     # synthesize dropped frames (IFNet), after
+                                          # defect repair
+    gap_jump_ratio: float = 1.8           # motion-discontinuity gap detector
     stabilize: bool = False               # after defect repair
     stabilize_smoothing: int = 15         # trajectory smoothing radius (frames)
     stabilize_crop: float = 0.95          # retained frame fraction (crop-zoom)
@@ -218,7 +228,15 @@ class Config:
     face_model: str = "gfpgan"            # gfpgan | codeformer | sr
     face_strength: float = 0.8
     face_fidelity: float = 0.5            # codeformer w: 0 quality..1 fidelity
-    colorize: bool = False                # not ported (ROADMAP.md A10b); accepted off
+
+    # --- Colorization (pre-SR, after inpainting, before QP removal) -------------
+    colorize: bool = False
+    colorize_model: str = "ddcolor"       # palette | eccv16 | ddcolor (<weights_dir>/
+                                          # eccv16.npz, ddcolor.npz); exemplar: the
+                                          # processor API only
+    colorize_saturation: float = 0.5      # chroma strength (0-1)
+    colorize_keyframe_interval: int = 24  # flow-propagation keyframe gap
+    colorize_strength: float = 1.0        # read by nothing (as in JAX)
 
     # --- Encoding (the ffmpeg writer; Y4M and PNG ignore them) ------------------
     codec: str = "libx265"
@@ -246,6 +264,7 @@ class Config:
     continue_on_error: bool = True        # bicubic copies of a batch that ran out of memory
     quality_report_format: str = "json"   # json | html | none
     dry_run: bool = False                 # the plan only: nothing processed or written
+    verbose: bool = False                 # DEBUG logging (the CLI's --verbose)
 
     # Derived (set in __post_init__)
     work_dir: Path = field(init=False, repr=False, default=None)        # type: ignore[assignment]
@@ -332,9 +351,6 @@ class Config:
             raise ConfigError("stabilize_crop must be in (0, 1]")
         if self.stabilize_smoothing < 1:
             raise ConfigError("stabilize_smoothing must be >= 1")
-        if self.fill_missing_frames:
-            raise ConfigError("fill_missing_frames needs processors/frame_generation, not "
-                              "ported yet: ROADMAP.md A10b")
         if self.preset and self.preset not in PRESETS:
             get_preset(self.preset)          # raises: an unknown preset
 
@@ -349,9 +365,11 @@ class Config:
             raise ConfigError(f"output_format must be one of {_VALID_OUTPUT_FORMATS}")
         if self.face_model not in _VALID_FACE_MODELS:
             raise ConfigError(f"face_model must be one of {_VALID_FACE_MODELS}")
-        if self.colorize:
-            raise ConfigError("colorize needs processors/colorize, not ported yet: "
-                              "ROADMAP.md A10b")
+        if self.colorize and self.colorize_model not in _VALID_COLORIZE:
+            raise ConfigError(f"colorize_model must be one of {_VALID_COLORIZE} in a restore"
+                              + (" (exemplar needs a reference image: the processor API, "
+                                 "ColorizeConfig.reference_image)"
+                                 if self.colorize_model == "exemplar" else ""))
         if self.sr_style_preset:
             from framewright_tpu_torch.processors.guided import STYLE_PRESETS
 

@@ -45,6 +45,8 @@ class IFNetConfig:
 
 # the temporal denoiser's alignment net (framewright_tpu temporal_denoise.py:99-104)
 ALIGN_ARCH = IFNetConfig(channels=(96, 64), scales=(4, 2), num_res_convs=4)
+# colorize's propagation flow net (framewright_tpu processors/colorize.py:74)
+COLORIZE_ARCH = IFNetConfig(channels=(64, 48), scales=(4, 2), num_res_convs=3)
 
 
 def _conv_prelu(cin: int, cout: int, stride: int = 1) -> nn.Sequential:
@@ -72,16 +74,22 @@ class ConvTranspose4x2(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cin, cout = self.weight.shape[:2]
-        w3 = self.weight.new_zeros(cout, 2, 2, cin, 3, 3)
-        for a, rows in _PHASE_TAPS.items():
-            for b, cols in _PHASE_TAPS.items():
-                for iy, ky in rows:
-                    for ix, kx in cols:
-                        w3[:, a, b, :, iy, ix] = self.weight[:, :, ky, kx].t()
-        y = F.conv2d(x, w3.reshape(4 * cout, cin, 3, 3), self.bias.repeat_interleave(4),
-                     padding=1)
-        return F.pixel_shuffle(y, 2)
+        return conv_transpose4x2(x, self.weight, self.bias)
+
+
+def conv_transpose4x2(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``ConvTranspose2d(k=4, s=2, p=1)`` of NCHW ``x`` with ``weight`` (in,
+    out, 4, 4) and ``bias``, as ``ConvTranspose4x2`` computes it: one
+    forward 3x3 conv to the four output phases, then a pixel shuffle."""
+    cin, cout = weight.shape[:2]
+    w3 = weight.new_zeros(cout, 2, 2, cin, 3, 3)
+    for a, rows in _PHASE_TAPS.items():
+        for b, cols in _PHASE_TAPS.items():
+            for iy, ky in rows:
+                for ix, kx in cols:
+                    w3[:, a, b, :, iy, ix] = weight[:, :, ky, kx].t()
+    y = F.conv2d(x, w3.reshape(4 * cout, cin, 3, 3), bias.repeat_interleave(4), padding=1)
+    return F.pixel_shuffle(y, 2)
 
 
 class IFBlock(nn.Module):

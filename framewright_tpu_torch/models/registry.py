@@ -132,9 +132,13 @@ AUX_SPECS: Dict[str, ModelSpec] = {s.name: s for s in (
     ModelSpec("raft-things", "flow", 1, raft.RAFTConfig(),
               "https://dl.dropboxusercontent.com/s/4j4z58wuv8o0mfz/models.zip"),
 )}
-# the alignment IFNet's weights: ifnet.init(PRNGKey(1), ALIGN_ARCH) of the
-# JAX package, written by scripts/export_align_ifnet.py
+# the JAX package's seeded IFNet draws, written by scripts/export_align_ifnet.py:
+# ifnet.init(PRNGKey(1), ALIGN_ARCH) (the denoiser's alignment and
+# FlowEstimator's ifnet backend), PRNGKey(4) at COLORIZE_ARCH (colorize's
+# propagation flow) and PRNGKey(5) at ALIGN_ARCH (the gap filler's synthesis)
 ALIGN_IFNET_NPZ = Path(__file__).resolve().parent / "weights" / "align_ifnet_key1.npz"
+COLORIZE_IFNET_NPZ = ALIGN_IFNET_NPZ.with_name("colorize_ifnet_key4.npz")
+GAPFILL_IFNET_NPZ = ALIGN_IFNET_NPZ.with_name("gapfill_ifnet_key5.npz")
 
 _CONVS = ("conv_first", "conv_body", "conv_up1", "conv_up2", "conv_hr",
           "conv_last")
@@ -533,13 +537,18 @@ def load_aux(name: str, weights_dir: Optional[Path] = None,
                      f"Published weights: {spec.url}")
 
 
-def load_align_ifnet(device) -> IFNet:
-    """The temporal denoiser's alignment IFNet (``ALIGN_ARCH``) with the
-    JAX package's ``ifnet.init(PRNGKey(1))`` weights, from
-    ``ALIGN_IFNET_NPZ``; raises ``InputError`` when the file is missing
-    or unreadable (the port never draws a flow net at random)."""
-    if not ALIGN_IFNET_NPZ.is_file():
-        raise InputError(f"the alignment flow net's weights are missing: {ALIGN_IFNET_NPZ} "
+def load_align_ifnet(device, npz: Optional[Path] = None,
+                     arch: IFNetConfig = ALIGN_ARCH) -> IFNet:
+    """A seeded IFNet draw of the JAX package: by default the temporal
+    denoiser's alignment IFNet (``ALIGN_ARCH``, ``ifnet.init(PRNGKey(1))``)
+    from ``ALIGN_IFNET_NPZ``; colorize's (``COLORIZE_IFNET_NPZ`` at
+    ``COLORIZE_ARCH``) and the gap filler's (``GAPFILL_IFNET_NPZ``) by
+    their files. Raises ``InputError`` when the file is missing or
+    unreadable (the port never draws a flow net at random)."""
+    npz = ALIGN_IFNET_NPZ if npz is None else npz
+    if not npz.is_file():
+        what = "the alignment flow net" if npz == ALIGN_IFNET_NPZ else "the flow net"
+        raise InputError(f"{what}'s weights are missing: {npz} "
                          "(python3 scripts/export_align_ifnet.py writes them)")
-    sd = from_jax_params(_read_checkpoint(ALIGN_IFNET_NPZ), torch.float32)
-    return IFNet.from_state_dict(ALIGN_ARCH, sd, device)
+    sd = from_jax_params(_read_checkpoint(npz), torch.float32)
+    return IFNet.from_state_dict(arch, sd, device)

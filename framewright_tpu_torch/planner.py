@@ -123,7 +123,14 @@ _PRE_SR_BYTES_PER_PX = {"temporal_fixed": 120, "temporal_slot": 180, "bilateral"
                         # quarter and eighth resolution; its weights are
                         # _LAMA_WEIGHTS_BYTES beside every part), the heat
                         # fill (a frame's few f32 copies)
-                        "latent": 1394, "qp": 913, "lama": 1325, "heat": 102}
+                        "latent": 1394, "qp": 913, "lama": 1325, "heat": 102,
+                        # A10b-1, f32 on the card: the gap filler's IFNet
+                        # midpoint (interpolate_padded at (96, 64)) and
+                        # colorize (the propagation IFNet at (64, 48), the
+                        # warp and a net keyframe's full-size Lab maths; the
+                        # net's weights and 256x256 activations are
+                        # _PRE_SR_FIXED_BYTES beside every part)
+                        "gapfill": 214, "colorize": 214, "ddcolor": 214, "eccv16": 214}
 # Measured on an H100 80GB HBM3 at 700 W with ``max_memory_allocated``
 # (chip_smoke.py phase stream, 1080p, each part as the restore runs it),
 # then + 15%: the
@@ -132,6 +139,17 @@ _PRE_SR_BYTES_PER_PX = {"temporal_fixed": 120, "temporal_slot": 180, "bilateral"
 # the heat fill 88 (planned before: 1500, 1200, 2000 with the weights,
 # and 100).
 _LAMA_WEIGHTS_BYTES = 238_000_000
+# Colorize and the gap filler, measured the same way at 1080p (chip_smoke.py
+# phase color_gap), then + 15%: the propagation (the key-4 flow and the
+# warp) 186 B a pixel, the key-5 midpoint 186, a net keyframe's full-size
+# Lab maths ~85 (planned before: 600 each).
+#
+# The card bytes a stage holds whatever the frame size: LaMa's weights, and
+# a colorize net's weights with its activations on the 256x256 L, measured
+# as above, then + 15%: DDColor at large_config() 134.3 MB + 72.3 MB,
+# ECCV16 at its published widths 130.8 MB + 69.2 MB (f32).
+_PRE_SR_FIXED_BYTES = {"lama": _LAMA_WEIGHTS_BYTES, "ddcolor": 238_000_000,
+                       "eccv16": 230_000_000}
 # Restormer (f32) on the blend, at the widths of the checkpoint
 # (``restormer_bytes_per_px``): its peak is GDFN in the full-resolution
 # blocks of 2 dim channels C (the decoder's level 0 and the refinement),
@@ -382,7 +400,9 @@ def pre_sr_bytes(height: int, width: int, denoise: str | None = None,
     ``restormer``: the Restormer's config (its ``dim`` and
     ``ffn_expansion``; None: JAX's ``RestormerConfig()`` widths);
     ``stages``: the other card stages that run (``qp``, ``lama``,
-    ``heat``; LaMa's weights stay on the card beside every part)."""
+    ``heat``, ``gapfill``, ``colorize`` and its net, ``ddcolor`` or
+    ``eccv16``; LaMa's and the colorize net's weights stay on the card
+    beside every part)."""
     t = _PRE_SR_BYTES_PER_PX
     per_px = 0
     if denoise in ("temporal", "nafnet", "restormer", "auto"):
@@ -399,7 +419,7 @@ def pre_sr_bytes(height: int, width: int, denoise: str | None = None,
     flow = 0
     if raft_pairs and denoise in ("temporal", "nafnet", "restormer", "auto"):
         flow = raft_pairs * raft_pair_bytes(height, width)
-    weights = _LAMA_WEIGHTS_BYTES if "lama" in stages else 0
+    weights = sum(_PRE_SR_FIXED_BYTES.get(stage, 0) for stage in stages)
     return max(height * width * per_px, flow) + weights
 
 

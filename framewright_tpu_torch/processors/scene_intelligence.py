@@ -27,7 +27,7 @@ from __future__ import annotations
 import logging
 from dataclasses import dataclass, field
 from enum import Enum
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -379,10 +379,15 @@ class SceneAdaptiveFilter:
         pos = int(np.searchsorted(self._keys, idx, side="right")) - 1
         return self.pmap[int(self._keys[max(pos, 0)])]
 
-    def process_stream(self, frames: Iterator[np.ndarray]
+    def process_stream(self, frames: Iterator[np.ndarray],
+                       source_index: Optional[Callable[[int], int]] = None
                        ) -> Iterator[np.ndarray]:
+        """Each frame adjusted by the segment of its source frame:
+        ``source_index(position)`` when frames were inserted upstream (JAX
+        reads the stream's position, so its segments shift after an
+        insertion), else its position."""
         for i, frame in enumerate(frames):
-            s = self._settings_for(i)
+            s = self._settings_for(i if source_index is None else source_index(i))
             if s is None:
                 yield frame
                 continue

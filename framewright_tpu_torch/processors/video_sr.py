@@ -121,7 +121,7 @@ class VideoSuperResolution:
             raise HBMError(f"a VSR window of {self._win} frames of {width}x{height} needs "
                            f"~{self.plan.est_bytes / 2**30:.1f} GiB, {budget / 2**30:.1f} GiB "
                            "available beside the pre-SR and face reserves; lower "
-                           "--batch-size (chunk) or the input resolution")
+                           "--batch (chunk) or the input resolution")
         logger.info("VSR %s (%s) on %s: window %d (+%d overlap), %dx%d -> %dx%d, plan %.2f GB",
                     cfg.model_name, self.weights_source, self.device, self._win, cfg.overlap,
                     width, height, width * self.scale, height * self.scale,
@@ -187,7 +187,7 @@ class VideoSuperResolution:
             return np.concatenate([self.materialize(h) for h in handle["parts"]], axis=0)
         if handle["exc"] is not None:
             raise HBMError(f"VSR window {self._win}x{self._w}x{self._h} does not fit the "
-                           "card; lower --batch-size (chunk) or the input resolution"
+                           "card; lower --batch (chunk) or the input resolution"
                            ) from handle["exc"]
         return handle["y"].cpu().numpy()
 

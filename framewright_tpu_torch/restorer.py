@@ -63,10 +63,15 @@ In front of the ring, the pre-SR stream in the JAX order
 corrected at its global index), deinterlacing (``deinterlace="auto"``
 probes the first 60 frames with ``InterlaceDetector(sample_every=5)`` in
 a third pass and engages yadif on an interlaced source), VHS repair
-(``vhs_restore``), defect repair, stabilization (``stabilize``),
+(``vhs_restore``), defect repair, gap filling (``fill_missing_frames``:
+``processors/frame_generation.GapFiller`` inserts an IFNet midpoint
+where a frame was dropped), stabilization (``stabilize``),
 watermark or subtitle inpainting (``watermark_removal``,
 ``subtitle_removal``: LaMa from ``<weights_dir>/big-lama.npz`` or the
-heat fill), QP removal (``qp_removal``), the temporal denoiser
+heat fill), colorization (``colorize``: ``processors/colorize``, DDColor
+or ECCV16 keyframes from ``<weights_dir>/ddcolor.npz`` or ``eccv16.npz``,
+or the palette, propagated along IFNet flow), QP removal
+(``qp_removal``), the temporal denoiser
 (``denoise``), temporal consistency (``temporal_consistency``:
 cross-frame attention, the EMA flicker reducer or the latent low-pass)
 and the scene-adaptive filter (``scene_adaptive``: its map from a
@@ -82,6 +87,18 @@ off the SR batch. On a resume the ring discards the frames before the
 resume point after the stream has made them, as the JAX ring does, so
 the denoiser profiles the same head frames, cuts at the same scenes and
 the enforcer's indices stay global.
+
+An inserted frame is a stream frame like any other for the checkpoint
+(which counts stream positions; the stream runs again from frame 0 on a
+resume, as in JAX), the gate and the writer. Three JAX faults are
+repaired (ROADMAP.md, "JAX faults the port must not copy"): the progress
+total grows by each inserted frame (JAX's stays the source count);
+dedup's mapping and the scene-adaptive segments are read by each stream
+frame's source frame (``_StreamMap``; JAX reads them by stream position,
+so every frame after an insertion takes its neighbour's), an inserted
+frame running the SR and taking the segment of the frame before it; a
+resume under dedup starts at a source frame new to the mapping, found
+from the inserted positions the checkpoint keeps.
 
 Deduplication (``deduplicate``, ``_stage_dedup``): one decode pass of
 the first ``frames_in`` frames hashes every frame (and tees the
@@ -150,6 +167,7 @@ which would hide a broken kernel behind CPU copies and exit 0.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import dataclasses
 import itertools
@@ -197,6 +215,8 @@ from framewright_tpu_torch.models.registry import (
     get_model,
     load_aux,
 )
+from framewright_tpu_torch.processors.colorize import NET_METHODS as COLORIZE_NETS
+from framewright_tpu_torch.processors.colorize import ColorizeConfig, Colorizer
 from framewright_tpu_torch.processors.deduplication import (
     DedupConfig,
     DedupResult,
@@ -209,6 +229,7 @@ from framewright_tpu_torch.processors.film import (
 )
 from framewright_tpu_torch.processors.faces import FaceRestoreConfig, FaceRestorer
 from framewright_tpu_torch.processors.format import InterlaceDetector, YadifDeinterlacer
+from framewright_tpu_torch.processors.frame_generation import GapFiller
 from framewright_tpu_torch.processors.interpolation import (
     FrameInterpolator,
     InterpolationConfig,
@@ -249,6 +270,8 @@ logger = logging.getLogger(__name__)
 
 _ENHANCE = "enhance"
 _INTERPOLATE = "interpolate"
+# the checkpoint's stage_state key of the gap filler's inserted positions
+_GAP_FILL = "gap_fill"
 # resume points whose carried state the checkpoint keeps (the newest): a
 # killed run's file may lag its checkpoint by the writer's queue
 _CARRY_POINTS = 16
@@ -359,8 +382,10 @@ def pre_sr_reserve(cfg: Config, height: int, width: int,
         raft_pairs(cfg, height, width) if pairs is None else pairs,
         load_aux("restormer", cfg.weights_dir)[0].arch_config
         if method == "restormer" else None,
-        stages=tuple(st for st, on in (("qp", cfg.qp_removal),
-                                       (_inpaint_method(cfg), _inpaints(cfg))) if on))
+        stages=tuple(st for st, on in (
+            ("qp", cfg.qp_removal), (_inpaint_method(cfg), _inpaints(cfg)),
+            ("gapfill", cfg.fill_missing_frames), ("colorize", cfg.colorize),
+            (cfg.colorize_model, cfg.colorize and cfg.colorize_model in COLORIZE_NETS)) if on))
 
 
 def _inpaints(cfg: Config) -> bool:
@@ -409,6 +434,8 @@ def required_weights(cfg: Config) -> List[str]:
         names.append("CodeFormer")
     if _inpaints(cfg) and _inpaint_method(cfg) == "lama":
         names.append("big-lama")
+    if cfg.colorize and cfg.colorize_model in COLORIZE_NETS:
+        names.append(cfg.colorize_model)
     return names
 
 
@@ -472,6 +499,34 @@ def _tee_range(frames: Iterator[np.ndarray], lo: int, hi: int,
         if lo <= i < hi:
             into.append(f)
         yield f
+
+
+class _StreamMap:
+    """Stream position -> (source index, inserted) when the gap filler
+    inserts frames: from the filler while the stream runs, else from the
+    inserted positions a checkpoint kept (a resume needs them before the
+    stream has run again); an inserted frame's source index is that of the
+    frame before it. Without a filler every position is its own source."""
+
+    def __init__(self, inserted=()):
+        self.filler: Optional[GapFiller] = None
+        self._inserted = sorted(int(p) for p in inserted)
+
+    def source_of(self, pos: int):
+        f = self.filler
+        if f is not None and pos < len(f.sources):
+            return f.source_of(pos)
+        n = bisect.bisect_left(self._inserted, pos)
+        if n < len(self._inserted) and self._inserted[n] == pos:
+            return pos - n - 1, True
+        return pos - n, False
+
+    def known(self, pos: int) -> bool:
+        """Whether the stream has a frame at ``pos`` that the map knows."""
+        return self.filler is None or pos < len(self.filler.sources)
+
+    def inserted_positions(self) -> List[int]:
+        return self._inserted if self.filler is None else self.filler.inserted_at
 
 
 class _PostSRGrain:
@@ -556,6 +611,7 @@ class VideoRestorer:
         self.sr: Optional[SuperResolution] = None
         self._raft_pairs = 0      # RAFT pairs a denoiser step (the enhance stage's plan)
         self.auto_enhance: Optional[Dict] = None   # the auto-enhance overrides and analysis
+        self.gap_filler: Optional[GapFiller] = None   # the pre-SR stream's, when it inserts
         self.stage = ""           # the stage running (a progress callback may read it)
 
     def _progress(self, stage: str, done: int, total: int, tracker: _EtaTracker) -> None:
@@ -825,15 +881,17 @@ class VideoRestorer:
         return _PostSR(style, grain, hdr)
 
     def _resume_point(self, keep: int, batch: int, mapping: Optional[Dict[int, int]],
-                      post: Optional["_PostSR"]) -> int:
+                      post: Optional["_PostSR"], smap: _StreamMap) -> int:
         """The largest batch start <= ``keep`` a resume can start from
-        with the straight run's bytes: a unique frame under a mapping, and
-        one whose post-SR generators' state the checkpoint carries under grain
-        or guided enhancement; else 0. Restores that state there."""
+        with the straight run's bytes: under a mapping a source frame (not
+        one the gap filler inserted) that is a unique frame, and one whose
+        post-SR generators' state the checkpoint carries under grain or
+        guided enhancement; else 0. Restores that state there."""
         carry = ({int(k): v for k, v in self.checkpoints.checkpoint.carry.items()}
                  if post is not None else {})
         for r in range(keep - keep % batch, 0, -batch):
-            if mapping is not None and mapping.get(r) == mapping[r - 1]:
+            src, inserted = smap.source_of(r)
+            if mapping is not None and (inserted or mapping.get(src) == mapping[src - 1]):
                 continue
             if post is not None:
                 if r not in carry:
@@ -917,6 +975,10 @@ class VideoRestorer:
                     device=_device(cfg), fidelity_weight=cfg.face_fidelity))
                 faces.setup(oh, ow)
                 stack.callback(faces.teardown)
+            # stream positions to source frames: from the checkpoint's inserted
+            # positions until the stream runs again
+            smap = _StreamMap(self.checkpoints.checkpoint.stage_state.get(_GAP_FILL, ())
+                              if checkpointed and resume_from else ())
             # cut the output to R = min(checkpoint, whole frames in it),
             # rounded down to a whole batch (and back to a unique frame or a
             # carried grain state): every frame then runs in the batch it had
@@ -925,7 +987,7 @@ class VideoRestorer:
             # another batch)
             writer, resume_from = self._open_output(
                 out_path, ow, oh, write_fps, resume_from, batch_size,
-                lambda keep: self._resume_point(keep, batch_size, mapping, post))
+                lambda keep: self._resume_point(keep, batch_size, mapping, post, smap))
             if resume_from:
                 logger.info("resuming enhance at frame %d", resume_from)
             # the writer's own exit: an ffmpeg encode is killed, not
@@ -963,7 +1025,7 @@ class VideoRestorer:
             # card: the ring drops the frames before the resume point after
             # the stream made them
             stream, finish_pre_sr = self._pre_sr_stream(
-                data, itertools.islice(iter(reader), total), pre_sr)
+                data, itertools.islice(iter(reader), total), pre_sr, smap)
             context: List[np.ndarray] = []
             if vsr and resume_from:
                 # the overlap frames before the resume point seed the
@@ -975,9 +1037,21 @@ class VideoRestorer:
                                 start_frame=resume_from)
             stack.callback(ring.close)
             # the unique position of the last frame SR ran on, and its output
-            last_unique = mapping[resume_from - 1] if mapping and resume_from else -1
+            # (a resume under a mapping starts at a source frame: the frame
+            # before it in the source is the last SR ran on)
+            last_unique = (mapping[smap.source_of(resume_from)[0] - 1]
+                           if mapping and resume_from else -1)
             last_out: Optional[np.ndarray] = None
             carry: Dict[str, Dict] = {}
+
+            def inserted_so_far() -> int:
+                return self.gap_filler.report.frames_inserted if self.gap_filler else 0
+
+            def resumable(pos: int) -> bool:
+                """Whether stream frame ``pos`` is a source frame new to the
+                mapping (a resume may start there)."""
+                src, ins = smap.source_of(pos)
+                return not ins and mapping[src] > mapping[src - 1]
 
             def guarded(fn, frames: np.ndarray):
                 """(fn(), True), or (the frames' bicubic copies, False) when
@@ -993,7 +1067,7 @@ class VideoRestorer:
                     return self._upscale_fallback(frames, (oh, ow)), False
 
             def finish(handle, ok: bool, frames: np.ndarray, start: int, unique_sel: List[int],
-                       work: np.ndarray) -> None:
+                       work: np.ndarray, inserted: List[bool]) -> None:
                 nonlocal written, last_out
                 n = len(frames)
                 nxt = start + n
@@ -1015,12 +1089,16 @@ class VideoRestorer:
                     if drop:                            # the unique frames only
                         frames, n = work, len(work)
                     elif mapping is not None:
-                        # the unique frames' outputs back at every position
+                        # the unique frames' outputs back at every position (an
+                        # inserted frame's is its own: it repeats no source frame)
                         outs, k = [], 0
                         for pos in range(n):
                             if k < len(unique_sel) and unique_sel[k] == pos:
-                                last_out = out[k]
                                 k += 1
+                                if inserted[pos]:
+                                    outs.append(out[k - 1])
+                                    continue
+                                last_out = out[k - 1]
                             outs.append(last_out)   # a resume starts at a unique frame
                         out = np.stack(outs)
                     if faces is not None and n:
@@ -1031,7 +1109,8 @@ class VideoRestorer:
                     if post is not None and n:
                         # after the gate: guided style and grain are intended changes
                         out = post(out, work if len(work) else None)
-                        if nxt < total and (mapping is None or mapping[nxt] > mapping[nxt - 1]):
+                        if smap.known(nxt) and nxt < total + inserted_so_far() and (
+                                mapping is None or resumable(nxt)):
                             carry[str(nxt)] = post.state()
                             for key in list(carry)[:-_CARRY_POINTS]:
                                 del carry[key]
@@ -1044,8 +1123,11 @@ class VideoRestorer:
                 if checkpointed:
                     self.checkpoints.frames_completed(_ENHANCE, written)
                 self.events.emit(EventType.FRAME_PROCESSED, frames=written)
-                self._progress(_ENHANCE, written, dedup.unique_frames if drop else total,
-                               tracker)
+                if checkpointed and self.gap_filler is not None:
+                    self.checkpoints.checkpoint.stage_state[_GAP_FILL] = smap.inserted_positions()
+                # the total grows by each frame the gap filler inserts
+                self._progress(_ENHANCE, written, inserted_so_far()
+                               + (dedup.unique_frames if drop else total), tracker)
 
             deadline = (time.time() + cfg.max_runtime_minutes * 60.0
                         if cfg.max_runtime_minutes > 0 else None)
@@ -1064,11 +1146,16 @@ class VideoRestorer:
                 start = batch.start_frame
                 if vsr and resume_from and start == resume_from:
                     sr.seed_context(context)
+                inserted = [smap.source_of(start + pos)[1] for pos in range(len(frames))]
                 if mapping is not None:
-                    # SR on the frames of a unique position not seen yet
+                    # SR on the frames of a unique source frame not seen yet,
+                    # and on every frame the gap filler inserted
                     unique_sel = []
                     for pos in range(len(frames)):
-                        u = mapping[start + pos]
+                        if inserted[pos]:
+                            unique_sel.append(pos)
+                            continue
+                        u = mapping[smap.source_of(start + pos)[0]]
                         if u > last_unique:
                             unique_sel.append(pos)
                             last_unique = u
@@ -1079,7 +1166,7 @@ class VideoRestorer:
                               else (None, True))
                 if pending is not None:
                     finish(*pending)
-                pending = (handle, ok, frames, start, unique_sel, work)
+                pending = (handle, ok, frames, start, unique_sel, work, inserted)
             if pending is not None:
                 finish(*pending)
         finish_pre_sr()
@@ -1237,13 +1324,17 @@ class VideoRestorer:
             return False
         return nb_frames >= cfg.long_form_threshold
 
-    def _pre_sr_stream(self, data: Dict, frames: Iterator[np.ndarray], info: Dict):
+    def _pre_sr_stream(self, data: Dict, frames: Iterator[np.ndarray], info: Dict,
+                       smap: Optional[_StreamMap] = None):
         """The frames of the source from 0 through the pre-SR stages, in
         the JAX order (drift correction, deinterlacing, VHS repair, defect
-        repair, stabilization, watermark or subtitle inpainting, QP
-        removal, denoising, temporal consistency, the scene-adaptive
-        filter) -> (stream, finish): ``finish()`` adds the stages' results
-        to ``info`` once the stream has run."""
+        repair, gap filling, stabilization, watermark or subtitle
+        inpainting, colorization, QP removal, denoising, temporal
+        consistency, the scene-adaptive filter) -> (stream, finish):
+        ``finish()`` adds the stages' results to ``info`` once the stream
+        has run. The gap filler is ``self.gap_filler`` and ``smap``'s (a
+        new map when None); the scene-adaptive filter reads each frame's
+        segment by its source frame."""
         cfg = self.config
         total = data["frames_in"]
         if self._longform_active(total):
@@ -1285,6 +1376,14 @@ class VideoRestorer:
             repairer = DefectRepairer(scratch_threshold=cfg.defect_scratch_sensitivity,
                                       dust_threshold=cfg.defect_dust_sensitivity)
             frames = repairer.process_stream(frames)
+        smap = smap if smap is not None else _StreamMap()
+        self.gap_filler = smap.filler = None
+        if cfg.fill_missing_frames:
+            self.gap_filler = smap.filler = GapFiller(
+                jump_ratio=cfg.gap_jump_ratio, scene_change_threshold=cfg.scene_threshold,
+                device=dev)
+            self.gap_filler.setup(data["height"], data["width"])   # before any frame
+            frames = self.gap_filler.process_stream(frames)
         stabilizer = None
         if cfg.stabilize:
             stabilizer = VideoStabilizer(StabilizeConfig(
@@ -1301,6 +1400,15 @@ class VideoRestorer:
                 weights_dir=str(cfg.weights_dir) if cfg.weights_dir else None, device=dev))
             remover.setup()                   # LaMa's checkpoint, before any frame
             frames = remover.process_stream(frames)
+        if cfg.colorize:
+            colorizer = Colorizer(ColorizeConfig(
+                method=cfg.colorize_model, scene_change_threshold=cfg.scene_threshold,
+                saturation=cfg.colorize_saturation,
+                keyframe_interval=cfg.colorize_keyframe_interval,
+                weights_dir=str(cfg.weights_dir) if cfg.weights_dir else None, device=dev))
+            colorizer.setup()                 # the checkpoint, before any frame
+            info["colorize"] = {"method": cfg.colorize_model}
+            frames = colorizer.colorize_stream(frames)
         if cfg.qp_removal:
             info["qp_removal"] = {"strength": cfg.qp_strength}
             frames = QPArtifactRemover(QPRemovalConfig(strength=cfg.qp_strength),
@@ -1336,12 +1444,15 @@ class VideoRestorer:
             info["scene_adaptive"] = {"segments": len(pmap)}
             if pmap:
                 adaptive = SceneAdaptiveFilter(pmap)
-                frames = adaptive.process_stream(frames)
+                frames = adaptive.process_stream(
+                    frames, None if self.gap_filler is None else lambda p: smap.source_of(p)[0])
                 logger.info("scene-adaptive map: %d segments", len(pmap))
 
         def finish() -> None:
             if repairer is not None:
                 info["defect_repair"] = dataclasses.asdict(repairer.report)
+            if self.gap_filler is not None:
+                info["fill_missing_frames"] = dataclasses.asdict(self.gap_filler.report)
             if stabilizer is not None:
                 res = stabilizer.result
                 info["stabilize"] = {"frames": res.frames, "scene_cuts": res.scene_cuts,

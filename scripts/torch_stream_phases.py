@@ -1,9 +1,10 @@
-"""The diffusion and stream phases of chip_smoke.py alone on the card:
+"""The diffusion, stream and color_gap phases of chip_smoke.py alone on the
+card:
 
-    python3 scripts/torch_stream_phases.py [--only diffusion|stream]
+    python3 scripts/torch_stream_phases.py [--only diffusion|stream|color_gap]
 
-builds the kernels, then runs ``chip_smoke.diffusion_phase`` and
-``chip_smoke.stream_phase`` with the launch counters, the CLI runner and
+builds the kernels, then runs ``chip_smoke.diffusion_phase``,
+``chip_smoke.stream_phase`` and ``chip_smoke.color_gap_phase`` with the launch counters, the CLI runner and
 the kernel path as ``chip_smoke.main`` builds them; prints the phases'
 JSON lines, each peak against the planner's count, and ``{"ok": ...}``
 last (exit 1 when a check failed)."""
@@ -29,7 +30,7 @@ from torch_models_phase import harness  # noqa: E402
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("diffusion", "stream"), default=None)
+    ap.add_argument("--only", choices=("diffusion", "stream", "color_gap"), default=None)
     args = ap.parse_args(argv)
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -45,6 +46,8 @@ def main(argv=None) -> int:
                 cs.diffusion_phase(tmp, dev, x)
             if args.only in (None, "stream"):
                 cs.stream_phase(tmp, dev, x)
+            if args.only in (None, "color_gap"):
+                cs.color_gap_phase(tmp, dev, x)
         except cs.SmokeFailure as exc:
             ok = False
             print(f"torch_stream_phases: FAILED: {exc}", file=sys.stderr)

@@ -85,9 +85,10 @@ def test_reference_chain_equals_jax(stills):
 
 def test_refusals(tmp_path):
     # the diffusion backend runs since A8 (tests/test_torch_diffusion.py);
-    # colorize still waits for A10b
-    with pytest.raises(ConfigError, match="A10b"):
-        Config(colorize=True)
+    # colorize runs since A10b-1, but not with exemplar in a restore
+    assert Config(colorize=True).colorize_model == "ddcolor"
+    with pytest.raises(ConfigError, match="exemplar needs a reference image"):
+        Config(colorize=True, colorize_model="exemplar")
     with pytest.raises(InputError, match="no reference images"):
         pg.ReferenceGuidedBackend(tmp_path)
     with pytest.raises(ConfigError, match="sr_style_preset"):

@@ -167,7 +167,8 @@ def test_port_imports_no_jax_and_nothing_of_framewright_tpu():
         "processors/temporal_attention", "engine/temporal", "models/ifnet",
         "models/nafnet", "ops/warp", "io/color", "io/png_seq", "io/ffmpeg", "io/video",
         "processors/interpolation", "processors/faces", "models/gfpgan",
-        "models/retinaface")} <= names
+        "models/retinaface", "processors/colorize", "processors/flow",
+        "processors/frame_generation", "models/ddcolor", "models/colorizer_net")} <= names
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]

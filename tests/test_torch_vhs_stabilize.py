@@ -104,8 +104,8 @@ def test_config_validation():
         Config(stabilize_crop=0.0)
     with pytest.raises(ConfigError, match="stabilize_smoothing"):
         Config(stabilize_smoothing=0)
-    with pytest.raises(ConfigError, match="A10b"):
-        Config(fill_missing_frames=True)          # gap filling waits for A10b
+    # gap filling runs since A10b-1, with JAX's detector ratio
+    assert Config(fill_missing_frames=True).gap_jump_ratio == 1.8
     cfg = Config(vhs_restore=True, stabilize=True, stabilize_smoothing=5)
     assert cfg.vhs_fix_tracking and cfg.vhs_tracking_threshold == 30.0
     assert cfg.stabilize_crop == 0.95 and cfg.stabilize_rotation

@@ -300,7 +300,7 @@ def test_window_is_held_against_the_reserve(tmp_path, tiny_rows):
     budget = planner.budget_bytes(None, 0.5)
     assert 0 < sr.plan.est_bytes <= budget - 12345
     sr = build_sr(cfg, budget - sr.plan.est_bytes + 1)
-    with pytest.raises(HBMError, match="--batch-size"):
+    with pytest.raises(HBMError, match="lower --batch \\(chunk\\)"):
         sr.setup(20, 28)
     assert sr.plan.frames == 4
 
