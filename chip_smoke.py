@@ -120,9 +120,9 @@ Phases, one JSON object per line on stdout:
               (its mapping the CPU analysis'), every plane equal to the
               pre-SR stream then the kernel path in ``rgb_u8`` on the
               unique frames, repeated by the mapping, then the numpy grain
-              with the same seed; the same restore through the API,
-              straight and stopped after its first batch then resumed
-              (byte-equal); its peak against the planner's count; card and
+              with the same seed; the same restore through the API
+              stopped after its first batch then resumed (byte-equal to the
+              CLI's); its peak against the planner's count; card and
               host ms of its parts
   tools       whether Pillow and ffmpeg/ffprobe are there (and ffmpeg's
               encoders): an absent one is printed, not a failure
@@ -192,6 +192,38 @@ Phases, one JSON object per line on stdout:
               batch, planes equal to the pre-SR stream alone then the
               kernel path, its peak, stopped and resumed byte-equal), and
               ``extend --direction both`` against ``FrameExtender`` alone
+  av_scaleout  subtitles, format tools and audio, the farm, the frames
+              split and the streaming restore (slice 14): the ``audio``
+              verb (``ai``, ``--separate``) on a seeded 30 s 48 kHz stereo
+              WAV on the card against the same verb on the CPU (16-bit PCM
+              within 1 LSB on <= 0.1% of the samples), ``--dialog``, the
+              mask net's gains on the clip's band power card vs CPU
+              (1e-5), ``audio-sync`` finding a 0.25 s offset within 0.02
+              s, card ms of the STFT path and the mask net per minute of
+              audio; ``subtitles --no-ocr`` on a 960x540 clip with a
+              burnt-in caption band, then ``--sync --enhance`` of its
+              SRT, each equal to the processors run directly, and whether
+              tesseract is on PATH; ``farm run`` with two ``farm work
+              --device cuda`` processes on the one card, chunks of 2
+              frames, with the farm's defaults (realesr-animevideov3 x4,
+              960x540, 6 frames) and with RealESRGAN_x2plus x2 (1080p, 6
+              frames): every chunk ok with errors 0, the merged output
+              byte-equal to the in-process restore of the clip (its
+              counters read: 2 chain calls, or 69/1/1, a batch), each
+              worker's peak against its planner count and the two peaks
+              against the card; ``StreamingRestorer`` on a progressive
+              1080p clip of 6 frames (default ``Config``) in chunks of 2
+              (counters 69/1/1 a chunk), byte-equal to the straight
+              restore, and again after its last segment is deleted (that
+              chunk alone restored, one callback, byte-equal); a
+              world-size-1 NCCL group on tcp://127.0.0.1 (all_reduce,
+              barrier, destroy); the frames split: the restore's SR on the
+              default mesh (one card: the one-device processor) and
+              ``ShardedSR`` over a mesh of one card, each 69/1/1 and its
+              dispatch-to-materialize ms within 5% of the processor built
+              with ``sharding_strategy="none"`` in the same run, and
+              ``ShardedSR`` over two entries for the one card (parts of 1
+              and 1, 138/2/2, planes equal to the unsplit processor's)
   6. times    each kernel by CUDA events beside its plain version, its
               roofline bound and, for the bf16 RDB, K1, tail1, the bf16
               chain and the band conv, cuDNN's F.conv2d (PyTorch has no
@@ -200,11 +232,11 @@ Phases, one JSON object per line on stdout:
               and one chain conv's: bf16, and int8 (the quantization of
               the group input, a conv to codes, the group's last conv to
               bf16), ms and TFLOP/s
-  c5          ``scripts/torch_presr_times.py --frames 4 12 --profile`` in a
-              process of its own: dispatch's enqueue ms (pinned staging,
-              non-blocking upload), the quality restore's busy share and
-              peaks (allocated and reserved: the pre-SR stream runs on a
-              CUDA stream of its own), the film restore's parts
+  c5          ``scripts/torch_presr_times.py --frames 2 4 --profile --presets
+              default quality`` in a process of its own: dispatch's enqueue
+              ms (pinned staging, non-blocking upload), the quality
+              restore's busy share and peaks (allocated and reserved: the
+              pre-SR stream runs on a CUDA stream of its own)
 Then nvidia-smi's line, the kernel summary line, and the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 the result line. Without a CUDA device, or without the package beside
@@ -1177,7 +1209,8 @@ def film_phase(tmp: Path, nw: str, dev, x: dict) -> dict:
         return build_config("", {"project_dir": tmp / proj, "weights_dir": nw,
                                  "batch_size": bs, **FILM_FLAGS})
 
-    straight = VideoRestorer(api_cfg("film_s")).restore_video(src, tmp / "film_s.y4m")
+    # (the straight run is the CLI's above: an API straight run, which
+    # equalled it, is left out for the smoke's time)
     resumed = tmp / "film_r.y4m"
     try:
         VideoRestorer(api_cfg("film_r"), stop_after_first).restore_video(src, resumed)
@@ -1185,16 +1218,16 @@ def film_phase(tmp: Path, nw: str, dev, x: dict) -> dict:
     except Stop:
         pass
     res = VideoRestorer(api_cfg("film_r")).restore_video(src, resumed)
-    rec = {"phase": "film", "run": "API straight, and stopped after its first batch then "
-           "resumed", "mapping_equals_cpu_analysis": straight.dedup.frame_mapping == mapping,
-           "straight_equals_cli": (tmp / "film_s.y4m").read_bytes() == out.read_bytes(),
+    rec = {"phase": "film", "run": "API stopped after its first batch then resumed",
+           "mapping_equals_cpu_analysis": res.dedup.frame_mapping == mapping,
            "resumed_from": res.resumed_from, "resumed_batches": res.batches,
-           "straight_batches": straight.batches, "post_sr": res.post_sr,
-           "byte_equal_to_straight": resumed.read_bytes() == (tmp / "film_s.y4m").read_bytes()}
+           "straight_batches": batches, "post_sr": res.post_sr,
+           "byte_equal_to_straight": resumed.read_bytes() == out.read_bytes()}
     emit(rec)
-    require(rec["mapping_equals_cpu_analysis"] and rec["straight_equals_cli"]
-            and rec["byte_equal_to_straight"] and res.resumed_from == bs
-            and res.post_sr == straight.post_sr and res.errors == 0, f"film resume: {rec}")
+    require(rec["mapping_equals_cpu_analysis"] and rec["byte_equal_to_straight"]
+            and res.resumed_from == bs
+            and json.loads(json.dumps(res.post_sr)) == summary["post_sr"]
+            and res.errors == 0, f"film resume: {rec}")
     # the parts' times: card (CUDA events) and host (least of 3)
     one = decoded[:1]
     x1 = torch.from_numpy(one).to(dev).to(torch.bfloat16) / 255.0
@@ -3159,6 +3192,403 @@ def color_gap_phase(tmp: Path, dev, x: dict) -> dict:
     return times
 
 
+AV_SR = 48000
+AV_SECONDS = 30
+AV_SYNC_OFFSET = 0.25            # seconds (tests/test_audio.py:102-115)
+AV_GAIN_TOL = 1e-5               # mask-net gains, card vs CPU (tests/test_torch_audio.py)
+AV_PCM_FRAC = 1e-3               # 16-bit PCM: 1 LSB on <= 0.1% of samples
+SUB_H, SUB_W, SUB_N = 540, 960, 48
+FARM_RUNS = (("realesr-animevideov3", 4, 540, 960), ("RealESRGAN_x2plus", 2, 1080, 1920))
+FARM_N, FARM_CHUNK = 6, 2
+STREAMING_HW = (1080, 1920)      # the streaming restore's and the mesh-of-one SR's frames
+SPLIT_TOL = 0.05                 # the SR on a mesh against the one-device processor
+SPLIT_REPS = 7
+
+
+def av_signal(seconds: float, sr: int, seed: int) -> np.ndarray:
+    """Seeded stereo speech-like audio in [-1, 1]: gliding harmonic
+    stacks under syllable-rate envelopes, white noise, 50 Hz hum and a
+    few clicks."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    out = np.zeros((n, 2), np.float32)
+    for c in range(2):
+        x = np.zeros(n)
+        for _ in range(int(seconds * 2)):
+            f0, start = rng.uniform(90, 280), rng.integers(0, n - sr // 2)
+            dur = int(rng.uniform(0.15, 0.5) * sr)
+            ts = t[:dur]
+            env = np.hanning(dur) * rng.uniform(0.3, 1.0) * (0.6 + 0.4 * np.sin(2 * np.pi * 5 * ts))
+            x[start:start + dur] += env * sum(np.sin(2 * np.pi * f0 * k * ts) / k for k in range(1, 6))
+        x = 0.4 * x / (np.abs(x).max() + 1e-6) + 0.05 * rng.standard_normal(n)
+        x += 0.05 * np.sin(2 * np.pi * 50 * t)
+        x[rng.integers(0, n, 5)] += 0.6
+        out[:, c] = np.clip(x, -1, 1)
+    return out
+
+
+def pcm_stats(a: np.ndarray, b: np.ndarray) -> dict:
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    return {"max_lsb": int(d.max()), "frac_differ": float((d > 0).mean())}
+
+
+def wav_pcm(path: Path) -> np.ndarray:
+    import wave
+
+    with wave.open(str(path), "rb") as w:
+        return np.frombuffer(w.readframes(w.getnframes()), np.int16)
+
+
+def subtitle_clip(n: int, h: int, w: int, seed: int) -> np.ndarray:
+    """Seeded dim noise frames with a bright stroked caption block in the
+    bottom band on frames 10-21 and 28-35."""
+    rng = np.random.default_rng(seed)
+    frames = (rng.random((n, h, w, 3)) * 90).astype(np.uint8)
+    y0, hh = int(h * 0.84), max(2, h // 8)
+    for t in list(range(10, 22)) + list(range(28, 36)):
+        frames[t, y0:y0 + hh, w // 5:w * 4 // 5] = 245
+        frames[t, y0 + 1:y0 + hh - 1, w // 5 + 1:w * 4 // 5 - 1:3] = 30
+    return frames
+
+
+def write_clip(path: Path, frames: np.ndarray, fps: float = 24) -> Path:
+    from framewright_tpu_torch.io.y4m import Y4MWriter
+
+    with Y4MWriter(path, frames.shape[2], frames.shape[1], fps=fps) as w:
+        for f in frames:
+            w.write_frame(f)
+    return path
+
+
+def av_scaleout_phase(tmp: Path, dev, x: dict) -> dict:
+    """Slice 14 (A10b-2, A11, A15) on the card: the audio verbs, the
+    subtitles verb, two farm runs with worker processes, the streaming
+    restore, a one-process NCCL group and the SR frames split on the one
+    card."""
+    import torch
+    import torch.distributed as dist
+
+    from framewright_tpu_torch import cli
+    from framewright_tpu_torch.audio import WienerMaskDenoiser, read_wav, write_wav
+    from framewright_tpu_torch.config import Config
+    from framewright_tpu_torch.hw import full_f32
+    from framewright_tpu_torch.io.y4m import Y4MReader
+    from framewright_tpu_torch.models import audio_net
+    from framewright_tpu_torch.parallel import dcn
+    from framewright_tpu_torch.parallel.distributor import ShardedSR
+    from framewright_tpu_torch.parallel.mesh import build_mesh, frame_split
+    from framewright_tpu_torch.processors.format import combing_score
+    from framewright_tpu_torch.processors.ocr import find_tesseract
+    from framewright_tpu_torch.processors.subtitles import (
+        SubtitleEnhancer,
+        SubtitleTimeSync,
+        SubtitleTimingExtractor,
+        export_srt,
+        format_srt,
+        parse_srt,
+    )
+    from framewright_tpu_torch.processors.super_resolution import SuperResolution
+    from framewright_tpu_torch.restorer import VideoRestorer, build_sr, build_sr_config
+    from framewright_tpu_torch.streaming import StreamingRestorer
+
+    t_phase = time.perf_counter()
+    reset, read, nw = x["reset_counters"], x["read_counters"], x["nw"]
+    times: dict = {}
+
+    def run_cli(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        require(rc == 0, f"cli {' '.join(argv[:2])} exited {rc}")
+        return buf.getvalue()
+
+    # -- audio: the verb on the card against the verb on the CPU ---------------------------
+    t0 = time.perf_counter()
+    wav = tmp / "av.wav"
+    write_wav(wav, av_signal(AV_SECONDS, AV_SR, seed=71), AV_SR)
+    x_in, _ = read_wav(wav)
+    out = {}
+    for d in ("cuda", "cpu"):
+        t1 = time.perf_counter()
+        run_cli(["audio", str(wav), str(tmp / f"ai_{d}.wav"), "--device", d])
+        times[f"audio_ai_wall_s_{d}"] = time.perf_counter() - t1
+        run_cli(["audio", str(wav), "--separate", str(tmp / f"stems_{d}"), "--device", d])
+        out[d] = {"ai": wav_pcm(tmp / f"ai_{d}.wav"),
+                  "vocals": wav_pcm(tmp / f"stems_{d}" / "vocals.wav"),
+                  "background": wav_pcm(tmp / f"stems_{d}" / "background.wav")}
+    for k in ("ai", "vocals", "background"):
+        st = pcm_stats(out["cuda"][k], out["cpu"][k])
+        emit({"phase": "av_scaleout", "name": f"audio {k} 16-bit PCM, card vs CPU",
+              "samples": int(out["cpu"][k].size), **st,
+              "tol": {"max_lsb": 1, "frac_differ": AV_PCM_FRAC}})
+        require(out["cpu"][k].size == x_in.size, f"audio {k}: {out['cpu'][k].size} samples")
+        require(st["max_lsb"] <= 1 and st["frac_differ"] <= AV_PCM_FRAC, f"audio {k}: {st}")
+    run_cli(["audio", str(wav), str(tmp / "dialog.wav"), "--dialog"])
+    require(wav_pcm(tmp / "dialog.wav").size == x_in.size, "dialog: sample count")
+    # the mask net's gains on the clip's band power, card vs CPU
+    params = audio_net.load_params()
+    net_card = audio_net.MaskNet(params, dev)
+    net_cpu = audio_net.MaskNet(params, "cpu")
+    wiener = WienerMaskDenoiser(device=dev)
+    ai = WienerMaskDenoiser(device=dev, mask_fn=net_card)
+    with full_f32():
+        consts = wiener.prepare(len(x_in))
+        t_frames = len(consts[0])
+        ch0 = torch.from_numpy(np.ascontiguousarray(x_in[:, 0])).to(dev)
+        bp = wiener.spectral_pass(ch0, consts)[1]
+        gain_err = float((net_card(bp).cpu() - net_cpu(bp.cpu())).abs().max())
+        per_min = 60.0 / AV_SECONDS * 2         # two channels a clip
+        times["stft_path_ms_per_min"] = cuda_ms(
+            lambda: wiener.spectral_pass(ch0, consts), 5) * per_min
+        times["stft_path_ai_ms_per_min"] = cuda_ms(
+            lambda: ai.spectral_pass(ch0, consts), 3) * per_min
+        times["mask_net_ms_per_min"] = cuda_ms(lambda: net_card(bp), 3) * per_min
+    emit({"phase": "av_scaleout", "name": "mask-net gains on the clip's band power, card vs CPU",
+          "frames": t_frames, "max_abs": gain_err, "tol": {"max_abs": AV_GAIN_TOL}})
+    require(gain_err <= AV_GAIN_TOL, f"mask-net gains differ by {gain_err}")
+    # audio-sync: a 0.25 s offset
+    shift = int(AV_SYNC_OFFSET * AV_SR)
+    write_wav(tmp / "late.wav",
+              np.concatenate([np.zeros((shift, 2), np.float32), x_in])[:len(x_in)], AV_SR)
+    sync = json.loads(run_cli(["audio-sync", str(wav), str(tmp / "late.wav")]))
+    emit({"phase": "av_scaleout", "name": "audio-sync 0.25 s", **sync})
+    require(abs(abs(sync["offset_s"]) - AV_SYNC_OFFSET) < 0.02, f"audio-sync {sync}")
+    times["audio_seconds"] = time.perf_counter() - t0
+
+    # -- subtitles: the verb against its processors ------------------------------------------
+    t0 = time.perf_counter()
+    clip = write_clip(tmp / "subs.y4m", subtitle_clip(SUB_N, SUB_H, SUB_W, seed=72))
+    srt = tmp / "subs.srt"
+    line = run_cli(["subtitles", str(clip), "-o", str(srt), "--no-ocr"]).strip()
+    with Y4MReader(clip) as r:
+        decoded = list(r)
+    events = SubtitleTimingExtractor().analyze(iter(decoded))
+    require(srt.read_text() == export_srt(events, 24.0), "subtitles: SRT differs")
+    require(len(events) == 2 and line == f"2 subtitle events -> {srt}", f"subtitles: {line}")
+    synced = tmp / "subs.synced.srt"
+    run_cli(["subtitles", str(clip), "--sync", str(srt), "--enhance", str(srt), "-o",
+             str(synced)])
+    want = SubtitleEnhancer.enhance(SubtitleTimeSync.sync_to_events(
+        parse_srt(srt.read_text()), events, 24.0))
+    require(synced.read_text() == format_srt(want), "subtitles --sync --enhance: SRT differs")
+    emit({"phase": "av_scaleout", "name": "subtitles", "line": line,
+          "events": [(e.start_frame, e.end_frame) for e in events],
+          "tesseract": find_tesseract(), "seconds": time.perf_counter() - t0})
+
+    # -- the farm: two worker processes on the one card -----------------------------------
+    t_card = torch.cuda.get_device_properties(0).total_memory
+    env = dict(os.environ, PYTHONPATH=str(ROOT), FRAMEWRIGHT_WEIGHTS_DIR=nw)
+    for model_name, scale, h, w in FARM_RUNS:
+        t0 = time.perf_counter()
+        label = f"farm {model_name} x{scale}"
+        frames = synthetic_frames(FARM_N, h, w, seed=73, **PROGRESSIVE)
+        src = write_clip(tmp / f"farm_{scale}.y4m", frames)
+        with Y4MReader(src) as r:
+            combing = [combing_score(fr) for fr in r]
+        require(max(combing) < 0.55, f"{label}: a frame reads as interlaced ({combing})")
+        farm = tmp / f"farm_{scale}"
+        merged = tmp / f"farm_{scale}_out.y4m"
+        argv = ["farm", "run", str(src), str(farm), "-o", str(merged),
+                "--chunk-frames", str(FARM_CHUNK), "--timeout", "600"]
+        if model_name != "realesr-animevideov3":
+            argv += ["--model", model_name, "--scale", str(scale)]
+        # the coordinator and two workers, each a process of its own
+        procs = [subprocess.Popen([sys.executable, "-m", "framewright_tpu_torch.cli", *a],
+                                  cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for a in [argv] + [["farm", "work", str(farm), "--worker-id", f"w{i}",
+                                     "--device", "cuda"] for i in range(2)]]
+        try:
+            outs = [p.communicate(timeout=600) for p in procs[1:]]
+            if any(p.returncode for p in procs[1:]):
+                procs[0].kill()
+            outs.insert(0, procs[0].communicate(timeout=120))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        require(all(p.returncode == 0 for p in procs),
+                f"{label}: rcs {[p.returncode for p in procs]}: "
+                f"{[e[-800:] for _, e in outs]}")
+        line = outs[0][0].strip()
+        outs = outs[1:]
+        require(json.loads(line) == {"output": str(merged)}, f"{label}: farm run printed {line}")
+        done = [json.loads(o.strip().splitlines()[-1])["worker_chunks_done"] for o, _ in outs]
+        res = [json.loads((farm / "results" / f"chunk_{i}.json").read_text())
+               for i in range(FARM_N // FARM_CHUNK)]
+        peaks = {}
+        for r_ in res:
+            require(r_["ok"] and r_["errors"] == 0, f"{label}: chunk {r_}")
+            peaks[r_["worker"]] = max(peaks.get(r_["worker"], 0), r_["peak_bytes"])
+            x["plan_checks"].append((f"{label} chunk {r_['chunk']}", r_["peak_bytes"],
+                                     r_["plan_bytes"]))
+        # the in-process restore of the same clip and config, its counters read
+        straight = tmp / f"farm_{scale}_straight.y4m"
+        reset()
+        t1 = time.perf_counter()
+        with with_env({"FRAMEWRIGHT_WEIGHTS_DIR": nw}):
+            result = VideoRestorer(Config(
+                sr_model=model_name, compute_dtype="bfloat16", scale_factor=scale,
+                checkpoint_enabled=False, validate_output=False,
+                project_dir=tmp / f"farm_{scale}_proj")).restore_video(src, output=straight)
+        straight_wall = time.perf_counter() - t1
+        launches = read()
+        want = {k: 0 for k in launches}
+        if model_name == "realesr-animevideov3":
+            want["fused_conv_chain"] = 2 * result.batches
+        else:
+            want.update(fused_rdb=69 * result.batches, conv_body_skip=result.batches,
+                        fused_tail=result.batches)
+        require(launches == want, f"{label}: in-process launches {launches}, expected {want}")
+        require(result.errors == 0, f"{label}: in-process errors {result.errors}")
+        _, _, pm = read_y4m_planes(merged)
+        _, _, ps = read_y4m_planes(straight)
+        require(len(pm) == len(ps) == FARM_N, f"{label}: {len(pm)} merged, {len(ps)} straight")
+        require(all(np.array_equal(a, b) for fa, fb in zip(pm, ps) for a, b in zip(fa, fb)),
+                f"{label}: merged output differs from the in-process restore")
+        rec = {"phase": "av_scaleout", "name": label, "line": line, "chunks_done": done,
+               "wall_seconds": wall, "straight_wall_seconds": straight_wall,
+               "in_process_launches": launches, "batches": result.batches,
+               "worker_peak_bytes": peaks,
+               "planner_bytes": {r_["chunk"]: r_["plan_bytes"] for r_ in res},
+               "two_peaks_over_card": sum(peaks.values()) / t_card,
+               "merged_equals_in_process": True}
+        emit(rec)
+        require(sum(done) == FARM_N // FARM_CHUNK, f"{label}: chunks done {done}")
+        require(sum(peaks.values()) < t_card, f"{label}: peaks {peaks} over the card")
+        times[f"{label} wall_s"] = wall
+
+    # -- the streaming restore ------------------------------------------------------------
+    t0 = time.perf_counter()
+    frames = synthetic_frames(FARM_N, *STREAMING_HW, seed=74, **PROGRESSIVE)
+    src = write_clip(tmp / "stream_src.y4m", frames)
+    cfg = Config(project_dir=tmp / "streaming", weights_dir=nw)
+    straight = tmp / "stream_straight.y4m"
+    VideoRestorer(cfg).restore_video(src, output=straight)
+    ready = []
+    scfg = cfg.with_overrides(keep_intermediates=True)
+    reset()
+    t1 = time.perf_counter()
+    res1 = StreamingRestorer(scfg, on_chunk_ready=lambda i, p: ready.append(i),
+                             chunk_frames=FARM_CHUNK).restore_video_streaming(
+        src, tmp / "streamed.y4m")
+    stream_wall = time.perf_counter() - t1
+    launches = read()
+    chunks = FARM_N // FARM_CHUNK
+    want = {k: 0 for k in launches}
+    want.update(fused_rdb=69 * chunks, conv_body_skip=chunks, fused_tail=chunks)
+    require(launches == want, f"streaming: launches {launches}, expected {want}")
+    require(ready == list(range(chunks)) and res1.frames_out == FARM_N,
+            f"streaming: ready {ready}, frames {res1.frames_out}")
+    require((tmp / "streamed.y4m").read_bytes() == straight.read_bytes(),
+            "streaming: output differs from the straight restore")
+    res1.chunk_paths[-1].unlink()
+    again = []
+    res2 = StreamingRestorer(scfg, on_chunk_ready=lambda i, p: again.append(i),
+                             chunk_frames=FARM_CHUNK).restore_video_streaming(
+        src, tmp / "streamed2.y4m")
+    require(again == [chunks - 1] and res2.restored == [chunks - 1],
+            f"streaming rerun: restored {res2.restored}, callbacks {again}")
+    require((tmp / "streamed2.y4m").read_bytes() == straight.read_bytes(),
+            "streaming rerun: output differs from the straight restore")
+    emit({"phase": "av_scaleout", "name": "streaming x2plus 1080p, chunks of 2",
+          "launches": launches, "chunks": res1.chunks, "wall_seconds": stream_wall,
+          "rerun_restored": res2.restored, "equals_straight": True,
+          "seconds": time.perf_counter() - t0})
+    times["streaming_wall_s"] = stream_wall
+
+    # -- the process group: NCCL, world size 1 ----------------------------------------------
+    spec = dcn.DistributedSpec(f"127.0.0.1:{dcn.free_port()}", 1, 0)
+    try:
+        multi = dcn.ensure_distributed(spec, backend="nccl")
+        t = torch.ones(4, device=dev)
+        dist.all_reduce(t)
+        dist.barrier()
+        pg = {"backend": dist.get_backend(), "world_size": dist.get_world_size(),
+              "rank": dist.get_rank(), "multi": multi, "all_reduce": float(t.sum())}
+    finally:
+        dcn.shutdown_distributed()
+    emit({"phase": "av_scaleout", "name": "process group", "init_method": spec.init_method, **pg})
+    require(pg["backend"] == "nccl" and pg["world_size"] == 1 and pg["all_reduce"] == 4.0
+            and not dist.is_initialized(), f"process group {pg}")
+
+    # -- the frames split -------------------------------------------------------------------
+    # the restore's SR on the default mesh (one card: the one-device
+    # processor), ShardedSR over a mesh of one card, and the one-device
+    # processor asked for with sharding "none": each timed on the host
+    # clock over dispatch and materialize (the split's own code inside the
+    # window), the runs interleaved, least of SPLIT_REPS
+    mesh = build_mesh()
+    xs = synthetic_frames(1, *STREAMING_HW, seed=7)
+    sr_kw = dict(sr_model="RealESRGAN_x2plus", batch_size=1, weights_dir=nw)
+    procs = {"default mesh": build_sr(Config(**sr_kw)),
+             "mesh of one card": ShardedSR(build_sr_config(Config(**sr_kw)), mesh),
+             "sharding none": build_sr(Config(**sr_kw, sharding_strategy="none"))}
+    require(type(procs["default mesh"]) is SuperResolution
+            and type(procs["sharding none"]) is SuperResolution,
+            f"one card: the restore's SR is {type(procs['default mesh']).__name__}")
+    split_launches = {}
+    for name, proc in procs.items():
+        proc.setup(*STREAMING_HW)
+        proc.set_output_color("yuv420", full_range=True)
+        reset()
+        proc.materialize(proc.dispatch(xs))
+        split_launches[name] = read()
+    want = {k: 0 for k in split_launches["sharding none"]}
+    want.update(fused_rdb=69, conv_body_skip=1, fused_tail=1)
+    walls = {name: [] for name in procs}
+    for _ in range(SPLIT_REPS):
+        for name, proc in procs.items():
+            t1 = time.perf_counter()
+            proc.materialize(proc.dispatch(xs))
+            walls[name].append((time.perf_counter() - t1) * 1e3)
+    split_ms = {name: min(v) for name, v in walls.items()}
+    none_ms = split_ms["sharding none"]
+    # two parts on the one card: a mesh of two entries for cuda:0, against
+    # the one-device processor on the same two frames
+    x2 = synthetic_frames(2, *STREAMING_HW, seed=8)
+    want_planes = procs["sharding none"].materialize(procs["sharding none"].dispatch(x2))
+    for proc in procs.values():
+        proc.teardown()
+    two = ShardedSR(build_sr_config(Config(**{**sr_kw, "batch_size": 2})),
+                    build_mesh(devices=[torch.device("cuda", 0)] * 2))
+    two.setup(*STREAMING_HW)
+    two.set_output_color("yuv420", full_range=True)
+    reset()
+    h = two.dispatch(x2)
+    got_planes = two.materialize(h)
+    two_launches = read()
+    two_parts = [b_ - a_ for _, a_, b_ in frame_split(len(x2), two.mesh)]
+    two.teardown()
+    want2 = {k: 2 * v for k, v in want.items()}
+    ref = x.get("stats_ms", {}).get("RealESRGAN_x2plus bfloat16", {}).get("without_stats")
+    rec = {"phase": "av_scaleout", "name": "SR frames split, 1080p x2plus, one card",
+           "mesh": {"shape": mesh.shape, "devices": [str(d) for d in mesh.devices]},
+           "launches": split_launches, "dispatch_materialize_ms": split_ms,
+           "reps": SPLIT_REPS, "tol_rel": SPLIT_TOL,
+           "two_parts_on_one_card": {"parts": two_parts, "launches": two_launches,
+                                     "planes_equal_unsplit": all(
+                                         np.array_equal(a_, b_)
+                                         for a_, b_ in zip(got_planes, want_planes))},
+           "stats_phase_kernel_ms_per_frame": ref}
+    emit(rec)
+    for name, got in split_launches.items():
+        require(got == want, f"frames split, {name}: launches {got}, expected {want}")
+    for name in ("default mesh", "mesh of one card"):
+        require(abs(split_ms[name] - none_ms) <= SPLIT_TOL * none_ms,
+                f"frames split, {name}: {split_ms[name]} ms against {none_ms} ms unsplit")
+    require(two_parts == [1, 1] and two_launches == want2
+            and rec["two_parts_on_one_card"]["planes_equal_unsplit"],
+            f"frames split, two parts on one card: {rec['two_parts_on_one_card']}")
+    times["frames_split_ms"] = split_ms
+    times["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "av_scaleout", **times})
+    return times
+
+
 def formats_phase(tmp: Path, nw: str, dev, x: dict, tools: dict) -> dict:
     """The default restore from and to a PNG frame directory (when Pillow
     is there): counters 69/1/1 a batch, every frame the kernel path's
@@ -3269,13 +3699,14 @@ def native_phase() -> dict:
 
 
 def c5_times() -> dict:
-    """``scripts/torch_presr_times.py --frames 2 4 --profile`` in a process
-    of its own: dispatch's enqueue ms, the quality restore's busy share
-    and peaks, and the film restore's parts."""
+    """``scripts/torch_presr_times.py --frames 2 4 --profile --presets
+    default quality`` in a process of its own: dispatch's enqueue ms and
+    the quality restore's busy share and peaks (the film restore is left
+    out for the smoke's time: phase "film" times its parts)."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, str(ROOT / "scripts" / "torch_presr_times.py"),
-                           "--frames", "2", "4", "--profile"], cwd=ROOT, capture_output=True,
-                          text=True, timeout=900)
+                           "--frames", "2", "4", "--profile", "--presets", "default",
+                           "quality"], cwd=ROOT, capture_output=True, text=True, timeout=900)
     require(proc.returncode == 0, f"torch_presr_times.py: {proc.stderr[-2000:]}")
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     runs = out["runs"]
@@ -3287,7 +3718,6 @@ def c5_times() -> dict:
            "quality_peaks": {k: (r["peak_allocated_bytes"], r["peak_reserved_bytes"])
                              for k, r in runs.items() if k.startswith("quality")},
            "steady_ms_per_frame": out["steady_ms_per_frame"],
-           "film_parts_ms": runs["film 4"]["parts_ms"],
            "seconds": round(time.perf_counter() - t0, 3)}
     emit(rec)
     return rec
@@ -4494,6 +4924,7 @@ def main(argv=None) -> int:
         diffusion_times = diffusion_phase(tmp, dev, {**x, "nw": nw})
         stream_times = stream_phase(tmp, dev, {**x, "kernel_path": kernel_path})
         color_gap_times = color_gap_phase(tmp, dev, {**x, "kernel_path": kernel_path})
+        av_times = av_scaleout_phase(tmp, dev, {**x, "nw": nw, "stats_ms": stats_ms})
     emit({"phase": "restore", "seconds": round(time.perf_counter() - t0, 3)})
     launches = launches_by_run["RealESRGAN_x2plus bfloat16"]
 
@@ -4759,6 +5190,7 @@ def main(argv=None) -> int:
           "formats": {k: v["wall_seconds"] for k, v in formats.items()},
           "archive": archive_times, "engine": engine_times,
           "color_gap": {k: v for k, v in color_gap_times.items() if k != "seconds"},
+          "av_scaleout": av_times,
           "models": {k: v for k, v in models_times.items() if k != "seconds"}, "c5": {k: c5[k] for k in ("enqueue_ms_per_dispatch",
                                                         "quality_busy_share",
                                                         "quality_busy_share_unprofiled",

@@ -26,6 +26,18 @@
     python -m framewright_tpu_torch.cli extend IN [-o OUT] [--frames N] \\
         [--direction forward|backward|both] [--flow-model ifnet|raft] \\
         [--device auto|cuda|cpu]
+    python -m framewright_tpu_torch.cli subtitles IN [-o SRT] [--lang L] \\
+        [--region bottom|top|full] [--no-ocr] [--sync SRT] [--enhance SRT] [--scale S]
+    python -m framewright_tpu_torch.cli audio IN [OUT] [--separate DIR] [--dialog] \\
+        [--no-denoise] [--denoise-model ai|wiener|spectral] [--no-hum] [--no-clicks] \\
+        [--no-normalize] [--hum-freq F] [--device auto|cuda|cpu]
+    python -m framewright_tpu_torch.cli audio-sync REF TEST [--fix OUT]
+    python -m framewright_tpu_torch.cli farm run IN WORK_DIR -o OUT [--model M] \\
+        [--dtype D] [--scale S] [--chunk-frames N] [--job-id J] [--timeout S] \\
+        [--burst none]
+    python -m framewright_tpu_torch.cli farm work WORK_DIR [--worker-id W] \\
+        [--device auto|cuda|cpu]
+    python -m framewright_tpu_torch.cli farm status WORK_DIR
 
 IN and OUT are ``.y4m`` files, PNG frame directories (``frame_%06d.png``;
 an OUT without a suffix is one) or, with ffmpeg on ``PATH``, mp4, mkv
@@ -93,6 +105,19 @@ checkpoint), keyframes propagated along IFNet flow.
 (``FrameExtender``; ``--flow-model raft`` reads ``raft-things.npz`` from
 ``$FRAMEWRIGHT_WEIGHTS_DIR``) and prints JAX's JSON (output, frames,
 added_before, added_after); OUT defaults to ``<stem>_extended.y4m``.
+
+``subtitles``, ``audio``, ``audio-sync`` and ``farm`` take the JAX CLI's
+arguments and print its lines and JSON. ``subtitles`` writes the burnt-in
+subtitle events as SRT (text when tesseract is on ``PATH``, else timing
+only), or re-times (``--sync``) and cleans (``--enhance``) an existing
+SRT. ``audio`` denoises a WAV (``ai``: the packaged mask net; a missing or
+unreadable checkpoint is an error, where JAX falls back to Wiener),
+splits it into stems (``--separate``) or runs the dialog chain; the
+Wiener and mask-net stages run on ``--device``. ``farm run`` publishes a
+job in WORK_DIR, waits for ``farm work`` processes (on this host or any
+that shares the directory) to restore its chunks and merges them;
+``--burst`` takes ``none`` only (the cloud burst reaches the network and
+is not ported: anything else is a ``ConfigError``).
 """
 
 from __future__ import annotations
@@ -219,6 +244,163 @@ def cmd_extend(args: argparse.Namespace) -> int:
                       "frames": len(before) + len(frames) + len(after),
                       "added_before": len(before),
                       "added_after": len(after)}, indent=2))
+    return 0
+
+
+def cmd_audio_sync(args: argparse.Namespace) -> int:
+    """Detect (and with ``--fix`` correct) the offset and drift between
+    two WAV tracks (JAX ``cmd_audio_sync``)."""
+    from framewright_tpu_torch.audio import (
+        AudioSyncAnalyzer,
+        AudioSyncCorrector,
+        read_wav,
+        write_wav,
+    )
+
+    ref_audio, sr = read_wav(Path(args.reference))
+    test_audio, sr2 = read_wav(Path(args.test))
+    if sr != sr2:
+        print(f"error: sample-rate mismatch {sr} vs {sr2}", file=sys.stderr)
+        return 1
+    rep = AudioSyncAnalyzer().analyze(ref_audio, test_audio, sr)
+    out = {"offset_s": round(rep["offset_s"], 4),
+           "drift_s_per_s": round(rep["drift_s_per_s"], 6),
+           "windows": rep["points"]}
+    if args.fix:
+        fixed = AudioSyncCorrector.correct(test_audio, sr, offset_s=rep["offset_s"],
+                                           drift_s_per_s=rep["drift_s_per_s"])
+        write_wav(Path(args.fix), fixed, sr)
+        out["fixed"] = args.fix
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def cmd_subtitles(args: argparse.Namespace) -> int:
+    """Burnt-in subtitle events to SRT (text when tesseract is on PATH),
+    or ``--sync`` / ``--enhance`` an existing SRT (JAX ``cmd_subtitles``)."""
+    from framewright_tpu_torch.io.video import open_reader, probe
+    from framewright_tpu_torch.processors.ocr import default_ocr_fn
+    from framewright_tpu_torch.processors.subtitles import (
+        SubtitleEnhancer,
+        SubtitleTimeSync,
+        SubtitleTimingExtractor,
+        export_srt,
+        format_srt,
+        parse_srt,
+    )
+
+    try:
+        meta = probe(args.source)
+        if args.sync or args.enhance:
+            srt_path = Path(args.sync or args.enhance)
+            track = parse_srt(srt_path.read_text())
+            if args.sync:
+                with open_reader(args.source) as r:
+                    events = SubtitleTimingExtractor(region=args.region).analyze(iter(r))
+                track = SubtitleTimeSync.sync_to_events(track, events, meta.fps)
+            if args.enhance:
+                track = SubtitleEnhancer.enhance(track, scale=args.scale)
+            out = Path(args.output) if args.output else srt_path.with_suffix(".synced.srt")
+            out.write_text(format_srt(track))
+            print(f"{len(track.lines)} lines -> {out}")
+            return 0
+        ocr_fn = None if args.no_ocr else default_ocr_fn(lang=args.lang)
+        if ocr_fn is None and not args.no_ocr:
+            print("note: no OCR backend (tesseract) found; SRT will carry timing only",
+                  file=sys.stderr)
+        with open_reader(args.source) as r:
+            events = SubtitleTimingExtractor(ocr_fn=ocr_fn, region=args.region).analyze(iter(r))
+        out = Path(args.output) if args.output else Path(args.source).with_suffix(".srt")
+        out.write_text(export_srt(events, meta.fps))
+    except FramewrightError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    print(f"{len(events)} subtitle events -> {out}")
+    return 0
+
+
+def cmd_audio(args: argparse.Namespace) -> int:
+    """Enhance a WAV (clicks, hum, denoise, loudness), or ``--separate``
+    it into stems, or run the ``--dialog`` chain (JAX ``cmd_audio``)."""
+    from framewright_tpu_torch.audio import AudioEnhanceConfig, AudioEnhancer
+    from framewright_tpu_torch.audio_separation import (
+        AudioSeparator,
+        DialogEnhancer,
+        SeparationConfig,
+    )
+
+    try:
+        if args.separate:
+            paths = AudioSeparator(SeparationConfig(device=args.device)).separate_file(
+                Path(args.source), Path(args.separate))
+            for name, p in paths.items():
+                print(f"{name}: {p}")
+            return 0
+        if args.output is None:
+            print("error: output path required (or use --separate DIR)", file=sys.stderr)
+            return 1
+        if args.dialog:
+            print(str(DialogEnhancer().process_file(Path(args.source), Path(args.output))))
+            return 0
+        cfg = AudioEnhanceConfig(
+            denoise=not args.no_denoise, denoise_model=args.denoise_model,
+            hum_removal=not args.no_hum, click_removal=not args.no_clicks,
+            normalize=not args.no_normalize, hum_freq=args.hum_freq, device=args.device)
+        out = AudioEnhancer(cfg).process_file(Path(args.source), Path(args.output))
+    except FramewrightError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    print(str(out))
+    return 0
+
+
+def cmd_farm(args: argparse.Namespace) -> int:
+    """The shared-directory render farm (JAX ``cmd_farm``): ``work`` runs a
+    worker, ``status`` prints the chunks and live workers, ``run``
+    publishes the job, waits for the workers and merges. ``--burst``
+    takes ``none`` only: the cloud burst reaches the network and is not
+    ported."""
+    import shutil
+
+    from framewright_tpu_torch.errors import ConfigError
+    from framewright_tpu_torch.parallel.multihost import (
+        RenderJob,
+        SharedDirCoordinator,
+        run_coordinator,
+        run_worker,
+    )
+
+    work_dir = Path(args.work_dir)
+    try:
+        if args.farm_cmd == "work":
+            done = run_worker(work_dir, worker_id=args.worker_id or None,
+                              device=None if args.device == "auto" else args.device)
+            print(json.dumps({"worker_chunks_done": done}))
+            return 0
+        if args.farm_cmd == "status":
+            coord = SharedDirCoordinator(work_dir)
+            n = len(coord.load_job().chunks())
+            print(json.dumps({"chunks": coord.chunk_status(n), "workers": coord.live_workers(),
+                              "complete": coord.is_complete(n)}, indent=2))
+            return 0
+        if args.burst != "none":
+            raise ConfigError(f"--burst {args.burst}: the cloud burst reaches the network "
+                              "and is not ported; run workers with 'farm work' (--burst none)")
+        from framewright_tpu_torch.io.video import probe
+
+        meta = probe(Path(args.source))
+        job = RenderJob(
+            job_id=args.job_id, source=str(Path(args.source).resolve()),
+            output=str(work_dir / "merged.y4m"),
+            config={"sr_model": args.model, "compute_dtype": args.dtype,
+                    "scale_factor": args.scale},
+            total_frames=meta.nb_frames, chunk_frames=args.chunk_frames)
+        out = run_coordinator(work_dir, job, timeout=args.timeout)
+        shutil.copyfile(out, args.output)
+    except FramewrightError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    print(json.dumps({"output": str(args.output)}))
     return 0
 
 
@@ -370,6 +552,78 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["ifnet", "raft"])
     p.add_argument("--device", choices=["auto", "cuda", "cpu"], default="auto")
     p.set_defaults(func=cmd_extend)
+
+    p = sub.add_parser("subtitles",
+                       help="extract hardcoded subtitles to .srt (OCR when tesseract is "
+                            "installed; timing always)")
+    p.add_argument("source")
+    p.add_argument("-o", "--output", type=Path, default=None)
+    p.add_argument("--lang", default="eng")
+    p.add_argument("--region", choices=["bottom", "top", "full"], default="bottom",
+                   help="where on the frame subtitles live")
+    p.add_argument("--no-ocr", action="store_true",
+                   help="timing-only SRT (skip text recognition)")
+    p.add_argument("--sync", metavar="SRT", default=None,
+                   help="retime an existing SRT against detected on-screen events "
+                        "(drift/offset correction)")
+    p.add_argument("--enhance", metavar="SRT", default=None,
+                   help="clean OCR artifacts + standardize formatting of an existing SRT")
+    p.add_argument("--scale", type=float, default=1.0,
+                   help="position scale factor for --enhance")
+    p.set_defaults(func=cmd_subtitles)
+
+    p = sub.add_parser("audio-sync", help="detect/fix offset + drift between WAV tracks")
+    p.add_argument("reference")
+    p.add_argument("test")
+    p.add_argument("--fix", default="", help="write corrected WAV here")
+    p.set_defaults(func=cmd_audio_sync)
+
+    p = sub.add_parser("audio", help="enhance a WAV audio file")
+    p.add_argument("source")
+    p.add_argument("output", nargs="?", default=None)
+    p.add_argument("--separate", metavar="DIR", default=None,
+                   help="split into vocals/background stems (learned band-mask + "
+                        "REPET/modulation separator)")
+    p.add_argument("--dialog", action="store_true",
+                   help="speech clarity chain: presence EQ, de-ess, compressor, limiter")
+    p.add_argument("--no-denoise", action="store_true")
+    p.add_argument("--denoise-model", default="ai", choices=["ai", "wiener", "spectral"],
+                   help="ai = learned mask net (DeepFilterNet-class, the packaged "
+                        "audio_mask_v1.npz; a missing or unreadable checkpoint is an "
+                        "error, not a fall back to wiener)")
+    p.add_argument("--no-hum", action="store_true")
+    p.add_argument("--no-clicks", action="store_true")
+    p.add_argument("--no-normalize", action="store_true")
+    p.add_argument("--hum-freq", type=float, default=50.0)
+    p.add_argument("--device", choices=["auto", "cuda", "cpu"], default="auto",
+                   help="where the Wiener and mask-net stages run")
+    p.set_defaults(func=cmd_audio)
+    p = sub.add_parser("farm", help="distributed render farm over a shared directory")
+    fsub = p.add_subparsers(dest="farm_cmd", required=True)
+    fw = fsub.add_parser("work", help="run a worker against a shared job dir")
+    fw.add_argument("work_dir")
+    fw.add_argument("--worker-id", default="")
+    fw.add_argument("--device", choices=["auto", "cuda", "cpu"], default="auto")
+    fs = fsub.add_parser("status", help="show chunk/worker status")
+    fs.add_argument("work_dir")
+    fs.add_argument("--device", choices=["auto", "cuda", "cpu"], default="auto")
+    fr = fsub.add_parser("run", help="coordinate a farm job")
+    fr.add_argument("source")
+    fr.add_argument("work_dir")
+    fr.add_argument("-o", "--output", required=True)
+    fr.add_argument("--model", default="realesr-animevideov3")
+    fr.add_argument("--dtype", default="bfloat16")
+    fr.add_argument("--scale", type=int, default=4)
+    fr.add_argument("--chunk-frames", type=int, default=100)
+    fr.add_argument("--job-id", default="farm")
+    fr.add_argument("--burst", default="none",
+                    choices=["none", "local", "runpod", "vastai", "gcp-tpu"],
+                    help="none only: the cloud burst is not ported (ConfigError)")
+    fr.add_argument("--api-key", default="")
+    fr.add_argument("--workers", type=int, default=2)
+    fr.add_argument("--timeout", type=float, default=86400.0)
+    fr.add_argument("--device", choices=["auto", "cuda", "cpu"], default="auto")
+    p.set_defaults(func=cmd_farm)
     return parser
 
 

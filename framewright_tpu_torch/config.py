@@ -25,7 +25,26 @@ have JAX's names, defaults and validation. The SR ensemble (``sr_ensemble``,
 ``sr_style_preset``, ``reference_images_dir``, ``reference_strength``,
 ``guidance_scale``) have JAX's names, defaults and validation.
 ``codec``, ``crf``, ``encode_preset`` and ``pixel_format`` reach the
-ffmpeg writer; the Y4M and PNG writers ignore them, as the JAX ones do."""
+ffmpeg writer; the Y4M and PNG writers ignore them, as the JAX ones do.
+
+Scale-out (``mesh_shape``, ``sharding_strategy``, ``scene_chunk_frames``,
+``chunk_overlap_frames``, ``multihost``) has JAX's names, defaults and
+validation. The restore splits each SR dispatch's frames over the
+mesh's cards (``restorer.build_sr``, ``parallel.distributor.ShardedSR``;
+``mesh_shape``: () = every local card; ``batch_size`` stays the frames
+of a dispatch, as in JAX), unless ``sharding_strategy="none"``, which
+JAX's restorer never maps; with one card nothing is split. ``spatial`` splits frames too (the spatial split
+is ROADMAP A11b). ``multihost`` brings up the process group when the
+restorer is built (``parallel.dcn.ensure_distributed``);
+``scene_chunk_frames`` is the streaming restore's chunk;
+``chunk_overlap_frames`` is read by nothing, in JAX as in the port. The
+subtitle (``subtitle_region``, ``subtitle_ocr_engine``,
+``subtitle_languages``), format (``inverse_telecine``,
+``crop_letterbox``, ``aspect_correction``) and audio (``process_audio``,
+``audio_denoise``, ``audio_sync_correction``) fields have JAX's names,
+defaults and validation and map to nothing: JAX's restore reads none of
+them (the ``subtitles`` and ``audio`` verbs and the processors run those
+tools)."""
 
 from __future__ import annotations
 
@@ -49,6 +68,7 @@ _VALID_GRAIN = ("auto", "off", "preserve", "remove", "match")
 _VALID_OUTPUT_FORMATS = ("auto", "y4m", "png", "mp4", "mkv")
 _VALID_FACE_MODELS = ("gfpgan", "codeformer", "sr")
 _VALID_COLORIZE = ("palette", "eccv16", "ddcolor")    # a restore's; exemplar: the processor
+_VALID_SHARDING = ("data", "spatial", "none", "auto")
 
 # framewright_tpu/config.py:28-87
 PRESETS: Dict[str, Dict[str, Any]] = {
@@ -146,6 +166,13 @@ class Config:
     device_platform: str = "auto"         # auto (= cuda) | cuda | cpu
     hbm_utilization: float = 0.85         # share of free card memory to plan for
 
+    # --- Scale-out ---------------------------------------------------------------
+    mesh_shape: Tuple[int, ...] = ()      # () = every local card on the frames axis
+    sharding_strategy: str = "auto"       # data|spatial|none|auto (none: one card)
+    scene_chunk_frames: int = 100         # the streaming restore's chunk
+    chunk_overlap_frames: int = 4         # read by nothing (as in JAX)
+    multihost: bool = False               # bring up the process group (parallel.dcn)
+
     # --- Pre-SR stream (in this order, before super-resolution) -----------------
     long_form: str = "auto"               # auto|on|off: anchor drift correction
     long_form_threshold: int = 1500       # auto engages at >= this many frames
@@ -181,6 +208,12 @@ class Config:
     watermark_auto_detect: bool = True
     watermark_regions: Tuple[Tuple[int, int, int, int], ...] = ()   # (x0, y0, x1, y1)
     subtitle_removal: bool = False        # the same in the bottom third
+    subtitle_region: str = "bottom"       # OCR band: bottom|top|full (maps to nothing)
+    subtitle_ocr_engine: str = "auto"     # auto|tesseract|none (maps to nothing)
+    subtitle_languages: Tuple[str, ...] = ("eng",)
+    inverse_telecine: bool = False        # maps to nothing (as in JAX's restore)
+    crop_letterbox: bool = False          # maps to nothing
+    aspect_correction: bool = False       # maps to nothing
     qp_removal: bool = False              # codec deblocking and deringing, before denoise
     qp_strength: float = 0.0              # DCT threshold; 0 = auto from blockiness
     scene_adaptive: bool = False          # per-scene sharpen / NR deltas, last pre-SR
@@ -238,6 +271,11 @@ class Config:
     colorize_keyframe_interval: int = 24  # flow-propagation keyframe gap
     colorize_strength: float = 1.0        # read by nothing (as in JAX)
 
+    # --- Audio (the audio verb's; a restore reads none, as in JAX) --------------
+    process_audio: bool = True
+    audio_denoise: bool = False
+    audio_sync_correction: bool = False
+
     # --- Encoding (the ffmpeg writer; Y4M and PNG ignore them) ------------------
     codec: str = "libx265"
     crf: int = 18
@@ -281,6 +319,8 @@ class Config:
         if self.reference_images_dir is not None:
             self.reference_images_dir = Path(self.reference_images_dir)
         self.watermark_regions = tuple(tuple(int(v) for v in r) for r in self.watermark_regions)
+        self.mesh_shape = tuple(int(d) for d in self.mesh_shape)
+        self.subtitle_languages = tuple(self.subtitle_languages)
         self.work_dir = self.project_dir / "work"
         self.checkpoint_dir = self.project_dir / "checkpoints"
         self._validate()
@@ -323,6 +363,14 @@ class Config:
             raise ConfigError("max_enhancement_strength must be in [0, 1]")
         if self.outscale < 0:
             raise ConfigError("outscale must be >= 0")
+        if self.sharding_strategy not in _VALID_SHARDING:
+            raise ConfigError(f"sharding_strategy must be one of {_VALID_SHARDING}")
+        if self.mesh_shape and any(d < 1 for d in self.mesh_shape):
+            raise ConfigError("mesh_shape entries must be >= 1")
+        if self.subtitle_region not in ("bottom", "top", "full"):
+            raise ConfigError("subtitle_region must be bottom|top|full")
+        if self.subtitle_ocr_engine not in ("auto", "tesseract", "none"):
+            raise ConfigError("subtitle_ocr_engine must be auto|tesseract|none")
         self._validate_pre_sr()
         self._validate_post_sr()
 

@@ -94,3 +94,7 @@ def classify_error(exc: BaseException) -> FramewrightError:
     if isinstance(exc, torch.cuda.OutOfMemoryError):
         return HBMError(str(exc), details={"original_type": type(exc).__name__})
     return FatalError(str(exc), details={"original_type": type(exc).__name__})
+
+
+class ShardingError(FatalError):
+    """A device mesh or a batch split that the devices cannot hold."""

@@ -15,11 +15,12 @@ Colourspaces: C420 (jpeg/mpeg2/paldv sized alike), C422, C444, Cmono.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 from fractions import Fraction
 from pathlib import Path
-from typing import BinaryIO, Iterator, Optional, Union
+from typing import BinaryIO, Iterable, Iterator, Optional, Union
 
 import numpy as np
 
@@ -388,3 +389,53 @@ class Y4MWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+
+def _raw_frames(r: "Y4MReader", name) -> Iterator[bytes]:
+    """Each frame's bytes, undecoded, from the reader's position."""
+    while True:
+        line = r._f.readline(256)
+        if not line:
+            return
+        if not line.startswith(b"FRAME"):
+            raise MediaFormatError(f"Expected FRAME marker, got {line[:20]!r}")
+        raw = r._f.read(r._frame_bytes)
+        if len(raw) != r._frame_bytes:
+            raise MediaFormatError(f"{name}: truncated Y4M frame")
+        yield raw
+
+
+def concat_y4m(parts: Iterable[Union[str, Path]], dst: Union[str, Path],
+               fps: Optional[Union[float, Fraction]] = None, start: int = 0,
+               end: Optional[int] = None) -> int:
+    """Frames ``start`` .. ``end`` - 1 of the parts, taken in order as one
+    stream, written into ``dst`` byte for byte under the first part's
+    header (its rate replaced by ``fps`` when given); returns the frames
+    written. Every part must have the first one's size and colourspace.
+    Decoding a 4:2:0 frame to RGB and encoding it again would change its
+    chroma; this copies the planes."""
+    n = i = 0
+    first = None
+    with open(dst, "wb") as out:
+        for part in parts:
+            with Y4MReader(part) as r:
+                h = r.header
+                if first is None:
+                    first = h if fps is None else dataclasses.replace(
+                        h, fps=Fraction(fps).limit_denominator(65536))
+                    out.write(first.to_line())
+                elif (h.width, h.height, h.colorspace) != (first.width, first.height,
+                                                          first.colorspace):
+                    raise MediaFormatError(f"{part}: {h.width}x{h.height} {h.colorspace}, "
+                                           f"the first part {first.width}x{first.height} "
+                                           f"{first.colorspace}")
+                for raw in _raw_frames(r, part):
+                    if end is not None and i >= end:
+                        return n
+                    if i >= start:
+                        out.write(b"FRAME\n")
+                        out.write(raw)
+                        n += 1
+                    i += 1
+    return n

@@ -1,20 +1,27 @@
-"""Interlace detection and deinterlacing: the port's copy of
-``framewright_tpu.processors.format``'s ``combing_score``,
-``InterlaceReport``, ``InterlaceDetector`` and ``YadifDeinterlacer``.
+"""Format and geometry processors: the port's copy of
+``framewright_tpu.processors.format`` (``combing_score``,
+``InterlaceReport``, ``InterlaceDetector``, ``Deinterlacer``,
+``YadifDeinterlacer``, ``InverseTelecine``, ``TelecineResult``,
+``LetterboxDetector``, ``LetterboxInfo``, ``AspectCorrector``).
 
 The same numpy code on the host, so the port's frames equal the JAX
-package's exactly. The default restore probes the first 60 frames
-(``InterlaceDetector(sample_every=5)``) and, on an interlaced source,
-streams every frame through ``YadifDeinterlacer(mode="yadif")`` before
-super-resolution.
+package's exactly; ``AspectCorrector`` resizes with the port's
+``layers.resize_bicubic`` on the card (within 1e-5 of JAX's). The default
+restore probes the first 60 frames (``InterlaceDetector(sample_every=5)``)
+and, on an interlaced source, streams every frame through
+``YadifDeinterlacer(mode="yadif")`` before super-resolution. The
+telecine, letterbox and aspect tools are not restore stages, in JAX as in
+the port (``Config.inverse_telecine``, ``crop_letterbox`` and
+``aspect_correction`` map to nothing).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Iterator, List, Optional, Union
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -157,3 +164,153 @@ class YadifDeinterlacer:
             prev, cur = cur, nxt
         if cur is not None:
             yield self._rebuild(prev if prev is not None else cur, cur, cur)
+
+
+class Deinterlacer:
+    """Bob/weave deinterlacer: keep the dominant field, interpolate the
+    other (``skip``) or blend the interpolation with it (``blend``)."""
+
+    def __init__(self, method: str = "blend", field_order: str = "tff"):
+        self.method = method
+        self.field_order = field_order
+
+    def deinterlace(self, frame: np.ndarray) -> np.ndarray:
+        f = frame.astype(np.float32)
+        keep0 = 0 if self.field_order == "tff" else 1
+        out = f.copy()
+        interp = 0.5 * (np.roll(f, 1, axis=0) + np.roll(f, -1, axis=0))
+        other = 1 - keep0
+        if self.method == "skip":
+            out[other::2] = interp[other::2]
+        else:
+            out[other::2] = 0.5 * (f[other::2] + interp[other::2])
+        return np.clip(out, 0, 255).astype(np.uint8)
+
+    def process_stream(self, frames_iter: Iterator[np.ndarray]) -> Iterator[np.ndarray]:
+        for f in frames_iter:
+            yield self.deinterlace(f)
+
+
+@dataclass
+class TelecineResult:
+    pattern_found: bool = False
+    frames_in: int = 0
+    frames_out: int = 0
+
+
+class InverseTelecine:
+    """3:2 pulldown removal: in a 5-frame cadence one frame repeats its
+    neighbour (dHash similarity); that position is dropped."""
+
+    def __init__(self, similarity_threshold: float = 0.96):
+        self.threshold = similarity_threshold
+
+    def detect_cadence(self, frames: List[np.ndarray]) -> Optional[int]:
+        """The cadence offset (which of each 5 frames is dropped), or None."""
+        from framewright_tpu_torch.ops import dhash
+
+        if len(frames) < 10:
+            return None
+        sims = dhash.consecutive_similarity(dhash.dhash_batch(np.stack(frames)))
+        votes = np.zeros(5)
+        for i in range(1, len(sims)):
+            if sims[i] >= self.threshold:
+                votes[i % 5] += 1
+        if votes.max() >= max(2, 0.5 * (len(frames) // 5)):
+            return int(votes.argmax())
+        return None
+
+    def process_stream(self, frames_iter: Iterator[np.ndarray],
+                       result: Optional[TelecineResult] = None) -> Iterator[np.ndarray]:
+        result = result or TelecineResult()
+        buf = list(frames_iter)  # cadence detection needs lookahead
+        result.frames_in = len(buf)
+        offset = self.detect_cadence(buf[: min(len(buf), 60)])
+        result.pattern_found = offset is not None
+        for i, f in enumerate(buf):
+            if offset is not None and i % 5 == offset:
+                continue
+            result.frames_out += 1
+            yield f
+
+
+@dataclass
+class LetterboxInfo:
+    top: int = 0
+    bottom: int = 0
+    left: int = 0
+    right: int = 0
+
+    @property
+    def any(self) -> bool:
+        return bool(self.top or self.bottom or self.left or self.right)
+
+    def crop(self, frame: np.ndarray) -> np.ndarray:
+        h, w = frame.shape[:2]
+        return frame[self.top:h - self.bottom or h, self.left:w - self.right or w]
+
+
+class LetterboxDetector:
+    """Black bars: rows and columns whose mean luma, over the brightest of
+    the sampled frames, stays below the threshold."""
+
+    def __init__(self, luma_threshold: float = 24.0, sample_frames: int = 10):
+        self.luma_threshold = luma_threshold
+        self.sample_frames = sample_frames
+
+    def detect(self, frames_iter: Iterator[np.ndarray]) -> LetterboxInfo:
+        acc = None
+        n = 0
+        for f in frames_iter:
+            g = f.astype(np.float32).mean(axis=-1)
+            acc = g if acc is None else np.maximum(acc, g)
+            n += 1
+            if n >= self.sample_frames:
+                break
+        if acc is None:
+            return LetterboxInfo()
+        h, w = acc.shape
+        row_dark = acc.mean(axis=1) < self.luma_threshold
+        col_dark = acc.mean(axis=0) < self.luma_threshold
+
+        def run_len(mask):
+            k = 0
+            for v in mask:
+                if not v:
+                    break
+                k += 1
+            return k
+
+        info = LetterboxInfo(top=run_len(row_dark), bottom=run_len(row_dark[::-1]),
+                             left=run_len(col_dark), right=run_len(col_dark[::-1]))
+        # never crop more than 40% in any direction
+        if info.top + info.bottom > 0.4 * h or info.left + info.right > 0.4 * w:
+            return LetterboxInfo()
+        # even sides for 4:2:0 encoders
+        info.top -= info.top % 2
+        info.bottom -= info.bottom % 2
+        info.left -= info.left % 2
+        info.right -= info.right % 2
+        return info
+
+
+class AspectCorrector:
+    """Resize to a target display aspect ratio (the width, to an even
+    number of pixels), bicubically on the card."""
+
+    def __init__(self, target_dar: float, device: Union[str, torch.device, None] = "auto"):
+        self.target_dar = target_dar
+        self.device = device
+
+    def correct(self, frame: np.ndarray) -> np.ndarray:
+        from framewright_tpu_torch.hw import full_f32, resolve_device
+        from framewright_tpu_torch.models.layers import resize_bicubic
+
+        h, w = frame.shape[:2]
+        if abs(w / h - self.target_dar) < 1e-3:
+            return frame
+        new_w = int(round(h * self.target_dar / 2)) * 2
+        x = torch.from_numpy(np.ascontiguousarray(frame[None])).to(resolve_device(self.device))
+        with full_f32():
+            out = resize_bicubic(x.float() / 255.0, (h, new_w))
+        return np.clip(out[0].cpu().numpy() * 255.0 + 0.5, 0, 255).astype(np.uint8)

@@ -11,8 +11,8 @@ it repeats the left frame instead. The model is the port's
 ``interpolate_padded``, on the card in full f32, with the user's
 weights, ``<weights_dir>/rife-v4.6.npz`` (``InputError`` without them:
 the JAX interpolator draws ``ifnet.init(PRNGKey(0))``, ROADMAP.md "JAX
-faults the port must not copy"). It runs on one card (multi-GPU is
-ROADMAP.md A11).
+faults the port must not copy"). It runs on one card (its frames split
+over several is ROADMAP.md A11b).
 """
 
 from __future__ import annotations

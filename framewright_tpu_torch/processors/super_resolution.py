@@ -79,6 +79,9 @@ family (RRDB: ``apply_fast(x, "bf16")``, no fused epilogue) and lerps the
 output toward the bilinear upscale of the input in the output's dtype
 (``base + cap * (y - base)``, JAX ``super_resolution.py:285-295``; JAX
 resizes with ``method="linear"`` there, not bicubic) before the clip.
+Several cards (JAX ``super_resolution.py:194-215``): the restore wraps
+one processor a card in ``parallel.distributor.ShardedSR``, which splits
+each dispatch's frames over them; this processor runs on one device.
 ``outscale`` (RealESRGANer's) resizes the uint8 RGB output bicubically
 to round(input side x outscale) on the card (u8 / 255, ``resize_bicubic``,
 clip and round half up again, as JAX's ``_resize``); it needs the RGB
@@ -232,6 +235,14 @@ class HostStaging:
         self._out_free.append(slot)
 
 
+def check_frames(name: str, frames: np.ndarray) -> np.ndarray:
+    """A dispatch's uint8 (B, H, W, 3) batch, contiguous, or InputError."""
+    if frames.ndim != 4 or frames.shape[-1] != 3 or frames.dtype != np.uint8:
+        raise InputError(f"{name}: expected uint8 (B, H, W, 3), got "
+                         f"{frames.shape} {frames.dtype}")
+    return np.ascontiguousarray(frames)
+
+
 class SuperResolution:
     name = "super_resolution"
 
@@ -352,12 +363,16 @@ class SuperResolution:
         processor does; every other case runs the kernels."""
         return self.family == "srvgg" and self.config.compute_dtype == "float32"
 
-    def set_output_color(self, color: str) -> None:
+    def set_output_color(self, color: str, full_range: Optional[bool] = None) -> None:
+        """``rgb`` or ``yuv420`` output; ``full_range`` (when given) sets
+        the YUV range (the writer's)."""
         if color not in _OUT_COLORS:
             raise ConfigError(f"output_color must be one of {_OUT_COLORS}")
         if color == "yuv420" and self._resizes:
             raise ConfigError("outscale resizes the RGB output: no YUV420 output")
         self.config.output_color = color
+        if full_range is not None:
+            self.config.yuv_full_range = full_range
 
     @property
     def _resizes(self) -> bool:
@@ -498,10 +513,7 @@ class SuperResolution:
     def dispatch(self, frames: np.ndarray) -> dict:
         """Enqueue a uint8 (B, H, W, 3) batch; return a handle for
         ``materialize``. Does not wait for the card."""
-        if frames.ndim != 4 or frames.shape[-1] != 3 or frames.dtype != np.uint8:
-            raise InputError(f"{self.name}: expected uint8 (B, H, W, 3), got "
-                             f"{frames.shape} {frames.dtype}")
-        x = np.ascontiguousarray(frames)
+        x = check_frames(self.name, frames)
         if self._int8_calibrate:
             self._calibrate_int8(x)
         self.dispatches += 1

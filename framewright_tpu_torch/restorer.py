@@ -149,7 +149,9 @@ row (BasicVSR, TVSR_x4) runs ``processors.video_sr`` in chunks of
 resume at a chunk start seeds its carry with the ``overlap`` frames before
 it (teed off the pre-SR stream), so the output is a straight run's;
 ``sr_ensemble`` runs ``testing.EnsembleSR``; else ``SuperResolution``
-with ``outscale`` and the enhancement cap. The video SR, the ensemble and
+with ``outscale`` and the enhancement cap, one a card behind
+``parallel.distributor.ShardedSR`` when there are several local cards
+(``--batch`` stays a dispatch's frames, split over them). The video SR, the ensemble and
 ``outscale`` take the RGB writer path, as in JAX. Each SR processor
 plans beside the pre-SR and face reserves: the ensemble's members share
 them, and a video SR window that does not fit beside them raises
@@ -242,6 +244,8 @@ from framewright_tpu_torch.processors.inpaint import (
     SubtitleRemover,
     WatermarkRemover,
 )
+from framewright_tpu_torch.parallel.distributor import ShardedSR
+from framewright_tpu_torch.parallel.mesh import frames_mesh
 from framewright_tpu_torch.processors.latent_temporal import LatentTemporalSmoother
 from framewright_tpu_torch.processors.qp_removal import QPArtifactRemover, QPRemovalConfig
 from framewright_tpu_torch.processors.scene_intelligence import (
@@ -472,7 +476,14 @@ def build_sr(cfg: Config, reserved_bytes: int = 0):
                           weights_dir=str(cfg.weights_dir) if cfg.weights_dir else None,
                           compute_dtype=cfg.compute_dtype, device=_device(cfg),
                           hbm_utilization=cfg.hbm_utilization, reserved_bytes=reserved_bytes)
-    return SuperResolution(build_sr_config(cfg, reserved_bytes))
+    sr_cfg = build_sr_config(cfg, reserved_bytes)
+    # the frames split over the local cards (JAX super_resolution.py:194-215);
+    # JAX's restorer never maps sharding_strategy, the port honours "none".
+    # The diffusion SR keeps one card (its noise is drawn per dispatch chunk).
+    mesh = (None if cfg.sharding_strategy == "none"
+            or get_model(cfg.sr_model).family == "diffusion"
+            else frames_mesh(sr_cfg.device, cfg.mesh_shape))
+    return SuperResolution(sr_cfg) if mesh is None else ShardedSR(sr_cfg, mesh)
 
 
 def build_sr_config(cfg: Config, reserved_bytes: int = 0) -> SRConfig:
@@ -613,6 +624,11 @@ class VideoRestorer:
         self.auto_enhance: Optional[Dict] = None   # the auto-enhance overrides and analysis
         self.gap_filler: Optional[GapFiller] = None   # the pre-SR stream's, when it inserts
         self.stage = ""           # the stage running (a progress callback may read it)
+        if self.config.multihost:
+            # the process group, before any work (JAX: jax.distributed)
+            from framewright_tpu_torch.parallel.dcn import ensure_distributed
+
+            ensure_distributed(backend="gloo" if self.config.device_platform == "cpu" else None)
 
     def _progress(self, stage: str, done: int, total: int, tracker: _EtaTracker) -> None:
         if self.progress_callback is None:
@@ -1010,8 +1026,7 @@ class VideoRestorer:
                           and mapping is None and post is None and faces is None
                           and (validator is None or cfg.min_vmaf <= 0))
             if yuv_direct:
-                sr.config.yuv_full_range = writer.full_range
-                sr.set_output_color("yuv420")
+                sr.set_output_color("yuv420", full_range=writer.full_range)
                 if validator is not None:
                     # the gate's scores ride in the SR pass: a few floats
                     # a frame instead of RGB frames on the host

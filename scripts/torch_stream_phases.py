@@ -1,10 +1,12 @@
-"""The diffusion, stream and color_gap phases of chip_smoke.py alone on the
-card:
+"""The diffusion, stream, color_gap and av_scaleout phases of chip_smoke.py
+alone on the card:
 
-    python3 scripts/torch_stream_phases.py [--only diffusion|stream|color_gap]
+    python3 scripts/torch_stream_phases.py [--only diffusion|stream|color_gap|av_scaleout]
 
 builds the kernels, then runs ``chip_smoke.diffusion_phase``,
-``chip_smoke.stream_phase`` and ``chip_smoke.color_gap_phase`` with the launch counters, the CLI runner and
+``chip_smoke.stream_phase``, ``chip_smoke.color_gap_phase`` and
+``chip_smoke.av_scaleout_phase`` (without the stats phase's ms a frame,
+which it only prints) with the launch counters, the CLI runner and
 the kernel path as ``chip_smoke.main`` builds them; prints the phases'
 JSON lines, each peak against the planner's count, and ``{"ok": ...}``
 last (exit 1 when a check failed)."""
@@ -30,7 +32,7 @@ from torch_models_phase import harness  # noqa: E402
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("diffusion", "stream", "color_gap"), default=None)
+    ap.add_argument("--only", choices=("diffusion", "stream", "color_gap", "av_scaleout"), default=None)
     args = ap.parse_args(argv)
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -48,6 +50,8 @@ def main(argv=None) -> int:
                 cs.stream_phase(tmp, dev, x)
             if args.only in (None, "color_gap"):
                 cs.color_gap_phase(tmp, dev, x)
+            if args.only in (None, "av_scaleout"):
+                cs.av_scaleout_phase(tmp, dev, x)
         except cs.SmokeFailure as exc:
             ok = False
             print(f"torch_stream_phases: FAILED: {exc}", file=sys.stderr)

@@ -203,3 +203,53 @@ def test_sample_video_matches_jax():
                           pd.DiffusionSRConfig(**TINY)).numpy()
     assert got.shape == want.shape == (1, 2, 32, 32, 3)
     assert np.abs(got - want).max() <= F32_RANGE_TOL
+
+
+def _conv_tapwise(p, x, stride=1):
+    """JAX's ``diffusion_sr._conv`` with another f32 sum order: each tap of
+    the kernel is a convolution of its own (a kernel that is zero but at
+    that tap, so its sum runs over the input channels only), the taps'
+    f32 results added in raster order, then the bias and the same cast."""
+    w = p["w"].astype(x.dtype)
+    acc = None
+    for dy in range(w.shape[0]):
+        for dx in range(w.shape[1]):
+            y = jax.lax.conv_general_dilated(
+                x, jnp.zeros_like(w).at[dy, dx].set(w[dy, dx]), (stride, stride), "SAME",
+                dimension_numbers=("NHWC", "HWIO", "NHWC"), preferred_element_type=jnp.float32)
+            acc = y if acc is None else acc + y
+    return (acc + p["b"].astype(jnp.float32)).astype(x.dtype)
+
+
+@pytest.mark.parametrize("steps", [1, 8])
+def test_bf16_sum_order_moves_jax_as_far_as_the_port(packaged, steps, monkeypatch):
+    """C8: the JAX package's own bf16 ``ddim_sample`` against itself with
+    only the convolutions' f32 sum order changed (``_conv_tapwise``) moves
+    as far as the port does from it. Measured (2x12x16 -> 48x64, key 7):
+    1 step, JAX against itself max 2, mean 0.195, on 19.3% of the uint8
+    values, the port against JAX max 2, mean 0.163, on 16.2%; 8 steps,
+    max 1, mean 0.147 on 14.7%, and max 1, mean 0.148 on 14.8%. So a
+    1-LSB-on-0.1% criterion cannot hold for bf16 whatever the sum order;
+    the port's bound stays max 3, mean < 0.3."""
+    spec, params, _, tree, _ = packaged
+    cfg = dataclasses.replace(spec.arch_config, steps=steps)
+    lr = _lr(2, 12, 16, seed=4)
+    jp = jax.tree_util.tree_map(lambda v: jnp.asarray(v).astype(jnp.bfloat16), params)
+
+    def jax_run():
+        fn = jax.jit(lambda p, x: jd.ddim_sample(p, x, cfg, key=jax.random.PRNGKey(7)))
+        return _u8(np.asarray(fn(jp, jnp.asarray(lr).astype(jnp.bfloat16)).astype(jnp.float32)))
+
+    want = jax_run()
+    monkeypatch.setattr(jd, "_conv", _conv_tapwise)
+    reordered = jax_run()
+    monkeypatch.undo()
+    got = _u8(pd.ddim_sample(layers.tree_to_torch(tree, "cpu", torch.bfloat16),
+                             torch.from_numpy(lr).to(torch.bfloat16), cfg, seed=7).float().numpy())
+    jax_self = _u8_within(reordered, want, "bfloat16")
+    port = _u8_within(got, want, "bfloat16")
+    # the reference's own spread: far above the old criterion's 0.1%, and
+    # the port's within twice it
+    assert jax_self["frac"] > 0.05, jax_self
+    assert port["frac"] <= 2 * jax_self["frac"] and port["max"] <= jax_self["max"] + 1, (
+        port, jax_self)
