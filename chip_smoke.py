@@ -224,6 +224,34 @@ Phases, one JSON object per line on stdout:
               with ``sharding_strategy="none"`` in the same run, and
               ``ShardedSR`` over two entries for the one card (parts of 1
               and 1, 138/2/2, planes equal to the unsplit processor's)
+  train       on-device training (slice 15, A16): the FW_fast6_x2 and
+              FW_fastvgg_x2 students (batch 8, 128-pixel HR patches) from
+              ``jax_init`` for 3 steps twice on the card (the same bytes)
+              and once on the CPU (each step's loss within 1e-4 relative,
+              the parameters' mean |delta| <= 0.01 lr k, max <= 2 lr k);
+              3 distillation steps from a seeded RealESRGAN_x2plus teacher;
+              each student warm-started from its packaged checkpoint for 20
+              steps, written with ``save_npz``, above bicubic + 0.5 dB on
+              JAX's gate, then restored by the CLI (2 frames of 1080p,
+              ``--weights-dir``): 18/1/1 or 2 chain calls a batch, the
+              planes equal to the kernel path on the trained weights;
+              ``train_diffusion``, ``finetune_sampler`` (DiffusionSR_x4's
+              arch) and ``train_denoiser`` (FW_nafnet_dn's) twice on the
+              card and once on the CPU, held alike; ``train_mask_net``'s
+              300 steps on the card through JAX's SNR gates (mix + 3 dB,
+              Wiener + 1 dB); ``train_separator`` 40 steps card vs CPU
+              (its losses within 1e-3 relative). Each trainer's ms a step beside its
+              bound (3x the forward's f32 FLOPs over 67 TFLOP/s; the audio
+              nets: the host's data time) and its peak
+  surfaces    A12's first surfaces: ``check`` (the card, status ok),
+              ``presets`` (all four, no downshift), ``warmup`` at 1080p then
+              a restore of that geometry with the builds stubbed to fail,
+              ``batch submit`` x2 + ``run`` + ``list`` (each output equal
+              to the CLI restore of its clip), ``watch --cycles 2`` over a
+              folder with one clip, ``probe``, ``models list``
+              (FW_fast6_x2 packaged), and a restore under
+              ``FRAMEWRIGHT_BATCH_SIZE=2`` over ``--config-file`` (batch 2,
+              FW_fast6_x2 from the file: 18 RDB calls)
   6. times    each kernel by CUDA events beside its plain version, its
               roofline bound and, for the bf16 RDB, K1, tail1, the bf16
               chain and the band conv, cuDNN's F.conv2d (PyTorch has no
@@ -918,7 +946,7 @@ def pre_sr_restores(tmp: Path, nw: str, dev, x: dict) -> dict:
         launches = read()
         wall = time.perf_counter() - t_run
         require(rc == 0, f"{label}: exited {rc}")
-        cfg = build_config(preset, {"weights_dir": nw, **overrides})
+        cfg = build_config(preset, cli_overrides={"weights_dir": nw, **overrides})
         plan = (summary["batch_size"] * planner.frame_bytes(
             h, w, 2, "srvgg" if srvgg else "rrdb", "bfloat16", stats=True)
             + pre_sr_reserve(cfg, h, w))
@@ -990,7 +1018,7 @@ def pre_sr_restores(tmp: Path, nw: str, dev, x: dict) -> dict:
     src, decoded = clips["cut"]
 
     def quality_cfg(proj: str) -> Config:
-        return build_config("quality", {"project_dir": tmp / proj, "weights_dir": nw,
+        return build_config("quality", cli_overrides={"project_dir": tmp / proj, "weights_dir": nw,
                                         "batch_size": 2})
 
     class Stop(Exception):
@@ -1157,7 +1185,7 @@ def film_phase(tmp: Path, nw: str, dev, x: dict) -> dict:
         SuperResolution.dispatch = dispatch
     require(rc == 0, f"film restore exited {rc}")
     bs, batches = summary["batch_size"], summary["batches"]
-    cfg = build_config("", {"weights_dir": nw, **FILM_FLAGS})
+    cfg = build_config("", cli_overrides={"weights_dir": nw, **FILM_FLAGS})
     plan = (bs * planner.frame_bytes(h, w, 2, "rrdb", "bfloat16", stats=False)
             + pre_sr_reserve(cfg, h, w))
     x["plan_checks"].append(("film restore", peak, plan))
@@ -1206,7 +1234,7 @@ def film_phase(tmp: Path, nw: str, dev, x: dict) -> dict:
             raise Stop(info.frames_done)
 
     def api_cfg(proj: str):
-        return build_config("", {"project_dir": tmp / proj, "weights_dir": nw,
+        return build_config("", cli_overrides={"project_dir": tmp / proj, "weights_dir": nw,
                                  "batch_size": bs, **FILM_FLAGS})
 
     # (the straight run is the CLI's above: an API straight run, which
@@ -1410,7 +1438,7 @@ def archive_phase(tmp: Path, dev, x: dict) -> dict:
     stages = {s["name"]: s["duration_s"]
               for s in json.loads((proj / "qa_report.json").read_text())["stages"]}
     pairs = summary["interpolation"]["pairs_per_step"]
-    cfg = build_config("archive", {"weights_dir": str(wdir)})
+    cfg = build_config("archive", cli_overrides={"weights_dir": str(wdir)})
     enhance_plan = (bs * planner.frame_bytes(h, w, 4, "rrdb", "bfloat16", stats=False)
                     + pre_sr_reserve(cfg, h, w) + face_reserve(cfg, 4 * h, 4 * w))
     interp_plan = planner.interpolation_bytes(4 * h, 4 * w, pairs)
@@ -1484,7 +1512,7 @@ def archive_phase(tmp: Path, dev, x: dict) -> dict:
         pass
 
     unit = factor * pairs
-    api = VideoRestorer(build_config("archive", {"weights_dir": str(wdir),
+    api = VideoRestorer(build_config("archive", cli_overrides={"weights_dir": str(wdir),
                                                  "project_dir": tmp / "archive_api"}))
 
     def stop_in_interpolate(info):
@@ -1498,7 +1526,7 @@ def archive_phase(tmp: Path, dev, x: dict) -> dict:
         require(False, "the killed archive restore ran to its end")
     except Stop:
         pass
-    res = VideoRestorer(build_config("archive", {"weights_dir": str(wdir),
+    res = VideoRestorer(build_config("archive", cli_overrides={"weights_dir": str(wdir),
                                                  "project_dir": tmp / "archive_api"}))\
         .restore_video(src, resumed)
     rec = {"phase": "archive", "run": "API killed inside the interpolate stage, then resumed",
@@ -1946,7 +1974,7 @@ def engine_phase(tmp: Path, dev, x: dict, archive_src: Path, archive_wdir: Path)
     b_ = summary["batches"]
     want = {k: 0 for k in launches}
     want.update(fused_rdb=69 * b_, conv_body_skip=b_, fused_tail=b_)
-    cfg = build_config("archive", {"weights_dir": str(archive_wdir), "face_model": "codeformer"})
+    cfg = build_config("archive", cli_overrides={"weights_dir": str(archive_wdir), "face_model": "codeformer"})
     ah, aw = ARCHIVE_H, ARCHIVE_W
     enhance_plan = (summary["batch_size"] * planner.frame_bytes(ah, aw, 4, "rrdb", "bfloat16")
                     + pre_sr_reserve(cfg, ah, aw) + face_reserve(cfg, 4 * ah, 4 * aw))
@@ -3589,6 +3617,445 @@ def av_scaleout_phase(tmp: Path, dev, x: dict) -> dict:
     return times
 
 
+TRAIN_HR, TRAIN_BATCH = 128, 8      # the FW_fast6_x2 / FW_fastvgg_x2 students' recipe
+TRAIN_STEPS = 3                     # card vs CPU, and card twice
+WARM_STEPS = 20                     # the warm start from the packaged checkpoints
+TRAIN_FRAMES, TRAIN_HW = 2, (1080, 1920)   # the trained students' restores
+MASK_STEPS, SEP_STEPS = 300, 40     # JAX's mask-net recipe; the separator card vs CPU
+PEAK_F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+LOSS_REL = 1e-4                     # a step's loss, card vs CPU (tests/test_torch_distill.py)
+SEP_LOSS_REL = 1e-3                 # the separator's: its band features divide f32 ulps of
+                                    # log by deviations near 1e-3 (tests/test_torch_audio_train.py)
+
+
+def _tree_pairs(a, b, path=""):
+    if isinstance(a, dict):
+        for k in sorted(a):
+            yield from _tree_pairs(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, (list, tuple)):
+        for i, (u, v) in enumerate(zip(a, b)):
+            yield from _tree_pairs(u, v, f"{path}/{i}")
+    elif a is not None:
+        yield path, np.asarray(a, np.float32), np.asarray(b, np.float32)
+
+
+def _torch_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _torch_leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _torch_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def trees_equal(a, b) -> bool:
+    return all(np.array_equal(x, y) for _, x, y in _tree_pairs(a, b))
+
+
+def hold_training(name: str, card: tuple, cpu: tuple, lr: float, steps: int,
+                  loss_rel: float = LOSS_REL) -> dict:
+    """A trainer's card run against its CPU run: each step's loss within
+    ``loss_rel``, the parameters' mean |delta| <= 0.01 lr k, max <= 2 lr k."""
+    (pc, rc), (pp, rp) = card, cpu
+    rel = [abs(a - b) / abs(b) for a, b in zip(rc["losses"], rp["losses"])]
+    d = np.concatenate([np.abs(x - y).ravel() for _, x, y in _tree_pairs(pc, pp)])
+    out = {"name": f"{name}: card vs CPU, {steps} steps", "loss_rel_max": max(rel),
+           "param_mean_abs": float(d.mean()), "param_max_abs": float(d.max()),
+           "tol": {"loss_rel": loss_rel, "param_mean": 0.01 * lr * steps,
+                   "param_max": 2 * lr * steps},
+           "losses_card": rc["losses"], "losses_cpu": rp["losses"]}
+    emit({"phase": "train", **out})
+    require(len(rel) == steps and max(rel) <= loss_rel,
+            f"{name}: step losses card vs CPU differ by {max(rel)} relative")
+    require(d.mean() <= 0.01 * lr * steps and d.max() <= 2 * lr * steps,
+            f"{name}: parameters card vs CPU differ by mean {d.mean()}, max {d.max()}")
+    return out
+
+
+def train_phase(tmp: Path, dev, x: dict) -> dict:
+    """Slice 15 (A16) on the card: every trainer of ``models/distill.py``
+    and ``models/audio_net.py``, held against its CPU run, twice on the
+    card byte for byte, and the trained students restored through the
+    kernels."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from framewright_tpu_torch.audio import WienerMaskDenoiser
+    from framewright_tpu_torch.hw import full_f32
+    from framewright_tpu_torch.io.y4m import Y4MReader
+    from framewright_tpu_torch.models import audio_net, diffusion_sr, distill, nafnet, registry
+    from framewright_tpu_torch.models import rrdb, srvgg
+    from framewright_tpu_torch.models.layers import tree_to_torch
+
+    t_phase = time.perf_counter()
+    reset, read, cli_run, nw = x["reset_counters"], x["read_counters"], x["cli_run"], x["nw"]
+    times: dict = {}
+
+    def card_ms(loss_fn, params) -> float:
+        """The card's part of a step on a fixed batch (the loss forward and
+        its backward in full f32), CUDA events over 5 steps: no host data."""
+        for t in params:
+            t.requires_grad_(True)
+
+        def step():
+            with full_f32():
+                loss = loss_fn()
+            for t in params:
+                t.grad = None
+            with full_f32():
+                loss.backward()
+        return cuda_ms(step, 5, 1)
+
+    def timed(label, fn, n_steps, flops_fwd=None, host_bound_ms=None, **kw):
+        """Run a trainer on ``kw['device']``; its ms a step (a synchronised
+        wall over the steps), the bound, the peak above what was allocated
+        before it -> (tree, report)."""
+        report = {}
+        card = kw.get("device") == "cuda"
+        if card:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tree = fn(report=report, **kw)
+        if card:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        row = {"trainer": label, "device": kw.get("device"), "steps": n_steps,
+               "ms_per_step": ms, "nondeterministic_ops": report["nondeterministic_ops"]}
+        if card:
+            row["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+            if label in card_part:
+                row["card_ms_per_step"] = card_part[label]
+            if flops_fwd is not None:
+                row["bound_ms_per_step"] = 3 * flops_fwd / PEAK_F32_FLOPS * 1e3
+                row["bound_by"] = "f32 operations (forward + 2x for the backward)"
+            else:
+                row["bound_ms_per_step"] = host_bound_ms
+                row["bound_by"] = "host data (make_batch)"
+        emit({"phase": "train", **row})
+        times[f"{label} {kw.get('device')}"] = row
+        return tree, report
+
+    def flops(fn, *args) -> int:
+        with torch.no_grad(), full_f32(), FlopCounterMode(display=False) as fc:
+            fn(*args)
+        return fc.get_total_flops()
+
+    def module(cfg, tree):
+        net = rrdb.RRDBNet if isinstance(cfg, rrdb.RRDBConfig) else srvgg.SRVGGNet
+        return net.from_state_dict(cfg, registry.from_jax_params(tree, torch.float32), dev)
+
+    def twice_equal(label, run):
+        """The same steps twice on the card: the same bytes."""
+        a, b = run(), run()
+        same = trees_equal(a[0], b[0]) and a[1]["losses"] == b[1]["losses"]
+        worst = max(float(np.abs(u - v).max()) for _, u, v in _tree_pairs(a[0], b[0]))
+        emit({"phase": "train", "name": f"{label}: two card runs", "byte_equal": same,
+              "max_abs": worst, "nondeterministic_ops": a[1]["nondeterministic_ops"]})
+        require(same, f"{label}: two card runs differ (max {worst}); ops without a "
+                f"deterministic implementation: {a[1]['nondeterministic_ops']}")
+        return a
+
+    # -- the students: from jax_init 3 steps, card twice and CPU ---------------------------
+    students = {"FW_fast6_x2": ("rrdb", registry.get_model("FW_fast6_x2").arch_config),
+                "FW_fastvgg_x2": ("srvgg", registry.get_model("FW_fastvgg_x2").arch_config)}
+    card_part: dict = {}
+    lr_batch = torch.rand(TRAIN_BATCH, TRAIN_HR // 2, TRAIN_HR // 2, 3, device=dev,
+                          generator=torch.Generator(dev).manual_seed(0))
+    hr_batch = torch.rand(TRAIN_BATCH, TRAIN_HR, TRAIN_HR, 3, device=dev,
+                          generator=torch.Generator(dev).manual_seed(1))
+    for name, (arch, cfg) in students.items():
+        start = (rrdb.stack_body(rrdb.jax_init(cfg, 0)) if arch == "rrdb"
+                 else srvgg.jax_init(cfg, 0))
+        net = module(cfg, start)
+        f_fwd = flops(net.apply, lr_batch)
+        card_part[f"{name} synthetic"] = card_ms(
+            lambda: (net.apply(lr_batch) - hr_batch).abs().mean(), list(net.parameters()))
+        kw = dict(student_cfg=cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, hr_size=TRAIN_HR,
+                  arch=arch, seed=0)
+        card = twice_equal(f"{name} synthetic", lambda: timed(
+            f"{name} synthetic", distill.train_student, TRAIN_STEPS, f_fwd, device="cuda", **kw))
+        cpu = timed(f"{name} synthetic", distill.train_student, TRAIN_STEPS, device="cpu", **kw)
+        hold_training(f"{name} synthetic", card, cpu, 2e-4, TRAIN_STEPS)
+
+    # distillation from a seeded RealESRGAN_x2plus teacher (23 blocks)
+    t_cfg = registry.get_model("RealESRGAN_x2plus").arch_config
+    teacher = registry.init_params(t_cfg, seed=0)
+    cfg6 = students["FW_fast6_x2"][1]
+    f_fwd = (flops(module(cfg6, rrdb.jax_init(cfg6, 0)).apply, lr_batch)
+             + flops(module(t_cfg, teacher).apply, lr_batch) / 3)
+    _, rep = timed("FW_fast6_x2 distill (x2plus teacher)", distill.train_student, TRAIN_STEPS,
+                   f_fwd, device="cuda", student_cfg=cfg6, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                   hr_size=TRAIN_HR, mode="distill", teacher=(teacher, t_cfg))
+    require(all(np.isfinite(rep["losses"])), f"distill losses {rep['losses']}")
+
+    # -- warm starts from the packaged checkpoints, the gate, the restore ------------------
+    wdir = tmp / "trained_weights"
+    src = tmp / "train_clip.y4m"
+    write_clip(src, synthetic_frames(TRAIN_FRAMES, *TRAIN_HW, seed=81, **PROGRESSIVE))
+    with Y4MReader(src) as reader:
+        decoded = np.stack(list(reader))
+    for name, (arch, cfg) in students.items():
+        packaged = registry.read_npz(registry.packaged_weights_dir() / f"{name}.npz")
+        trained, rep = timed(f"{name} warm start", distill.train_student, WARM_STEPS,
+                             flops(module(cfg, packaged).apply, lr_batch), device="cuda",
+                             student_cfg=cfg, steps=WARM_STEPS, batch=TRAIN_BATCH,
+                             hr_size=TRAIN_HR, arch=arch, params=packaged)
+        distill.save_npz(trained, wdir / f"{name}.npz")
+        back = registry.read_npz(wdir / f"{name}.npz")
+        require(trees_equal(trained, back), f"{name}: save_npz did not read back equal")
+        net = module(cfg, back)
+        psnr_m, psnr_b = distill.eval_psnr(net.apply, cfg.scale, device="cuda")
+        emit({"phase": "train", "name": f"{name} after {WARM_STEPS} warm steps: JAX's gate",
+              "psnr_model": psnr_m, "psnr_bicubic": psnr_b, "tol": {"above_bicubic_db": 0.5},
+              "losses": rep["losses"][:2] + rep["losses"][-2:]})
+        require(psnr_m > psnr_b + 0.5, f"{name}: {psnr_m} dB, bicubic {psnr_b} dB")
+        out = tmp / f"trained_{name}.y4m"
+        reset()
+        rc, summary, peak = cli_run(["restore", str(src), "-o", str(out), "--model", name,
+                                     "--weights-dir", str(wdir), "--project-dir",
+                                     str(tmp / f"proj_{name}")])
+        launches = read()
+        require(rc == 0 and summary["errors"] == 0, f"{name} trained restore: rc {rc}")
+        bs = summary["batch_size"]
+        want = {k: 0 for k in launches}
+        if arch == "rrdb":
+            want.update(fused_rdb=3 * cfg.num_block * summary["batches"],
+                        conv_body_skip=summary["batches"], fused_tail=summary["batches"])
+        else:
+            want.update(fused_conv_chain=2 * summary["batches"])
+        require(launches == want, f"{name} trained restore: launches {launches}, want {want}")
+        _, _, planes = read_y4m_planes(out)
+        sd = registry.bf16_masters(registry.from_jax_params(back, torch.float32))
+        m = (rrdb.RRDBNet if arch == "rrdb" else srvgg.SRVGGNet).from_state_dict(cfg, sd, dev)
+        planes_equal(f"trained {name}", x["kernel_path"](m), decoded, planes, bs, dev)
+        emit({"phase": "train", "name": f"{name} trained restore", "launches": launches,
+              "batches": summary["batches"], "batch_size": bs, "peak_bytes": peak,
+              "seconds": summary["seconds"]})
+        del m, net
+
+    # -- the diffusion SR, its sampler, the denoiser: card vs CPU --------------------------
+    dcfg = registry.get_model("DiffusionSR_x4").arch_config
+    dtree = tree_to_torch(diffusion_sr.jax_init(dcfg, 0), dev)
+    hr = 64
+    xz = torch.zeros(TRAIN_BATCH, hr, hr, 3, device=dev)
+    lz = torch.zeros(TRAIN_BATCH, hr // dcfg.scale, hr // dcfg.scale, 3, device=dev)
+    tf = torch.zeros(TRAIN_BATCH, device=dev)
+    f_den = flops(lambda: diffusion_sr.denoise(dtree, xz, xz, tf, dcfg))
+    f_smp = flops(lambda: diffusion_sr.ddim_sample(dtree, lz, dcfg, seed=0))
+    leaves = [t for t in _torch_leaves(dtree) if t.is_floating_point()]
+    card_part["train_diffusion"] = card_ms(
+        lambda: (diffusion_sr.denoise(dtree, xz, xz, tf, dcfg) - xz).abs().mean(), leaves)
+    card_part["finetune_sampler"] = card_ms(
+        lambda: ((diffusion_sr.ddim_sample(dtree, lz, dcfg, seed=0) - xz) ** 2).mean(), leaves)
+    for label, fn, f_fwd, lr in (("train_diffusion", distill.train_diffusion, f_den, 3e-4),
+                                 ("finetune_sampler", distill.finetune_sampler, f_smp, 1e-4)):
+        kw = dict(cfg=dcfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, hr_size=hr, seed=0)
+        card = twice_equal(label, lambda: timed(label, fn, TRAIN_STEPS, f_fwd, device="cuda",
+                                                **kw))
+        hold_training(label, card, timed(label, fn, TRAIN_STEPS, device="cpu", **kw), lr,
+                      TRAIN_STEPS)
+    ncfg = registry.AUX_SPECS["FW_nafnet_dn"].arch_config
+    nnet = nafnet.NAFNet.from_state_dict(ncfg, registry.from_jax_params(
+        nafnet.jax_init(ncfg, 0), torch.float32), dev)
+    f_naf = flops(nnet, torch.zeros(16, 3, 64, 64, device=dev))
+    nz = torch.rand(16, 3, 64, 64, device=dev, generator=torch.Generator(dev).manual_seed(2))
+    card_part["train_denoiser"] = card_ms(lambda: (nnet(nz) - nz).abs().mean(),
+                                          list(nnet.parameters()))
+    kw = dict(cfg=ncfg, steps=TRAIN_STEPS, seed=0)
+    card = twice_equal("train_denoiser", lambda: timed(
+        "train_denoiser", distill.train_denoiser, TRAIN_STEPS, f_naf, device="cuda", **kw))
+    hold_training("train_denoiser", card, timed("train_denoiser", distill.train_denoiser,
+                                                TRAIN_STEPS, device="cpu", **kw),
+                  2e-4, TRAIN_STEPS)
+
+    # -- the audio nets: the mask net's full recipe and JAX's gates; the separator --------
+    t0 = time.perf_counter()
+    for _ in range(5):
+        audio_net.make_batch(np.random.default_rng(0))
+    data_ms = (time.perf_counter() - t0) * 1e3 / 5
+    mask, rep = timed("train_mask_net", audio_net.train_mask_net, MASK_STEPS,
+                      host_bound_ms=data_ms, device="cuda", steps=MASK_STEPS)
+    rng = np.random.default_rng(99)
+    sr = 48000
+    clean = audio_net.synth_clean(rng, 2 * sr, sr)
+    noise = audio_net.synth_noise(rng, 2 * sr, sr)
+    noise = noise * (np.sqrt(np.mean(clean ** 2)) / (np.sqrt(np.mean(noise ** 2)) + 1e-9)
+                     ) * 10 ** (-5 / 20)
+    mix = (clean + noise)[:, None]
+
+    def snr(v):
+        s = v[: len(clean), 0]
+        return float(10 * np.log10(np.mean(clean ** 2) / (np.mean((s - clean) ** 2) + 1e-12)))
+
+    ai = WienerMaskDenoiser(mask_fn=audio_net.make_mask_fn(mask, "cuda"),
+                            device="cuda").process(mix, sr)
+    wiener = WienerMaskDenoiser(device="cuda").process(mix, sr)
+    gate = {"snr_ai": snr(ai), "snr_mix": snr(mix), "snr_wiener": snr(wiener)}
+    emit({"phase": "train", "name": f"train_mask_net {MASK_STEPS} steps on the card: JAX's "
+          "gates", **gate, "tol": {"above_mix_db": 3.0, "above_wiener_db": 1.0},
+          "final_losses": rep["losses"][-3:]})
+    require(gate["snr_ai"] > gate["snr_mix"] + 3.0 and gate["snr_ai"] > gate["snr_wiener"] + 1.0,
+            f"the card-trained mask net misses JAX's gates: {gate}")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        audio_net.make_batch_sep(np.random.default_rng(0))
+    sep_ms = (time.perf_counter() - t0) * 1e3 / 5
+    card = timed("train_separator", audio_net.train_separator, SEP_STEPS,
+                 host_bound_ms=sep_ms, device="cuda", steps=SEP_STEPS)
+    cpu = timed("train_separator", audio_net.train_separator, SEP_STEPS, device="cpu",
+                steps=SEP_STEPS)
+    hold_training("train_separator", card, cpu, 2e-3, SEP_STEPS, SEP_LOSS_REL)
+    times["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "train", "seconds": times["seconds"]})
+    return times
+
+
+SURF_FRAMES, SURF_HW = 2, (1080, 1920)
+
+
+@contextlib.contextmanager
+def in_dir(path: Path):
+    """The block with ``path`` as the working directory (the batch queue's
+    default config writes ``./framewright_project``)."""
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+def surfaces_phase(tmp: Path, dev, x: dict) -> dict:
+    """Slice 15 (A12) on the card: ``check``, ``presets``, ``warmup`` and a
+    restore after it that builds nothing, the ``batch`` and ``watch``
+    queues against the CLI restore, ``probe``, ``models list``, and a
+    restore resolved from the environment and a config file."""
+    import torch
+
+    from framewright_tpu_torch import cli, native
+    from framewright_tpu_torch.config import PRESETS, Config, build_config
+    from framewright_tpu_torch.hw import HardwareTier, detect_hardware
+    from framewright_tpu_torch.ops import _build
+    from framewright_tpu_torch.presets import PresetRegistry
+
+    t_phase = time.perf_counter()
+    reset, read, cli_run, nw = x["reset_counters"], x["read_counters"], x["cli_run"], x["nw"]
+    walls: dict = {}
+
+    def text(argv, env=None):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with with_env({"FRAMEWRIGHT_WEIGHTS_DIR": nw, **(env or {})}), \
+                contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        walls[" ".join(argv[:2])] = time.perf_counter() - t0
+        require(rc == 0, f"cli {' '.join(argv)} exited {rc}")
+        return buf.getvalue()
+
+    rep = json.loads(text(["check"]))
+    emit({"phase": "surfaces", "name": "check", **rep})
+    require(rep["status"] == "ok" and rep["platform"] == "cuda"
+            and rep["device_kind"] == torch.cuda.get_device_name(0), f"check: {rep}")
+    lines = text(["presets"]).splitlines()
+    reg = PresetRegistry(detect_hardware())
+    shifted = [p for p in PRESETS if reg.adjust_for_hardware(build_config(p)).to_dict()
+               != build_config(p).to_dict()]
+    emit({"phase": "surfaces", "name": "presets", "lines": lines, "tier": reg.hardware.tier.value,
+          "available": [p.name for p in reg.available()], "downshifted": shifted})
+    require(len(lines) == 4 and len(reg.available()) == 4 and not shifted
+            and reg.hardware.tier is HardwareTier.GPU_SINGLE, "presets: a downshift on the card")
+
+    # warmup at 1080p, then a restore of that geometry with nothing to build
+    frames = synthetic_frames(SURF_FRAMES, *SURF_HW, seed=91, **PROGRESSIVE)
+    clip = write_clip(tmp / "surf.y4m", frames)
+    out = text(["warmup", "--height", str(SURF_HW[0]), "--width", str(SURF_HW[1])])
+    emit({"phase": "surfaces", "name": "warmup", "output": out.splitlines()[-1],
+          "seconds": walls["warmup --height"]})
+    require(out.splitlines()[-1].startswith(f"cache: {_build.BUILD_ROOT}"), f"warmup: {out}")
+
+    def no_build(*a, **k):
+        raise SmokeFailure("a restore after warmup started a build")
+
+    saved = (_build.find_nvcc, native.build)
+    _build.find_nvcc, native.build = no_build, no_build
+    try:
+        reset()
+        with with_env({"FRAMEWRIGHT_WEIGHTS_DIR": nw}):
+            rc, summary, _ = cli_run(["restore", str(clip), "-o", str(tmp / "after_warm.y4m"),
+                                      "--project-dir", str(tmp / "pw")])
+    finally:
+        _build.find_nvcc, native.build = saved
+    launches = read()
+    require(rc == 0 and launches["fused_rdb"] == 69 * summary["batches"],
+            f"restore after warmup: rc {rc}, launches {launches}")
+
+    # the batch queue: two jobs, each equal to the CLI restore of its clip
+    db = tmp / "jobs.db"
+    clips = [clip, write_clip(tmp / "surf2.y4m", synthetic_frames(
+        SURF_FRAMES, *SURF_HW, seed=92, **PROGRESSIVE))]
+    with in_dir(tmp):
+        ids = [text(["batch", "submit", str(c), "-o", str(tmp / f"job{i}.y4m"), "--db",
+                     str(db)]).strip() for i, c in enumerate(clips)]
+        reset()
+        ran = text(["batch", "run", "--db", str(db)])
+        launches = read()
+        listed = text(["batch", "list", "--db", str(db)]).splitlines()
+    require(ran.strip() == "processed 2 jobs", f"batch run: {ran}")
+    require([ln.split()[:2] for ln in listed] == [[j, "completed"] for j in ids],
+            f"batch list: {listed}")
+    for i, c in enumerate(clips):
+        ref = tmp / f"ref{i}.y4m"
+        with with_env({"FRAMEWRIGHT_WEIGHTS_DIR": nw}):
+            rc, _, _ = cli_run(["restore", str(c), "-o", str(ref), "--project-dir",
+                                str(tmp / f"pref{i}")])
+        require(rc == 0 and (tmp / f"job{i}.y4m").read_bytes() == ref.read_bytes(),
+                f"batch job {i}: output differs from the CLI restore")
+    emit({"phase": "surfaces", "name": "batch submit x2, run, list", "list": listed,
+          "launches": launches, "seconds": walls["batch run"],
+          "outputs_equal_cli_restore": True})
+
+    # the watch folder: one clip dropped in, restored on the second poll
+    wdir = tmp / "watch"
+    wdir.mkdir()
+    shutil.copyfile(clip, wdir / "w.y4m")
+    with in_dir(tmp):
+        text(["watch", str(wdir), "--db", str(tmp / "watch.db"), "--poll", "0.1", "--cycles",
+              "2"])
+    watched = wdir / "restored" / "w_restored.y4m"
+    require(watched.is_file() and watched.read_bytes() == (tmp / "ref0.y4m").read_bytes(),
+            "watch: the clip was not restored as the CLI restores it")
+
+    probe = json.loads(text(["probe", str(clip)]))
+    require((probe["height"], probe["width"], probe["frames"]) == (*SURF_HW, SURF_FRAMES),
+            f"probe: {probe}")
+    models = text(["models", "list"]).splitlines()
+    fast6 = [ln for ln in models if ln.startswith("FW_fast6_x2 ")]
+    require(len(fast6) == 1 and fast6[0].endswith("[packaged]"), f"models list: {fast6}")
+
+    # FRAMEWRIGHT_BATCH_SIZE and a config file resolve as JAX's layers do
+    cfg_file = tmp / "fw.json"
+    Config(sr_model="FW_fast6_x2", crf=20, batch_size=5).save(cfg_file)
+    env = {"FRAMEWRIGHT_BATCH_SIZE": "2", "FRAMEWRIGHT_WEIGHTS_DIR": nw}
+    argv = ["restore", str(clip), "-o", str(tmp / "layered.y4m"), "--config-file",
+            str(cfg_file), "--project-dir", str(tmp / "pl")]
+    with with_env(env):
+        resolved = cli._config_from_args(cli.build_parser().parse_args(argv))
+        reset()
+        rc, summary, _ = cli_run(argv)
+    launches = read()
+    require((resolved.sr_model, resolved.batch_size, resolved.crf) == ("FW_fast6_x2", 2, 20),
+            f"layered config: {resolved.sr_model} {resolved.batch_size} {resolved.crf}")
+    require(rc == 0 and summary["batch_size"] == 2 and launches["fused_rdb"] == 18,
+            f"layered restore: rc {rc}, batch {summary and summary['batch_size']}, {launches}")
+    emit({"phase": "surfaces", "name": "FRAMEWRIGHT_BATCH_SIZE=2 over --config-file",
+          "sr_model": resolved.sr_model, "batch_size": summary["batch_size"],
+          "launches": launches, "walls_s": walls})
+    walls["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "surfaces", "seconds": walls["seconds"]})
+    return walls
+
+
 def formats_phase(tmp: Path, nw: str, dev, x: dict, tools: dict) -> dict:
     """The default restore from and to a PNG frame directory (when Pillow
     is there): counters 69/1/1 a batch, every frame the kernel path's
@@ -4925,6 +5392,8 @@ def main(argv=None) -> int:
         stream_times = stream_phase(tmp, dev, {**x, "kernel_path": kernel_path})
         color_gap_times = color_gap_phase(tmp, dev, {**x, "kernel_path": kernel_path})
         av_times = av_scaleout_phase(tmp, dev, {**x, "nw": nw, "stats_ms": stats_ms})
+        train_times = train_phase(tmp, dev, {**x, "nw": nw, "kernel_path": kernel_path})
+        surface_walls = surfaces_phase(tmp, dev, {**x, "nw": nw})
     emit({"phase": "restore", "seconds": round(time.perf_counter() - t0, 3)})
     launches = launches_by_run["RealESRGAN_x2plus bfloat16"]
 
@@ -5190,7 +5659,7 @@ def main(argv=None) -> int:
           "formats": {k: v["wall_seconds"] for k, v in formats.items()},
           "archive": archive_times, "engine": engine_times,
           "color_gap": {k: v for k, v in color_gap_times.items() if k != "seconds"},
-          "av_scaleout": av_times,
+          "av_scaleout": av_times, "train": train_times, "surfaces": surface_walls,
           "models": {k: v for k, v in models_times.items() if k != "seconds"}, "c5": {k: c5[k] for k in ("enqueue_ms_per_dispatch",
                                                         "quality_busy_share",
                                                         "quality_busy_share_unprofiled",

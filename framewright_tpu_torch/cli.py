@@ -130,45 +130,63 @@ from typing import List, Optional
 
 from pathlib import Path
 
-from framewright_tpu_torch.config import PRESETS, build_config
+from framewright_tpu_torch.config import PRESETS, Config, build_config, with_model_scale
 from framewright_tpu_torch.errors import FramewrightError
+
+
+def _config_from_args(args: argparse.Namespace) -> Config:
+    """The restore's config (JAX's ``_config_from_args``): the flags that
+    were given, over ``--profile``'s saved config, over the environment,
+    ``--config-file`` and ``--preset``; ``--save-profile`` saves the
+    result."""
+    flags = {
+        "project_dir": args.project_dir, "sr_model": args.model,
+        "scale_factor": args.scale_factor,
+        "tile_size": args.tile_size, "batch_size": args.batch_size,
+        "verbose": args.verbose,
+        "colorize": args.colorize, "colorize_model": args.colorize_model,
+        "fill_missing_frames": args.fill_missing_frames,
+        "compute_dtype": args.dtype, "device_platform": args.device,
+        "weights_dir": args.weights_dir, "max_frames": args.max_frames,
+        "checkpoint_enabled": args.checkpoint, "resume": args.resume,
+        "validate_output": args.validate, "denoise": args.denoise,
+        "denoise_model": args.denoise_model,
+        "temporal_consistency": args.temporal_consistency,
+        "temporal_model": args.temporal_model, "flow_model": args.flow_model,
+        "long_form": args.long_form, "deduplicate": args.deduplicate,
+        "defect_repair": args.defect_repair, "grain_mode": args.grain_mode,
+        "interpolation": args.interpolation, "target_fps": args.target_fps,
+        "face_restore": args.face_restore, "face_model": args.face_model,
+        "face_fidelity": args.face_fidelity, "output_format": args.output_format,
+        "codec": args.codec, "crf": args.crf, "encode_preset": args.encode_preset,
+        "min_vmaf": args.min_vmaf, "dry_run": args.dry_run,
+        "sr_ensemble": args.sr_ensemble, "ensemble_strategy": args.ensemble_strategy,
+        "max_enhancement_strength": args.max_enhancement_strength,
+        "sr_prompt": args.sr_prompt, "sr_style_preset": args.sr_style_preset,
+        "reference_images_dir": args.reference_images_dir,
+        "vhs_restore": args.vhs_restore, "stabilize": args.stabilize,
+        "stabilize_smoothing": args.stabilize_smoothing,
+        "stabilize_crop": args.stabilize_crop, "qp_removal": args.qp_removal,
+        "qp_strength": args.qp_strength, "scene_adaptive": args.scene_adaptive,
+        "hdr_output": args.hdr_output, "auto_enhance": args.auto_enhance}
+    overrides = with_model_scale({k: v for k, v in flags.items() if v is not None})
+    if args.profile:
+        from framewright_tpu_torch.profiles import load_profile
+
+        overrides = {**load_profile(args.profile).to_dict(), **overrides}
+    cfg = build_config(args.preset, args.config_file, overrides)
+    if args.save_profile:
+        from framewright_tpu_torch.profiles import save_profile
+
+        save_profile(args.save_profile, cfg)
+    return cfg
 
 
 def cmd_restore(args: argparse.Namespace) -> int:
     from framewright_tpu_torch.restorer import ProgressInfo, VideoRestorer
 
     try:
-        cfg = build_config(args.preset, {
-            "project_dir": args.project_dir, "sr_model": args.model,
-            "scale_factor": (args.scale_factor if args.scale_factor is not None
-                             else _model_scale(args.model) if args.model else None),
-            "tile_size": args.tile_size, "batch_size": args.batch_size,
-            "verbose": args.verbose,
-            "colorize": args.colorize, "colorize_model": args.colorize_model,
-            "fill_missing_frames": args.fill_missing_frames,
-            "compute_dtype": args.dtype, "device_platform": args.device,
-            "weights_dir": args.weights_dir, "max_frames": args.max_frames,
-            "checkpoint_enabled": args.checkpoint, "resume": args.resume,
-            "validate_output": args.validate, "denoise": args.denoise,
-            "denoise_model": args.denoise_model,
-            "temporal_consistency": args.temporal_consistency,
-            "temporal_model": args.temporal_model, "flow_model": args.flow_model,
-            "long_form": args.long_form, "deduplicate": args.deduplicate,
-            "defect_repair": args.defect_repair, "grain_mode": args.grain_mode,
-            "interpolation": args.interpolation, "target_fps": args.target_fps,
-            "face_restore": args.face_restore, "face_model": args.face_model,
-            "face_fidelity": args.face_fidelity, "output_format": args.output_format,
-            "codec": args.codec, "crf": args.crf, "encode_preset": args.encode_preset,
-            "min_vmaf": args.min_vmaf, "dry_run": args.dry_run,
-            "sr_ensemble": args.sr_ensemble, "ensemble_strategy": args.ensemble_strategy,
-            "max_enhancement_strength": args.max_enhancement_strength,
-            "sr_prompt": args.sr_prompt, "sr_style_preset": args.sr_style_preset,
-            "reference_images_dir": args.reference_images_dir,
-            "vhs_restore": args.vhs_restore, "stabilize": args.stabilize,
-            "stabilize_smoothing": args.stabilize_smoothing,
-            "stabilize_crop": args.stabilize_crop, "qp_removal": args.qp_removal,
-            "qp_strength": args.qp_strength, "scene_adaptive": args.scene_adaptive,
-            "hdr_output": args.hdr_output, "auto_enhance": args.auto_enhance})
+        cfg = _config_from_args(args)
         if cfg.verbose:
             logging.getLogger().setLevel(logging.DEBUG)
         last = {"stage": None}
@@ -404,23 +422,137 @@ def cmd_farm(args: argparse.Namespace) -> int:
     return 0
 
 
-def _model_scale(name: str) -> int:
-    from framewright_tpu_torch.models.registry import get_model
+def cmd_probe(args: argparse.Namespace) -> int:
+    from framewright_tpu_torch.io.video import probe
 
-    return get_model(name).scale
+    try:
+        meta = probe(args.source)
+    except FramewrightError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    print(json.dumps({"width": meta.width, "height": meta.height, "fps": float(meta.fps),
+                      "frames": meta.nb_frames, "container": meta.container,
+                      "has_audio": meta.has_audio}, indent=2))
+    return 0
 
 
-def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(
-        prog="framewright-torch",
-        description="Video restoration on an NVIDIA GPU (PyTorch/CUDA port)")
-    sub = parser.add_subparsers(dest="verb", required=True)
-    p = sub.add_parser("restore", help="restore a clip (.y4m, a frame directory, or a "
-                                       "container ffmpeg reads)")
-    p.add_argument("source")
+def cmd_check(args: argparse.Namespace) -> int:
+    from framewright_tpu_torch.hw import check_hardware
+
+    print(json.dumps(check_hardware(), indent=2))
+    return 0
+
+
+def cmd_presets(args: argparse.Namespace) -> int:
+    for name, preset in sorted(PRESETS.items()):
+        print(f"{name:10s} - {preset.get('description', '')}")
+    return 0
+
+
+def cmd_models(args: argparse.Namespace) -> int:
+    from framewright_tpu_torch.models import registry
+
+    wdir = registry.default_weights_dir()
+    if args.action == "list":
+        specs = {**registry.MODEL_SPECS, **registry.AUX_SPECS}
+        for name, spec in sorted(specs.items()):
+            if (wdir / f"{name}.npz").exists() or (wdir / f"{name}.pth").exists():
+                have = "cached"
+            elif (registry.packaged_weights_dir() / f"{name}.npz").exists():
+                have = "packaged"      # trained in this repository
+            else:
+                have = "missing"
+            print(f"{name:32s} x{spec.scale}  {spec.family:8s} [{have}]")
+            if args.verbose:
+                print(f"    {spec.url}")
+        return 0
+    if args.action == "guide":
+        for name, spec in sorted(registry.MODEL_SPECS.items()):
+            tip = registry.MODEL_GUIDE.get(name)
+            if tip:
+                print(f"{name:32s} x{spec.scale}  {tip}")
+        return 0
+    if args.action == "port":
+        src = Path(args.path) if args.path else wdir / f"{args.name}.pth"
+        if not src.exists():
+            print(f"error: checkpoint not found: {src}", file=sys.stderr)
+            return 1
+        try:
+            out = registry.write_npz(registry.port_checkpoint(args.name, src),
+                                     wdir / f"{args.name}.npz")
+        except FramewrightError as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 1
+        print(str(out))
+        return 0
+    print(f"error: models {args.action} is not ported (ROADMAP A12: download needs the "
+          "network, verify the JAX package's PyTorch reference)", file=sys.stderr)
+    return 1
+
+
+def cmd_warmup(args: argparse.Namespace) -> int:
+    """Build the kernels and the host codec and run the SR processor a
+    restore of the geometry builds, one batch of each size."""
+    from framewright_tpu_torch.warmup import warmup_sr
+
+    height, width, output_color = args.height, args.width, args.output_color
+    batches = [int(b) for b in args.batches.split(",")] if args.batches else None
+    try:
+        cfg = _config_from_args(args)
+        res = warmup_sr(height, width, cfg, output_color=output_color, batches=batches,
+                        progress=print)
+    except FramewrightError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    print(f"cache: {res['cache_dir']}  plan batch: {res['plan_batch']}")
+    return 0
+
+
+def cmd_batch(args: argparse.Namespace) -> int:
+    from framewright_tpu_torch.batch import BatchQueueProcessor
+    from framewright_tpu_torch.persistence import JobStore
+
+    store = JobStore(Path(args.db))
+    q = BatchQueueProcessor(store)
+    if args.action == "submit":
+        print(q.submit(args.source, args.output or ""))
+    elif args.action == "list":
+        for job in store.list_jobs():
+            print(f"{job.job_id}  {job.state:10s} {job.frames_done:6d}f  {job.source}")
+    else:
+        q.resume_crashed()
+        print(f"processed {q.run_until_empty()} jobs")
+    return 0
+
+
+def cmd_watch(args: argparse.Namespace) -> int:
+    from framewright_tpu_torch.batch import BatchQueueProcessor, WatchFolder
+    from framewright_tpu_torch.persistence import JobStore
+
+    q = BatchQueueProcessor(JobStore(Path(args.db)))
+    wf = WatchFolder(Path(args.directory), q, poll_s=args.poll,
+                     output_dir=Path(args.output_dir) if args.output_dir else None)
+    print(f"watching {args.directory} (ctrl-c to stop)", file=sys.stderr)
+    try:
+        wf.run(max_cycles=args.cycles)
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def _add_restore_args(p: argparse.ArgumentParser, with_source: bool = True) -> None:
+    """The restore verb's flags (JAX's ``_add_restore_args``), on the
+    ``restore`` and ``warmup`` parsers."""
+    if with_source:
+        p.add_argument("source")
     p.add_argument("-o", "--output", default=None)
     p.add_argument("--preset", choices=sorted(PRESETS), default="",
                    help="a JAX preset's fields; the flags below override them")
+    p.add_argument("--profile", default="", help="a named saved profile (its config "
+                   "under the flags given, over the environment, file and preset)")
+    p.add_argument("--save-profile", default="", help="save the resolved config as a profile")
+    p.add_argument("--config-file", type=Path, default=None,
+                   help="a JSON (or, with PyYAML, YAML) config file, JAX's format")
     p.add_argument("--model", default=None,
                    help="a model of the registry: RRDB (RealESRGAN_x2plus, the "
                         "default, RealESRGAN_x4plus, ...), SRVGG "
@@ -538,7 +670,62 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dry-run", dest="dry_run", action="store_true", default=None,
                    help="print the plan as JSON and exit: nothing is processed or written")
     p.add_argument("--verbose", "-v", action="store_true", default=None)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="framewright-torch",
+        description="Video restoration on an NVIDIA GPU (PyTorch/CUDA port)")
+    sub = parser.add_subparsers(dest="verb", required=True)
+    p = sub.add_parser("restore", help="restore a clip (.y4m, a frame directory, or a "
+                                       "container ffmpeg reads)")
+    _add_restore_args(p)
     p.set_defaults(func=cmd_restore)
+
+    p = sub.add_parser("probe", help="show video metadata")
+    p.add_argument("source")
+    p.set_defaults(func=cmd_probe)
+
+    p = sub.add_parser("check", help="hardware report")
+    p.set_defaults(func=cmd_check)
+
+    p = sub.add_parser("presets", help="list presets")
+    p.set_defaults(func=cmd_presets)
+
+    p = sub.add_parser("models", help="model zoo: list/guide/port (download and verify "
+                                      "are not ported)")
+    p.add_argument("action", nargs="?", choices=["list", "guide", "port", "download", "verify"],
+                   default="list")
+    p.add_argument("name", nargs="?", default="")
+    p.add_argument("--path", default="", help="explicit .pth path for port")
+    p.add_argument("--verbose", "-v", action="store_true")
+    p.set_defaults(func=cmd_models)
+
+    p = sub.add_parser("warmup", help="build the kernels and the host codec and run the SR "
+                                      "path once for a geometry")
+    p.add_argument("--height", type=int, default=1080)
+    p.add_argument("--width", type=int, default=1920)
+    p.add_argument("--output-color", default="yuv420", choices=["yuv420", "rgb"],
+                   help="the writer's path (yuv420 = straight to Y4M)")
+    p.add_argument("--batches", default="",
+                   help="comma-separated frame-batch sizes (default: planner batch + 1)")
+    _add_restore_args(p, with_source=False)
+    p.set_defaults(func=cmd_warmup)
+
+    p = sub.add_parser("batch", help="batch queue: submit/list/run")
+    p.add_argument("action", choices=["submit", "list", "run"])
+    p.add_argument("source", nargs="?", default="")
+    p.add_argument("-o", "--output", default="")
+    p.add_argument("--db", default="./framewright_jobs.db")
+    p.set_defaults(func=cmd_batch)
+
+    p = sub.add_parser("watch", help="watch a folder and restore new videos")
+    p.add_argument("directory")
+    p.add_argument("--output-dir", default="")
+    p.add_argument("--db", default="./framewright_jobs.db")
+    p.add_argument("--poll", type=float, default=2.0)
+    p.add_argument("--cycles", type=int, default=None)
+    p.set_defaults(func=cmd_watch)
 
     p = sub.add_parser("extend",
                        help="extend a clip forward/backward by motion extrapolation")

@@ -44,18 +44,30 @@ subtitle (``subtitle_region``, ``subtitle_ocr_engine``,
 ``audio_denoise``, ``audio_sync_correction``) fields have JAX's names,
 defaults and validation and map to nothing: JAX's restore reads none of
 them (the ``subtitles`` and ``audio`` verbs and the processors run those
-tools)."""
+tools).
+
+The layers (JAX's ``build_config``): CLI > ``FRAMEWRIGHT_*`` environment
+variables (``Config.env_overrides``) > a config file (``Config.load``,
+JSON or, with PyYAML, YAML; a file JAX's ``Config.save`` wrote loads
+here, its XLA-only fields read and logged as ignored) > preset >
+defaults. A layer that names ``sr_model`` without ``scale_factor``
+brings the model's scale with it (the port's ``Config`` refuses a scale
+other than the model's; JAX accepts one and writes the model's)."""
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import json
+import logging
+import os
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 from framewright_tpu_torch.errors import ConfigError
+
+logger = logging.getLogger(__name__)
 
 # what the port runs: the RRDB and SRVGG models of the registry (the
 # other families are queued in ROADMAP.md A)
@@ -134,6 +146,11 @@ PRESETS: Dict[str, Dict[str, Any]] = {
 # list that the port has)
 _HASH_EXCLUDED = ("project_dir", "output_path", "verbose", "dry_run", "checkpoint_interval",
                   "checkpoint_enabled", "resume", "keep_intermediates")
+# fields of JAX's Config that the port reads and ignores: XLA's settings, the CPU
+# fallback the port refuses by design (ROADMAP "JAX faults"), and fields JAX's own
+# restore reads nowhere
+_JAX_ONLY = ("accum_dtype", "allow_cpu_fallback", "frames_dir", "hbm_budget_gb", "inpaint",
+             "motion_blur_reduction", "png_compression", "xla_cache_dir")
 
 
 @dataclass
@@ -451,6 +468,69 @@ class Config:
             out[f.name] = str(v) if isinstance(v, Path) else v
         return out
 
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "Config":
+        """A config from a dict (JAX's ``Config.from_dict``): the port's
+        fields; any other key (a JAX-only field such as ``xla_cache_dir``)
+        is logged as ignored."""
+        known = {f.name for f in dataclasses.fields(cls)} - set(cls._DERIVED)
+        ignored = sorted(k for k in d if k not in known)
+        if ignored:
+            logger.info("config: ignored fields the port does not use: %s", ignored)
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+    def save(self, path: Path) -> None:
+        """Write ``to_dict`` as JSON, or YAML for a ``.yaml`` / ``.yml``
+        path (JAX's ``Config.save``)."""
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        d = json.loads(json.dumps(self.to_dict()))          # tuples -> lists
+        if path.suffix in (".yaml", ".yml"):
+            path.write_text(_yaml().safe_dump(d, sort_keys=True))
+        else:
+            path.write_text(json.dumps(d, indent=2, sort_keys=True))
+
+    @classmethod
+    def load(cls, path: Path) -> "Config":
+        """Read a file ``save`` (the port's or JAX's) wrote."""
+        path = Path(path)
+        text = path.read_text()
+        d = _yaml().safe_load(text) if path.suffix in (".yaml", ".yml") else json.loads(text)
+        return cls.from_dict(d)
+
+    @classmethod
+    def env_overrides(cls, environ: Optional[Dict[str, str]] = None) -> Dict[str, Any]:
+        """``FRAMEWRIGHT_<FIELD>`` variables -> config values (JAX's
+        ``Config.env_overrides``): bools from 1/true/yes/on, tuples from
+        comma lists (ints when every part is one), ints, floats, else the
+        string. ``environ`` defaults to ``os.environ``."""
+        env = environ if environ is not None else dict(os.environ)
+        fields = {f.name: f for f in dataclasses.fields(cls) if f.name not in cls._DERIVED}
+        out: Dict[str, Any] = {}
+        for key, raw in env.items():
+            name = key[len("FRAMEWRIGHT_"):].lower()
+            if not key.startswith("FRAMEWRIGHT_") or name not in fields:
+                continue
+            ftype = str(fields[name].type)
+            try:
+                if "bool" in ftype:
+                    out[name] = raw.strip().lower() in ("1", "true", "yes", "on")
+                elif "Tuple" in ftype or "tuple" in ftype:
+                    parts = [x.strip() for x in raw.split(",") if x.strip()]
+                    try:
+                        out[name] = tuple(int(x) for x in parts)
+                    except ValueError:          # string tuples (languages)
+                        out[name] = tuple(parts)
+                elif "int" in ftype:
+                    out[name] = int(raw)
+                elif "float" in ftype:
+                    out[name] = float(raw)
+                else:
+                    out[name] = raw
+            except ValueError as exc:
+                raise ConfigError(f"Bad env override {key}={raw!r}: {exc}") from exc
+        return out
+
     def get_hash(self) -> str:
         """Identity of the output a restore with this config writes, which
         keys its checkpoint: every field but those that do not change the
@@ -472,12 +552,40 @@ def get_preset(name: str) -> Dict[str, Any]:
     return {k: v for k, v in PRESETS[name].items() if k != "description"}
 
 
-def build_config(preset: str = "", overrides: Optional[Dict[str, Any]] = None) -> Config:
-    """The preset's fields, then every override that is not None (the JAX
-    CLI's precedence: preset < flags)."""
+def _yaml():
+    """PyYAML, which a ``.yaml`` config file needs (as in JAX)."""
+    try:
+        import yaml
+    except ImportError as exc:
+        raise ConfigError("a .yaml config file needs the PyYAML module (yaml); "
+                          "use a .json file") from exc
+    return yaml
+
+
+def with_model_scale(layer: Dict[str, Any]) -> Dict[str, Any]:
+    """A layer naming ``sr_model`` but no ``scale_factor`` brings the
+    model's scale."""
+    model = layer.get("sr_model")
+    if model is None or layer.get("scale_factor") is not None:
+        return layer
+    from framewright_tpu_torch.models.registry import get_model
+
+    return {**layer, "scale_factor": get_model(model).scale}   # an unknown model raises
+
+
+def build_config(preset: str = "", config_file: Optional[Path] = None,
+                 cli_overrides: Optional[Dict[str, Any]] = None,
+                 environ: Optional[Dict[str, str]] = None) -> Config:
+    """Layered resolution, JAX's precedence: CLI > env > config file >
+    preset > defaults. ``cli_overrides`` values that are None are not
+    set; ``environ`` defaults to ``os.environ``."""
     kwargs: Dict[str, Any] = {}
     if preset:
-        kwargs.update(get_preset(preset))
+        kwargs.update(with_model_scale(get_preset(preset)))
         kwargs["preset"] = preset
-    kwargs.update({k: v for k, v in (overrides or {}).items() if v is not None})
-    return Config(**kwargs)
+    if config_file is not None:
+        kwargs.update(Config.load(config_file).to_dict())
+    kwargs.update(with_model_scale(Config.env_overrides(environ)))
+    kwargs.update(with_model_scale({k: v for k, v in (cli_overrides or {}).items()
+                                     if v is not None}))
+    return Config.from_dict(kwargs)

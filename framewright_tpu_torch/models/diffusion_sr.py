@@ -39,7 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from framewright_tpu_torch.models.layers import conv_init, cubic_weights
+from framewright_tpu_torch.models.layers import conv_init, cubic_weights, jax_conv_init
 from framewright_tpu_torch.ops import jax_random
 
 
@@ -121,6 +121,44 @@ def init_params(cfg: DiffusionSRConfig = DiffusionSRConfig(), seed: int = 0) -> 
         "conv_out": {"w": np.zeros((3, 3, ch[0], 3), np.float32),
                      "b": np.zeros((3,), np.float32)},
     }
+    return p
+
+
+def jax_init(cfg: DiffusionSRConfig = DiffusionSRConfig(), seed: int = 0) -> Dict[str, Any]:
+    """JAX's ``diffusion_sr.init(PRNGKey(seed), cfg)``: the same tree and
+    draws (``ops.jax_random``; the normals within a few f32 ulps of
+    XLA's, its erfinv on another log1p)."""
+    keys = iter(jax_random.split(seed, 64))
+    ch = [cfg.base_ch * m for m in cfg.ch_mults]
+    td = cfg.time_dim
+
+    def normal(key, *shape):
+        return (jax_random.normal(key, shape) * np.float32(0.02)).numpy()
+
+    def res(key, cin, cout):
+        k = jax_random.split(key, 4)
+        return {"conv1": jax_conv_init(k[0], 3, cin, cout),
+                "conv2": jax_conv_init(k[1], 3, cout, cout),
+                "temb": {"w": normal(k[2], td, cout * 2), "b": np.zeros((cout * 2,), np.float32)},
+                "skip": jax_conv_init(k[3], 1, cin, cout) if cin != cout else None}
+
+    p: Dict[str, Any] = {"temb": {"w1": normal(next(keys), td, td),
+                                  "b1": np.zeros((td,), np.float32),
+                                  "w2": normal(next(keys), td, td),
+                                  "b2": np.zeros((td,), np.float32)},
+                         "conv_in": jax_conv_init(next(keys), 3, 6, ch[0]),
+                         "down": [], "mid": None, "up": []}
+    for i in range(len(ch)):
+        r = res(next(keys), ch[max(0, i - 1)] if i else ch[0], ch[i])
+        pool = jax_conv_init(next(keys), 3, ch[i], ch[i]) if i + 1 < len(ch) else None
+        p["down"].append({"res": r, "pool": pool})
+    p["mid"] = res(next(keys), ch[-1], ch[-1])
+    p["style_proj"] = {"w": np.zeros((STYLE_DIM, td), np.float32),
+                       "b": np.zeros((td,), np.float32)}
+    for i in range(len(ch) - 1, -1, -1):
+        p["up"].append({"res": res(next(keys), ch[i] * 2, ch[max(0, i - 1)])})
+    out = jax_conv_init(next(keys), 3, ch[0], 3)
+    p["conv_out"] = {"w": out["w"] * np.float32(0.0), "b": out["b"] * np.float32(0.0)}
     return p
 
 

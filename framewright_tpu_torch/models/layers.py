@@ -22,6 +22,20 @@ def conv_init(rng: np.random.Generator, k: int, c_in: int, c_out: int,
     return {"w": w, "b": b}
 
 
+def jax_conv_init(key, k: int, c_in: int, c_out: int, gain: float = 1.0
+                  ) -> Dict[str, np.ndarray]:
+    """JAX's ``conv_init(key, k, c_in, c_out)``, the same draws
+    (``ops.jax_random``): HWIO ``w`` and ``b`` uniform in +-bound from the
+    two keys of ``split(key)``."""
+    from framewright_tpu_torch.ops import jax_random
+
+    wkey, bkey = jax_random.split(key)
+    bound = gain * np.sqrt(1.0 / (k * k * c_in)) * np.sqrt(3.0)
+    return {"w": jax_random.uniform(wkey, (k, k, c_in, c_out), minval=-bound,
+                                    maxval=bound).numpy(),
+            "b": jax_random.uniform(bkey, (c_out,), minval=-bound, maxval=bound).numpy()}
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """3x3 SAME conv, NHWC in and out, OIHW weights. Like the JAX
     ``conv2d``: weights cast to the activation dtype, products summed in

@@ -21,8 +21,9 @@ repository's trained ``FW_nafnet_dn`` (width 16, enc (1, 1, 2), middle
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -35,6 +36,57 @@ class NAFNetConfig:
     enc_blocks: Tuple[int, ...] = (2, 2, 4, 8)
     middle_blocks: int = 12
     dec_blocks: Tuple[int, ...] = (2, 2, 2, 2)
+
+
+def _naf_block_jax_init(key, c: int) -> Dict:
+    from framewright_tpu_torch.models.layers import jax_conv_init
+    from framewright_tpu_torch.ops import jax_random
+
+    ks = jax_random.split(key, 8)
+    dw = ffn = 2 * c
+
+    def norm():
+        return {"gamma": np.ones((c,), np.float32), "beta": np.zeros((c,), np.float32)}
+
+    return {
+        "norm1": norm(),
+        "conv1": jax_conv_init(ks[0], 1, c, dw),
+        "conv2": jax_conv_init(ks[1], 3, 1, dw),          # depthwise: HWIO (3, 3, 1, dw)
+        "conv3": jax_conv_init(ks[2], 1, dw // 2, c),
+        "sca": jax_conv_init(ks[3], 1, dw // 2, dw // 2),
+        "norm2": norm(),
+        "conv4": jax_conv_init(ks[4], 1, c, ffn),
+        "conv5": jax_conv_init(ks[5], 1, ffn // 2, c),
+        "beta": np.zeros((1, 1, 1, c), np.float32),
+        "gamma": np.zeros((1, 1, 1, c), np.float32),
+    }
+
+
+def jax_init(cfg: NAFNetConfig, seed: int = 0) -> Dict:
+    """JAX's ``nafnet.init(PRNGKey(seed), cfg)``: the same tree (HWIO numpy
+    f32) and draws."""
+    from framewright_tpu_torch.models.layers import jax_conv_init
+    from framewright_tpu_torch.ops import jax_random
+
+    n_stages = len(cfg.enc_blocks)
+    total = (4 + sum(cfg.enc_blocks) + cfg.middle_blocks + sum(cfg.dec_blocks)
+             + 2 * n_stages)
+    keys = iter(jax_random.split(seed, total + 4))
+    c = cfg.width
+    params: Dict = {"intro": jax_conv_init(next(keys), 3, cfg.in_ch, c),
+                    "encoders": [], "downs": [], "decoders": [], "ups": []}
+    ch = c
+    for nb in cfg.enc_blocks:
+        params["encoders"].append([_naf_block_jax_init(next(keys), ch) for _ in range(nb)])
+        params["downs"].append(jax_conv_init(next(keys), 2, ch, 2 * ch))
+        ch *= 2
+    params["middles"] = [_naf_block_jax_init(next(keys), ch) for _ in range(cfg.middle_blocks)]
+    for nb in cfg.dec_blocks:
+        params["ups"].append(jax_conv_init(next(keys), 1, ch, 2 * ch))
+        ch //= 2
+        params["decoders"].append([_naf_block_jax_init(next(keys), ch) for _ in range(nb)])
+    params["ending"] = jax_conv_init(next(keys), 3, c, cfg.in_ch)
+    return params
 
 
 class LayerNorm2d(nn.Module):

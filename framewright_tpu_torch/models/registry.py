@@ -132,6 +132,30 @@ AUX_SPECS: Dict[str, ModelSpec] = {s.name: s for s in (
     ModelSpec("raft-things", "flow", 1, raft.RAFTConfig(),
               "https://dl.dropboxusercontent.com/s/4j4z58wuv8o0mfz/models.zip"),
 )}
+# when to use each model (the ``models guide`` verb; JAX's MODEL_GUIDE
+# without its TPU throughput figures)
+MODEL_GUIDE: Dict[str, str] = {
+    "RealESRGAN_x4plus": "Real footage, 4x: the general-purpose restoration default. "
+                         "Pre-1960 film: add grain preservation.",
+    "RealESRGAN_x2plus": "Real footage, 2x: the 1080p->4K default (the RDB, K1 and K2 "
+                         "kernels; int8 mode).",
+    "RealESRGAN_x4plus_anime_6B": "Anime/animation stills, 4x: 6-block body, crisper lines, "
+                                  "~4x fewer FLOPs.",
+    "realesr-animevideov3": "Anime VIDEO, 4x: the fastest SR (SRVGG family, the chain "
+                            "kernels); light degradations.",
+    "realesr-general-x4v3": "Mixed/unknown content, 4x: general SRVGG with denoise built in.",
+    "FW_fast6_x2": "Speed-first real footage, 2x: the 6-block RRDB trained in this "
+                   "repository (models/distill.py).",
+    "FW_fastvgg_x2": "Speed-first 2x preview/proxy work (SRVGG trained in this repository).",
+    "FW_fastvgg_x4": "Speed-first 4x (SRVGG trained in this repository).",
+    "HAT_SRx4": "Maximum-detail stills/archival 4x: window-attention SR; slowest, highest "
+                "ceiling with real weights.",
+    "DiffusionSR_x4": "Generative detail for heavily degraded 4x content; stochastic: pair "
+                      "with temporal consistency.",
+    "BasicVSR": "Video SR with temporal propagation: best on pans/static cameras where "
+                "neighbouring frames carry real detail.",
+    "TVSR_x4": "Transformer video SR, 4x: stronger than BasicVSR on complex motion, costlier.",
+}
 # the JAX package's seeded IFNet draws, written by scripts/export_align_ifnet.py:
 # ifnet.init(PRNGKey(1), ALIGN_ARCH) (the denoiser's alignment and
 # FlowEstimator's ifnet backend), PRNGKey(4) at COLORIZE_ARCH (colorize's
@@ -402,6 +426,77 @@ def from_jax_params(params: Dict[str, Any],
             for k in range(1, 6):
                 conv(f"body.{i}.{r}.conv{k}", blk[r][f"conv{k}"])
     return sd
+
+
+def to_jax_params(sd: Dict[str, torch.Tensor], stacked: bool = False) -> Dict[str, Any]:
+    """The inverse of ``from_jax_params`` for RRDBNet (the body a list of
+    blocks, or ``stacked`` leaf by leaf as JAX's ``stack_body`` stores
+    it), SRVGG and NAFNet state dicts -> the JAX package's tree of f32
+    numpy arrays (HWIO convs)."""
+    def arr(key: str) -> np.ndarray:
+        return sd[key].detach().float().cpu().numpy().copy()
+
+    def conv(prefix: str) -> Dict[str, np.ndarray]:
+        p = {"w": arr(prefix + ".weight").transpose(2, 3, 1, 0).copy()}
+        if prefix + ".bias" in sd:
+            p["b"] = arr(prefix + ".bias")
+        return p
+
+    def count(prefix: str) -> int:
+        return len({k[len(prefix):].split(".")[0] for k in sd if k.startswith(prefix)})
+
+    if "intro.weight" in sd:                          # NAFNet
+        def block(prefix: str) -> Dict[str, Any]:
+            b = {k: conv(f"{prefix}.{k}") for k in ("conv1", "conv2", "conv3", "conv4", "conv5")}
+            b["sca"] = conv(f"{prefix}.sca.1")
+            for k in ("norm1", "norm2"):
+                b[k] = {"gamma": arr(f"{prefix}.{k}.weight"), "beta": arr(f"{prefix}.{k}.bias")}
+            for k in ("beta", "gamma"):                 # (1, c, 1, 1) -> (1, 1, 1, c)
+                b[k] = arr(f"{prefix}.{k}").transpose(0, 2, 3, 1).copy()
+            return b
+
+        n = count("downs.")
+        return {
+            "intro": conv("intro"),
+            "encoders": [[block(f"encoders.{i}.{j}") for j in range(count(f"encoders.{i}."))]
+                         for i in range(n)],
+            "downs": [conv(f"downs.{i}") for i in range(n)],
+            "middles": [block(f"middle_blks.{j}") for j in range(count("middle_blks."))],
+            "ups": [conv(f"ups.{i}.0") for i in range(n)],
+            "decoders": [[block(f"decoders.{i}.{j}") for j in range(count(f"decoders.{i}."))]
+                         for i in range(n)],
+            "ending": conv("ending"),
+        }
+    if "conv_first.weight" not in sd:                 # SRVGG
+        n = count("body.")                           # 2 (num_conv + 1) + 1 modules
+        return {"body": [conv(f"body.{i}") for i in range(0, n - 1, 2)],
+                "act": [{"alpha": arr(f"body.{i}.weight")} for i in range(1, n - 1, 2)],
+                "conv_last": conv(f"body.{n - 1}")}
+    params: Dict[str, Any] = {name: conv(name) for name in _CONVS}
+    params["body"] = [{r: {f"conv{k}": conv(f"body.{i}.{r}.conv{k}") for k in range(1, 6)}
+                       for r in ("rdb1", "rdb2", "rdb3")} for i in range(count("body."))]
+    if stacked:
+        from framewright_tpu_torch.models.rrdb import stack_body
+
+        params = stack_body(params)
+    return params
+
+
+def port_checkpoint(name: str, src: Path) -> Dict[str, Any]:
+    """A published ``.pth`` of an SR row -> its JAX-layout tree (the
+    ``models port`` verb): RRDB and SRVGG through ``to_jax_params``, HAT
+    and BasicVSR through their module's ``port_state_dict``; a row with no
+    published checkpoint raises ``ConfigError``."""
+    spec = get_model(name)
+    sd = _torch_load(Path(src))
+    if spec.family in ("rrdb", "srvgg"):
+        return to_jax_params(sd)
+    arch = spec.arch_config
+    if spec.family == "hat":
+        return hat.port_state_dict(sd, arch.depths, arch.scale)
+    if spec.family == "basicvsr":
+        return vsr.port_state_dict(sd, arch.num_blocks, arch.spynet_levels)
+    raise ConfigError(f"{name} has no published checkpoint to port")
 
 
 def _runs_on_the_tree(params: Dict[str, Any]) -> bool:

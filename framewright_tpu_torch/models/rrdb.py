@@ -36,6 +36,7 @@ from torch import nn
 
 from framewright_tpu_torch.models.layers import (
     conv2d,
+    jax_conv_init,
     lrelu,
     mul_weak,
     out_epilogue,
@@ -52,6 +53,47 @@ class RRDBConfig:
     num_block: int = 23
     num_grow_ch: int = 32
     scale: int = 4   # output = input * scale; the body runs at input / (4 / scale)
+
+
+def jax_init(cfg: RRDBConfig, seed: int = 0) -> Dict:
+    """JAX's ``rrdb.init(PRNGKey(seed), cfg)``: the same tree (HWIO numpy
+    f32, the body a list of blocks) with the same draws."""
+    from framewright_tpu_torch.ops import jax_random
+
+    nf, gc = cfg.num_feat, cfg.num_grow_ch
+    in_ch = cfg.num_in_ch * {2: 4, 1: 16}.get(cfg.scale, 1)
+    keys = iter(jax_random.split(seed, 16 + cfg.num_block * 16))
+
+    def c(ci, co):
+        return jax_conv_init(next(keys), 3, ci, co)
+
+    def rdb():
+        return {f"conv{k + 1}": c(nf + k * gc, gc if k < 4 else nf) for k in range(5)}
+
+    return {
+        "conv_first": c(in_ch, nf),
+        "body": [{"rdb1": rdb(), "rdb2": rdb(), "rdb3": rdb()} for _ in range(cfg.num_block)],
+        "conv_body": c(nf, nf),
+        "conv_up1": c(nf, nf),
+        "conv_up2": c(nf, nf),
+        "conv_hr": c(nf, nf),
+        "conv_last": c(nf, cfg.num_out_ch),
+    }
+
+
+def stack_body(params: Dict) -> Dict:
+    """JAX's ``rrdb.stack_body``: the body's blocks stacked leaf by leaf
+    (leading axis the block)."""
+    body = params["body"]
+    if not isinstance(body, list):
+        return params
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack([np.asarray(n) for n in nodes])
+
+    return {**params, "body": stack(body)}
 
 
 def _conv(cin: int, cout: int) -> nn.Conv2d:

@@ -33,6 +33,7 @@ from torch import nn
 
 from framewright_tpu_torch.models.layers import (
     conv2d,
+    jax_conv_init,
     out_epilogue,
     pixel_shuffle,
     prelu,
@@ -48,6 +49,19 @@ class SRVGGConfig:
     num_conv: int = 32          # 16 for animevideov3, 32 for general-x4v3
     scale: int = 4
     act_type: str = "prelu"
+
+
+def jax_init(cfg: SRVGGConfig, seed: int = 0) -> Dict:
+    """JAX's ``srvgg.init(PRNGKey(seed), cfg)``: the same tree and draws."""
+    from framewright_tpu_torch.ops import jax_random
+
+    keys = iter(jax_random.split(seed, cfg.num_conv + 4))
+    nf = cfg.num_feat
+    body = [jax_conv_init(next(keys), 3, cfg.num_in_ch, nf)]
+    body += [jax_conv_init(next(keys), 3, nf, nf) for _ in range(cfg.num_conv)]
+    last = jax_conv_init(next(keys), 3, nf, cfg.num_out_ch * cfg.scale ** 2)
+    acts = [{"alpha": np.full((nf,), 0.25, np.float32)} for _ in range(cfg.num_conv + 1)]
+    return {"body": body, "act": acts, "conv_last": last}
 
 
 @dataclass

@@ -1,5 +1,6 @@
-"""JAX's normal draw, ``jax.random.normal(jax.random.PRNGKey(seed), shape,
-float32)``, on any device.
+"""JAX's random draws on any device: ``jax.random.split``, ``uniform``
+and ``normal`` (float32) of a key, ``PRNGKey(seed)`` or a key that
+``split`` made (a key is a seed or the pair of its 32-bit words).
 
 JAX's default generator with ``jax_threefry_partitionable`` on (the
 default since JAX 0.5): the key of ``PRNGKey(seed)`` is the pair (0,
@@ -8,9 +9,12 @@ seed); element j of the draw (its flat row-major index) gets the 32 bits
 element's bits depend on its index alone, never on the shape around it
 (frame i of a (B, H, W, C) draw is the same whatever B). The bits become
 a float in [1, 2) through their top 23 bits, minus 1, scaled to
-(nextafter(-1, 0), 1); the normal is ``sqrt(2) * erfinv(u)``, with XLA's
-single-precision ``erfinv`` (Giles' polynomial, the one XLA lowers
-``lax.erf_inv`` to).
+(nextafter(-1, 0), 1) for the normal, or (minval, maxval) for ``uniform``;
+the normal is ``sqrt(2) * erfinv(u)``, with XLA's single-precision
+``erfinv`` (Giles' polynomial, the one XLA lowers ``lax.erf_inv`` to).
+``split(key, n)`` is the same threefry of (key, (0, i)) for i < n, new key
+i the pair of its two output words (JAX's fold-like split under
+``jax_threefry_partitionable``).
 
 PyTorch has few unsigned 32-bit operations: the threefry rounds run on
 int64 tensors masked to 32 bits. The draw runs in chunks of
@@ -20,7 +24,7 @@ int64 tensors masked to 32 bits. The draw runs in chunks of
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,10 +39,19 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
                0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
 
 
+Key = Union[int, Tuple[int, int]]
+
+
 def prng_key(seed: int) -> Tuple[int, int]:
     """``jax.random.PRNGKey(seed)`` as its two 32-bit words (a seed is a
     32-bit integer there unless x64 is on: its high word is 0)."""
     return 0, int(seed) & _MASK
+
+
+def _key(key: Key) -> Tuple[int, int]:
+    if isinstance(key, (int, np.integer)):
+        return prng_key(key)
+    return int(key[0]) & _MASK, int(key[1]) & _MASK
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -62,13 +75,20 @@ def threefry2x32(key: Tuple[int, int], x0: torch.Tensor, x1: torch.Tensor
     return x0, x1
 
 
-def random_bits(seed: int, shape: Sequence[int], device: Union[str, torch.device] = "cpu"
+def split(key: Key, num: int = 2) -> List[Tuple[int, int]]:
+    """``jax.random.split(key, num)`` as a list of keys."""
+    idx = torch.arange(num, dtype=torch.int64)
+    x0, x1 = threefry2x32(_key(key), idx >> 32, idx & _MASK)
+    return list(zip(x0.tolist(), x1.tolist()))
+
+
+def random_bits(key: Key, shape: Sequence[int], device: Union[str, torch.device] = "cpu"
                 ) -> torch.Tensor:
-    """``jax.random.bits(PRNGKey(seed), shape, uint32)`` as int64 values
-    in [0, 2**32)."""
+    """``jax.random.bits(key, shape, uint32)`` as int64 values in
+    [0, 2**32)."""
     n = math.prod(shape)
     out = torch.empty(n, dtype=torch.int64, device=device)
-    key = prng_key(seed)
+    key = _key(key)
     for lo in range(0, n, _CHUNK):
         idx = torch.arange(lo, min(n, lo + _CHUNK), dtype=torch.int64, device=device)
         x0, x1 = threefry2x32(key, idx >> 32, idx & _MASK)
@@ -76,14 +96,19 @@ def random_bits(seed: int, shape: Sequence[int], device: Union[str, torch.device
     return out.view(tuple(shape))
 
 
-def _uniform(bits: torch.Tensor) -> torch.Tensor:
-    """JAX's ``uniform(minval=nextafter(-1, 0), maxval=1)`` of 32 random
-    bits: the float in [1, 2) of their top 23 bits, minus 1, times
-    (max - min), plus min, at least min; in f32."""
+def _uniform(bits: torch.Tensor, minval: Optional[float] = None,
+             maxval: float = 1.0) -> torch.Tensor:
+    """JAX's ``uniform(minval, maxval)`` of 32 random bits: the float in
+    [1, 2) of their top 23 bits, minus 1, times (max - min), plus min, at
+    least min; the bounds and their difference in f32, the product and sum
+    rounded once to f32 as XLA's fused multiply-add does (the exact
+    product fits f64) (minval None: nextafter(-1, 0), the normal's)."""
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(np.nextafter(np.float32(-1.0), np.float32(0.0)), device=bits.device)
-    span = torch.tensor(1.0, device=bits.device) - lo
-    return torch.maximum(f * span + lo, lo)
+    lo32 = (np.nextafter(np.float32(-1.0), np.float32(0.0)) if minval is None
+            else np.float32(minval))
+    lo = torch.tensor(lo32, device=bits.device)
+    span = torch.tensor(np.float32(maxval), device=bits.device) - lo
+    return torch.maximum((f.double() * span.double() + lo.double()).float(), lo)
 
 
 def erfinv_xla(x: torch.Tensor) -> torch.Tensor:
@@ -100,18 +125,20 @@ def erfinv_xla(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
 
 
-def uniform(seed: int, shape: Sequence[int], device: Union[str, torch.device] = "cpu"
-            ) -> torch.Tensor:
-    """The uniform draw in (nextafter(-1, 0), 1) that ``normal`` maps."""
-    return _uniform(random_bits(seed, shape, device))
+def uniform(key: Key, shape: Sequence[int], device: Union[str, torch.device] = "cpu",
+            minval: Optional[float] = None, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` (the
+    bounds rounded to f32 first, as JAX converts them); minval None: the
+    draw in (nextafter(-1, 0), 1) that ``normal`` maps."""
+    return _uniform(random_bits(key, shape, device), minval, maxval)
 
 
-def normal(seed: int, shape: Sequence[int], device: Union[str, torch.device] = "cpu"
+def normal(key: Key, shape: Sequence[int], device: Union[str, torch.device] = "cpu"
            ) -> torch.Tensor:
-    """``jax.random.normal(jax.random.PRNGKey(seed), shape, float32)``."""
+    """``jax.random.normal(key, shape, float32)``."""
     n = math.prod(shape)
     out = torch.empty(n, dtype=torch.float32, device=device)
-    key = prng_key(seed)
+    key = _key(key)
     sqrt2 = torch.tensor(np.sqrt(2.0), dtype=torch.float32, device=device)
     for lo in range(0, n, _CHUNK):
         idx = torch.arange(lo, min(n, lo + _CHUNK), dtype=torch.int64, device=device)

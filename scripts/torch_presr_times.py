@@ -168,7 +168,7 @@ def main(argv=None) -> int:
                     for f in frames:
                         wr.write_frame(f)
             label = f"{preset or 'default'} {n}" + (" profiled" if profile else "")
-            cfg = build_config("" if preset == "film" else preset, {
+            cfg = build_config("" if preset == "film" else preset, cli_overrides={
                 "project_dir": tmp / label.replace(" ", "_"),
                 "weights_dir": tmp / ("aw" if kind == "archive" else "nw"),
                 "checkpoint_enabled": False, **(FILM if preset == "film" else {})})

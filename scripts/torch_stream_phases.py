@@ -1,12 +1,15 @@
-"""The diffusion, stream, color_gap and av_scaleout phases of chip_smoke.py
-alone on the card:
+"""The diffusion, stream, color_gap, av_scaleout, train and surfaces
+phases of chip_smoke.py alone on the card:
 
-    python3 scripts/torch_stream_phases.py [--only diffusion|stream|color_gap|av_scaleout]
+    python3 scripts/torch_stream_phases.py [--only PHASE [PHASE ...]]
+
+(PHASE: diffusion, stream, color_gap, av_scaleout, train, surfaces)
 
 builds the kernels, then runs ``chip_smoke.diffusion_phase``,
-``chip_smoke.stream_phase``, ``chip_smoke.color_gap_phase`` and
+``chip_smoke.stream_phase``, ``chip_smoke.color_gap_phase``,
 ``chip_smoke.av_scaleout_phase`` (without the stats phase's ms a frame,
-which it only prints) with the launch counters, the CLI runner and
+which it only prints), ``chip_smoke.train_phase`` and
+``chip_smoke.surfaces_phase`` with the launch counters, the CLI runner and
 the kernel path as ``chip_smoke.main`` builds them; prints the phases'
 JSON lines, each peak against the planner's count, and ``{"ok": ...}``
 last (exit 1 when a check failed)."""
@@ -32,7 +35,9 @@ from torch_models_phase import harness  # noqa: E402
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("diffusion", "stream", "color_gap", "av_scaleout"), default=None)
+    ap.add_argument("--only", nargs="+", choices=("diffusion", "stream", "color_gap",
+                                                  "av_scaleout", "train", "surfaces"),
+                    default=None)
     args = ap.parse_args(argv)
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -44,14 +49,18 @@ def main(argv=None) -> int:
         tmp = Path(tmp)
         x["nw"] = str(tmp / "no_weights")
         try:
-            if args.only in (None, "diffusion"):
+            if args.only is None or "diffusion" in args.only:
                 cs.diffusion_phase(tmp, dev, x)
-            if args.only in (None, "stream"):
+            if args.only is None or "stream" in args.only:
                 cs.stream_phase(tmp, dev, x)
-            if args.only in (None, "color_gap"):
+            if args.only is None or "color_gap" in args.only:
                 cs.color_gap_phase(tmp, dev, x)
-            if args.only in (None, "av_scaleout"):
+            if args.only is None or "av_scaleout" in args.only:
                 cs.av_scaleout_phase(tmp, dev, x)
+            if args.only is None or "train" in args.only:
+                cs.train_phase(tmp, dev, x)
+            if args.only is None or "surfaces" in args.only:
+                cs.surfaces_phase(tmp, dev, x)
         except cs.SmokeFailure as exc:
             ok = False
             print(f"torch_stream_phases: FAILED: {exc}", file=sys.stderr)

@@ -87,7 +87,7 @@ def test_presets_build_the_jax_config(preset):
 def test_archive_without_checkpoints_raises_input_error(tmp_path):
     """No random IFNet or GFPGAN: both missing files named, nothing run."""
     src = _write(tmp_path / "a.y4m", archive_clip(4))
-    cfg = build_config("archive", {"weights_dir": tmp_path / "none", "device_platform": "cpu",
+    cfg = build_config("archive", cli_overrides={"weights_dir": tmp_path / "none", "device_platform": "cpu",
                                    "project_dir": tmp_path / "p"})
     with pytest.raises(InputError) as err:
         VideoRestorer(cfg).restore_video(src, tmp_path / "o.y4m")
@@ -130,7 +130,7 @@ def test_ultimate_restore_runs_with_grain_after_faces(tmp_path, weights):
     ``match`` after the gate, faces and interpolation; the intermediate
     removed, the checkpoint too."""
     src = _write(tmp_path / "a.y4m", archive_clip(), fps=24)
-    cfg = build_config("ultimate", {"sr_model": "FW_fast6_x2", "scale_factor": 2,
+    cfg = build_config("ultimate", cli_overrides={"sr_model": "FW_fast6_x2", "scale_factor": 2,
                                     "device_platform": "cpu", "weights_dir": weights,
                                     "project_dir": tmp_path / "p"})
     with contextlib.redirect_stdout(io.StringIO()):

@@ -304,7 +304,7 @@ def test_waiting_presets_name_only_interpolation_and_faces(preset, tmp_path):
     waits for the interpolation and face models' only, naming both."""
     from framewright_tpu_torch.errors import InputError
 
-    cfg = build_config(preset, {"weights_dir": tmp_path, "device_platform": "cpu",
+    cfg = build_config(preset, cli_overrides={"weights_dir": tmp_path, "device_platform": "cpu",
                                 "project_dir": tmp_path / "p"})
     assert cfg.deduplicate and cfg.defect_repair
     src = _write(tmp_path / "film.y4m", film_clip(4))

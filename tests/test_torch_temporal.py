@@ -97,11 +97,11 @@ def test_flags_override_the_preset():
         ["restore", "in.y4m", "--preset", "quality", "--denoise-method", "nafnet",
          "--temporal-model", "ema", "--model", "FW_fastvgg_x2", "--device", "cpu"])
     assert (args.preset, args.denoise_model, args.temporal_model) == ("quality", "nafnet", "ema")
-    cfg = build_config("quality", {"denoise_model": "nafnet", "temporal_model": "ema",
+    cfg = build_config("quality", cli_overrides={"denoise_model": "nafnet", "temporal_model": "ema",
                                    "sr_model": "FW_fastvgg_x2", "scale_factor": None})
     assert (cfg.denoise, cfg.denoise_model, cfg.temporal_consistency, cfg.temporal_model,
             cfg.sr_model) == (True, "nafnet", True, "ema", "FW_fastvgg_x2")
-    assert build_config("", {}).get_hash() == Config().get_hash()
+    assert build_config("", cli_overrides={}).get_hash() == Config().get_hash()
 
 
 @pytest.mark.parametrize("kwargs,match", [
@@ -137,10 +137,10 @@ def test_archive_preset_refused_by_name():
     time, tests/test_torch_faces.py); an unknown preset is refused by its
     name."""
     assert get_preset("archive")["face_restore"] is True
-    cfg = build_config("archive", {"face_model": "codeformer"})
+    cfg = build_config("archive", cli_overrides={"face_model": "codeformer"})
     assert (cfg.face_restore, cfg.face_model, cfg.preset) == (True, "codeformer", "archive")
     with pytest.raises(ConfigError, match="'restore'"):
-        build_config("restore", {})
+        build_config("restore", cli_overrides={})
     assert set(PRESETS) == {"fast", "quality", "archive", "ultimate"}
 
 
