@@ -178,7 +178,8 @@ Phases, one JSON object per line on stdout:
               restores with ``--denoise-method restormer`` and ``--flow-model
               raft``, the ensemble ``--ensemble FW_fast6_x2,FW_fastvgg_x2``
               in each strategy, ``outscale=3`` with ``max_enhancement_strength
-              =0.5`` through the API and ``--prompt``, each with its counters
+              =0.5`` through the API and ``--prompt`` (these on a 960x540
+              frame), each with its counters
               and its planes against its parts run alone
   color_gap   colorization and gap filling (slice 13) on seeded DDColor
               (large_config) and ECCV16 (width 1.0) checkpoints: each card
@@ -252,6 +253,26 @@ Phases, one JSON object per line on stdout:
               (FW_fast6_x2 packaged), and a restore under
               ``FRAMEWRIGHT_BATCH_SIZE=2`` over ``--config-file`` (batch 2,
               FW_fast6_x2 from the file: 18 RDB calls)
+  frontends   the rest of A12 on 1080p clips of 2 frames: ``recipe
+              vhs_family_video`` byte-equal to its pre-stages then the
+              restore run by hand, ``quick`` to ``restore --preset fast``
+              (2 chain calls a batch), ``archive`` (the archive phase's
+              seeded checkpoints, x4plus) to ``restore --preset archive``,
+              ``do`` (its dry-run config equal to ``build_config_from_text``,
+              its restore to the CLI restore of that config), ``auto`` (the
+              selector's preset printed), the REST API's default job (its
+              SSE completion within 120 s, the output byte-equal to the CLI
+              restore, ``/api/frame`` equal to the output's frame 0, health,
+              hardware, the job log), a preview of frame 1 equal to frame 1
+              of the whole restore at batch 1 (the segment's), ``proxy
+              create --height 360`` then
+              ``apply`` byte-equal to the CLI restore, ``compare`` of the
+              restore with itself (PSNR 99, SSIM 1), ``interpolate --factor
+              2`` equal to ``FrameInterpolator`` alone, ``comparison_grid``
+              card vs CPU within 1 LSB; 69/1/1 a batch for every x2plus
+              restore; ``report estimate`` of x2plus and FW_fastvgg_x2
+              beside their steady restore fps here (the wall difference of
+              26- and 2-frame restores)
   6. times    each kernel by CUDA events beside its plain version, its
               roofline bound and, for the bf16 RDB, K1, tail1, the bf16
               chain and the band conv, cuDNN's F.conv2d (PyTorch has no
@@ -261,7 +282,7 @@ Phases, one JSON object per line on stdout:
               the group input, a conv to codes, the group's last conv to
               bf16), ms and TFLOP/s
   c5          ``scripts/torch_presr_times.py --frames 2 4 --profile --presets
-              default quality`` in a process of its own: dispatch's enqueue
+              quality`` in a process of its own: dispatch's enqueue
               ms (pinned staging, non-blocking upload), the quality
               restore's busy share and peaks (allocated and reserved: the
               pre-SR stream runs on a CUDA stream of its own)
@@ -2050,7 +2071,7 @@ def models_phase(tmp: Path, dev, x: dict) -> dict:
       (byte-equal to straight); ``--denoise --denoise-method restormer``
       and ``--denoise --flow-model raft`` on 4 and 3 frames of 1080p x2plus
       (69/1/1 a batch; planes equal to the pre-SR stream then the kernel
-      path); on 1 frame the ensemble ``--model RealESRGAN_x2plus --ensemble
+      path); on one 960x540 frame the ensemble ``--model RealESRGAN_x2plus --ensemble
       FW_fast6_x2,FW_fastvgg_x2`` in each strategy (rows 1-3 for both RRDB
       members, K2 in rgb_u8, row 10 for the chain; the output equal to the
       vote of the members run alone); ``outscale=3`` with
@@ -2320,8 +2341,7 @@ def models_phase(tmp: Path, dev, x: dict) -> dict:
     require(summary["resumed_from"] == 8 and same,
             f"BasicVSR resumed at {summary['resumed_from']}, equal to straight: {same}")
 
-    # x2plus 1080p: the denoisers (4 frames; RAFT's 3, 6 pairs), then the
-    # ensemble, the cap with outscale and guided on 2
+    # x2plus 1080p: the denoisers (4 frames; RAFT's 3, 6 pairs)
     h, w = hx, wx
     frames1080 = synthetic_frames(4, h, w, 77, **PROGRESSIVE)
     nw_args = ["--model", "RealESRGAN_x2plus", "--weights-dir", str(wdir)]
@@ -2349,8 +2369,12 @@ def models_phase(tmp: Path, dev, x: dict) -> dict:
         sr_in, _ = pre_sr_stream_of(cfg, src, decoded)
         planes_equal(label, kernel, sr_in, read_y4m_planes(out)[2], bs, dev)
 
+    # the ensemble, the cap with outscale and guided on one 960x540 frame
+    # (from 1080p the host's vote, bicubic and guided filters at 4K and
+    # 5760x3240 set those runs' pace)
     n = 1
-    src, decoded = clip("x2_1", frames1080[:n])
+    h, w = MODELS_H, MODELS_W
+    src, decoded = clip("x2_540", synthetic_frames(n, h, w, 78, **PROGRESSIVE))
     sr_in, _ = pre_sr_stream_of(Config(), src, decoded)
     for strategy in ("weighted", "median", "max_sharpness"):
         label = f"ensemble {strategy}"
@@ -4056,6 +4080,310 @@ def surfaces_phase(tmp: Path, dev, x: dict) -> dict:
     return walls
 
 
+FRONT_FRAMES, FRONT_STEADY, FRONT_HW = 2, 26, (1080, 1920)
+FRONT_ARCHIVE_HW = (540, 960)    # archive: x4plus to 4K (from 1080p to 8K a run took 48.4 s on an H100)
+FRONT_WAIT_S = 120.0             # the API job's and the preview's cap
+
+
+def frontends_phase(tmp: Path, dev, x: dict) -> dict:
+    """Slice 16 (the rest of A12) on the card, on 1080p 4:2:0 clips of 2
+    frames: ``recipe vhs_family_video`` against its pre-stages then the
+    restore run by hand, ``quick`` against ``restore --preset fast``,
+    ``archive`` (the archive phase's seeded checkpoints) against ``restore
+    --preset archive``, ``do`` (its dry-run config against
+    ``build_config_from_text``, its restore against the CLI restore of that
+    config), ``auto``, the REST API's job (its SSE completion, its output,
+    ``/api/frame``, health, hardware, the job log), a preview segment,
+    ``proxy create`` and ``apply``, ``compare``, ``interpolate``,
+    ``comparison_grid`` on the card against the CPU, and ``report
+    estimate`` beside the steady restore fps measured here (26- and
+    2-frame restores of RealESRGAN_x2plus and FW_fastvgg_x2, each after
+    a restore of its model)."""
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    from framewright_tpu_torch.api import APIServer
+    from framewright_tpu_torch.config import Config
+    from framewright_tpu_torch.export import comparison_grid
+    from framewright_tpu_torch.io.y4m import Y4MReader, Y4MWriter
+    from framewright_tpu_torch.nlp import build_config_from_text
+    from framewright_tpu_torch.preview import PreviewServer
+    from framewright_tpu_torch.processors.interpolation import (
+        FrameInterpolator,
+        InterpolationConfig,
+    )
+    from framewright_tpu_torch.recipes import RecipeExecutor, get_recipe, recipe_config
+    from framewright_tpu_torch.restorer import VideoRestorer
+
+    t_phase = time.perf_counter()
+    reset, read, cli_run, nw = x["reset_counters"], x["read_counters"], x["cli_run"], x["nw"]
+    walls: dict = {}
+    wdir = tmp / "archive_weights"          # the archive phase's seeded checkpoints
+    if not (wdir / "rife-v4.6.npz").is_file():
+        write_archive_weights(wdir)
+    clip = write_clip(tmp / "front.y4m",
+                      synthetic_frames(FRONT_FRAMES, *FRONT_HW, seed=93, **PROGRESSIVE))
+    long_clip = write_clip(tmp / "front_long.y4m",
+                           synthetic_frames(FRONT_STEADY, *FRONT_HW, seed=94, **PROGRESSIVE))
+    with Y4MReader(clip) as r:
+        decoded = np.stack(list(r))
+
+    def run(label, argv, weights=nw):
+        """The CLI verb on the card -> (its JSON, the launch counts)."""
+        reset()
+        t0 = time.perf_counter()
+        with with_env({"FRAMEWRIGHT_WEIGHTS_DIR": str(weights)}):
+            rc, out, _ = cli_run(argv)
+        walls[label] = time.perf_counter() - t0
+        launches = read()
+        require(rc == 0, f"frontends {label}: exited {rc}")
+        return out, launches
+
+    def same_bytes(label, a: Path, b: Path) -> None:
+        ok = Path(a).read_bytes() == Path(b).read_bytes()
+        emit({"phase": "frontends", "name": f"{label}: output byte-equal to {Path(b).name}",
+              "equal": ok})
+        require(ok, f"frontends {label}: {a} differs from {b}")
+
+    def rrdb_counts(label, launches, batches) -> None:
+        want = {k: 0 for k in launches}
+        want.update(fused_rdb=69 * batches, conv_body_skip=batches, fused_tail=batches)
+        require(batches > 0 and {k: launches[k] for k in want} == want,
+                f"frontends {label}: launches {launches}, expected 69/1/1 x {batches}")
+
+    # the CLI restore of the clip: the reference of the API, do, proxy and
+    # preview runs; then the steady fps: the wall difference of a long and
+    # a short restore, both after it
+    ref = tmp / "front_ref.y4m"
+    summary, launches = run("restore", ["restore", str(clip), "-o", str(ref),
+                                        "--project-dir", str(tmp / "pf_ref")])
+    batches = summary["batches"]
+    rrdb_counts("restore", launches, batches)
+    run("restore long", ["restore", str(long_clip), "-o", str(tmp / "front_ref_long.y4m"),
+                         "--project-dir", str(tmp / "pf_refl")])
+    run("restore short", ["restore", str(clip), "-o", str(tmp / "front_ref_short.y4m"),
+                          "--project-dir", str(tmp / "pf_refs")])
+    rrdb_fps = (FRONT_STEADY - FRONT_FRAMES) / (walls["restore long"] - walls["restore short"])
+
+    # recipe vhs_family_video: the verb, then its two steps by hand
+    name = "vhs_family_video"
+    out, launches = run("recipe", ["recipe", name, str(clip), "-o", str(tmp / "front_rec.y4m"),
+                                   "--project-dir", str(tmp / "pf_rec")])
+    staged = RecipeExecutor(get_recipe(name), tmp / "pf_rec_hand", device="cuda").prestage(clip)
+    with with_env({"FRAMEWRIGHT_WEIGHTS_DIR": nw}):
+        hand = VideoRestorer(recipe_config(name, project_dir=tmp / "pf_rec_hand2",
+                                           device_platform="cuda")).restore_video(
+            staged, tmp / "front_rec_hand.y4m")
+    same_bytes("recipe vhs_family_video", tmp / "front_rec.y4m", tmp / "front_rec_hand.y4m")
+    rrdb_counts("recipe", launches, hand.batches)
+    emit({"phase": "frontends", "name": f"recipe {name}", "launches": launches,
+          "batches": hand.batches, "seconds": walls["recipe"]})
+
+    # quick = restore --preset fast (FW_fastvgg_x2, two chain calls a batch)
+    summary, launches = run("quick", ["quick", str(clip), "-o", str(tmp / "front_quick.y4m"),
+                                      "--project-dir", str(tmp / "pf_q")])
+    want = {k: 0 for k in launches}
+    want["fused_conv_chain"] = 2 * summary["batches"]
+    require(launches == want, f"frontends quick: launches {launches}, expected {want}")
+    run("restore --preset fast", ["restore", str(clip), "-o", str(tmp / "front_fast.y4m"),
+                                  "--preset", "fast", "--project-dir", str(tmp / "pf_f")])
+    same_bytes("quick", tmp / "front_quick.y4m", tmp / "front_fast.y4m")
+    run("restore --preset fast long",
+        ["restore", str(long_clip), "-o", str(tmp / "front_fast_long.y4m"), "--preset", "fast",
+         "--project-dir", str(tmp / "pf_fl")])
+    srvgg_fps = (FRONT_STEADY - FRONT_FRAMES) / (walls["restore --preset fast long"]
+                                                 - walls["restore --preset fast"])
+    emit({"phase": "frontends", "name": "quick", "launches": launches,
+          "batches": summary["batches"], "seconds": walls["quick"]})
+
+    # archive = restore --preset archive (x4plus, faces, interpolation), on a
+    # 960x540 clip as the archive phase's
+    arc_clip = write_clip(tmp / "front_arc_src.y4m", synthetic_frames(
+        FRONT_FRAMES, *FRONT_ARCHIVE_HW, seed=95, **PROGRESSIVE))
+    common = ["--weights-dir", str(wdir)]
+    summary, launches = run("archive", ["archive", str(arc_clip), "-o",
+                                        str(tmp / "front_arc.y4m"), "--project-dir",
+                                        str(tmp / "pf_a"), *common], wdir)
+    n_sr = launches["fused_rdb"] // 69
+    rrdb_counts("archive", launches, n_sr)
+    run("restore --preset archive", ["restore", str(arc_clip), "-o",
+                                     str(tmp / "front_arc_ref.y4m"),
+                                     "--preset", "archive", "--project-dir", str(tmp / "pf_ar"),
+                                     *common], wdir)
+    same_bytes("archive", tmp / "front_arc.y4m", tmp / "front_arc_ref.y4m")
+    emit({"phase": "frontends", "name": "archive", "launches": launches,
+          "frames": summary["frames"], "faces_restored": summary["faces_restored"],
+          "interpolation": summary["interpolation"], "seconds": walls["archive"]})
+
+    # do: the dry-run config is build_config_from_text's; the restore is the
+    # CLI restore of that config
+    text = f"upscale {clip} 2x"
+    dry, _ = run("do --dry-run", ["do", text, "--dry-run", "--project-dir", str(tmp / "pf_do")])
+    want_cfg, _ = build_config_from_text(text, project_dir=str(tmp / "pf_do"),
+                                         device_platform="auto")
+    require(dry == json.loads(json.dumps(want_cfg.to_dict())),
+            "frontends do: the dry-run config is not build_config_from_text's")
+    _, launches = run("do", ["do", text, "-o", str(tmp / "front_do.y4m"), "--project-dir",
+                             str(tmp / "pf_do")])
+    rrdb_counts("do", launches, batches)
+    want_cfg.save(tmp / "front_do.json")
+    run("restore --config-file", ["restore", str(clip), "-o", str(tmp / "front_do_ref.y4m"),
+                                  "--config-file", str(tmp / "front_do.json"),
+                                  "--project-dir", str(tmp / "pf_do_ref")])
+    same_bytes("do", tmp / "front_do.y4m", tmp / "front_do_ref.y4m")
+
+    # auto: the selector's preset
+    out, launches = run("auto", ["auto", str(clip), "-o", str(tmp / "front_auto.y4m"),
+                                 "--project-dir", str(tmp / "pf_auto")], wdir)
+    emit({"phase": "frontends", "name": "auto", "preset": out["preset"],
+          "frames": out["frames"], "launches": launches, "seconds": walls["auto"]})
+
+    # the REST API: a job with the default config, its SSE completion
+    srv = APIServer(tmp / "front_api.db", port=0)
+    try:
+        srv.start()
+        base = f"http://127.0.0.1:{srv.port}"
+
+        def get(path):
+            with urllib.request.urlopen(base + path, timeout=30) as r:
+                return r.status, r.headers["Content-Type"], r.read()
+
+        api_out = tmp / "front_api.y4m"
+        reset()
+        t0 = time.perf_counter()
+        with in_dir(tmp), with_env({"FRAMEWRIGHT_WEIGHTS_DIR": nw}):
+            req = urllib.request.Request(base + "/api/jobs", data=json.dumps(
+                {"source": str(clip), "output": str(api_out)}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=30) as r:
+                jid = json.loads(r.read())["job_id"]
+            states, job = [], None
+            with urllib.request.urlopen(base + "/api/events", timeout=FRONT_WAIT_S) as r:
+                for line in r:
+                    if time.perf_counter() - t0 > FRONT_WAIT_S:
+                        break
+                    if not line.startswith(b"data:"):
+                        continue
+                    job = next(j for j in json.loads(line[5:]) if j["job_id"] == jid)
+                    if not states or states[-1] != job["state"]:
+                        states.append(job["state"])
+                    if job["state"] in ("completed", "failed", "cancelled"):
+                        break
+        walls["api job"] = time.perf_counter() - t0
+        launches = read()
+        require(job is not None and job["state"] == "completed",
+                f"frontends API job: {job}, states {states}")
+        same_bytes("API job", api_out, ref)
+        rrdb_counts("API job", launches, batches)
+        status, ctype, png = get(f"/api/frame?job={jid}&t=0")
+        with Y4MReader(api_out) as r:
+            frame0 = next(iter(r))
+        step = max(1, (max(frame0.shape[:2]) + 639) // 640)
+        got = np.asarray(Image.open(io.BytesIO(png)).convert("RGB"))
+        require(status == 200 and ctype == "image/png"
+                and np.array_equal(got, frame0[::step, ::step]),
+                f"frontends /api/frame: {status} {ctype} {got.shape}")
+        health = json.loads(get("/api/health")[2])
+        hardware = json.loads(get("/api/hardware")[2])
+        log = json.loads(get(f"/api/jobs/{jid}/log")[2])
+        require(health == {"status": "ok"} and hardware["platform"] == "cuda"
+                and hardware["device_kind"] == torch_device_name() and log["lines"],
+                f"frontends API: health {health}, hardware {hardware}, "
+                f"{len(log['lines'])} log lines")
+        emit({"phase": "frontends", "name": "API job", "sse_states": states,
+              "launches": launches, "frame_png_shape": list(got.shape),
+              "hardware": hardware["device_kind"], "log_lines": len(log["lines"]),
+              "seconds": walls["api job"]})
+    finally:
+        srv.stop()
+
+    # a preview segment: frame 1 alone, equal to frame 1 of the whole
+    # restore at the segment's batch, 1 (cuDNN picks the head's conv
+    # algorithm by the batch: frames of another batch round differently)
+    ref1 = tmp / "front_ref_b1.y4m"
+    _, launches = run("restore --batch 1", ["restore", str(clip), "-o", str(ref1), "--batch", "1",
+                                            "--project-dir", str(tmp / "pf_b1")])
+    rrdb_counts("restore --batch 1", launches, FRONT_FRAMES)
+    ps = PreviewServer(clip, tmp / "front_preview")
+    done = threading.Event()
+    ps.queue.on_progress(lambda t: done.set() if t.status in ("done", "failed") else None)
+    try:
+        ps.start()
+        t0 = time.perf_counter()
+        with with_env({"FRAMEWRIGHT_WEIGHTS_DIR": nw}):
+            task = ps.render_segment(1, 1, Config(project_dir=tmp / "pf_prev"))
+            require(done.wait(FRONT_WAIT_S) and task.status == "done",
+                    f"frontends preview: {task.status} {task.error}")
+        walls["preview segment"] = time.perf_counter() - t0
+    finally:
+        ps.stop()
+    seg = read_y4m_planes(Path(task.output))[2]
+    whole = read_y4m_planes(ref1)[2]
+    require(len(seg) == 1 and all(np.array_equal(a, b) for a, b in zip(seg[0], whole[1])),
+            "frontends preview: the segment is not frame 1 of the whole restore at batch 1")
+    emit({"phase": "frontends", "name": "preview render_segment(1, 1)",
+          "equal_to_frame_1": True, "seconds": walls["preview segment"]})
+
+    # proxy create at 360 lines, then apply: the restore of the original
+    px = tmp / "front_proxy.y4m"
+    created, _ = run("proxy create", ["proxy", "create", str(clip), "-o", str(px),
+                                      "--height", "360"])
+    _, launches = run("proxy apply", ["proxy", "apply", str(px), "-o",
+                                      str(tmp / "front_proxy_apply.y4m"), "--project-dir",
+                                      str(tmp / "pf_px")])
+    same_bytes("proxy apply", tmp / "front_proxy_apply.y4m", ref)
+    rrdb_counts("proxy apply", launches, batches)
+    with Y4MReader(px) as r:
+        require((r.height, r.width, r.count_frames()) == (360, 640, FRONT_FRAMES),
+                f"frontends proxy: {created}")
+
+    cmp_, _ = run("compare", ["compare", str(ref), str(ref)])
+    require(cmp_["psnr_mean"] == 99.0 and cmp_["ssim_mean"] == 1.0, f"frontends compare: {cmp_}")
+
+    # interpolate x2 with the seeded rife-v4.6 against the interpolator alone
+    ip, _ = run("interpolate", ["interpolate", str(clip), "-o", str(tmp / "front_int.y4m"),
+                                "--factor", "2"], wdir)
+    interp = FrameInterpolator(InterpolationConfig(target_fps=48.0, weights_dir=str(wdir),
+                                                   device="cuda"))
+    interp.setup(*FRONT_HW)
+    with Y4MReader(clip) as r, Y4MWriter(tmp / "front_int_direct.y4m", FRONT_HW[1],
+                                         FRONT_HW[0], fps=48) as w:
+        for f in interp.interpolate_to_fps(iter(r), 24.0):
+            w.write_frame(f)
+    same_bytes("interpolate", tmp / "front_int.y4m", tmp / "front_int_direct.y4m")
+    interp.teardown()
+
+    # comparison_grid: card against the CPU
+    with Y4MReader(ref) as r:
+        after = np.stack(list(r))
+    grids = {d: comparison_grid(list(decoded), list(after), device=d) for d in ("cuda", "cpu")}
+    gd = np.abs(grids["cuda"].astype(np.int16) - grids["cpu"].astype(np.int16))
+    emit({"phase": "frontends", "name": "comparison_grid card vs CPU",
+          "shape": list(grids["cuda"].shape), "max_abs": int(gd.max()),
+          "tol": {"max_abs": 1}})
+    require(gd.max() <= 1, f"frontends comparison_grid: card vs CPU {gd.max()}")
+
+    # report estimate beside the steady fps measured above
+    est = {}
+    for model, measured in (("RealESRGAN_x2plus", rrdb_fps), ("FW_fastvgg_x2", srvgg_fps)):
+        e, _ = run(f"estimate {model}", ["report", "estimate", str(clip), "--model", model])
+        est[model] = {"est_fps_per_chip": e["est_fps_per_chip"], "steady_fps": measured,
+                      "est_cost_usd": e["est_cost_usd"]}
+    emit({"phase": "frontends", "name": "report estimate beside the steady restore fps",
+          "nvidia_smi": nvidia_smi(), "models": est})
+    walls["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "frontends", "walls_s": walls})
+    return walls
+
+
+def torch_device_name() -> str:
+    import torch
+
+    return torch.cuda.get_device_name(0)
+
+
 def formats_phase(tmp: Path, nw: str, dev, x: dict, tools: dict) -> dict:
     """The default restore from and to a PNG frame directory (when Pillow
     is there): counters 69/1/1 a batch, every frame the kernel path's
@@ -4167,13 +4495,13 @@ def native_phase() -> dict:
 
 def c5_times() -> dict:
     """``scripts/torch_presr_times.py --frames 2 4 --profile --presets
-    default quality`` in a process of its own: dispatch's enqueue ms and
-    the quality restore's busy share and peaks (the film restore is left
-    out for the smoke's time: phase "film" times its parts)."""
+    quality`` in a process of its own: dispatch's enqueue ms and the
+    quality restore's busy share and peaks (the default and film restores
+    are left out for the smoke's time: phase 5 and "film" time theirs)."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, str(ROOT / "scripts" / "torch_presr_times.py"),
-                           "--frames", "2", "4", "--profile", "--presets", "default",
-                           "quality"], cwd=ROOT, capture_output=True, text=True, timeout=900)
+                           "--frames", "2", "4", "--profile", "--presets", "quality"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=900)
     require(proc.returncode == 0, f"torch_presr_times.py: {proc.stderr[-2000:]}")
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     runs = out["runs"]
@@ -5285,24 +5613,30 @@ def main(argv=None) -> int:
         env = dict(os.environ, PYTHONPATH=str(ROOT))
         vsrc, vdecoded = clips["realesr-animevideov3"]
         sub_out = tmp / "sub_vgg.y4m"
-        res = subprocess.run(
+        dyn_out = tmp / "sub_dynamic.npz"
+        # the two processes run at once, each on the card
+        procs = [subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for argv in (
             [sys.executable, "-m", "framewright_tpu_torch.cli", "restore", str(vsrc), "-o",
              str(sub_out), "--model", "realesr-animevideov3", "--weights-dir", nw,
-             "--project-dir", str(tmp / "sub")], cwd=ROOT, env=env, capture_output=True,
-            text=True, timeout=600)
-        require(res.returncode == 0, f"subprocess cli restore: {res.stderr[-2000:]}")
-        sub_summary = json.loads(res.stdout)
+             "--project-dir", str(tmp / "sub")],
+            [sys.executable, "-c", SUBPROCESS_DYNAMIC, str(src), str(dyn_out), nw])]
+        try:
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for what, p, (_, err) in zip(("cli", "dynamic"), procs, outs):
+            require(p.returncode == 0, f"subprocess {what} restore: {err[-2000:]}")
+        sub_summary = json.loads(outs[0][0])
         gate_ok("subprocess realesr-animevideov3", sub_summary)
         _, _, planes_out = read_y4m_planes(sub_out)
         planes_vs_kernel_path("subprocess cli realesr-animevideov3 bfloat16",
                               kernel_path(vgg, vgg.fast_weights()),
                               inputs["realesr-animevideov3"], planes_out,
                               sub_summary["batch_size"])
-        dyn_out = tmp / "sub_dynamic.npz"
-        res = subprocess.run(
-            [sys.executable, "-c", SUBPROCESS_DYNAMIC, str(src), str(dyn_out), nw],
-            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-        require(res.returncode == 0, f"subprocess dynamic restore: {res.stderr[-2000:]}")
         with np.load(dyn_out) as z:
             planes, bs = [z[k] for k in ("y", "u", "v")], int(z["batch"])
         _, decoded = clips["RealESRGAN_x2plus"]
@@ -5394,6 +5728,7 @@ def main(argv=None) -> int:
         av_times = av_scaleout_phase(tmp, dev, {**x, "nw": nw, "stats_ms": stats_ms})
         train_times = train_phase(tmp, dev, {**x, "nw": nw, "kernel_path": kernel_path})
         surface_walls = surfaces_phase(tmp, dev, {**x, "nw": nw})
+        front_walls = frontends_phase(tmp, dev, {**x, "nw": nw})
     emit({"phase": "restore", "seconds": round(time.perf_counter() - t0, 3)})
     launches = launches_by_run["RealESRGAN_x2plus bfloat16"]
 
@@ -5660,6 +5995,7 @@ def main(argv=None) -> int:
           "archive": archive_times, "engine": engine_times,
           "color_gap": {k: v for k, v in color_gap_times.items() if k != "seconds"},
           "av_scaleout": av_times, "train": train_times, "surfaces": surface_walls,
+          "frontends": front_walls,
           "models": {k: v for k, v in models_times.items() if k != "seconds"}, "c5": {k: c5[k] for k in ("enqueue_ms_per_dispatch",
                                                         "quality_busy_share",
                                                         "quality_busy_share_unprofiled",

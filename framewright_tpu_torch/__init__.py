@@ -19,7 +19,9 @@ RetinaFace) and frame interpolation (IFNet) after it; HAT_SRx4, the
 video SR models BasicVSR and TVSR_x4, the SR ensemble, ``outscale``, the
 enhancement cap and guided enhancement, and the denoiser's Restormer and
 RAFT, in plain PyTorch (no kernel of their own, as they are XLA in
-JAX). Entry points
+JAX). The JAX CLI's
+verbs (but its benchmark and uploads), recipes, plain-English commands,
+the REST API, previews and projects start those restores. Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``; on the CPU
 every kernel wrapper runs its plain PyTorch version instead.
 """

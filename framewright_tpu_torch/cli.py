@@ -38,6 +38,12 @@
     python -m framewright_tpu_torch.cli farm work WORK_DIR [--worker-id W] \\
         [--device auto|cuda|cpu]
     python -m framewright_tpu_torch.cli farm status WORK_DIR
+    python -m framewright_tpu_torch.cli quick|best|archive IN [restore's flags]
+    python -m framewright_tpu_torch.cli recipe NAME IN [-o OUT] [--project-dir D] [--device D]
+    python -m framewright_tpu_torch.cli auto IN [-o OUT] [--project-dir D] [--device D]
+    python -m framewright_tpu_torch.cli do "TEXT" [--source IN] [-o OUT] [--dry-run]
+    python -m framewright_tpu_torch.cli analyze|recipes|qa-report|export-presets|wizard|
+        interpolate|extract-frames|reassemble|compare|notify|completion|report|proxy ...
 
 IN and OUT are ``.y4m`` files, PNG frame directories (``frame_%06d.png``;
 an OUT without a suffix is one) or, with ffmpeg on ``PATH``, mp4, mkv
@@ -105,6 +111,23 @@ checkpoint), keyframes propagated along IFNet flow.
 (``FrameExtender``; ``--flow-model raft`` reads ``raft-things.npz`` from
 ``$FRAMEWRIGHT_WEIGHTS_DIR``) and prints JAX's JSON (output, frames,
 added_before, added_after); OUT defaults to ``<stem>_extended.y4m``.
+
+The one-word verbs ``quick``, ``best`` and ``archive`` are ``restore``
+with ``--preset fast``, ``ultimate`` and ``archive``. ``recipes`` lists
+the recipes, ``recipe NAME IN`` runs one (its pre-stages, then the
+restore), ``auto IN`` restores with the preset and overrides the content
+analysis picks, ``do "TEXT"`` with the config a phrase names
+(``--dry-run`` prints it), ``wizard`` asks for one. ``analyze``,
+``qa-report``, ``export-presets``, ``interpolate`` (IFNet alone,
+``rife-v4.6.npz`` from ``$FRAMEWRIGHT_WEIGHTS_DIR``), ``extract-frames``,
+``reassemble``, ``compare``, ``notify``, ``completion``, ``report
+trends|estimate`` and ``proxy create|apply`` take the JAX CLI's
+arguments and print its output; ``analyze``, ``compare`` and ``wizard``
+also take ``--device`` (JAX's run on its default device), and ``report
+estimate`` uses the card's figures (``reports.estimate_cost``). A first
+argument that is not a verb means ``restore``. ``bench`` and ``suite``
+(the benchmark, ROADMAP A4) and ``upload`` (outside services) are
+refused, naming why.
 
 ``subtitles``, ``audio``, ``audio-sync`` and ``farm`` take the JAX CLI's
 arguments and print its lines and JSON. ``subtitles`` writes the burnt-in
@@ -183,12 +206,13 @@ def _config_from_args(args: argparse.Namespace) -> Config:
 
 
 def cmd_restore(args: argparse.Namespace) -> int:
+    from framewright_tpu_torch.logging_utils import setup_logging
     from framewright_tpu_torch.restorer import ProgressInfo, VideoRestorer
 
     try:
         cfg = _config_from_args(args)
         if cfg.verbose:
-            logging.getLogger().setLevel(logging.DEBUG)
+            setup_logging(logging.DEBUG)
         last = {"stage": None}
 
         def on_progress(info: ProgressInfo) -> None:
@@ -244,8 +268,7 @@ def cmd_extend(args: argparse.Namespace) -> int:
         if not frames:
             print("error: empty input", file=sys.stderr)
             return 1
-        ext = FrameExtender(flow_backend=args.flow_model,
-                            device="cuda" if args.device == "auto" else args.device)
+        ext = FrameExtender(flow_backend=args.flow_model, device=_device_arg(args.device))
         before = (ext.extend_backward(frames, args.frames)
                   if args.direction in ("backward", "both") else [])
         after = (ext.extend_forward(frames, args.frames)
@@ -485,8 +508,8 @@ def cmd_models(args: argparse.Namespace) -> int:
             return 1
         print(str(out))
         return 0
-    print(f"error: models {args.action} is not ported (ROADMAP A12: download needs the "
-          "network, verify the JAX package's PyTorch reference)", file=sys.stderr)
+    print(f"error: models {args.action} is not ported (download needs the network; verify "
+          "is ROADMAP A12b)", file=sys.stderr)
     return 1
 
 
@@ -538,6 +561,338 @@ def cmd_watch(args: argparse.Namespace) -> int:
     except KeyboardInterrupt:
         pass
     return 0
+
+
+def cmd_analyze(args: argparse.Namespace) -> int:
+    """Dedup and scene report of a clip (JAX ``cmd_analyze``); with
+    ``--intelligence`` the per-scene content map and the adaptive settings
+    of its first 20 segments (faces by RetinaFace on ``--device`` when its
+    weights are there, else the skin-chroma detector)."""
+    from framewright_tpu_torch.io.video import open_reader, probe
+    from framewright_tpu_torch.processors.deduplication import DedupConfig, FrameDeduplicator
+    from framewright_tpu_torch.processors.scene_detection import SceneDetector
+
+    meta = probe(args.source)
+    fps = float(meta.fps)
+    with open_reader(args.source) as r:
+        dedup = FrameDeduplicator(DedupConfig()).analyze(iter(r), target_fps=fps)
+    with open_reader(args.source) as r:
+        scenes = SceneDetector().analyze(iter(r))
+    report = {
+        "input": f"{meta.width}x{meta.height}@{fps:.2f}",
+        "frames": meta.nb_frames,
+        "unique_frames": dedup.unique_frames,
+        "duplicate_ratio": round(dedup.dedup_ratio, 3),
+        "estimated_source_fps": dedup.estimated_source_fps,
+        "scenes": len(scenes.scene_ranges()),
+        "scene_boundaries": scenes.boundaries[:50],
+        "recommendation": {"deduplicate": dedup.dedup_ratio > 0.1,
+                           "interpolate_to_fps": fps if dedup.dedup_ratio > 0.1 else 0},
+    }
+    if args.intelligence:
+        from framewright_tpu_torch.processors.scene_intelligence import SceneIntelligence
+
+        si = SceneIntelligence(device=_device_arg(args.device))
+        with open_reader(args.source) as r:
+            analyses = si.analyze_video(iter(r))
+        report["scene_intelligence"] = si.get_summary(analyses)
+        report["adaptive_settings"] = {
+            f: s.to_dict() for f, s in list(si.generate_processing_map(analyses).items())[:20]}
+    print(json.dumps(report, indent=2))
+    return 0
+
+
+def cmd_recipes(args: argparse.Namespace) -> int:
+    from framewright_tpu_torch.recipes import RECIPES
+
+    for name, r in sorted(RECIPES.items()):
+        print(f"{name:28s} - {r.description}")
+    return 0
+
+
+def cmd_recipe(args: argparse.Namespace) -> int:
+    """A named recipe: its pre-stages, then the restore on ``--device``."""
+    from framewright_tpu_torch.recipes import RecipeExecutor, get_recipe
+
+    ex = RecipeExecutor(get_recipe(args.name), Path(args.project_dir), device=args.device)
+    result = ex.execute(args.source, output=args.output)
+    print(json.dumps({"output": str(result.output_path), "frames": result.frames_out,
+                      "seconds": round(result.duration_s, 1)}, indent=2))
+    return 0
+
+
+def cmd_auto(args: argparse.Namespace) -> int:
+    """Analyze the content, let ``SmartPresetSelector`` pick the preset and
+    overrides, restore (JAX ``cmd_auto``: the selector's config, the
+    project directory and ``--device``; not the environment's layers)."""
+    from framewright_tpu_torch.io.video import open_reader, probe
+    from framewright_tpu_torch.presets import PresetRegistry, SmartPresetSelector
+    from framewright_tpu_torch.processors.analysis import ContentAnalyzer
+    from framewright_tpu_torch.restorer import VideoRestorer
+
+    meta = probe(args.source)
+    with open_reader(args.source) as r:
+        report = ContentAnalyzer().analyze(iter(r), height=meta.height)
+    print("analysis:", json.dumps(report.to_dict(), indent=2), file=sys.stderr)
+    cfg = SmartPresetSelector(PresetRegistry()).select(report, meta.nb_frames)
+    cfg = cfg.with_overrides(project_dir=str(args.project_dir), device_platform=args.device)
+    result = VideoRestorer(cfg).restore_video(args.source, output=args.output)
+    print(json.dumps({"output": str(result.output_path), "preset": cfg.preset,
+                      "frames": result.frames_out}, indent=2))
+    return 0
+
+
+def cmd_do(args: argparse.Namespace) -> int:
+    """A natural-language command (``do "restore my vhs tape.mp4"``): the
+    phrase's config (``nlp.build_config_from_text``) with the project
+    directory and ``--device``; ``--dry-run`` prints it."""
+    from framewright_tpu_torch.nlp import build_config_from_text
+
+    cfg, cmd = build_config_from_text(args.text, project_dir=str(args.project_dir),
+                                      device_platform=args.device)
+    print(cmd.describe(), file=sys.stderr)
+    source = args.source or cmd.source
+    if not source:
+        print("error: no input file found in the command; pass --source", file=sys.stderr)
+        return 1
+    if args.dry_run:
+        print(json.dumps(cfg.to_dict(), indent=2))
+        return 0
+    from framewright_tpu_torch.restorer import VideoRestorer
+
+    result = VideoRestorer(cfg).restore_video(source, output=args.output)
+    print(json.dumps({"output": str(result.output_path), "frames": result.frames_out},
+                     indent=2))
+    return 0
+
+
+def cmd_qa_report(args: argparse.Namespace) -> int:
+    from framewright_tpu_torch.reports import QAReport
+
+    print(str(QAReport(source=args.source, output=args.output or "").save(Path(args.report))))
+    return 0
+
+
+def cmd_export_presets(args: argparse.Namespace) -> int:
+    from framewright_tpu_torch.export import EXPORT_PRESETS
+
+    for name, p in sorted(EXPORT_PRESETS.items()):
+        print(f"{name:16s} {p.codec:12s} crf={p.crf:<3d} - {p.description}")
+    return 0
+
+
+def cmd_wizard(args: argparse.Namespace) -> int:
+    """The setup wizard's config (``--save-profile`` saves it); with a
+    source, its restore on ``--device``."""
+    from framewright_tpu_torch.wizard import Wizard
+
+    cfg = Wizard().run(project_dir=str(args.project_dir), device_platform=args.device)
+    if args.save_profile:
+        from framewright_tpu_torch.profiles import save_profile
+
+        save_profile(args.save_profile, cfg)
+        print(f"saved profile {args.save_profile!r}", file=sys.stderr)
+    if not args.source:
+        print(json.dumps(cfg.to_dict(), indent=2))
+        return 0
+    from framewright_tpu_torch.restorer import VideoRestorer
+
+    result = VideoRestorer(cfg).restore_video(args.source, output=args.output)
+    print(json.dumps({"output": str(result.output_path), "frames": result.frames_out},
+                     indent=2))
+    return 0
+
+
+def cmd_interpolate(args: argparse.Namespace) -> int:
+    """Frame interpolation alone (IFNet, ``rife-v4.6.npz`` where the
+    restore finds it: ``$FRAMEWRIGHT_WEIGHTS_DIR``); ``--dtype`` is
+    accepted and read by nothing, as in JAX (IFNet runs in f32)."""
+    from framewright_tpu_torch.io.video import open_reader, open_writer, probe
+    from framewright_tpu_torch.processors.interpolation import (
+        FrameInterpolator,
+        InterpolationConfig,
+        interpolation_factor,
+    )
+
+    meta = probe(args.source)
+    fps = float(meta.fps)
+    target = args.target_fps or fps * args.factor
+    interp = FrameInterpolator(InterpolationConfig(target_fps=target,
+                                                   device=_device_arg(args.device)))
+    interp.setup(meta.height, meta.width)
+    factor = interpolation_factor(fps, target)
+    out = args.output or Path(args.source).with_name(
+        Path(args.source).stem + f"_{int(fps * factor)}fps.y4m")
+    n = 0
+    with open_reader(args.source) as r, \
+            open_writer(out, meta.width, meta.height, fps=fps * factor) as writer:
+        for frame in interp.interpolate_to_fps(iter(r), fps):
+            writer.write_frame(frame)
+            n += 1
+    print(json.dumps({"output": str(out), "frames": n, "factor": factor, "fps": fps * factor},
+                     indent=2))
+    return 0
+
+
+def cmd_extract_frames(args: argparse.Namespace) -> int:
+    """Decode a video to a numbered PNG frame directory."""
+    from framewright_tpu_torch.io.png_seq import FrameDirWriter
+    from framewright_tpu_torch.io.video import open_reader, probe
+
+    meta = probe(args.source)
+    w = FrameDirWriter(Path(args.directory), fps=float(meta.fps))
+    n = 0
+    with open_reader(args.source) as r:
+        for frame in r:
+            w.write_frame(frame)
+            n += 1
+    w.close()
+    print(json.dumps({"directory": args.directory, "frames": n, "fps": float(meta.fps)},
+                     indent=2))
+    return 0
+
+
+def cmd_reassemble(args: argparse.Namespace) -> int:
+    """Encode a frame directory back to a video."""
+    from framewright_tpu_torch.io.video import open_reader, open_writer
+
+    n = 0
+    with open_reader(args.directory, fps_hint=args.fps) as r, \
+            open_writer(args.output, r.width, r.height, fps=args.fps) as writer:
+        for frame in r:
+            writer.write_frame(frame)
+            n += 1
+    print(json.dumps({"output": str(args.output), "frames": n}, indent=2))
+    return 0
+
+
+def cmd_compare(args: argparse.Namespace) -> int:
+    """PSNR (float64 on the host, as JAX's), SSIM and the VMAF proxy (on
+    ``--device``) of two videos frame by frame; PSNR capped at 99 dB."""
+    import numpy as np
+    import torch
+
+    from framewright_tpu_torch.hw import resolve_device
+    from framewright_tpu_torch.io.video import open_reader
+    from framewright_tpu_torch.ops.metrics import ssim
+    from framewright_tpu_torch.quality.vmaf import VMAFProxy
+
+    dev = resolve_device(_device_arg(args.device))
+    scores = {"psnr": [], "ssim": []}
+    ref_frames, dis_frames = [], []
+    with open_reader(args.reference) as ra, open_reader(args.distorted) as rb:
+        for i, (fa, fb) in enumerate(zip(ra, rb)):
+            if i % args.sample_every:
+                continue
+            if fa.shape != fb.shape:
+                print(f"error: frame {i} shape mismatch {fa.shape} vs {fb.shape}",
+                      file=sys.stderr)
+                return 1
+            mse = np.mean((fa.astype(np.float64) - fb.astype(np.float64)) ** 2)
+            scores["psnr"].append(float("inf") if mse <= 1e-12
+                                  else float(10.0 * np.log10(255.0 * 255.0 / mse)))
+            a, b = (torch.from_numpy(f).to(dev).float() / 255.0 for f in (fa, fb))
+            scores["ssim"].append(float(ssim(a, b)))
+            if len(ref_frames) < 32:
+                ref_frames.append(fa)
+                dis_frames.append(fb)
+    if not scores["psnr"]:
+        print("error: no comparable frames", file=sys.stderr)
+        return 1
+    cap = 99.0          # lossless frames score inf; the JSON stays standard
+    report = {
+        "frames_compared": len(scores["psnr"]),
+        "psnr_mean": round(min(float(np.mean(scores["psnr"])), cap), 2),
+        "psnr_min": round(min(float(np.min(scores["psnr"])), cap), 2),
+        "ssim_mean": round(float(np.mean(scores["ssim"])), 4),
+        "vmaf_proxy": round(VMAFProxy(dev.type).score(np.stack(ref_frames),
+                                                      np.stack(dis_frames)).score, 2),
+    }
+    print(json.dumps(report, indent=2))
+    return 0
+
+
+def cmd_notify(args: argparse.Namespace) -> int:
+    """Send a test notification by email (SMTP) or SMS (an HTTP gateway)."""
+    from framewright_tpu_torch.uploads import EmailConfig, EmailSender, SMSSender
+
+    if args.channel == "email":
+        ok = EmailSender(EmailConfig(smtp_host=args.smtp_host, smtp_port=args.smtp_port,
+                                     username=args.username, password=args.password,
+                                     recipients=[args.to])).send(args.subject, args.body)
+    else:
+        ok = SMSSender(args.gateway, api_key=args.api_key).send(args.to, args.body)
+    print(json.dumps({"sent": ok}))
+    return 0 if ok else 1
+
+
+def cmd_completion(args: argparse.Namespace) -> int:
+    """A bash completion script over ``KNOWN_VERBS``."""
+    print(_COMPLETION_BASH % " ".join(sorted(KNOWN_VERBS)))
+    return 0
+
+
+def cmd_report(args: argparse.Namespace) -> int:
+    """``trends``: the quality-trends database's summary and history;
+    ``estimate``: the wall time and cost of restoring a clip with a model
+    (``reports.estimate_cost``, the card's figures)."""
+    if args.report_cmd == "trends":
+        from framewright_tpu_torch.reports import QualityTrends
+
+        tr = QualityTrends(Path(args.db))
+        print(json.dumps({"summary": tr.summary(), "history": tr.history(limit=args.limit)},
+                         indent=2))
+        tr.close()
+        return 0
+    from framewright_tpu_torch.io.video import probe
+    from framewright_tpu_torch.models.registry import get_model
+    from framewright_tpu_torch.reports import estimate_cost
+
+    meta = probe(args.source)
+    est = estimate_cost(meta.nb_frames, meta.width, meta.height,
+                        model_family=get_model(args.model).family, n_chips=args.chips)
+    print(json.dumps(est.to_dict(), indent=2))
+    return 0
+
+
+def cmd_proxy(args: argparse.Namespace) -> int:
+    """``create``: a low-resolution proxy (nearest rows and columns, JAX's
+    sampling) and its sidecar; ``apply``: the restore, with the flags
+    given, of the proxy's original source."""
+    from framewright_tpu_torch.io.video import open_reader, open_writer, probe
+
+    if args.proxy_cmd == "create":
+        import numpy as np
+
+        meta = probe(args.source)
+        ph = args.height
+        pw = max(2, round(meta.width * ph / meta.height / 2) * 2)
+        out = Path(args.output) if args.output else \
+            Path(args.source).with_name(Path(args.source).stem + "_proxy.y4m")
+        ys = np.linspace(0, meta.height - 1, ph).astype(np.int32)
+        xs = np.linspace(0, meta.width - 1, pw).astype(np.int32)
+        n = 0
+        with open_reader(args.source) as r, \
+                open_writer(out, pw, ph, fps=float(meta.fps)) as writer:
+            for frame in r:
+                writer.write_frame(frame[ys][:, xs])
+                n += 1
+        sidecar = out.with_suffix(".proxy.json")
+        sidecar.write_text(json.dumps({"source": str(Path(args.source).resolve()),
+                                       "proxy": str(out), "height": ph, "frames": n}))
+        print(json.dumps({"proxy": str(out), "frames": n, "sidecar": str(sidecar)}, indent=2))
+        return 0
+    sidecar = Path(args.proxy).with_suffix(".proxy.json")
+    if not sidecar.exists():
+        print(f"error: no proxy sidecar {sidecar}", file=sys.stderr)
+        return 1
+    args.source = json.loads(sidecar.read_text())["source"]
+    return cmd_restore(args)
+
+
+def _device_arg(device: str) -> str:
+    """``--device``: ``auto`` is the card."""
+    return "cuda" if device == "auto" else device
 
 
 def _add_restore_args(p: argparse.ArgumentParser, with_source: bool = True) -> None:
@@ -676,11 +1031,143 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="framewright-torch",
         description="Video restoration on an NVIDIA GPU (PyTorch/CUDA port)")
-    sub = parser.add_subparsers(dest="verb", required=True)
+    from framewright_tpu_torch import __version__
+
+    parser.add_argument("--version", action="version", version=__version__)
+    sub = parser.add_subparsers(dest="verb")
     p = sub.add_parser("restore", help="restore a clip (.y4m, a frame directory, or a "
                                        "container ffmpeg reads)")
     _add_restore_args(p)
     p.set_defaults(func=cmd_restore)
+
+    # one-word verbs: the restore with a pinned preset (JAX's `quick`,
+    # `best`, `archive`)
+    for word, preset_name, blurb in (("quick", "fast", "fast 2x upscale"),
+                                     ("best", "ultimate", "maximum quality, every stage on"),
+                                     ("archive", "archive", "film-archive restoration defaults")):
+        p = sub.add_parser(word, help=f"one-word restore ({blurb})")
+        _add_restore_args(p)
+        p.set_defaults(func=cmd_restore, preset=preset_name)
+
+    p = sub.add_parser("analyze", help="content analysis (dedup/scenes)")
+    p.add_argument("source")
+    p.add_argument("--intelligence", action="store_true",
+                   help="per-scene content map + adaptive settings")
+    p.add_argument("--device", choices=["auto", "cuda", "cpu"], default="auto",
+                   help="where RetinaFace runs for --intelligence (when its weights exist)")
+    p.set_defaults(func=cmd_analyze)
+
+    p = sub.add_parser("recipes", help="list restoration recipes")
+    p.set_defaults(func=cmd_recipes)
+
+    p = sub.add_parser("recipe", help="run a named recipe")
+    p.add_argument("name")
+    p.add_argument("source")
+    p.add_argument("-o", "--output", type=Path, default=None)
+    p.add_argument("--project-dir", default="./framewright_project")
+    p.add_argument("--device", choices=["auto", "cuda", "cpu"], default="auto")
+    p.set_defaults(func=cmd_recipe)
+
+    p = sub.add_parser("auto", help="analyze content and auto-restore")
+    p.add_argument("source")
+    p.add_argument("-o", "--output", type=Path, default=None)
+    p.add_argument("--project-dir", default="./framewright_project")
+    p.add_argument("--device", choices=["auto", "cuda", "cpu"], default="auto")
+    p.set_defaults(func=cmd_auto)
+
+    p = sub.add_parser("do", help='natural-language command: do "restore my vhs tape.mp4"')
+    p.add_argument("text")
+    p.add_argument("--source", default="")
+    p.add_argument("-o", "--output", type=Path, default=None)
+    p.add_argument("--project-dir", default="./framewright_project")
+    p.add_argument("--device", choices=["auto", "cuda", "cpu"], default="auto")
+    p.add_argument("--dry-run", action="store_true")
+    p.set_defaults(func=cmd_do)
+
+    p = sub.add_parser("qa-report", help="write a QA report skeleton")
+    p.add_argument("source")
+    p.add_argument("--output", default="")
+    p.add_argument("--report", default="qa_report.html")
+    p.set_defaults(func=cmd_qa_report)
+
+    p = sub.add_parser("export-presets", help="list encode/export presets")
+    p.set_defaults(func=cmd_export_presets)
+
+    p = sub.add_parser("wizard", help="interactive setup wizard")
+    p.add_argument("source", nargs="?", default="")
+    p.add_argument("-o", "--output", type=Path, default=None)
+    p.add_argument("--project-dir", default="./framewright_project")
+    p.add_argument("--save-profile", default="")
+    p.add_argument("--device", choices=["auto", "cuda", "cpu"], default="auto")
+    p.set_defaults(func=cmd_wizard)
+
+    p = sub.add_parser("interpolate", help="standalone frame interpolation")
+    p.add_argument("source")
+    p.add_argument("-o", "--output", type=Path, default=None)
+    p.add_argument("--factor", type=int, default=2,
+                   help="multiply fps by this (ignored with --target-fps)")
+    p.add_argument("--target-fps", dest="target_fps", type=float, default=0.0)
+    p.add_argument("--dtype", default="float32", choices=["bfloat16", "float32"],
+                   help="read by nothing, as in JAX: IFNet runs in f32")
+    p.add_argument("--device", choices=["auto", "cuda", "cpu"], default="auto")
+    p.set_defaults(func=cmd_interpolate)
+
+    p = sub.add_parser("extract-frames", help="decode a video to a PNG frame directory")
+    p.add_argument("source")
+    p.add_argument("directory")
+    p.set_defaults(func=cmd_extract_frames)
+
+    p = sub.add_parser("reassemble", help="encode a frame directory back to video")
+    p.add_argument("directory")
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("--fps", type=float, default=25.0)
+    p.set_defaults(func=cmd_reassemble)
+
+    p = sub.add_parser("compare", help="frame-by-frame quality comparison of two videos")
+    p.add_argument("reference")
+    p.add_argument("distorted")
+    p.add_argument("--sample-every", type=int, default=1)
+    p.add_argument("--device", choices=["auto", "cuda", "cpu"], default="auto",
+                   help="where SSIM and the VMAF proxy run")
+    p.set_defaults(func=cmd_compare)
+
+    p = sub.add_parser("notify", help="send a test notification")
+    p.add_argument("channel", choices=["email", "sms"])
+    p.add_argument("--to", required=True)
+    p.add_argument("--subject", default="[framewright] test")
+    p.add_argument("--body", default="notification test")
+    p.add_argument("--smtp-host", default="localhost")
+    p.add_argument("--smtp-port", type=int, default=587)
+    p.add_argument("--username", default="")
+    p.add_argument("--password", default="")
+    p.add_argument("--gateway", default="", help="SMS gateway webhook URL")
+    p.add_argument("--api-key", default="")
+    p.set_defaults(func=cmd_notify)
+
+    p = sub.add_parser("completion", help="print a bash completion script")
+    p.set_defaults(func=cmd_completion)
+
+    p = sub.add_parser("report", help="quality trends / job cost estimate")
+    rsub = p.add_subparsers(dest="report_cmd", required=True)
+    rt = rsub.add_parser("trends", help="quality-over-time history")
+    rt.add_argument("--db", default="./framewright_trends.db")
+    rt.add_argument("--limit", type=int, default=20)
+    re_ = rsub.add_parser("estimate", help="wall-time + cost estimate (the card's figures)")
+    re_.add_argument("source")
+    re_.add_argument("--model", default="RealESRGAN_x2plus")
+    re_.add_argument("--chips", type=int, default=1)
+    p.set_defaults(func=cmd_report)
+
+    p = sub.add_parser("proxy", help="low-res proxy workflow")
+    psub = p.add_subparsers(dest="proxy_cmd", required=True)
+    pc = psub.add_parser("create", help="cut a low-res proxy + sidecar")
+    pc.add_argument("source")
+    pc.add_argument("-o", "--output", default="")
+    pc.add_argument("--height", type=int, default=360)
+    pa = psub.add_parser("apply", help="restore the ORIGINAL source of a proxy")
+    pa.add_argument("proxy")
+    _add_restore_args(pa, with_source=False)
+    p.set_defaults(func=cmd_proxy)
 
     p = sub.add_parser("probe", help="show video metadata")
     p.add_argument("source")
@@ -814,11 +1301,68 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+KNOWN_VERBS = {
+    "restore", "probe", "check", "presets", "models", "analyze", "warmup", "recipes",
+    "recipe", "auto", "do", "batch", "watch", "qa-report", "export-presets", "audio",
+    "wizard", "farm", "subtitles", "interpolate", "extend", "extract-frames", "reassemble",
+    "compare", "notify", "completion", "report", "audio-sync", "proxy",
+    # one-word preset verbs
+    "quick", "best", "archive",
+}
+# JAX's verbs the port refuses, and why
+REFUSED_VERBS = {
+    "bench": "bench is not ported: the port's benchmark waits for ROADMAP A4",
+    "suite": "suite is not ported: the benchmark suite waits for ROADMAP A4",
+    "upload": "upload is not ported: it exists to reach outside services over the "
+              "network (not queued)",
+}
+
+_COMPLETION_BASH = """\
+_framewright() {
+  local cur prev verbs
+  COMPREPLY=()
+  cur="${COMP_WORDS[COMP_CWORD]}"
+  verbs="%s"
+  if [ "$COMP_CWORD" -eq 1 ]; then
+    COMPREPLY=( $(compgen -W "$verbs" -- "$cur") )
+  else
+    COMPREPLY=( $(compgen -f -- "$cur") )
+  fi
+}
+complete -F _framewright framewright
+"""
+
+
 def main(argv: Optional[List[str]] = None) -> int:
-    args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(levelname)s %(name)s: %(message)s")
-    return args.func(args)
+    """``framewright-torch VERB ...``; a first argument that is not a verb
+    (a video's path) means ``restore`` (JAX's sugar)."""
+    from framewright_tpu_torch.logging_utils import setup_logging
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in REFUSED_VERBS:
+        print(f"error: {REFUSED_VERBS[argv[0]]}", file=sys.stderr)
+        return 1
+    if argv and argv[0] not in KNOWN_VERBS | {"-h", "--help", "--version"} \
+            and not argv[0].startswith("-"):
+        argv = ["restore"] + argv
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if not getattr(args, "verb", None):
+        parser.print_help()
+        return 0
+    setup_logging(logging.DEBUG if getattr(args, "verbose", None) else logging.INFO)
+    try:
+        return args.func(args)
+    except FramewrightError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    except BrokenPipeError:
+        # the reader of stdout went away (| head): not an error
+        try:
+            sys.stdout.close()
+        except OSError:
+            pass
+        return 0
 
 
 if __name__ == "__main__":

@@ -455,6 +455,14 @@ class Config:
         d.update(overrides)
         return Config(**d)
 
+    @classmethod
+    def from_preset(cls, name: str, **overrides: Any) -> "Config":
+        """A preset's fields under ``overrides`` (JAX's ``Config.from_preset``;
+        overrides naming a model bring its scale)."""
+        kwargs = {**get_preset(name), **with_model_scale(overrides)}
+        kwargs.setdefault("preset", name)
+        return cls(**kwargs)
+
     def ensemble_models(self) -> List[str]:
         """Extra SR models voted with ``sr_model`` (may be empty)."""
         return [m.strip() for m in self.sr_ensemble.split(",") if m.strip()]
@@ -544,6 +552,101 @@ class Config:
         return hashlib.sha256(blob).hexdigest()[:16]
 
 
+# ``config_schema``'s groups: JAX's (the section comments of its Config,
+# ``framewright_tpu/config.py:531``), less the fields the port does not
+# have, with the port's two in I/O and Super-resolution
+_SCHEMA_GROUPS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
+    ("I/O", ("project_dir", "output_path", "output_format", "keep_intermediates",
+             "max_frames")),
+    ("Super-resolution", ("scale_factor", "sr_model", "tile_size", "tile_overlap",
+                          "batch_size", "outscale", "sr_ensemble", "ensemble_strategy",
+                          "weights_dir")),
+    ("Compute / device", ("compute_dtype", "device_platform", "hbm_utilization")),
+    ("Parallelism", ("mesh_shape", "sharding_strategy", "scene_chunk_frames",
+                     "chunk_overlap_frames", "multihost")),
+    ("Denoise / temporal", ("denoise", "denoise_model", "denoise_strength", "temporal_window",
+                            "flow_model", "temporal_consistency", "temporal_model",
+                            "qp_removal", "qp_strength", "scene_threshold", "grain_preserve",
+                            "grain_strength", "grain_mode", "grain_target", "scene_adaptive",
+                            "long_form", "long_form_threshold", "anchor_interval",
+                            "long_form_strength")),
+    ("Deduplication / interpolation", ("deduplicate", "dedup_similarity", "dedup_hash_size",
+                                       "interpolation", "target_fps", "interpolation_model",
+                                       "interpolation_passes", "scene_change_skip")),
+    ("Faces / inpainting / color", ("face_restore", "face_model", "face_strength",
+                                    "face_fidelity", "inpaint_model", "watermark_removal",
+                                    "watermark_auto_detect", "watermark_regions",
+                                    "subtitle_removal", "subtitle_region",
+                                    "subtitle_ocr_engine", "subtitle_languages", "colorize",
+                                    "colorize_model", "colorize_saturation",
+                                    "colorize_keyframe_interval", "colorize_strength")),
+    ("Diffusion SR", ("diffusion_steps", "diffusion_strength")),
+    ("Guided SR", ("sr_prompt", "sr_style_preset", "guidance_scale", "reference_images_dir",
+                   "reference_strength")),
+    ("Auto-enhance", ("auto_enhance", "auto_detect_content")),
+    ("Format / geometry", ("deinterlace", "inverse_telecine", "crop_letterbox",
+                           "aspect_correction", "stabilize", "stabilize_smoothing",
+                           "stabilize_crop", "stabilize_rotation", "defect_repair",
+                           "defect_scratch_sensitivity", "defect_dust_sensitivity",
+                           "fill_missing_frames", "gap_jump_ratio", "hdr_output",
+                           "hdr_peak_nits", "hdr_highlight_boost")),
+    ("VHS restoration", ("vhs_restore", "vhs_fix_tracking", "vhs_fix_dropouts",
+                         "vhs_fix_chroma", "vhs_fix_dot_crawl", "vhs_tracking_threshold")),
+    ("Authenticity guard", ("max_enhancement_strength",)),
+    ("Audio", ("process_audio", "audio_denoise", "audio_sync_correction")),
+    ("Encoding", ("codec", "crf", "encode_preset", "pixel_format")),
+    ("Checkpoint / resume", ("checkpoint_enabled", "checkpoint_interval", "resume",
+                             "max_runtime_minutes", "stage_max_retries")),
+    ("Validation / quality gates", ("validate_output", "min_ssim", "min_psnr", "min_vmaf",
+                                    "continue_on_error", "quality_report_format")),
+    ("Misc", ("verbose", "dry_run", "seed", "preset")),
+)
+
+
+def config_schema() -> list:
+    """Every field of ``Config`` grouped as JAX's ``config_schema`` groups
+    them, for the API's settings editor: ``[{"group": ..., "fields":
+    [{"name", "type", "default", "choices"?}, ...]}, ...]``; the choices
+    are the values the port accepts."""
+    from framewright_tpu_torch.models.registry import MODEL_SPECS
+
+    choices = {
+        "compute_dtype": _VALID_DTYPES, "device_platform": _VALID_DEVICES,
+        "denoise_model": _VALID_DENOISERS, "sharding_strategy": _VALID_SHARDING,
+        "sr_model": tuple(sorted(MODEL_SPECS)), "output_format": _VALID_OUTPUT_FORMATS,
+        "ensemble_strategy": ("weighted", "median", "max_sharpness"),
+        "face_model": _VALID_FACE_MODELS, "grain_mode": _VALID_GRAIN,
+        "deinterlace": _VALID_DEINTERLACE, "hdr_output": ("none", "hdr10", "hdr10plus", "hlg"),
+        "quality_report_format": _VALID_REPORTS, "subtitle_region": ("bottom", "top", "full"),
+        "temporal_model": ("attention", "latent", "ema"), "flow_model": ("ifnet", "raft"),
+        "long_form": ("auto", "on", "off"), "colorize_model": _VALID_COLORIZE,
+    }
+    fdefs = {f.name: f for f in dataclasses.fields(Config) if f.init}
+    groups = []
+    for title, names in _SCHEMA_GROUPS:
+        fields = []
+        for name in names:
+            f = fdefs.pop(name)
+            default = (f.default_factory() if f.default is dataclasses.MISSING  # type: ignore[misc]
+                       else f.default)
+            if isinstance(default, bool):
+                ftype = "bool"
+            elif isinstance(default, int):
+                ftype = "int"
+            elif isinstance(default, float):
+                ftype = "float"
+            else:
+                ftype = "str"
+                default = (",".join(str(v) for v in default) if isinstance(default, tuple)
+                           else "" if default is None else str(default))
+            entry = {"name": name, "type": ftype, "default": default}
+            if name in choices:
+                entry["choices"] = list(choices[name])
+            fields.append(entry)
+        groups.append({"group": title, "fields": fields})
+    return groups
+
+
 def get_preset(name: str) -> Dict[str, Any]:
     """A preset's fields (without its description), as the JAX
     ``get_preset``."""
@@ -571,6 +674,19 @@ def with_model_scale(layer: Dict[str, Any]) -> Dict[str, Any]:
     from framewright_tpu_torch.models.registry import get_model
 
     return {**layer, "scale_factor": get_model(model).scale}   # an unknown model raises
+
+
+def at_model_scale(layer: Dict[str, Any]) -> Dict[str, Any]:
+    """A JAX-shaped layer (a recipe's, a phrase's, the wizard's) that names
+    ``sr_model``, with the model's scale: JAX keeps another
+    ``scale_factor`` beside the model and writes the model's scale, the
+    port's ``Config`` refuses one."""
+    model = layer.get("sr_model")
+    if model is None:
+        return layer
+    from framewright_tpu_torch.models.registry import get_model
+
+    return {**layer, "scale_factor": get_model(model).scale}
 
 
 def build_config(preset: str = "", config_file: Optional[Path] = None,

@@ -1,15 +1,16 @@
-"""The diffusion, stream, color_gap, av_scaleout, train and surfaces
-phases of chip_smoke.py alone on the card:
+"""The diffusion, stream, color_gap, av_scaleout, train, surfaces and
+frontends phases of chip_smoke.py alone on the card:
 
     python3 scripts/torch_stream_phases.py [--only PHASE [PHASE ...]]
 
-(PHASE: diffusion, stream, color_gap, av_scaleout, train, surfaces)
+(PHASE: diffusion, stream, color_gap, av_scaleout, train, surfaces,
+frontends)
 
 builds the kernels, then runs ``chip_smoke.diffusion_phase``,
 ``chip_smoke.stream_phase``, ``chip_smoke.color_gap_phase``,
 ``chip_smoke.av_scaleout_phase`` (without the stats phase's ms a frame,
-which it only prints), ``chip_smoke.train_phase`` and
-``chip_smoke.surfaces_phase`` with the launch counters, the CLI runner and
+which it only prints), ``chip_smoke.train_phase``,
+``chip_smoke.surfaces_phase`` and ``chip_smoke.frontends_phase`` with the launch counters, the CLI runner and
 the kernel path as ``chip_smoke.main`` builds them; prints the phases'
 JSON lines, each peak against the planner's count, and ``{"ok": ...}``
 last (exit 1 when a check failed)."""
@@ -36,7 +37,8 @@ from torch_models_phase import harness  # noqa: E402
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", nargs="+", choices=("diffusion", "stream", "color_gap",
-                                                  "av_scaleout", "train", "surfaces"),
+                                                  "av_scaleout", "train", "surfaces",
+                                                  "frontends"),
                     default=None)
     args = ap.parse_args(argv)
     t_all = time.perf_counter()
@@ -61,6 +63,8 @@ def main(argv=None) -> int:
                 cs.train_phase(tmp, dev, x)
             if args.only is None or "surfaces" in args.only:
                 cs.surfaces_phase(tmp, dev, x)
+            if args.only is None or "frontends" in args.only:
+                cs.frontends_phase(tmp, dev, x)
         except cs.SmokeFailure as exc:
             ok = False
             print(f"torch_stream_phases: FAILED: {exc}", file=sys.stderr)

@@ -330,8 +330,9 @@ def test_cli_flags_parse_into_config_as_jax(tmp_path, monkeypatch, flags):
     assert captured["cfg"].get_hash() == Config(
         project_dir=tmp_path, **{f: getattr(jcfg, f) for f in _FIELDS if f != "verbose"}
     ).get_hash()                                       # verbose is not hashed
-    assert (logging.getLogger().level == logging.DEBUG) == ("--verbose" in flags or "-v" in flags)
-    logging.getLogger().setLevel(logging.WARNING)
+    pkg = logging.getLogger("framewright_tpu_torch")     # logging_utils.setup_logging's
+    assert (pkg.level == logging.DEBUG) == ("--verbose" in flags or "-v" in flags)
+    pkg.setLevel(logging.INFO)
 
 
 def test_cli_scale_other_than_the_models_is_refused(tmp_path, capsys):
