@@ -273,6 +273,21 @@ Phases, one JSON object per line on stdout:
               restore; ``report estimate`` of x2plus and FW_fastvgg_x2
               beside their steady restore fps here (the wall difference of
               26- and 2-frame restores)
+  split2d     slice 17 (A11b, A12b): the SR's frames x space split on a
+              (1, 2) mesh of two cuda:0 entries (each frame in two row
+              bands, the halo exchanged after the head and each RDB): x2plus
+              bf16, int8 i32 and int8 dynamic at 1080p and
+              realesr-animevideov3 bf16 at 960x540, to 4K in yuv420 with the
+              stats, each against the unsplit processor (uint8 within 1 LSB
+              on under 2%, byte-equal or not; stats within the gate's
+              bounds), its launches (twice the unsplit set), the halo bytes
+              and the card ms a frame beside the unsplit frame's; the
+              interpolator and the temporal denoiser with sharding "data"
+              over two cuda:0 entries against "none" (within 1 LSB); ``models
+              verify`` through the CLI on seeded RealESRGAN_x2plus,
+              realesr-animevideov3, HAT_SRx4, FW_nafnet_dn and restormer
+              ``.pth`` files (PASS, rc 0)
+              and x2plus with a key removed (rc 1, the manifest's line)
   6. times    each kernel by CUDA events beside its plain version, its
               roofline bound and, for the bf16 RDB, K1, tail1, the bf16
               chain and the band conv, cuDNN's F.conv2d (PyTorch has no
@@ -4378,6 +4393,251 @@ def frontends_phase(tmp: Path, dev, x: dict) -> dict:
     return walls
 
 
+SPLIT2D_RUNS = (     # (label, model, dtype, int8_scales, input (h, w)) on a (1, 2) mesh
+    ("x2plus bf16", "RealESRGAN_x2plus", "bfloat16", "static", (1080, 1920)),
+    ("x2plus int8 i32", "RealESRGAN_x2plus", "int8", "static", (1080, 1920)),
+    ("x2plus int8 dynamic", "RealESRGAN_x2plus", "int8", "dynamic", (1080, 1920)),
+    ("animevideov3 bf16", "realesr-animevideov3", "bfloat16", "static", (540, 960)),
+)
+SPLIT2D_REPS = 5                 # timed frames a processor (least taken)
+SPLIT2D_PLANNED = ("x2plus bf16", "animevideov3 bf16")   # peaks held to the plan
+SPLIT2D_HW = (540, 960)          # the data splits' frames
+STATS_TOL = {"psnr": 0.05, "ssim": 2e-3, "luma": 0.05, "std": 0.05}   # tests/test_torch_quality.py
+VERIFY_MODELS = ("RealESRGAN_x2plus", "realesr-animevideov3", "HAT_SRx4", "FW_nafnet_dn",
+                 "restormer")
+
+
+@contextlib.contextmanager
+def local_devices_as(devs):
+    """``parallel.mesh.local_devices`` returns ``devs`` for the block (the
+    card's machine has one card: a mesh repeats its entry)."""
+    from framewright_tpu_torch.parallel import mesh
+
+    saved = mesh.local_devices
+    mesh.local_devices = lambda: list(devs)
+    try:
+        yield
+    finally:
+        mesh.local_devices = saved
+
+
+def split2d_phase(tmp: Path, dev, x: dict) -> dict:
+    """Slice 17 (A11b, A12b) on the card. The SR's frames x space split on
+    a (1, 2) mesh of two ``cuda:0`` entries (``ShardedSR`` with
+    ``SRConfig(sharding="2d")``: every frame in two row bands): x2plus bf16,
+    int8 i32 and int8 dynamic at 1080p and realesr-animevideov3 bf16 at
+    960x540, to 4K in yuv420 with the stats, each against the unsplit
+    processor on the same frame (uint8 within 1 LSB on under 2% of the
+    values, the share that differs and whether it is byte-equal; the stats
+    within the quality gate's bounds), its launches (twice the unsplit
+    69/1/1 or 2 chain calls, one set a band), the halo bytes exchanged
+    (70 x 2 x 5 rows x 960 x 64 x 2 B a 1080p RRDB frame) and the frame's
+    card ms (model and stats, CUDA events) against the unsplit frame's; x2plus
+    bf16 and animevideov3 at the member's planned batch, their peak held to
+    the plan (both bands on the card beside the gathered frames). The
+    interpolator and the temporal denoiser (nafnet) with ``sharding="data"``
+    over two ``cuda:0`` entries against ``"none"`` (uint8 within 1 LSB).
+    ``models verify`` through the CLI on ``.pth`` files drawn here by
+    ``upstream_ref.seeded_state_dict``: RealESRGAN_x2plus,
+    realesr-animevideov3, HAT_SRx4, FW_nafnet_dn and restormer each PASS
+    with rc 0, x2plus with one key removed rc 1 with the manifest's line."""
+    import torch
+
+    from framewright_tpu_torch import cli
+    from framewright_tpu_torch.hw import full_f32
+    from framewright_tpu_torch.models import ifnet, registry, upstream_ref
+    from framewright_tpu_torch.parallel.bands import Bands
+    from framewright_tpu_torch.parallel.distributor import ShardedSR
+    from framewright_tpu_torch.parallel.mesh import build_mesh
+    from framewright_tpu_torch.processors.interpolation import (
+        FrameInterpolator,
+        InterpolationConfig,
+    )
+    from framewright_tpu_torch.processors.super_resolution import SRConfig, SuperResolution
+    from framewright_tpu_torch.processors.temporal_denoise import (
+        TemporalDenoiseConfig,
+        TemporalDenoiser,
+    )
+
+    t_phase = time.perf_counter()
+    reset, read, nw = x["reset_counters"], x["read_counters"], x["nw"]
+    pair = [dev, dev]
+    times: dict = {}
+    for label, model, dtype, scales, hw in SPLIT2D_RUNS:
+        frames = synthetic_frames(1, *hw, seed=71)
+        cfg = dict(model_name=model, compute_dtype=dtype, int8_scales=scales, batch_size=1,
+                   weights_dir=nw)
+        procs = {"unsplit": SuperResolution(SRConfig(**cfg, sharding="none")),
+                 "2d": ShardedSR(SRConfig(**cfg, sharding="2d"), build_mesh((1, 2), pair))}
+        got, launches, moved = {}, {}, {}
+        for name, proc in procs.items():
+            proc.setup(*hw)
+            proc.set_output_color("yuv420", full_range=True)
+            proc.enable_device_stats()
+            reset()
+            b0 = Bands.exchange.bytes
+            h = proc.dispatch(frames)
+            got[name] = (proc.materialize(h), h["stats_np"])
+            launches[name] = read()
+            moved[name] = Bands.exchange.bytes - b0
+        member = procs["2d"].members[0]
+        require(member.bands is not None and len(member.bands) == 2,
+                f"split2d {label}: the member runs no bands")
+        xu8 = torch.from_numpy(frames).to(dev)
+        with full_f32():
+            ms = {"unsplit": cuda_ms(lambda: procs["unsplit"]._run(xu8), SPLIT2D_REPS),
+                  "2d": cuda_ms(lambda: member._run(xu8), SPLIT2D_REPS)}
+        (pw, sw), (pg, sg) = got["unsplit"], got["2d"]
+        planes = {}
+        for k, (a, b) in enumerate(zip(pg, pw)):
+            d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+            planes["YUV"[k]] = {"max_abs": int(d.max()), "share_differing": float((d > 0).mean())}
+        stats_diff = {k: float(np.abs(sg[k] - sw[k]).max()) for k in STATS_TOL}
+        calib = {k for k in launches["unsplit"] if k.endswith("calibrations")}
+        want2d = {k: (v if k in calib else 2 * v) for k, v in launches["unsplit"].items()}
+        per_band = (dict(fused_conv_chain=2) if model.startswith("realesr") else
+                    dict(fused_rdb_dynamic=69, fused_tail1=1) if scales == "dynamic" else
+                    dict(fused_rdb_i32=69, conv_body_skip=1, fused_tail=1) if dtype == "int8"
+                    else dict(fused_rdb=69, conv_body_skip=1, fused_tail=1))
+        body_rows = hw[0] // 2
+        want_moved = (0 if model.startswith("realesr") else
+                      (1 + 69) * 2 * 5 * (hw[1] // 2) * 64 * 2)
+        rec = {"phase": "split2d", "run": label, "mesh": procs["2d"].mesh.shape,
+               "bands": [list(c) for c in member.bands.cuts],
+               "band_rows": member.bands.rows, "body_rows": body_rows if model.startswith(
+                   "RealESRGAN") else hw[0],
+               "planes_vs_unsplit": planes,
+               "byte_equal": all(p["max_abs"] == 0 for p in planes.values()),
+               "stats_max_diff": stats_diff, "finite_equal": bool(np.array_equal(
+                   sg["finite"], sw["finite"])),
+               "launches": launches, "exchanged_bytes": moved["2d"],
+               "card_ms_per_frame": ms, "ratio": ms["2d"] / ms["unsplit"],
+               "tol": {"max_abs": UINT8_MAX_LSB, "share": UINT8_MAX_FRAC, "stats": STATS_TOL}}
+        emit(rec)
+        for name in procs.values():
+            name.teardown()
+        del procs, member
+        require(all(p["max_abs"] <= UINT8_MAX_LSB and p["share_differing"] < UINT8_MAX_FRAC
+                    for p in planes.values()), f"split2d {label}: planes {planes}")
+        require(all(stats_diff[k] <= t for k, t in STATS_TOL.items()) and rec["finite_equal"],
+                f"split2d {label}: stats {stats_diff}")
+        require(all(launches["unsplit"].get(k) == v for k, v in per_band.items())
+                and launches["2d"] == want2d,
+                f"split2d {label}: launches {launches}, expected {per_band} a band")
+        require(moved["2d"] == want_moved and moved["unsplit"] == 0,
+                f"split2d {label}: exchanged {moved}, expected {want_moved}")
+        times[label] = ms
+    torch.cuda.empty_cache()
+
+    # the member's plan at its planned batch: both bands on the card beside
+    # the whole frames' gathered output and stats
+    for label, model, dtype, scales, hw in SPLIT2D_RUNS:
+        if label not in SPLIT2D_PLANNED:
+            continue
+        sr = ShardedSR(SRConfig(model_name=model, compute_dtype=dtype, int8_scales=scales,
+                                weights_dir=nw, sharding="2d"), build_mesh((1, 2), pair))
+        sr.setup(*hw)
+        sr.set_output_color("yuv420", full_range=True)
+        sr.enable_device_stats()
+        plan = sr.members[0].plan
+        frames = synthetic_frames(plan.batch, *hw, seed=73)
+        with torch.no_grad():
+            out, peak = part_peak(lambda: sr.materialize(sr.dispatch(frames)))
+        scale = 2 if model.startswith("RealESRGAN") else 4
+        require(out[0].shape == (plan.batch, hw[0] * scale, hw[1] * scale)
+                and sr.members[0].bands is not None, f"split2d {label} planned: {plan}")
+        emit({"phase": "split2d", "run": f"{label} at the planned batch",
+              "plan": dataclasses.asdict(plan), "planner_bytes": plan.est_bytes,
+              "peak_mem_bytes": peak})
+        x["plan_checks"].append((f"split2d {label} at the planned batch", peak, plan.est_bytes))
+        sr.teardown()
+        del sr, out
+    torch.cuda.empty_cache()
+
+    # the data splits over two cuda:0 entries against one device
+    wdir = tmp / "archive_weights"
+    if not (wdir / "rife-v4.6.npz").is_file():
+        wdir.mkdir(parents=True, exist_ok=True)
+        registry.write_npz(ifnet.init_params(ifnet.IFNetConfig(), seed=11),
+                           wdir / "rife-v4.6.npz")
+    src = list(synthetic_frames(6, *SPLIT2D_HW, seed=72, **PROGRESSIVE))
+    walls: dict = {}
+    with local_devices_as(pair):
+        outs = {}
+        for sharding in ("data", "none"):
+            it = FrameInterpolator(InterpolationConfig(sharding=sharding, weights_dir=str(wdir)))
+            it.setup(*SPLIT2D_HW)
+            require((it._mesh is not None) == (sharding == "data"),
+                    f"interpolation {sharding}: mesh {it._mesh}")
+            t1 = time.perf_counter()
+            outs[sharding] = list(it.interpolate_stream(iter(src), 2))
+            walls[f"interpolate {sharding}"] = time.perf_counter() - t1
+            it.teardown()
+        interp = diff_stats(torch.from_numpy(np.stack(outs["data"])),
+                            torch.from_numpy(np.stack(outs["none"])))
+        dn_out, batch = {}, {}
+        for sharding in ("data", "none"):
+            dn = TemporalDenoiser(TemporalDenoiseConfig(radius=2, strength=0.8, method="nafnet",
+                                                        scene_change_threshold=9.9,
+                                                        sharding=sharding))
+            dn.setup(*SPLIT2D_HW)
+            t1 = time.perf_counter()
+            dn_out[sharding] = list(dn.denoise_stream(iter(src)))
+            walls[f"denoise {sharding}"] = time.perf_counter() - t1
+            batch[sharding] = dn._batch
+        denoise = diff_stats(torch.from_numpy(np.stack(dn_out["data"])),
+                             torch.from_numpy(np.stack(dn_out["none"])))
+    emit({"phase": "split2d", "name": "data splits over two cuda:0 entries vs one device",
+          "interpolation": {"frames": len(outs["data"]), **interp},
+          "denoise": {"frames": len(dn_out["data"]), "centres_a_step": batch, **denoise},
+          "walls_s": walls,
+          "tol": {"max_abs": 1}})
+    require(len(outs["data"]) == len(outs["none"]) == 2 * len(src) - 1
+            and interp["max_abs"] <= 1, f"interpolation data split: {interp}")
+    require(len(dn_out["data"]) == len(src) and denoise["max_abs"] <= 1
+            and batch == {"data": 2, "none": 1},
+            f"denoise data split: {denoise}")
+    times["data_split_walls_s"] = walls
+
+    # models verify through the CLI on seeded upstream-layout checkpoints
+    vdir = tmp / "verify"
+    vdir.mkdir(exist_ok=True)
+
+    def verify(name: str, path: Path):
+        buf, err = io.StringIO(), io.StringIO()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            rc = cli.main(["models", "verify", name, "--path", str(path)])
+        return rc, buf.getvalue().splitlines(), err.getvalue(), time.perf_counter() - t1
+
+    verified = {}
+    for k, name in enumerate(VERIFY_MODELS):
+        spec = registry.MODEL_SPECS.get(name) or registry.AUX_SPECS[name]
+        sd = upstream_ref.seeded_state_dict(spec, seed=80 + k)
+        path = vdir / f"{name}.pth"
+        torch.save(sd, path)
+        rc, lines, err, wall = verify(name, path)
+        verified[name] = {"rc": rc, "lines": lines, "stderr": err, "wall_s": wall}
+        emit({"phase": "split2d", "name": f"models verify {name}", **verified[name]})
+        require(rc == 0 and lines and lines[-1].endswith("[PASS]"),
+                f"models verify {name}: rc {rc}, {lines} {err}")
+        if name == "RealESRGAN_x2plus":
+            sd.pop("body.7.rdb2.conv3.bias")
+            torch.save(sd, vdir / "broken.pth")
+            rc, lines, err, wall = verify(name, vdir / "broken.pth")
+            emit({"phase": "split2d", "name": "models verify, one key removed", "rc": rc,
+                  "lines": lines, "stderr": err})
+            require(rc == 1 and lines and lines[0].startswith("manifest: ")
+                    and " 1 missing" in lines[0] and "  ! body.7.rdb2.conv3.bias" in lines,
+                    f"models verify without a key: rc {rc}, {lines}")
+        del sd
+    times["verify_walls_s"] = {k: v["wall_s"] for k, v in verified.items()}
+    times["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "split2d", **times})
+    return times
+
+
 def torch_device_name() -> str:
     import torch
 
@@ -5729,6 +5989,7 @@ def main(argv=None) -> int:
         train_times = train_phase(tmp, dev, {**x, "nw": nw, "kernel_path": kernel_path})
         surface_walls = surfaces_phase(tmp, dev, {**x, "nw": nw})
         front_walls = frontends_phase(tmp, dev, {**x, "nw": nw})
+        split2d_times = split2d_phase(tmp, dev, {**x, "nw": nw})
     emit({"phase": "restore", "seconds": round(time.perf_counter() - t0, 3)})
     launches = launches_by_run["RealESRGAN_x2plus bfloat16"]
 
@@ -5995,7 +6256,7 @@ def main(argv=None) -> int:
           "archive": archive_times, "engine": engine_times,
           "color_gap": {k: v for k, v in color_gap_times.items() if k != "seconds"},
           "av_scaleout": av_times, "train": train_times, "surfaces": surface_walls,
-          "frontends": front_walls,
+          "frontends": front_walls, "split2d": split2d_times,
           "models": {k: v for k, v in models_times.items() if k != "seconds"}, "c5": {k: c5[k] for k in ("enqueue_ms_per_dispatch",
                                                         "quality_busy_share",
                                                         "quality_busy_share_unprofiled",

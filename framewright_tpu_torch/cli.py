@@ -508,9 +508,81 @@ def cmd_models(args: argparse.Namespace) -> int:
             return 1
         print(str(out))
         return 0
-    print(f"error: models {args.action} is not ported (download needs the network; verify "
-          "is ROADMAP A12b)", file=sys.stderr)
+    if args.action == "verify":
+        return _models_verify(args, wdir)
+    print("error: models download is not ported (it needs the network)", file=sys.stderr)
     return 1
+
+
+def _models_verify(args: argparse.Namespace, wdir: Path) -> int:
+    """JAX's ``models verify`` (``framewright_tpu/cli.py:291-353``): the
+    checkpoint's keys against the recorded manifest (JAX's
+    ``framewright_tpu/models/manifests/<name>.json``, read as data), the
+    port through ``registry.port_checkpoint``, and a parity forward against
+    the upstream-layout reference (``models.upstream_ref``) gated at 45 dB,
+    on the card unless ``--device cpu``; JAX's lines, order and return
+    codes."""
+    import numpy as np
+
+    from framewright_tpu_torch.hw import resolve_device
+    from framewright_tpu_torch.models import registry, upstream_ref
+
+    spec = registry.MODEL_SPECS.get(args.name) or registry.AUX_SPECS.get(args.name)
+    if spec is None:
+        print(f"error: unknown model {args.name!r}", file=sys.stderr)
+        return 1
+    src = Path(args.path) if args.path else wdir / f"{args.name}.pth"
+    if not src.exists():
+        print(f"error: checkpoint not found: {src}", file=sys.stderr)
+        return 1
+    try:
+        device = resolve_device(args.device)
+        sd = upstream_ref.load_state_dict(src)
+        manifest = registry.packaged_weights_dir().parent / "manifests" / f"{args.name}.json"
+        rc = 0
+        if manifest.exists():
+            doc = json.loads(manifest.read_text())
+            want = set(doc["keys"]) - set(doc.get("ignorable", []))
+            have = set(sd) - set(doc.get("ignorable", []))
+            missing = sorted(want - have)
+            extra = sorted(have - want)
+            shape_bad = [k for k in (want & have) if list(sd[k].shape) != doc["keys"][k]]
+            print(f"manifest: {len(want)} keys expected, {len(missing)} missing, "
+                  f"{len(extra)} unexpected, {len(shape_bad)} shape mismatches")
+            for k in (missing[:5] + extra[:5] + shape_bad[:5]):
+                print(f"  ! {k}")
+            if missing or shape_bad:
+                rc = 1
+        else:
+            print("no manifest recorded for this model (inventory check skipped)")
+        tree = registry.port_checkpoint(args.name, src)
+        n = sum(int(np.prod(np.shape(v))) for v in _leaves(tree))
+        print(f"port: OK ({n / 1e6:.2f}M params)")
+        try:
+            res = upstream_ref.parity_check(spec, sd, tree, device)
+            gate = res["psnr_db"] >= upstream_ref.PARITY_GATE_DB
+            print(f"parity vs torch: {res['psnr_db']:.1f} dB PSNR, "
+                  f"max|diff| {res['max_abs']:.2e} [{'PASS' if gate else 'FAIL <45 dB'}]")
+            if not gate:
+                rc = 1
+        except ValueError as exc:
+            print(f"parity: skipped ({exc})")
+    except FramewrightError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    return rc
+
+
+def _leaves(tree):
+    """The array leaves of a parameter tree (dicts and lists; None skipped)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
 
 
 def cmd_warmup(args: argparse.Namespace) -> int:
@@ -1179,13 +1251,15 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("presets", help="list presets")
     p.set_defaults(func=cmd_presets)
 
-    p = sub.add_parser("models", help="model zoo: list/guide/port (download and verify "
-                                      "are not ported)")
+    p = sub.add_parser("models", help="model zoo: list/guide/port/verify (download is not "
+                                      "ported: it needs the network)")
     p.add_argument("action", nargs="?", choices=["list", "guide", "port", "download", "verify"],
                    default="list")
     p.add_argument("name", nargs="?", default="")
-    p.add_argument("--path", default="", help="explicit .pth path for port")
+    p.add_argument("--path", default="", help="explicit .pth path for port and verify")
     p.add_argument("--verbose", "-v", action="store_true")
+    p.add_argument("--device", default="auto", choices=["auto", "cuda", "cpu"],
+                   help="verify's parity forwards (auto: the card)")
     p.set_defaults(func=cmd_models)
 
     p = sub.add_parser("warmup", help="build the kernels and the host codec and run the SR "

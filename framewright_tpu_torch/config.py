@@ -33,8 +33,11 @@ validation. The restore splits each SR dispatch's frames over the
 mesh's cards (``restorer.build_sr``, ``parallel.distributor.ShardedSR``;
 ``mesh_shape``: () = every local card; ``batch_size`` stays the frames
 of a dispatch, as in JAX), unless ``sharding_strategy="none"``, which
-JAX's restorer never maps; with one card nothing is split. ``spatial`` splits frames too (the spatial split
-is ROADMAP A11b). ``multihost`` brings up the process group when the
+JAX's restorer never maps; with one card nothing is split. ``spatial`` is the
+SR's frames x space split (``SRConfig.sharding="2d"``: each frame's rows in
+bands over a ``space`` axis of 2), which JAX's restorer never maps either;
+"auto" and "data" also split the temporal denoiser's centres and the
+interpolator's pairs over the cards, as JAX's restorer maps them. ``multihost`` brings up the process group when the
 restorer is built (``parallel.dcn.ensure_distributed``);
 ``scene_chunk_frames`` is the streaming restore's chunk;
 ``chunk_overlap_frames`` is read by nothing, in JAX as in the port. The

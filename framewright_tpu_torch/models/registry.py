@@ -483,20 +483,51 @@ def to_jax_params(sd: Dict[str, torch.Tensor], stacked: bool = False) -> Dict[st
 
 
 def port_checkpoint(name: str, src: Path) -> Dict[str, Any]:
-    """A published ``.pth`` of an SR row -> its JAX-layout tree (the
-    ``models port`` verb): RRDB and SRVGG through ``to_jax_params``, HAT
-    and BasicVSR through their module's ``port_state_dict``; a row with no
-    published checkpoint raises ``ConfigError``."""
-    spec = get_model(name)
+    """A published ``.pth`` of an SR row (or of the denoiser's NAFNet or
+    Restormer) -> its JAX-layout tree (the ``models port`` and ``models
+    verify`` verbs): RRDB, SRVGG and NAFNet through ``to_jax_params``, HAT,
+    BasicVSR and Restormer through their module's ``port_state_dict``; a
+    row with no published checkpoint raises ``ConfigError``."""
+    spec = AUX_SPECS[name] if name in AUX_SPECS else get_model(name)
     sd = _torch_load(Path(src))
     if spec.family in ("rrdb", "srvgg"):
+        _check_convs(sd, _ported_convs(spec))
         return to_jax_params(sd)
+    if spec.family == "nafnet":
+        return to_jax_params(sd)
+    if spec.family == "restormer":
+        return restormer.port_state_dict(sd)
     arch = spec.arch_config
     if spec.family == "hat":
         return hat.port_state_dict(sd, arch.depths, arch.scale)
     if spec.family == "basicvsr":
         return vsr.port_state_dict(sd, arch.num_blocks, arch.spynet_levels)
     raise ConfigError(f"{name} has no published checkpoint to port")
+
+
+def _ported_convs(spec: ModelSpec) -> List[str]:
+    """The conv (and PReLU) prefixes JAX's ``port_rrdb`` / ``port_srvgg``
+    read for the row's depth, in their order."""
+    arch = spec.arch_config
+    if spec.family == "rrdb":
+        return [f"body.{i}.rdb{j}.conv{k}" for i in range(arch.num_block)
+                for j in (1, 2, 3) for k in range(1, 6)] + list(_CONVS)
+    return [p for i in range(arch.num_conv + 1) for p in (f"body.{2 * i}", f"body.{2 * i + 1}")
+            ] + [f"body.{2 * arch.num_conv + 2}"]
+
+
+def _check_convs(sd: Dict[str, torch.Tensor], prefixes: List[str]) -> None:
+    """JAX's port errors (``torch_port._conv``): a conv's missing weight or
+    bias, or a weight that is not a 4-D kernel, raise ``InputError``; an odd
+    prefix is a PReLU (its weight only)."""
+    for prefix in prefixes:
+        prelu = prefix.startswith("body.") and prefix.count(".") == 1 and int(prefix[5:]) % 2
+        for key in (prefix + ".weight",) + (() if prelu else (prefix + ".bias",)):
+            if key not in sd:
+                raise InputError(f"Missing weight {key!r} while porting {prefix!r}")
+        if not prelu and sd[prefix + ".weight"].dim() != 4:
+            raise InputError(f"{prefix}.weight is not a conv kernel: shape "
+                             f"{tuple(sd[prefix + '.weight'].shape)}")
 
 
 def _runs_on_the_tree(params: Dict[str, Any]) -> bool:

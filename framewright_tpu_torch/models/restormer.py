@@ -61,6 +61,43 @@ def config_from_params(params: Dict[str, Any]) -> RestormerConfig:
         ffn_expansion=hidden / dim_last)
 
 
+def port_state_dict(sd) -> Dict[str, Any]:
+    """swz30's Restormer state dict -> the JAX ``restormer`` tree (JAX's
+    ``torch_port.port_restormer``, the block counts read from the keys;
+    every conv bias-free)."""
+    def arr(key: str) -> np.ndarray:
+        v = sd[key]
+        return np.asarray(v.detach().float().cpu().numpy() if hasattr(v, "detach") else v,
+                          np.float32)
+
+    def conv(prefix: str) -> Dict[str, np.ndarray]:
+        return {"w": arr(prefix + ".weight").transpose(2, 3, 1, 0).copy()}
+
+    def blocks(prefix: str):
+        n = len({k[len(prefix) + 1:].split(".")[0] for k in sd if k.startswith(prefix + ".")})
+        return [{"norm1": {"gamma": arr(f"{prefix}.{j}.norm1.body.weight")},
+                 "qkv": conv(f"{prefix}.{j}.attn.qkv"),
+                 "qkv_dw": conv(f"{prefix}.{j}.attn.qkv_dwconv"),
+                 "proj": conv(f"{prefix}.{j}.attn.project_out"),
+                 "temperature": arr(f"{prefix}.{j}.attn.temperature"),
+                 "norm2": {"gamma": arr(f"{prefix}.{j}.norm2.body.weight")},
+                 "ffn_in": conv(f"{prefix}.{j}.ffn.project_in"),
+                 "ffn_dw": conv(f"{prefix}.{j}.ffn.dwconv"),
+                 "ffn_out": conv(f"{prefix}.{j}.ffn.project_out")} for j in range(n)]
+
+    return {
+        "embed": conv("patch_embed.proj"),
+        "enc": [blocks(f"encoder_level{i}") for i in (1, 2, 3)],
+        "down": [conv(f"down{i}_{i + 1}.body.0") for i in (1, 2, 3)],
+        "latent": blocks("latent"),
+        "up": [conv(f"up{i}_{i - 1}.body.0") for i in (4, 3, 2)],
+        "reduce": [conv("reduce_chan_level3"), conv("reduce_chan_level2"), None],
+        "dec": [blocks(f"decoder_level{i}") for i in (3, 2, 1)],
+        "refine": blocks("refinement"),
+        "output": conv("output"),
+    }
+
+
 def _conv_nb(rng: np.random.Generator, k: int, cin: int, cout: int) -> Dict[str, np.ndarray]:
     bound = np.sqrt(1.0 / (k * k * cin)) * np.sqrt(3.0)
     return {"w": rng.uniform(-bound, bound, (k, k, cin, cout)).astype(np.float32)}

@@ -15,7 +15,8 @@ or uint8 planes Y (B, sH, sW), U and V (B, sH/2, sW/2).
               conv_up1 in PyTorch, the tail1 kernels), or with
               ``fast_tail`` the band-conv tail (``ops.pallas_conv.
               FastTail``); after the last three the output epilogue in
-              PyTorch
+              PyTorch; with ``bands`` on a frame's row bands (the SR's
+              frames x space split, ``parallel.bands``)
   calibrate_act_scales  the int8 activation ranges from one bf16 pass
               (counterpart of ``rrdb.calibrate_act_scales``)
 
@@ -297,7 +298,7 @@ class RRDBNet(nn.Module):
 
     def apply_fast(self, x: torch.Tensor, out_mode: str = "bf16",
                    full_range: bool = False, weights: Optional[FastWeights] = None,
-                   fast_tail=None, f32_head: bool = False):
+                   fast_tail=None, f32_head: bool = False, bands=None, replicas=None):
         """Kernel forward. x: (B, H, W, 3) in [0, 1]. The body is bf16 or
         int8 after ``weights`` (default: the int8 weights when the model
         holds them, else the bf16 ones); the head and the tail are bf16.
@@ -314,30 +315,94 @@ class RRDBNet(nn.Module):
         with the module's f32 weights, then rounds its output to bf16 where
         the body and K1's skip take it, as the JAX package's float32 mode
         does (``fused_rrdb.rrdb_body_merge_blocks``); otherwise x and the
-        head are bf16."""
+        head are bf16.
+        ``bands`` (``parallel.bands.Bands`` over the body rows of x with
+        ``BAND_HALO``; None: one band, the whole frame) runs this path on
+        a frame's row bands, band i by ``replicas[i]`` (this model's copy
+        on band i's device; default this model): the head on each band's
+        input rows, the body RDB by RDB on every band with the halo
+        exchanged after the head and each RDB (``fused_rrdb.
+        rrdb_body_bands``), the tail on each band, and the bands' own rows
+        gathered onto x's device: K2's output (the cuts are at multiples
+        of 4 output rows, so 4:2:0's 2x2 chroma never crosses one), or
+        tail2's and tail1's bf16 image before the epilogue. Each band's own
+        rows equal the whole frame's. ``FW_RDB_BODY=resident`` and
+        ``fast_tail`` (TPU memory workarounds) have no band path: more
+        than one band raises ``ConfigError`` with them."""
+        from framewright_tpu_torch.errors import ConfigError
         from framewright_tpu_torch.ops import fused_rrdb, fused_tail, fused_tail3
+        from framewright_tpu_torch.parallel.bands import Bands
+        from framewright_tpu_torch.parallel.mesh import device_current
+        from framewright_tpu_torch.planner import body_divisor
 
         kind = os.environ.get("FW_TAIL", "auto")
-        fw = weights or self._fast_int8 or self.fast_weights()
-        head_in = x.float() if f32_head else x.to(torch.bfloat16)
-        feat = self._head(head_in).to(torch.bfloat16).contiguous()
-        if kind in ("3", "auto") and fw.int8_scheme != "dynamic" and fast_tail is None:
-            if fw.int8_scheme is None:
-                body = fused_rrdb.rrdb_body(feat, fw.body)
-            else:
-                body = fused_rrdb.rrdb_body_int8(feat, fw.body)
-            skip = fused_tail3.conv_body_skip(body, feat, fw.cbody)
-            del body, feat   # the tail's 4K intermediates may reuse this memory
-            return fused_tail.fused_tail(skip, fw.tail, out_mode, full_range)
-        body = fused_rrdb.rrdb_body_fast(feat, fw.body)
+        u = body_divisor("rrdb", self.cfg.scale)
+        if bands is None:
+            bands = Bands.split(x.shape[1] // u, [x.device], 0)
+        models = list(replicas) if replicas else [self] * len(bands)
+        if len(models) != len(bands):
+            raise ValueError(f"{len(bands)} bands need as many replicas, got {len(models)}")
+        if len(bands) > 1 and fused_rrdb.resident_requested():
+            raise ConfigError("the 2d split has no band path for FW_RDB_BODY=resident")
+        if len(bands) > 1 and fast_tail is not None:
+            raise ConfigError("the 2d split has no band path for FastTail")
+        if weights is not None and replicas:
+            raise ValueError("weights are one model's: the replicas hold their own")
+        fws = [weights or m._fast_int8 or m.fast_weights() for m in models]
+        scheme = fws[0].int8_scheme
+
+        def each(fn):
+            out = []
+            for i, d in enumerate(bands.devices):
+                with device_current(d):
+                    out.append(fn(i))
+            return out
+
+        xs = bands.cut(x, u)
+        feats = each(lambda i: models[i]._head(xs[i].float() if f32_head else xs[i].to(
+            torch.bfloat16)).to(torch.bfloat16).contiguous())
+        del xs
+        bands.exchange(feats)
+        if kind in ("3", "auto") and scheme != "dynamic" and fast_tail is None:
+            ws = fused_rrdb.rrdb_body_bands(feats, [fw.body for fw in fws], bands)
+
+            def tail3(i):
+                skip = fused_tail3.conv_body_skip(ws[i], feats[i], fws[i].cbody)
+                ws[i] = feats[i] = None   # the tail's 4K intermediates may reuse this memory
+                return fused_tail.fused_tail(skip, fws[i].tail, out_mode, full_range)
+
+            outs = each(tail3)
+            if out_mode == "yuv420_u8":
+                return tuple(bands.gather([o[k] for o in outs], 4 if k == 0 else 2, x.device)
+                             for k in range(3))
+            return bands.gather(outs, 4, x.device)
+        if len(bands) == 1:   # FW_RDB_BODY picks the body
+            body = [fused_rrdb.rrdb_body_fast(feats[0], fws[0].body)]
+        else:   # the round-trip body is the merge body's loop on the card
+            body = [w[..., :fused_rrdb.NF] if scheme is None else w
+                    for w in fused_rrdb.rrdb_body_bands(feats, [fw.body for fw in fws], bands)]
         if fast_tail is not None:
-            img = fast_tail(feat, body)
+            imgs = [fast_tail(feats[0], body[0])]
         elif kind == "2":
-            img = self.tail2(feat, body, fw.tail)
+            imgs = each(lambda i: models[i].tail2(feats[i], body[i], fws[i].tail))
         else:
-            img = self.tail1(feat, body, fw.tail)
-        del body, feat
+            imgs = each(lambda i: models[i].tail1(feats[i], body[i], fws[i].tail))
+        del body, feats
+        img = bands.gather(imgs, 4, x.device)
         return img if out_mode == "bf16" else out_epilogue(img, out_mode, full_range)
+
+
+# Body rows a band holds beyond its own on each side: one RDB's five
+# dense 3x3 convs read five rows around a pixel. The halo is exchanged
+# after the head and after every RDB (70 exchanges for 23 blocks), so a
+# band runs 5 more rows than its own at each inner cut (1.02x for two
+# bands at 1080p) and no RDB's
+# output depends on the zeros at the band's edges. Exchanging every k
+# RDBs would need 5k rows: more work than the k - 1 saved copies (a 5-row
+# copy is a few microseconds on the card, 10 rows of an RDB at 960 columns
+# about 10). K1 then K2 (or conv_body and tail1) read 3 more body rows,
+# inside the same halo, so the tails run with no exchange.
+BAND_HALO = 5
 
 
 def calibrate_act_scales(model: RRDBNet, sample: torch.Tensor,

@@ -182,6 +182,15 @@ class SRVGGNet(nn.Module):
         return out
 
 
+def band_halo(cfg: SRVGGConfig) -> int:
+    """Input rows a row band holds beyond its own on each side so that its
+    own output rows equal the whole frame's with no exchange: conv0, the
+    chain's ``num_conv`` convs and conv_last each read one row around a
+    pixel (18 for realesr-animevideov3: 36 more rows a 540-row frame in
+    two bands, 1.07x)."""
+    return cfg.num_conv + 2
+
+
 def calibrate_act_scales(model: SRVGGNet, sample: torch.Tensor,
                          margin: float = 1.25) -> np.ndarray:
     """Activation ranges for the int8 chain (counterpart of

@@ -32,6 +32,7 @@ the end.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
@@ -374,13 +375,55 @@ def rrdb_body(feat: torch.Tensor, body: Sequence[Sequence[RDBWeights]],
     (B, H, W, 64) bf16 -> a workspace (B, H, W, 192) whose channels 0:64
     hold the body output (the counterpart of ``rrdb_body_merge``).
     ``plain`` runs the plain version on any device."""
-    run = fused_rdb_plain if plain else fused_rdb
-    w0 = new_workspace(feat)
-    w1, w2 = torch.empty_like(w0), torch.empty_like(w0)
-    for rdb1, rdb2, rdb3 in body:
-        run(w0, w1, rdb1)
-        run(w1, w2, rdb2)
-        run(w2, w0, rdb3, carry=w0)
+    return rrdb_body_bands([feat], [body], plain=plain)[0]
+
+
+def _current(device: torch.device) -> contextlib.AbstractContextManager:
+    """``device`` current for a launch (the kernels launch on the current
+    device's stream); nothing on the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def rrdb_body_bands(feats: Sequence[torch.Tensor], bodies, bands=None,
+                    plain: bool = False) -> List[torch.Tensor]:
+    """The merge RRDB trunk on a frame's row bands: band i's features
+    ``feats[i]`` (B, h_i, W, 64) bf16 on its device and its weights
+    ``bodies[i]`` (bf16 ``RDBWeights`` or int8 ``RDBWeightsInt8``, the
+    same values on every band). ``bands`` (``parallel.bands.Bands``, None
+    for one band holding the whole frame) copies the halo rows from the
+    band that owns them after every RDB: channels 0:64 of the bf16
+    workspace, the int8 body's bf16 carry. Dynamic int8 bands quantize
+    each source with the frame's range, reduced over the bands' own rows
+    (``fused_rdb_dynamic_bands``). -> each band's workspace (bf16:
+    (B, h_i, W, 192), the body output in channels 0:64) or carry (int8:
+    (B, h_i, W, 64)). ``plain`` runs the plain versions on any device."""
+    n = len(feats)
+    scheme = getattr(bodies[0][0][0], "scheme", None)
+    if scheme is None:
+        w0 = [new_workspace(f) for f in feats]
+        run = fused_rdb_plain if plain else fused_rdb
+    else:
+        w0 = [f.contiguous().clone() for f in feats]
+        qs = [torch.empty(*w.shape[:3], WS_C, dtype=torch.int8, device=w.device) for w in w0]
+        run = fused_rdb_int8_plain if plain else fused_rdb_int8
+    w1 = [torch.empty_like(w) for w in w0]
+    w2 = [torch.empty_like(w) for w in w0]
+    owns = None if bands is None else [bands.own(i) for i in range(n)]
+    for j in range(len(bodies[0])):
+        for src, dst, r, carry in ((w0, w1, 0, None), (w1, w2, 1, None), (w2, w0, 2, w0)):
+            wts = [body[j][r] for body in bodies]
+            cs = carry or [None] * n
+            if scheme == "dynamic" and n > 1:
+                fused_rdb_dynamic_bands(src, qs, dst, wts, cs, owns, plain)
+            else:
+                for i in range(n):
+                    with _current(src[i].device):
+                        if scheme is None:
+                            run(src[i], dst[i], wts[i], carry=cs[i])
+                        else:
+                            run(src[i], qs[i], dst[i], wts[i], carry=cs[i])
+            if bands is not None:
+                bands.exchange(dst, NF if scheme is None else None)
     return w0
 
 
@@ -627,27 +670,55 @@ def fused_rdb_dynamic_plain(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
     are taken over the valid interiors, which tile the frame once; the
     range of x over whole blocks, whose rings hold copies of interior
     pixels or zeros. -> amax (frames, 5) f32."""
+    return _finish(_dynamic_plain_steps(x, q, dst, wts, carry, ext))
+
+
+def _finish(steps):
+    """Run a dynamic RDB's steps that ask for no range (``own`` None) ->
+    their result."""
+    try:
+        next(steps)
+    except StopIteration as done:
+        return done.value
+    raise RuntimeError("a dynamic RDB without own rows asked for a range")
+
+
+def _dynamic_plain_steps(x, q, dst, wts, carry=None, ext=None, own=None):
+    """``fused_rdb_dynamic_plain`` as a generator. With ``own`` = (a, b)
+    (a row band of a frame, ``fused_rdb_dynamic_bands``) it yields each
+    source's range over the tensor's rows [a, b) (frames,) before it
+    quantizes that source, and quantizes with the range it is sent
+    back (the frame's, over every band); the range of x over the whole
+    tensor, whose rows are all the frame's."""
     per = 1 if ext is None else ext.per_frame
     inner = None if ext is None else ext.inner()
     amax = torch.zeros(x.shape[0] // per, 5, dtype=torch.float32, device=x.device)
 
-    def quantize(a: torch.Tensor, src: int) -> None:   # a: NHWC f32
-        m = a.abs().amax(dim=3)
-        if inner is not None and src > 0:
-            m = torch.where(inner, m, 0.0)
-        amax[:, src] = m.reshape(amax.shape[0], -1).amax(dim=1)
+    def quantize(a: torch.Tensor, src: int, rng: torch.Tensor) -> None:
+        amax[:, src] = rng
         r = amax[:, src].clamp_min(1e-8)
         inv = torch.full_like(r, 127.0) / r     # IEEE division, as 127.0 / amax
         off, n = _SOURCES[src]
         q[..., off:off + n] = _codes(a * inv.repeat_interleave(per).view(-1, 1, 1, 1))
 
+    def local(a: torch.Tensor, src: int) -> torch.Tensor:   # a: NHWC f32
+        m = a.abs().amax(dim=3)
+        if inner is not None and src > 0:
+            m = torch.where(inner, m, 0.0)
+        if own is not None and src > 0:
+            m = m[:, own[0]:own[1]]
+        return m.reshape(amax.shape[0], -1).amax(dim=1)
+
     def scales() -> torch.Tensor:   # (images or blocks, 5)
         return (amax.clamp_min(1e-8) * _INV127).repeat_interleave(per, dim=0)
 
-    quantize(x.float(), 0)
+    a = x.float()
+    rng = local(a, 0)
+    quantize(a, 0, rng if own is None else (yield rng))
     for k in range(4):
-        v = _masked(_lrelu(_int8_preact(q, k, wts, scales())), ext)
-        quantize(v.permute(0, 2, 3, 1), k + 1)
+        v = _masked(_lrelu(_int8_preact(q, k, wts, scales())), ext).permute(0, 2, 3, 1)
+        rng = local(v, k + 1)
+        quantize(v, k + 1, rng if own is None else (yield rng))
     _int8_out(_masked(_int8_preact(q, 4, wts, scales()), ext), x, dst, carry)
     return amax
 
@@ -722,6 +793,16 @@ def fused_rdb_dynamic(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
         return fused_rdb_dynamic_plain(x, q, dst, wts, carry, ext)
     if x.device.type != "cuda":
         raise ValueError(f"fused_rdb_dynamic: unsupported device {x.device}")
+    amax = _finish(_dynamic_launches(x, q, dst, wts, carry, ext))
+    fused_rdb_dynamic.launches += 1
+    return amax
+
+
+def _dynamic_launches(x, q, dst, wts, carry=None, ext=None, own=None):
+    """``fused_rdb_dynamic``'s launches as a generator; ``own`` as for
+    ``_dynamic_plain_steps``: the range a dense stage folded into amax on
+    the device (over the whole tensor) is replaced by the frame's before
+    its quantize launch."""
     lib = _build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     b, h, w, _ = x.shape
@@ -731,6 +812,8 @@ def fused_rdb_dynamic(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
     act = torch.empty(b, h, w, GC, dtype=torch.float32, device=x.device)
     _build.check(lib.fw_rdb_dyn_absmax(x.data_ptr(), frames, pix_frame, amax.data_ptr(),
                                        stream), "fw_rdb_dyn_absmax")
+    if own is not None:
+        amax[:, 0] = yield amax[:, 0].clone()
     _build.check(lib.fw_rdb_dyn_quant(x.data_ptr(), 0, NF, q.data_ptr(), 0, frames, pix_frame,
                                       amax.data_ptr(), 0, stream), "fw_rdb_dyn_quant")
     for k in range(4):
@@ -739,6 +822,8 @@ def fused_rdb_dynamic(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
             q.data_ptr(), b, h, w, cin, wts.wk[k].data_ptr(), wts.scale[k].data_ptr(),
             wts.bias[k].data_ptr(), amax.data_ptr(), act.data_ptr(), _ext_ptr(ext), per,
             halo, stream), "fw_rdb_dyn_dense")
+        if own is not None:
+            amax[:, k + 1] = yield act[:, own[0]:own[1]].abs().amax(dim=(1, 2, 3))
         _build.check(lib.fw_rdb_dyn_quant(act.data_ptr(), 1, GC, q.data_ptr(), cin, frames,
                                           pix_frame, amax.data_ptr(), k + 1, stream),
                      "fw_rdb_dyn_quant")
@@ -747,8 +832,45 @@ def fused_rdb_dynamic(x: torch.Tensor, q: torch.Tensor, dst: torch.Tensor,
         wts.bias[4].data_ptr(), amax.data_ptr(), x.data_ptr(), dst.data_ptr(),
         None if carry is None else carry.data_ptr(), _ext_ptr(ext), per, stream),
         "fw_rdb_dyn_final")
-    fused_rdb_dynamic.launches += 1
     return amax
+
+
+def fused_rdb_dynamic_bands(xs, qs, dsts, wts, carries, owns, plain: bool = False) -> None:
+    """One dynamic-scale RDB on a frame's row bands (``parallel.bands``):
+    band i's x ``xs[i]``, its code workspace ``qs[i]``, output ``dsts[i]``,
+    carry ``carries[i]`` (or None), weights ``wts[i]`` on its device and
+    its own rows ``owns[i]``. The bands run in step: before each source is
+    quantized, its range over each band's own rows is reduced (max) over
+    the bands, so every band quantizes with the frame's range and its own
+    rows equal the unsplit RDB's. A CUDA band launches its kernels and
+    counts once on ``fused_rdb_dynamic`` when its last launch is made; a
+    CPU band (or ``plain``) runs the plain version."""
+    gens, devs, kernel = [], [], []
+    for x, q, dst, w, carry, own in zip(xs, qs, dsts, wts, carries, owns):
+        if w.scheme != "dynamic":
+            raise ValueError(f"fused_rdb_dynamic_bands: weights of scheme {w.scheme!r}")
+        _check_int8(x, q, dst, w, carry)
+        cuda = x.device.type == "cuda" and not plain
+        if x.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"fused_rdb_dynamic_bands: unsupported device {x.device}")
+        gens.append((_dynamic_launches if cuda else _dynamic_plain_steps)(
+            x, q, dst, w, carry, None, own))
+        devs.append(x.device)
+        kernel.append(cuda)
+
+    def step(i, value=None):
+        with _current(devs[i]):
+            try:
+                return gens[i].send(value)
+            except StopIteration:
+                if kernel[i]:
+                    fused_rdb_dynamic.launches += 1
+                return None
+
+    ranges = [step(i) for i in range(len(gens))]
+    while ranges[0] is not None:
+        m = torch.stack([r.to(devs[0]) for r in ranges]).amax(dim=0)
+        ranges = [step(i, m.to(devs[i])) for i in range(len(gens))]
 
 
 fused_rdb_i32.launches = 0
@@ -781,15 +903,7 @@ def rrdb_body_int8(feat: torch.Tensor, body: Sequence[Sequence[RDBWeightsInt8]],
     same rounding points). ``feat`` (B, H, W, 64) bf16 -> the body output,
     (B, H, W, 64) bf16. ``plain`` runs the plain versions on any device
     (a reference for the kernels on the card)."""
-    run = fused_rdb_int8_plain if plain else fused_rdb_int8
-    w0 = feat.contiguous().clone()
-    w1, w2 = torch.empty_like(w0), torch.empty_like(w0)
-    q = torch.empty(*w0.shape[:3], WS_C, dtype=torch.int8, device=w0.device)
-    for rdb1, rdb2, rdb3 in body:
-        run(w0, q, w1, rdb1)
-        run(w1, q, w2, rdb2)
-        run(w2, q, w0, rdb3, carry=w0)
-    return w0
+    return rrdb_body_bands([feat], [body], plain=plain)[0]
 
 
 # --- body selection ------------------------------------------------------
@@ -857,6 +971,13 @@ def rrdb_body_resident(feat: torch.Tensor, body, plain: bool = False) -> torch.T
     return assemble_blocks(w0, b, h, w)
 
 
+def resident_requested() -> bool:
+    """Whether ``FW_RDB_BODY=resident`` (or ``FW_RDB_RESIDENT=1``) asks for
+    the resident body."""
+    return (os.environ.get("FW_RDB_BODY", "merge") == "resident"
+            or os.environ.get("FW_RDB_RESIDENT", "0") == "1")
+
+
 def rrdb_body_fast(feat: torch.Tensor, body, plain: bool = False) -> torch.Tensor:
     """The RRDB trunk by ``FW_RDB_BODY`` (counterpart of the JAX
     ``rrdb_body_fast``): "merge" (the default), "resident" (or
@@ -864,9 +985,7 @@ def rrdb_body_fast(feat: torch.Tensor, body, plain: bool = False) -> torch.Tenso
     other value, as in the JAX package); "i32" weights always run the
     merge body, and dynamic weights the round-trip body unless
     "resident" is asked for. -> (B, H, W, 64) bf16."""
-    kind = os.environ.get("FW_RDB_BODY", "merge")
-    if os.environ.get("FW_RDB_RESIDENT", "0") == "1":
-        kind = "resident"
+    kind = "resident" if resident_requested() else os.environ.get("FW_RDB_BODY", "merge")
     scheme = getattr(body[0][0], "scheme", None)
     if scheme == "i32":
         kind = "merge"

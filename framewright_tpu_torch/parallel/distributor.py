@@ -8,9 +8,12 @@ restore's unit of work). Both frame splits go through ``run_split``
 results in order): ``ShardedFrameProcessor`` runs a per-batch function
 over a mesh (the batch padded to the mesh, the parameters copied to each
 device once, the parts gathered in order), and ``ShardedSR`` runs the SR
-processor, one a card, behind the processor's own interface (the
-restore's frame split over the local cards, JAX
-``super_resolution.py:194-215``).
+processor, one a position of the frames axis, behind the processor's own
+interface (the restore's split over the local cards, JAX
+``super_resolution.py:194-217``); under ``SRConfig.sharding="2d"`` each
+of those processors runs its frames on row bands over its ``space``
+devices (``parallel.bands``). ``sr_mesh`` builds the mesh that
+``sharding`` asks for and ``sharded_sr`` the processor over it.
 """
 
 from __future__ import annotations
@@ -25,14 +28,17 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from framewright_tpu_torch.errors import ConfigError
 from framewright_tpu_torch.parallel.mesh import (
     FRAME_AXIS,
+    SPACE_AXIS,
     Mesh,
     build_mesh,
     device_current,
     frame_split,
     pad_batch_for_mesh,
 )
+from framewright_tpu_torch.parallel import mesh as mesh_mod
 
 logger = logging.getLogger(__name__)
 
@@ -192,13 +198,59 @@ class ShardedFrameProcessor:
         return n_devices * 0.98
 
 
+SR_SHARDINGS = ("auto", "data", "2d", "none")
+# the families with a band path under "2d" (their kernels run on bands)
+BAND_FAMILIES = ("rrdb", "srvgg")
+
+
+def sr_mesh(config, mesh_shape: Sequence[int] = ()) -> Optional[Mesh]:
+    """The mesh ``config.sharding`` asks for over the local devices of
+    ``config.device``'s kind, or None for one device: "none" never splits;
+    "auto" and "data" split frames over ``mesh_shape`` (() = every such
+    device) when its frames axis holds more than one; "2d" builds JAX's
+    ``(nd // 2, 2)`` frames x space mesh over nd devices (nd the product of
+    ``mesh_shape``, or every such device; a two-axis ``mesh_shape`` as it
+    is) when nd is even, else it splits frames (JAX
+    ``super_resolution.py:199-206``)."""
+    if config.sharding not in SR_SHARDINGS:
+        raise ConfigError(f"SR sharding must be one of {SR_SHARDINGS}, got {config.sharding!r}")
+    if config.sharding == "none":
+        return None
+    kind = torch.device("cuda" if config.device in (None, "auto") else config.device).type
+    devs = [d for d in mesh_mod.local_devices() if d.type == kind]
+    if len(devs) < 2:
+        return None
+    shape = tuple(mesh_shape)
+    if config.sharding == "2d":
+        if len(shape) < 2:
+            nd = int(np.prod(shape)) if shape else len(devs)
+            shape = (nd // 2, 2) if nd % 2 == 0 else (nd,)
+        mesh = build_mesh(shape, devs)
+        return mesh if len(mesh.devices) > 1 else None
+    fd = build_mesh(shape, devs).frame_devices      # a space axis idles, as before
+    return build_mesh((len(fd),), fd) if len(fd) > 1 else None
+
+
+def sharded_sr(config, mesh_shape: Sequence[int] = ()):
+    """The SR processor ``config.sharding`` asks for: ``ShardedSR`` over
+    ``sr_mesh``, or the one-device ``SuperResolution``."""
+    from framewright_tpu_torch.processors.super_resolution import SuperResolution
+
+    mesh = sr_mesh(config, mesh_shape)
+    return SuperResolution(config) if mesh is None else ShardedSR(config, mesh)
+
+
 class ShardedSR:
     """The SR processor with each dispatch's frames split over a mesh's
-    devices: one ``SuperResolution`` a device (its weights, plan and
+    frames axis: one ``SuperResolution`` a position (its weights, plan and
     staging buffers; its part runs through the same kernels on that
     device's stream, the device current for the launches), the parts
-    gathered in order. It has the processor's interface, and state reaches
-    the members only through it (``set_output_color``,
+    gathered in order. With a ``space`` axis of more than one, each
+    position's processor holds that position's devices and runs its frames
+    on row bands over them; ``setup`` splits frames over every device
+    instead when the height is odd (JAX's rule) or the family has no band
+    path (HAT), with one log line. It has the processor's interface, and
+    state reaches the members only through it (``set_output_color``,
     ``enable_device_stats``). ``batch_size`` stays the dispatch's frames,
     as JAX's is: each member plans for its share, rounded up. int8 static
     scales are calibrated once for every member, on the first batch."""
@@ -206,16 +258,27 @@ class ShardedSR:
     name = "super_resolution"
 
     def __init__(self, config, mesh: Mesh):
+        self.config = config
+        self.dispatches = 0
+        self._build_members(mesh)
+
+    def _build_members(self, mesh: Mesh) -> None:
         from framewright_tpu_torch.processors.super_resolution import SuperResolution
 
-        self.config = config
         self.mesh = mesh
+        ns = mesh.shape.get(SPACE_AXIS, 1)
         n = len(mesh.frame_devices)
-        share = -(-config.batch_size // n) if config.batch_size else 0
-        self.members = [SuperResolution(dataclasses.replace(config, device=str(d),
-                                                            batch_size=share))
-                        for d in mesh.frame_devices]
-        self.dispatches = 0
+        share = -(-self.config.batch_size // n) if self.config.batch_size else 0
+        self.members = [SuperResolution(dataclasses.replace(self.config, device=str(d),
+                                                            batch_size=share),
+                                        space_devices=mesh.devices[i * ns:(i + 1) * ns]
+                                        if ns > 1 else None)
+                        for i, d in enumerate(mesh.frame_devices)]
+
+    @property
+    def spatial(self) -> bool:
+        """Whether the members run row bands (a ``space`` axis over one)."""
+        return self.mesh.shape.get(SPACE_AXIS, 1) > 1
 
     @property
     def device(self) -> Optional[torch.device]:
@@ -224,11 +287,21 @@ class ShardedSR:
         return self.members[0].device
 
     def setup(self, height: int, width: int) -> None:
+        if self.spatial:
+            from framewright_tpu_torch.models.registry import get_model
+
+            family = get_model(self.config.model_name).family
+            why = ("an odd height" if height % 2 else
+                   None if family in BAND_FAMILIES else f"no band path for the {family} family")
+            if why:
+                logger.info("SR 2d: %s; frames split over all %d devices", why,
+                            len(self.mesh.devices))
+                self._build_members(build_mesh((len(self.mesh.devices),), self.mesh.devices))
         for sub in self.members:
             with device_current(sub.config.device):
                 sub.setup(height, width)
-        logger.info("SR frames split over %d devices: %s", len(self.members),
-                    [str(d) for d in self.mesh.frame_devices])
+        logger.info("SR split over %s: %s", self.mesh.shape,
+                    [str(d) for d in self.mesh.devices])
 
     @property
     def plan(self):

@@ -4,9 +4,10 @@
 A mesh is a list of local torch devices on a ``frames`` axis (JAX's
 ``Mesh`` over its local devices): a batch's frames are split over them
 in order, each device runs its part with a copy of the parameters, and
-the parts are gathered in order. A second ``space`` axis is accepted as
-JAX accepts it, but the spatial split is not ported (ROADMAP A11b):
-``shard_frames(..., spatial=True)`` raises ``ShardingError``.
+the parts are gathered in order. A second ``space`` axis splits each
+frame's rows into bands (``parallel.bands``; the SR's ``"2d"`` split):
+``shard_frames(..., spatial=True)`` gives each device its frames' band of
+rows, as JAX's ``frame_sharding(mesh, spatial=True)`` places them.
 """
 
 from __future__ import annotations
@@ -85,6 +86,15 @@ def frames_mesh(device: Optional[DeviceLike], mesh_shape: Tuple[int, ...] = ()) 
     return mesh if len(mesh.frame_devices) > 1 else None
 
 
+def data_mesh(device: Optional[DeviceLike], mesh_shape: Tuple[int, ...] = ()) -> Optional[Mesh]:
+    """The mesh of a data split (the denoiser's centres, the
+    interpolator's pairs): every device of ``mesh_shape`` on one frames
+    axis (() = every local device of ``device``'s type, JAX's
+    ``build_mesh()``), so a restore shaped for some cards keeps every
+    stage on them; None as for ``frames_mesh``."""
+    return frames_mesh(device, (int(np.prod(mesh_shape)),) if mesh_shape else ())
+
+
 def pad_batch_for_mesh(n: int, mesh: Mesh) -> int:
     """Round a batch size up to a multiple of the frames axis."""
     nf = mesh.shape[FRAME_AXIS]
@@ -108,11 +118,19 @@ def frame_split(n: int, mesh: Mesh) -> List[Tuple[int, int, int]]:
 
 def shard_frames(batch: np.ndarray, mesh: Mesh, spatial: bool = False) -> List[torch.Tensor]:
     """A host (B, H, W, C) batch as one equal part a frames-axis device,
-    on that device. B must divide by the frames-axis size."""
-    if spatial:
-        raise ShardingError("the spatial split is not ported (ROADMAP A11b)")
+    on that device. B must divide by the frames-axis size. ``spatial``:
+    each part's rows also in equal bands over the ``space`` axis, one a
+    device, in the mesh's row-major device order (H must divide by the
+    ``space`` size)."""
     nf = mesh.shape[FRAME_AXIS]
     if batch.shape[0] % nf:
         raise ShardingError(f"batch size {batch.shape[0]} not divisible by frames axis {nf}")
     x = torch.from_numpy(np.ascontiguousarray(batch))
-    return [x[a:b].to(mesh.frame_devices[i]) for i, a, b in frame_split(len(x), mesh)]
+    if not spatial:
+        return [x[a:b].to(mesh.frame_devices[i]) for i, a, b in frame_split(len(x), mesh)]
+    ns = mesh.shape.get(SPACE_AXIS, 1)
+    if batch.shape[1] % ns:
+        raise ShardingError(f"height {batch.shape[1]} not divisible by space axis {ns}")
+    rows = batch.shape[1] // ns
+    return [x[a:b, j * rows:(j + 1) * rows].to(mesh.devices[i * ns + j])
+            for i, a, b in frame_split(len(x), mesh) for j in range(ns)]

@@ -94,6 +94,12 @@ _SRVGG_CHAIN_BYTES = {"bfloat16": 512, "float32": 1280, "int8": 384}
 # the Y plane ("luma", 1 channel), SRVGG's from the RGB image ("rgb"),
 # beside the batch's f32 image (12 per output pixel a frame).
 _STATS_BYTES_PER_OUT_PX = {"luma": 64, "rgb": 96}
+# The SR's frames x space split (``plan(band_rows=...)``): beside its
+# bands, the device that gathers them holds per output pixel of the whole
+# frame the gathered output and what runs on it after the gather: SRVGG's
+# (and the enhancement cap's) epilogue on the f32 image, 40 as in SRVGG's
+# row; RRDB's uint8 planes or RGB and their gathered copy, at most 6.
+_GATHERED_BYTES_PER_OUT_PX = 40
 _CPU_BUDGET = 8 * 2**30   # what to plan for when running on the CPU
 # The pre-SR stream (the restorer's denoise and temporal-consistency
 # stages, on the card in the ring's producer thread, beside the SR
@@ -470,7 +476,8 @@ def vsr_bytes(height: int, width: int, window: int, family: str = "basicvsr",
 def plan(height: int, width: int, scale: int, family: str = "rrdb",
          free_bytes: int | None = None, utilization: float = 0.85,
          max_batch: int = 16, dtype: str = "bfloat16", stats: bool = False,
-         reserved_bytes: int = 0, tile_size_override: int = 0, overlap: int = 8) -> Plan:
+         reserved_bytes: int = 0, tile_size_override: int = 0, overlap: int = 8,
+         band_rows: int = 0, bands_here: int = 1) -> Plan:
     """Largest whole-frame batch <= ``max_batch`` that fits
     ``free_bytes * utilization`` (the CPU budget when ``free_bytes`` is
     None) less ``reserved_bytes`` (the pre-SR stream's) at the peak bytes
@@ -480,13 +487,23 @@ def plan(height: int, width: int, scale: int, family: str = "rrdb",
     the pinned size) with the largest batch of at most 64 tiles (the
     diffusion SR: ``max_batch``, as JAX) that fits beside one frame's
     output, and as many frames a dispatch (at most ``max_batch``) as fit
-    beside them."""
+    beside them.
+    ``band_rows`` > 0 plans a device of the SR's frames x space split:
+    ``bands_here`` bands of ``band_rows`` input rows (their own and the
+    halo) a frame at the model's peak, beside the whole frame's gathered
+    output and stats; a tiled plan runs whole frames, without bands."""
     budget = budget_bytes(free_bytes, utilization) - reserved_bytes
     u = body_divisor(family, scale)
     px_bytes = peak_bytes_per_body_px(family, scale, dtype)
     window_bytes = _HAT_WINDOW_BYTES if family == "hat" else 0
     if tile_size_override <= 0:
         per_frame = frame_bytes(height, width, scale, family, dtype, stats)
+        if band_rows > 0:
+            stats_px = ((_STATS_BYTES_PER_OUT_PX["luma"] if family == "rrdb" else
+                         12 + _STATS_BYTES_PER_OUT_PX["rgb"]) * 11 // 10 if stats else 0)
+            per_frame = (bands_here * frame_bytes(band_rows, width, scale, family, dtype)
+                         + height * width * scale ** 2
+                         * (_GATHERED_BYTES_PER_OUT_PX + stats_px))
         whole = Plan(height, width, scale, 1, u, 0, overlap=overlap, px_bytes=px_bytes,
                      window_bytes=window_bytes)
         batch = min(max_batch, budget // per_frame)

@@ -11,8 +11,16 @@ it repeats the left frame instead. The model is the port's
 ``interpolate_padded``, on the card in full f32, with the user's
 weights, ``<weights_dir>/rife-v4.6.npz`` (``InputError`` without them:
 the JAX interpolator draws ``ifnet.init(PRNGKey(0))``, ROADMAP.md "JAX
-faults the port must not copy"). It runs on one card (its frames split
-over several is ROADMAP.md A11b).
+faults the port must not copy").
+
+``sharding="data"`` (JAX ``interpolation.py:113-132``) with more than one
+local device of the interpolator's kind, or of ``mesh_shape``
+(``parallel.mesh.data_mesh``):
+each device holds its own f32 IFNet, ``batch_pairs`` is rounded up to a
+multiple of the devices, and each batch of pairs is split over them with
+``parallel.distributor.run_split`` (each part enqueued with its device
+current, the midpoints gathered in order). Pairs are independent, so the
+midpoints are those of the unsplit interpolator.
 """
 
 from __future__ import annotations
@@ -20,12 +28,15 @@ from __future__ import annotations
 import logging
 import math
 from dataclasses import dataclass
-from typing import Iterator, List, Optional
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from framewright_tpu_torch.errors import ConfigError
 from framewright_tpu_torch.hw import full_f32, resolve_device
+from framewright_tpu_torch.parallel.distributor import run_split
+from framewright_tpu_torch.parallel.mesh import Mesh, data_mesh
 from framewright_tpu_torch.processors.base import to_float, to_uint8
 from framewright_tpu_torch.processors.scene_detection import frame_pair_scores
 
@@ -41,6 +52,8 @@ class InterpolationConfig:
     batch_pairs: int = 4              # frame pairs a device step (at most)
     weights_dir: Optional[str] = None
     device: str = "cuda"
+    sharding: str = "none"            # none | data: split each pair batch over the devices
+    mesh_shape: Tuple[int, ...] = ()  # the data split's cards (parallel.mesh.data_mesh)
 
 
 @dataclass
@@ -64,33 +77,57 @@ def interpolation_factor(source_fps: float, target_fps: float) -> int:
 class FrameInterpolator:
     def __init__(self, config: Optional[InterpolationConfig] = None):
         self.config = config or InterpolationConfig()
-        self.model = None
         self.device: Optional[torch.device] = None
         self.result = InterpolationResult()
+        self._mesh: Optional[Mesh] = None
+        self._models: dict = {}           # device -> IFNet, one a mesh device
 
     def setup(self, height: int, width: int) -> None:
         """Load the model's weights (``InputError`` when they are missing)
-        onto the device."""
+        onto the device, or onto each device of the mesh with
+        ``sharding="data"``."""
         from framewright_tpu_torch.models.ifnet import IFNet
         from framewright_tpu_torch.models.registry import load_aux
 
         cfg = self.config
+        if cfg.sharding not in ("none", "data"):
+            raise ConfigError(f"interpolation sharding must be none|data, got {cfg.sharding!r}")
         self.device = resolve_device(cfg.device)
         spec, sd, src = load_aux(cfg.model_name, cfg.weights_dir)
-        self.model = IFNet.from_state_dict(spec.arch_config, sd, self.device)
+        self._mesh = data_mesh(self.device.type, cfg.mesh_shape) if cfg.sharding == "data" else None
+        devices = self._mesh.frame_devices if self._mesh is not None else (self.device,)
+        self._models = {}
+        for d in devices:
+            if d not in self._models:
+                self._models[d] = IFNet.from_state_dict(spec.arch_config, sd, d)
+        if self._mesh is not None:
+            # pair batches fill the mesh (JAX interpolation.py:129-131)
+            nf = len(self._mesh.frame_devices)
+            cfg.batch_pairs = -(-cfg.batch_pairs // nf) * nf
+            logger.info("interpolation split over %d devices: %s", nf,
+                        [str(d) for d in self._mesh.frame_devices])
         logger.info("interpolation: %s from %s, %d pairs a step", cfg.model_name, src,
                     cfg.batch_pairs)
 
     def teardown(self) -> None:
-        self.model = None
+        self._models = {}
 
     def _mid(self, a: np.ndarray, b: np.ndarray, t: float) -> np.ndarray:
-        """The frames at time ``t`` between uint8 pairs (n, H, W, 3)."""
-        dev = self.device
+        """The frames at time ``t`` between uint8 pairs (n, H, W, 3), each
+        part of the pairs on its mesh device with ``sharding="data"``."""
+        a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+
+        def part(dev, lo: int, hi: int) -> torch.Tensor:
+            at = to_float(torch.from_numpy(a[lo:hi]).to(dev))
+            bt = to_float(torch.from_numpy(b[lo:hi]).to(dev))
+            return to_uint8(self._models[dev].interpolate_padded(at, bt, t))
+
         with torch.no_grad(), full_f32():
-            at = to_float(torch.from_numpy(np.ascontiguousarray(a)).to(dev))
-            bt = to_float(torch.from_numpy(np.ascontiguousarray(b)).to(dev))
-            return to_uint8(self.model.interpolate_padded(at, bt, t)).cpu().numpy()
+            if self._mesh is None:
+                return part(self.device, 0, len(a)).cpu().numpy()
+            devs = self._mesh.frame_devices
+            outs = run_split(len(a), self._mesh, lambda i, lo, hi: part(devs[i], lo, hi))
+            return np.concatenate([o.cpu().numpy() for o in outs])
 
     def interpolate_stream(self, frames_iter: Iterator[np.ndarray], factor: int,
                            result: Optional[InterpolationResult] = None

@@ -79,9 +79,21 @@ family (RRDB: ``apply_fast(x, "bf16")``, no fused epilogue) and lerps the
 output toward the bilinear upscale of the input in the output's dtype
 (``base + cap * (y - base)``, JAX ``super_resolution.py:285-295``; JAX
 resizes with ``method="linear"`` there, not bicubic) before the clip.
-Several cards (JAX ``super_resolution.py:194-215``): the restore wraps
-one processor a card in ``parallel.distributor.ShardedSR``, which splits
-each dispatch's frames over them; this processor runs on one device.
+Several cards (JAX ``super_resolution.py:194-217``): the restore wraps
+one processor a position of the mesh's frames axis in
+``parallel.distributor.ShardedSR``, which splits each dispatch's frames
+over them (``SRConfig.sharding``). Under ``"2d"`` each such processor
+also holds the devices of its ``space`` axis (``space_devices``) and runs
+every whole-frame batch of the RRDB and SRVGG families on row bands of
+its frames, one a device (``parallel.bands``): RRDB through
+``RRDBNet.apply_fast(bands=...)`` (the halo exchanged after the head
+and each RDB), SRVGG through its forward on each band with ``srvgg.band_halo``
+input rows of halo and no exchange. The bands' own rows are gathered on
+the processor's device before the stats and the copy back, so both equal
+the unsplit processor's. Its plan is its device's: the bands there (their
+rows and halo) beside the whole frame's gathered output, epilogue and
+stats (``planner.plan(band_rows=...)``); a plan that tiles runs whole
+frames tiled, without bands.
 ``outscale`` (RealESRGANer's) resizes the uint8 RGB output bicubically
 to round(input side x outscale) on the card (u8 / 255, ``resize_bicubic``,
 clip and round half up again, as JAX's ``_resize``); it needs the RGB
@@ -112,6 +124,8 @@ from framewright_tpu_torch.models.layers import (
 )
 from framewright_tpu_torch.ops import tiling
 from framewright_tpu_torch.ops.metrics import psnr_per_frame, ssim_per_frame
+from framewright_tpu_torch.parallel.bands import Bands
+from framewright_tpu_torch.parallel.mesh import device_current
 from framewright_tpu_torch.processors.base import to_uint8
 
 logger = logging.getLogger(__name__)
@@ -149,6 +163,10 @@ class SRConfig:
     enhancement_cap: float = 1.0      # < 1 lerps the output toward the bilinear
                                       # upscale on the card
     diffusion_steps: int = 0          # diffusion family: DDIM steps (0 = the arch's)
+    sharding: str = "auto"            # auto | data | 2d | none: the split that
+                                      # parallel.distributor.sharded_sr builds;
+                                      # only it reads this: a SuperResolution
+                                      # built directly runs on its one device
 
 
 def _frame_stats(yf: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -246,9 +264,12 @@ def check_frames(name: str, frames: np.ndarray) -> np.ndarray:
 class SuperResolution:
     name = "super_resolution"
 
-    def __init__(self, config: Optional[SRConfig] = None):
+    def __init__(self, config: Optional[SRConfig] = None, space_devices=None):
         self.config = config or SRConfig()
         self.model = None
+        self.space_devices = tuple(torch.device(d) for d in (space_devices or ()))
+        self.bands = None                 # parallel.bands.Bands of a banded plan
+        self._band_models: list = []      # the model on each band's device
         self.device: Optional[torch.device] = None
         self.scale = 0
         self.family = ""
@@ -298,14 +319,17 @@ class SuperResolution:
         net = SRVGGNet if family == "srvgg" else RRDBNet
         masters = sd if cfg.compute_dtype == "float32" else bf16_masters(sd)
         self.model = net.from_state_dict(spec.arch_config, masters, self.device)
-        if dynamic:
-            self.model.fast_weights_int8(None)
-        elif int8:
-            # static scales need activation ranges: calibrated on the
-            # first batch (dispatch), then the body is quantized once
-            self._int8_calibrate = True
-        elif not self._plain_f32:
-            self.model.fast_weights()
+        self._band_models = [self.model if d == self.device else
+                             net.from_state_dict(spec.arch_config, masters, d)
+                             for d in self.space_devices]
+        for m in self._models:
+            if dynamic:
+                m.fast_weights_int8(None)
+            elif not int8 and not self._plain_f32:
+                m.fast_weights()
+        # static int8 scales need activation ranges: calibrated on the
+        # first batch (dispatch), then the body is quantized once
+        self._int8_calibrate = int8 and not dynamic
         self._plan_args = dict(
             height=height, width=width, scale=spec.scale, family=family,
             utilization=cfg.hbm_utilization,
@@ -313,7 +337,44 @@ class SuperResolution:
             dtype="int8-dynamic" if dynamic else cfg.compute_dtype,
             tile_size_override=cfg.tile_size,
             overlap=cfg.tile_overlap or tiling.receptive_overlap(family))
+        if len(self.space_devices) > 1:
+            self._setup_bands(height, spec)
         self._replan()
+        if self.bands is not None and self._plan.tiled:
+            # the bands do not fit whole: whole frames, tiled, without bands
+            logger.info("SR 2d: bands of %d rows tile; whole frames run tiled", self.bands.rows)
+            self.bands = None
+            self._plan_args["band_rows"] = 0
+
+    @property
+    def _models(self) -> list:
+        """The model and its copies on the other band devices, once each."""
+        return list({id(m): m for m in [self.model, *self._band_models]}.values())
+
+    def _setup_bands(self, height: int, spec) -> None:
+        """The row bands of a frame over ``space_devices`` (RRDB: body rows
+        with ``rrdb.BAND_HALO``; SRVGG: input rows with its
+        ``band_halo``) and a plan for the bands on the processor's device
+        (the most on one device) beside the whole frame's gathered
+        output, epilogue and stats."""
+        from framewright_tpu_torch.models import rrdb, srvgg
+        from framewright_tpu_torch.ops.fused_rrdb import resident_requested
+
+        if self.family == "rrdb":
+            if resident_requested():
+                raise ConfigError("the 2d split has no band path for FW_RDB_BODY=resident "
+                                  "(a TPU memory workaround): use sharding data")
+            u = planner_mod.body_divisor(self.family, spec.scale)
+            self.bands = Bands.split(-(-height // u), self.space_devices, rrdb.BAND_HALO)
+        else:
+            u = 1
+            self.bands = Bands.split(height, self.space_devices,
+                                     srvgg.band_halo(spec.arch_config),
+                                     align=1 if spec.scale % 2 == 0 else 2)
+        self._plan_args.update(band_rows=self.bands.rows * u, bands_here=max(
+            map(self.space_devices.count, self.space_devices)))
+        logger.info("SR 2d: %d bands of rows %s (halo %d) on %s", len(self.bands),
+                    list(self.bands.cuts), self.bands.halo, [str(d) for d in self.space_devices])
 
     def _setup_tree(self, height: int, width: int) -> None:
         """HAT and the diffusion SR: the JAX tree at the compute dtype (int8
@@ -393,6 +454,30 @@ class SuperResolution:
     def plan(self) -> Optional[planner_mod.Plan]:
         return self._plan
 
+    def _frames_float(self, x: torch.Tensor) -> torch.Tensor:
+        """``_model_float`` on whole frames: on row bands under a banded
+        plan."""
+        if self.bands is None:
+            return self._model_float(x)
+        if self.family == "rrdb":
+            return self._rrdb_frames(x, "bf16")
+        run = "apply" if self._plain_f32 else "apply_fast"
+        bands = self.bands
+        xs = bands.cut(x)
+        outs = []
+        for i, m in enumerate(self._band_models):
+            with device_current(bands.devices[i]):
+                outs.append(getattr(m, run)(xs[i]))
+        return bands.gather(outs, self.scale, x.device)
+
+    def _rrdb_frames(self, x: torch.Tensor, mode: str):
+        """RRDB's kernel path on whole frames in ``mode``: on row bands
+        under a banded plan."""
+        f32_head = self.config.compute_dtype == "float32"
+        return self.model.apply_fast(x, mode, self.config.yuv_full_range, f32_head=f32_head,
+                                     bands=self.bands,
+                                     replicas=self._band_models if self.bands is not None else None)
+
     def _model_float(self, x: torch.Tensor) -> torch.Tensor:
         """The model's float RGB output on x (N, h, w, 3) in [0, 1] (the
         JAX tiled branch's ``model_fn``): RRDB's kernel path with K2 in its
@@ -458,15 +543,14 @@ class SuperResolution:
             xc = xp[i:i + nb].contiguous()
             if self.family != "rrdb" or cfg.enhancement_cap < 1.0:
                 # stats from the float RGB image before quantization
-                img = self._capped(self._model_float(xc)[:, :h * s, :w * s], x[i:i + nb])
+                img = self._capped(self._frames_float(xc)[:, :h * s, :w * s], x[i:i + nb])
                 if cfg.device_stats:
                     stats += [_frame_stats(img[j:j + 1].float().clamp(0.0, 1.0), x[i + j:i + j + 1])
                               for j in range(len(img))]
                 chunks.append(out_epilogue(img, mode, cfg.yuv_full_range))
                 del img
             else:
-                chunks.append(self.model.apply_fast(xc, mode, cfg.yuv_full_range,
-                                                    f32_head=cfg.compute_dtype == "float32"))
+                chunks.append(self._rrdb_frames(xc, mode))
         if yuv:
             yp, up, vp = (torch.cat([c[k] for c in chunks]) for k in range(3))
             out = (yp[:, :h * s, :w * s], up[:, :h * s // 2, :w * s // 2],
@@ -504,7 +588,8 @@ class SuperResolution:
         with full_f32():
             amax = calibrate_act_scales(self.model, sample,
                                         margin=self.config.int8_calib_margin)
-        self.model.fast_weights_int8(amax)
+        for m in self._models:
+            m.fast_weights_int8(amax)
         self._int8_calibrate = False
         logger.info("int8 static scales calibrated (margin %.2f, %s)",
                     self.config.int8_calib_margin,
@@ -597,6 +682,7 @@ class SuperResolution:
         if self.device is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.model = None
+        self._band_models = []
         self._staging = None
         if self.device is not None and self.device.type == "cuda":
             torch.cuda.empty_cache()

@@ -17,9 +17,15 @@ rounded to uint8. ``auto`` profiles the first max(8, 2r + 1) frames with
 
 On the card: each uint8 frame is uploaded once and the window stays
 there; the blend, the flow net and NAFNet run in f32 (TF32 off: the
-restorer holds ``hw.full_f32`` for the whole restore), one centre per
-step as the JAX denoiser runs without a mesh, and the denoised frame
-comes back to the host as uint8. The scene-change score
+restorer holds ``hw.full_f32`` for the whole restore) on a batch of
+``batch`` centres a step (JAX's ``cfg.batch or nf``: one centre without
+a mesh), and the denoised frames come back to the host as uint8.
+``sharding="data"`` (JAX ``temporal_denoise.py:147-168, 219-260``) with
+more than one local device of the denoiser's kind, or of ``mesh_shape``
+(``parallel.mesh.data_mesh``): each device holds its own nets, a step's
+centres are padded to the mesh with the last one, as JAX pads them, and
+split over it with ``parallel.distributor.run_split``, each device
+holding its centres' full windows; the frames come back in order. The scene-change score
 (``frame_pair_scores``) and the profile stay numpy on the host.
 ``restormer`` runs Restormer (``models.restormer``, at the widths of
 ``<weights_dir>/restormer.npz``: JAX's ``RestormerConfig()`` once
@@ -27,7 +33,7 @@ weighted) on the blend, as ``nafnet`` runs NAFNet. ``flow_model="raft"``
 aligns with RAFT (``RAFTConfig(iters=8)``, ``<weights_dir>/raft-
 things.npz`` or princeton-vl's ``.pth``) instead of the alignment IFNet;
 its correlation volume grows with the square of the pixels, so a step
-runs at most ``flow_pairs`` of the 2r (centre, neighbour) pairs
+runs at most ``flow_pairs`` of its (centre, neighbour) pairs on a device
 (``planner.raft_pairs`` of the free card memory when 0). The JAX
 denoiser's random NAFNet when ``FW_nafnet_dn`` is missing, and its random
 Restormer (``init(PRNGKey(2), dim=8)``) when ``restormer.npz`` is, are
@@ -48,6 +54,8 @@ import torch
 from framewright_tpu_torch.errors import ConfigError
 from framewright_tpu_torch.hw import resolve_device
 from framewright_tpu_torch.ops.warp import flow_warp
+from framewright_tpu_torch.parallel.distributor import run_split
+from framewright_tpu_torch.parallel.mesh import Mesh, data_mesh, pad_batch_for_mesh
 from framewright_tpu_torch.processors.base import to_float, to_uint8
 from framewright_tpu_torch.processors.scene_detection import frame_pair_scores
 
@@ -72,6 +80,9 @@ class TemporalDenoiseConfig:
     weights_dir: Optional[str] = None   # FW_nafnet_dn.npz (else packaged), restormer.npz,
                                         # raft-things.npz here
     device: str = "cuda"            # cuda | cpu
+    batch: int = 0                  # centres a device step (0: one a mesh device)
+    sharding: str = "none"          # none | data: split each step's centres over the devices
+    mesh_shape: Tuple[int, ...] = ()  # the data split's cards (parallel.mesh.data_mesh)
 
 
 @dataclass
@@ -130,36 +141,60 @@ class TemporalDenoiser:
         self.refiner = None       # nafnet | restormer: NHWC f32 in [0, 1] -> the same
         self._dims = (0, 0)
         self.result = TemporalDenoiseResult()
+        if self.config.sharding not in ("none", "data"):
+            raise ConfigError(f"denoise sharding must be none|data, got "
+                              f"{self.config.sharding!r}")
+        self._mesh: Optional[Mesh] = (data_mesh(self.device.type, self.config.mesh_shape)
+                                      if self.config.sharding == "data" else None)
+        nf = len(self._mesh.frame_devices) if self._mesh is not None else 1
+        self._batch = self.config.batch or nf
+        self._nets: dict = {}     # device -> (flow net, refiner) of a mesh device
 
     def setup(self, height: int = 0, width: int = 0) -> None:
-        """Load the nets the method runs (``auto``: after its profile)."""
+        """Load the nets the method runs (``auto``: after its profile),
+        onto each device of the mesh with ``sharding="data"``."""
         cfg = self.config
         self._dims = (height, width)
         if cfg.method in ("auto", "none"):
             return
+        if self.flow_net is None and self.refiner is None:
+            self.flow_net, self.refiner = self._load_nets(self.device, height, width)
+        self._nets = {self.device: (self.flow_net, self.refiner)}
+        if self._mesh is not None:
+            for d in self._mesh.frame_devices:
+                if d not in self._nets:
+                    self._nets[d] = self._load_nets(d, height, width)
+            logger.info("temporal denoise split over %d devices, %d centres a step",
+                        len(self._mesh.frame_devices), self._batch)
+
+    def _load_nets(self, dev: torch.device, height: int, width: int):
+        """-> (flow net, refiner) of the method on ``dev`` (None where the
+        method runs none)."""
+        cfg = self.config
         from framewright_tpu_torch.models import registry, restormer
         from framewright_tpu_torch.models.layers import tree_to_torch
         from framewright_tpu_torch.models.nafnet import NAFNet
 
-        if cfg.method in _ALIGNED and cfg.radius > 0 and self.flow_net is None:
+        flow_net = refiner = None
+        if cfg.method in _ALIGNED and cfg.radius > 0:
             if cfg.flow_model == "raft":
                 _, tree, src = registry.load_aux("raft-things", cfg.weights_dir)
                 pairs = cfg.flow_pairs or self._raft_pairs(height, width)
-                self.flow_net = RAFTFlow(tree_to_torch(tree, self.device), pairs)
+                flow_net = RAFTFlow(tree_to_torch(tree, dev), pairs)
                 logger.info("denoise RAFT: %s, %d pairs a step", src, pairs)
             else:
-                self.flow_net = registry.load_align_ifnet(self.device)
-        if cfg.method == "nafnet" and self.refiner is None:
+                flow_net = registry.load_align_ifnet(dev)
+        if cfg.method == "nafnet":
             spec, sd, src = registry.load_weights("FW_nafnet_dn", cfg.weights_dir,
                                                   allow_random=False)
-            self.refiner = NAFNet.from_state_dict(spec.arch_config, sd, self.device).apply_padded
+            refiner = NAFNet.from_state_dict(spec.arch_config, sd, dev).apply_padded
             logger.info("denoise NAFNet: %s", src)
-        if cfg.method == "restormer" and self.refiner is None:
+        if cfg.method == "restormer":
             spec, tree, src = registry.load_aux("restormer", cfg.weights_dir)
-            self.refiner = functools.partial(restormer.apply_padded,
-                                             tree_to_torch(tree, self.device),
-                                             cfg=spec.arch_config)
+            refiner = functools.partial(restormer.apply_padded, tree_to_torch(tree, dev),
+                                        cfg=spec.arch_config)
             logger.info("denoise Restormer %s: %s", spec.arch_config, src)
+        return flow_net, refiner
 
     def _raft_pairs(self, height: int, width: int) -> int:
         from framewright_tpu_torch import planner
@@ -186,10 +221,12 @@ class TemporalDenoiser:
             nbs = torch.cat([nbs, c.expand(k - n_real, *c.shape)])
         return c, nbs, n_real
 
-    def align(self, c: torch.Tensor, nbs: torch.Tensor) -> torch.Tensor:
+    def align(self, c: torch.Tensor, nbs: torch.Tensor, flow_net=None) -> torch.Tensor:
         """The neighbours warped onto the centre by the flow centre ->
-        neighbour (the JAX ``estimate_flow(c_rep, neighbors)``)."""
-        return flow_warp(nbs, self.flow_net.estimate_flow(c.expand_as(nbs), nbs))
+        neighbour (the JAX ``estimate_flow(c_rep, neighbors)``), with
+        ``flow_net`` (default: the denoiser's)."""
+        flow_net = flow_net or self.flow_net
+        return flow_warp(nbs, flow_net.estimate_flow(c.expand_as(nbs), nbs))
 
     def blend(self, c: torch.Tensor, warped: torch.Tensor, n_real: int) -> torch.Tensor:
         """Photometric blend of the warped slots into the centre; slots
@@ -222,21 +259,52 @@ class TemporalDenoiser:
     def denoise_window(self, window: List[torch.Tensor], center_idx: int) -> np.ndarray:
         """One centre: uint8 device frames -> the denoised uint8 frame on
         the host."""
+        return self._denoise_batch([(window, center_idx)])[0]
+
+    def _step(self, windows: List[Tuple[List[torch.Tensor], int]],
+              dev: torch.device) -> torch.Tensor:
+        """A batch of centres on ``dev`` (each window's frames moved there)
+        -> their denoised uint8 frames (n, H, W, 3) on ``dev``: each
+        centre's 2r neighbours aligned by the flow net in one call and
+        blended (the planner's pre-SR row holds one centre's window), then
+        the refiner on the batch."""
         cfg = self.config
-        c, nbs, n_real = self._slots(window, center_idx)
-        out = c
-        if cfg.method in _ALIGNED and len(nbs):
-            out = self.blend(c, self.align(c, nbs), n_real)
+        flow_net, refiner = self._nets.get(dev, (self.flow_net, self.refiner))
+        cs, outs = [], []
+        for w, ci in windows:
+            c, nbs, n_real = self._slots([f.to(dev) for f in w], ci)
+            cs.append(c)
+            aligned = cfg.method in _ALIGNED and len(nbs)
+            outs.append(self.blend(c, self.align(c, nbs, flow_net), n_real) if aligned else c)
+            del nbs
+        c, out = torch.stack(cs), torch.stack(outs)
+        del cs, outs
         if cfg.method in ("nafnet", "restormer"):
-            out = self.refiner(out[None])[0]
+            out = refiner(out)
         elif cfg.method == "bilateral":
-            out = self.bilateral(c[None])[0]
+            out = self.bilateral(c)
         blended = cfg.strength * out + (1.0 - cfg.strength) * c
         if cfg.chroma_only:
             # keep the centre's luma: the luma delta added to every channel
             w = torch.tensor(_BT601, dtype=torch.float32, device=c.device)
             blended = blended + ((c - blended) * w).sum(-1, keepdim=True)
-        return to_uint8(blended.clamp(0.0, 1.0)).cpu().numpy()
+        return to_uint8(blended.clamp(0.0, 1.0))
+
+    def _denoise_batch(self, windows: List[Tuple[List[torch.Tensor], int]]
+                       ) -> List[np.ndarray]:
+        """A step's centres -> their denoised uint8 frames on the host, in
+        order: on the denoiser's device, or padded to the mesh with the
+        last centre and split over it."""
+        if not windows:
+            return []
+        n = len(windows)
+        if self._mesh is None:
+            return list(self._step(windows, self.device).cpu().numpy())
+        padded = windows + [windows[-1]] * (pad_batch_for_mesh(n, self._mesh) - n)
+        devs = self._mesh.frame_devices
+        outs = run_split(len(padded), self._mesh,
+                         lambda i, a, b: self._step(padded[a:b], devs[i]))
+        return list(np.concatenate([o.cpu().numpy() for o in outs])[:n])
 
     # -- the stream ---------------------------------------------------------------
     def _auto_configure(self, head: List[np.ndarray]) -> None:
@@ -273,12 +341,22 @@ class TemporalDenoiser:
         r = cfg.radius
         buf: List[Tuple[np.ndarray, torch.Tensor]] = []   # (host, device) frames
         out_idx = 0
+        pending: List[Tuple[List[torch.Tensor], int]] = []   # queued (window, centre)
 
-        def denoise(center_pos: int) -> np.ndarray:
+        def queue(center_pos: int) -> None:
             lo = max(0, center_pos - r)
             hi = min(len(buf), center_pos + r + 1)
             self.result.frames += 1
-            return self.denoise_window([f for _, f in buf[lo:hi]], center_pos - lo)
+            pending.append(([f for _, f in buf[lo:hi]], center_pos - lo))
+
+        def flush(final: bool) -> List[np.ndarray]:
+            """Steps of ``batch`` queued centres (at the end, the rest too)."""
+            nonlocal pending
+            done: List[np.ndarray] = []
+            while len(pending) >= self._batch or (final and pending):
+                step, pending = pending[:self._batch], pending[self._batch:]
+                done += self._denoise_batch(step)
+            return done
 
         prev: Optional[np.ndarray] = None
         for frame in frames_iter:
@@ -287,7 +365,7 @@ class TemporalDenoiser:
                 if score >= cfg.scene_change_threshold:
                     # every frame before the cut, then a fresh window
                     while out_idx < len(buf):
-                        yield denoise(out_idx)
+                        queue(out_idx)
                         out_idx += 1
                     self.result.scene_resets += 1
                     buf, out_idx = [], 0
@@ -295,14 +373,16 @@ class TemporalDenoiser:
             prev = frame
             # frames whose forward context is complete
             while out_idx + r < len(buf):
-                yield denoise(out_idx)
+                queue(out_idx)
                 out_idx += 1
                 if out_idx > r:              # drop frames no window needs
                     buf = buf[out_idx - r:]
                     out_idx = r
+            yield from flush(False)
         while out_idx < len(buf):
-            yield denoise(out_idx)
+            queue(out_idx)
             out_idx += 1
+        yield from flush(True)
 
 
 class FlickerReducer:

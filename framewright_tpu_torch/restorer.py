@@ -151,7 +151,9 @@ it (teed off the pre-SR stream), so the output is a straight run's;
 ``sr_ensemble`` runs ``testing.EnsembleSR``; else ``SuperResolution``
 with ``outscale`` and the enhancement cap, one a card behind
 ``parallel.distributor.ShardedSR`` when there are several local cards
-(``--batch`` stays a dispatch's frames, split over them). The video SR, the ensemble and
+(``--batch`` stays a dispatch's frames, split over them;
+``sharding_strategy`` "spatial" runs each frame's rows in bands over
+pairs of cards, ``SRConfig.sharding="2d"``). The video SR, the ensemble and
 ``outscale`` take the RGB writer path, as in JAX. Each SR processor
 plans beside the pre-SR and face reserves: the ensemble's members share
 them, and a video SR window that does not fit beside them raises
@@ -244,8 +246,8 @@ from framewright_tpu_torch.processors.inpaint import (
     SubtitleRemover,
     WatermarkRemover,
 )
-from framewright_tpu_torch.parallel.distributor import ShardedSR
-from framewright_tpu_torch.parallel.mesh import frames_mesh
+from framewright_tpu_torch.parallel.distributor import ShardedSR, sr_mesh
+from framewright_tpu_torch.parallel.mesh import data_mesh, pad_batch_for_mesh
 from framewright_tpu_torch.processors.latent_temporal import LatentTemporalSmoother
 from framewright_tpu_torch.processors.qp_removal import QPArtifactRemover, QPRemovalConfig
 from framewright_tpu_torch.processors.scene_intelligence import (
@@ -457,13 +459,31 @@ def output_size(cfg: Config, height: int, width: int):
     return height * scale, width * scale
 
 
+# Config.sharding_strategy -> SRConfig.sharding: "spatial" is the SR's
+# frames x space split, which the JAX restorer never maps (ROADMAP, "JAX
+# behaviour the port does not keep")
+SR_SHARDING = {"auto": "auto", "data": "data", "spatial": "2d", "none": "none"}
+
+
+def _data_sharding(cfg: Config) -> str:
+    """The denoiser's and the interpolator's split, as the JAX restorer
+    maps it (``framewright_tpu/restorer.py:595-606, 978-987``): "data" for
+    ``sharding_strategy`` "auto" and "data", else "none"."""
+    return "data" if cfg.sharding_strategy in ("auto", "data") else "none"
+
+
 def build_sr(cfg: Config, reserved_bytes: int = 0):
     """The enhance stage's SR processor (the JAX restorer's choice,
     ``framewright_tpu/restorer.py:365-394``): a video SR row runs the
     chunked video SR (with ``weights_dir``, which the JAX restorer leaves
     out), ``sr_ensemble`` the ensemble, else ``SuperResolution``; each
     plans beside ``reserved_bytes``."""
-    if get_model(cfg.sr_model).family in VSR_FAMILIES:
+    family = get_model(cfg.sr_model).family
+    if cfg.sharding_strategy == "spatial" and (family in VSR_FAMILIES or cfg.ensemble_models()
+                                               or family == "diffusion"):
+        logger.info("sharding spatial: %s has no band path; it runs as under 'data'",
+                    "the ensemble" if cfg.ensemble_models() else cfg.sr_model)
+    if family in VSR_FAMILIES:
         return VideoSuperResolution(VSRConfig(
             model_name=cfg.sr_model, chunk=cfg.batch_size or 8,
             compute_dtype=cfg.compute_dtype,
@@ -477,12 +497,13 @@ def build_sr(cfg: Config, reserved_bytes: int = 0):
                           compute_dtype=cfg.compute_dtype, device=_device(cfg),
                           hbm_utilization=cfg.hbm_utilization, reserved_bytes=reserved_bytes)
     sr_cfg = build_sr_config(cfg, reserved_bytes)
-    # the frames split over the local cards (JAX super_resolution.py:194-215);
-    # JAX's restorer never maps sharding_strategy, the port honours "none".
-    # The diffusion SR keeps one card (its noise is drawn per dispatch chunk).
-    mesh = (None if cfg.sharding_strategy == "none"
-            or get_model(cfg.sr_model).family == "diffusion"
-            else frames_mesh(sr_cfg.device, cfg.mesh_shape))
+    # the split over the local cards (JAX super_resolution.py:194-217);
+    # JAX's restorer never maps sharding_strategy, the port honours "none"
+    # and maps "spatial" to the SR's "2d" (SR_SHARDING). The diffusion SR
+    # keeps one card (its noise is drawn per dispatch chunk).
+    if get_model(cfg.sr_model).family == "diffusion":
+        sr_cfg.sharding = "none"
+    mesh = sr_mesh(sr_cfg, cfg.mesh_shape)
     return SuperResolution(sr_cfg) if mesh is None else ShardedSR(sr_cfg, mesh)
 
 
@@ -500,6 +521,7 @@ def build_sr_config(cfg: Config, reserved_bytes: int = 0) -> SRConfig:
         outscale=cfg.outscale,
         enhancement_cap=cfg.max_enhancement_strength,
         diffusion_steps=cfg.diffusion_steps,
+        sharding=SR_SHARDING[cfg.sharding_strategy],
     )
 
 
@@ -1288,6 +1310,9 @@ class VideoRestorer:
         pairs = (state["pairs"] if state else
                  planner.interpolation_pairs(oh, ow, _free_bytes(_device(cfg)),
                                              cfg.hbm_utilization, max_pairs=4))
+        mesh = data_mesh(_device(cfg), cfg.mesh_shape) if _data_sharding(cfg) == "data" else None
+        if mesh is not None:        # the interpolator's pair batch fills the mesh
+            pairs = pad_batch_for_mesh(pairs, mesh)
         if checkpointed:
             self.checkpoints.checkpoint.stage_state[_INTERPOLATE] = {"pairs": pairs}
         done = (self.checkpoints.resume_point(_INTERPOLATE)
@@ -1300,7 +1325,7 @@ class VideoRestorer:
             scene_change_threshold=cfg.scene_threshold,
             scene_change_skip=cfg.scene_change_skip, batch_pairs=pairs,
             weights_dir=str(cfg.weights_dir) if cfg.weights_dir else None,
-            device=_device(cfg)))
+            device=_device(cfg), sharding=_data_sharding(cfg), mesh_shape=cfg.mesh_shape))
         n = keep
         est_total = (data["enhanced_frames"] - 1) * factor + 1
         tracker = _EtaTracker()
@@ -1435,7 +1460,7 @@ class VideoRestorer:
                 method=_denoise_method(cfg), scene_change_threshold=cfg.scene_threshold,
                 flow_model=cfg.flow_model, flow_pairs=self._raft_pairs,
                 weights_dir=str(cfg.weights_dir) if cfg.weights_dir else None,
-                device=dev))
+                device=dev, sharding=_data_sharding(cfg), mesh_shape=cfg.mesh_shape))
             denoiser.setup(data["height"], data["width"])
             frames = denoiser.denoise_stream(frames)
         if cfg.temporal_consistency:

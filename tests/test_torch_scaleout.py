@@ -108,8 +108,16 @@ def test_mesh_as_jax():
     assert str(got.value) == str(want.value)
     parts = mesh.shard_frames(np.arange(16 * 3).reshape(16, 1, 1, 3), m8)
     assert [p.shape[0] for p in parts] == [2] * 8 and int(parts[7][1, 0, 0, 2]) == 47
-    with pytest.raises(ShardingError, match="A11b"):
-        mesh.shard_frames(np.zeros((8, 4, 4, 3)), m8, spatial=True)
+    # spatial: each device's band of its frames' rows, as JAX places them
+    m42, jm42 = mesh.build_mesh((4, 2), ["cpu"] * 8), jmesh.build_mesh((4, 2))
+    xs = np.arange(8 * 4 * 2 * 3).reshape(8, 4, 2, 3)
+    bands = mesh.shard_frames(xs, m42, spatial=True)
+    placed = {s.device: np.asarray(s.data)
+              for s in jmesh.shard_frames(xs, jm42, spatial=True).addressable_shards}
+    assert [b.numpy().tolist() for b in bands] == [placed[d].tolist()
+                                                   for d in jm42.devices.flat]
+    with pytest.raises(ShardingError, match="space axis"):
+        mesh.shard_frames(np.zeros((8, 3, 4, 3)), m42, spatial=True)
     assert mesh.frame_split(7, mesh.build_mesh((3,), ["cpu"] * 3)) == [(0, 0, 3), (1, 3, 5),
                                                                       (2, 5, 7)]
     assert mesh.frame_split(1, mesh.build_mesh((3,), ["cpu"] * 3)) == [(0, 0, 1)]
