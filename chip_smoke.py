@@ -312,6 +312,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -1292,7 +1293,8 @@ def film_phase(tmp: Path, nw: str, dev, x: dict) -> dict:
             and res.resumed_from == bs
             and json.loads(json.dumps(res.post_sr)) == summary["post_sr"]
             and res.errors == 0, f"film resume: {rec}")
-    # the parts' times: card (CUDA events) and host (least of 3)
+    # the parts' times: card (CUDA events) and host (one call each but the
+    # native encode: least of 3 cost the smoke ~20 s, 14 of them the gate's)
     one = decoded[:1]
     x1 = torch.from_numpy(one).to(dev).to(torch.bfloat16) / 255.0
     staging = HostStaging()
@@ -1311,17 +1313,18 @@ def film_phase(tmp: Path, nw: str, dev, x: dict) -> dict:
         v.validate()
 
     host = {"dedup hash, a 1080p frame": host_ms(
-                lambda: FrameDeduplicator().analyze(iter(decoded[:4]))) / 4,
+                lambda: FrameDeduplicator().analyze(iter(decoded[:4])), 1) / 4,
             "defect repair, a 1080p frame (5-frame median)": host_ms(
                 lambda: list(DefectRepairer().process_stream(iter(decoded[:5]))), 1) / 5,
             "grain match, a 4K frame (synthesize)": host_ms(
-                lambda: gm.process(frame4k, target_level=0.9)),
-            "grain level estimate, a 4K frame": host_ms(lambda: estimate_grain_level(frame4k)),
-            "gate: observe and score one RGB pair": host_ms(gate_pair),
+                lambda: gm.process(frame4k, target_level=0.9), 1),
+            "grain level estimate, a 4K frame": host_ms(
+                lambda: estimate_grain_level(frame4k), 1),
+            "gate: observe and score one RGB pair": host_ms(gate_pair, 1),
             "encode a 4K RGB frame (native)": host_ms(
                 lambda: native.rgb_to_yuv420(frame4k, True)),
             "encode a 4K RGB frame (numpy)": host_ms(
-                lambda: y4m_mod.rgb_to_yuv420(frame4k, True), 2)}
+                lambda: y4m_mod.rgb_to_yuv420(frame4k, True), 1)}
     del out4k, x1
     emit({"phase": "film", "card_ms": card, "host_ms": host,
           "seconds": round(time.perf_counter() - t0, 3)})
@@ -1580,7 +1583,8 @@ def archive_phase(tmp: Path, dev, x: dict) -> dict:
             and (rec["enhance"]["status"], rec["enhance"]["attempts"]) == ("completed", 0)
             and res.interpolation["resumed_from"] == unit, f"archive resume: {rec}")
 
-    # the parts' times: card (CUDA events) and host (least of 3); the face
+    # the parts' times: card (CUDA events) and host (least of 3; one call for
+    # the skin detector and the scene score, for the smoke's time); the face
     # models' own peaks (a crop, a 4K frame) beside the planner's face row
     cs = fr_gpu.config.crop_size
     xcrop = torch.rand(1, cs, cs, 3, device=dev)
@@ -1595,12 +1599,12 @@ def archive_phase(tmp: Path, dev, x: dict) -> dict:
                 "IFNet, a synthesized 4K frame": ifnet_ms / pairs,
                 f"GFPGANv1.4, a {cs}x{cs} crop (f32)": cuda_ms(lambda: fr_gpu._run(xcrop), 5, 1),
                 "RetinaFace, a 4K frame (f32)": cuda_ms(lambda: det_gpu.model.apply(x4k), 5, 1)}
-    host = {"skin detector, a 4K frame": host_ms(lambda: FaceDetector().detect(a)),
+    host = {"skin detector, a 4K frame": host_ms(lambda: FaceDetector().detect(a), 1),
             "RetinaFace detect, a 4K frame (upload, card, NMS)": host_ms(
                 lambda: det_gpu.detect(a)),
             "face restore, a 4K frame (detect, crops, paste)": host_ms(
                 lambda: fr_gpu.restore_frame(a), 2),
-            "scene score, a 4K pair": host_ms(lambda: frame_pair_scores(a[None], b[None]))}
+            "scene score, a 4K pair": host_ms(lambda: frame_pair_scores(a[None], b[None]), 1)}
     del fr_gpu, fr_cpu, det_gpu, det_cpu, xcrop, x4k
     rec = {"phase": "archive", "card_ms": card, "host_ms": host, "face_peak_bytes": face_peaks,
            "face_planner_bytes": planner.face_bytes("gfpgan", 4 * h, 4 * w, retinaface=True),
@@ -4404,7 +4408,11 @@ SPLIT2D_PLANNED = ("x2plus bf16", "animevideov3 bf16")   # peaks held to the pla
 SPLIT2D_HW = (540, 960)          # the data splits' frames
 STATS_TOL = {"psnr": 0.05, "ssim": 2e-3, "luma": 0.05, "std": 0.05}   # tests/test_torch_quality.py
 VERIFY_MODELS = ("RealESRGAN_x2plus", "realesr-animevideov3", "HAT_SRx4", "FW_nafnet_dn",
-                 "restormer")
+                 "restormer", "big-lama")
+SPLIT_DIFF_HW = (136, 240)       # the diffusion SR's split: 2 frames to 544x960, 1 step
+SPLIT_DIFF_BOUNDS = {"max_abs": 3, "mean": 0.3}   # C8's bf16 bounds (ROADMAP C caveats)
+SPLIT_VSR_HW = (272, 480)        # the video SRs' split: 8 frames, chunk 4, overlap 2
+SPLIT_VSR_SHARE = 5e-3           # 1 LSB on at most 0.5% where a band's conv takes another algorithm
 
 
 @contextlib.contextmanager
@@ -4439,8 +4447,12 @@ def split2d_phase(tmp: Path, dev, x: dict) -> dict:
     over two ``cuda:0`` entries against ``"none"`` (uint8 within 1 LSB).
     ``models verify`` through the CLI on ``.pth`` files drawn here by
     ``upstream_ref.seeded_state_dict``: RealESRGAN_x2plus,
-    realesr-animevideov3, HAT_SRx4, FW_nafnet_dn and restormer each PASS
-    with rc 0, x2plus with one key removed rc 1 with the manifest's line."""
+    realesr-animevideov3, HAT_SRx4, FW_nafnet_dn, restormer and big-lama
+    (Big-LaMa's widths) each PASS at >= 45 dB with rc 0, x2plus with one
+    key removed rc 1 with the manifest's line; ``models port big-lama``
+    writes the ``.npz`` the inpainter reads. Slice 18 (A11d, A11c):
+    ``split_models``, the diffusion SR's frames split and the video SRs'
+    spatial split."""
     import torch
 
     from framewright_tpu_torch import cli
@@ -4599,6 +4611,8 @@ def split2d_phase(tmp: Path, dev, x: dict) -> dict:
             f"denoise data split: {denoise}")
     times["data_split_walls_s"] = walls
 
+    times.update(split_models(tmp, pair))
+
     # models verify through the CLI on seeded upstream-layout checkpoints
     vdir = tmp / "verify"
     vdir.mkdir(exist_ok=True)
@@ -4620,8 +4634,24 @@ def split2d_phase(tmp: Path, dev, x: dict) -> dict:
         rc, lines, err, wall = verify(name, path)
         verified[name] = {"rc": rc, "lines": lines, "stderr": err, "wall_s": wall}
         emit({"phase": "split2d", "name": f"models verify {name}", **verified[name]})
-        require(rc == 0 and lines and lines[-1].endswith("[PASS]"),
+        require(rc == 0 and lines and lines[-1].endswith("[PASS]")
+                and float(lines[-1].split()[3]) >= 45.0,
                 f"models verify {name}: rc {rc}, {lines} {err}")
+        if name == "big-lama":          # models port writes the .npz the inpainter reads
+            buf, err = io.StringIO(), io.StringIO()
+            with with_env({"FRAMEWRIGHT_WEIGHTS_DIR": str(vdir / "ported")}), \
+                    contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+                rc = cli.main(["models", "port", name, "--path", str(path)])
+            from framewright_tpu_torch.processors.inpaint import InpaintConfig, WatermarkRemover
+
+            lama = WatermarkRemover(InpaintConfig(weights_dir=str(vdir / "ported")))
+            lama.setup()
+            emit({"phase": "split2d", "name": "models port big-lama", "rc": rc,
+                  "lines": buf.getvalue().splitlines(), "stderr": err.getvalue(),
+                  "inpainter_arch": dataclasses.asdict(lama._arch)})
+            require(rc == 0 and buf.getvalue().strip() == str(vdir / "ported" / "big-lama.npz")
+                    and lama._arch.n_blocks == 18, f"models port big-lama: rc {rc}")
+            del lama
         if name == "RealESRGAN_x2plus":
             sd.pop("body.7.rdb2.conv3.bias")
             torch.save(sd, vdir / "broken.pth")
@@ -4636,6 +4666,146 @@ def split2d_phase(tmp: Path, dev, x: dict) -> dict:
     times["seconds"] = time.perf_counter() - t_phase
     emit({"phase": "split2d", **times})
     return times
+
+
+def vsr_seeded_tree(spec, seed: int) -> dict:
+    """The registry's seeded draw of a video SR row; BasicVSR's residual
+    blocks scaled by 0.1, as mmediting initialises them (the plain draw
+    saturates its output), as ``tests/test_torch_split_models.py`` draws
+    it."""
+    from framewright_tpu_torch.models import registry
+
+    tree = registry.TREE_MODULES[spec.family].init_params(spec.arch_config, seed)
+    if spec.family == "basicvsr":
+        for trunk in (tree["backward"], tree["forward"]):
+            for k in ("conv1", "conv2"):
+                trunk[k]["w"] = trunk[k]["w"] * np.float32(0.1)
+    return tree
+
+
+def split_models(tmp: Path, pair) -> dict:
+    """Slice 18 (A11d, A11c) on the card, over two ``cuda:0`` entries.
+    DiffusionSR_x4 (bf16, 1 step, 2 frames of 240x136 in one dispatch):
+    ``ShardedSR`` under ``"data"`` draws the dispatch's noise once (the
+    rows the members sample from, their bits equal to the one-card draw)
+    and its output is held to the one-card processor's (byte-equal, or
+    within C8's bf16 bounds where cuDNN takes another algorithm for a
+    member's batch of one: then it must equal one card run a frame at a
+    time on the same noise rows, which shows the batch, not the noise, as
+    the cause); the ms of a dispatch (CUDA events around dispatch and
+    materialize). BasicVSR and
+    TVSR_x4 (float32, 8 frames of 480x272 in chunks of 4, overlap 2, the
+    seeded rows): ``VSRConfig(sharding="spatial")`` against ``"none"``,
+    uint8 equal or within 1 LSB on at most 0.5%, a resumed split run equal
+    to the straight one, the bytes gathered and exchanged a window, the
+    card ms of a window and the peak against the split's plan."""
+    import torch
+
+    from framewright_tpu_torch.models import registry
+    from framewright_tpu_torch.ops import jax_random
+    from framewright_tpu_torch.parallel.bands import Bands
+    from framewright_tpu_torch.parallel.distributor import ShardedSR
+    from framewright_tpu_torch.parallel.mesh import build_mesh
+    from framewright_tpu_torch.processors.super_resolution import SRConfig, SuperResolution
+    from framewright_tpu_torch.processors.video_sr import VideoSuperResolution, VSRConfig
+    from framewright_tpu_torch.hw import full_f32
+
+    t0 = time.perf_counter()
+    out: dict = {}
+    frames = synthetic_frames(2, *SPLIT_DIFF_HW, seed=74)
+    cfg = dict(model_name="DiffusionSR_x4", batch_size=2, diffusion_steps=1, device=str(pair[0]))
+    procs = {"one card": SuperResolution(SRConfig(**cfg, sharding="none")),
+             "split": ShardedSR(SRConfig(**cfg, sharding="data"), build_mesh((2,), pair))}
+    used = []                     # the rows each member sampled from, in order
+
+    def spy(x, noise=None, m=None, real=None):
+        used.append(noise(m.plan, m.device))
+        return real(x, noise=noise)
+
+    for m in procs["split"].members:
+        m.dispatch = functools.partial(spy, m=m, real=m.dispatch)
+    got, ms = {}, {}
+    for name, proc in procs.items():
+        proc.setup(*SPLIT_DIFF_HW)
+        got[name] = proc.materialize(proc.dispatch(frames))
+        ms[name] = cuda_ms(lambda: proc.materialize(proc.dispatch(frames)), SPLIT2D_REPS)
+    noise = torch.cat(used[:2])
+    h4, w4 = SPLIT_DIFF_HW[0] * 4, SPLIT_DIFF_HW[1] * 4
+    bits = torch.equal(noise, jax_random.normal(0, (2, h4, w4, 3), pair[0]))
+    d = np.abs(got["split"].astype(np.int16) - got["one card"].astype(np.int16))
+    # where they differ: the one card's batch of two against a member's batch
+    # of one; one card run a frame at a time on the same noise rows
+    one = procs["one card"]
+    alone = np.concatenate([one.materialize(one.dispatch(
+        frames[i:i + 1], noise=lambda plan, dev, i=i: noise[i:i + 1])) for i in range(2)])
+    rec = {"phase": "split2d", "name": "diffusion SR split over two cuda:0 entries",
+           "members": len(procs["split"].members), "noise_bits_equal": bits,
+           "max_abs": int(d.max()), "mean_abs": float(d.mean()),
+           "share_differing": float((d > 0).mean()), "byte_equal": bool(d.max() == 0),
+           "equal_to_one_card_a_frame_at_a_time": bool(np.array_equal(alone, got["split"])),
+           "ms_per_dispatch": ms, "ratio": ms["split"] / ms["one card"],
+           "tol": SPLIT_DIFF_BOUNDS}
+    emit(rec)
+    require(bits and got["split"].shape == (2, h4, w4, 3) and d.max() <= 3
+            and d.mean() < SPLIT_DIFF_BOUNDS["mean"]
+            and rec["equal_to_one_card_a_frame_at_a_time"], f"diffusion split: {rec}")
+    for proc in procs.values():
+        proc.teardown()
+    out["diffusion_ms_per_dispatch"] = ms
+    del procs
+    torch.cuda.empty_cache()
+
+    wdir = tmp / "vsr_split_weights"
+    wdir.mkdir(exist_ok=True)
+    frames = synthetic_frames(8, *SPLIT_VSR_HW, seed=75)
+    for model in ("BasicVSR", "TVSR_x4"):
+        spec = registry.get_model(model)
+        registry.write_npz(vsr_seeded_tree(spec, 9), wdir / f"{model}.npz")
+        runs, stats = {}, {}
+        with local_devices_as(pair):
+            for sharding in ("spatial", "none"):
+                sr = VideoSuperResolution(VSRConfig(model_name=model, chunk=4, overlap=2,
+                                                    compute_dtype="float32",
+                                                    weights_dir=str(wdir), sharding=sharding,
+                                                    device=str(pair[0])))
+                sr.setup(*SPLIT_VSR_HW)
+                require((sr.bands is not None) == (sharding == "spatial"),
+                        f"{model} {sharding}: bands {sr.bands}")
+                g0, e0 = Bands.gather.bytes, Bands.exchange.bytes
+                first, peak = part_peak(lambda: sr.process_batch(frames[:4]))
+                window = {"gathered_bytes": Bands.gather.bytes - g0,
+                          "exchanged_bytes": Bands.exchange.bytes - e0,
+                          "peak_mem_bytes": peak, "planner_bytes": sr.plan.est_bytes}
+                runs[sharding] = np.concatenate([first, sr.process_batch(frames[4:])])
+                win = np.ascontiguousarray(np.concatenate([frames[2:4], frames[4:]]))
+                with full_f32():
+                    window["card_ms_per_window"] = cuda_ms(lambda: sr._run(win), 2, warmup=1)
+                stats[sharding] = window
+                if sharding == "spatial":
+                    stats["bands"] = [list(c) for c in sr.bands.cuts]
+                    sr.reset_context()
+                    sr.seed_context(list(frames[2:4]))
+                    resumed = sr.process_batch(frames[4:])
+                sr.teardown()
+        d = np.abs(runs["spatial"].astype(np.int16) - runs["none"].astype(np.int16))
+        rec = {"phase": "split2d", "name": f"{model} spatial split over two cuda:0 entries",
+               **stats, "max_abs": int(d.max()), "share_differing": float((d > 0).mean()),
+               "byte_equal": bool(d.max() == 0),
+               "resumed_equal": bool(np.array_equal(resumed, runs["spatial"][4:])),
+               "ratio": stats["spatial"]["card_ms_per_window"]
+               / stats["none"]["card_ms_per_window"],
+               "tol": {"max_abs": 1, "share": SPLIT_VSR_SHARE}}
+        emit(rec)
+        require(d.max() <= 1 and (d > 0).mean() <= SPLIT_VSR_SHARE and rec["resumed_equal"],
+                f"{model} spatial split: {rec}")
+        require(stats["spatial"]["peak_mem_bytes"] <= stats["spatial"]["planner_bytes"],
+                f"{model} spatial split: peak over its plan {stats['spatial']}")
+        out[f"{model}_card_ms_per_window"] = {k: stats[k]["card_ms_per_window"]
+                                              for k in ("spatial", "none")}
+        torch.cuda.empty_cache()
+    out["split_models_s"] = time.perf_counter() - t0
+    emit({"phase": "split2d", "name": "split models walls and ms", **out})
+    return out
 
 
 def torch_device_name() -> str:

@@ -33,9 +33,13 @@ validation. The restore splits each SR dispatch's frames over the
 mesh's cards (``restorer.build_sr``, ``parallel.distributor.ShardedSR``;
 ``mesh_shape``: () = every local card; ``batch_size`` stays the frames
 of a dispatch, as in JAX), unless ``sharding_strategy="none"``, which
-JAX's restorer never maps; with one card nothing is split. ``spatial`` is the
-SR's frames x space split (``SRConfig.sharding="2d"``: each frame's rows in
-bands over a ``space`` axis of 2), which JAX's restorer never maps either;
+JAX's restorer never maps; with one card nothing is split. The diffusion
+SR splits frames too, each dispatch's noise drawn once, as one card draws
+it. ``spatial`` is the SR's frames x space split (``SRConfig.sharding="2d"``:
+each frame's rows in bands over a ``space`` axis of 2), which JAX's
+restorer never maps either. "auto" and "spatial" split the video SR's
+window height (BasicVSR, TVSR_x4: ``VSRConfig.sharding="spatial"``, row
+bands over the cards of ``mesh_shape``), as JAX's restorer maps them;
 "auto" and "data" also split the temporal denoiser's centres and the
 interpolator's pairs over the cards, as JAX's restorer maps them. ``multihost`` brings up the process group when the
 restorer is built (``parallel.dcn.ensure_distributed``);
@@ -72,8 +76,9 @@ from framewright_tpu_torch.errors import ConfigError
 
 logger = logging.getLogger(__name__)
 
-# what the port runs: the RRDB and SRVGG models of the registry (the
-# other families are queued in ROADMAP.md A)
+# the compute dtypes and devices a restore may ask for (every registry
+# family runs; int8 runs the RRDB and SRVGG kernels, the other families
+# in bf16 as JAX's do)
 _VALID_DTYPES = ("bfloat16", "float32", "int8")
 _VALID_DEVICES = ("auto", "cuda", "cpu")
 _VALID_REPORTS = ("json", "html", "none")

@@ -511,3 +511,80 @@ def init_params(cfg: CodeFormerConfig = CodeFormerConfig(), seed: int = 0) -> Di
                  for r in cfg.connect},
         "n_head": np.asarray(cfg.n_head, np.int32),
     }
+
+
+def port_state_dict(sd, cfg: CodeFormerConfig = None) -> Dict:
+    """sczhou's CodeFormer state dict (a released ``codeformer.pth``) ->
+    the JAX ``codeformer`` tree (numpy f32): the port's copy of
+    ``framewright_tpu.models.torch_port.port_codeformer``, walking the
+    blocks in ``encoder_plan`` / ``generator_plan`` order; Linear weights
+    to (in, out), the packed attention ``in_proj`` to (d, 3d) in q|k|v
+    column order. ``cfg`` defaults to the state dict's
+    (``config_from_state_dict``: the published config for a released
+    file, which JAX assumes). The port's own loader reads sczhou's names
+    directly (``registry.load_aux``); this is the ``.npz`` that ``models
+    port`` writes."""
+    from framewright_tpu_torch.models.layers import np_leaf, port_conv
+
+    cfg = cfg or config_from_state_dict(sd)
+
+    def f32(key):
+        return np_leaf(sd[key]).astype(np.float32)
+
+    def lin(prefix, bias=True):
+        p = {"w": f32(prefix + ".weight").T}
+        if bias:
+            p["b"] = f32(prefix + ".bias")
+        return p
+
+    def norm(prefix):
+        return {"g": f32(prefix + ".weight"), "b": f32(prefix + ".bias")}
+
+    def resblock(prefix, cin, cout):
+        p = {"norm1": norm(prefix + ".norm1"), "conv1": port_conv(sd, prefix + ".conv1"),
+             "norm2": norm(prefix + ".norm2"), "conv2": port_conv(sd, prefix + ".conv2")}
+        if cin != cout:
+            p["conv_out"] = port_conv(sd, prefix + ".conv_out")
+        return p
+
+    def blocks(owner, plan):
+        out = []
+        for i, (kind, cin, cout, *_) in enumerate(plan):
+            pre = f"{owner}.blocks.{i}"
+            if kind in ("conv_in", "conv_out"):
+                out.append({"conv": port_conv(sd, pre)})
+            elif kind == "res":
+                out.append(resblock(pre, cin, cout))
+            elif kind == "attn":
+                out.append({"norm": norm(pre + ".norm"), "q": port_conv(sd, pre + ".q"),
+                            "k": port_conv(sd, pre + ".k"), "v": port_conv(sd, pre + ".v"),
+                            "proj": port_conv(sd, pre + ".proj_out")})
+            elif kind in ("down", "up"):
+                out.append({"conv": port_conv(sd, pre + ".conv")})
+            elif kind == "norm":
+                out.append({"norm": norm(pre)})
+        return out
+
+    def tf_layer(prefix):
+        return {"norm1": norm(prefix + ".norm1"), "norm2": norm(prefix + ".norm2"),
+                "qkv": {"w": f32(prefix + ".self_attn.in_proj_weight").T,
+                        "b": f32(prefix + ".self_attn.in_proj_bias")},
+                "proj": lin(prefix + ".self_attn.out_proj"),
+                "fc1": lin(prefix + ".linear1"), "fc2": lin(prefix + ".linear2")}
+
+    ch_map = {cfg.img_size // 2 ** i: cfg.nf * m for i, m in enumerate(cfg.ch_mult)}
+    fuse = {}
+    for res in cfg.connect:
+        pre, ch = f"fuse_convs_dict.{res}", ch_map[res]
+        fuse[str(res)] = {"encode_enc": resblock(pre + ".encode_enc", 2 * ch, ch),
+                          "scale1": port_conv(sd, pre + ".scale.0"),
+                          "scale2": port_conv(sd, pre + ".scale.2"),
+                          "shift1": port_conv(sd, pre + ".shift.0"),
+                          "shift2": port_conv(sd, pre + ".shift.2")}
+    return {"encoder": blocks("encoder", encoder_plan(cfg)),
+            "generator": blocks("generator", generator_plan(cfg)),
+            "codebook": f32("quantize.embedding.weight"), "position_emb": f32("position_emb"),
+            "feat_emb": lin("feat_emb"),
+            "ft_layers": [tf_layer(f"ft_layers.{i}") for i in range(cfg.n_layers)],
+            "idx_norm": norm("idx_pred_layer.0"), "idx_pred": lin("idx_pred_layer.1", bias=False),
+            "fuse": fuse}

@@ -353,9 +353,12 @@ def ddim_sample(params, lr: torch.Tensor, cfg: DiffusionSRConfig = DiffusionSRCo
     return ((x + 1.0) / 2.0).clamp(0.0, 1.0).to(lr.dtype)
 
 
-def apply(params, x: torch.Tensor, cfg: DiffusionSRConfig = DiffusionSRConfig()) -> torch.Tensor:
-    """The registry forward: DDIM from ``PRNGKey(0)``'s noise."""
-    return ddim_sample(params, x, cfg, seed=0)
+def apply(params, x: torch.Tensor, cfg: DiffusionSRConfig = DiffusionSRConfig(),
+          noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The registry forward: DDIM from ``PRNGKey(0)``'s noise for x's
+    chunk, or from ``noise``, x's rows of a larger chunk's draw (a split
+    dispatch hands each device its frames' rows)."""
+    return ddim_sample(params, x, cfg, seed=0, noise=noise)
 
 
 def sample_video(params, frames: torch.Tensor, cfg: DiffusionSRConfig = DiffusionSRConfig(),

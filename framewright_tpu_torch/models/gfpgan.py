@@ -325,3 +325,72 @@ def init_params(cfg: GFPGANConfig = GFPGANConfig(), seed: int = 0) -> Dict:
         "style_conv1": style_conv(ch[4], ch[4]), "to_rgb1": to_rgb(ch[4]),
         "style_convs": convs, "to_rgbs": rgbs}
     return p
+
+
+def port_state_dict(sd) -> Dict:
+    """basicsr's GFPGANv1Clean state dict (a released ``GFPGANv1.4.pth``)
+    -> the JAX ``gfpgan`` tree (numpy, dtypes kept): the port's copy of
+    ``framewright_tpu.models.torch_port.port_gfpgan``. A ResBlock skip
+    without a bias gets zeros; the style MLP's Linears are read at any of
+    the indices 0-31 (released files start at 1, after NormStyleCode)."""
+    from framewright_tpu_torch.models.layers import np_leaf, port_conv
+
+    def lin(prefix):
+        return {"w": np_leaf(sd[prefix + ".weight"]).T, "b": np_leaf(sd[prefix + ".bias"])}
+
+    def conv_nb(prefix):
+        w = np_leaf(sd[prefix + ".weight"])
+        return {"w": np.transpose(w, (2, 3, 1, 0)), "b": np.zeros(w.shape[0], w.dtype)}
+
+    def modconv(prefix):
+        w = np_leaf(sd[prefix + ".weight"])              # (1, cout, cin, k, k)
+        return {"weight": np.transpose(w[0], (2, 3, 1, 0)),
+                "modulation": lin(prefix + ".modulation")}
+
+    def styleconv(prefix):
+        return {"modulated_conv": modconv(prefix + ".modulated_conv"),
+                "noise_weight": np_leaf(sd[prefix + ".weight"]).reshape(()),
+                "bias": np_leaf(sd[prefix + ".bias"]).reshape(-1)}
+
+    def torgb(prefix):
+        return {"modulated_conv": modconv(prefix + ".modulated_conv"),
+                "bias": np_leaf(sd[prefix + ".bias"]).reshape(-1)}
+
+    def resblock(prefix):
+        skip = (conv_nb(f"{prefix}.skip") if f"{prefix}.skip.bias" not in sd
+                else port_conv(sd, f"{prefix}.skip"))
+        return {"conv1": port_conv(sd, f"{prefix}.conv1"),
+                "conv2": port_conv(sd, f"{prefix}.conv2"), "skip": skip}
+
+    out: Dict = {"conv_body_first": port_conv(sd, "conv_body_first"),
+                 "final_conv": port_conv(sd, "final_conv"), "final_linear": lin("final_linear"),
+                 "conv_body_down": [], "conv_body_up": [], "condition_scale": [],
+                 "condition_shift": [], "toRGB": [], "style_mlp": []}
+    i = 0
+    while f"conv_body_down.{i}.conv1.weight" in sd:
+        out["conv_body_down"].append(resblock(f"conv_body_down.{i}"))
+        i += 1
+    i = 0
+    while f"conv_body_up.{i}.conv1.weight" in sd:
+        out["conv_body_up"].append(resblock(f"conv_body_up.{i}"))
+        for kind in ("scale", "shift"):             # Sequential(conv, lrelu, conv)
+            out[f"condition_{kind}"].append({"c1": port_conv(sd, f"condition_{kind}.{i}.0"),
+                                             "c2": port_conv(sd, f"condition_{kind}.{i}.2")})
+        out["toRGB"].append(port_conv(sd, f"toRGB.{i}"))
+        i += 1
+    out["style_mlp"] = [lin(f"stylegan_decoder.style_mlp.{i}") for i in range(32)
+                        if f"stylegan_decoder.style_mlp.{i}.weight" in sd]
+    sg = {"constant_input": np.transpose(
+              np_leaf(sd["stylegan_decoder.constant_input.weight"]), (0, 2, 3, 1)),
+          "style_conv1": styleconv("stylegan_decoder.style_conv1"),
+          "to_rgb1": torgb("stylegan_decoder.to_rgb1"), "style_convs": [], "to_rgbs": []}
+    i = 0
+    while f"stylegan_decoder.style_convs.{i}.modulated_conv.weight" in sd:
+        sg["style_convs"].append(styleconv(f"stylegan_decoder.style_convs.{i}"))
+        i += 1
+    i = 0
+    while f"stylegan_decoder.to_rgbs.{i}.modulated_conv.weight" in sd:
+        sg["to_rgbs"].append(torgb(f"stylegan_decoder.to_rgbs.{i}"))
+        i += 1
+    out["stylegan_decoder"] = sg
+    return out

@@ -206,3 +206,30 @@ def init_params(cfg: IFNetConfig = IFNetConfig(), seed: int = 0) -> Dict:
         "convblock": [conv_prelu(c, c) for _ in range(cfg.num_res_convs)],
         "head": {"w": (rng.standard_normal((4, 4, c, 24)) * 0.01).astype(np.float32),
                  "b": np.zeros((24,), np.float32)}} for b, c in enumerate(cfg.channels)]}
+
+
+def port_state_dict(sd, channels: Tuple[int, ...] = (192, 128, 96, 64),
+                    num_res_convs: int = 8) -> Dict:
+    """Practical-RIFE's IFNet state dict (v4.6 ``flownet.pkl``, its
+    ``module.`` prefix stripped by the reader) -> the JAX ``ifnet`` tree
+    (numpy, dtypes kept): the port's copy of
+    ``framewright_tpu.models.torch_port.port_ifnet``. The student blocks
+    only (``block_tea.*`` is not read); ``conv()`` is Sequential(Conv2d,
+    PReLU), ``lastconv.0`` the ConvTranspose2d(c, 24, 4, 2, 1), stored as
+    (4, 4, c, 24), unflipped."""
+    from framewright_tpu_torch.models.layers import np_leaf, port_conv
+
+    def cp(name):
+        p = port_conv(sd, f"{name}.0")
+        p["alpha"] = np_leaf(sd[f"{name}.1.weight"]).reshape(-1)
+        return p
+
+    blocks = []
+    for b in range(len(channels)):
+        blk = {"conv0": [cp(f"block{b}.conv0.0"), cp(f"block{b}.conv0.1")],
+               "convblock": [cp(f"block{b}.convblock.{i}") for i in range(num_res_convs)]}
+        wt = np_leaf(sd[f"block{b}.lastconv.0.weight"])       # (c, 24, 4, 4)
+        blk["head"] = {"w": np.transpose(wt, (2, 3, 0, 1)),
+                       "b": np_leaf(sd[f"block{b}.lastconv.0.bias"])}
+        blocks.append(blk)
+    return {"blocks": blocks}

@@ -207,3 +207,89 @@ def apply_padded(params, image: torch.Tensor, mask: torch.Tensor,
                       mode="reflect").permute(0, 2, 3, 1)
         mask = F.pad(mask, (0, 0, 0, wp - w, 0, hp - h))
     return apply(params, image, mask, cfg)[:, :h, :w, :]
+
+
+def infer_arch(sd) -> Dict[str, Any]:
+    """(ngf, n_down, n_blocks, ratio) of saic-mdal's FFCResNetGenerator
+    state dict (LaMa-Fourier: 9 blocks; Big-LaMa: 18; both ratio 0.75):
+    the port's copy of ``framewright_tpu.models.torch_port.infer_lama_arch``."""
+    import re
+
+    from framewright_tpu_torch.errors import InputError
+
+    idx = sorted({int(m.group(1)) for k in sd
+                  for m in [re.match(r"model\.(\d+)\.conv1\.ffc\.", k)] if m})
+    if not idx:
+        raise InputError("not an FFCResNetGenerator state dict (no model.{i}.conv1.ffc keys)")
+    n_down = idx[0] - 2
+    last = 1 + n_down
+    cl = int(np.shape(sd[f"model.{last}.ffc.convl2l.weight"])[0])
+    cg = int(np.shape(sd[f"model.{last}.ffc.convl2g.weight"])[0])
+    return {"ngf": int(np.shape(sd["model.1.ffc.convl2l.weight"])[0]), "n_down": n_down,
+            "n_blocks": len(idx), "ratio": cg / (cl + cg)}
+
+
+def port_state_dict(sd) -> Dict[str, Any]:
+    """saic-mdal's FFCResNetGenerator state dict (``model.{i}.*``) -> the
+    JAX ``lama`` tree (numpy, dtypes kept), its widths from ``infer_arch``:
+    the port's copy of ``framewright_tpu.models.torch_port.port_lama``.
+    (1) The upstream FourierUnit's 1x1 conv takes interleaved (real, imag)
+    channels where the tree stacks all reals, then all imaginaries: its
+    rows, columns and BN are permuted. (2) The last down FFC's l2l and l2g
+    convs (and BNs) are concatenated into one down conv. (3) A
+    ConvTranspose2d's (in, out, 3, 3) kernel is stored (3, 3, in, out),
+    unflipped (``_conv_transpose`` flips it)."""
+    from framewright_tpu_torch.models.layers import np_leaf, port_conv
+
+    arch = infer_arch(sd)
+    n_down, ratio = arch["n_down"], arch["ratio"]
+
+    def bn(prefix):
+        return {"gamma": np_leaf(sd[f"{prefix}.weight"]), "beta": np_leaf(sd[f"{prefix}.bias"]),
+                "mean": np_leaf(sd[f"{prefix}.running_mean"]),
+                "var": np_leaf(sd[f"{prefix}.running_var"])}
+
+    def fu(prefix, c):
+        perm = np.array([2 * j for j in range(c)] + [2 * j + 1 for j in range(c)])
+        w = np_leaf(sd[f"{prefix}.conv_layer.weight"])[:, :, 0, 0]
+        return {"conv": {"w": w[np.ix_(perm, perm)].T[None, None]},
+                "bn": {k: v[perm] for k, v in bn(f"{prefix}.bn").items()}}
+
+    def ffc(prefix, ch):
+        f = f"{prefix}.ffc"
+        return {"ll": port_conv(sd, f"{f}.convl2l", bias=False),
+                "lg": port_conv(sd, f"{f}.convl2g", bias=False),
+                "gl": port_conv(sd, f"{f}.convg2l", bias=False),
+                "gg": {"conv1": port_conv(sd, f"{f}.convg2g.conv1.0", bias=False),
+                       "bn1": bn(f"{f}.convg2g.conv1.1"),
+                       "fu": fu(f"{f}.convg2g.fu", int(ch * ratio) // 2),
+                       "conv2": port_conv(sd, f"{f}.convg2g.conv2", bias=False)},
+                "bn_l": bn(f"{prefix}.bn_l"), "bn_g": bn(f"{prefix}.bn_g")}
+
+    params: Dict[str, Any] = {"head": port_conv(sd, "model.1.ffc.convl2l", bias=False),
+                              "head_bn": bn("model.1.bn_l"), "downs": [], "blocks": [],
+                              "ups": []}
+    ch = arch["ngf"]
+    for i in range(n_down):
+        m = f"model.{2 + i}"
+        if i == n_down - 1:              # the transition FFC: l2l | l2g
+            wl = port_conv(sd, f"{m}.ffc.convl2l", bias=False)["w"]
+            wg = port_conv(sd, f"{m}.ffc.convl2g", bias=False)["w"]
+            bl, bg = bn(f"{m}.bn_l"), bn(f"{m}.bn_g")
+            params["downs"].append({"conv": {"w": np.concatenate([wl, wg], axis=-1)},
+                                    "bn": {k: np.concatenate([bl[k], bg[k]]) for k in bl}})
+        else:
+            params["downs"].append({"conv": port_conv(sd, f"{m}.ffc.convl2l", bias=False),
+                                    "bn": bn(f"{m}.bn_l")})
+        ch *= 2
+    for j in range(arch["n_blocks"]):
+        m = f"model.{2 + n_down + j}"
+        params["blocks"].append({"ffc1": ffc(f"{m}.conv1", ch), "ffc2": ffc(f"{m}.conv2", ch)})
+    u0 = 3 + n_down + arch["n_blocks"]
+    for i in range(n_down):
+        wt = np_leaf(sd[f"model.{u0 + 3 * i}.weight"])             # (in, out, 3, 3)
+        params["ups"].append({"conv": {"w": np.transpose(wt, (2, 3, 0, 1)),
+                                       "b": np_leaf(sd[f"model.{u0 + 3 * i}.bias"])},
+                              "bn": bn(f"model.{u0 + 3 * i + 1}")})
+    params["tail"] = port_conv(sd, f"model.{u0 + 3 * n_down + 1}")
+    return params

@@ -22,6 +22,34 @@ def conv_init(rng: np.random.Generator, k: int, c_in: int, c_out: int,
     return {"w": w, "b": b}
 
 
+def np_leaf(t) -> np.ndarray:
+    """A state-dict value as a numpy array, its dtype kept (JAX's
+    ``torch_port._to_np``)."""
+    if isinstance(t, np.ndarray):
+        return t
+    return np.asarray(t.detach().cpu().numpy() if hasattr(t, "detach") else t)
+
+
+def port_conv(sd, prefix: str, bias: bool = True) -> Dict[str, np.ndarray]:
+    """An upstream conv ``prefix`` -> ``{"w": HWIO, "b"}`` (JAX's
+    ``torch_port._conv``; ``bias=False`` for bias-free convs): a missing
+    key or a weight that is not a 4-D kernel raises ``InputError`` with
+    JAX's message."""
+    from framewright_tpu_torch.errors import InputError
+
+    try:
+        w = np_leaf(sd[prefix + ".weight"])
+        b = np_leaf(sd[prefix + ".bias"]) if bias else None
+    except KeyError as exc:
+        raise InputError(f"Missing weight {exc} while porting {prefix!r}") from exc
+    if w.ndim != 4:
+        raise InputError(f"{prefix}.weight is not a conv kernel: shape {w.shape}")
+    out = {"w": np.transpose(w, (2, 3, 1, 0))}
+    if b is not None:
+        out["b"] = b
+    return out
+
+
 def jax_conv_init(key, k: int, c_in: int, c_out: int, gain: float = 1.0
                   ) -> Dict[str, np.ndarray]:
     """JAX's ``conv_init(key, k, c_in, c_out)``, the same draws

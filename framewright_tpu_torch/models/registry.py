@@ -15,14 +15,16 @@ Practical-RIFE IFNet.
 
 The models that are not super-resolution (``AUX_SPECS``: the denoiser's
 ``FW_nafnet_dn``, interpolation's ``rife-v4.6``, the face restorer's
-``GFPGANv1.4``, ``CodeFormer`` and its detector ``RetinaFace_mnet025``)
-and the alignment IFNet (``load_align_ifnet``) load from their
-checkpoints only: a missing or unreadable file raises ``InputError`` (the
-JAX package falls back to random NAFNet, IFNet, GFPGAN and CodeFormer
-weights; ROADMAP.md, "JAX faults the port must not copy"). CodeFormer
-also reads sczhou's released ``CodeFormer.pth``, whose names are its
-module's. ``write_npz`` writes a parameter tree in the JAX package's
-``.npz`` layout.
+``GFPGANv1.4``, ``CodeFormer`` and its detector ``RetinaFace_mnet025``,
+the inpainter's ``big-lama``) and the alignment IFNet
+(``load_align_ifnet``) load from their checkpoints only: a missing or
+unreadable file raises ``InputError`` (the JAX package falls back to
+random NAFNet, IFNet, GFPGAN and CodeFormer weights; ROADMAP.md, "JAX
+faults the port must not copy"). CodeFormer also reads sczhou's released
+``CodeFormer.pth``, whose names are its module's. ``write_npz`` writes a
+parameter tree in the JAX package's ``.npz`` layout; ``port_checkpoint``
+turns a published ``.pth`` of any row JAX ports into the ``.npz`` JAX
+writes (the ``models port`` verb).
 
 The models that run functionally over the JAX tree (``HAT_SRx4``,
 ``DiffusionSR_x4`` from the checkpoint trained in this repository,
@@ -49,7 +51,19 @@ import numpy as np
 import torch
 
 from framewright_tpu_torch.errors import ConfigError, InputError
-from framewright_tpu_torch.models import codeformer, diffusion_sr, hat, raft, restormer, tvsr, vsr
+from framewright_tpu_torch.models import (
+    codeformer,
+    diffusion_sr,
+    gfpgan,
+    hat,
+    ifnet,
+    lama,
+    raft,
+    restormer,
+    retinaface,
+    tvsr,
+    vsr,
+)
 from framewright_tpu_torch.models.codeformer import CodeFormerConfig
 from framewright_tpu_torch.models.gfpgan import GFPGANConfig
 from framewright_tpu_torch.models.gfpgan import config_from_params as gfpgan_config_from_params
@@ -67,12 +81,13 @@ _SRVGG_URL = "https://github.com/xinntao/Real-ESRGAN/releases/download/v0.2.5.0/
 class ModelSpec:
     name: str
     family: str                   # rrdb | srvgg | hat | basicvsr | tvsr | diffusion | nafnet |
-                                  # restormer | flow | ifnet | face | codeformer | detector
+                                  # restormer | flow | ifnet | face | codeformer | detector |
+                                  # inpaint
     scale: int
     arch_config: Union[RRDBConfig, SRVGGConfig, NAFNetConfig, IFNetConfig, GFPGANConfig,
                        CodeFormerConfig, RetinaFaceConfig, hat.HATConfig, vsr.BasicVSRConfig,
                        tvsr.TVSRConfig, restormer.RestormerConfig, raft.RAFTConfig,
-                       diffusion_sr.DiffusionSRConfig]
+                       diffusion_sr.DiffusionSRConfig, lama.LamaConfig]
     url: str = ""
 
 
@@ -131,6 +146,12 @@ AUX_SPECS: Dict[str, ModelSpec] = {s.name: s for s in (
               "https://github.com/swz30/Restormer (a denoising checkpoint, ported to .npz)"),
     ModelSpec("raft-things", "flow", 1, raft.RAFTConfig(),
               "https://dl.dropboxusercontent.com/s/4j4z58wuv8o0mfz/models.zip"),
+    # Big-LaMa's generator (framewright_tpu/models/registry.py, the big-lama
+    # row); the inpainter reads the widths of the checkpoint it is given
+    # (lama.config_from_params)
+    ModelSpec("big-lama", "inpaint", 1,
+              lama.LamaConfig(ngf=64, n_down=3, n_blocks=18, global_ratio=0.75),
+              "https://github.com/saic-mdal/lama (big-lama release)"),
 )}
 # when to use each model (the ``models guide`` verb; JAX's MODEL_GUIDE
 # without its TPU throughput figures)
@@ -483,26 +504,37 @@ def to_jax_params(sd: Dict[str, torch.Tensor], stacked: bool = False) -> Dict[st
 
 
 def port_checkpoint(name: str, src: Path) -> Dict[str, Any]:
-    """A published ``.pth`` of an SR row (or of the denoiser's NAFNet or
-    Restormer) -> its JAX-layout tree (the ``models port`` and ``models
-    verify`` verbs): RRDB, SRVGG and NAFNet through ``to_jax_params``, HAT,
-    BasicVSR and Restormer through their module's ``port_state_dict``; a
-    row with no published checkpoint raises ``ConfigError``."""
+    """A published ``.pth`` -> its JAX-layout tree, the ``.npz`` that the
+    ``models port`` verb writes and ``models verify`` counts (JAX's
+    ``spec.port_fn``): RRDB, SRVGG and NAFNet through ``to_jax_params``;
+    HAT, BasicVSR, Restormer, RAFT, GFPGAN, CodeFormer, RetinaFace, IFNet
+    and LaMa through their module's ``port_state_dict``. The file is read
+    as JAX reads it (``_torch_load``). A row with no published checkpoint
+    (``TVSR_x4``, ``DiffusionSR_x4``) raises ``ConfigError``."""
     spec = AUX_SPECS[name] if name in AUX_SPECS else get_model(name)
     sd = _torch_load(Path(src))
+    arch = spec.arch_config
     if spec.family in ("rrdb", "srvgg"):
         _check_convs(sd, _ported_convs(spec))
         return to_jax_params(sd)
-    if spec.family == "nafnet":
-        return to_jax_params(sd)
-    if spec.family == "restormer":
-        return restormer.port_state_dict(sd)
-    arch = spec.arch_config
-    if spec.family == "hat":
-        return hat.port_state_dict(sd, arch.depths, arch.scale)
-    if spec.family == "basicvsr":
-        return vsr.port_state_dict(sd, arch.num_blocks, arch.spynet_levels)
-    raise ConfigError(f"{name} has no published checkpoint to port")
+    readers = {
+        "nafnet": to_jax_params,
+        "restormer": restormer.port_state_dict,
+        "hat": lambda d: hat.port_state_dict(d, arch.depths, arch.scale),
+        "basicvsr": lambda d: vsr.port_state_dict(d, arch.num_blocks, arch.spynet_levels),
+        "flow": raft.port_state_dict,
+        "face": gfpgan.port_state_dict,
+        "codeformer": codeformer.port_state_dict,
+        "detector": retinaface.port_state_dict,
+        "ifnet": lambda d: ifnet.port_state_dict(d, arch.channels, arch.num_res_convs),
+        "inpaint": lama.port_state_dict,
+    }
+    if spec.family not in readers:
+        raise ConfigError(f"{name} has no published checkpoint to port")
+    try:
+        return readers[spec.family](sd)
+    except KeyError as exc:          # a key the reader reads without a conv's check
+        raise InputError(f"Missing weight {exc} while porting {name!r}") from exc
 
 
 def _ported_convs(spec: ModelSpec) -> List[str]:
@@ -532,8 +564,9 @@ def _check_convs(sd: Dict[str, torch.Tensor], prefixes: List[str]) -> None:
 
 def _runs_on_the_tree(params: Dict[str, Any]) -> bool:
     """Whether a JAX tree is one of the models that run functionally on it
-    (Restormer, RAFT, HAT, BasicVSR, TVSR), by its top-level names."""
-    return any(k in params for k in ("embed", "fnet", "patch_norm", "spynet", "pairs"))
+    (Restormer, RAFT, HAT, BasicVSR, TVSR, LaMa), by its top-level names."""
+    return any(k in params for k in ("embed", "fnet", "patch_norm", "spynet", "pairs",
+                                     "head_bn"))
 
 
 def _np_tree(node):
@@ -569,15 +602,20 @@ def load_params(name: str, weights_dir: Optional[Path] = None, seed: int = 0
 
 
 def _torch_load(path: Path) -> Dict[str, torch.Tensor]:
-    """A ``.pth`` state dict (``params_ema`` / ``params`` / ``state_dict``
-    unwrapped); an unreadable file raises ``InputError``."""
+    """A ``.pth`` state dict as JAX's ``torch_port.load_state_dict`` reads
+    it: ``params_ema``, ``params``, ``state_dict`` or ``model`` unwrapped, a
+    ``module.`` prefix stripped (DataParallel files: RIFE's
+    ``flownet.pkl``, RAFT's); an unreadable file raises ``InputError``."""
     try:
         sd = torch.load(path, map_location="cpu", weights_only=True)
     except Exception as exc:  # noqa: BLE001 - zip or pickle faults
         raise InputError(f"unreadable checkpoint {path}: {exc}") from exc
-    for key in ("params_ema", "params", "state_dict"):
+    for key in ("params_ema", "params", "state_dict", "model"):
         if isinstance(sd, dict) and key in sd and isinstance(sd[key], dict):
-            return sd[key]
+            sd = sd[key]
+            break
+    if any(k.startswith("module.") for k in sd):
+        sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
     return sd
 
 

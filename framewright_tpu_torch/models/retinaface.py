@@ -233,3 +233,56 @@ def nms_host(scores: np.ndarray, boxes: np.ndarray, iou: float,
         ov = inter / np.maximum(areas[i] + areas[i + 1:] - inter, 1e-9)
         sup[i + 1:] |= ov > iou
     return keep
+
+
+def port_state_dict(sd) -> Dict:
+    """Pytorch_Retinaface's mobilenet0.25 state dict -> the JAX
+    ``retinaface`` tree (numpy f32): the port's copy of
+    ``framewright_tpu.models.torch_port.port_retinaface``. Each
+    BatchNorm folds into the conv before it (w * g / sqrt(v + eps),
+    beta - mean * g / sqrt(v + eps)); a depthwise kernel is stored
+    (k, k, C, 1)."""
+    from framewright_tpu_torch.models.layers import np_leaf
+
+    eps = 1e-5
+
+    def f32(key):
+        return np_leaf(sd[key]).astype(np.float32)
+
+    def bn_scale(prefix):
+        g, beta = f32(f"{prefix}.weight"), f32(f"{prefix}.bias")
+        mean, var = f32(f"{prefix}.running_mean"), f32(f"{prefix}.running_var")
+        scale = g / np.sqrt(var + eps)
+        return scale, beta - mean * scale
+
+    def conv_bn(prefix):
+        scale, shift = bn_scale(f"{prefix}.1")
+        return {"w": f32(f"{prefix}.0.weight").transpose(2, 3, 1, 0) * scale, "b": shift}
+
+    def conv_dw(prefix):
+        sc, dw_b = bn_scale(f"{prefix}.1")
+        dw = f32(f"{prefix}.0.weight").transpose(2, 3, 0, 1)      # (C, 1, k, k) -> (k, k, C, 1)
+        pw_s, pw_b = bn_scale(f"{prefix}.4")
+        return {"dw": {"w": dw * sc[None, None, :, None], "b": dw_b},
+                "pw": {"w": f32(f"{prefix}.3.weight").transpose(2, 3, 1, 0) * pw_s,
+                       "b": pw_b}}
+
+    def head(prefix):
+        return {"w": f32(f"{prefix}.conv1x1.weight").transpose(2, 3, 1, 0),
+                "b": f32(f"{prefix}.conv1x1.bias")}
+
+    return {
+        "stage1": [{"conv": conv_bn("body.stage1.0")}]
+                  + [conv_dw(f"body.stage1.{i}") for i in range(1, 6)],
+        "stage2": [conv_dw(f"body.stage2.{i}") for i in range(6)],
+        "stage3": [conv_dw(f"body.stage3.{i}") for i in range(2)],
+        "fpn_lat": [conv_bn(f"fpn.output{i}") for i in (1, 2, 3)],
+        "fpn_merge": [conv_bn("fpn.merge1"), conv_bn("fpn.merge2")],
+        "ssh": [{"conv3": conv_bn(f"ssh{i}.conv3X3"), "conv5_1": conv_bn(f"ssh{i}.conv5X5_1"),
+                 "conv5_2": conv_bn(f"ssh{i}.conv5X5_2"),
+                 "conv7_2": conv_bn(f"ssh{i}.conv7X7_2"),
+                 "conv7_3": conv_bn(f"ssh{i}.conv7x7_3")} for i in (1, 2, 3)],
+        "head_cls": [head(f"ClassHead.{i}") for i in range(3)],
+        "head_box": [head(f"BboxHead.{i}") for i in range(3)],
+        "head_ldm": [head(f"LandmarkHead.{i}") for i in range(3)],
+    }

@@ -2,10 +2,10 @@
 
 The port's copy of the reference constructors that
 ``framewright_tpu/models/torch_ref.py`` holds a checkpoint against
-(``build_rrdbnet``, ``build_srvgg``,
-``build_hat``, ``build_nafnet`` and ``build_restormer``: independent
-statements of the published Real-ESRGAN RRDBNet, SRVGGNetCompact, HAT,
-NAFNet and Restormer, whose state-dict keys are the released
+(``build_rrdbnet``, ``build_srvgg``, ``build_hat``, ``build_nafnet``,
+``build_restormer`` and ``build_lama``: independent statements of the
+published Real-ESRGAN RRDBNet, SRVGGNetCompact, HAT, NAFNet, Restormer
+and LaMa's FFCResNetGenerator, whose state-dict keys are the released
 checkpoints'), with the inputs ``torch_ref.parity_check`` feeds them, and
 ``parity_check``: the same ``.pth`` loaded into the reference
 (``strict=False``; a missing key raises) and, through
@@ -15,12 +15,14 @@ f32 with TF32 off (``hw.full_f32``) on one device, compared by PSNR (peak
 SRVGG's ``apply`` (JAX's ``rrdb.apply`` and ``srvgg.apply``), HAT's
 ``hat.apply``, NAFNet's ``apply_padded`` and Restormer's
 ``restormer.apply_padded`` (at the widths of the ported tree) on the
-ported checkpoint. LaMa has no ``.pth`` reader in the port (ROADMAP A12c).
+ported checkpoint; LaMa's ``build_lama`` at the file's widths
+(``lama.infer_arch``) against ``lama.apply_padded`` on JAX's masked frame.
 
 ``seeded_state_dict`` draws a checkpoint as the upstream projects
 initialise their nets (basicsr's ``default_init_weights``: Kaiming-normal
 scaled by 0.1 with zero biases in every RDB, PyTorch's default init for
-the other convs, PReLU 0.25; HAT's truncated normal (std 0.02) linears
+the other convs and LaMa's transposed convs (its BatchNorms at their
+identity statistics), PReLU 0.25; HAT's truncated normal (std 0.02) linears
 and position-bias tables, unit LayerNorms; NAFNet's layer scales, zeros
 upstream, drawn N(0, 0.01) as ``torch_ref.build_nafnet`` draws them, so
 that its blocks are not the identity), from a seeded
@@ -47,22 +49,13 @@ JAX_FAMILY = {"basicvsr": "vsr", "tvsr": "vsr", "codeformer": "face"}
 
 
 def load_state_dict(path: Path) -> Dict[str, np.ndarray]:
-    """A ``.pth`` as JAX's ``torch_port.load_state_dict`` reads it:
-    ``params_ema``, ``params``, ``state_dict`` or ``model`` unwrapped, a
-    ``module.`` prefix stripped, every value a numpy array."""
-    obj = torch.load(str(path), map_location="cpu", weights_only=True)
-    if isinstance(obj, dict):
-        for key in ("params_ema", "params", "state_dict", "model"):
-            if key in obj and isinstance(obj[key], dict):
-                obj = obj[key]
-                break
-    out = {k: (v.detach().cpu().float().numpy() if v.is_floating_point()
-               else v.detach().cpu().numpy()) if isinstance(v, torch.Tensor)
-           else np.asarray(v) for k, v in obj.items()}
-    if any(k.startswith("module.") for k in out):
-        out = {(k[len("module."):] if k.startswith("module.") else k): v
-               for k, v in out.items()}
-    return out
+    """A ``.pth`` as JAX's ``torch_port.load_state_dict`` reads it
+    (``registry._torch_load``), every value a numpy array (floats f32)."""
+    from framewright_tpu_torch.models.registry import _torch_load
+
+    return {k: (v.detach().cpu().float().numpy() if v.is_floating_point()
+                else v.detach().cpu().numpy()) if isinstance(v, torch.Tensor)
+            else np.asarray(v) for k, v in _torch_load(Path(path)).items()}
 
 
 def infer_rrdb_blocks(sd: Mapping[str, Any]) -> int:
@@ -704,6 +697,146 @@ def build_restormer(dim: int = 48, num_blocks=(4, 6, 6, 8),
     return Restormer()
 
 
+def build_lama(ngf: int = 64, n_down: int = 3, n_blocks: int = 9,
+               ratio: float = 0.5, in_ch: int = 4):
+    """Official LaMa FFCResNetGenerator (saic-mdal, WACV22) re-statement
+    for full-model parity: ReflectionPad 7x7 head/tail, FFC_BN_ACT
+    downsamples (ratio 0, last one transitions to the resnet ratio),
+    FFCResnetBlocks, ConvTranspose2d upsamples, sigmoid out. State-dict
+    keys mirror the official ``model.{i}.*`` Sequential layout so
+    ``models.lama.port_state_dict`` doubles as the real-weight port
+    (enable_lfu=False, the big-lama setting)."""
+    import torch
+    import torch.nn as nn
+
+    class FourierUnit(nn.Module):
+        def __init__(self, c_in, c_out):
+            super().__init__()
+            self.conv_layer = nn.Conv2d(c_in * 2, c_out * 2, 1, bias=False)
+            self.bn = nn.BatchNorm2d(c_out * 2)
+            self.relu = nn.ReLU(inplace=False)
+
+        def forward(self, x):
+            b, c, h, w = x.shape
+            f = torch.fft.rfftn(x.float(), dim=(-2, -1), norm="ortho")
+            f = torch.stack((f.real, f.imag), dim=-1)       # (B,C,H,Wf,2)
+            f = f.permute(0, 1, 4, 2, 3).reshape(b, -1, h, w // 2 + 1)
+            f = self.relu(self.bn(self.conv_layer(f)))
+            f = f.reshape(b, -1, 2, h, w // 2 + 1).permute(0, 1, 3, 4, 2)
+            f = torch.complex(f[..., 0], f[..., 1])
+            return torch.fft.irfftn(f, s=(h, w), dim=(-2, -1), norm="ortho")
+
+    class SpectralTransform(nn.Module):
+        def __init__(self, c_in, c_out):
+            super().__init__()
+            mid = c_out // 2
+            self.conv1 = nn.Sequential(nn.Conv2d(c_in, mid, 1, bias=False),
+                                       nn.BatchNorm2d(mid),
+                                       nn.ReLU(inplace=False))
+            self.fu = FourierUnit(mid, mid)
+            self.conv2 = nn.Conv2d(mid, c_out, 1, bias=False)
+
+        def forward(self, x):
+            x = self.conv1(x)
+            return self.conv2(x + self.fu(x))
+
+    class FFC(nn.Module):
+        def __init__(self, c_in, c_out, k, gin, gout, stride=1, pad=0):
+            super().__init__()
+            in_cg = int(c_in * gin)
+            in_cl = c_in - in_cg
+            out_cg = int(c_out * gout)
+            out_cl = c_out - out_cg
+            self.global_in_num = in_cg
+
+            def conv(ci, co):
+                if ci == 0 or co == 0:
+                    return nn.Identity()
+                return nn.Conv2d(ci, co, k, stride, pad, bias=False)
+
+            self.convl2l = conv(in_cl, out_cl)
+            self.convl2g = conv(in_cl, out_cg)
+            self.convg2l = conv(in_cg, out_cl)
+            self.convg2g = (SpectralTransform(in_cg, out_cg)
+                            if in_cg and out_cg else nn.Identity())
+            self.out_cl, self.out_cg = out_cl, out_cg
+
+        def forward(self, x):
+            x_l, x_g = x if isinstance(x, tuple) else (x, 0)
+            out_l, out_g = 0, 0
+            if self.out_cl:
+                out_l = self.convl2l(x_l) + (
+                    self.convg2l(x_g) if torch.is_tensor(x_g) else 0)
+            if self.out_cg:
+                out_g = (self.convl2g(x_l)
+                         if not isinstance(self.convl2g, nn.Identity) else 0)
+                if torch.is_tensor(x_g):
+                    out_g = out_g + self.convg2g(x_g)
+            return out_l, out_g
+
+    class FFC_BN_ACT(nn.Module):
+        def __init__(self, c_in, c_out, k, gin, gout, stride=1, pad=0):
+            super().__init__()
+            self.ffc = FFC(c_in, c_out, k, gin, gout, stride, pad)
+            out_cg = int(c_out * gout)
+            out_cl = c_out - out_cg
+            self.bn_l = nn.BatchNorm2d(out_cl) if out_cl else nn.Identity()
+            self.bn_g = nn.BatchNorm2d(out_cg) if out_cg else nn.Identity()
+            self.act_l = nn.ReLU(inplace=False)
+            self.act_g = nn.ReLU(inplace=False)
+
+        def forward(self, x):
+            xl, xg = self.ffc(x)
+            if torch.is_tensor(xl):
+                xl = self.act_l(self.bn_l(xl))
+            if torch.is_tensor(xg):
+                xg = self.act_g(self.bn_g(xg))
+            return xl, xg
+
+    class FFCResnetBlock(nn.Module):
+        def __init__(self, c, gin):
+            super().__init__()
+            self.conv1 = FFC_BN_ACT(c, c, 3, gin, gin, pad=1)
+            self.conv2 = FFC_BN_ACT(c, c, 3, gin, gin, pad=1)
+
+        def forward(self, x):
+            idl, idg = x
+            xl, xg = self.conv2(self.conv1(x))
+            return idl + xl, idg + xg
+
+    class ConcatTupleLayer(nn.Module):
+        def forward(self, x):
+            xl, xg = x
+            return torch.cat([xl, xg], dim=1)
+
+    layers = [nn.ReflectionPad2d(3),
+              FFC_BN_ACT(in_ch, ngf, 7, 0, 0)]
+    ch = ngf
+    for i in range(n_down):
+        gout = ratio if i == n_down - 1 else 0
+        layers.append(FFC_BN_ACT(ch, ch * 2, 3, 0, gout, stride=2, pad=1))
+        ch *= 2
+    for _ in range(n_blocks):
+        layers.append(FFCResnetBlock(ch, ratio))
+    layers.append(ConcatTupleLayer())
+    for _ in range(n_down):
+        layers += [nn.ConvTranspose2d(ch, ch // 2, 3, stride=2, padding=1,
+                                      output_padding=1),
+                   nn.BatchNorm2d(ch // 2), nn.ReLU(inplace=False)]
+        ch //= 2
+    layers += [nn.ReflectionPad2d(3), nn.Conv2d(ngf, 3, 7), nn.Sigmoid()]
+
+    class Generator(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = nn.Sequential(*layers)
+
+        def forward(self, x):
+            return self.model(x)
+
+    return Generator()
+
+
 def reference(spec, sd: Mapping[str, Any]):
     """The upstream module for ``spec``'s family at the checkpoint's depth
     (RRDB blocks and SRVGG convs read from its keys, as
@@ -727,6 +860,13 @@ def reference(spec, sd: Mapping[str, Any]):
         return build_restormer(dim=arch.dim, num_blocks=arch.num_blocks, heads=arch.heads,
                                num_refinement=arch.num_refinement,
                                ffn_expansion=arch.ffn_expansion, in_ch=arch.in_ch)
+    if spec.family == "inpaint":          # the file's widths (the row's for a seeded draw)
+        from framewright_tpu_torch.models.lama import infer_arch
+
+        a = (infer_arch(sd) if sd else dict(ngf=arch.ngf, n_down=arch.n_down,
+                                             n_blocks=arch.n_blocks, ratio=arch.global_ratio))
+        return build_lama(ngf=a["ngf"], n_down=a["n_down"], n_blocks=a["n_blocks"],
+                          ratio=a["ratio"], in_ch=arch.in_ch)
     raise ValueError(f"no torch reference for family "
                      f"{JAX_FAMILY.get(spec.family, spec.family)!r}")
 
@@ -746,12 +886,12 @@ def seeded_state_dict(spec, seed: int = 0, num_block: int = 0) -> Dict[str, torc
         net = reference(spec, {})
     g = torch.Generator().manual_seed(seed)
     for name, mod in net.named_modules():
-        if isinstance(mod, torch.nn.Conv2d):
+        if isinstance(mod, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
             if re.search(r"rdb\d\.conv\d$", name):        # basicsr default_init_weights(.., 0.1)
                 torch.nn.init.kaiming_normal_(mod.weight, generator=g)
                 mod.weight.mul_(0.1)
                 mod.bias.zero_()
-            else:                                          # nn.Conv2d's own init
+            else:                                          # the module's own init
                 torch.nn.init.kaiming_uniform_(mod.weight, a=math.sqrt(5), generator=g)
                 if mod.bias is not None:
                     bound = 1.0 / math.sqrt(mod.weight[0].numel())
@@ -776,7 +916,7 @@ def seeded_state_dict(spec, seed: int = 0, num_block: int = 0) -> Dict[str, torc
 
 def _port_forward(spec, sd: Mapping[str, Any], tree, x: torch.Tensor) -> torch.Tensor:
     """The port's plain f32 forward on ``tree`` (``port_checkpoint``'s)."""
-    from framewright_tpu_torch.models import hat, registry, restormer
+    from framewright_tpu_torch.models import hat, lama, registry, restormer
     from framewright_tpu_torch.models.layers import tree_to_torch
     from framewright_tpu_torch.models.nafnet import NAFNet
     from framewright_tpu_torch.models.rrdb import RRDBNet
@@ -788,6 +928,9 @@ def _port_forward(spec, sd: Mapping[str, Any], tree, x: torch.Tensor) -> torch.T
     if spec.family == "restormer":
         return restormer.apply_padded(tree_to_torch(tree, x.device, torch.float32), x,
                                       restormer.config_from_params(tree))
+    if spec.family == "inpaint":
+        return lama.apply_padded(tree_to_torch(tree, x.device, torch.float32), x,
+                                 lama_mask(x), lama.config_from_params(tree))
     if spec.family == "nafnet":
         return NAFNet.from_state_dict(arch, registry.from_jax_params(tree, torch.float32),
                                       x.device).apply_padded(x)
@@ -799,11 +942,23 @@ def _port_forward(spec, sd: Mapping[str, Any], tree, x: torch.Tensor) -> torch.T
     return model.apply(x)
 
 
+def lama_mask(x: torch.Tensor) -> torch.Tensor:
+    """``torch_ref.parity_check``'s inpainting mask for x (1, h, w, 3):
+    ones on rows h/4 .. h/2 and columns w/4 .. w/2."""
+    _, h, w, _ = x.shape
+    m = x.new_zeros((1, h, w, 1))
+    m[:, h // 4:h // 2, w // 4:w // 2] = 1.0
+    return m
+
+
 def parity_check(spec, sd: Mapping[str, Any], tree, device) -> Dict[str, Any]:
     """The reference and the port's forward on one seeded frame
     (``default_rng(0)``, 64x96, as ``torch_ref.parity_check``) ->
     {"psnr_db", "max_abs", "unexpected_keys"}; ValueError for a family
-    without a reference or a checkpoint missing the reference's keys."""
+    without a reference or a checkpoint missing the reference's keys.
+    Inpainting (JAX's branch): the reference takes the masked frame with
+    the mask as a fourth channel, and its output is composited through the
+    mask (``x (1 - m) + y m``), as ``lama.apply`` composites."""
     from framewright_tpu_torch.hw import full_f32
 
     tm = reference(spec, sd)
@@ -819,7 +974,13 @@ def parity_check(spec, sd: Mapping[str, Any], tree, device) -> Dict[str, Any]:
     x = np.random.default_rng(0).random((1, h, w, 3), dtype=np.float32)
     xt = torch.from_numpy(x).to(device)
     with torch.no_grad(), full_f32():
-        y_ref = tm.to(device).eval()(xt.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        xr = xt
+        if spec.family == "inpaint":
+            m = lama_mask(xt)
+            xr = torch.cat([xt * (1.0 - m), m], dim=-1)
+        y_ref = tm.to(device).eval()(xr.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        if spec.family == "inpaint":
+            y_ref = xr[..., :3] + y_ref * m
         y_port = _port_forward(spec, sd, tree, xt)
     diff = y_port.double().cpu().numpy() - y_ref.double().cpu().numpy()
     mse = float(np.mean(diff ** 2))

@@ -16,7 +16,9 @@ bilinear 4x upscale of the frame. Sides must be multiples of
 2^(spynet_levels - 1) (the VSR processor pads to 32).
 
 The upsampling tail runs one frame at a time (its 4x intermediates are
-the largest buffers). ``port_state_dict`` reads mmediting's BasicVSR
+the largest buffers). ``apply(..., bands=)`` runs a window in row bands
+(the video SR's spatial split), each band its own rows of the whole
+frame's result. ``port_state_dict`` reads mmediting's BasicVSR
 checkpoint (``generator.`` prefix, both SpyNet namings): the port's copy
 of ``framewright_tpu.models.torch_port.port_basicvsr``.
 """
@@ -33,6 +35,8 @@ import torch.nn.functional as F
 from framewright_tpu_torch.errors import InputError
 from framewright_tpu_torch.models.layers import conv, conv_init, pixel_shuffle, resize_bilinear
 from framewright_tpu_torch.ops.warp import flow_warp
+from framewright_tpu_torch.parallel.bands import Bands
+from framewright_tpu_torch.parallel.mesh import device_current
 
 _SPY_MEAN = (0.485, 0.456, 0.406)
 _SPY_STD = (0.229, 0.224, 0.225)
@@ -132,58 +136,126 @@ def spynet_flow(params, ref: torch.Tensor, supp: torch.Tensor, levels: int = 6) 
     return flow
 
 
-def _trunk(p, x: torch.Tensor) -> torch.Tensor:
-    h = F.leaky_relu(conv(p["head"], x), 0.1)
-    w1, b1, w2, b2 = p["conv1"]["w"], p["conv1"]["b"], p["conv2"]["w"], p["conv2"]["b"]
-    for i in range(w1.shape[0]):
-        y = F.relu(conv({"w": w1[i], "b": b1[i]}, h))
-        h = h + conv({"w": w2[i], "b": b2[i]}, y)
-    return h
+# The row bands of the spatial split: a band holds BAND_HALO rows of each
+# neighbour, enough for the trunk's head conv (1 row) and each residual
+# block (2 rows) between two exchanges, and for the tail (3 input rows:
+# upsample1, upsample2 at 2x, conv_hr and conv_last at 4x; the bilinear
+# base 1).
+BAND_HALO = 3
 
 
-def _propagate(p, frames: torch.Tensor, flows: torch.Tensor, reverse: bool) -> torch.Tensor:
-    """frames (T, B, H, W, 3), flows (T-1, B, H, W, 2) -> (T, B, H, W,
-    mid): reverse, flows[t] warps the state from t+1 into t; forward,
-    flows[t] warps it from t into t+1."""
-    t, b, h, w, _ = frames.shape
-    mid = p["head"]["b"].shape[0]
-    carry = frames.new_zeros((b, h, w, mid))
-    zero = frames.new_zeros((b, h, w, 2))
-    feats = [None] * t
+def _trunk(ps, xs, bands) -> list:
+    """The trunk (the head conv and ``num_blocks`` residual blocks) on
+    each band's rows (its own and the halo), the halo rows exchanged from
+    their owners after the head and every block, so that every row a band
+    holds is the whole frame's."""
+    hs = []
+    for p, x, d in zip(ps, xs, bands.devices):
+        with device_current(d):
+            hs.append(F.leaky_relu(conv(p["head"], x), 0.1))
+    bands.exchange(hs)
+    for k in range(ps[0]["conv1"]["w"].shape[0]):
+        for j, (p, d) in enumerate(zip(ps, bands.devices)):
+            with device_current(d):
+                y = F.relu(conv({"w": p["conv1"]["w"][k], "b": p["conv1"]["b"][k]}, hs[j]))
+                hs[j] = hs[j] + conv({"w": p["conv2"]["w"][k], "b": p["conv2"]["b"][k]}, y)
+        bands.exchange(hs)
+    return hs
+
+
+def _propagate(ps, frames, flows, bands, reverse: bool) -> list:
+    """One direction's recurrent propagation on row bands: frames[j] (T,
+    B, rows_j, W, 3) and flows[j] (T - 1, B, rows_j, W, 2) hold band j's
+    rows; reverse, flows[t] warps the state from t+1 into t; forward, from
+    t into t+1. Each step warps the carried features, gathered whole (a
+    flow may point anywhere in the neighbour frame), into the band's rows
+    with zero padding, concatenates the frame and runs ``_trunk``. -> each
+    band's (T, B, rows_j, W, mid)."""
+    t, b, _, w, _ = frames[0].shape
+    mid = ps[0]["head"]["b"].shape[0]
+    devs = list(dict.fromkeys(bands.devices))
+    carry = {d: frames[0].new_zeros((b, bands.height, w, mid), device=d) for d in devs}
+    feats = [[None] * t for _ in bands.devices]
     order = range(t - 1, -1, -1) if reverse else range(t)
     for i in order:
-        if reverse:
-            flow = flows[i] if i < t - 1 else zero
-        else:
-            flow = flows[i - 1] if i > 0 else zero
-        warped = flow_warp(carry, flow, padding_mode="zeros")
-        carry = _trunk(p, torch.cat([frames[i], warped], dim=-1))
-        feats[i] = carry
-    return torch.stack(feats)
+        xs = []
+        for j, d in enumerate(bands.devices):
+            with device_current(d):
+                if reverse:
+                    flow = flows[j][i] if i < t - 1 else None
+                else:
+                    flow = flows[j][i - 1] if i > 0 else None
+                if flow is None:
+                    flow = frames[j].new_zeros(frames[j].shape[1:-1] + (2,))
+                warped = flow_warp(carry[d], flow, padding_mode="zeros",
+                                   row0=bands.span(j)[0])
+                xs.append(torch.cat([frames[j][i], warped], dim=-1))
+        hs = _trunk(ps, xs, bands)
+        for j, h in enumerate(hs):
+            feats[j][i] = h
+        carry = {d: bands.gather(hs, 1, d) for d in devs}
+    return [torch.stack(f) for f in feats]
 
 
-def apply(params, frames: torch.Tensor, cfg: BasicVSRConfig = BasicVSRConfig()) -> torch.Tensor:
-    """(B, T, H, W, 3) in [0, 1], sides multiples of 2^(spynet_levels -
-    1) -> (B, T, 4H, 4W, 3)."""
+def _flows(params, frames: torch.Tensor, cfg: BasicVSRConfig):
+    """SpyNet's forward and backward flows of a window (B, T, H, W, 3) ->
+    two (T - 1, B, H, W, 2)."""
     b, t, h, w, c = frames.shape
     ref = frames[:, 1:].reshape(b * (t - 1), h, w, c)
     sup = frames[:, :-1].reshape(b * (t - 1), h, w, c)
     flow_fw = spynet_flow(params["spynet"], ref, sup, cfg.spynet_levels)
     flow_bw = spynet_flow(params["spynet"], sup, ref, cfg.spynet_levels)
-    flow_fw = flow_fw.reshape(b, t - 1, h, w, 2).transpose(0, 1)
-    flow_bw = flow_bw.reshape(b, t - 1, h, w, 2).transpose(0, 1)
+    return (flow_fw.reshape(b, t - 1, h, w, 2).transpose(0, 1),
+            flow_bw.reshape(b, t - 1, h, w, 2).transpose(0, 1))
+
+
+def _tail(params, feat: torch.Tensor, frame: torch.Tensor) -> torch.Tensor:
+    """One frame's upsampling tail: its fused features (1, h, w, 2 mid)
+    and the frame (1, h, w, 3) -> (1, 4h, 4w, 3) in the frame's dtype."""
+    _, h, w, _ = frame.shape
+    y = F.leaky_relu(conv(params["fusion"], feat), 0.1)
+    y = F.leaky_relu(pixel_shuffle(conv(params["upsample1"], y), 2), 0.1)
+    y = F.leaky_relu(pixel_shuffle(conv(params["upsample2"], y), 2), 0.1)
+    y = conv(params["conv_last"], F.leaky_relu(conv(params["conv_hr"], y), 0.1))
+    base = resize_bilinear(frame, (4 * h, 4 * w))
+    return (y.float() + base.float()).to(frame.dtype)
+
+
+def apply(params, frames: torch.Tensor, cfg: BasicVSRConfig = BasicVSRConfig(),
+          bands=None) -> torch.Tensor:
+    """(B, T, H, W, 3) in [0, 1], sides multiples of 2^(spynet_levels -
+    1) -> (B, T, 4H, 4W, 3). ``bands`` (``parallel.bands.Bands`` of H,
+    ``BAND_HALO``) splits it by rows, ``params`` then a list of the tree
+    on each band's device; ``frames`` lies on the first band's, and so does
+    the result. SpyNet's flows are computed once there on the whole
+    frames, and each band takes its rows of them; the propagations run on
+    the bands (``_propagate``), the tail a frame at a time on each band's
+    rows and halo. Each band computes its own rows of the whole frame's
+    result."""
+    b, t, h, w, c = frames.shape
+    if bands is None:
+        bands, params = Bands.split(h, [frames.device], BAND_HALO), [params]
+    flow_fw, flow_bw = _flows(params[0], frames, cfg)
+    spans = [bands.span(j) for j in range(len(bands))]
     frames_t = frames.transpose(0, 1)
-    feat_bw = _propagate(params["backward"], frames_t, flow_bw, reverse=True)
-    feat_fw = _propagate(params["forward"], frames_t, flow_fw, reverse=False)
-    feats = torch.cat([feat_bw, feat_fw], dim=-1).transpose(0, 1).reshape(b * t, h, w, -1)
-    del feat_bw, feat_fw
-    flat = frames.reshape(b * t, h, w, c)
-    out = frames.new_empty((b * t, 4 * h, 4 * w, c))
-    for i in range(b * t):                     # the tail a frame at a time
-        y = F.leaky_relu(conv(params["fusion"], feats[i:i + 1]), 0.1)
-        y = F.leaky_relu(pixel_shuffle(conv(params["upsample1"], y), 2), 0.1)
-        y = F.leaky_relu(pixel_shuffle(conv(params["upsample2"], y), 2), 0.1)
-        y = conv(params["conv_last"], F.leaky_relu(conv(params["conv_hr"], y), 0.1))
-        base = resize_bilinear(flat[i:i + 1], (4 * h, 4 * w))
-        out[i:i + 1] = (y.float() + base.float()).to(frames.dtype)
-    return out.reshape(b, t, 4 * h, 4 * w, c)
+
+    def rows(x):
+        return [x[:, :, lo:hi].to(d) for (lo, hi), d in zip(spans, bands.devices)]
+
+    fr = rows(frames_t)
+    feat_bw = _propagate([p["backward"] for p in params], fr, rows(flow_bw), bands, True)
+    feat_fw = _propagate([p["forward"] for p in params], fr, rows(flow_fw), bands, False)
+    del flow_fw, flow_bw
+    outs = []
+    for j, d in enumerate(bands.devices):
+        n = spans[j][1] - spans[j][0]
+        with device_current(d):
+            feats = torch.cat([feat_bw[j], feat_fw[j]], dim=-1).transpose(0, 1)
+            feat_bw[j] = feat_fw[j] = None
+            feats = feats.reshape(b * t, n, w, -1)
+            flat = fr[j].transpose(0, 1).reshape(b * t, n, w, c)
+            out = frames.new_empty((b * t, 4 * n, 4 * w, c), device=d)
+            for i in range(b * t):             # the tail a frame at a time
+                out[i:i + 1] = _tail(params[j], feats[i:i + 1], flat[i:i + 1])
+            outs.append(out)
+    return bands.gather(outs, 4, frames.device).reshape(b, t, 4 * h, 4 * w, c)

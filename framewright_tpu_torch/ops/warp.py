@@ -28,15 +28,17 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor,
 
 
 def flow_warp_nchw(img: torch.Tensor, flow: torch.Tensor,
-                   padding_mode: str = "border") -> torch.Tensor:
+                   padding_mode: str = "border", row0: int = 0) -> torch.Tensor:
     """img (B,C,H,W), flow (B,2,H,W) in pixels ((x, y) order):
-    out(p) = img(p + flow(p))."""
+    out(p) = img(p + flow(p)). ``row0``: flow holds the img rows row0 ..
+    row0 + its height only (a band of the frame), and so does the output,
+    each row computed as the whole frame's."""
     if padding_mode not in ("border", "zeros"):
         raise ValueError(f"padding_mode must be border or zeros, got {padding_mode!r}")
     _, _, h, w = img.shape
     fx = torch.arange(w, dtype=torch.float32, device=img.device) + flow[:, 0].float()
-    fy = (torch.arange(h, dtype=torch.float32, device=img.device)[:, None]
-          + flow[:, 1].float())
+    fy = (torch.arange(row0, row0 + flow.shape[2], dtype=torch.float32,
+                       device=img.device)[:, None] + flow[:, 1].float())
     # normalized to [-1, 1], align_corners=True
     grid = torch.stack([2.0 * fx / max(w - 1, 1) - 1.0, 2.0 * fy / max(h - 1, 1) - 1.0], -1)
     out = F.grid_sample(img, grid.to(img.dtype), mode="bilinear", padding_mode="border",
@@ -51,7 +53,9 @@ def flow_warp_nchw(img: torch.Tensor, flow: torch.Tensor,
 
 
 def flow_warp(img: torch.Tensor, flow: torch.Tensor,
-              padding_mode: str = "border") -> torch.Tensor:
-    """Backward-warp img (B,H,W,C) by flow (B,H,W,2) in pixels."""
-    out = flow_warp_nchw(img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), padding_mode)
+              padding_mode: str = "border", row0: int = 0) -> torch.Tensor:
+    """Backward-warp img (B,H,W,C) by flow (B,H,W,2) in pixels (``row0``:
+    ``flow_warp_nchw``'s)."""
+    out = flow_warp_nchw(img.permute(0, 3, 1, 2), flow.permute(0, 3, 1, 2), padding_mode,
+                         row0)
     return out.permute(0, 2, 3, 1)

@@ -12,9 +12,11 @@ reads (ROADMAP B's three semantics), so after a stage that reads up to
 ``halo`` rows around a pixel the band's own rows equal the whole frame's,
 and only its halo rows hold values computed from the zeros at its edges.
 ``exchange`` then copies each halo row from the band that owns that row,
-and every row of every band is again the whole frame's. ``gather``
-stacks the bands' own rows of an output whose rows are ``scale`` times
-the layout's.
+and every row of every band is again the whole frame's. ``with_rows``
+hands a band that holds no halo its neighbours' rows for one stage
+(TVSR's shifted windows, cyclic as their roll is); both count the bytes
+they copy in ``exchange.bytes``. ``gather`` stacks the bands' own rows of
+an output whose rows are ``scale`` times the layout's.
 """
 
 from __future__ import annotations
@@ -102,10 +104,31 @@ class Bands:
 
     exchange.bytes = 0
 
+    def with_rows(self, parts: Sequence[torch.Tensor], i: int, n: int, axis: int = 1,
+                  cyclic: bool = False) -> torch.Tensor:
+        """Band i's own rows (``parts[i]``, rows on ``axis``, no halo held)
+        with n rows of each neighbour band around them, copied to band i's
+        device: across the frame's ends too when ``cyclic`` (the last
+        band's rows above the first band's), else none past them (one
+        band: ``parts[0]`` as it is). The bytes copied are added to
+        ``exchange.bytes``."""
+        k, d = len(parts), parts[i].device
+        rows = [parts[i]]
+        if i > 0 or cyclic:
+            rows.insert(0, parts[(i - 1) % k].narrow(axis, parts[(i - 1) % k].shape[axis] - n, n))
+        if i < k - 1 or cyclic:
+            rows.append(parts[(i + 1) % k].narrow(axis, 0, n))
+        if len(rows) == 1:
+            return parts[i]
+        Bands.exchange.bytes += sum(r.numel() * r.element_size() for r in rows if r is not parts[i])
+        return torch.cat([r.to(d) for r in rows], dim=axis)
+
     def gather(self, outs: Sequence[torch.Tensor], scale: int,
                device: torch.device) -> torch.Tensor:
         """The frame from each band's output (B, rows * scale, ...): their
-        own rows, in order, on ``device`` (one band's output as it is)."""
+        own rows, in order, on ``device`` (one band's output as it is);
+        the bytes of the parts of several bands are added to
+        ``gather.bytes``."""
         if len(outs) == 1:
             a, b = self.own(0)
             return outs[0][:, a * scale:b * scale].to(device)
@@ -113,4 +136,7 @@ class Bands:
         for i, y in enumerate(outs):
             a, b = self.own(i)
             parts.append(y[:, a * scale:b * scale].to(device))
+        Bands.gather.bytes += sum(p.numel() * p.element_size() for p in parts)
         return torch.cat(parts, dim=1)
+
+    gather.bytes = 0

@@ -253,7 +253,14 @@ class ShardedSR:
     state reaches the members only through it (``set_output_color``,
     ``enable_device_stats``). ``batch_size`` stays the dispatch's frames,
     as JAX's is: each member plans for its share, rounded up. int8 static
-    scales are calibrated once for every member, on the first batch."""
+    scales are calibrated once for every member, on the first batch. The
+    diffusion SR's noise is drawn once a dispatch for each chunk layout the
+    members' plans give (one, as each member plans as one card does; a
+    member downshifted after an OOM has its own), as one card with that
+    plan draws it (``super_resolution.dispatch_noise``), and each member
+    samples its frames from their rows of its plan's draw
+    (``SuperResolution.dispatch(noise=...)``), so the split's bytes are the
+    one-card restore's."""
 
     name = "super_resolution"
 
@@ -263,12 +270,18 @@ class ShardedSR:
         self._build_members(mesh)
 
     def _build_members(self, mesh: Mesh) -> None:
+        from framewright_tpu_torch.models.registry import get_model
         from framewright_tpu_torch.processors.super_resolution import SuperResolution
 
         self.mesh = mesh
         ns = mesh.shape.get(SPACE_AXIS, 1)
         n = len(mesh.frame_devices)
         share = -(-self.config.batch_size // n) if self.config.batch_size else 0
+        # the diffusion SR: each member plans as one card does, so that the
+        # members share the one-card chunks whose noise a dispatch draws
+        self._draws = get_model(self.config.model_name).family == "diffusion"
+        if self._draws:
+            share = self.config.batch_size
         self.members = [SuperResolution(dataclasses.replace(self.config, device=str(d),
                                                             batch_size=share),
                                         space_devices=mesh.devices[i * ns:(i + 1) * ns]
@@ -327,7 +340,10 @@ class ShardedSR:
         return self.members[0].output_size(height, width)
 
     def dispatch(self, frames: np.ndarray) -> dict:
-        from framewright_tpu_torch.processors.super_resolution import check_frames
+        from framewright_tpu_torch.processors.super_resolution import (
+            check_frames,
+            dispatch_noise,
+        )
 
         x = check_frames(self.name, frames)
         for sub in self.members:
@@ -335,8 +351,23 @@ class ShardedSR:
                 with device_current(sub.device):
                     sub._calibrate_int8(x)
         self.dispatches += 1
-        parts = run_split(len(x), self.mesh,
-                          lambda i, a, b: (self.members[i], self.members[i].dispatch(x[a:b])))
+        draws: dict = {}          # the dispatch's one-card draws, one a chunk layout
+
+        def rows(a, b):
+            def of(plan, device):
+                key = (plan.tiled, plan.tile_size, plan.overlap, plan.batch)
+                if key not in draws:
+                    draws[key] = dispatch_noise(plan, len(x), x.shape[1], x.shape[2], device)
+                z, per = draws[key]
+                return z[a * per:b * per].to(device)
+            return of
+
+        def part(i, a, b):
+            sub = self.members[i]
+            return sub, sub.dispatch(x[a:b], noise=rows(a, b) if self._draws else None)
+
+        parts = run_split(len(x), self.mesh, part)
+        draws.clear()             # a retry after an OOM draws for its new plan
         return {"parts": parts}
 
     def materialize(self, handle: dict):

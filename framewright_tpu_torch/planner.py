@@ -100,6 +100,21 @@ _STATS_BYTES_PER_OUT_PX = {"luma": 64, "rgb": 96}
 # (and the enhancement cap's) epilogue on the f32 image, 40 as in SRVGG's
 # row; RRDB's uint8 planes or RGB and their gathered copy, at most 6.
 _GATHERED_BYTES_PER_OUT_PX = 40
+# Its bands on one device run in turn: the model's working set is one
+# band's, and what every band keeps while the others run is, per body
+# pixel of a band, RRDB's carried features and the head's skip (two bf16
+# 64-channel maps) with the band's own output until the gather (6 B an
+# output pixel, the bf16 RGB of the float path), and SRVGG's input band
+# (bf16 RGB) with its f32 RGB output (it runs each band whole, no exchange).
+
+
+def band_resident_bytes_per_body_px(family: str, scale: int) -> int:
+    """Bytes a band keeps per body pixel while the device's other bands
+    run (the comment above)."""
+    out_px = (body_divisor(family, scale) * scale) ** 2
+    if family == "rrdb":
+        return 2 * 64 * 2 + 6 * out_px
+    return 6 + 12 * out_px
 _CPU_BUDGET = 8 * 2**30   # what to plan for when running on the CPU
 # The pre-SR stream (the restorer's denoise and temporal-consistency
 # stages, on the card in the ring's producer thread, beside the SR
@@ -463,14 +478,25 @@ def raft_pairs(height: int, width: int, free_bytes: int | None = None,
 
 
 def vsr_bytes(height: int, width: int, window: int, family: str = "basicvsr",
-              dtype: str = "bfloat16") -> int:
+              dtype: str = "bfloat16", band_rows: int = 0, bands_here: int = 1) -> int:
     """Planned peak card bytes of one video SR window of ``window`` frames
     at (height, width) padded to multiples of 32, for the registry's
-    ``family`` (``basicvsr`` or ``tvsr``)."""
+    ``family`` (``basicvsr`` or ``tvsr``). ``band_rows`` > 0 plans the
+    first card of the spatial split: ``bands_here`` bands of ``band_rows``
+    rows (their own and the halo) each holding its frames' share, one
+    transient working set (SpyNet's pairs on the whole frames, one frame's
+    tail or attention chunk: the unsplit count), and what is gathered
+    whole there: the window's frames and its 4x output, and for BasicVSR
+    the two directions' flows and one carry of 64 channels."""
     per_frame, per_pair, fixed = _VSR_BYTES_PER_PX[family]
-    px = -(-height // 32) * 32 * -(-width // 32) * 32
-    per_px = per_frame * window + max(per_pair * (window - 1), fixed)
-    return px * per_px * (2 if dtype == "float32" else 1)
+    wp = -(-width // 32) * 32
+    px = -(-height // 32) * 32 * wp
+    f = 2 if dtype == "float32" else 1
+    if band_rows <= 0:
+        return px * (per_frame * window + max(per_pair * (window - 1), fixed)) * f
+    gathered = 51 * window + (4 * (window - 1) + 64 if family == "basicvsr" else 0)
+    return (bands_here * band_rows * wp * per_frame * window * f
+            + px * (max(per_pair * (window - 1), fixed) * f + gathered * 2 * f))
 
 
 def plan(height: int, width: int, scale: int, family: str = "rrdb",
@@ -490,8 +516,11 @@ def plan(height: int, width: int, scale: int, family: str = "rrdb",
     beside them.
     ``band_rows`` > 0 plans a device of the SR's frames x space split:
     ``bands_here`` bands of ``band_rows`` input rows (their own and the
-    halo) a frame at the model's peak, beside the whole frame's gathered
-    output and stats; a tiled plan runs whole frames, without bands."""
+    halo) a frame, which run in turn: one band's working set at the
+    model's peak and what each band keeps meanwhile
+    (``band_resident_bytes_per_body_px``), beside the whole frame's
+    gathered output and stats; a tiled plan runs whole frames, without
+    bands."""
     budget = budget_bytes(free_bytes, utilization) - reserved_bytes
     u = body_divisor(family, scale)
     px_bytes = peak_bytes_per_body_px(family, scale, dtype)
@@ -501,7 +530,9 @@ def plan(height: int, width: int, scale: int, family: str = "rrdb",
         if band_rows > 0:
             stats_px = ((_STATS_BYTES_PER_OUT_PX["luma"] if family == "rrdb" else
                          12 + _STATS_BYTES_PER_OUT_PX["rgb"]) * 11 // 10 if stats else 0)
-            per_frame = (bands_here * frame_bytes(band_rows, width, scale, family, dtype)
+            band_px = -(-band_rows // u) * -(-width // u)
+            per_frame = (frame_bytes(band_rows, width, scale, family, dtype)
+                         + bands_here * band_px * band_resident_bytes_per_body_px(family, scale)
                          + height * width * scale ** 2
                          * (_GATHERED_BYTES_PER_OUT_PX + stats_px))
         whole = Plan(height, width, scale, 1, u, 0, overlap=overlap, px_bytes=px_bytes,

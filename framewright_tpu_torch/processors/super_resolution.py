@@ -73,7 +73,10 @@ epilogue (stats from the float image). So does the diffusion SR
 DDIM from ``PRNGKey(0)``'s noise at ``diffusion_steps`` steps); its noise
 is drawn per dispatch chunk of ``plan.batch`` frames (or tiles), so a
 frame's bytes depend on its position in that chunk, as in JAX, whose
-``_chunked_map`` draws per chunk too. ``enhancement_cap`` < 1 (the
+``_chunked_map`` draws per chunk too; split over the cards
+(``ShardedSR``), each member samples its frames from their rows of the
+draw one card with the member's plan makes (``dispatch_noise``,
+``dispatch(noise=...)``), after an OOM downshift too. ``enhancement_cap`` < 1 (the
 restore's ``max_enhancement_strength``) takes the float path for every
 family (RRDB: ``apply_fast(x, "bf16")``, no fused epilogue) and lerps the
 output toward the bilinear upscale of the input in the output's dtype
@@ -108,13 +111,13 @@ import dataclasses
 import functools
 import logging
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from framewright_tpu_torch import planner as planner_mod
-from framewright_tpu_torch.errors import ConfigError, HBMError, InputError
+from framewright_tpu_torch.errors import ConfigError, HBMError, InputError, ShardingError
 from framewright_tpu_torch.hw import device_info, full_f32, resolve_device
 from framewright_tpu_torch.models.layers import (
     mul_weak,
@@ -137,6 +140,33 @@ _INT8_SCALES = ("static", "dynamic")
 # runs the restore at on the card; larger batches are not measured yet.
 _DEFAULT_MAX_BATCH = 4
 _MAX_OOM_RETRIES = 3
+
+# The diffusion SR's noise source of a split dispatch's part (``ShardedSR``):
+# (plan, device) -> the part's rows, on device, of the noise one card with
+# that plan draws for the whole dispatch (``dispatch_noise``).
+NoiseRows = Callable[[planner_mod.Plan, torch.device], torch.Tensor]
+
+
+def dispatch_noise(plan: planner_mod.Plan, n: int, height: int, width: int,
+                   device: torch.device):
+    """The diffusion SR's noise for a dispatch of n frames of height x
+    width under ``plan``, as one card draws it: ``PRNGKey(0)``'s normal for
+    each chunk of the plan's ``batch`` rows, in order, a row a frame or,
+    under a tiled plan, a window (frame by frame) -> (noise, rows a
+    frame)."""
+    from framewright_tpu_torch.ops import jax_random
+
+    s = plan.scale
+    geo = tiling.window_geometry(height, width, plan) if plan.tiled else None
+    if geo is None:
+        per, shape = 1, (height * s, width * s, 3)
+    else:
+        per, shape = len(geo[1]) * len(geo[2]), (geo[0] * s, geo[0] * s, 3)
+    rows, chunk = n * per, max(plan.batch, 1)
+    with device_current(device):
+        noise = torch.cat([jax_random.normal(0, (min(chunk, rows - i),) + shape, device)
+                           for i in range(0, rows, chunk)])
+    return noise, per
 
 
 @dataclass
@@ -279,6 +309,8 @@ class SuperResolution:
         self._plan_args: Optional[dict] = None
         self._int8_calibrate = False
         self._staging: Optional[HostStaging] = None
+        self._noise: Optional[torch.Tensor] = None    # the diffusion SR's given noise
+        self._noise_at = 0                            # rows of it used so far
 
     def setup(self, height: int, width: int) -> None:
         from framewright_tpu_torch.models.registry import (
@@ -483,6 +515,14 @@ class SuperResolution:
         JAX tiled branch's ``model_fn``): RRDB's kernel path with K2 in its
         bf16 mode, SRVGG's chain path in f32 (its plain f32 forward in
         float32)."""
+        if self.family == "diffusion" and self._noise is not None:
+            z = self._noise[self._noise_at:self._noise_at + len(x)]
+            want = (len(x), x.shape[1] * self.scale, x.shape[2] * self.scale, 3)
+            if tuple(z.shape) != want:
+                raise ShardingError(f"the dispatch's noise rows {tuple(z.shape)} do not fit "
+                                    f"this plan's chunk {want}")
+            self._noise_at += len(x)
+            return self.model(x, noise=z)
         if self.family in ("hat", "diffusion"):
             return self.model(x)
         if self.family == "srvgg":
@@ -595,27 +635,36 @@ class SuperResolution:
                     self.config.int8_calib_margin,
                     getattr(self.model.int8_weights, "int8_scheme", "srvgg chain"))
 
-    def dispatch(self, frames: np.ndarray) -> dict:
+    def dispatch(self, frames: np.ndarray, noise: Optional[NoiseRows] = None) -> dict:
         """Enqueue a uint8 (B, H, W, 3) batch; return a handle for
-        ``materialize``. Does not wait for the card."""
+        ``materialize``. Does not wait for the card. ``noise`` (the
+        diffusion SR; ``ShardedSR`` passes it) gives these frames' rows of
+        the one-card draw for this processor's plan, one row a frame or,
+        under a tiled plan, a window, used in order in place of each
+        chunk's own draw; an OOM retry asks it again for the downshifted
+        plan."""
         x = check_frames(self.name, frames)
         if self._int8_calibrate:
             self._calibrate_int8(x)
         self.dispatches += 1
-        return self._enqueue(x)
+        return self._enqueue(x, noise)
 
-    def _enqueue(self, x: np.ndarray) -> dict:
+    def _enqueue(self, x: np.ndarray, noise: Optional[NoiseRows] = None) -> dict:
         """Run the model on ``x`` and copy its result back, without
         waiting for the card. Counts nothing: an OOM retry reruns a batch
         that was dispatched once."""
         out, stats, exc, event = None, None, None, None
+        self._noise_at = 0
         try:
+            self._noise = None if noise is None else noise(self._plan, self.device)
             xt = (torch.from_numpy(x) if self._staging is None
                   else self._staging.upload(x, self.device))
             with full_f32():
                 out, stats = self._run(xt)
         except torch.cuda.OutOfMemoryError as e:   # surfaced at materialize
             exc = e
+        finally:
+            self._noise = None
         slot = None
         if out is not None and self._staging is not None:
             # the copies back follow the model on the stream; the device
@@ -628,7 +677,7 @@ class SuperResolution:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
         return {"out": out, "stats": stats, "event": event, "slot": slot, "exc": exc,
-                "x": x, "n": len(x)}
+                "x": x, "noise": noise, "n": len(x)}
 
     def materialize(self, handle: dict):
         """Wait for a dispatched batch and copy it to the host: uint8 RGB
@@ -664,10 +713,10 @@ class SuperResolution:
                 attempt += 1
                 self._plan = self._plan.downshift()   # raises HBMError at batch 1
                 logger.warning("device OOM; downshifted plan to %s", self._plan)
-                frames = handle["x"]
+                frames, noise = handle["x"], handle["noise"]
                 handle = None                          # drop the failed outputs
                 torch.cuda.empty_cache()
-                handle = self._enqueue(frames)
+                handle = self._enqueue(frames, noise)
 
     def output_size(self, height: int, width: int):
         if self.config.outscale:

@@ -23,6 +23,21 @@ copies of the first resumed frame, so its output after a resume differs
 (ROADMAP.md, "JAX faults the port must not copy"); so does its restorer,
 which builds ``VSRConfig`` without ``weights_dir`` (the port passes it).
 
+``sharding="spatial"`` (JAX's; the restorer maps ``sharding_strategy``
+"auto" and "spatial" to it) splits each window's rows into bands over the
+cards of ``mesh_shape`` (``parallel.mesh.data_mesh``; JAX's splits over
+every local device), one a card, each computing its own rows of the
+one-card result (``vsr.apply(bands=)``: SpyNet once on the whole frames,
+the carry gathered whole before each warp, the trunk's halo exchanged
+after its head and every block; ``tvsr.apply(bands=)``: bands on window
+rows, half a window of rows from each neighbour, cyclic, before each
+shifted block). With one card nothing is split; a height that does not
+divide by the cards (JAX's rule), or a TVSR window with fewer rows of
+attention windows than cards, is not split either, with a warning, and
+runs on the first card. The plan is the first card's: its bands' share of
+the window, one working set and what is gathered whole there
+(``planner.vsr_bytes(band_rows=...)``).
+
 No kernel of its own: the model's forward is plain PyTorch
 (``models.vsr``, ``models.tvsr``: the registry's ``TREE_MODULES`` of the
 row's family), as it is XLA in JAX. ``plan`` holds the frames a dispatch
@@ -37,7 +52,7 @@ from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +65,7 @@ from framewright_tpu_torch.hw import device_info, full_f32, resolve_device
 logger = logging.getLogger(__name__)
 
 _PAD_MULT = 32  # SpyNet's 6-level pyramid
+_SHARDINGS = ("none", "spatial")
 
 
 @dataclass
@@ -62,12 +78,16 @@ class VSRConfig:
     device: str = "cuda"           # cuda | cpu
     hbm_utilization: float = 0.85
     reserved_bytes: int = 0        # card memory kept off the window's budget
+    sharding: str = "none"         # none | spatial: the window's rows in bands
+    #                                over the cards of ``mesh_shape``
+    mesh_shape: Tuple[int, ...] = ()   # () = every local card
 
 
 @dataclass(frozen=True)
 class VSRPlan:
     frames: int                    # frames a dispatch takes (the chunk)
-    est_bytes: int                 # planned peak card bytes of a window
+    est_bytes: int                 # planned peak card bytes of a window (the
+    #                                first card's, under the spatial split)
 
 
 class VideoSuperResolution:
@@ -86,6 +106,8 @@ class VideoSuperResolution:
         self.plan: Optional[VSRPlan] = None
         self._tail: Optional[np.ndarray] = None
         self._params = None
+        self.bands = None                  # parallel.bands.Bands of the spatial split
+        self._band_params: list = []       # the tree on each band's device
 
     def setup(self, height: int, width: int) -> None:
         from framewright_tpu_torch.models.layers import tree_to_torch
@@ -101,20 +123,33 @@ class VideoSuperResolution:
             raise ConfigError(f"{cfg.model_name} is not a video SR model")
         if cfg.chunk < 1 or cfg.overlap < 0:
             raise ConfigError("chunk must be >= 1 and overlap >= 0")
-        self.device = resolve_device(cfg.device)
+        if cfg.sharding not in _SHARDINGS:
+            raise ConfigError(f"VSR sharding must be one of {_SHARDINGS}, got {cfg.sharding!r}")
         spec, tree, self.weights_source = load_params(cfg.model_name, cfg.weights_dir)
         self.scale = spec.scale
         self._dtype = torch.float32 if cfg.compute_dtype == "float32" else torch.bfloat16
-        self._params = tree_to_torch(tree, self.device, self._dtype)
-        self._fn = TREE_MODULES[spec.family].apply
+        module = TREE_MODULES[spec.family]
+        self._fn = module.apply
         self._arch = spec.arch_config
         self._h, self._w = height, width
         self._ph, self._pw = -height % _PAD_MULT, -width % _PAD_MULT
         self._win = cfg.chunk + cfg.overlap
         self._tail = None
-        self.plan = VSRPlan(cfg.chunk, planner.vsr_bytes(
-            height, width, self._win, spec.family,
-            "float32" if cfg.compute_dtype == "float32" else "bfloat16"))
+        self.bands = self._split(height, spec, module)
+        band_devs = self.bands.devices if self.bands is not None else ()
+        self.device = band_devs[0] if band_devs else resolve_device(cfg.device)
+        on = {d: tree_to_torch(tree, d, self._dtype)
+              for d in dict.fromkeys((self.device,) + band_devs)}
+        self._params = on[self.device]
+        self._band_params = [on[d] for d in band_devs]
+        dt = "float32" if cfg.compute_dtype == "float32" else "bfloat16"
+        if self.bands is None:
+            est = planner.vsr_bytes(height, width, self._win, spec.family, dt)
+        else:
+            est = planner.vsr_bytes(height, width, self._win, spec.family, dt,
+                                    band_rows=self.bands.rows,
+                                    bands_here=self.bands.devices.count(self.device))
+        self.plan = VSRPlan(cfg.chunk, est)
         budget = (planner.budget_bytes(device_info(self.device).free_bytes, cfg.hbm_utilization)
                   - cfg.reserved_bytes)
         if self.plan.est_bytes > budget:
@@ -126,6 +161,41 @@ class VideoSuperResolution:
                     cfg.model_name, self.weights_source, self.device, self._win, cfg.overlap,
                     width, height, width * self.scale, height * self.scale,
                     self.plan.est_bytes / 1e9)
+
+    def _split(self, height: int, spec, module):
+        """The row bands of the spatial split over the cards of
+        ``mesh_shape`` (``parallel.mesh.data_mesh``), or None: one card, a
+        height that does not divide by the number of cards (JAX's rule), or
+        a TVSR window with fewer rows of attention windows than cards
+        (its bands are cut on them) skips the split, the last two with a
+        warning; the window then runs on the first card."""
+        from framewright_tpu_torch.parallel import mesh as mesh_mod
+        from framewright_tpu_torch.parallel.bands import Bands
+
+        cfg = self.config
+        if cfg.sharding != "spatial":
+            return None
+        mesh = mesh_mod.data_mesh(cfg.device, cfg.mesh_shape)
+        if mesh is None:
+            return None
+        devs = list(mesh.frame_devices)
+        hp = height + self._ph
+        if height % len(devs):
+            logger.warning("VSR spatial sharding skipped: height %d not divisible by %d "
+                           "devices", height, len(devs))
+            return None
+        if spec.family == "tvsr":
+            win = self._arch.window
+            if hp // win < len(devs):
+                logger.warning("VSR spatial sharding skipped: %d rows of %d-row windows "
+                               "cannot make %d bands", hp // win, win, len(devs))
+                return None
+            bands = Bands.split(hp, devs, 0, align=win)
+        else:
+            bands = Bands.split(hp, devs, module.BAND_HALO)
+        logger.info("VSR height-split over %d devices: rows %s (halo %d) on %s", len(devs),
+                    list(bands.cuts), bands.halo, [str(d) for d in devs])
+        return bands
 
     def output_size(self, height: int, width: int):
         return height * self.scale, width * self.scale
@@ -153,7 +223,8 @@ class VideoSuperResolution:
             x = F.pad(x.permute(0, 3, 1, 2).float(), (0, self._pw, 0, self._ph),
                       mode="replicate").to(self._dtype).permute(0, 2, 3, 1)
         with full_f32(), torch.no_grad():
-            y = self._fn(self._params, x[None], self._arch)[0]
+            params = self._params if self.bands is None else self._band_params
+            y = self._fn(params, x[None], self._arch, bands=self.bands)[0]
         y = y[:, : self._h * self.scale, : self._w * self.scale]
         return torch.floor(y.float().clamp(0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
 
@@ -196,6 +267,7 @@ class VideoSuperResolution:
 
     def teardown(self) -> None:
         self._params = None
+        self._band_params = []
         self._tail = None
         if self.device is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -463,6 +463,9 @@ def output_size(cfg: Config, height: int, width: int):
 # frames x space split, which the JAX restorer never maps (ROADMAP, "JAX
 # behaviour the port does not keep")
 SR_SHARDING = {"auto": "auto", "data": "data", "spatial": "2d", "none": "none"}
+# Config.sharding_strategy -> VSRConfig.sharding, as the JAX restorer maps
+# it (framewright_tpu/restorer.py:374-382)
+VSR_SHARDING = {"auto": "spatial", "spatial": "spatial", "data": "none", "none": "none"}
 
 
 def _data_sharding(cfg: Config) -> str:
@@ -476,20 +479,21 @@ def build_sr(cfg: Config, reserved_bytes: int = 0):
     """The enhance stage's SR processor (the JAX restorer's choice,
     ``framewright_tpu/restorer.py:365-394``): a video SR row runs the
     chunked video SR (with ``weights_dir``, which the JAX restorer leaves
-    out), ``sr_ensemble`` the ensemble, else ``SuperResolution``; each
-    plans beside ``reserved_bytes``."""
+    out; its window's height split over the cards of ``mesh_shape`` under
+    ``sharding_strategy`` "auto" and "spatial", as JAX's), ``sr_ensemble``
+    the ensemble, else ``SuperResolution`` or ``ShardedSR`` over the local
+    cards; each plans beside ``reserved_bytes``."""
     family = get_model(cfg.sr_model).family
-    if cfg.sharding_strategy == "spatial" and (family in VSR_FAMILIES or cfg.ensemble_models()
-                                               or family == "diffusion"):
-        logger.info("sharding spatial: %s has no band path; it runs as under 'data'",
-                    "the ensemble" if cfg.ensemble_models() else cfg.sr_model)
     if family in VSR_FAMILIES:
         return VideoSuperResolution(VSRConfig(
             model_name=cfg.sr_model, chunk=cfg.batch_size or 8,
             compute_dtype=cfg.compute_dtype,
             weights_dir=str(cfg.weights_dir) if cfg.weights_dir else None,
             device=_device(cfg), hbm_utilization=cfg.hbm_utilization,
-            reserved_bytes=reserved_bytes))
+            reserved_bytes=reserved_bytes, sharding=VSR_SHARDING[cfg.sharding_strategy],
+            mesh_shape=tuple(cfg.mesh_shape)))
+    if cfg.sharding_strategy == "spatial" and cfg.ensemble_models():
+        logger.info("sharding spatial: the ensemble has no band path; it runs as under 'data'")
     if cfg.ensemble_models():
         return EnsembleSR([cfg.sr_model] + cfg.ensemble_models(),
                           strategy=cfg.ensemble_strategy,
@@ -500,9 +504,7 @@ def build_sr(cfg: Config, reserved_bytes: int = 0):
     # the split over the local cards (JAX super_resolution.py:194-217);
     # JAX's restorer never maps sharding_strategy, the port honours "none"
     # and maps "spatial" to the SR's "2d" (SR_SHARDING). The diffusion SR
-    # keeps one card (its noise is drawn per dispatch chunk).
-    if get_model(cfg.sr_model).family == "diffusion":
-        sr_cfg.sharding = "none"
+    # splits frames, its noise drawn once a dispatch (ShardedSR).
     mesh = sr_mesh(sr_cfg, cfg.mesh_shape)
     return SuperResolution(sr_cfg) if mesh is None else ShardedSR(sr_cfg, mesh)
 

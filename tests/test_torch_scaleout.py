@@ -195,18 +195,20 @@ def test_sr_split_over_a_cpu_mesh_equals_the_unsplit_path(model, dtype, color, s
 
 def test_sr_one_device_is_not_split(monkeypatch):
     """The restore's SR is the one-device processor with one local device
-    of its kind, a frames axis of one, ``sharding_strategy="none"``, the
-    diffusion SR, or the CPU asked for on a host whose devices are cards;
-    ``--batch`` below the cards stays the dispatch's frames."""
+    of its kind, a frames axis of one, ``sharding_strategy="none"``, or the
+    CPU asked for on a host whose devices are cards; ``--batch`` below the
+    cards stays the dispatch's frames. The diffusion SR splits frames too
+    (its noise drawn once a dispatch, ``tests/test_torch_split_models.py``)."""
     from framewright_tpu_torch.restorer import build_sr
 
     cfg = dict(sr_model="FW_fastvgg_x2", device_platform="cpu")
     monkeypatch.setattr(mesh, "local_devices", lambda: [torch.device("cpu")])
     assert type(build_sr(Config(**cfg))) is SuperResolution
     monkeypatch.setattr(mesh, "local_devices", lambda: [torch.device("cpu")] * 3)
-    for over in ({"sharding_strategy": "none"}, {"mesh_shape": (1,)},
-                 {"sr_model": "DiffusionSR_x4", "scale_factor": 4}):
+    for over in ({"sharding_strategy": "none"}, {"mesh_shape": (1,)}):
         assert type(build_sr(Config(**{**cfg, **over}))) is SuperResolution, over
+    diffusion = build_sr(Config(**{**cfg, "sr_model": "DiffusionSR_x4", "scale_factor": 4}))
+    assert isinstance(diffusion, distributor.ShardedSR) and len(diffusion.members) == 3
     monkeypatch.setattr(mesh, "local_devices", lambda: [torch.device("cuda", i) for i in range(2)])
     assert type(build_sr(Config(**cfg))) is SuperResolution
     monkeypatch.setattr(mesh, "local_devices", lambda: [torch.device("cpu")] * 3)

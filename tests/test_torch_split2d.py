@@ -212,8 +212,10 @@ def test_tiled_plan_runs_whole_frames_tiled():
 
 
 def test_2d_plan_holds_the_bands_and_the_whole_frame():
-    """A member's plan is its device's: both bands (two ``cpu`` entries on
-    the space axis) at the model's peak, beside the whole frame's gathered
+    """A member's plan is its device's: its two bands (two ``cpu`` entries
+    on the space axis) run in turn, so one band's working set at the
+    model's peak and what both keep meanwhile (carried features, the
+    head's skip, the band's output), beside the whole frame's gathered
     output and stats, at the frame's own height."""
     from framewright_tpu_torch import planner
 
@@ -227,9 +229,11 @@ def test_2d_plan_holds_the_bands_and_the_whole_frame():
     m = sr.members[0]
     assert m.bands.rows == 15 and m.plan.height == 40 and not m.plan.tiled
     band = planner.frame_bytes(30, 48, 2, "rrdb", "bfloat16")
+    resident = 15 * 24 * (2 * 64 * 2 + 6 * 16)
+    assert planner.band_resident_bytes_per_body_px("rrdb", 2) == 2 * 64 * 2 + 6 * 16
     gathered = 80 * 96 * (planner._GATHERED_BYTES_PER_OUT_PX
                           + planner._STATS_BYTES_PER_OUT_PX["luma"] * 11 // 10)
-    assert m.plan.est_bytes == 2 * band + gathered > plain.plan.est_bytes
+    assert m.plan.est_bytes == band + 2 * resident + gathered > plain.plan.est_bytes
 
 
 @pytest.mark.parametrize("mesh_shape,n", [((), 8), ((2,), 2), ((1, 2), 2)])
