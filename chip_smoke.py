@@ -288,6 +288,24 @@ Phases, one JSON object per line on stdout:
               realesr-animevideov3, HAT_SRx4, FW_nafnet_dn and restormer
               ``.pth`` files (PASS, rc 0)
               and x2plus with a key removed (rc 1, the manifest's line)
+  network     slice 19, through the user's entry points: ``farm run --burst
+              local --workers 2 --chunk-frames 2`` of x2plus on a
+              progressive 1080p clip of 8 frames (4 chunks, 2 provisioned
+              ``farm work --device cuda`` processes): every chunk ok with
+              errors 0 on cuda, each worker's peak within its plan, the
+              merge byte-equal to the in-process restore (69/1/1 a batch),
+              no worker left, and the wall; the same burst with its one
+              worker killed once it has claimed a chunk (CloudError naming
+              the exit -9 well before --timeout); ``restore
+              https://example.com/clip.mp4`` through a yt-dlp stand-in on
+              PATH (2 frames of 1080p, 69/1/1 a batch) byte-equal to the
+              restore of the local file; ``models download
+              RealESRGAN_x2plus`` from an http.server on 127.0.0.1 (a
+              seeded upstream .pth, the same bytes), then ``models verify``
+              (PASS, rc 0); ``ABTestRunner.run`` with bf16 and int8 variants
+              on 2 frames of 1080p, each byte-equal to the CLI restore of
+              its config (rows 1-3, and rows 4, 2 and 3); the kernel line's
+              rows 1-4 carry these runs' launches (``network_launches``)
   6. times    each kernel by CUDA events beside its plain version, its
               roofline bound and, for the bf16 RDB, K1, tail1, the bf16
               chain and the band conv, cuDNN's F.conv2d (PyTorch has no
@@ -322,6 +340,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from http.server import SimpleHTTPRequestHandler
 from pathlib import Path
 
 import numpy as np
@@ -4808,6 +4827,285 @@ def split_models(tmp: Path, pair) -> dict:
     return out
 
 
+NET_HW = (1080, 1920)
+NET_BURST_FRAMES, NET_CHUNK = 8, 2   # 4 chunks: the burst's instances_for gives 2 instances
+NET_FRAMES = 2                       # the URL restore's and the A/B runner's clips
+# a yt-dlp stand-in: writes the clip $FW_STANDIN_SRC to <-o>.y4m (the
+# name yt-dlp gives when it adds an extension)
+STANDIN_YTDLP = """#!{python}
+import os, shutil, sys
+argv = sys.argv[1:]
+shutil.copyfile(os.environ["FW_STANDIN_SRC"], argv[argv.index("-o") + 1] + ".y4m")
+"""
+
+
+class _QuietFiles(SimpleHTTPRequestHandler):
+    def log_message(self, *args):
+        pass
+
+
+def network_phase(tmp: Path, dev, x: dict) -> dict:
+    """Slice 19 on the card: the cloud burst, a URL source, a model
+    download and the A/B runner, each through the user's entry point.
+    ``farm run --burst local --workers 2 --chunk-frames 2`` of x2plus on a
+    progressive 1080p clip of 8 frames (4 chunks, 2 provisioned worker
+    processes on ``cuda``): every chunk ok with errors 0 and its peak
+    within its plan, the merge byte-equal to the in-process restore (69/1/1
+    a batch), no worker process left; the same burst with one worker killed
+    once it has claimed a chunk (``CloudError`` naming its exit -9, well
+    before ``--timeout``); ``restore https://example.com/clip.mp4`` through
+    a yt-dlp stand-in on ``PATH`` (2 frames of 1080p, 69/1/1 a batch)
+    byte-equal to the restore of the local file; ``models download
+    RealESRGAN_x2plus`` from an ``http.server`` on 127.0.0.1 serving a seeded
+    upstream ``.pth`` (the same bytes), then ``models verify`` of it (PASS,
+    rc 0); ``ABTestRunner.run`` with bf16 and int8 variants on 2 frames of
+    1080p, each output byte-equal to the CLI restore of its config (bf16:
+    rows 1-3, int8: rows 4, 2 and 3). Returns the walls and each run's
+    launches."""
+    import threading
+    from functools import partial
+    from http.server import HTTPServer
+
+    import torch
+
+    from framewright_tpu_torch import cli, cloud
+    from framewright_tpu_torch.config import Config
+    from framewright_tpu_torch.models import registry, upstream_ref
+    from framewright_tpu_torch.restorer import VideoRestorer
+    from framewright_tpu_torch.testing import ABTestRunner, ABVariant
+
+    t_phase = time.perf_counter()
+    reset, read, cli_run, nw = x["reset_counters"], x["read_counters"], x["cli_run"], x["nw"]
+    walls: dict = {}
+    launches_by: dict = {}
+
+    def main_io(argv):
+        """cli.main(argv) in this process -> (rc, stdout, stderr)."""
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        return rc, out.getvalue(), err.getvalue()
+
+    def counts(label, launches, batches) -> None:
+        """69 x the RDB kernel of the dtype, K1 and K2 once a batch; one
+        calibration a static int8 restore."""
+        want = {k: 0 for k in launches}
+        for body, b in batches.items():
+            want[body] += 69 * b
+            want["conv_body_skip"] += b
+            want["fused_tail"] += b
+            if body == "fused_rdb_i32" and "rrdb_calibrations" in want:
+                want["rrdb_calibrations"] += 1
+        require(all(b > 0 for b in batches.values()) and launches == want,
+                f"network {label}: launches {launches}, expected {want}")
+        launches_by[label] = launches
+
+    # the burst's provisioned workers, recorded as the CLI provisions them
+    procs: list = []
+    provision = cloud.LocalSubprocessProvider.provision
+
+    def recording(self, spec):
+        inst = provision(self, spec)
+        procs.append((self.command(spec), inst, self._procs[inst.instance_id]))
+        return inst
+
+    frames = synthetic_frames(NET_BURST_FRAMES, *NET_HW, seed=101, **PROGRESSIVE)
+    src = write_clip(tmp / "net_burst.y4m", frames)
+    n_chunks = NET_BURST_FRAMES // NET_CHUNK
+    burst = ["--burst", "local", "--chunk-frames", str(NET_CHUNK), "--model",
+             "RealESRGAN_x2plus", "--scale", "2", "--timeout", "900"]
+    cloud.LocalSubprocessProvider.provision = recording
+    try:
+        # -- the burst: two worker processes on the card ----------------------------------
+        job, merged = tmp / "net_burst_job", tmp / "net_burst_out.y4m"
+        t0 = time.perf_counter()
+        with with_env({"FRAMEWRIGHT_WEIGHTS_DIR": nw}):
+            rc, out, err = main_io(["farm", "run", str(src), str(job), "-o", str(merged),
+                                    "--workers", "2", *burst])
+        walls["burst"] = time.perf_counter() - t0
+        require(rc == 0, f"network burst: rc {rc}: {err[-3000:]}")
+        require(json.loads(out) == {"output": str(merged)}, f"network burst printed {out!r}")
+        require(len(procs) == 2, f"network burst: {len(procs)} provisioned workers, expected 2")
+        require(all(argv[-2:] == ["--device", "cuda"] for argv, _, _ in procs),
+                f"network burst: worker argv {[a for a, _, _ in procs]}")
+        require(all(p.poll() == 0 for _, _, p in procs),
+                f"network burst: worker exits {[p.poll() for _, _, p in procs]}, expected 0")
+        done = [json.loads(Path(i.meta["stdout"]).read_text().strip().splitlines()[-1])[
+            "worker_chunks_done"] for _, i, _ in procs]
+        res = [json.loads((job / "results" / f"chunk_{i}.json").read_text())
+               for i in range(n_chunks)]
+        for r_ in res:
+            require(r_["ok"] and r_["errors"] == 0 and r_["device"].startswith("cuda"),
+                    f"network burst: chunk {r_}")
+            x["plan_checks"].append((f"network burst chunk {r_['chunk']}", r_["peak_bytes"],
+                                     r_["plan_bytes"]))
+        require(sum(done) == n_chunks, f"network burst: chunks done {done}")
+        straight = tmp / "net_burst_straight.y4m"
+        reset()
+        t0 = time.perf_counter()
+        with with_env({"FRAMEWRIGHT_WEIGHTS_DIR": nw}):
+            result = VideoRestorer(Config(
+                sr_model="RealESRGAN_x2plus", compute_dtype="bfloat16", scale_factor=2,
+                checkpoint_enabled=False, validate_output=False,
+                project_dir=tmp / "net_burst_proj")).restore_video(src, output=straight)
+        walls["burst in-process restore"] = time.perf_counter() - t0
+        counts("burst in-process restore", read(), {"fused_rdb": result.batches})
+        require(result.errors == 0, f"network burst in-process: errors {result.errors}")
+        _, _, pm = read_y4m_planes(merged)
+        _, _, ps = read_y4m_planes(straight)
+        require(len(pm) == len(ps) == NET_BURST_FRAMES
+                and all(np.array_equal(a, b) for fa, fb in zip(pm, ps) for a, b in zip(fa, fb)),
+                "network burst: the merged output differs from the in-process restore")
+        emit({"phase": "network", "name": "burst local x2", "wall_seconds": walls["burst"],
+              "worker_argv": [a[3:] for a, _, _ in procs], "worker_chunks_done": done,
+              "worker_exit_codes": [p.returncode for _, _, p in procs],
+              "chunk_devices": [r_["device"] for r_ in res],
+              "worker_peak_bytes": {r_["chunk"]: r_["peak_bytes"] for r_ in res},
+              "planner_bytes": {r_["chunk"]: r_["plan_bytes"] for r_ in res},
+              "in_process_batches": result.batches, "merged_equals_in_process": True})
+
+        # -- a worker killed during the burst -----------------------------------------------
+        procs.clear()
+        job_k = tmp / "net_kill_job"
+        run_over = threading.Event()
+        killed: list = []
+
+        def kill_after_claim():
+            """SIGKILL the one worker once it has claimed a chunk."""
+            while not run_over.wait(0.1):
+                if procs and any((job_k / "assignments").glob("chunk_*.json")):
+                    procs[0][2].kill()
+                    killed.append(procs[0][1].instance_id)
+                    return
+
+        killer = threading.Thread(target=kill_after_claim, daemon=True)
+        killer.start()
+        t0 = time.perf_counter()
+        try:
+            with with_env({"FRAMEWRIGHT_WEIGHTS_DIR": nw}):
+                rc, out, err = main_io(["farm", "run", str(src), str(job_k), "-o",
+                                        str(tmp / "net_kill_out.y4m"), "--workers", "1",
+                                        *burst])
+        finally:
+            run_over.set()
+            killer.join()
+        walls["burst with a killed worker"] = time.perf_counter() - t0
+        named = bool(killed) and f"worker pid {killed[0]} exited with -9" in err
+        emit({"phase": "network", "name": "burst with its worker killed", "rc": rc,
+              "wall_seconds": walls["burst with a killed worker"], "timeout_seconds": 900,
+              "error": err.strip().splitlines()[-1][:600] if err.strip() else ""})
+        require(rc == 1 and named,
+                f"network killed burst: rc {rc}, killed {killed}: {err[-2000:]}")
+        require(walls["burst with a killed worker"] < 300,
+                f"network killed burst: {walls['burst with a killed worker']} s")
+        require(all(p.poll() is not None for _, _, p in procs)
+                and not (tmp / "net_kill_out.y4m").exists(),
+                "network killed burst: a worker left running or an output written")
+    finally:
+        cloud.LocalSubprocessProvider.provision = provision
+
+    # -- restore <URL> through a yt-dlp stand-in ----------------------------------------------
+    url_src = write_clip(tmp / "net_url_src.y4m",
+                         synthetic_frames(NET_FRAMES, *NET_HW, seed=102, **PROGRESSIVE))
+    bindir = tmp / "net_bin"
+    bindir.mkdir(exist_ok=True)
+    tool = bindir / "yt-dlp"
+    tool.write_text(STANDIN_YTDLP.format(python=sys.executable))
+    tool.chmod(0o755)
+    env = {"PATH": f"{bindir}{os.pathsep}{os.environ.get('PATH', '')}",
+           "FW_STANDIN_SRC": str(url_src), "FRAMEWRIGHT_WEIGHTS_DIR": nw}
+    url_runs = {}
+    for label, source in (("restore <URL>", "https://example.com/clip.mp4"),
+                          ("restore <local file>", str(url_src))):
+        reset()
+        t0 = time.perf_counter()
+        with with_env(env):
+            rc, summary, peak = cli_run(["restore", source, "-o", str(tmp / f"net_{len(url_runs)}.y4m"),
+                                         "--project-dir", str(tmp / f"net_url_proj{len(url_runs)}")])
+        walls[label] = time.perf_counter() - t0
+        require(rc == 0 and summary["errors"] == 0, f"network {label}: rc {rc}, {summary}")
+        counts(label, read(), {"fused_rdb": summary["batches"]})
+        url_runs[label] = tmp / f"net_{len(url_runs)}.y4m"
+    downloaded = tmp / "net_url_proj0" / "downloads" / "source.mp4.y4m"
+    require(downloaded.read_bytes() == url_src.read_bytes(),
+            "network restore <URL>: the downloaded file is not the served clip")
+    same = url_runs["restore <URL>"].read_bytes() == url_runs["restore <local file>"].read_bytes()
+    emit({"phase": "network", "name": "restore <URL>", "downloaded": str(downloaded.name),
+          "launches": launches_by["restore <URL>"], "equals_local_restore": same,
+          "wall_seconds": walls["restore <URL>"]})
+    require(same, "network restore <URL>: output differs from the restore of the local file")
+
+    # -- models download from a server on 127.0.0.1, then models verify ----------------------
+    name = "RealESRGAN_x2plus"
+    served = tmp / "net_served"
+    served.mkdir(exist_ok=True)
+    torch.save(upstream_ref.seeded_state_dict(registry.MODEL_SPECS[name], seed=19),
+               served / f"{name}.pth")
+    srv = HTTPServer(("127.0.0.1", 0), partial(_QuietFiles, directory=str(served)))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    saved = registry.MODEL_SPECS[name]
+    url = f"http://127.0.0.1:{srv.server_address[1]}/{name}.pth"
+    registry.MODEL_SPECS[name] = dataclasses.replace(saved, url=url)
+    wdir = tmp / "net_dl_weights"
+    t0 = time.perf_counter()
+    try:
+        with with_env({"FRAMEWRIGHT_WEIGHTS_DIR": str(wdir)}):
+            rc, out, err = main_io(["models", "download", name])
+            rc_v, vout, verr = main_io(["models", "verify", name])
+    finally:
+        registry.MODEL_SPECS[name] = saved
+        srv.shutdown()
+        thread.join()
+        srv.server_close()
+    walls["models download + verify"] = time.perf_counter() - t0
+    got = wdir / f"{name}.pth"
+    lines = vout.strip().splitlines()
+    emit({"phase": "network", "name": "models download + verify", "rc": [rc, rc_v],
+          "download_stderr": err.strip(), "verify": lines,
+          "bytes": got.stat().st_size if got.exists() else None,
+          "wall_seconds": walls["models download + verify"]})
+    require(rc == 0 and out.strip() == str(got) and err.strip() == f"downloading {url} -> {got}",
+            f"network models download: rc {rc}: {out!r} {err!r}")
+    require(got.read_bytes() == (served / f"{name}.pth").read_bytes(),
+            "network models download: the file differs from the served one")
+    require(rc_v == 0 and lines and lines[-1].endswith("[PASS]"),
+            f"network models verify: rc {rc_v}: {vout} {verr}")
+
+    # -- the A/B runner: bf16 and int8 variants -----------------------------------------------
+    ab_src = write_clip(tmp / "net_ab.y4m",
+                        synthetic_frames(NET_FRAMES, *NET_HW, seed=103, **PROGRESSIVE))
+    variants = (("bf16", "bfloat16", "fused_rdb"), ("int8", "int8", "fused_rdb_i32"))
+    reset()
+    t0 = time.perf_counter()
+    with with_env({"FRAMEWRIGHT_WEIGHTS_DIR": nw}):
+        ab = ABTestRunner(Config(), tmp / "net_ab").run(
+            ab_src, [ABVariant(v, {"compute_dtype": d}) for v, d, _ in variants])
+    walls["A/B runner"] = time.perf_counter() - t0
+    ab_launches = read()
+    batches = {}
+    for v, d, body in variants:
+        out = tmp / f"net_ab_cli_{v}.y4m"
+        reset()
+        with with_env({"FRAMEWRIGHT_WEIGHTS_DIR": nw}):
+            rc, summary, peak = cli_run(["restore", str(ab_src), "-o", str(out), "--dtype", d,
+                                         "--no-checkpoint", "--project-dir",
+                                         str(tmp / f"net_ab_cli_{v}")])
+        require(rc == 0 and summary["errors"] == 0, f"network A/B CLI {v}: rc {rc}")
+        counts(f"A/B CLI restore {v}", read(), {body: summary["batches"]})
+        batches[body] = summary["batches"]
+        same = out.read_bytes() == (tmp / "net_ab" / f"{v}.y4m").read_bytes()
+        emit({"phase": "network", "name": f"A/B variant {v}", "equals_cli_restore": same,
+              "psnr": next(r.psnr for r in ab if r.variant == v),
+              "ssim": next(r.ssim for r in ab if r.variant == v),
+              "seconds": next(r.seconds for r in ab if r.variant == v)})
+        require(same, f"network A/B variant {v}: output differs from the CLI restore")
+    counts("A/B runner", ab_launches, batches)
+    walls["network phase"] = time.perf_counter() - t_phase
+    emit({"phase": "network", "name": "walls", **walls})
+    return {"walls": walls, "launches": launches_by}
+
+
 def torch_device_name() -> str:
     import torch
 
@@ -6160,6 +6458,7 @@ def main(argv=None) -> int:
         surface_walls = surfaces_phase(tmp, dev, {**x, "nw": nw})
         front_walls = frontends_phase(tmp, dev, {**x, "nw": nw})
         split2d_times = split2d_phase(tmp, dev, {**x, "nw": nw})
+        network = network_phase(tmp, dev, {**x, "nw": nw})
     emit({"phase": "restore", "seconds": round(time.perf_counter() - t0, 3)})
     launches = launches_by_run["RealESRGAN_x2plus bfloat16"]
 
@@ -6412,6 +6711,13 @@ def main(argv=None) -> int:
     # each row's share of its bound: the least time the card could take
     # over the time it took
     emit({"phase": "times", "bound_share": {r["name"]: r["bound_ms"] / r["ms"] for r in rows}})
+    # rows 1-4 under the network phase's paths: each run's launches
+    for r in rows:
+        counter = {"rdb": "fused_rdb", "conv_body_skip": "conv_body_skip", "tail": "fused_tail",
+                   "rdb_int8_i32": "fused_rdb_i32"}.get(r["name"])
+        if counter is not None:
+            r["network_launches"] = {run: c[counter] for run, c in network["launches"].items()
+                                     if c.get(counter)}
 
     # c5: the uploads that do not block, in restores of their own
     c5 = c5_times()
@@ -6426,7 +6732,7 @@ def main(argv=None) -> int:
           "archive": archive_times, "engine": engine_times,
           "color_gap": {k: v for k, v in color_gap_times.items() if k != "seconds"},
           "av_scaleout": av_times, "train": train_times, "surfaces": surface_walls,
-          "frontends": front_walls, "split2d": split2d_times,
+          "frontends": front_walls, "split2d": split2d_times, "network": network["walls"],
           "models": {k: v for k, v in models_times.items() if k != "seconds"}, "c5": {k: c5[k] for k in ("enqueue_ms_per_dispatch",
                                                         "quality_busy_share",
                                                         "quality_busy_share_unprofiled",

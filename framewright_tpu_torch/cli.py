@@ -34,7 +34,7 @@
     python -m framewright_tpu_torch.cli audio-sync REF TEST [--fix OUT]
     python -m framewright_tpu_torch.cli farm run IN WORK_DIR -o OUT [--model M] \\
         [--dtype D] [--scale S] [--chunk-frames N] [--job-id J] [--timeout S] \\
-        [--burst none]
+        [--burst none|local|runpod|vastai] [--workers N] [--api-key K] [--device D]
     python -m framewright_tpu_torch.cli farm work WORK_DIR [--worker-id W] \\
         [--device auto|cuda|cpu]
     python -m framewright_tpu_torch.cli farm status WORK_DIR
@@ -42,6 +42,8 @@
     python -m framewright_tpu_torch.cli recipe NAME IN [-o OUT] [--project-dir D] [--device D]
     python -m framewright_tpu_torch.cli auto IN [-o OUT] [--project-dir D] [--device D]
     python -m framewright_tpu_torch.cli do "TEXT" [--source IN] [-o OUT] [--dry-run]
+    python -m framewright_tpu_torch.cli upload archive|youtube FILE [--title T] ...
+    python -m framewright_tpu_torch.cli models download NAME
     python -m framewright_tpu_torch.cli analyze|recipes|qa-report|export-presets|wizard|
         interpolate|extract-frames|reassemble|compare|notify|completion|report|proxy ...
 
@@ -125,9 +127,13 @@ trends|estimate`` and ``proxy create|apply`` take the JAX CLI's
 arguments and print its output; ``analyze``, ``compare`` and ``wizard``
 also take ``--device`` (JAX's run on its default device), and ``report
 estimate`` uses the card's figures (``reports.estimate_cost``). A first
-argument that is not a verb means ``restore``. ``bench`` and ``suite``
-(the benchmark, ROADMAP A4) and ``upload`` (outside services) are
-refused, naming why.
+argument that is not a verb means ``restore``; an IN that is an http(s)
+URL is downloaded first with yt-dlp into
+``<project-dir>/downloads/source.mp4`` (``io.download``). ``upload
+archive|youtube FILE`` publishes a video (JAX's arguments and JSON;
+the file is streamed, never read whole), ``models download NAME`` fetches
+the registry row's URL into ``<weights-dir>/NAME.pth``. ``bench`` and
+``suite`` (the benchmark, ROADMAP A4) are refused, naming why.
 
 ``subtitles``, ``audio``, ``audio-sync`` and ``farm`` take the JAX CLI's
 arguments and print its lines and JSON. ``subtitles`` writes the burnt-in
@@ -139,8 +145,11 @@ splits it into stems (``--separate``) or runs the dialog chain; the
 Wiener and mask-net stages run on ``--device``. ``farm run`` publishes a
 job in WORK_DIR, waits for ``farm work`` processes (on this host or any
 that shares the directory) to restore its chunks and merges them;
-``--burst`` takes ``none`` only (the cloud burst reaches the network and
-is not ported: anything else is a ``ConfigError``).
+``--burst local`` starts ``--workers`` worker processes itself on
+``--device`` (the card unless ``cpu``), ``runpod`` and ``vastai`` rent
+them (``--api-key``; ``cloud.py``), and a run whose every instance has
+stopped with chunks left fails naming each one's exit and stderr;
+``--burst gcp-tpu`` is a ``ConfigError`` (a TPU VM has no CUDA card).
 """
 
 from __future__ import annotations
@@ -223,8 +232,13 @@ def cmd_restore(args: argparse.Namespace) -> int:
                   f"({info.percent:.1f}%)  {info.fps:.2f} fps  ETA {info.eta_s:.0f}s ",
                   end="", file=sys.stderr)
 
-        result = VideoRestorer(cfg, on_progress).restore_video(args.source,
-                                                              output=args.output)
+        source = args.source
+        if isinstance(source, str) and source.startswith(("http://", "https://")):
+            # a URL downloads first (JAX's cli.py:187-196)
+            from framewright_tpu_torch.io.download import download_video
+
+            source = download_video(source, Path(cfg.project_dir) / "downloads" / "source.mp4")
+        result = VideoRestorer(cfg, on_progress).restore_video(source, output=args.output)
     except FramewrightError as exc:
         print(f"\nerror: {exc}", file=sys.stderr)
         return 1
@@ -399,11 +413,11 @@ def cmd_farm(args: argparse.Namespace) -> int:
     """The shared-directory render farm (JAX ``cmd_farm``): ``work`` runs a
     worker, ``status`` prints the chunks and live workers, ``run``
     publishes the job, waits for the workers and merges. ``--burst``
-    takes ``none`` only: the cloud burst reaches the network and is not
-    ported."""
+    local, runpod or vastai rents ``--workers`` instances at most through
+    ``cloud.CloudBurstManager`` (local: worker processes on this host, on
+    ``--device``, the card unless ``cpu``); ``gcp-tpu`` is refused."""
     import shutil
 
-    from framewright_tpu_torch.errors import ConfigError
     from framewright_tpu_torch.parallel.multihost import (
         RenderJob,
         SharedDirCoordinator,
@@ -424,20 +438,28 @@ def cmd_farm(args: argparse.Namespace) -> int:
             print(json.dumps({"chunks": coord.chunk_status(n), "workers": coord.live_workers(),
                               "complete": coord.is_complete(n)}, indent=2))
             return 0
-        if args.burst != "none":
-            raise ConfigError(f"--burst {args.burst}: the cloud burst reaches the network "
-                              "and is not ported; run workers with 'farm work' (--burst none)")
         from framewright_tpu_torch.io.video import probe
 
-        meta = probe(Path(args.source))
-        job = RenderJob(
-            job_id=args.job_id, source=str(Path(args.source).resolve()),
-            output=str(work_dir / "merged.y4m"),
-            config={"sr_model": args.model, "compute_dtype": args.dtype,
-                    "scale_factor": args.scale},
-            total_frames=meta.nb_frames, chunk_frames=args.chunk_frames)
-        out = run_coordinator(work_dir, job, timeout=args.timeout)
-        shutil.copyfile(out, args.output)
+        config = {"sr_model": args.model, "compute_dtype": args.dtype,
+                  "scale_factor": args.scale}
+        if args.burst == "none":
+            meta = probe(Path(args.source))
+            job = RenderJob(
+                job_id=args.job_id, source=str(Path(args.source).resolve()),
+                output=str(work_dir / "merged.y4m"), config=config,
+                total_frames=meta.nb_frames, chunk_frames=args.chunk_frames)
+            shutil.copyfile(run_coordinator(work_dir, job, timeout=args.timeout), args.output)
+        else:
+            from framewright_tpu_torch import cloud
+
+            # gcp-tpu is refused here, before any file is written
+            provider = cloud.provider_for(args.burst, job_dir=work_dir, api_key=args.api_key,
+                                          device="cuda" if args.device == "auto" else args.device)
+            mgr = cloud.CloudBurstManager(provider, cloud.LocalDirStorage(work_dir),
+                                          cloud.BurstPolicy(max_instances=args.workers))
+            mgr.run(Path(args.source), Path(args.output), probe(Path(args.source)).nb_frames,
+                    config=config, spec=cloud.InstanceSpec(), chunk_frames=args.chunk_frames,
+                    timeout=args.timeout)
     except FramewrightError as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 1
@@ -510,8 +532,31 @@ def cmd_models(args: argparse.Namespace) -> int:
         return 0
     if args.action == "verify":
         return _models_verify(args, wdir)
-    print("error: models download is not ported (it needs the network)", file=sys.stderr)
+    if args.action == "download":
+        return _models_download(args, wdir)
     return 1
+
+
+def _models_download(args: argparse.Namespace, wdir: Path) -> int:
+    """JAX's ``models download`` (``framewright_tpu/cli.py:355-370``): the
+    registry row's URL fetched with ``urllib`` into ``<weights_dir>/NAME.pth``;
+    JAX's lines and return codes."""
+    import urllib.request
+
+    from framewright_tpu_torch.models import registry
+
+    spec = registry.get_model(args.name)
+    wdir.mkdir(parents=True, exist_ok=True)
+    dst = wdir / f"{args.name}.pth"
+    print(f"downloading {spec.url} -> {dst}", file=sys.stderr)
+    try:
+        urllib.request.urlretrieve(spec.url, dst)
+    except OSError as exc:
+        print(f"error: download failed ({exc}); fetch manually from {spec.url} and place "
+              f"at {dst}", file=sys.stderr)
+        return 1
+    print(str(dst))
+    return 0
 
 
 def _models_verify(args: argparse.Namespace, wdir: Path) -> int:
@@ -898,6 +943,28 @@ def cmd_notify(args: argparse.Namespace) -> int:
     return 0 if ok else 1
 
 
+def cmd_upload(args: argparse.Namespace) -> int:
+    """Publish a restored video to archive.org or YouTube (JAX
+    ``cmd_upload``): JAX's arguments and its JSON."""
+    from framewright_tpu_torch import uploads
+
+    if args.service == "archive":
+        up = uploads.ArchiveUploader(args.access_key, args.secret_key)
+        meta = uploads.ArchiveMetadata(identifier=args.identifier or Path(args.file).stem,
+                                       title=args.title or Path(args.file).stem,
+                                       description=args.description, creator=args.creator)
+        result = up.upload(Path(args.file), meta)
+    else:
+        up = uploads.YouTubeUploader(args.access_token)
+        if not up.is_authenticated() and args.refresh_token:
+            up.refresh_access_token(args.client_id, args.client_secret, args.refresh_token)
+        result = up.upload(Path(args.file), uploads.YouTubeMetadata(
+            title=args.title or Path(args.file).stem, description=args.description,
+            privacy=args.privacy))
+    print(json.dumps({"ok": result.ok, "url": result.url, "error": result.error}, indent=2))
+    return 0 if result.ok else 1
+
+
 def cmd_completion(args: argparse.Namespace) -> int:
     """A bash completion script over ``KNOWN_VERBS``."""
     print(_COMPLETION_BASH % " ".join(sorted(KNOWN_VERBS)))
@@ -1203,6 +1270,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where SSIM and the VMAF proxy run")
     p.set_defaults(func=cmd_compare)
 
+    p = sub.add_parser("upload", help="publish to YouTube / archive.org")
+    p.add_argument("service", choices=["youtube", "archive"])
+    p.add_argument("file")
+    p.add_argument("--title", default="")
+    p.add_argument("--description", default="")
+    p.add_argument("--creator", default="")
+    p.add_argument("--identifier", default="", help="archive.org item id")
+    p.add_argument("--access-key", default="", help="archive.org IAS3 key")
+    p.add_argument("--secret-key", default="", help="archive.org IAS3 secret")
+    p.add_argument("--access-token", default="", help="YouTube OAuth2 token")
+    p.add_argument("--client-id", default="")
+    p.add_argument("--client-secret", default="")
+    p.add_argument("--refresh-token", default="")
+    p.add_argument("--privacy", default="private", choices=["private", "unlisted", "public"])
+    p.set_defaults(func=cmd_upload)
+
     p = sub.add_parser("notify", help="send a test notification")
     p.add_argument("channel", choices=["email", "sms"])
     p.add_argument("--to", required=True)
@@ -1251,8 +1334,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("presets", help="list presets")
     p.set_defaults(func=cmd_presets)
 
-    p = sub.add_parser("models", help="model zoo: list/guide/port/verify (download is not "
-                                      "ported: it needs the network)")
+    p = sub.add_parser("models", help="model zoo: list/guide/port/download/verify")
     p.add_argument("action", nargs="?", choices=["list", "guide", "port", "download", "verify"],
                    default="list")
     p.add_argument("name", nargs="?", default="")
@@ -1366,7 +1448,9 @@ def build_parser() -> argparse.ArgumentParser:
     fr.add_argument("--job-id", default="farm")
     fr.add_argument("--burst", default="none",
                     choices=["none", "local", "runpod", "vastai", "gcp-tpu"],
-                    help="none only: the cloud burst is not ported (ConfigError)")
+                    help="rent workers: local processes on --device, runpod or vastai "
+                         "(--api-key); gcp-tpu is refused (ConfigError): a TPU VM has no "
+                         "CUDA card")
     fr.add_argument("--api-key", default="")
     fr.add_argument("--workers", type=int, default=2)
     fr.add_argument("--timeout", type=float, default=86400.0)
@@ -1379,7 +1463,7 @@ KNOWN_VERBS = {
     "restore", "probe", "check", "presets", "models", "analyze", "warmup", "recipes",
     "recipe", "auto", "do", "batch", "watch", "qa-report", "export-presets", "audio",
     "wizard", "farm", "subtitles", "interpolate", "extend", "extract-frames", "reassemble",
-    "compare", "notify", "completion", "report", "audio-sync", "proxy",
+    "compare", "notify", "completion", "report", "audio-sync", "proxy", "upload",
     # one-word preset verbs
     "quick", "best", "archive",
 }
@@ -1387,8 +1471,6 @@ KNOWN_VERBS = {
 REFUSED_VERBS = {
     "bench": "bench is not ported: the port's benchmark waits for ROADMAP A4",
     "suite": "suite is not ported: the benchmark suite waits for ROADMAP A4",
-    "upload": "upload is not ported: it exists to reach outside services over the "
-              "network (not queued)",
 }
 
 _COMPLETION_BASH = """\
@@ -1437,6 +1519,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         except OSError:
             pass
         return 0
+
+
+def main_check(argv: Optional[List[str]] = None) -> int:
+    """``framewright-torch-check``: the hardware report."""
+    return main(["check"])
 
 
 if __name__ == "__main__":

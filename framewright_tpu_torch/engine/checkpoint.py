@@ -69,6 +69,7 @@ class PipelineCheckpoint:
     source: str = ""
     total_frames: int = 0
     completed_stages: List[str] = field(default_factory=list)
+    current_stage: str = ""                                    # the stage started last
     frames_done: Dict[str, int] = field(default_factory=dict)  # stage -> contiguous count
     carry: Dict[str, Any] = field(default_factory=dict)        # str(frame) -> state there
     stage_state: Dict[str, Any] = field(default_factory=dict)  # stage -> what a rerun reads
@@ -135,10 +136,18 @@ class CheckpointManager:
             raise CheckpointError("CheckpointManager.start() not called")
         return self._ckpt
 
+    def stage_started(self, stage: str) -> None:
+        self.checkpoint.current_stage = stage
+        self.save()
+
+    def is_stage_complete(self, stage: str) -> bool:
+        return stage in self.checkpoint.completed_stages
+
     def stage_completed(self, stage: str) -> None:
         ck = self.checkpoint
         if stage not in ck.completed_stages:
             ck.completed_stages.append(stage)
+        ck.current_stage = ""
         self.save()
 
     def frames_completed(self, stage: str, contiguous_count: int) -> None:

@@ -1,19 +1,24 @@
-"""Long-form drift correction: the port's copy of
-``framewright_tpu.engine.temporal``'s ``AnchorPoint``, ``GlobalAnchors``
-and ``ColorConsistencyEnforcer`` (numpy, on the host).
+"""Long-form consistency: the port of ``framewright_tpu.engine.temporal``
+(numpy, on the host).
 
 A decode pass samples colour statistics every ``anchor_interval``
 frames; during the restore each frame's per-channel mean and std are
-pulled toward the anchors interpolated at its (global) frame index."""
+pulled toward the anchors interpolated at its (global) frame index.
+``ChunkedProcessor`` runs a stream in chunks with a trailing overlap and
+cross-fades consecutive chunks' outputs over it;
+``LongFormConsistencyManager`` drives both passes."""
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
-from typing import Iterator, List
+from typing import Callable, Iterator, List, Optional
 
 import numpy as np
 
 from framewright_tpu_torch.processors.film import estimate_grain_level
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass
@@ -97,3 +102,86 @@ class ColorConsistencyEnforcer:
         corrected = (f - cur_mean) * gain + a.mean_rgb
         out = f * (1 - self.strength) + corrected * self.strength
         return np.clip(out, 0, 255).astype(np.uint8)
+
+
+class ChunkedProcessor:
+    """A stream processed in chunks of ``chunk_size`` frames, each handed
+    to ``process_chunk`` with the ``overlap`` frames after it (the same
+    count back); the overlap's outputs of consecutive chunks are
+    cross-faded, weight (i + 1) / (overlap + 1) on the later chunk."""
+
+    def __init__(self, process_chunk: Callable[[List[np.ndarray]], List[np.ndarray]],
+                 chunk_size: int = 50, overlap: int = 4):
+        if not overlap < chunk_size:
+            raise ValueError(f"overlap {overlap} must be below chunk_size {chunk_size}")
+        self.process_chunk = process_chunk
+        self.chunk_size = chunk_size
+        self.overlap = overlap
+
+    @staticmethod
+    def _blend(prev_tail: List[np.ndarray], new_head: List[np.ndarray]) -> List[np.ndarray]:
+        n = len(prev_tail)
+        out = []
+        for i, (a, b) in enumerate(zip(prev_tail, new_head)):
+            w = (i + 1) / (n + 1)
+            out.append(np.clip(a.astype(np.float32) * (1 - w) + b.astype(np.float32) * w,
+                               0, 255).astype(np.uint8))
+        return out
+
+    def process_stream(self, frames_iter: Iterator[np.ndarray]) -> Iterator[np.ndarray]:
+        cs, ov = self.chunk_size, self.overlap
+        buf: List[np.ndarray] = []
+        tail_out: List[np.ndarray] = []       # the last chunk's processed overlap
+        first = True
+        while True:
+            target = cs + ov
+            ended = False
+            while len(buf) < target:
+                nxt = next(frames_iter, None)
+                if nxt is None:
+                    ended = True
+                    break
+                buf.append(nxt)
+            if not buf:
+                return
+            processed = self.process_chunk(list(buf[:target]))
+            if first:
+                head = processed[:cs]
+                first = False
+            else:
+                head = self._blend(tail_out, processed[:ov]) + processed[ov:cs]
+            yield from head
+            if ended:
+                yield from processed[cs:]
+                return
+            tail_out = processed[cs:cs + ov]
+            buf = buf[cs:]
+
+
+class LongFormConsistencyManager:
+    """Two passes: ``analyze`` samples the anchors over the whole stream,
+    ``process_stream`` runs it chunked and pulls each output frame toward
+    the anchors at its index."""
+
+    def __init__(self, chunk_size: int = 50, overlap: int = 4, anchor_every: int = 50,
+                 color_strength: float = 0.5):
+        self.chunk_size = chunk_size
+        self.overlap = overlap
+        self.anchor_every = anchor_every
+        self.color_strength = color_strength
+        self.anchors: Optional[GlobalAnchors] = None
+
+    def analyze(self, frames_iter: Iterator[np.ndarray]) -> GlobalAnchors:
+        self.anchors = GlobalAnchors.extract(frames_iter, self.anchor_every)
+        logger.info("extracted %d global anchors over %d frames",
+                    len(self.anchors.points), self.anchors.total_frames)
+        return self.anchors
+
+    def process_stream(self, frames_iter: Iterator[np.ndarray],
+                       process_chunk) -> Iterator[np.ndarray]:
+        if self.anchors is None:
+            raise ValueError("call analyze() first (two-pass design)")
+        enforcer = ColorConsistencyEnforcer(self.anchors, self.color_strength)
+        chunker = ChunkedProcessor(process_chunk, self.chunk_size, self.overlap)
+        for i, frame in enumerate(chunker.process_stream(frames_iter)):
+            yield enforcer.correct(frame, i)

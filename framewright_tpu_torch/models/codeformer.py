@@ -319,6 +319,20 @@ class CodeFormer(nn.Module):
         return net.to(device).eval().requires_grad_(False)
 
 
+def encode_indices(net: CodeFormer, x: torch.Tensor) -> torch.Tensor:
+    """JAX's ``encode_indices``: the nearest codebook entry of each encoder
+    latent (the plain VQGAN quantization, for diagnostics): (B, S, S, 3)
+    in [0, 1] -> (B, L, L) indices."""
+    h = x.permute(0, 3, 1, 2) * 2.0 - 1.0
+    for blk in net.encoder.blocks:
+        h = blk(h)
+    b, c, lh, lw = h.shape
+    flat = h.permute(0, 2, 3, 1).reshape(-1, c)
+    book = net.quantize.embedding.weight.to(h.dtype)
+    d = (flat.pow(2).sum(1, keepdim=True) - 2.0 * flat @ book.T + book.pow(2).sum(1)[None])
+    return d.argmin(dim=1).reshape(b, lh, lw)
+
+
 def state_dict_from_params(params: Dict, cfg: CodeFormerConfig,
                            tensor=torch.from_numpy) -> Dict[str, torch.Tensor]:
     """A JAX CodeFormer parameter tree (HWIO convs, (in, out) linears; the

@@ -6,7 +6,10 @@ borders, C1 = (0.01 max)^2 and C2 = (0.03 max)^2, computed per channel
 and averaged. The JAX package filters with the 2D window at
 ``Precision.HIGHEST``; here the window's two 1D factors filter rows,
 then columns, in f32 with TF32 off, one frame and one channel at a time
-so the maps of a 4K frame stay a few plane sizes.
+so the maps of a 4K frame stay a few plane sizes. ``ms_ssim`` is JAX's
+three-scale variant (2x2 average pools), ``psnr_np`` and ``ssim_np`` score
+uint8 frames on the host, ``quality_gate`` holds frames to the PSNR and
+SSIM thresholds.
 """
 
 from __future__ import annotations
@@ -86,3 +89,48 @@ def ssim(a: torch.Tensor, b: torch.Tensor, max_val: float = 1.0) -> torch.Tensor
     if a.dim() == 3:
         a, b = a[None], b[None]
     return ssim_per_frame(a, b, max_val).mean()
+
+
+def ms_ssim(a: torch.Tensor, b: torch.Tensor, max_val: float = 1.0,
+            levels: int = 3) -> torch.Tensor:
+    """JAX's reduced multi-scale SSIM: the SSIM of ``levels`` scales, each
+    a 2x2 average pool of the last, clipped to [1e-6, 1] and multiplied
+    with the weights (0.25, 0.35, 0.40), (0.4, 0.6) or (1.0,)."""
+    a, b = torch.as_tensor(a).float(), torch.as_tensor(b).float()
+    if a.dim() == 3:
+        a, b = a[None], b[None]
+    weights = {3: (0.25, 0.35, 0.40), 2: (0.4, 0.6), 1: (1.0,)}[levels]
+    total = torch.ones((), dtype=torch.float32, device=a.device)
+    for lv in range(levels):
+        s = ssim(a, b, max_val=max_val)
+        total = total * s.clamp(1e-6, 1.0) ** weights[lv]
+        if lv < levels - 1:
+            a = F.avg_pool2d(a.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+            b = F.avg_pool2d(b.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+    return total
+
+
+def psnr_np(a: np.ndarray, b: np.ndarray, max_val: float = 255.0) -> float:
+    """PSNR of two uint8 frames on the host, in f64 (inf when equal)."""
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    if mse <= 1e-12:
+        return float("inf")
+    return float(10.0 * np.log10(max_val * max_val / mse))
+
+
+def ssim_np(a: np.ndarray, b: np.ndarray, max_val: float = 255.0) -> float:
+    """SSIM of two single uint8 frames (scaled to [0, 1]) on the CPU."""
+    return float(ssim(torch.from_numpy(a.astype(np.float32) / max_val)[None],
+                      torch.from_numpy(b.astype(np.float32) / max_val)[None], max_val=1.0))
+
+
+def quality_gate(out_frames, ref_frames, min_psnr: float = 25.0,
+                 min_ssim: float = 0.85) -> tuple:
+    """``(ok, metrics)``: the PSNR and mean SSIM of the frames against
+    their references (the pre-stage content at the output's size) against
+    the thresholds."""
+    out_t, ref_t = torch.as_tensor(out_frames).float(), torch.as_tensor(ref_frames).float()
+    p = float(psnr(out_t, ref_t))
+    s = float(ssim(out_t, ref_t))
+    ok = p >= min_psnr and s >= min_ssim
+    return ok, {"psnr": p, "ssim": s, "min_psnr": min_psnr, "min_ssim": min_ssim}

@@ -89,7 +89,9 @@ class SharedDirCoordinator:
             (self.work_dir / sub).mkdir(parents=True, exist_ok=True)
 
     def submit(self, job: RenderJob) -> None:
-        (self.work_dir / "job.json").write_text(json.dumps(asdict(job), indent=2))
+        """Publish the job, whole or not at all: a worker may read it at
+        any time."""
+        _write_json(self.work_dir / "job.json", asdict(job))
 
     def load_job(self) -> RenderJob:
         p = self.work_dir / "job.json"
@@ -276,7 +278,7 @@ def make_chunk_processor(job: RenderJob, device: Optional[str] = None):
     with the job's config (checkpoint and quality gate off unless the job
     sets them; ``device`` overrides ``device_platform``), written to the
     part. Returns the restore's ``errors``, its peak card memory above what
-    was allocated before it, and the SR plan's estimate."""
+    was allocated before it, the SR plan's estimate and the SR's device."""
     from framewright_tpu_torch.config import Config
     from framewright_tpu_torch.io.y4m import concat_y4m
 
@@ -306,7 +308,8 @@ def make_chunk_processor(job: RenderJob, device: Optional[str] = None):
             plan = getattr(restorer.sr, "plan", None)
             return {"errors": result.errors,
                     "peak_bytes": torch.cuda.max_memory_allocated() - base if cuda else 0,
-                    "plan_bytes": plan.est_bytes if plan is not None else 0}
+                    "plan_bytes": plan.est_bytes if plan is not None else 0,
+                    "device": str(getattr(restorer.sr, "device", None))}
 
     return process_chunk
 

@@ -37,7 +37,7 @@ import logging
 import re
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -148,6 +148,10 @@ class ClassicalGuidedBackend:
     def set_rng_states(self, states: List[dict]) -> None:
         self._rng.bit_generator.state = states[0]
 
+    def process_stream(self, frames: Iterator[np.ndarray]) -> Iterator[np.ndarray]:
+        for fr in frames:
+            yield self.enhance(fr)
+
 
 class DiffusionGuidedBackend:
     """Style-conditioned diffusion SR with classifier-free guidance
@@ -239,6 +243,10 @@ class ReferenceGuidedBackend:
     def set_rng_states(self, states: List[dict]) -> None:
         self._grain.rng.bit_generator.state = states[0]
 
+    def process_stream(self, frames: Iterator[np.ndarray]) -> Iterator[np.ndarray]:
+        for fr in frames:
+            yield self.enhance(fr)
+
 
 class _Chain:
     """The base backend, then the reference matching."""
@@ -256,6 +264,10 @@ class _Chain:
         n = len(self.base.rng_states())
         self.base.set_rng_states(states[:n])
         self.ref.set_rng_states(states[n:])
+
+    def process_stream(self, frames: Iterator[np.ndarray]) -> Iterator[np.ndarray]:
+        for fr in frames:
+            yield self.enhance(fr)
 
 
 def make_backend(cfg: GuidedConfig, reference_dir: Optional[str] = None):

@@ -446,3 +446,8 @@ class NoiseProfiler:
         else:
             p.recommended_denoiser = "nafnet"
             p.recommended_strength = min(1.0, level / 60.0)
+
+
+def profile_frames(frames: Iterable[np.ndarray], sample_frames: int = 12) -> NoiseProfile:
+    """The noise profile of the first ``sample_frames`` frames."""
+    return NoiseProfiler(sample_frames=sample_frames).analyze_frames(frames)

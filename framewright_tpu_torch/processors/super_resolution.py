@@ -718,6 +718,11 @@ class SuperResolution:
                 torch.cuda.empty_cache()
                 handle = self._enqueue(frames, noise)
 
+    def process_batch(self, frames: np.ndarray):
+        """One batch through ``dispatch`` and ``materialize`` (JAX's
+        ``process_batch``)."""
+        return self.materialize(self.dispatch(frames))
+
     def output_size(self, height: int, width: int):
         if self.config.outscale:
             return (int(round(height * self.config.outscale)),

@@ -99,6 +99,10 @@ class CrossFrameAttention:
         return self._filter(list(torch.from_numpy(np.ascontiguousarray(window))
                                  .to(self.device)))
 
+    def process_stream(self, frames_iter: Iterator[np.ndarray]) -> Iterator[np.ndarray]:
+        """``reduce_stream`` under ``FlickerReducer``'s name (JAX's alias)."""
+        return self.reduce_stream(frames_iter)
+
     def reduce_stream(self, frames_iter: Iterator[np.ndarray]) -> Iterator[np.ndarray]:
         """Every frame once, filtered with its edge-clamped +-radius window;
         2r + 1 frames held on the device."""

@@ -1,6 +1,11 @@
-"""The SR ensemble: the port of ``framewright_tpu.testing.EnsembleSR``.
+"""A/B runs and the SR ensemble: the port of ``framewright_tpu.testing``.
 
-Several SR models of one scale run on the same frames and their uint8
+``ABTestRunner`` restores one clip once per config variant with the
+port's ``VideoRestorer`` (the gate on, the checkpoint off, as JAX's) and
+scores each by its QA report's mean PSNR and SSIM against the bicubic
+upscale of its input; ``winner`` picks the best by a metric.
+
+The SR ensemble: several SR models of one scale run on the same frames and their uint8
 outputs are combined on the host, as the JAX class does in numpy:
 ``weighted`` (the weighted mean, clipped and truncated to uint8),
 ``median`` (``np.median`` over the members, truncated) or
@@ -19,14 +24,67 @@ the ensemble without it).
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import List, Optional
+from pathlib import Path
+from typing import Dict, List, Optional
 
 import numpy as np
 
+from framewright_tpu_torch.config import Config
 from framewright_tpu_torch.errors import ConfigError
 
 STRATEGIES = ("weighted", "median", "max_sharpness")
+
+
+@dataclass
+class ABVariant:
+    name: str
+    overrides: Dict
+
+
+@dataclass
+class ABResult:
+    variant: str
+    psnr: float
+    ssim: float
+    fps: float
+    seconds: float
+
+
+class ABTestRunner:
+    """One clip through config variants, each written to
+    ``work_dir/<name>.y4m`` and scored by its QA report."""
+
+    def __init__(self, base_config: Config, work_dir: Path):
+        self.base = base_config
+        self.work_dir = Path(work_dir)
+
+    def run(self, source: Path, variants: List[ABVariant],
+            sample_frames: int = 8) -> List[ABResult]:
+        """``sample_frames`` is JAX's argument, read by nothing there or
+        here: the gate scores every frame."""
+        from framewright_tpu_torch.restorer import VideoRestorer
+
+        results = []
+        for var in variants:
+            cfg = self.base.with_overrides(project_dir=str(self.work_dir / var.name),
+                                           validate_output=True, checkpoint_enabled=False,
+                                           **var.overrides)
+            out = self.work_dir / f"{var.name}.y4m"
+            t0 = time.time()
+            res = VideoRestorer(cfg).restore_video(source, output=out)
+            dt = time.time() - t0
+            q = res.quality
+            results.append(ABResult(variant=var.name, psnr=q.psnr if q else 0.0,
+                                    ssim=q.ssim if q else 0.0,
+                                    fps=round(res.frames_out / dt, 2) if dt else 0.0,
+                                    seconds=round(dt, 2)))
+        return results
+
+    @staticmethod
+    def winner(results: List[ABResult], metric: str = "psnr") -> ABResult:
+        return max(results, key=lambda r: getattr(r, metric))
 
 
 @dataclass(frozen=True)

@@ -1,17 +1,17 @@
 """The diffusion, stream, color_gap, av_scaleout, train, surfaces,
-frontends and split2d phases of chip_smoke.py alone on the card:
+frontends, split2d and network phases of chip_smoke.py alone on the card:
 
     python3 scripts/torch_stream_phases.py [--only PHASE [PHASE ...]]
 
 (PHASE: diffusion, stream, color_gap, av_scaleout, train, surfaces,
-frontends, split2d)
+frontends, split2d, network)
 
 builds the kernels, then runs ``chip_smoke.diffusion_phase``,
 ``chip_smoke.stream_phase``, ``chip_smoke.color_gap_phase``,
 ``chip_smoke.av_scaleout_phase`` (without the stats phase's ms a frame,
 which it only prints), ``chip_smoke.train_phase``,
-``chip_smoke.surfaces_phase``, ``chip_smoke.frontends_phase`` and
-``chip_smoke.split2d_phase`` with the launch counters, the CLI runner and
+``chip_smoke.surfaces_phase``, ``chip_smoke.frontends_phase``,
+``chip_smoke.split2d_phase`` and ``chip_smoke.network_phase`` with the launch counters, the CLI runner and
 the kernel path as ``chip_smoke.main`` builds them; prints the phases'
 JSON lines, each peak against the planner's count, and ``{"ok": ...}``
 last (exit 1 when a check failed)."""
@@ -39,7 +39,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", nargs="+", choices=("diffusion", "stream", "color_gap",
                                                   "av_scaleout", "train", "surfaces",
-                                                  "frontends", "split2d"),
+                                                  "frontends", "split2d", "network"),
                     default=None)
     args = ap.parse_args(argv)
     t_all = time.perf_counter()
@@ -68,6 +68,8 @@ def main(argv=None) -> int:
                 cs.frontends_phase(tmp, dev, x)
             if args.only is None or "split2d" in args.only:
                 cs.split2d_phase(tmp, dev, x)
+            if args.only is None or "network" in args.only:
+                cs.network_phase(tmp, dev, x)
         except cs.SmokeFailure as exc:
             ok = False
             print(f"torch_stream_phases: FAILED: {exc}", file=sys.stderr)

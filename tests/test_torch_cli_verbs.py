@@ -1,5 +1,5 @@
 """The CLI verbs of slice 16 on the CPU against the JAX package's: every
-JAX verb but ``bench``, ``suite`` and ``upload`` (refused, naming why)
+JAX verb but ``bench`` and ``suite`` (refused, naming why)
 exists in the port with JAX's option strings, choices and defaults
 (``--device`` takes ``cuda`` for ``tpu``; restore's ``--temporal-model``
 also takes ``latent``); each verb's output on the same clip matches JAX's
@@ -26,7 +26,7 @@ from framewright_tpu.reports import QualityTrends as JaxTrends
 from framewright_tpu_torch import cli, recipes
 from framewright_tpu_torch.io.y4m import Y4MReader, Y4MWriter
 
-REFUSED = ("bench", "suite", "upload")
+REFUSED = ("bench", "suite")
 # the restore's bound against JAX's (tests/test_torch_slice.py)
 RESTORE_MAX, RESTORE_MEAN = 2, 0.2
 # uint8 interpolated frames against JAX's (tests/test_torch_interpolation.py)
@@ -139,7 +139,7 @@ def test_verb_has_jax_options_choices_and_defaults(verb):
     _compare(jax_opts, port_opts, verb)
 
 
-@pytest.mark.parametrize("verb,why", [("bench", "A4"), ("suite", "A4"), ("upload", "network")])
+@pytest.mark.parametrize("verb,why", [("bench", "A4"), ("suite", "A4")])
 def test_refused_verbs_name_why(verb, why):
     rc, out, err = run(cli.main, [verb, "x"])
     assert rc == 1 and out == "" and why in err and verb in err

@@ -103,13 +103,31 @@ def test_family_without_a_reference_prints_jax_skip_line(tmp_path):
     assert lines[-1] == "parity: skipped (no torch reference for family 'vsr')"
 
 
-def test_missing_checkpoint_and_refused_download(tmp_path):
+def test_missing_checkpoint_and_refused_download(tmp_path, monkeypatch):
+    """A missing checkpoint, and a download the server refuses: the row's
+    URL pointed at a closed port on 127.0.0.1 in both packages, JAX's lines
+    and return code (the download that succeeds:
+    tests/test_torch_download.py)."""
+    import dataclasses
+    import socket
+
+    from framewright_tpu.models import registry as jregistry
+
     (rc, lines, err), (jrc, jlines, jerr) = verify("realesr-animevideov3",
                                                    tmp_path / "none.pth")
     assert rc == jrc == 1 and lines == jlines == [] and err == jerr
     assert err.startswith("error: checkpoint not found: ")
-    rc, out, err = run(cli.main, ["models", "download", "realesr-animevideov3"])
-    assert rc == 1 and "network" in err
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        url = f"http://127.0.0.1:{s.getsockname()[1]}/realesr-animevideov3.pth"
+    for reg in (registry, jregistry):
+        monkeypatch.setitem(reg.MODEL_SPECS, "realesr-animevideov3", dataclasses.replace(
+            reg.MODEL_SPECS["realesr-animevideov3"], url=url))
+    monkeypatch.setenv("FRAMEWRIGHT_WEIGHTS_DIR", str(tmp_path / "w"))
+    argv = ["models", "download", "realesr-animevideov3"]
+    assert run(cli.main, argv) == run(jcli.main, argv)
+    rc, out, err = run(cli.main, argv)
+    assert rc == 1 and out == [] and "error: download failed" in err and url in err
 
 
 def test_seeded_draw_follows_the_upstream_init():

@@ -514,10 +514,13 @@ def test_farm_verb_two_worker_processes_equal_the_in_process_restore(tmp_path, c
 
 
 def test_farm_burst_is_refused(tmp_path, capsys):
+    """``--burst gcp-tpu`` (JAX's TPU VM provider) is refused before any file
+    is written: a TPU VM has no CUDA card for the port's workers (the other
+    providers run: tests/test_torch_cloud.py)."""
     src = tmp_path / "clip.y4m"
     _clip(src, n=2)
     rc = pcli.main(["farm", "run", str(src), str(tmp_path / "farm"), "-o",
-                    str(tmp_path / "o.y4m"), "--burst", "local"])
+                    str(tmp_path / "o.y4m"), "--burst", "gcp-tpu"])
     err = capsys.readouterr().err
-    assert rc == 1 and "--burst local" in err and "not ported" in err
+    assert rc == 1 and "--burst gcp-tpu" in err and "CUDA card" in err
     assert not (tmp_path / "farm" / "job.json").exists()
